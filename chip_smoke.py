@@ -1,0 +1,353 @@
+"""GPU smoke run of the PyTorch port's main path: FSDv2-Waymo dense-BEV
+``predict`` at full width on one CUDA card, through its hand-written kernel.
+
+    python3 chip_smoke.py
+
+Phases (each one that fails ends the run with a non-zero exit code):
+  1. device   the card's name and power limit; there is no CPU path.
+  2. build    compile every kernel of the path from ``sst_tpu_torch/csrc``.
+  3. kernels  each kernel against its plain PyTorch twin on the card, at the
+              main path's shapes and on edge cases, with both timed.
+  4. predict  ``fsdv2_waymo_dense`` (random weights from a seed) answers four
+              synthetic Waymo frames through ``apis.inference_detector``;
+              the kernels' launch counts show that the path went through them.
+  5. A/B      the same weights with the segmentor's sorted reduce off
+              (scatter path): segmentor outputs agree, both latencies timed.
+
+TF32 is turned off for convolutions and matmuls, so every comparison is in
+full float32. The last line of standard output is the result JSON.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from sst_tpu_torch.apis import inference_detector
+from sst_tpu_torch.flagship import (
+    fsdv2_waymo_dense,
+    init_weights,
+    synthetic_waymo_batch,
+)
+from sst_tpu_torch.ops import sorted_reduce as sr
+from sst_tpu_torch.ops.voxelize import dynamic_voxelize
+from sst_tpu_torch.utils.nvcc import load_kernel_library
+from sst_tpu_torch.utils.timing import (
+    card_name_and_power_limit,
+    cuda_ms,
+    disable_tf32,
+    event_ms,
+)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a "
+             "CUDA card and has no CPU path")
+    card = card_name_and_power_limit()
+    print(card, flush=True)
+    disable_tf32()
+    print(f"device: {torch.cuda.get_device_name(0)} "
+          f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}; TF32 off for cuDNN convs and matmuls",
+          flush=True)
+    return card
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    lib = load_kernel_library("sorted_reduce")
+    seconds = time.perf_counter() - t0
+    print(f"build: {lib.path.name} in {seconds:.2f} s "
+          f"(nvcc {lib.build_seconds:.2f} s)", flush=True)
+    for line in lib.compiler_log.splitlines():
+        if "ptxas info" in line:
+            print(f"  {line.strip()}", flush=True)
+    return seconds
+
+
+def _segmentor_rows(model, frame, device):
+    """Sorted segment ids of the segmentor voxelization of one frame, as the
+    main path hands them to the kernel."""
+    seg_mod = model.segmentor_mod
+    pts = torch.from_numpy(frame.points[0]).to(device)
+    valid = torch.from_numpy(frame.valid[0]).to(device)
+    bidx = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
+    pts = seg_mod.preprocess(pts)
+    vm = dynamic_voxelize(pts, bidx, valid, seg_mod.point_cloud_range,
+                          seg_mod.voxel_size, seg_mod.max_voxels, 1)
+    if vm.unique.order is None:
+        fail("the segmentor voxelization did not sort; the kernel would not "
+             "run on the main path")
+    order = vm.unique.order
+    return pts[order], vm.point_seg_ids[order].contiguous(), seg_mod.max_voxels
+
+
+def _check_case(name, data, seg, num_segments, mode, results,
+                twin_on_cpu=False):
+    got = sr.sorted_segment_reduce(data, seg, num_segments, mode)
+    if twin_on_cpu:
+        ref = sr.sorted_segment_reduce_ref(data.cpu(), seg.cpu(),
+                                           num_segments, mode).to(data.device)
+    else:
+        ref = sr.sorted_segment_reduce_ref(data, seg, num_segments, mode)
+    torch.cuda.synchronize()
+    nan = ref.isnan()
+    if not torch.equal(got.isnan(), nan):
+        fail(f"kernel and plain twin disagree on which outputs are NaN in "
+             f"{name} ({mode})")
+    got, ref = got.masked_fill(nan, 0.0), ref.masked_fill(nan, 0.0)
+    err = (got - ref).abs().max().item() if got.numel() else 0.0
+    if mode == "max":
+        ok = torch.equal(got, ref)
+        rule = "exact"
+    else:
+        # the kernel sums each segment in row order, the twin's index_add in
+        # another order: rtol 1e-5 plus atol 1e-5 * sqrt(rows in segment)
+        idx = seg.long()
+        keep = (idx >= 0) & (idx < num_segments)
+        rows = torch.bincount(idx[keep], minlength=num_segments).float()
+        tol = 1e-5 * ref.abs() + 1e-5 * rows.sqrt()[:, None]
+        ok = bool(((got - ref).abs() <= tol).all())
+        rule = "rtol 1e-5, atol 1e-5*sqrt(rows)"
+    print(f"  {name:<34} {mode:<3} C={data.shape[1]:<3} "
+          f"max_abs_err={err:.3e} ({rule}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    results.append(err)
+    if not ok:
+        fail(f"kernel disagrees with its plain twin on {name} ({mode})")
+
+
+def phase_kernels(model, frame, device):
+    """The kernel against its twin at the shapes the segmentor VFE gives it:
+    a sum over the xyz rows (cluster centres), a max over each layer's
+    width. Returns the timed shapes and the largest error."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    pts_sorted, seg, nseg = _segmentor_rows(model, frame, device)
+    n = seg.shape[0]
+    n_valid = int((seg < nseg).sum())
+    print(f"kernels: sorted_segment_reduce at the segmentor's shapes: N={n} "
+          f"rows ({n_valid} in range), {nseg} segments", flush=True)
+    errs = []
+    shapes = []
+    main_cases = [("segmentor cluster-centre sum",
+                   pts_sorted[:, :3].contiguous(), "sum")]
+    for c in sorted(set(model.segmentor_mod.vfe_mod.feat_channels)):
+        main_cases.append(("segmentor layer max", torch.randn(
+            n, c, generator=gen, device=device), "max"))
+    for name, data, mode in main_cases:
+        _check_case(name, data, seg, nseg, mode, errs)
+        # alternate plain and kernel timings: plain, kernel, kernel, plain
+        plain_a = cuda_ms(lambda: sr.sorted_segment_reduce_ref(
+            data, seg, nseg, mode), 20)
+        kern_a = cuda_ms(lambda: sr.sorted_segment_reduce(
+            data, seg, nseg, mode), 20)
+        kern_b = cuda_ms(lambda: sr.sorted_segment_reduce(
+            data, seg, nseg, mode), 20)
+        plain_b = cuda_ms(lambda: sr.sorted_segment_reduce_ref(
+            data, seg, nseg, mode), 20)
+        kern = min(kern_a, kern_b)
+        plain = min(plain_a, plain_b)
+        print(f"  time {mode} C={data.shape[1]}: kernel {kern:.4f} ms "
+              f"(runs {kern_a:.4f}, {kern_b:.4f}), plain twin {plain:.4f} ms "
+              f"(runs {plain_a:.4f}, {plain_b:.4f})", flush=True)
+        shapes.append({"mode": mode, "c": data.shape[1], "n": n,
+                       "num_segments": nseg, "ms": kern, "plain_ms": plain,
+                       "max_abs_err": errs[-1]})
+
+    # edge cases
+    m = 4096
+    r = torch.randn(m, 16, generator=gen, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    _check_case("all rows dropped", r, torch.full((m,), 300, **i32), 300,
+                "max", errs)
+    _check_case("all rows dropped", r, torch.full((m,), 300, **i32), 300,
+                "sum", errs)
+    gaps = torch.sort((torch.arange(m, device=device) // 7 * 5).to(
+        torch.int32)).values
+    for mode in ("sum", "max"):
+        _check_case("empty segments between ids", r, gaps, int(gaps[-1]) + 9,
+                    mode, errs)
+    _check_case("negative maxima", -r.abs() - 1.0, gaps, int(gaps[-1]) + 1,
+                "max", errs)
+    span = torch.zeros(m, **i32)
+    span[3000:] = 1
+    for mode in ("sum", "max"):
+        _check_case("one segment over 3000 rows", r, span, 4, mode, errs)
+    wild = torch.sort(torch.randint(-50, 700, (m,), generator=gen,
+                                    device=device).to(torch.int32)).values
+    for mode in ("sum", "max"):
+        _check_case("ids < 0 and >= num_segments", r, wild, 600, mode, errs)
+        _check_case("narrow rows, C=3", r[:, :3].contiguous(), wild, 600,
+                    mode, errs)
+    # NaN rows: a max or sum over a segment holding a NaN is NaN. Held
+    # against the twin on the CPU, whose scatter_reduce_ lets NaN through;
+    # the twin on the card goes through ATen's CUDA atomics, whose NaN rule
+    # is not documented
+    with_nan = r.clone()
+    with_nan[::97, ::5] = float("nan")
+    for mode in ("sum", "max"):
+        _check_case("NaN in some rows", with_nan, gaps, int(gaps[-1]) + 1,
+                    mode, errs, twin_on_cpu=True)
+    return shapes, max(errs)
+
+
+def _frames(n_frames: int):
+    return [synthetic_waymo_batch(1, 196608, seed=s, num_extra_feats=2,
+                                  pcr_half=79.8) for s in range(n_frames)]
+
+
+def phase_predict(model, frames):
+    """Drive the main path; returns the results, the kernel's launches and
+    its launches per frame by (mode, C), as counted at the launch site."""
+    results, per_frame = [], []
+    sr.reset_launch_counts()
+    for frame in frames:
+        before = dict(sr.launch_counts)
+        results.append(inference_detector(model, frame.points[0],
+                                          max_points=196608))
+        per_frame.append({k: v - before.get(k, 0)
+                          for k, v in sr.launch_counts.items()})
+    launches = sr.launches
+    split = per_frame[0]
+    print(f"predict: fsdv2_waymo_dense on {len(frames)} frames; "
+          f"sorted_segment_reduce launches {launches}, per frame by "
+          f"(mode, C) {split}", flush=True)
+    if any(f != split for f in per_frame):
+        fail(f"the kernel's launches differ between frames: {per_frame}")
+    if sum(split.values()) != 3:
+        fail(f"expected 3 kernel launches per frame, counted {split}")
+    max_num = model.test_cfg["max_num"]
+    for s, res in enumerate(results):
+        if res["boxes"].shape != (max_num, 7) or res["scores"].shape != (
+                max_num,):
+            fail(f"frame {s}: unexpected output shapes "
+                 f"{ {k: v.shape for k, v in res.items()} }")
+        for k in ("boxes", "scores"):
+            if not np.isfinite(res[k]).all():
+                fail(f"frame {s}: non-finite {k}")
+        print(f"  frame {s}: [1, {max_num}] predictions, "
+              f"{int(res['valid'].sum())} valid boxes", flush=True)
+    return results, launches, split
+
+
+def _seg_outputs(model, frame, device):
+    pts = torch.from_numpy(frame.points[0]).to(device)
+    valid = torch.from_numpy(frame.valid[0]).to(device)
+    bidx = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        out = model.segmentor_mod(pts, bidx, valid, 1)
+    return out["seg_logits"], out["seg_feats"]
+
+
+def _same_detections(a, b) -> float:
+    same = (a["valid"] == b["valid"]) & (a["labels"] == b["labels"])
+    same &= np.abs(a["boxes"] - b["boxes"]).max(-1) <= 1e-4
+    same &= np.abs(a["scores"] - b["scores"]) <= 1e-5
+    return float(same[a["valid"] | b["valid"]].mean()) if (
+        a["valid"] | b["valid"]).any() else 1.0
+
+
+def phase_ab(model, frames, sorted_results, device):
+    vfe = model.segmentor_mod.vfe_mod
+    for s, frame in enumerate(frames):
+        vfe.use_sorted_reduce = True
+        logits_k, feats_k = _seg_outputs(model, frame, device)
+        vfe.use_sorted_reduce = False
+        logits_s, feats_s = _seg_outputs(model, frame, device)
+        d_logits = (logits_k - logits_s).abs().max().item()
+        d_feats = (feats_k - feats_s).abs().max().item()
+        print(f"A/B frame {s}: kernel vs scatter segmentor max-abs diff: "
+              f"seg_logits {d_logits:.3e}, seg_feats {d_feats:.3e} "
+              f"(atol 1e-4)", flush=True)
+        if d_logits > 1e-4 or d_feats > 1e-4:
+            fail(f"frame {s}: kernel and scatter segmentor outputs differ")
+        scatter_res = inference_detector(model, frame.points[0],
+                                         max_points=196608)
+        print(f"  frame {s}: identical detections "
+              f"{_same_detections(sorted_results[s], scatter_res):.4f} of "
+              f"the slots valid in either build", flush=True)
+
+    timed = {True: [], False: []}
+    for flag in (True, False):  # warm-up
+        vfe.use_sorted_reduce = flag
+        for frame in frames[:2]:
+            inference_detector(model, frame.points[0], max_points=196608)
+
+    for r in range(12):
+        frame = frames[r % len(frames)]
+        for flag in ((True, False) if r % 2 == 0 else (False, True)):
+            vfe.use_sorted_reduce = flag
+            timed[flag].append(event_ms(lambda: inference_detector(
+                model, frame.points[0], max_points=196608)))
+    vfe.use_sorted_reduce = True
+    lat = {k: statistics.median(v) for k, v in timed.items()}
+    print(f"A/B predict latency (median of 12 CUDA-event runs, "
+          f"inference_detector incl. host I/O): sorted-reduce kernel "
+          f"{lat[True]:.2f} ms, scatter {lat[False]:.2f} ms", flush=True)
+    print(f"  kernel runs: {[round(t, 2) for t in timed[True]]}", flush=True)
+    print(f"  scatter runs: {[round(t, 2) for t in timed[False]]}",
+          flush=True)
+    return lat
+
+
+def main() -> None:
+    card = phase_device()
+    device = torch.device("cuda", 0)
+    build_s = phase_build()
+
+    t0 = time.perf_counter()
+    model = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
+                         torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    frames = _frames(4)
+    print(f"model: fsdv2_waymo_dense f32, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    shapes, max_err = phase_kernels(model, frames[0], device)
+    results, launches, split = phase_predict(model, frames)
+    timed = {(s["mode"], s["c"]) for s in shapes}
+    untimed = set(split) - timed
+    if untimed:
+        fail(f"the main path launched the kernel at (mode, C) {untimed}, "
+             f"which phase 3 did not check or time")
+    for s in shapes:
+        s["calls_per_frame"] = split.get((s["mode"], s["c"]), 0)
+    lat = phase_ab(model, frames, results, device)
+
+    per_frame = [(s["ms"] * s["calls_per_frame"],
+                  s["plain_ms"] * s["calls_per_frame"]) for s in shapes]
+    summary = {"kernels": [{
+        "name": "sorted_segment_reduce",
+        "route": "cuda",
+        "source": "sst_tpu_torch/csrc/sorted_reduce.cu",
+        "replaces": "sst_tpu/ops/sorted_reduce.py:72",
+        "launches": launches,
+        "max_abs_err": max_err,
+        # per frame of the main path: each timed shape times its launches
+        # per frame, as counted in phase 4
+        "ms": sum(k for k, _ in per_frame),
+        "plain_ms": sum(p for _, p in per_frame),
+        "shapes": shapes,
+    }], "build_s": build_s, "predict_ms": {
+        "sorted_reduce_kernel": lat[True], "scatter": lat[False]},
+        "card": card}
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

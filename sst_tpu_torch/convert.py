@@ -1,0 +1,81 @@
+"""Load a flax variable tree into the port's torch modules.
+
+The torch modules keep flax's module names (``segmentor_mod``,
+``enc_0_0``, ``Dense_1``, ``task_2`` …), so a flax leaf at path
+``a/b/c/leaf`` lands on torch module ``a.b.c``. Layout rules by leaf:
+
+  params   kernel (2-D)   Dense [in, out]  → Linear ``weight`` [out, in]
+  params   kernel (4-D)   Conv HWIO        → Conv2d ``weight`` OIHW
+  params   bias                            → ``bias``
+  params   scale          BN / LayerNorm   → ``weight``
+  params   z_embed                         → ``z_embed`` as it is
+  batch_stats mean / var                   → ``running_mean`` / ``running_var``
+
+The conversion is strict: it raises if a flax leaf has no torch target, if a
+shape differs, or if any torch parameter or buffer is left unset.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                "z_embed": "z_embed"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and value.ndim == 2:
+        return value.T
+    if leaf == "kernel" and value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    if leaf == "kernel":
+        raise ValueError(f"kernel of rank {value.ndim} has no torch layout")
+    return value
+
+
+@torch.no_grad()
+def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Fill ``module`` from ``{"params": ..., "batch_stats": ...}`` (nested
+    dicts of numpy arrays) and return it."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"unexpected variable collections {sorted(unknown)}")
+    state = module.state_dict(keep_vars=True)
+    done = set()
+    for collection, names in (("params", _PARAM_NAMES),
+                              ("batch_stats", _STAT_NAMES)):
+        for path, value in _leaves(variables.get(collection, {})):
+            leaf = path[-1]
+            if leaf not in names:
+                raise KeyError(f"no torch counterpart for flax leaf "
+                               f"{collection}/{'/'.join(path)}")
+            key = ".".join(path[:-1] + (names[leaf],))
+            if key not in state:
+                raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has "
+                               f"no torch target {key!r}")
+            arr = _to_torch_layout(leaf, np.asarray(value))
+            target = state[key]
+            if tuple(arr.shape) != tuple(target.shape):
+                raise ValueError(f"{key}: flax shape {arr.shape} (torch "
+                                 f"layout) != torch shape "
+                                 f"{tuple(target.shape)}")
+            target.copy_(torch.from_numpy(np.array(arr)))
+            done.add(key)
+    missing = sorted(set(state) - done)
+    if missing:
+        raise KeyError(f"torch parameters/buffers not set by the flax "
+                       f"variables: {missing}")
+    return module

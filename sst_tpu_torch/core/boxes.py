@@ -1,0 +1,55 @@
+"""LiDAR 3D box ops in the mmdet3d-v0.15 convention (counterpart of
+``sst_tpu/core/boxes.py``; the parts the rotated IoU and the decoder use).
+
+A box is a row [x, y, z, w, l, h, yaw, ...] with (x, y, z) the bottom
+centre; yaw rotates around +z with x' = x cos θ + y sin θ,
+y' = -x sin θ + y cos θ.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def limit_period(val, offset: float = 0.5, period: float = math.pi):
+    """Wrap into [-offset*period, (1-offset)*period)."""
+    return val - torch.floor(val / period + offset) * period
+
+
+def rotate_2d(xy, yaw):
+    """Rotate [..., 2] points by per-row yaw (mmdet3d axis=2 sign)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    x = xy[..., 0] * c + xy[..., 1] * s
+    y = -xy[..., 0] * s + xy[..., 1] * c
+    return torch.stack([x, y], dim=-1)
+
+
+def bev(boxes):
+    """[N, 5] (x, y, w, l, yaw) rotated BEV boxes."""
+    return boxes[:, [0, 1, 3, 4, 6]]
+
+
+def nearest_bev(boxes):
+    """[N, 4] axis-aligned (x1, y1, x2, y2), w/l swapped when the box is
+    closer to 90 degrees."""
+    b = bev(boxes)
+    rot = limit_period(b[:, 4], 0.5, math.pi)
+    cond = (torch.abs(rot) > math.pi / 4)[:, None]
+    dims = torch.where(cond, b[:, [3, 2]], b[:, [2, 3]])
+    centers = b[:, :2]
+    return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1)
+
+
+_CORNERS_NORM_2D = ((-0.5, -0.5), (-0.5, 0.5), (0.5, 0.5), (0.5, -0.5))
+
+
+def bev_corners(boxes_bev):
+    """[N, 4, 2] corners of (x, y, w, l, yaw) BEV boxes, in a consistent
+    winding for polygon ops."""
+    norm = torch.tensor(_CORNERS_NORM_2D, dtype=boxes_bev.dtype,
+                        device=boxes_bev.device)
+    dims = boxes_bev[:, None, 2:4] * norm[None]
+    rot = rotate_2d(dims, boxes_bev[:, None, 4])
+    return rot + boxes_bev[:, None, :2]

@@ -1,0 +1,109 @@
+"""Greedy rotated / nearest BEV NMS with static output shapes (counterpart
+of ``sst_tpu/core/nms.py``; the non-weighted multiclass path).
+
+Candidates are score-sorted and statically capped; the [K, K] IoU matrix is
+computed once and greedy suppression is solved as a fixed point (see
+:func:`_suppress_fixpoint`). Top-k selections use a stable descending sort so
+that ties keep ``jax.lax.top_k``'s order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sst_tpu_torch.core.iou import boxes_iou_bev, nearest_iou
+from sst_tpu_torch.ops.ccl import stable_topk
+
+
+def _suppress_fixpoint(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Exact greedy suppression by Jacobi fixed-point iteration.
+
+    ``sup[..., i, j]``: box i, if kept, suppresses box j (strictly upper
+    triangular; rows are score-descending). The greedy sweep solves
+    ``keep[j] = valid[j] & ~any_{i<j}(keep[i] & sup[i, j])``; iterating the
+    update from ``keep = valid`` reaches its unique solution in (longest
+    suppression chain + 1) rounds. Leading dims are batched."""
+    k = sup.shape[-1]
+    supf = sup.float()
+    keep = valid
+    for _ in range(k + 1):
+        dead = (keep.float()[..., None, :] @ supf)[..., 0, :] > 0.5
+        new = valid & ~dead
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
+                     thr: float) -> torch.Tensor:
+    """Greedy NMS keep-mask over score-descending sets [..., K]."""
+    k = iou.shape[-1]
+    later = torch.arange(k, device=iou.device)
+    sup = (iou > thr) & (later[:, None] < later[None, :]) & valid[..., :, None]
+    return _suppress_fixpoint(sup, valid)
+
+
+def _pairwise_chunked(fn, boxes: torch.Tensor, chunk: int) -> torch.Tensor:
+    """[K, K] pairwise matrix computed over row chunks, which bounds the
+    live polygon-clipping intermediates to chunk * K."""
+    return torch.cat([fn(boxes[i:i + chunk], boxes)
+                      for i in range(0, boxes.shape[0], chunk)])
+
+
+def topk_presort(scores: torch.Tensor, valid: torch.Tensor, k: int):
+    """Top-k indices by score among valid rows (padding scores → -inf)."""
+    top, idx = stable_topk(torch.where(valid, scores, -torch.inf), k)
+    return idx, torch.isfinite(top)
+
+
+def multiclass_nms_preselected(cand_boxes, cand_scores, sels, nms_thr: float,
+                               max_num: int, use_rotate_nms: bool = True):
+    """NMS over per-class preselected candidates.
+
+    Args: cand_boxes [C, K, D] score-descending per class; cand_scores
+    [C, K]; sels [C, K] bool. Returns the padded [max_num] result dict."""
+    c, k, _ = cand_boxes.shape
+    fn = boxes_iou_bev if use_rotate_nms else nearest_iou
+    iou = torch.stack([_pairwise_chunked(fn, b[:, :7], 256)
+                       for b in cand_boxes])
+    keep = _greedy_suppress(iou, sels, nms_thr)
+    all_boxes = cand_boxes.reshape(c * k, -1)
+    all_scores = torch.where(keep, cand_scores, -torch.inf).reshape(c * k)
+    all_labels = torch.arange(c, dtype=torch.int32,
+                              device=cand_boxes.device).repeat_interleave(k)
+    all_valid = keep.reshape(c * k)
+    top_scores, top_idx = stable_topk(all_scores, max_num)
+    finite = torch.isfinite(top_scores)
+    return {
+        "boxes": all_boxes[top_idx],
+        "scores": torch.where(finite, top_scores, 0.0),
+        "labels": all_labels[top_idx],
+        "valid": all_valid[top_idx] & finite,
+    }
+
+
+def box3d_multiclass_nms(boxes, scores, valid, num_classes: int,
+                         score_thr: float, nms_thr: float, nms_pre: int,
+                         max_num: int, use_rotate_nms: bool = True,
+                         use_wnms: bool = False, **_wnms_thresholds):
+    """Per-class NMS with a static output size.
+
+    Args:
+      boxes: [N, 7+] decoded boxes (shared across classes).
+      scores: [N, num_classes] sigmoid class scores (no background column).
+      valid: [N] bool.
+
+    Returns a dict of padded [max_num] results: boxes, scores, labels, valid.
+    """
+    if use_wnms:
+        raise NotImplementedError("use_wnms")
+    k = min(nms_pre, boxes.shape[0])
+    sel = [topk_presort(scores[:, c], valid & (scores[:, c] > score_thr), k)
+           for c in range(num_classes)]
+    idxs = torch.stack([s[0] for s in sel])  # [C, K]
+    sels = torch.stack([s[1] for s in sel])
+    cand_boxes = boxes[idxs]  # [C, K, D]
+    cand_scores = torch.gather(scores.t(), 1, idxs)
+    return multiclass_nms_preselected(cand_boxes, cand_scores, sels, nms_thr,
+                                      max_num, use_rotate_nms)

@@ -1,0 +1,215 @@
+"""Flagship model builders and the synthetic Waymo-like frame generator
+(counterpart of ``sst_tpu/flagship.py``, FSDv2 dense-BEV builds only)."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from sst_tpu_torch.models import PointBatch
+from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
+from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegHead
+
+
+def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
+                      as_rpn: bool = False, z_groups: int = 4,
+                      cap_scale: int = 1, num_point_features: int = 5):
+    """Full-scale FSDv2-Waymo, dense-BEV build: the same widths and caps as
+    ``sst_tpu/flagship.py fsdv2_waymo_dense`` (segmentor at 0.25x0.25x0.2 m
+    over (-80, 80) m, 2D UNet at 640² → 80², dense z-sliced mixer over the
+    0.5 m virtual grid).
+
+    The segmentor's VFE sets ``use_sorted_reduce=True``: its grid
+    (30x640x640 cells) takes the sort-based voxel unique, so each of its
+    three per-voxel reductions (the cluster-centre sum and two maxes over 64
+    channels) runs as the hand-written sorted segment reduce kernel on the
+    GPU. The JAX package leaves that switch off because of an A/B on another
+    accelerator; whether it stays on here is decided by the GPU A/B that
+    ``chip_smoke.py`` records. The virtual-grid VFE takes the canvas unique,
+    which yields no sort order, so it stays on scatters either way.
+
+    Only float32 is ported; ``max_points`` is unused (the point cap is the
+    caller's padded batch size), as in the JAX builder.
+
+    num_point_features: width of a point row (x, y, z + intensity,
+    elongation for Waymo)."""
+    k = cap_scale
+    return SingleStageFSDV2(
+        num_point_features=num_point_features,
+        point_cloud_range=(-80.0, -80.0, -2.0, 80.0, 80.0, 4.0),
+        virtual_voxel_size=(0.5, 0.5, 0.5),
+        score_thresh=(0.3, 0.25, 0.25),
+        caps=FSDV2Caps(
+            fg_per_class=(8192 * k, 4096 * k, 4096 * k),
+            voxels=81920 * k,
+            union_voxels=81920 * k,  # dense path: union slots == virtual slots
+            virtual_out=16384 * k,
+        ),
+        multiscale_levels=(0, 1),  # decoder maps at 1/4 and 1/2 resolution
+        ms_projector_hiddens=((128,), (128,)),
+        ms_output_dim=128,
+        mixer_type="dense_bev",
+        segmentor=dict(
+            voxel_size=(0.25, 0.25, 0.2),
+            max_voxels=131072 * k,
+            backbone="dense_bev",
+            z_groups=z_groups,
+            dense_pre_channels=24,
+            dense_group_channels=24,
+            vfe=dict(feat_channels=(64, 64), mode="max",
+                     use_sorted_reduce=True),
+            unet=dict(
+                encoder_channels=((64, 64), (128, 128), (256, 256),
+                                  (256, 256)),
+                decoder_channels=(256, 128, 128),
+                out_channels=128,
+            ),
+            head=dict(num_classes=3, hidden_dims=(128, 128)),
+        ),
+        vfe=dict(feat_channels=(64, 128), mode="max"),
+        mixer=dict(
+            z_channels=32, output_channels=128,
+            encoder_channels=((128, 128), (128, 128)),
+            decoder_channels=(128,),
+        ),
+        head=dict(
+            in_channel=128,
+            shared_mlp_dims=(256, 256),
+            common_attrs=(("center", 3, 2, 128), ("dim", 3, 2, 128),
+                          ("rot", 2, 2, 128)),
+            num_cls_layer=2,
+            cls_hidden_dim=128,
+        ),
+        as_rpn=as_rpn,
+        test_cfg=dict(score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
+                      use_rotate_nms=True),
+        dtype=dtype,
+    )
+
+
+def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
+                     num_point_features: int = 3, segmentor_overrides=None):
+    """Small dense-BEV FSDv2 for CPU tests (same config as the JAX
+    ``tiny_fsdv2_dense``). ``segmentor_overrides`` updates the segmentor
+    dict, e.g. a finer voxel so that its voxel unique sorts."""
+    half = grid * 0.5 / 2
+    segmentor = dict(
+        voxel_size=(0.5, 0.5, 0.5),
+        max_voxels=256,
+        backbone="dense_bev",
+        z_groups=z_groups,
+        dense_group_channels=16,
+        dense_pre_channels=16,
+        vfe=dict(feat_channels=(16, 16), mode="max"),
+        unet=dict(
+            encoder_channels=((16, 16), (16, 16)),
+            decoder_channels=(16,),
+            out_channels=16,
+        ),
+        head=dict(num_classes=3, hidden_dims=(16, 16)),
+    )
+    segmentor.update(segmentor_overrides or {})
+    return SingleStageFSDV2(
+        num_point_features=num_point_features,
+        point_cloud_range=(-half, -half, -2.0, half, half, 4.0),
+        virtual_voxel_size=(0.5, 0.5, 0.5),
+        score_thresh=(0.05, 0.05, 0.05),
+        caps=FSDV2Caps(fg_per_class=(64, 32, 32), voxels=256,
+                       union_voxels=256, virtual_out=64),
+        multiscale_levels=(0,),
+        ms_projector_hiddens=((16,),),
+        ms_output_dim=16,
+        mixer_type="dense_bev",
+        segmentor=segmentor,
+        vfe=dict(feat_channels=(16, 16), mode="max"),
+        mixer=dict(z_channels=8, output_channels=16,
+                   encoder_channels=((16, 16), (16, 16)),
+                   decoder_channels=(16,)),
+        head=dict(
+            in_channel=16, shared_mlp_dims=(32,),
+            common_attrs=(("center", 3, 1, 16), ("dim", 3, 1, 16),
+                          ("rot", 2, 1, 16)),
+            num_cls_layer=1, cls_hidden_dim=16,
+        ),
+        test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
+                      use_rotate_nms=True),
+    )
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn from ``generator`` with the JAX package's
+    initializer families: Linear and Conv weights normal with variance
+    1/fan_in, biases 0 (the seg head's class bias ``init_bias``), norm
+    scales 1, z embeddings normal(0, 0.02). Call before moving the model to
+    its device, with a CPU generator, so the weights do not depend on the
+    device."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
+                               generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        if isinstance(mod, VoteSegHead):
+            mod.conv_seg.bias.fill_(mod.init_bias)
+        if hasattr(mod, "z_embed"):
+            mod.z_embed.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def synthetic_waymo_batch(batch_size: int = 1, num_points: int = 196608,
+                          seed: int = 0, num_extra_feats: int = 0,
+                          pcr_half: float = 74.8) -> PointBatch:
+    """A Waymo-like synthetic frame as numpy arrays: radial density falloff
+    + surface structure (ground rings + clustered verticals). Bit-identical
+    to the JAX package's generator for the same arguments."""
+    rng = np.random.RandomState(seed)
+    p = num_points
+    n_beams = 64
+    beam = rng.randint(0, n_beams, (batch_size, p))
+    elev = -np.radians(1.0 + 17.0 * (beam + 0.5) / n_beams)  # -1 .. -18 deg
+    ring_r = np.clip(2.1 / np.tan(-elev), 0.0, 78.0)
+    az = rng.uniform(-np.pi, np.pi, (batch_size, p))
+    rr = ring_r * (1 + rng.randn(batch_size, p) * 0.01)
+    x = (rr * np.cos(az)).astype(np.float32)
+    y = (rr * np.sin(az)).astype(np.float32)
+    z_ground = (rng.randn(batch_size, p) * 0.05 - 0.8).astype(np.float32)
+    # 30% of returns hit vertical structures clustered in xy
+    is_ground = rng.rand(batch_size, p) < 0.7
+    n_struct = 1024
+    cx = rng.uniform(-pcr_half, pcr_half, (batch_size, n_struct))
+    cy = rng.uniform(-pcr_half, pcr_half, (batch_size, n_struct))
+    which = rng.randint(0, n_struct, (batch_size, p))
+    xs = np.take_along_axis(cx, which, 1) + rng.randn(batch_size, p) * 0.6
+    ys = np.take_along_axis(cy, which, 1) + rng.randn(batch_size, p) * 0.6
+    z_struct = rng.uniform(-1.0, 3.0, (batch_size, p)).astype(np.float32)
+    x = np.where(is_ground, x, xs.astype(np.float32))
+    y = np.where(is_ground, y, ys.astype(np.float32))
+    z = np.where(is_ground, z_ground, z_struct).astype(np.float32)
+    pts = np.stack([x, y, z], -1)
+    if num_extra_feats:
+        pts = np.concatenate(
+            [pts, rng.rand(batch_size, p, num_extra_feats).astype(np.float32)],
+            -1)
+    valid = (np.abs(x) < pcr_half) & (np.abs(y) < pcr_half)
+    g = 64
+    boxes = np.concatenate(
+        [
+            rng.uniform(-70, 70, (batch_size, g, 2)),
+            np.full((batch_size, g, 1), -0.1),
+            rng.uniform(0.8, 5.0, (batch_size, g, 3)),
+            rng.uniform(-np.pi, np.pi, (batch_size, g, 1)),
+        ],
+        -1,
+    ).astype(np.float32)
+    return PointBatch(
+        points=pts,
+        valid=valid,
+        gt_boxes=boxes,
+        gt_labels=rng.randint(0, 3, (batch_size, g)).astype(np.int32),
+        gt_valid=np.ones((batch_size, g), bool),
+    )

@@ -1,0 +1,261 @@
+"""FSDv2 — virtual-voxel fully-sparse detector (counterpart of
+``sst_tpu/models/fsd/fsdv2.py``), single-stage, dense-BEV build, inference.
+
+Pipeline: VoteSegmentor (multiscale) → per-class fg sampling (threshold +
+static top-k) → virtual points = vote-shifted centres with ``virtual_proj``
+features; real points with ``ori_proj`` features → union voxelized at
+``virtual_voxel_size`` → DynamicVFE → dense multiscale fusion (each virtual
+voxel gathers its xy cell from the segmentor's decoder BEV maps) →
+DenseBEVMixer → virtual-voxel compaction (static cap) → SparseClusterHeadV2.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from sst_tpu_torch.models import PointBatch
+from sst_tpu_torch.models.dense_bev import DenseBEVMixer
+from sst_tpu_torch.models.fsd.sparse_cluster_head import SparseClusterHeadV2
+from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegmentor
+from sst_tpu_torch.models.layers import MLP, require_inference
+from sst_tpu_torch.models.vfe import DynamicVFE
+from sst_tpu_torch.ops.ccl import topk_compact
+from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
+
+
+@dataclass(frozen=True)
+class FSDV2Caps:
+    """Static capacities for the FSDv2 pipeline."""
+
+    fg_per_class: tuple = (8192, 4096, 4096)
+    voxels: int = 32768
+    union_voxels: int = 49152
+    virtual_out: int = 8192
+
+
+class SingleStageFSDV2(nn.Module):
+    """``num_point_features`` is the width of the raw point rows (xyz
+    first). Options of the JAX model outside this port's slice raise
+    NotImplementedError."""
+
+    def __init__(self, num_point_features: int = 3,
+                 point_cloud_range: tuple = (-80.0, -80.0, -2.0, 80.0, 80.0,
+                                             4.0),
+                 virtual_voxel_size: tuple = (0.5, 0.5, 0.5),
+                 num_classes: int = 3,
+                 class_names: tuple = ("Car", "Pedestrian", "Cyclist"),
+                 score_thresh: tuple = (0.3, 0.25, 0.25),
+                 group_names: tuple | None = None,
+                 offset_normalizer: float = 10.0,
+                 proj_hidden: tuple = (64, 64),
+                 multiscale_levels: tuple = (0, 1),
+                 ms_projector_hiddens: tuple = ((128,), (128,)),
+                 ms_output_dim: int = 128, mixer_type: str = "sparse",
+                 centroid_alpha: float | None = None,
+                 caps: FSDV2Caps | None = None, segmentor: dict | None = None,
+                 vfe: dict | None = None, mixer: dict | None = None,
+                 head: dict | None = None, as_rpn: bool = False,
+                 test_cfg: dict | None = None, dtype=torch.float32,
+                 **sparse_mixer_cfg):
+        super().__init__()
+        if mixer_type != "dense_bev":
+            raise NotImplementedError(
+                f"mixer_type={mixer_type!r}: only 'dense_bev' is ported")
+        if group_names is not None:
+            raise NotImplementedError("group_names (batched group sampling)")
+        if as_rpn:
+            raise NotImplementedError("as_rpn")
+        if centroid_alpha is not None:
+            raise NotImplementedError("centroid_alpha")
+        if dtype != torch.float32:
+            raise NotImplementedError(f"dtype={dtype}: only float32 is ported")
+        unknown = set(sparse_mixer_cfg) - {"mixer_strides", "mixer_paddings",
+                                           "add_gt_fg_points",
+                                           "group_offset_scale"}
+        if unknown:
+            raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.virtual_voxel_size = tuple(virtual_voxel_size)
+        self.num_classes = num_classes
+        self.score_thresh = tuple(score_thresh)
+        self.offset_normalizer = offset_normalizer
+        self.multiscale_levels = tuple(multiscale_levels)
+        self.caps = caps or FSDV2Caps()
+        if len(self.caps.fg_per_class) < num_classes:
+            raise ValueError(
+                f"caps.fg_per_class has {len(self.caps.fg_per_class)} entries "
+                f"but {num_classes} classes are configured")
+        self.test_cfg = dict(test_cfg or dict(
+            score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
+            use_rotate_nms=True))
+        self.vgrid = grid_shape_zyx(self.point_cloud_range,
+                                    self.virtual_voxel_size)
+
+        self.segmentor_mod = VoteSegmentor(
+            num_point_features, point_cloud_range=self.point_cloud_range,
+            return_multiscale=True, **(segmentor or {}))
+        seg_c = self.segmentor_mod.feat_channels
+        self.virtual_proj = MLP(
+            seg_c + 3 + num_classes + num_point_features - 3,
+            tuple(proj_hidden), norm="ln")
+        self.ori_proj = MLP(seg_c, tuple(proj_hidden), norm="ln")
+        self.vfe_mod = DynamicVFE(
+            3 + self.ori_proj.out_channels,
+            voxel_size=self.virtual_voxel_size,
+            point_cloud_range=self.point_cloud_range,
+            **(vfe or dict(feat_channels=(64, 128), mode="max")))
+        dec_widths = self.segmentor_mod.unet_mod.decoder_channels
+        self.n_ms = len(ms_projector_hiddens)
+        for i, hid in enumerate(ms_projector_hiddens):
+            self.add_module(f"ms_projs_{i}", MLP(
+                dec_widths[self.multiscale_levels[i]],
+                tuple(hid) + (ms_output_dim,), norm="ln"))
+        self.mixer_mod = DenseBEVMixer(self.vfe_mod.out_channels,
+                                       nz=self.vgrid[0], **(mixer or {}))
+        # configs may repeat num_classes / class_names inside the head dict;
+        # the model-level values win
+        head_kw = {k: v for k, v in dict(head or {}).items()
+                   if k not in ("num_classes", "class_names")}
+        self.head_mod = SparseClusterHeadV2(
+            num_classes=num_classes, class_names=tuple(class_names),
+            **head_kw)
+
+    # --------------------------------------------------------------- sampling
+
+    def _clip(self, xyz):
+        pcr = self.point_cloud_range
+        eps = 1e-5
+        return torch.stack(
+            [torch.clamp(xyz[:, i], pcr[i] + eps, pcr[i + 3] - eps)
+             for i in range(3)], dim=-1)
+
+    def sample_class(self, data: dict, cls: int, thr_extra: float = 0.0):
+        """fg selection for one class: threshold + top-k compaction."""
+        cap = self.caps.fg_per_class[cls]
+        scores = torch.sigmoid(data["seg_logits"][:, cls])
+        fg = data["valid"] & (scores > self.score_thresh[cls] + thr_extra)
+        idx, sel_valid = topk_compact(scores, fg, cap)
+        pts = data["seg_points"][idx]
+        offsets = data["offsets"][idx].reshape(-1, self.num_classes, 3)[:, cls]
+        centers = self._clip(pts[:, :3] + offsets)
+        # virtual point features: [seg_feats, offset/10, seg_logits, extras]
+        proj_in = torch.cat(
+            [data["seg_feats"][idx],
+             (centers - pts[:, :3]) / self.offset_normalizer,
+             data["seg_logits"][idx], pts[:, 3:]], dim=-1)
+        return {"valid": sel_valid, "centers": centers, "proj_in": proj_in,
+                "batch_idx": data["batch_idx"][idx]}
+
+    # ----------------------------------------------------------- feature path
+
+    def extract_feat(self, data: dict, batch_size: int, train: bool = False,
+                     thr_extra: float = 0.0):
+        require_inference(train)
+        caps = self.caps
+        samples = [self.sample_class(data, c, thr_extra)
+                   for c in range(self.num_classes)]
+        vir_xyz = torch.cat([s["centers"] for s in samples])
+        vir_in = torch.cat([s["proj_in"] for s in samples])
+        vir_valid = torch.cat([s["valid"] for s in samples])
+        vir_batch = torch.cat([s["batch_idx"] for s in samples])
+        vir_feat = self.virtual_proj(vir_in, vir_valid)
+
+        ori_xyz = data["seg_points"][:, :3]
+        ori_feat = self.ori_proj(data["seg_feats"], data["valid"])
+
+        cat_xyz = torch.cat([ori_xyz, vir_xyz])
+        cat_feat = torch.cat([ori_feat, vir_feat])
+        cat_batch = torch.cat([data["batch_idx"], vir_batch])
+        cat_valid = torch.cat([data["valid"], vir_valid])
+        indicator = torch.cat([cat_xyz.new_zeros(ori_xyz.shape[0]),
+                               cat_xyz.new_ones(vir_xyz.shape[0])])
+
+        # virtual-grid voxelization + VFE; the indicator sum and the
+        # centroid mean ride the VFE's cluster-centre sum pass
+        vfe_in = torch.cat([cat_xyz, cat_feat], dim=-1)
+        vm = dynamic_voxelize(vfe_in, cat_batch, cat_valid,
+                              self.point_cloud_range, self.virtual_voxel_size,
+                              caps.voxels, batch_size)
+        voxel_feats, vfe_aux = self.vfe_mod(vfe_in, vm,
+                                            extra_sum=indicator[:, None])
+        counts_f = torch.clamp(vm.unique.counts, min=1).float()
+        vox_indicator = vfe_aux["extra_sum"][:, 0] / counts_f
+        virtual_mask = vm.voxel_valid & (vox_indicator > 0)
+        centroid = vfe_aux["cluster_mean"]
+
+        # dense multiscale fusion: every virtual voxel gathers its xy cell
+        # from each decoder BEV map (NHWC)
+        vgrid = self.vgrid
+        feats_sum = voxel_feats
+        n_contrib = 1.0
+        vc = vm.voxel_coords
+        for i, lvl_idx in enumerate(self.multiscale_levels):
+            m = data["decoder_maps"][lvl_idx]
+            b, hl, wl, _ = m.shape
+            cy = torch.clamp((vc[:, 2] * hl) // vgrid[1], 0, hl - 1)
+            cx = torch.clamp((vc[:, 3] * wl) // vgrid[2], 0, wl - 1)
+            cell = (torch.clamp(vc[:, 0], min=0) * hl + cy) * wl + cx
+            g = m.reshape(b * hl * wl, -1)[cell.long()]
+            feats_sum = feats_sum + getattr(self, f"ms_projs_{i}")(
+                g, vm.voxel_valid)
+            n_contrib += 1.0
+        union_feats = feats_sum / n_contrib
+        out_feats = self.mixer_mod(union_feats, vm.voxel_coords,
+                                   vm.voxel_valid, batch_size, vgrid[1:])
+
+        # compact virtual voxels for the head
+        vidx, vvalid = topk_compact(vox_indicator, virtual_mask,
+                                    caps.virtual_out)
+        vs = torch.tensor(self.virtual_voxel_size, dtype=torch.float32,
+                          device=vc.device)
+        pcr = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32,
+                           device=vc.device)
+        vcoords = vc[vidx]
+        vcenters = (vcoords[:, [3, 2, 1]].float() + 0.5) * vs + pcr
+        return {
+            "virtual_feats": out_feats[vidx],
+            "virtual_centers": torch.where(vvalid[:, None], vcenters, 0.0),
+            "virtual_batch": torch.clamp(vcoords[:, 0], min=0),
+            "virtual_valid": vvalid,
+            "virtual_centroid": centroid[vidx],
+            "num_virtual": virtual_mask.sum(),
+            # union inputs whose voxel fell past the caps.voxels cap
+            "num_union_overflow_points": (
+                cat_valid & vm.valid
+                & (vm.point_seg_ids >= caps.voxels)).sum(),
+        }
+
+    # ---------------------------------------------------------------- wiring
+
+    def run_pipeline(self, batch: PointBatch, train: bool = False,
+                     thr_extra: float = 0.0):
+        require_inference(train)
+        b, p, _ = batch.points.shape
+        pts = batch.points.reshape(b * p, -1)
+        batch_idx = torch.arange(b, dtype=torch.int32,
+                                 device=pts.device).repeat_interleave(p)
+        seg_out = self.segmentor_mod(pts, batch_idx, batch.valid.reshape(-1),
+                                     b)
+        data = {k: seg_out[k] for k in (
+            "seg_points", "seg_logits", "seg_vote_preds", "offsets",
+            "seg_feats", "batch_idx", "valid", "decoder_maps")}
+        ex = self.extract_feat(data, b, thr_extra=thr_extra)
+        outs = self.head_mod(ex["virtual_feats"], ex["virtual_valid"])
+        return {"seg_out": seg_out, "data": data, "ex": ex, "outs": outs,
+                "batch_size": b}
+
+    @torch.inference_mode()
+    def predict(self, batch: PointBatch):
+        """Boxes for a batch: dict of [B, max_num] boxes, scores, labels and
+        valid."""
+        pipe = self.run_pipeline(batch)
+        ex = pipe["ex"]
+        return self.head_mod.get_bboxes(
+            pipe["outs"], ex["virtual_centers"], ex["virtual_batch"],
+            ex["virtual_valid"], pipe["batch_size"], **self.test_cfg)
+
+    def forward(self, batch: PointBatch, train: bool = False):
+        return self.run_pipeline(batch, train)["outs"]

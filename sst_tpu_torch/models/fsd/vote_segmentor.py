@@ -1,0 +1,146 @@
+"""VoteSegmentor — FSD stage-0 point segmentation + centre voting
+(counterpart of ``sst_tpu/models/fsd/vote_segmentor.py``), dense-BEV
+backbone only.
+
+Flow: tanh on the channels past xyz → dynamic voxelize → DynamicVFE →
+BEVScatter → DenseBEVUNet → DenseVoxelDecode → per-point gather + local-xyz
+decoration → MLP → (seg logits [P, C], vote preds [P, 3C]).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from sst_tpu_torch.models.dense_bev import (
+    BEVScatter,
+    DenseBEVUNet,
+    DenseVoxelDecode,
+)
+from sst_tpu_torch.models.layers import MLP, require_inference
+from sst_tpu_torch.models.vfe import DynamicVFE
+from sst_tpu_torch.ops.segment import gather_segments
+from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
+
+
+def decode_vote(pred):
+    return pred * torch.abs(pred)
+
+
+class VoteSegHead(nn.Module):
+    def __init__(self, in_channels: int, num_classes: int = 3,
+                 hidden_dims: Sequence[int] = (128, 128),
+                 init_bias: float = -2.0, **_loss_cfg):
+        super().__init__()
+        self.num_classes = num_classes
+        self.init_bias = init_bias
+        self.pre_seg = MLP(in_channels, tuple(hidden_dims), norm="bn")
+        c = self.pre_seg.out_channels
+        self.conv_seg = nn.Linear(c, num_classes)
+        self.voting = nn.Linear(c, num_classes * 3)
+
+    def forward(self, feats, valid, train: bool = False):
+        x = self.pre_seg(feats, valid, train)
+        return self.conv_seg(x), self.voting(x)
+
+
+class VoteSegmentor(nn.Module):
+    """``in_channels`` is the width of the raw point rows (xyz first)."""
+
+    def __init__(self, in_channels: int,
+                 voxel_size: tuple = (0.25, 0.25, 0.2),
+                 point_cloud_range: tuple = (-80.0, -80.0, -2.0, 80.0, 80.0,
+                                             4.0),
+                 max_voxels: int = 65536, backbone: str = "sparse",
+                 z_groups: int = 1, dense_group_channels: int = 32,
+                 dense_pre_channels: int = 32, vfe: dict | None = None,
+                 unet: dict | None = None, head: dict | None = None,
+                 voxel_downsampling_size: tuple | None = None,
+                 tanh_dims: tuple | None = None,
+                 return_multiscale: bool = False, **sparse_cfg):
+        super().__init__()
+        if backbone != "dense_bev":
+            raise NotImplementedError(
+                f"backbone={backbone!r}: only 'dense_bev' is ported")
+        if voxel_downsampling_size is not None:
+            raise NotImplementedError("voxel_downsampling_size")
+        # unet_level_caps / unet_strides / unet_paddings / sst configure the
+        # sparse and SST backbones only.
+        unknown = set(sparse_cfg) - {"unet_level_caps", "unet_strides",
+                                     "unet_paddings", "sst"}
+        if unknown:
+            raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.max_voxels = max_voxels
+        self.tanh_dims = tanh_dims
+        self.return_multiscale = return_multiscale
+        self.grid = grid_shape_zyx(self.point_cloud_range, self.voxel_size)
+        nz = self.grid[0]
+        self.vfe_mod = DynamicVFE(
+            in_channels, voxel_size=self.voxel_size,
+            point_cloud_range=self.point_cloud_range,
+            **(vfe or dict(feat_channels=(64, 64), mode="max")))
+        cfg = dict(unet or {})
+        out_ch = cfg.pop("out_channels", 128)
+        cfg.pop("in_channels", None)
+        cfg.pop("base_channels", None)
+        self.scatter_mod = BEVScatter(
+            self.vfe_mod.out_channels, nz, z_groups=z_groups,
+            pre_channels=dense_pre_channels if z_groups > 1 else 0)
+        unet_out = z_groups * dense_group_channels if z_groups > 1 else out_ch
+        self.unet_mod = DenseBEVUNet(self.scatter_mod.out_channels,
+                                     out_channels=unet_out, **cfg)
+        self.decode_mod = DenseVoxelDecode(
+            unet_out, nz, out_channels=out_ch, z_groups=z_groups,
+            group_channels=dense_group_channels)
+        self.head_mod = VoteSegHead(out_ch + 3, **(head or {}))
+        self.feat_channels = out_ch + 3
+
+    def preprocess(self, points):
+        if self.tanh_dims is None:
+            return torch.cat([points[:, :3], torch.tanh(points[:, 3:])], dim=-1)
+        out = points.clone()
+        for d in self.tanh_dims:
+            out[:, d] = torch.tanh(out[:, d])
+        return out
+
+    def forward(self, points, batch_idx, points_valid, batch_size: int,
+                train: bool = False):
+        """points: [P, C] flat batch. Returns the per-point seg dict."""
+        require_inference(train)
+        pts = self.preprocess(points)
+        vm = dynamic_voxelize(pts, batch_idx, points_valid,
+                              self.point_cloud_range, self.voxel_size,
+                              self.max_voxels, batch_size)
+        voxel_feats = self.vfe_mod(pts, vm)
+        canvas = self.scatter_mod(voxel_feats, vm.voxel_coords,
+                                  vm.voxel_valid, batch_size, self.grid[1:])
+        bev_out, decoder_maps = self.unet_mod(canvas)
+        vox_out = self.decode_mod(bev_out, vm.voxel_coords, vm.voxel_valid)
+
+        pt_vox_feats = gather_segments(vox_out, vm.point_seg_ids)
+        vs = torch.tensor(self.voxel_size, dtype=torch.float32,
+                          device=pts.device)
+        pcr = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32,
+                           device=pts.device)
+        centers = (vm.coords[:, [3, 2, 1]].float() + 0.5) * vs + pcr
+        local_xyz = torch.where(vm.valid[:, None], pts[:, :3] - centers, 0.0)
+        feats = torch.cat([pt_vox_feats, local_xyz], dim=-1)
+
+        logits, votes = self.head_mod(feats, vm.valid)
+        out = {
+            "seg_points": pts,
+            "seg_logits": logits,
+            "seg_vote_preds": votes,
+            "offsets": decode_vote(votes),
+            "seg_feats": feats,
+            "batch_idx": batch_idx,
+            "valid": vm.valid,
+        }
+        if self.return_multiscale:
+            out["decoder_maps"] = decoder_maps
+            out["voxel_mapping"] = vm
+        return out

@@ -1,0 +1,124 @@
+"""Segment reduce over rows pre-sorted by segment id, as a Hopper kernel.
+
+Counterpart of ``sst_tpu/ops/sorted_reduce.py``. The sort-path voxelizer
+(``ops/segment.py unique_segments``) has already grouped rows by voxel, so
+each per-voxel sum or max is one streaming pass over contiguous row ranges
+instead of a scatter. The kernel is ``csrc/sorted_reduce.cu``; the source
+note there says what bounds it and how it is laid out.
+
+Dispatch is by the device of the tensor alone: a CPU tensor goes to the plain
+PyTorch twin :func:`sorted_segment_reduce_ref`, a CUDA tensor to the kernel
+(or the call raises). ``launches`` counts kernel launches and
+``launch_counts`` splits them by ``(mode, C)``, so a run can show that its
+main path went through the kernel, and with which shapes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MODES = {"sum": 0, "max": 1}
+
+launches = 0  # kernel launches in this process
+launch_counts: dict[tuple[str, int], int] = {}  # the same, by (mode, C)
+
+
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+    launch_counts.clear()
+
+
+def _check(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
+           mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    if data.dim() != 2 or seg.dim() != 1 or seg.shape[0] != data.shape[0]:
+        raise ValueError(f"expected data [N, C] and seg [N], got "
+                         f"{tuple(data.shape)} and {tuple(seg.shape)}")
+    if data.dtype != torch.float32:
+        raise TypeError(f"data must be float32, got {data.dtype}")
+    if seg.dtype != torch.int32:
+        raise TypeError(f"seg must be int32, got {seg.dtype}")
+    if data.device != seg.device:
+        raise ValueError(f"data on {data.device} but seg on {seg.device}")
+    if not (data.is_contiguous() and seg.is_contiguous()):
+        raise ValueError("data and seg must be contiguous")
+    if not 0 <= num_segments < 2**31 - 1:
+        raise ValueError(f"num_segments out of int32 range: {num_segments}")
+
+
+def sorted_segment_reduce_ref(data: torch.Tensor, seg: torch.Tensor,
+                              num_segments: int, mode: str = "sum"
+                              ) -> torch.Tensor:
+    """Plain PyTorch twin: ``ops/segment.py segment_reduce`` semantics.
+
+    Ids outside [0, num_segments) go to an extra row that is sliced off;
+    max ignores the zero init (``include_self=False``), so empty segments
+    read 0 and negative maxima stay negative. Rows need not be sorted."""
+    idx = seg.long()
+    idx = torch.where((idx >= 0) & (idx < num_segments), idx, num_segments)
+    out = data.new_zeros((num_segments + 1, data.shape[1]))
+    if mode == "sum":
+        out.index_add_(0, idx, data)
+    else:
+        out.scatter_reduce_(0, idx[:, None].expand_as(data), data, "amax",
+                            include_self=False)
+    return out[:num_segments]
+
+
+def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
+            mode: str) -> torch.Tensor:
+    from sst_tpu_torch.utils.nvcc import load_kernel_library
+
+    global launches
+    fn = load_kernel_library("sorted_reduce").lib.sst_sorted_segment_reduce_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n, c = data.shape
+    out = torch.empty((num_segments, c), dtype=torch.float32,
+                      device=data.device)
+    if num_segments == 0 or c == 0:
+        return out
+    with torch.cuda.device(data.device):
+        rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), n, c,
+                num_segments, MODES[mode],
+                torch.cuda.current_stream(data.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sorted_segment_reduce kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches += 1
+    launch_counts[(mode, c)] = launch_counts.get((mode, c), 0) + 1
+    return out
+
+
+def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
+                          num_segments: int, mode: str = "sum"
+                          ) -> torch.Tensor:
+    """Per-segment sum or max over rows sorted by segment id.
+
+    Args:
+      data: [N, C] float32 rows grouped by segment (the voxel sort's order).
+      seg: [N] int32 nondecreasing ids; ids outside [0, num_segments) are
+        dropped.
+      num_segments: output rows.
+      mode: 'sum' | 'max'.
+    Returns [num_segments, C] float32; empty segments are 0, and a max over
+    a segment holding a NaN is NaN, in the kernel and in the twin alike (the
+    JAX package's scatter max reads 0 there and its Pallas kernel is not
+    defined on NaN; the port does not hide a NaN).
+    """
+    _check(data, seg, num_segments, mode)
+    if data.device.type == "cpu":
+        return sorted_segment_reduce_ref(data, seg, num_segments, mode)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    if data.requires_grad:
+        raise NotImplementedError(
+            "sorted_segment_reduce has no backward yet; call it under "
+            "torch.no_grad() or inference_mode()")
+    return _launch(data, seg, num_segments, mode)

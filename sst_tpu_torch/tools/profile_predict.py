@@ -1,0 +1,164 @@
+"""Where the time of ``fsdv2_waymo_dense`` predict goes, on one CUDA card.
+
+    python -m sst_tpu_torch.tools.profile_predict
+
+The model and frames are those of ``chip_smoke.py``: full widths, float32
+with TF32 off, random weights from seed 0, synthetic Waymo-like frames of
+196,608 points (seeds 0-3), batch 1. It prints
+
+  * the median CUDA-event time of each stage of ``predict`` over 8 frames
+    (boundaries marked by hooks on the segmentor's and the head's forward):
+    segmentor; virtual-voxel features (fg sampling, virtual VFE, multiscale
+    fusion, dense mixer); head MLPs; box decode + NMS; and the
+    device-to-host copy of the result;
+  * the median time of ``apis.inference_detector`` end to end (adds the
+    host range filter, padding and host-to-device copy);
+  * from ``torch.profiler`` over 2 predicts: the device's busy
+    time (the union of its kernel and copy intervals), the wall time, the
+    idle share (profiler on), and the kernels that take the most device time.
+
+The last line of standard output is a JSON object with these numbers.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+from sst_tpu_torch.apis import inference_detector, prepare_batch
+from sst_tpu_torch.flagship import (
+    fsdv2_waymo_dense,
+    init_weights,
+    synthetic_waymo_batch,
+)
+from sst_tpu_torch.utils.timing import (
+    card_name_and_power_limit,
+    disable_tf32,
+    event_ms,
+)
+
+STAGES = ("segmentor", "virtual voxel features", "head MLPs",
+          "box decode + NMS", "device-to-host copy")
+MAX_POINTS = 196608
+FRAMES = 8  # timed frames for the stage table
+PROFILED = 2  # predicts traced by torch.profiler
+
+
+def staged_predict(model, batch):
+    """``model.predict(batch)`` and the copy of its result to the host, with
+    a CUDA event at each stage boundary: the segmentor's and the head's
+    forwards are marked by module hooks, so what runs is predict itself.
+
+    Returns (result as numpy for the frame, ms of each stage in STAGES)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 1)]
+    hooks = [
+        model.segmentor_mod.register_forward_pre_hook(
+            lambda *_: ev[0].record()),
+        model.segmentor_mod.register_forward_hook(lambda *_: ev[1].record()),
+        model.head_mod.register_forward_pre_hook(lambda *_: ev[2].record()),
+        model.head_mod.register_forward_hook(lambda *_: ev[3].record()),
+    ]
+    try:
+        res = model.predict(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    ev[4].record()
+    host = {k: v[0].cpu().numpy() for k, v in res.items()}
+    ev[5].record()
+    ev[-1].synchronize()
+    return host, [ev[i].elapsed_time(ev[i + 1]) for i in range(len(STAGES))]
+
+
+def device_busy(prof):
+    """(busy ms as the union of device intervals, {kernel name: ms})."""
+    spans, by_name = [], defaultdict(float)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    busy_us, edge = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > edge:
+            busy_us += end - max(start, edge)
+            edge = end
+    return busy_us / 1e3, by_name
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("profile_predict: needs a CUDA card")
+    card = card_name_and_power_limit()
+    print(card, flush=True)
+    disable_tf32()
+    device = torch.device("cuda", 0)
+    model = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).to(device).eval()
+    frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s, num_extra_feats=2,
+                                    pcr_half=79.8).points[0]
+              for s in range(4)]
+    batches = [prepare_batch(model, f, MAX_POINTS) for f in frames]
+
+    for batch in batches:  # warm-up
+        staged_predict(model, batch)
+
+    per_stage = [[] for _ in STAGES]
+    for i in range(FRAMES):
+        _, ms = staged_predict(model, batches[i % len(batches)])
+        for acc, t in zip(per_stage, ms):
+            acc.append(t)
+    stages = {name: statistics.median(t) for name, t in zip(STAGES, per_stage)}
+    totals = [sum(ms) for ms in zip(*per_stage)]
+    e2e = statistics.median(
+        event_ms(lambda f=frames[i % len(frames)]: inference_detector(
+            model, f, MAX_POINTS)) for i in range(FRAMES))
+
+    print(f"predict stages, median of {FRAMES} frames (CUDA events; "
+          f"{card}; TF32 off):", flush=True)
+    for name, ms in stages.items():
+        print(f"  {name:<24} {ms:9.3f} ms", flush=True)
+    print(f"  {'total (no host I/O)':<24} {statistics.median(totals):9.3f} ms",
+          flush=True)
+    print(f"inference_detector end to end: {e2e:.3f} ms (median of "
+          f"{FRAMES})", flush=True)
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILED):
+            model.predict(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_busy(prof)
+    if busy > 0:
+        idle = 1.0 - busy / wall
+        print(f"torch.profiler over {PROFILED} predicts: device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall, idle share {idle:.3f} "
+              f"(profiler on)", flush=True)
+    else:
+        idle = None
+        print("torch.profiler recorded no device time: busy and idle share "
+              "not measured", flush=True)
+    top = [(name[:100], ms) for name, ms in
+           sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]
+    for name, ms in top:
+        print(f"  {ms:9.3f} ms  {name}", flush=True)
+
+    print(json.dumps({
+        "card": card, "frames": FRAMES, "stages_ms": stages,
+        "total_ms": statistics.median(totals), "inference_detector_ms": e2e,
+        "profiled_predicts": PROFILED, "device_busy_ms": busy,
+        "wall_ms": wall, "idle_share": idle,
+        "top_kernels_ms": dict(top)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,105 @@
+"""The sorted segment reduce of the port (sst_tpu_torch/ops/sorted_reduce.py).
+
+On the CPU the wrapper dispatches to the plain PyTorch twin, which is held
+against the JAX package's Pallas kernel run in interpret mode, on the cases
+of tests/test_sorted_reduce.py, at rtol/atol 1e-5 (the same bound that file
+uses: both sides sum in f32 in different orders; max is order-free).
+
+The CUDA kernel itself runs only on a GPU: see test_torch_kernels_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sst_tpu.ops.segment import unique_segments
+from sst_tpu.ops.sorted_reduce import sorted_segment_reduce as jax_sorted
+from sst_tpu_torch.ops import sorted_reduce as sr
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _mk(n, v, c, seed, frac_invalid=0.1):
+    """Rows sorted by dense segment id, as the voxel sort hands them over."""
+    rng = np.random.RandomState(seed)
+    keys = rng.randint(0, v * 3, n).astype(np.int32)
+    valid = rng.rand(n) > frac_invalid
+    uniq = unique_segments(jnp.asarray(keys), jnp.asarray(valid), v)
+    order = np.asarray(uniq.order)
+    data = rng.randn(n, c).astype(np.float32)
+    return data[order], np.asarray(uniq.seg_ids)[order]
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("n,v,c,block", [
+    (700, 300, 24, 128),    # generic ragged sizes, multi-chunk blocks
+    (256, 700, 64, 128),    # more segments than rows (sparse occupancy)
+    (1024, 64, 8, 256),     # big segments spanning many chunks
+])
+def test_twin_matches_pallas_kernel(mode, n, v, c, block):
+    data, seg = _mk(n, v, c, seed=n + v)
+    ref = jax_sorted(jnp.asarray(data), jnp.asarray(seg), v, mode, block,
+                     True)
+    sr.reset_launch_counts()
+    got = sr.sorted_segment_reduce(torch.from_numpy(data),
+                                   torch.from_numpy(seg), v, mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    # the CPU dispatch never launches the kernel
+    assert sr.launches == 0 and sr.launch_counts == {}
+
+
+def test_all_invalid_and_empty_segments():
+    n, v, c = 128, 256, 16
+    data = torch.ones((n, c))
+    seg = torch.full((n,), v, dtype=torch.int32)  # everything dropped
+    for mode in ("max", "sum"):
+        out = sr.sorted_segment_reduce(data, seg, v, mode)
+        ref = jax_sorted(jnp.asarray(data.numpy()), jnp.asarray(seg.numpy()),
+                         v, mode, 128, True)
+        np.testing.assert_array_equal(out.numpy(), 0.0)
+        np.testing.assert_array_equal(np.asarray(ref), 0.0)
+
+
+def test_negative_ids_dropped_and_negative_maxima_kept():
+    seg = torch.tensor([-3, -1, 0, 0, 2, 2, 2, 5, 9], dtype=torch.int32)
+    data = -torch.arange(1.0, 10.0)[:, None].repeat(1, 3)
+    out = sr.sorted_segment_reduce(data, seg, 4, "max")
+    np.testing.assert_array_equal(out[:, 0].numpy(), [-3.0, 0.0, -5.0, 0.0])
+    ref = jax_sorted(jnp.asarray(data.numpy()), jnp.asarray(seg.numpy()), 4,
+                     "max", 128, True)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_nan_stays_in_its_segment():
+    # NaN is not hidden: a segment holding one reads NaN in that channel, in
+    # both modes, and no other segment is touched. (The JAX package's
+    # kernel is not defined on NaN, so this is held against numpy.)
+    seg = np.array([-1, 0, 0, 1, 1, 1, 3, 3, 5], np.int32)
+    data = np.arange(36, dtype=np.float32).reshape(9, 4) - 20.0
+    for r, c in ((0, 1), (1, 2), (4, 0), (8, 3)):
+        data[r, c] = np.nan
+    for mode, fn in (("max", np.max), ("sum", np.sum)):
+        want = np.zeros((4, 4), np.float32)
+        for s in range(4):
+            rows = data[seg == s]
+            if len(rows):
+                want[s] = fn(rows, axis=0)
+        got = sr.sorted_segment_reduce(torch.from_numpy(data),
+                                       torch.from_numpy(seg), 4, mode)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(data=torch.ones(8, 2, dtype=torch.float64)), TypeError),
+    (dict(seg=torch.zeros(8, dtype=torch.int64)), TypeError),
+    (dict(data=torch.ones(8, 4)[:, ::2]), ValueError),   # not contiguous
+    (dict(seg=torch.zeros(7, dtype=torch.int32)), ValueError),
+    (dict(mode="mean"), ValueError),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
+    args = dict(data=torch.ones(8, 2), seg=torch.zeros(8, dtype=torch.int32),
+                num_segments=4, mode="sum")
+    args.update(bad)
+    with pytest.raises(err):
+        sr.sorted_segment_reduce(**args)
