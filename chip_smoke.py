@@ -1,18 +1,28 @@
-"""GPU smoke run of the PyTorch port's main path: FSDv2-Waymo dense-BEV
-``predict`` at full width on one CUDA card, through its hand-written kernel.
+"""GPU smoke run of the PyTorch port's two FSDv2-Waymo ``predict`` paths at
+full width on one CUDA card, through their hand-written kernels: the
+dense-BEV build (sorted segment reduce kernel) and the sparse-UNet build
+(sorted segment reduce and sparse conv kernels).
 
     python3 chip_smoke.py
 
 Phases (each one that fails ends the run with a non-zero exit code):
   1. device   the card's name and power limit; there is no CPU path.
-  2. build    compile every kernel of the path from ``sst_tpu_torch/csrc``.
-  3. kernels  each kernel against its plain PyTorch twin on the card, at the
-              main path's shapes and on edge cases, with both timed.
+  2. build    compile every kernel from ``sst_tpu_torch/csrc``, one nvcc per
+              source, all started together.
+  3. kernels  the sorted reduce against its plain PyTorch twin on the card,
+              at the dense path's shapes and on edge cases, both timed.
   4. predict  ``fsdv2_waymo_dense`` (random weights from a seed) answers four
               synthetic Waymo frames through ``apis.inference_detector``;
               the kernels' launch counts show that the path went through them.
   5. A/B      the same weights with the segmentor's sorted reduce off
               (scatter path): segmentor outputs agree, both latencies timed.
+  6. sparse kernels  the sparse conv kernel against its twin at every conv
+              of one frame of ``fsdv2_waymo(backbone="sparse")`` (the
+              rulebooks of frame 0, recorded by hooks on each
+              SparseConvLayer) and on edge cases, both timed.
+  7. sparse predict  ``fsdv2_waymo(backbone="sparse")`` answers the four
+              frames; 58 sparse conv launches and 3 sorted reduce launches
+              per frame, counted at the launch sites; latency timed.
 
 TF32 is turned off for convolutions and matmuls, so every comparison is in
 full float32. The last line of standard output is the result JSON.
@@ -22,6 +32,7 @@ from __future__ import annotations
 
 import json
 import statistics
+from collections import Counter
 import sys
 import time
 
@@ -30,13 +41,16 @@ import torch
 
 from sst_tpu_torch.apis import inference_detector
 from sst_tpu_torch.flagship import (
+    fsdv2_waymo,
     fsdv2_waymo_dense,
     init_weights,
     synthetic_waymo_batch,
 )
+from sst_tpu_torch.models.sparse_unet import SparseConvLayer
 from sst_tpu_torch.ops import sorted_reduce as sr
+from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
-from sst_tpu_torch.utils.nvcc import load_kernel_library
+from sst_tpu_torch.utils.nvcc import load_kernel_libraries
 from sst_tpu_torch.utils.timing import (
     card_name_and_power_limit,
     cuda_ms,
@@ -64,16 +78,22 @@ def phase_device():
     return card
 
 
+KERNELS = ("sorted_reduce", "sparse_conv_gemm")
+
+
 def phase_build():
     t0 = time.perf_counter()
-    lib = load_kernel_library("sorted_reduce")
+    libs = load_kernel_libraries(KERNELS)
     seconds = time.perf_counter() - t0
-    print(f"build: {lib.path.name} in {seconds:.2f} s "
-          f"(nvcc {lib.build_seconds:.2f} s)", flush=True)
-    for line in lib.compiler_log.splitlines():
-        if "ptxas info" in line:
-            print(f"  {line.strip()}", flush=True)
-    return seconds
+    for name, lib in libs.items():
+        print(f"build: {lib.path.name} (nvcc {lib.build_seconds:.2f} s)",
+              flush=True)
+        for line in lib.compiler_log.splitlines():
+            if "ptxas info" in line and "Compile time" not in line:
+                print(f"  {line.strip()}", flush=True)
+    print(f"build: {len(libs)} kernels in {seconds:.2f} s (one nvcc per "
+          f"source, run together)", flush=True)
+    return seconds, {n: lib.build_seconds for n, lib in libs.items()}
 
 
 def _segmentor_rows(model, frame, device):
@@ -301,10 +321,192 @@ def phase_ab(model, frames, sorted_results, device):
     return lat
 
 
+SPARSE_TOL = 1e-4  # max-abs and relative: f32 sums of up to 27*512 terms
+
+
+def _record_sparse_convs(model, frame):
+    """Predict one frame with a hook on every SparseConvLayer; returns each
+    conv's (module name, input rows, rulebook, weight shape) in call order.
+    The rulebooks are those the main path builds for this frame."""
+    calls, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, SparseConvLayer):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: calls.append(
+                    (name, args[0].shape[0], args[1], tuple(m.weight.shape)))))
+    try:
+        inference_detector(model, frame.points[0], max_points=196608)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _check_conv(name, feats, nbr, w, mode, errs):
+    got = scg.sparse_conv_gemm(feats, nbr, w, mode)
+    ref = scg.sparse_conv_gemm_ref(feats, nbr, w)
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    ok = bool((diff <= SPARSE_TOL + SPARSE_TOL * ref.abs()).all())
+    errs.append(err)
+    print(f"  {name:<44} {mode:<8} {w.shape[1]:>3}->{w.shape[2]:<3} "
+          f"K={w.shape[0]:<2} Vin={feats.shape[0]:<6} Vout={nbr.shape[1]:<6} "
+          f"max_abs_err={err:.3e} (atol+rtol {SPARSE_TOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"sparse conv kernel disagrees with its plain twin on {name}")
+
+
+def _sparse_inputs(vin, cin, cout, taps, gen, device):
+    feats = torch.randn(vin, cin, generator=gen, device=device)
+    w = torch.randn(taps, cin, cout, generator=gen, device=device) / (
+        taps * cin) ** 0.5
+    return feats, w
+
+
+def _sparse_edge_cases(gen, device):
+    """(name, feats, nbr, weights): missing entries are Vin, -1 or past
+    Vin; tiles are 64 rows x 64 channels."""
+    def table(vin, vout, taps, missing=0.6):
+        nbr = torch.randint(0, vin, (taps, vout), generator=gen,
+                            device=device, dtype=torch.int32)
+        drop = torch.rand(taps, vout, generator=gen, device=device) < missing
+        bad = torch.tensor([vin, -1, vin + 7], dtype=torch.int32,
+                           device=device)[torch.randint(
+                               0, 3, (taps, vout), generator=gen,
+                               device=device)]
+        return torch.where(drop, bad, nbr)
+
+    cases = []
+    nbr = table(500, 300, 27)
+    nbr[:, 64:128] = 500
+    cases.append(("edge: all-missing tile", 500, nbr, 64, 64))
+    nbr = table(500, 300, 27)
+    nbr[13] = 500
+    cases.append(("edge: tap with no neighbour anywhere", 500, nbr, 64, 64))
+    cases.append(("edge: K=3", 700, table(700, 400, 3), 32, 64))
+    cases.append(("edge: Cin, Cout off the tile (3->48)", 900,
+                  table(900, 640, 27), 3, 48))
+    cases.append(("edge: Vout=1000 off the row tile", 1200,
+                  table(1200, 1000, 27), 40, 72))
+    out = []
+    for name, vin, nbr, cin, cout in cases:
+        feats, w = _sparse_inputs(vin, cin, cout, nbr.shape[0], gen, device)
+        out.append((name, feats, nbr, w))
+    return out
+
+
+def phase_sparse_kernels(model, frame, device):
+    """The sparse conv kernel against its twin on the rulebooks of every
+    conv of one frame (one case per distinct rulebook and widths), then on
+    edge cases. Returns (timed cases, per-conv ms of kernel and twin summed
+    over the frame's convs, largest error, the frame's convs)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    calls = _record_sparse_convs(model, frame)
+    print(f"sparse kernels: sparse_conv_gemm on the rulebooks of frame 0 of "
+          f"fsdv2_waymo(backbone='sparse'): {len(calls)} convs", flush=True)
+    cases = {}
+    for name, vin, cp, wshape in calls:
+        key = (id(cp.nbr), wshape[1], wshape[2])
+        if key not in cases:
+            cases[key] = dict(name=name, mode=cp.mode, nbr=cp.nbr, vin=vin,
+                              taps=wshape[0], cin=wshape[1], cout=wshape[2],
+                              convs=0)
+        cases[key]["convs"] += 1
+    errs, shapes = [], []
+    for case in cases.values():
+        nbr = case["nbr"]
+        feats, w = _sparse_inputs(case["vin"], case["cin"], case["cout"],
+                                  case["taps"], gen, device)
+        short = case["name"].replace("segmentor_mod.unet_mod.", "seg.") \
+            .replace("mixer_mod.", "mix.")
+        _check_conv(f"{short} (x{case['convs']})", feats, nbr, w,
+                    case["mode"], errs)
+        # alternate plain and kernel timings: plain, kernel, kernel, plain
+        runs = [cuda_ms(fn, 10, warmup=2) for fn in (
+            lambda: scg.sparse_conv_gemm_ref(feats, nbr, w),
+            lambda: scg.sparse_conv_gemm(feats, nbr, w, case["mode"]),
+            lambda: scg.sparse_conv_gemm(feats, nbr, w, case["mode"]),
+            lambda: scg.sparse_conv_gemm_ref(feats, nbr, w))]
+        kern, plain = min(runs[1], runs[2]), min(runs[0], runs[3])
+        hit = float((nbr < case["vin"]).float().mean())
+        print(f"    time: kernel {kern:.4f} ms (runs {runs[1]:.4f}, "
+              f"{runs[2]:.4f}), plain twin {plain:.4f} ms (runs "
+              f"{runs[0]:.4f}, {runs[3]:.4f}); {hit:.3f} of (row, tap) "
+              f"pairs have a neighbour", flush=True)
+        shapes.append({"conv": case["name"], "convs_per_frame": case["convs"],
+                       "mode": case["mode"], "cin": case["cin"],
+                       "cout": case["cout"], "vin": case["vin"],
+                       "vout": nbr.shape[1], "neighbour_share": hit,
+                       "ms": kern, "plain_ms": plain,
+                       "max_abs_err": errs[-1]})
+    for name, feats, nbr, w in _sparse_edge_cases(gen, device):
+        _check_conv(name, feats, nbr, w, "subm", errs)
+        if name == "edge: all-missing tile":
+            got = scg.sparse_conv_gemm(feats, nbr, w, "subm")[64:128]
+            if not torch.equal(got, torch.zeros_like(got)):
+                fail("the all-missing tile is not written as zeros")
+    per_frame = (sum(s["ms"] * s["convs_per_frame"] for s in shapes),
+                 sum(s["plain_ms"] * s["convs_per_frame"] for s in shapes))
+    print(f"sparse kernels: per frame over its {len(calls)} convs: kernel "
+          f"{per_frame[0]:.3f} ms, plain twin {per_frame[1]:.3f} ms",
+          flush=True)
+    return shapes, per_frame, max(errs), calls
+
+
+def phase_sparse_predict(model, frames, n_convs):
+    """Drive the sparse path; returns (conv launches, sorted-reduce
+    launches, conv launches per frame by (mode, Cin, Cout), latency)."""
+    results, per_frame = [], []
+    scg.reset_launch_counts()
+    sr.reset_launch_counts()
+    for frame in frames:
+        before = (dict(scg.launch_counts), dict(sr.launch_counts))
+        results.append(inference_detector(model, frame.points[0],
+                                          max_points=196608))
+        per_frame.append(tuple(
+            {k: v - b.get(k, 0) for k, v in counts.items()}
+            for counts, b in zip((scg.launch_counts, sr.launch_counts),
+                                 before)))
+    conv_launches, sr_launches = scg.launches, sr.launches
+    split, sr_split = per_frame[0]
+    print(f"sparse predict: fsdv2_waymo(backbone='sparse') on {len(frames)} "
+          f"frames; sparse_conv_gemm launches {conv_launches}, per frame by "
+          f"(mode, Cin, Cout) {split}; sorted_segment_reduce launches "
+          f"{sr_launches}, per frame {sr_split}", flush=True)
+    if any(f != (split, sr_split) for f in per_frame):
+        fail(f"launches differ between frames: {per_frame}")
+    if sum(split.values()) != n_convs:
+        fail(f"expected {n_convs} sparse conv launches per frame (one per "
+             f"SparseConvLayer), counted {sum(split.values())}")
+    if sum(sr_split.values()) != 3:
+        fail(f"expected 3 sorted reduce launches per frame, got {sr_split}")
+    max_num = model.test_cfg["max_num"]
+    for s, res in enumerate(results):
+        if res["boxes"].shape != (max_num, 7) or res["scores"].shape != (
+                max_num,):
+            fail(f"sparse frame {s}: unexpected output shapes "
+                 f"{ {k: v.shape for k, v in res.items()} }")
+        for k in ("boxes", "scores"):
+            if not np.isfinite(res[k]).all():
+                fail(f"sparse frame {s}: non-finite {k}")
+        print(f"  frame {s}: [1, {max_num}] predictions, "
+              f"{int(res['valid'].sum())} valid boxes", flush=True)
+
+    timed = [event_ms(lambda f=frames[r % len(frames)]: inference_detector(
+        model, f.points[0], max_points=196608)) for r in range(12)]
+    lat = statistics.median(timed)
+    print(f"sparse predict latency (median of 12 CUDA-event runs after "
+          f"warm-up, inference_detector incl. host I/O): {lat:.2f} ms; runs "
+          f"{[round(t, 2) for t in timed]}", flush=True)
+    return conv_launches, sr_launches, split, lat
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
-    build_s = phase_build()
+    build_s, nvcc_s = phase_build()
 
     t0 = time.perf_counter()
     model = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
@@ -325,6 +527,33 @@ def main() -> None:
     for s in shapes:
         s["calls_per_frame"] = split.get((s["mode"], s["c"]), 0)
     lat = phase_ab(model, frames, results, device)
+    del model
+
+    t0 = time.perf_counter()
+    sparse = init_weights(fsdv2_waymo(dtype=torch.float32, backbone="sparse"),
+                          torch.Generator().manual_seed(0))
+    sparse = sparse.to(device).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in sparse.modules())
+    print(f"model: fsdv2_waymo(backbone='sparse') f32, "
+          f"{sum(p.numel() for p in sparse.parameters())} parameters, "
+          f"{n_convs} sparse convs, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    conv_shapes, conv_per_frame, conv_err, calls = phase_sparse_kernels(
+        sparse, frames[0], device)
+    if len(calls) != n_convs:
+        fail(f"frame 0 ran {len(calls)} sparse convs, the model has "
+             f"{n_convs}")
+    conv_launches, sr_sparse_launches, conv_split, sparse_lat = \
+        phase_sparse_predict(sparse, frames, n_convs)
+    untimed = set(conv_split) - {(s["mode"], s["cin"], s["cout"])
+                                 for s in conv_shapes}
+    if untimed:
+        fail(f"the sparse path launched the kernel at (mode, Cin, Cout) "
+             f"{untimed}, which phase 6 did not check or time")
+    recorded = Counter((cp.mode, w[1], w[2]) for _, _, cp, w in calls)
+    if recorded != Counter(conv_split):
+        fail(f"the convs timed in phase 6 {dict(recorded)} are not those "
+             f"launched per frame in phase 7 {conv_split}")
 
     per_frame = [(s["ms"] * s["calls_per_frame"],
                   s["plain_ms"] * s["calls_per_frame"]) for s in shapes]
@@ -333,20 +562,38 @@ def main() -> None:
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/sorted_reduce.cu",
         "replaces": "sst_tpu/ops/sorted_reduce.py:72",
-        "launches": launches,
+        # counted in the dense path's run (phase 4) and the sparse path's
+        # run (phase 7), each from 0
+        "launches": launches + sr_sparse_launches,
+        "launches_by_path": {"dense_bev": launches,
+                             "sparse": sr_sparse_launches},
         "max_abs_err": max_err,
-        # per frame of the main path: each timed shape times its launches
-        # per frame, as counted in phase 4
+        # per frame of either path (the same segmentor VFE): each timed
+        # shape times its launches per frame, as counted in phase 4
         "ms": sum(k for k, _ in per_frame),
         "plain_ms": sum(p for _, p in per_frame),
         "shapes": shapes,
-    }], "build_s": build_s, "predict_ms": {
-        "sorted_reduce_kernel": lat[True], "scatter": lat[False]},
+    }, {
+        "name": "sparse_conv_gemm",
+        "route": "cuda",
+        "source": "sst_tpu_torch/csrc/sparse_conv_gemm.cu",
+        "replaces": "sst_tpu/ops/sparse_conv_pallas.py:375",
+        "launches": conv_launches,
+        "max_abs_err": conv_err,
+        # per frame of the sparse path: each of its convs at the time of
+        # its rulebook and widths (phase 6)
+        "ms": conv_per_frame[0],
+        "plain_ms": conv_per_frame[1],
+        "shapes": conv_shapes,
+    }], "build_s": build_s, "nvcc_s": nvcc_s, "predict_ms": {
+        "dense_bev_sorted_reduce_kernel": lat[True],
+        "dense_bev_scatter": lat[False], "sparse": sparse_lat},
         "card": card}
     print(json.dumps(summary), flush=True)
+    # one card drove every phase
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

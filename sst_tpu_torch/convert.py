@@ -6,6 +6,7 @@ The torch modules keep flax's module names (``segmentor_mod``,
 
   params   kernel (2-D)   Dense [in, out]  → Linear ``weight`` [out, in]
   params   kernel (4-D)   Conv HWIO        → Conv2d ``weight`` OIHW
+  params   kernel (3-D)   sparse conv [K, Cin, Cout] → ``weight`` as it is
   params   bias                            → ``bias``
   params   scale          BN / LayerNorm   → ``weight``
   params   z_embed                         → ``z_embed`` as it is
@@ -41,6 +42,8 @@ def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
         return value.T
     if leaf == "kernel" and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
+    if leaf == "kernel" and value.ndim == 3:
+        return value
     if leaf == "kernel":
         raise ValueError(f"kernel of rank {value.ndim} has no torch layout")
     return value

@@ -1,5 +1,5 @@
 """Flagship model builders and the synthetic Waymo-like frame generator
-(counterpart of ``sst_tpu/flagship.py``, FSDv2 dense-BEV builds only)."""
+(counterpart of ``sst_tpu/flagship.py``, the FSDv2 builds only)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,90 @@ from torch import nn
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
 from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegHead
+from sst_tpu_torch.models.sparse_unet import SparseConvLayer
+
+
+def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
+                as_rpn: bool = False, backbone: str = "dense_bev",
+                num_point_features: int = 5):
+    """Full-scale FSDv2-Waymo (configs/fsdv2/fsdv2_waymo_1x.py): segmentor
+    voxels 0.25x0.25x0.2 m over (-80, 80) m, 0.5 m virtual voxels.
+
+    backbone="dense_bev" (default) is :func:`fsdv2_waymo_dense`.
+    backbone="sparse" is the reference topology with the widths and caps of
+    ``sst_tpu/flagship.py fsdv2_waymo``: a 6-level SimpleSparseUNet
+    segmentor (level caps 131072, 204800, 98304, 32768, 8192, 2048; the
+    k=3 / s=2 / p=1 downsample dilates, so level 1 needs more slots than
+    level 0) and the sparse VirtualVoxelMixer over the 0.5 m union grid
+    (caps 98304 / 49152 / 24576). Every sparse conv runs the hand-written
+    sparse conv kernel on the GPU. As in the dense build, the segmentor's
+    VFE sets ``use_sorted_reduce=True``: its 30x640x640 grid takes the
+    sort-based voxel unique, so its three per-voxel reductions run the
+    sorted segment reduce kernel too.
+
+    Only float32 is ported; ``max_points`` is unused, as in the JAX builder;
+    ``num_point_features`` is the width of a point row."""
+    if backbone == "dense_bev":
+        return fsdv2_waymo_dense(max_points=max_points, dtype=dtype,
+                                 as_rpn=as_rpn,
+                                 num_point_features=num_point_features)
+    if backbone != "sparse":
+        raise NotImplementedError(f"backbone={backbone!r}")
+    return SingleStageFSDV2(
+        num_point_features=num_point_features,
+        point_cloud_range=(-80.0, -80.0, -2.0, 80.0, 80.0, 4.0),
+        virtual_voxel_size=(0.5, 0.5, 0.5),
+        score_thresh=(0.3, 0.25, 0.25),
+        caps=FSDV2Caps(
+            fg_per_class=(8192, 4096, 4096),
+            voxels=81920,
+            union_voxels=98304,
+            virtual_out=16384,
+        ),
+        multiscale_levels=(0, 1),
+        ms_projector_hiddens=((128,), (128,)),
+        ms_output_dim=128,
+        mixer_type="sparse",
+        segmentor=dict(
+            voxel_size=(0.25, 0.25, 0.2),
+            max_voxels=131072,
+            unet_level_caps=(131072, 204800, 98304, 32768, 8192, 2048),
+            unet_strides=((2, 2, 2),) * 5,
+            unet_paddings=((1, 1, 1),) * 5,
+            vfe=dict(feat_channels=(64, 64), mode="max",
+                     use_sorted_reduce=True),
+            unet=dict(
+                in_channels=64, base_channels=64,
+                encoder_channels=((128,), (128, 128), (128, 128),
+                                  (128, 128, 128), (256, 256, 256),
+                                  (256, 256, 256)),
+                decoder_channels=((256, 256, 256), (256, 256, 128),
+                                  (128, 128, 128), (128, 128, 128),
+                                  (128, 128, 128), (128, 128, 128)),
+                remat=True,
+            ),
+            head=dict(num_classes=3, hidden_dims=(128, 128)),
+        ),
+        vfe=dict(feat_channels=(64, 128), mode="max"),
+        mixer=dict(
+            base_channels=64, output_channels=128,
+            encoder_channels=((64,), (64, 64), (64, 64)),
+            decoder_channels=((64, 64, 64), (64, 64, 64), (64, 64, 64)),
+            remat=True,
+        ),
+        head=dict(
+            in_channel=128,
+            shared_mlp_dims=(256, 256),
+            common_attrs=(("center", 3, 2, 128), ("dim", 3, 2, 128),
+                          ("rot", 2, 2, 128)),
+            num_cls_layer=2,
+            cls_hidden_dim=128,
+        ),
+        as_rpn=as_rpn,
+        test_cfg=dict(score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
+                      use_rotate_nms=True),
+        dtype=dtype,
+    )
 
 
 def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
@@ -139,15 +223,67 @@ def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
     )
 
 
+def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3):
+    """Small sparse-UNet FSDv2 for CPU tests (same config as the JAX
+    ``tiny_fsdv2_flagship``)."""
+    half = grid * 0.5 / 2
+    return SingleStageFSDV2(
+        num_point_features=num_point_features,
+        point_cloud_range=(-half, -half, -2.0, half, half, 4.0),
+        virtual_voxel_size=(0.5, 0.5, 0.5),
+        score_thresh=(0.05, 0.05, 0.05),
+        caps=FSDV2Caps(fg_per_class=(64, 32, 32), voxels=256,
+                       union_voxels=512, virtual_out=64),
+        multiscale_levels=(0,),
+        ms_projector_hiddens=((16,),),
+        ms_output_dim=16,
+        segmentor=dict(
+            voxel_size=(0.5, 0.5, 0.5),
+            max_voxels=256,
+            unet_level_caps=(256, 128, 64),
+            unet_strides=((2, 2, 2),) * 2,
+            unet_paddings=((1, 1, 1),) * 2,
+            vfe=dict(feat_channels=(16, 16), mode="max"),
+            unet=dict(
+                in_channels=16, base_channels=16,
+                encoder_channels=((16,), (16, 16), (16, 16)),
+                decoder_channels=((16, 16, 16), (16, 16, 16), (16, 16, 16)),
+            ),
+            head=dict(num_classes=3, hidden_dims=(16, 16)),
+        ),
+        vfe=dict(feat_channels=(16, 16), mode="max"),
+        mixer=dict(
+            base_channels=16, output_channels=16,
+            encoder_channels=((16,), (16, 16)),
+            decoder_channels=((16, 16, 16), (16, 16, 16)),
+        ),
+        mixer_strides=((2, 2, 2),),
+        mixer_paddings=((1, 1, 1),),
+        head=dict(
+            in_channel=16, shared_mlp_dims=(32,),
+            common_attrs=(("center", 3, 1, 16), ("dim", 3, 1, 16),
+                          ("rot", 2, 1, 16)),
+            num_cls_layer=1, cls_hidden_dim=16,
+        ),
+        test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
+                      use_rotate_nms=True),
+    )
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator`` with the JAX package's
     initializer families: Linear and Conv weights normal with variance
-    1/fan_in, biases 0 (the seg head's class bias ``init_bias``), norm
+    1/fan_in, sparse conv weights [K, Cin, Cout] normal with variance
+    1/(K*Cin), biases 0 (the seg head's class bias ``init_bias``), norm
     scales 1, z embeddings normal(0, 0.02). Call before moving the model to
     its device, with a CPU generator, so the weights do not depend on the
     device."""
     for mod in model.modules():
+        if isinstance(mod, SparseConvLayer):
+            fan_in = mod.weight.shape[0] * mod.weight.shape[1]
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
+                               generator=generator)
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),

@@ -1,12 +1,19 @@
 """FSDv2 — virtual-voxel fully-sparse detector (counterpart of
-``sst_tpu/models/fsd/fsdv2.py``), single-stage, dense-BEV build, inference.
+``sst_tpu/models/fsd/fsdv2.py``), single-stage, inference, in its sparse and
+dense-BEV builds.
 
 Pipeline: VoteSegmentor (multiscale) → per-class fg sampling (threshold +
 static top-k) → virtual points = vote-shifted centres with ``virtual_proj``
 features; real points with ``ori_proj`` features → union voxelized at
-``virtual_voxel_size`` → DynamicVFE → dense multiscale fusion (each virtual
-voxel gathers its xy cell from the segmentor's decoder BEV maps) →
-DenseBEVMixer → virtual-voxel compaction (static cap) → SparseClusterHeadV2.
+``virtual_voxel_size`` → DynamicVFE → multiscale fusion → mixer →
+virtual-voxel compaction (static cap) → SparseClusterHeadV2.
+
+``mixer_type="sparse"`` (with the sparse segmentor): the segmentor's UNet
+decoder features are projected onto the virtual grid, segment-mean merged
+with the virtual voxels into a union grid, and mixed by VirtualVoxelMixer
+(a sparse UNet). ``mixer_type="dense_bev"`` (with the dense-BEV segmentor):
+each virtual voxel gathers its xy cell from the decoder BEV maps and
+DenseBEVMixer mixes them.
 """
 
 from __future__ import annotations
@@ -21,9 +28,22 @@ from sst_tpu_torch.models.dense_bev import DenseBEVMixer
 from sst_tpu_torch.models.fsd.sparse_cluster_head import SparseClusterHeadV2
 from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegmentor
 from sst_tpu_torch.models.layers import MLP, require_inference
+from sst_tpu_torch.models.sparse_unet import VirtualVoxelMixer, build_unet_plan
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops.ccl import topk_compact
-from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
+from sst_tpu_torch.ops.segment import (
+    INT_SENTINEL,
+    gather_segments,
+    segment_reduce,
+    unique_segments,
+)
+from sst_tpu_torch.ops.sparse_conv import SparseGrid
+from sst_tpu_torch.ops.voxelize import (
+    delinearize_key,
+    dynamic_voxelize,
+    grid_shape_zyx,
+    linearize_coords,
+)
 
 
 @dataclass(frozen=True)
@@ -54,16 +74,26 @@ class SingleStageFSDV2(nn.Module):
                  multiscale_levels: tuple = (0, 1),
                  ms_projector_hiddens: tuple = ((128,), (128,)),
                  ms_output_dim: int = 128, mixer_type: str = "sparse",
+                 mixer_strides: tuple = ((2, 2, 2), (2, 2, 2)),
+                 mixer_paddings: tuple = ((1, 1, 1), (1, 1, 1)),
                  centroid_alpha: float | None = None,
                  caps: FSDV2Caps | None = None, segmentor: dict | None = None,
                  vfe: dict | None = None, mixer: dict | None = None,
                  head: dict | None = None, as_rpn: bool = False,
                  test_cfg: dict | None = None, dtype=torch.float32,
-                 **sparse_mixer_cfg):
+                 **train_cfg):
         super().__init__()
-        if mixer_type != "dense_bev":
+        segmentor = dict(segmentor or {})
+        backbone = segmentor.get("backbone", "sparse")
+        # the sparse mixer fuses the sparse UNet's decoder features and the
+        # dense mixer the dense UNet's BEV maps; the JAX model runs no other
+        # pairing either
+        if (mixer_type, backbone) not in (("sparse", "sparse"),
+                                          ("dense_bev", "dense_bev")):
             raise NotImplementedError(
-                f"mixer_type={mixer_type!r}: only 'dense_bev' is ported")
+                f"mixer_type={mixer_type!r} with segmentor backbone "
+                f"{backbone!r}: the port runs 'sparse' with 'sparse' and "
+                f"'dense_bev' with 'dense_bev'")
         if group_names is not None:
             raise NotImplementedError("group_names (batched group sampling)")
         if as_rpn:
@@ -72,11 +102,13 @@ class SingleStageFSDV2(nn.Module):
             raise NotImplementedError("centroid_alpha")
         if dtype != torch.float32:
             raise NotImplementedError(f"dtype={dtype}: only float32 is ported")
-        unknown = set(sparse_mixer_cfg) - {"mixer_strides", "mixer_paddings",
-                                           "add_gt_fg_points",
-                                           "group_offset_scale"}
+        # options read only by training or by group sampling
+        unknown = set(train_cfg) - {"add_gt_fg_points", "group_offset_scale"}
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        self.mixer_type = mixer_type
+        self.mixer_strides = tuple(tuple(s) for s in mixer_strides)
+        self.mixer_paddings = tuple(tuple(p) for p in mixer_paddings)
         self.point_cloud_range = tuple(point_cloud_range)
         self.virtual_voxel_size = tuple(virtual_voxel_size)
         self.num_classes = num_classes
@@ -96,7 +128,7 @@ class SingleStageFSDV2(nn.Module):
 
         self.segmentor_mod = VoteSegmentor(
             num_point_features, point_cloud_range=self.point_cloud_range,
-            return_multiscale=True, **(segmentor or {}))
+            return_multiscale=True, **segmentor)
         seg_c = self.segmentor_mod.feat_channels
         self.virtual_proj = MLP(
             seg_c + 3 + num_classes + num_point_features - 3,
@@ -107,14 +139,18 @@ class SingleStageFSDV2(nn.Module):
             voxel_size=self.virtual_voxel_size,
             point_cloud_range=self.point_cloud_range,
             **(vfe or dict(feat_channels=(64, 128), mode="max")))
-        dec_widths = self.segmentor_mod.unet_mod.decoder_channels
+        dec_widths = self.segmentor_mod.decoder_widths
         self.n_ms = len(ms_projector_hiddens)
         for i, hid in enumerate(ms_projector_hiddens):
             self.add_module(f"ms_projs_{i}", MLP(
                 dec_widths[self.multiscale_levels[i]],
                 tuple(hid) + (ms_output_dim,), norm="ln"))
-        self.mixer_mod = DenseBEVMixer(self.vfe_mod.out_channels,
-                                       nz=self.vgrid[0], **(mixer or {}))
+        if mixer_type == "sparse":
+            self.mixer_mod = VirtualVoxelMixer(self.vfe_mod.out_channels,
+                                               **(mixer or {}))
+        else:
+            self.mixer_mod = DenseBEVMixer(self.vfe_mod.out_channels,
+                                           nz=self.vgrid[0], **(mixer or {}))
         # configs may repeat num_classes / class_names inside the head dict;
         # the model-level values win
         head_kw = {k: v for k, v in dict(head or {}).items()
@@ -151,6 +187,77 @@ class SingleStageFSDV2(nn.Module):
 
     # ----------------------------------------------------------- feature path
 
+    def _dense_fusion_and_mixer(self, data, vm, voxel_feats, batch_size):
+        """Every virtual voxel gathers its xy cell from each decoder BEV map
+        (NHWC); DenseBEVMixer over the virtual voxels' own slots."""
+        vgrid = self.vgrid
+        feats_sum = voxel_feats
+        n_contrib = 1.0
+        vc = vm.voxel_coords
+        for i, lvl_idx in enumerate(self.multiscale_levels):
+            m = data["decoder_maps"][lvl_idx]
+            b, hl, wl, _ = m.shape
+            cy = torch.clamp((vc[:, 2] * hl) // vgrid[1], 0, hl - 1)
+            cx = torch.clamp((vc[:, 3] * wl) // vgrid[2], 0, wl - 1)
+            cell = (torch.clamp(vc[:, 0], min=0) * hl + cy) * wl + cx
+            g = m.reshape(b * hl * wl, -1)[cell.long()]
+            feats_sum = feats_sum + getattr(self, f"ms_projs_{i}")(
+                g, vm.voxel_valid)
+            n_contrib += 1.0
+        union_feats = feats_sum / n_contrib
+        return self.mixer_mod(union_feats, vc, vm.voxel_valid, batch_size,
+                              vgrid[1:])
+
+    def _sparse_fusion_and_mixer(self, data, vm, voxel_feats, batch_size):
+        """Decoder features projected onto the virtual grid and merged with
+        the virtual voxels by segment mean into a union grid, mixed by
+        VirtualVoxelMixer; returns the union output at the virtual voxels'
+        slots."""
+        vgrid = self.vgrid
+        keys_l = [torch.where(vm.voxel_valid, vm.unique.unique_keys,
+                              INT_SENTINEL)]
+        feats_l = [voxel_feats]
+        valid_l = [vm.voxel_valid]
+        ms = data["decoder_features"]
+        plan0 = data["unet_plan"]
+        for i, lvl_idx in enumerate(self.multiscale_levels):
+            # decoder feature d (deepest first, one per UNet stage S) lives
+            # at grid level S - 2 - d, clamped at 0
+            lvl = max(len(ms) - 2 - lvl_idx, 0)
+            sgl = plan0.levels[lvl]
+            zs, ys, xs = (v // g for v, g in zip(vgrid, sgl.grid))
+            if min(zs, ys, xs) < 1:
+                raise ValueError(
+                    f"ms level {lvl_idx} (grid {sgl.grid}) finer than "
+                    f"virtual grid {vgrid}; choose deeper multiscale_levels")
+            c = sgl.coords
+            proj = torch.stack([c[:, 0], c[:, 1] * zs + zs // 2,
+                                c[:, 2] * ys + ys // 2,
+                                c[:, 3] * xs + xs // 2], dim=-1)
+            keys_l.append(linearize_coords(proj, vgrid, sgl.valid))
+            feats_l.append(getattr(self, f"ms_projs_{i}")(ms[lvl_idx],
+                                                          sgl.valid))
+            valid_l.append(sgl.valid)
+
+        caps = self.caps
+        uu = unique_segments(torch.cat(keys_l), torch.cat(valid_l),
+                             caps.union_voxels)
+        union_feats = segment_reduce(torch.cat(feats_l), uu.seg_ids,
+                                     caps.union_voxels, "mean")
+        union_valid = uu.unique_keys != INT_SENTINEL
+        union_sg = SparseGrid(
+            keys=uu.unique_keys,
+            coords=delinearize_key(uu.unique_keys, vgrid, union_valid),
+            valid=union_valid, grid=vgrid, batch_size=batch_size)
+        level_caps = [caps.union_voxels]
+        for _ in self.mixer_strides:
+            level_caps.append(level_caps[-1] // 2)
+        plan = build_unet_plan(union_sg, tuple(level_caps),
+                               self.mixer_strides, self.mixer_paddings)
+        out_feats = self.mixer_mod(union_feats, plan)
+        # the virtual-grid voxels are the first caps.voxels union inputs
+        return gather_segments(out_feats, uu.seg_ids[:caps.voxels])
+
     def extract_feat(self, data: dict, batch_size: int, train: bool = False,
                      thr_extra: float = 0.0):
         require_inference(train)
@@ -186,25 +293,13 @@ class SingleStageFSDV2(nn.Module):
         virtual_mask = vm.voxel_valid & (vox_indicator > 0)
         centroid = vfe_aux["cluster_mean"]
 
-        # dense multiscale fusion: every virtual voxel gathers its xy cell
-        # from each decoder BEV map (NHWC)
-        vgrid = self.vgrid
-        feats_sum = voxel_feats
-        n_contrib = 1.0
         vc = vm.voxel_coords
-        for i, lvl_idx in enumerate(self.multiscale_levels):
-            m = data["decoder_maps"][lvl_idx]
-            b, hl, wl, _ = m.shape
-            cy = torch.clamp((vc[:, 2] * hl) // vgrid[1], 0, hl - 1)
-            cx = torch.clamp((vc[:, 3] * wl) // vgrid[2], 0, wl - 1)
-            cell = (torch.clamp(vc[:, 0], min=0) * hl + cy) * wl + cx
-            g = m.reshape(b * hl * wl, -1)[cell.long()]
-            feats_sum = feats_sum + getattr(self, f"ms_projs_{i}")(
-                g, vm.voxel_valid)
-            n_contrib += 1.0
-        union_feats = feats_sum / n_contrib
-        out_feats = self.mixer_mod(union_feats, vm.voxel_coords,
-                                   vm.voxel_valid, batch_size, vgrid[1:])
+        if self.mixer_type == "sparse":
+            orig_out = self._sparse_fusion_and_mixer(data, vm, voxel_feats,
+                                                     batch_size)
+        else:
+            orig_out = self._dense_fusion_and_mixer(data, vm, voxel_feats,
+                                                    batch_size)
 
         # compact virtual voxels for the head
         vidx, vvalid = topk_compact(vox_indicator, virtual_mask,
@@ -216,7 +311,7 @@ class SingleStageFSDV2(nn.Module):
         vcoords = vc[vidx]
         vcenters = (vcoords[:, [3, 2, 1]].float() + 0.5) * vs + pcr
         return {
-            "virtual_feats": out_feats[vidx],
+            "virtual_feats": orig_out[vidx],
             "virtual_centers": torch.where(vvalid[:, None], vcenters, 0.0),
             "virtual_batch": torch.clamp(vcoords[:, 0], min=0),
             "virtual_valid": vvalid,
@@ -241,7 +336,8 @@ class SingleStageFSDV2(nn.Module):
                                      b)
         data = {k: seg_out[k] for k in (
             "seg_points", "seg_logits", "seg_vote_preds", "offsets",
-            "seg_feats", "batch_idx", "valid", "decoder_maps")}
+            "seg_feats", "batch_idx", "valid", "decoder_features",
+            "unet_plan", "decoder_maps") if k in seg_out}
         ex = self.extract_feat(data, b, thr_extra=thr_extra)
         outs = self.head_mod(ex["virtual_feats"], ex["virtual_valid"])
         return {"seg_out": seg_out, "data": data, "ex": ex, "outs": outs,

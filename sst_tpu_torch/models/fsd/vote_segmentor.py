@@ -1,10 +1,12 @@
 """VoteSegmentor — FSD stage-0 point segmentation + centre voting
-(counterpart of ``sst_tpu/models/fsd/vote_segmentor.py``), dense-BEV
-backbone only.
+(counterpart of ``sst_tpu/models/fsd/vote_segmentor.py``), with the sparse
+and the dense-BEV backbones.
 
 Flow: tanh on the channels past xyz → dynamic voxelize → DynamicVFE →
-BEVScatter → DenseBEVUNet → DenseVoxelDecode → per-point gather + local-xyz
-decoration → MLP → (seg logits [P, C], vote preds [P, 3C]).
+backbone → per-point gather + local-xyz decoration → MLP → (seg logits
+[P, C], vote preds [P, 3C]). The backbone is either SimpleSparseUNet over
+the voxel grid's rulebooks (``backbone="sparse"``) or BEVScatter →
+DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from sst_tpu_torch.models.dense_bev import (
     DenseVoxelDecode,
 )
 from sst_tpu_torch.models.layers import MLP, require_inference
+from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, build_unet_plan
 from sst_tpu_torch.models.vfe import DynamicVFE
-from sst_tpu_torch.ops.segment import gather_segments
+from sst_tpu_torch.ops.segment import INT_SENTINEL, gather_segments
+from sst_tpu_torch.ops.sparse_conv import SparseGrid
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
 
 
@@ -54,27 +58,32 @@ class VoteSegmentor(nn.Module):
                  point_cloud_range: tuple = (-80.0, -80.0, -2.0, 80.0, 80.0,
                                              4.0),
                  max_voxels: int = 65536, backbone: str = "sparse",
-                 z_groups: int = 1, dense_group_channels: int = 32,
-                 dense_pre_channels: int = 32, vfe: dict | None = None,
-                 unet: dict | None = None, head: dict | None = None,
+                 sst: dict | None = None, z_groups: int = 1,
+                 dense_group_channels: int = 32,
+                 dense_pre_channels: int = 32,
+                 unet_level_caps: tuple = (65536, 32768, 16384, 8192, 4096),
+                 unet_strides: tuple = ((2, 2, 2),) * 4,
+                 unet_paddings: tuple = ((1, 1, 1), (1, 1, 1), (0, 1, 1),
+                                         (1, 1, 1)),
+                 vfe: dict | None = None, unet: dict | None = None,
+                 head: dict | None = None,
                  voxel_downsampling_size: tuple | None = None,
                  tanh_dims: tuple | None = None,
-                 return_multiscale: bool = False, **sparse_cfg):
+                 return_multiscale: bool = False):
         super().__init__()
-        if backbone != "dense_bev":
+        if backbone not in ("sparse", "dense_bev"):
             raise NotImplementedError(
-                f"backbone={backbone!r}: only 'dense_bev' is ported")
+                f"backbone={backbone!r}: only 'sparse' and 'dense_bev' are "
+                f"ported")
         if voxel_downsampling_size is not None:
             raise NotImplementedError("voxel_downsampling_size")
-        # unet_level_caps / unet_strides / unet_paddings / sst configure the
-        # sparse and SST backbones only.
-        unknown = set(sparse_cfg) - {"unet_level_caps", "unet_strides",
-                                     "unet_paddings", "sst"}
-        if unknown:
-            raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        self.backbone = backbone
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.max_voxels = max_voxels
+        self.unet_level_caps = tuple(unet_level_caps)
+        self.unet_strides = tuple(tuple(s) for s in unet_strides)
+        self.unet_paddings = tuple(tuple(p) for p in unet_paddings)
         self.tanh_dims = tanh_dims
         self.return_multiscale = return_multiscale
         self.grid = grid_shape_zyx(self.point_cloud_range, self.voxel_size)
@@ -84,18 +93,29 @@ class VoteSegmentor(nn.Module):
             point_cloud_range=self.point_cloud_range,
             **(vfe or dict(feat_channels=(64, 64), mode="max")))
         cfg = dict(unet or {})
-        out_ch = cfg.pop("out_channels", 128)
-        cfg.pop("in_channels", None)
-        cfg.pop("base_channels", None)
-        self.scatter_mod = BEVScatter(
-            self.vfe_mod.out_channels, nz, z_groups=z_groups,
-            pre_channels=dense_pre_channels if z_groups > 1 else 0)
-        unet_out = z_groups * dense_group_channels if z_groups > 1 else out_ch
-        self.unet_mod = DenseBEVUNet(self.scatter_mod.out_channels,
-                                     out_channels=unet_out, **cfg)
-        self.decode_mod = DenseVoxelDecode(
-            unet_out, nz, out_channels=out_ch, z_groups=z_groups,
-            group_channels=dense_group_channels)
+        if backbone == "sparse":
+            # the JAX module reads the UNet's input width from its input
+            cfg.pop("in_channels", None)
+            self.unet_mod = SimpleSparseUNet(
+                self.vfe_mod.out_channels,
+                return_multiscale=return_multiscale, **cfg)
+            out_ch = self.unet_mod.out_channels
+            self.decoder_widths = self.unet_mod.decoder_widths
+        else:
+            out_ch = cfg.pop("out_channels", 128)
+            cfg.pop("in_channels", None)
+            cfg.pop("base_channels", None)
+            self.scatter_mod = BEVScatter(
+                self.vfe_mod.out_channels, nz, z_groups=z_groups,
+                pre_channels=dense_pre_channels if z_groups > 1 else 0)
+            unet_out = (z_groups * dense_group_channels if z_groups > 1
+                        else out_ch)
+            self.unet_mod = DenseBEVUNet(self.scatter_mod.out_channels,
+                                         out_channels=unet_out, **cfg)
+            self.decode_mod = DenseVoxelDecode(
+                unet_out, nz, out_channels=out_ch, z_groups=z_groups,
+                group_channels=dense_group_channels)
+            self.decoder_widths = self.unet_mod.decoder_channels
         self.head_mod = VoteSegHead(out_ch + 3, **(head or {}))
         self.feat_channels = out_ch + 3
 
@@ -116,10 +136,26 @@ class VoteSegmentor(nn.Module):
                               self.point_cloud_range, self.voxel_size,
                               self.max_voxels, batch_size)
         voxel_feats = self.vfe_mod(pts, vm)
-        canvas = self.scatter_mod(voxel_feats, vm.voxel_coords,
-                                  vm.voxel_valid, batch_size, self.grid[1:])
-        bev_out, decoder_maps = self.unet_mod(canvas)
-        vox_out = self.decode_mod(bev_out, vm.voxel_coords, vm.voxel_valid)
+        if self.backbone == "sparse":
+            # the voxel unique already sorted the voxels by key, so the
+            # SparseGrid is built without a re-sort
+            sg = SparseGrid(
+                keys=torch.where(vm.voxel_valid, vm.unique.unique_keys,
+                                 INT_SENTINEL),
+                coords=vm.voxel_coords, valid=vm.voxel_valid, grid=self.grid,
+                batch_size=batch_size)
+            plan = build_unet_plan(
+                sg, (self.max_voxels,) + self.unet_level_caps[1:],
+                self.unet_strides, self.unet_paddings)
+            unet_out = self.unet_mod(voxel_feats, plan)
+            vox_out = unet_out["voxel_feats"]
+        else:
+            canvas = self.scatter_mod(voxel_feats, vm.voxel_coords,
+                                      vm.voxel_valid, batch_size,
+                                      self.grid[1:])
+            bev_out, decoder_maps = self.unet_mod(canvas)
+            vox_out = self.decode_mod(bev_out, vm.voxel_coords,
+                                      vm.voxel_valid)
 
         pt_vox_feats = gather_segments(vox_out, vm.point_seg_ids)
         vs = torch.tensor(self.voxel_size, dtype=torch.float32,
@@ -141,6 +177,10 @@ class VoteSegmentor(nn.Module):
             "valid": vm.valid,
         }
         if self.return_multiscale:
-            out["decoder_maps"] = decoder_maps
-            out["voxel_mapping"] = vm
+            if self.backbone == "sparse":
+                out["decoder_features"] = unet_out["decoder_features"]
+                out["unet_plan"] = plan
+            else:
+                out["decoder_maps"] = decoder_maps
+                out["voxel_mapping"] = vm
         return out

@@ -1,2 +1,3 @@
 """Sparse primitives: sort/segment ops, voxelization, the sorted segment
-reduce kernel and top-k compaction."""
+reduce kernel, sparse 3D convolution (grids, rulebook, kernel) and top-k
+compaction."""

@@ -1,0 +1,206 @@
+"""Submanifold / strided / inverse 3D sparse convolution: the active-site
+grids, the rulebook and the dispatcher.
+
+Counterpart of ``sst_tpu/ops/sparse_conv.py`` (``SparseGrid``,
+``make_sparse_grid``, ``downsample_grid``) and of the plan half of
+``sst_tpu/ops/sparse_conv_pallas.py`` (``ConvPlan``, ``_full_targets``,
+``nbr_from_targets``, ``build_conv_plans``, ``windowed_sparse_conv``).
+
+Every conv is planned as a ``[K, Vout]`` int32 neighbour table whose taps
+follow the weight order (dz, dy, dx) lexicographically, with ``Vin`` marking
+a missing neighbour: the sites of a grid are sorted by linearized key, so
+each tap's neighbour is found by one ``torch.searchsorted``. The compute is
+``ops/sparse_conv_gemm.py`` (the Hopper kernel and its plain twin, which is
+JAX's ``gather_gemm``).
+
+Not ported, because they exist only to feed or gate the TPU kernel:
+``WindowPlan``, ``build_window_plan``, ``_center_targets``, ``_pack``,
+``plan_nbr``, ``pallas_eligible``, ``use_window_plans`` and the
+``SST_TPU_NO_SPARSE_CONV_PALLAS`` switch (the VMEM weight limit, the 2**24
+plane limit of keys carried in f32 lanes, and the window bounds of the
+one-hot match matmul). On the GPU every sparse conv of a CUDA tensor runs
+the kernel. The canvas neighbour tables (``build_canvas``,
+``subm_/strided_/inverse_neighbor_table``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+
+from sst_tpu_torch.ops.segment import INT_SENTINEL
+from sst_tpu_torch.ops.sparse_conv_gemm import sparse_conv_gemm
+
+
+@dataclass
+class SparseGrid:
+    """Active sites of one resolution level (sorted-key invariant).
+
+    keys: [V] int32 linearized (b, z, y, x), ascending, INT_SENTINEL pad.
+    coords: [V, 4] int32 (b, z, y, x); -1 pad.
+    valid: [V] bool.
+    grid: (nz, ny, nx).
+    """
+
+    keys: torch.Tensor
+    coords: torch.Tensor
+    valid: torch.Tensor
+    grid: tuple
+    batch_size: int
+
+    @property
+    def cap(self) -> int:
+        return self.keys.shape[0]
+
+
+@dataclass
+class ConvPlan:
+    """One conv's rulebook: ``nbr`` [K, Vout] int32 (Vin = missing), and the
+    conv's mode ('subm' | 'strided' | 'inverse')."""
+
+    nbr: torch.Tensor
+    mode: str
+
+
+def _offsets(device) -> torch.Tensor:
+    """[27, 3] int32 (dz, dy, dx), lexicographic: the weight-tensor order."""
+    r = torch.arange(-1, 2, dtype=torch.int32, device=device)
+    dz, dy, dx = torch.meshgrid(r, r, r, indexing="ij")
+    return torch.stack([dz.reshape(-1), dy.reshape(-1), dx.reshape(-1)], -1)
+
+
+def make_sparse_grid(coords, valid, grid, batch_size):
+    """A sorted SparseGrid from (possibly unsorted) coords, and the stable
+    sort order that produced it."""
+    nz, ny, nx = grid
+    keys = ((coords[:, 0] * nz + coords[:, 1]) * ny + coords[:, 2]) * nx \
+        + coords[:, 3]
+    keys = torch.where(valid, keys, INT_SENTINEL).to(torch.int32)
+    keys, order = torch.sort(keys, stable=True)
+    sg = SparseGrid(keys=keys, coords=coords[order], valid=valid[order],
+                    grid=tuple(grid), batch_size=batch_size)
+    return sg, order
+
+
+def _floor_div(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def downsample_grid(sg: SparseGrid, cap_out: int,
+                    stride: Sequence[int] = (2, 2, 2),
+                    padding: Sequence[int] = (1, 1, 1),
+                    kernel_size: int = 3) -> SparseGrid:
+    """Active output sites of a strided sparse conv (spconv semantics: an
+    output site exists iff any input site falls in its receptive field).
+
+    Each input site contributes to at most 2 output sites per dim for k=3;
+    the 8 candidates mark an occupancy canvas over the output grid, whose
+    prefix sum ranks the occupied cells in ascending key order. Ranks past
+    ``cap_out`` are dropped (JAX's ``mode="drop"``): they are written to one
+    extra row that is sliced off."""
+    dev = sg.keys.device
+    nz, ny, nx = sg.grid
+    s = torch.tensor(stride, dtype=torch.int32, device=dev)
+    p = torch.tensor(padding, dtype=torch.int32, device=dev)
+    out_shape = tuple(int((d + 2 * pp - kernel_size) // ss + 1)
+                      for d, pp, ss in zip((nz, ny, nx), padding, stride))
+    oz, oy, ox = out_shape
+
+    zyx = sg.coords[:, 1:4]
+    b = sg.coords[:, 0]
+    # per dim: o in [ceil((i - k + 1 + p) / s), floor((i + p) / s)]
+    lo = -_floor_div(-(zyx - kernel_size + 1 + p), s)
+    hi = _floor_div(zyx + p, s)
+    dims = torch.tensor((oz, oy, ox), dtype=torch.int32, device=dev)
+    keys, oks = [], []
+    for dz in range(2):
+        for dy in range(2):
+            for dx in range(2):
+                o = lo + torch.tensor((dz, dy, dx), dtype=torch.int32,
+                                      device=dev)
+                ok = ((o <= hi) & (o >= 0) & (o < dims)).all(-1) & sg.valid
+                key = ((b * oz + o[:, 0]) * oy + o[:, 1]) * ox + o[:, 2]
+                keys.append(key)
+                oks.append(ok)
+    all_keys = torch.cat(keys)
+    all_ok = torch.cat(oks)
+    size = sg.batch_size * oz * oy * ox
+    occ = torch.zeros(size + 1, dtype=torch.bool, device=dev)
+    occ[torch.where(all_ok, all_keys, size).long()] = True
+    occ = occ[:size]
+    rank = torch.cumsum(occ, 0, dtype=torch.int32) - 1
+    slot = torch.where(occ, torch.clamp(rank, max=cap_out), cap_out)
+    out_keys = torch.full((cap_out + 1,), INT_SENTINEL, dtype=torch.int32,
+                          device=dev)
+    out_keys[slot.long()] = torch.arange(size, dtype=torch.int32, device=dev)
+    out_keys = out_keys[:cap_out]
+    out_valid = out_keys != INT_SENTINEL
+    uk = torch.where(out_valid, out_keys, 0)
+    x = uk % ox
+    r = uk // ox
+    y = r % oy
+    r = r // oy
+    z = r % oz
+    bb = r // oz
+    out_coords = torch.where(out_valid[:, None],
+                             torch.stack([bb, z, y, x], -1), -1)
+    return SparseGrid(keys=out_keys, coords=out_coords.to(torch.int32),
+                      valid=out_valid, grid=out_shape,
+                      batch_size=sg.batch_size)
+
+
+def _full_targets(out_sg: SparseGrid, in_grid, mode: str, stride, padding):
+    """All 27 per-tap input keys [27, Vout] int32 (-1 = no neighbour), taps
+    in lexicographic (dz, dy, dx) order: the weight-tensor order."""
+    dev = out_sg.keys.device
+    nz, ny, nx = in_grid
+    plane = nz * ny * nx
+    offs = _offsets(dev)[:, :, None]  # [27, 3, 1]
+    c = out_sg.coords.T[None]  # [1, 4, Vout]
+    b, zyx = c[:, 0], c[:, 1:4]
+    s = torch.tensor(stride, dtype=torch.int32, device=dev)[None, :, None]
+    p = torch.tensor(padding, dtype=torch.int32, device=dev)[None, :, None]
+    ok = out_sg.valid[None]
+    if mode == "subm":
+        izyx = zyx + offs
+    elif mode == "strided":
+        izyx = zyx * s - p + offs
+    elif mode == "inverse":
+        num = zyx + p - offs
+        izyx = _floor_div(num, s)
+        ok = ok & (izyx * s == num).all(1)
+    else:
+        raise ValueError(f"unknown conv mode {mode!r}")
+    dims = torch.tensor(in_grid, dtype=torch.int32, device=dev)[None, :, None]
+    ok = ok & ((izyx >= 0) & (izyx < dims)).all(1)
+    key = b * plane + (izyx[:, 0] * ny + izyx[:, 1]) * nx + izyx[:, 2]
+    return torch.where(ok, key, -1).to(torch.int32)
+
+
+def nbr_from_targets(tfull: torch.Tensor, in_keys: torch.Tensor,
+                     cap_in: int) -> torch.Tensor:
+    """[K, Vout] neighbour site indices (cap_in = missing) by binary search
+    over the sorted (INT_SENTINEL-padded) key array."""
+    idx = torch.searchsorted(in_keys, tfull, out_int32=True)
+    idx_c = torch.clamp(idx, max=in_keys.shape[0] - 1)
+    hit = (in_keys[idx_c.long()] == tfull) & (tfull >= 0) & (idx_c < cap_in)
+    return torch.where(hit, idx_c, cap_in)
+
+
+def build_conv_plans(out_sg: SparseGrid, in_sg: SparseGrid, mode: str,
+                     stride=(2, 2, 2), padding=(1, 1, 1)) -> ConvPlan:
+    """The rulebook of one conv from ``in_sg`` to ``out_sg``."""
+    if mode == "subm":
+        stride, padding = (1, 1, 1), (0, 0, 0)
+    tfull = _full_targets(out_sg, in_sg.grid, mode, stride, padding)
+    return ConvPlan(nbr=nbr_from_targets(tfull, in_sg.keys, in_sg.cap),
+                    mode=mode)
+
+
+def windowed_sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
+                         cp: ConvPlan) -> torch.Tensor:
+    """One sparse conv: feats [Vin, Cin], weights [K, Cin, Cout] →
+    [Vout, Cout], through the kernel wrapper (its twin on the CPU)."""
+    return sparse_conv_gemm(feats, cp.nbr, weights, cp.mode)

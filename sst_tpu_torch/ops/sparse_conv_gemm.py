@@ -1,0 +1,133 @@
+"""Sparse 3D convolution over a neighbour table, as a Hopper kernel.
+
+Counterpart of the compute half of ``sst_tpu/ops/sparse_conv_pallas.py``
+(``_conv_kernel``) and of ``sst_tpu/ops/sparse_conv.py gather_gemm``. The
+rulebook (``ops/sparse_conv.py build_conv_plans``) gives each conv a
+``[K, Vout]`` int32 neighbour table; this module computes
+
+    out[v, :] = sum_k feats[nbr[k, v], :] @ W[k]
+
+with an index outside [0, Vin) reading a zero row. The kernel is
+``csrc/sparse_conv_gemm.cu``; the source note there says what bounds it and
+how it is laid out.
+
+Dispatch is by the device of the tensors alone: a CPU tensor goes to the
+plain PyTorch twin :func:`sparse_conv_gemm_ref`, a CUDA tensor to the kernel
+(or the call raises). ``launches`` counts kernel launches and
+``launch_counts`` splits them by ``(mode, Cin, Cout)``, so a run can show that
+its main path went through the kernel, and with which widths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MODES = ("subm", "strided", "inverse")
+
+launches = 0  # kernel launches in this process
+launch_counts: dict[tuple[str, int, int], int] = {}  # by (mode, Cin, Cout)
+
+
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+    launch_counts.clear()
+
+
+def _check(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
+           mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if feats.dim() != 2 or nbr.dim() != 2 or weights.dim() != 3:
+        raise ValueError(f"expected feats [Vin, Cin], nbr [K, Vout] and "
+                         f"weights [K, Cin, Cout], got {tuple(feats.shape)}, "
+                         f"{tuple(nbr.shape)} and {tuple(weights.shape)}")
+    if weights.shape[0] != nbr.shape[0] or weights.shape[1] != feats.shape[1]:
+        raise ValueError(f"shapes disagree: feats {tuple(feats.shape)}, nbr "
+                         f"{tuple(nbr.shape)}, weights "
+                         f"{tuple(weights.shape)}")
+    if feats.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError(f"feats and weights must be float32, got "
+                        f"{feats.dtype} and {weights.dtype}")
+    if nbr.dtype != torch.int32:
+        raise TypeError(f"nbr must be int32, got {nbr.dtype}")
+    if not (feats.device == nbr.device == weights.device):
+        raise ValueError(f"feats on {feats.device}, nbr on {nbr.device}, "
+                         f"weights on {weights.device}")
+    if not (feats.is_contiguous() and nbr.is_contiguous()
+            and weights.is_contiguous()):
+        raise ValueError("feats, nbr and weights must be contiguous")
+    if max(feats.shape[0], nbr.shape[1]) >= 2**31 - 1:
+        raise ValueError("row counts must fit in int32")
+
+
+def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin (``gather_gemm`` semantics): one gather and one
+    matmul per tap, accumulated in f32, so the ``[K, Vout, Cin]`` gathered
+    tensor is never held whole."""
+    vin, cin = feats.shape
+    ext = torch.cat([feats, feats.new_zeros((1, cin))])
+    idx = nbr.long()
+    idx = torch.where((idx >= 0) & (idx < vin), idx, vin)
+    out = feats.new_zeros((nbr.shape[1], weights.shape[2]))
+    for k in range(nbr.shape[0]):
+        out += ext.index_select(0, idx[k]) @ weights[k]
+    return out
+
+
+def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
+            mode: str) -> torch.Tensor:
+    from sst_tpu_torch.utils.nvcc import load_kernel_library
+
+    global launches
+    fn = load_kernel_library("sparse_conv_gemm").lib.sst_sparse_conv_gemm_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vin, cin = feats.shape
+    taps, vout = nbr.shape
+    cout = weights.shape[2]
+    out = torch.empty((vout, cout), dtype=torch.float32, device=feats.device)
+    if vout == 0 or cout == 0:
+        return out
+    with torch.cuda.device(feats.device):
+        rc = fn(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+                out.data_ptr(), vin, vout, cin, cout, taps,
+                torch.cuda.current_stream(feats.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sparse_conv_gemm kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    key = (mode, cin, cout)
+    launch_counts[key] = launch_counts.get(key, 0) + 1
+    return out
+
+
+def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
+                     weights: torch.Tensor, mode: str = "subm"
+                     ) -> torch.Tensor:
+    """One sparse conv from its neighbour table.
+
+    Args:
+      feats: [Vin, Cin] float32 input sites.
+      nbr: [K, Vout] int32; tap k of output v reads row ``nbr[k, v]``, and
+        an index outside [0, Vin) reads zeros.
+      weights: [K, Cin, Cout] float32.
+      mode: 'subm' | 'strided' | 'inverse'; only read by the launch count.
+    Returns [Vout, Cout] float32.
+    """
+    _check(feats, nbr, weights, mode)
+    if feats.device.type == "cpu":
+        return sparse_conv_gemm_ref(feats, nbr, weights)
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    if torch.is_grad_enabled() and (feats.requires_grad
+                                    or weights.requires_grad):
+        raise NotImplementedError(
+            "sparse_conv_gemm has no backward yet; call it under "
+            "torch.no_grad() or inference_mode()")
+    return _launch(feats, nbr, weights, mode)

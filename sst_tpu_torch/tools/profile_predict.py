@@ -1,16 +1,17 @@
-"""Where the time of ``fsdv2_waymo_dense`` predict goes, on one CUDA card.
+"""Where the time of FSDv2-Waymo predict goes, on one CUDA card.
 
-    python -m sst_tpu_torch.tools.profile_predict
+    python -m sst_tpu_torch.tools.profile_predict [--backbone sparse]
 
-The model and frames are those of ``chip_smoke.py``: full widths, float32
-with TF32 off, random weights from seed 0, synthetic Waymo-like frames of
-196,608 points (seeds 0-3), batch 1. It prints
+The model (``fsdv2_waymo(backbone=...)``, dense-BEV by default) and frames
+are those of ``chip_smoke.py``: full widths, float32 with TF32 off, random
+weights from seed 0, synthetic Waymo-like frames of 196,608 points (seeds
+0-3), batch 1. It prints
 
   * the median CUDA-event time of each stage of ``predict`` over 8 frames
     (boundaries marked by hooks on the segmentor's and the head's forward):
     segmentor; virtual-voxel features (fg sampling, virtual VFE, multiscale
-    fusion, dense mixer); head MLPs; box decode + NMS; and the
-    device-to-host copy of the result;
+    fusion, mixer); head MLPs; box decode + NMS; and the device-to-host
+    copy of the result;
   * the median time of ``apis.inference_detector`` end to end (adds the
     host range filter, padding and host-to-device copy);
   * from ``torch.profiler`` over 2 predicts: the device's busy
@@ -22,6 +23,7 @@ The last line of standard output is a JSON object with these numbers.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -32,7 +34,7 @@ import torch
 
 from sst_tpu_torch.apis import inference_detector, prepare_batch
 from sst_tpu_torch.flagship import (
-    fsdv2_waymo_dense,
+    fsdv2_waymo,
     init_weights,
     synthetic_waymo_batch,
 )
@@ -92,14 +94,19 @@ def device_busy(prof):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backbone", choices=("dense_bev", "sparse"),
+                    default="dense_bev")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_predict: needs a CUDA card")
     card = card_name_and_power_limit()
     print(card, flush=True)
     disable_tf32()
     device = torch.device("cuda", 0)
-    model = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
-                         torch.Generator().manual_seed(0)).to(device).eval()
+    model = init_weights(
+        fsdv2_waymo(dtype=torch.float32, backbone=args.backbone),
+        torch.Generator().manual_seed(0)).to(device).eval()
     frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s, num_extra_feats=2,
                                     pcr_half=79.8).points[0]
               for s in range(4)]
@@ -119,8 +126,8 @@ def main() -> None:
         event_ms(lambda f=frames[i % len(frames)]: inference_detector(
             model, f, MAX_POINTS)) for i in range(FRAMES))
 
-    print(f"predict stages, median of {FRAMES} frames (CUDA events; "
-          f"{card}; TF32 off):", flush=True)
+    print(f"fsdv2_waymo(backbone={args.backbone!r}) predict stages, median "
+          f"of {FRAMES} frames (CUDA events; {card}; TF32 off):", flush=True)
     for name, ms in stages.items():
         print(f"  {name:<24} {ms:9.3f} ms", flush=True)
     print(f"  {'total (no host I/O)':<24} {statistics.median(totals):9.3f} ms",
@@ -153,7 +160,8 @@ def main() -> None:
         print(f"  {ms:9.3f} ms  {name}", flush=True)
 
     print(json.dumps({
-        "card": card, "frames": FRAMES, "stages_ms": stages,
+        "card": card, "backbone": args.backbone, "frames": FRAMES,
+        "stages_ms": stages,
         "total_ms": statistics.median(totals), "inference_detector_ms": e2e,
         "profiled_predicts": PROFILED, "device_busy_ms": busy,
         "wall_ms": wall, "idle_share": idle,

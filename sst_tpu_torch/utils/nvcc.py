@@ -1,10 +1,12 @@
-"""Build a CUDA source under ``sst_tpu_torch/csrc/`` into a shared library
-with a plain C interface and load it with ``ctypes``.
+"""Build CUDA sources under ``sst_tpu_torch/csrc/`` into shared libraries
+with a plain C interface and load them with ``ctypes``.
 
-The library is compiled with ``nvcc`` for ``sm_90a`` the first time it is
+A library is compiled with ``nvcc`` for ``sm_90a`` the first time it is
 asked for, into ``csrc/build/`` (listed in ``.gitignore``), under a name keyed
 by a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. A failed build raises with the compiler's output.
+unchanged one is reused. :func:`load_kernel_libraries` starts one ``nvcc``
+per source, all at once, and waits for all of them. A failed build raises
+with the compiler's output.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -48,27 +51,47 @@ def find_nvcc() -> str:
                        "only be built on a machine with the CUDA toolkit")
 
 
-def load_kernel_library(name: str) -> KernelLibrary:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
+def _library_path(src: Path) -> Path:
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def load_kernel_libraries(names: Iterable[str]) -> dict[str, KernelLibrary]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for each name, with one
+    ``nvcc`` per missing library, all running together; cached per process."""
+    names = list(names)
+    builds = {}
+    for name in names:
+        if name in _LOADED:
+            continue
+        src = CSRC / f"{name}.cu"
+        so = _library_path(src)
+        if so.exists():
+            _LOADED[name] = KernelLibrary(ctypes.CDLL(str(so)), so, 0.0, "")
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
+        proc = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds[name] = (proc, time.perf_counter(), src, so, tmp)
+    failed = []
+    for name, (proc, t0, src, so, tmp) in builds.items():
+        log = proc.communicate()[0]
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src.name} "
-                               f"(exit {proc.returncode}):\n{log}")
+            failed.append(f"nvcc failed to build {src.name} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
         os.replace(tmp, so)
-    _LOADED[name] = KernelLibrary(ctypes.CDLL(str(so)), so, seconds, log)
-    return _LOADED[name]
+        _LOADED[name] = KernelLibrary(ctypes.CDLL(str(so)), so, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _LOADED[name] for name in names}
+
+
+def load_kernel_library(name: str) -> KernelLibrary:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    return load_kernel_libraries([name])[name]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from sst_tpu_torch.ops import sorted_reduce as sr
+from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops.segment import unique_segments
 
 
@@ -77,3 +78,68 @@ def test_sorted_reduce_kernel_lets_nan_through(mode):
     else:
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5,
                                    equal_nan=True)
+
+
+def _conv_case(vin, vout, taps, cin, cout, seed, device, missing=0.6):
+    """N(0, 1) features, N(0, 1/(K*Cin)) weights, and a neighbour table
+    whose entries are missing (Vin, -1 or past Vin) with prob. ``missing``."""
+    rng = np.random.RandomState(seed)
+    nbr = rng.randint(0, max(vin, 1), (taps, vout))
+    drop = rng.rand(taps, vout) < missing
+    nbr = np.where(drop, rng.choice([vin, -1, vin + 7], (taps, vout)), nbr)
+    feats = rng.randn(vin, cin).astype(np.float32)
+    w = (rng.randn(taps, cin, cout) / np.sqrt(taps * cin)).astype(np.float32)
+    return (torch.from_numpy(feats).to(device),
+            torch.from_numpy(nbr.astype(np.int32)).to(device),
+            torch.from_numpy(w).to(device))
+
+
+def _edge_case(name, device):
+    if name == "all-missing tile":
+        feats, nbr, w = _conv_case(500, 300, 27, 64, 64, 1, device)
+        nbr[:, 64:128] = 500
+        return feats, nbr, w
+    if name == "tap with no neighbour":
+        feats, nbr, w = _conv_case(500, 300, 27, 64, 64, 2, device)
+        nbr[13] = 500
+        return feats, nbr, w
+    if name == "K=3":
+        return _conv_case(700, 400, 3, 32, 64, 3, device)
+    if name == "Cin and Cout off the tile, 3->48":
+        return _conv_case(900, 640, 27, 3, 48, 4, device)
+    if name == "Vout off the row tile, 1000 rows, 40->72":
+        return _conv_case(1200, 1000, 27, 40, 72, 5, device)
+    if name == "merge width 512->256":
+        return _conv_case(2048, 2048, 27, 512, 256, 6, device, missing=0.7)
+    raise KeyError(name)
+
+
+SPARSE_CONV_EDGE_CASES = ("all-missing tile", "tap with no neighbour", "K=3",
+                          "Cin and Cout off the tile, 3->48",
+                          "Vout off the row tile, 1000 rows, 40->72",
+                          "merge width 512->256")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPARSE_CONV_EDGE_CASES)
+def test_sparse_conv_kernel_matches_twin(name):
+    device = _cuda()
+    feats, nbr, w = _edge_case(name, device)
+    scg.reset_launch_counts()
+    got = scg.sparse_conv_gemm(feats, nbr, w, "subm")
+    torch.cuda.synchronize()
+    assert scg.launches == 1
+    assert scg.launch_counts == {("subm", w.shape[1], w.shape[2]): 1}
+    ref = scg.sparse_conv_gemm_ref(feats, nbr, w)
+    # f32 sums over up to 27 * 512 terms in another order: 1e-4 abs + rel
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    if name == "all-missing tile":
+        assert torch.equal(got[64:128], torch.zeros_like(got[64:128]))
+
+
+@pytest.mark.cuda
+def test_sparse_conv_kernel_refuses_autograd():
+    device = _cuda()
+    feats, nbr, w = _conv_case(64, 64, 27, 8, 8, 0, device)
+    with pytest.raises(NotImplementedError):
+        scg.sparse_conv_gemm(feats, nbr, w.requires_grad_(), "subm")
