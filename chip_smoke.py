@@ -1,7 +1,8 @@
-"""GPU smoke run of the PyTorch port's two FSDv2-Waymo ``predict`` paths at
-full width on one CUDA card, through their hand-written kernels: the
-dense-BEV build (sorted segment reduce kernel) and the sparse-UNet build
-(sorted segment reduce and sparse conv kernels).
+"""GPU smoke run of the PyTorch port's three ``predict`` paths at full width
+on one CUDA card, through their hand-written kernels: FSDv2-Waymo's
+dense-BEV build (sorted segment reduce kernel), its sparse-UNet build
+(sorted segment reduce and sparse conv kernels) and SST-Waymo (window MHA
+kernel).
 
     python3 chip_smoke.py
 
@@ -23,9 +24,19 @@ Phases (each one that fails ends the run with a non-zero exit code):
   7. sparse predict  ``fsdv2_waymo(backbone="sparse")`` answers the four
               frames; 58 sparse conv launches and 3 sorted reduce launches
               per frame, counted at the launch sites; latency timed.
+  8. SST kernels  the window MHA kernel against its twin on the attention
+              inputs of every bucket of every layer of one frame of
+              ``sst_waymo(train_buckets=False)`` (recorded by hooks on each
+              WindowAttention), on valid query rows, and on edge cases;
+              kernel, twin and ``F.scaled_dot_product_attention`` timed.
+  9. SST predict  ``sst_waymo`` answers four synthetic Waymo frames (x, y,
+              z); 48 window MHA launches per frame at the shapes phase 8
+              checked; capacity counters per frame; latency timed.
 
 TF32 is turned off for convolutions and matmuls, so every comparison is in
-full float32. The last line of standard output is the result JSON.
+full float32. The line before the last is the kernels JSON (every kernel's
+time, its plain twin's, its bound on the card and a library call's where
+there is one); the last line of standard output is the result JSON.
 """
 
 from __future__ import annotations
@@ -38,17 +49,21 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from sst_tpu_torch.apis import inference_detector
+from sst_tpu_torch.apis import inference_detector, prepare_batch
 from sst_tpu_torch.flagship import (
     fsdv2_waymo,
     fsdv2_waymo_dense,
     init_weights,
+    sst_waymo,
     synthetic_waymo_batch,
 )
 from sst_tpu_torch.models.sparse_unet import SparseConvLayer
+from sst_tpu_torch.models.sst import WindowAttention
 from sst_tpu_torch.ops import sorted_reduce as sr
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
+from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
 from sst_tpu_torch.utils.nvcc import load_kernel_libraries
 from sst_tpu_torch.utils.timing import (
@@ -78,7 +93,29 @@ def phase_device():
     return card
 
 
-KERNELS = ("sorted_reduce", "sparse_conv_gemm")
+KERNELS = ("sorted_reduce", "sparse_conv_gemm", "window_mha")
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data
+# sheet): HBM bytes/s, f32 FLOP/s outside the tensor
+# cores, bf16 tensor-core FLOP/s. A kernel's bound is the larger of its
+# bytes (each input read once, each output written once) over the first and
+# its operations over the peak for their type.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+
+def reset_launch_counts() -> None:
+    """Every kernel's launch count to 0, before a path is driven."""
+    for mod in (sr, scg, wm):
+        mod.reset_launch_counts()
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_build():
@@ -122,11 +159,17 @@ def _check_case(name, data, seg, num_segments, mode, results,
     else:
         ref = sr.sorted_segment_reduce_ref(data, seg, num_segments, mode)
     torch.cuda.synchronize()
-    nan = ref.isnan()
-    if not torch.equal(got.isnan(), nan):
-        fail(f"kernel and plain twin disagree on which outputs are NaN in "
-             f"{name} ({mode})")
-    got, ref = got.masked_fill(nan, 0.0), ref.masked_fill(nan, 0.0)
+    if mode == "max" and not bool(torch.isfinite(got).all()):
+        fail(f"the kernel wrote a non-finite max in {name}: a max that is "
+             f"not finite must read 0, as JAX segment_reduce does")
+    finite = torch.isfinite(ref)
+    inf = torch.isinf(ref)
+    if not (torch.equal(torch.isfinite(got), finite)
+            and torch.equal(got.isnan(), ref.isnan())
+            and torch.equal(got[inf], ref[inf])):
+        fail(f"kernel and plain twin disagree on which outputs are NaN or "
+             f"+-inf in {name} ({mode})")
+    got, ref = got.masked_fill(~finite, 0.0), ref.masked_fill(~finite, 0.0)
     err = (got - ref).abs().max().item() if got.numel() else 0.0
     if mode == "max":
         ok = torch.equal(got, ref)
@@ -181,8 +224,12 @@ def phase_kernels(model, frame, device):
         print(f"  time {mode} C={data.shape[1]}: kernel {kern:.4f} ms "
               f"(runs {kern_a:.4f}, {kern_b:.4f}), plain twin {plain:.4f} ms "
               f"(runs {plain_a:.4f}, {plain_b:.4f})", flush=True)
-        shapes.append({"mode": mode, "c": data.shape[1], "n": n,
+        c = data.shape[1]
+        bound_ms, bound_by = bound(4 * (n * c + n + nseg * c), n * c,
+                                   F32_FLOP_PER_S)
+        shapes.append({"mode": mode, "c": c, "n": n,
                        "num_segments": nseg, "ms": kern, "plain_ms": plain,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
                        "max_abs_err": errs[-1]})
 
     # edge cases
@@ -210,15 +257,17 @@ def phase_kernels(model, frame, device):
         _check_case("ids < 0 and >= num_segments", r, wild, 600, mode, errs)
         _check_case("narrow rows, C=3", r[:, :3].contiguous(), wild, 600,
                     mode, errs)
-    # NaN rows: a max or sum over a segment holding a NaN is NaN. Held
-    # against the twin on the CPU, whose scatter_reduce_ lets NaN through;
-    # the twin on the card goes through ATen's CUDA atomics, whose NaN rule
-    # is not documented
+    # NaN and inf rows: a sum over a segment holding a NaN is NaN, and a max
+    # that is not finite reads 0 (JAX segment_reduce). Held against the
+    # twin on the CPU: the twin on the card goes through ATen's CUDA
+    # atomics, whose NaN rule is not documented
     with_nan = r.clone()
     with_nan[::97, ::5] = float("nan")
+    with_nan[5::89, 1::7] = float("inf")
+    with_nan[7::83, 2::6] = -float("inf")
     for mode in ("sum", "max"):
-        _check_case("NaN in some rows", with_nan, gaps, int(gaps[-1]) + 1,
-                    mode, errs, twin_on_cpu=True)
+        _check_case("NaN and +-inf in some rows", with_nan, gaps,
+                    int(gaps[-1]) + 1, mode, errs, twin_on_cpu=True)
     return shapes, max(errs)
 
 
@@ -231,7 +280,7 @@ def phase_predict(model, frames):
     """Drive the main path; returns the results, the kernel's launches and
     its launches per frame by (mode, C), as counted at the launch site."""
     results, per_frame = [], []
-    sr.reset_launch_counts()
+    reset_launch_counts()
     for frame in frames:
         before = dict(sr.launch_counts)
         results.append(inference_detector(model, frame.points[0],
@@ -430,7 +479,13 @@ def phase_sparse_kernels(model, frame, device):
             lambda: scg.sparse_conv_gemm(feats, nbr, w, case["mode"]),
             lambda: scg.sparse_conv_gemm_ref(feats, nbr, w))]
         kern, plain = min(runs[1], runs[2]), min(runs[0], runs[3])
-        hit = float((nbr < case["vin"]).float().mean())
+        vin, vout, taps = case["vin"], nbr.shape[1], case["taps"]
+        pairs = int(((nbr >= 0) & (nbr < vin)).sum())
+        hit = pairs / (taps * vout)
+        bound_ms, bound_by = bound(
+            4 * (vin * case["cin"] + taps * vout
+                 + taps * case["cin"] * case["cout"] + vout * case["cout"]),
+            2 * pairs * case["cin"] * case["cout"], F32_FLOP_PER_S)
         print(f"    time: kernel {kern:.4f} ms (runs {runs[1]:.4f}, "
               f"{runs[2]:.4f}), plain twin {plain:.4f} ms (runs "
               f"{runs[0]:.4f}, {runs[3]:.4f}); {hit:.3f} of (row, tap) "
@@ -439,19 +494,19 @@ def phase_sparse_kernels(model, frame, device):
                        "mode": case["mode"], "cin": case["cin"],
                        "cout": case["cout"], "vin": case["vin"],
                        "vout": nbr.shape[1], "neighbour_share": hit,
-                       "ms": kern, "plain_ms": plain,
-                       "max_abs_err": errs[-1]})
+                       "ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": errs[-1]})
     for name, feats, nbr, w in _sparse_edge_cases(gen, device):
         _check_conv(name, feats, nbr, w, "subm", errs)
         if name == "edge: all-missing tile":
             got = scg.sparse_conv_gemm(feats, nbr, w, "subm")[64:128]
             if not torch.equal(got, torch.zeros_like(got)):
                 fail("the all-missing tile is not written as zeros")
-    per_frame = (sum(s["ms"] * s["convs_per_frame"] for s in shapes),
-                 sum(s["plain_ms"] * s["convs_per_frame"] for s in shapes))
+    per_frame = {k: sum(s[k] * s["convs_per_frame"] for s in shapes)
+                 for k in ("ms", "plain_ms", "bound_ms")}
     print(f"sparse kernels: per frame over its {len(calls)} convs: kernel "
-          f"{per_frame[0]:.3f} ms, plain twin {per_frame[1]:.3f} ms",
-          flush=True)
+          f"{per_frame['ms']:.3f} ms, plain twin {per_frame['plain_ms']:.3f} "
+          f"ms, bound {per_frame['bound_ms']:.3f} ms", flush=True)
     return shapes, per_frame, max(errs), calls
 
 
@@ -459,8 +514,7 @@ def phase_sparse_predict(model, frames, n_convs):
     """Drive the sparse path; returns (conv launches, sorted-reduce
     launches, conv launches per frame by (mode, Cin, Cout), latency)."""
     results, per_frame = [], []
-    scg.reset_launch_counts()
-    sr.reset_launch_counts()
+    reset_launch_counts()
     for frame in frames:
         before = (dict(scg.launch_counts), dict(sr.launch_counts))
         results.append(inference_detector(model, frame.points[0],
@@ -503,6 +557,219 @@ def phase_sparse_predict(model, frames, n_convs):
     return conv_launches, sr_launches, split, lat
 
 
+def _sst_frames(n_frames: int):
+    """The frames the JAX package's SST bench feeds: x, y, z only, within
+    74.8 m."""
+    return [synthetic_waymo_batch(1, 196608, seed=s) for s in range(n_frames)]
+
+
+def _record_attention(model, frame):
+    """Predict one frame with a hook on every WindowAttention; returns, in
+    call order, (module name, nhead, [(q, k, v, pad) per bucket]): the
+    attention inputs the main path builds for this frame."""
+    calls, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, WindowAttention):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: calls.append(
+                    (name, m.nhead, m.windows(*args)))))
+    try:
+        inference_detector(model, frame.points[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _mha_close(got, ref, v, pad):
+    """Largest error on valid query rows, and whether it is within 1 bf16
+    ulp of the output (rtol 2^-7) plus 2^-8 * max|v| (a bf16(p) that rounds
+    the other way after another f32 sum order); padded rows only need to be
+    finite."""
+    got, ref = got.float(), ref.float()
+    rows = ~pad
+    diff = (got - ref).abs()[rows]
+    tol = (2.0**-7 * ref.abs() + 2.0**-8 * v.float().abs().max())[rows]
+    err = diff.max().item() if diff.numel() else 0.0
+    return err, bool((diff <= tol).all()) and bool(torch.isfinite(got).all())
+
+
+def _sdpa(q, k, v, pad, nhead):
+    """The library yardstick: one ``F.scaled_dot_product_attention`` call on
+    [W, H, T, dh] bf16 views with an additive [W, 1, 1, T] mask. It
+    normalises before AV, so it rounds otherwise than the kernel."""
+    w, t, c = q.shape
+    q4, k4, v4 = (x.reshape(w, t, nhead, c // nhead).transpose(1, 2)
+                  for x in (q, k, v))
+    mask = (pad.to(torch.bfloat16) * -1e4)[:, None, None, :]
+    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+
+def _mha_edge_cases(device):
+    """(name, q, k, v, pad, nhead): an all-padded window and a one-token
+    window, T off the multiples of 16, W = 1, and q/k/v as contiguous
+    copies of the strided column blocks."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = []
+    for name, w, t, h in (("edge: T=30, all-padded + one-token windows",
+                           64, 30, 8),
+                          ("edge: T=100, all-padded + one-token windows",
+                           16, 100, 8),
+                          ("edge: W=1, T=144", 1, 144, 8),
+                          ("edge: T=8, 2 heads", 16, 8, 2)):
+        qkv = torch.randn(w, t, 48 * h, generator=gen, device=device)
+        qkv = qkv.to(torch.bfloat16)
+        pad = torch.rand(w, t, generator=gen, device=device) > 0.6
+        if w > 1:
+            pad[0] = True
+            pad[1] = True
+            pad[1, t // 2] = False
+        out.append((name, *qkv.split(16 * h, dim=-1), pad, h))
+    name, q, k, v, pad, h = out[0]
+    out.append(("edge: contiguous copies of the column blocks",
+                q.contiguous(), k.contiguous(), v.contiguous(), pad, h))
+    return out
+
+
+def phase_sst_kernels(model, frame, device):
+    """The window MHA kernel against its twin on the attention inputs of
+    every bucket of every layer of one frame, then on edge cases; kernel,
+    twin and SDPA timed on the first layer's inputs of each bucket.
+    Returns (timed shapes by (T, C, H), largest error, SDPA's largest
+    error)."""
+    with torch.inference_mode():
+        calls = _record_attention(model, frame)
+        n_inputs = sum(len(b) for _, _, b in calls)
+        print(f"SST kernels: window_mha on the attention inputs of frame 0 "
+              f"of sst_waymo(train_buckets=False): {len(calls)} attention "
+              f"layers, {n_inputs} (layer, bucket) inputs", flush=True)
+        errs, sdpa_errs, shapes = [], [], {}
+        for name, nhead, buckets in calls:
+            for q, k, v, pad in buckets:
+                w, t, c = q.shape
+                got = wm.window_mha(q, k, v, pad, nhead)
+                ref = wm.window_mha_ref(q, k, v, pad, nhead)
+                torch.cuda.synchronize()
+                err, ok = _mha_close(got, ref, v, pad)
+                errs.append(err)
+                if not ok:
+                    fail(f"window_mha disagrees with its twin on {name}, "
+                         f"T={t}, W={w}: max_abs_err {err:.3e}")
+                key = (t, c, nhead)
+                if key in shapes:
+                    continue
+                sdpa_err, _ = _mha_close(_sdpa(q, k, v, pad, nhead).transpose(
+                    1, 2).reshape(w, t, c), ref, v, pad)
+                sdpa_errs.append(sdpa_err)
+                # a gross disagreement means the yardstick computes another
+                # function; its rounding differs by design
+                if sdpa_err > 0.1 * v.float().abs().max().item():
+                    fail(f"SDPA disagrees with the twin at {key}: "
+                         f"{sdpa_err:.3e}")
+                runs = {"plain": [], "kernel": [], "library": []}
+                fns = {"plain": lambda: wm.window_mha_ref(q, k, v, pad, nhead),
+                       "kernel": lambda: wm.window_mha(q, k, v, pad, nhead),
+                       "library": lambda: _sdpa(q, k, v, pad, nhead)}
+                for kind in ("plain", "kernel", "library", "library",
+                             "kernel", "plain"):
+                    runs[kind].append(cuda_ms(fns[kind], 10, warmup=2))
+                slots = w * t
+                bound_ms, bound_by = bound(
+                    2 * 4 * slots * c + slots, 4 * w * t * t * c,
+                    BF16_FLOP_PER_S)
+                shapes[key] = {
+                    "t": t, "c": c, "h": nhead, "w": w,
+                    "valid_slots": int((~pad).sum()),
+                    "occupied_windows": int((~pad).any(1).sum()),
+                    "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+                    "library_ms": min(runs["library"]),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": err, "sdpa_max_abs_err": sdpa_err}
+                print(f"  T={t:<3} W={w:<4} C={c} H={nhead}: "
+                      f"{shapes[key]['occupied_windows']} windows and "
+                      f"{shapes[key]['valid_slots']} of {slots} slots "
+                      f"occupied; kernel {shapes[key]['ms']:.4f} ms (runs "
+                      f"{runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), "
+                      f"twin {shapes[key]['plain_ms']:.4f} ms, SDPA "
+                      f"{shapes[key]['library_ms']:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}); max_abs_err "
+                      f"{err:.3e}, SDPA vs twin {sdpa_err:.3e}", flush=True)
+        print(f"  every (layer, bucket) input: max_abs_err {max(errs):.3e} "
+              f"(rtol 2^-7 + 2^-8 max|v| on valid query rows) ok",
+              flush=True)
+        edges = _mha_edge_cases(device)
+        for name, q, k, v, pad, h in edges:
+            got = wm.window_mha(q, k, v, pad, h)
+            ref = wm.window_mha_ref(q, k, v, pad, h)
+            torch.cuda.synchronize()
+            err, ok = _mha_close(got, ref, v, pad)
+            errs.append(err)
+            print(f"  {name:<48} max_abs_err={err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"window_mha disagrees with its twin on {name}")
+            if name.startswith("edge: contiguous"):
+                strided = wm.window_mha(*edges[0][1:])
+                if not torch.equal(got, strided):
+                    fail("window_mha gives other results on contiguous "
+                         "copies than on the strided column blocks")
+    return shapes, max(errs), max(sdpa_errs)
+
+
+def phase_sst_predict(model, frames):
+    """Drive the SST path; returns (window MHA launches, launches per frame
+    by (T, C, H), latency, capacity counters per frame)."""
+    results, per_frame = [], []
+    reset_launch_counts()
+    for frame in frames:
+        before = dict(wm.launch_counts)
+        results.append(inference_detector(model, frame.points[0]))
+        per_frame.append({k: v - before.get(k, 0)
+                          for k, v in wm.launch_counts.items()})
+    launches, others = wm.launches, sr.launches + scg.launches
+    split = per_frame[0]
+    print(f"SST predict: sst_waymo(train_buckets=False) on {len(frames)} "
+          f"frames; window_mha launches {launches}, per frame by (T, C, H) "
+          f"{split}; other kernels' launches {others}", flush=True)
+    if any(f != split for f in per_frame):
+        fail(f"window_mha launches differ between frames: {per_frame}")
+    n_attn = sum(isinstance(m, WindowAttention) for m in model.modules())
+    expected = n_attn * len(model.buckets)
+    if sum(split.values()) != expected:
+        fail(f"expected {expected} window_mha launches per frame "
+             f"({n_attn} attention layers x {len(model.buckets)} buckets), "
+             f"counted {sum(split.values())}")
+    max_num = model.test_cfg["max_num"]
+    for s, res in enumerate(results):
+        if res["boxes"].shape != (max_num, 7) or res["scores"].shape != (
+                max_num,):
+            fail(f"SST frame {s}: unexpected output shapes "
+                 f"{ {k: v.shape for k, v in res.items()} }")
+        for k in ("boxes", "scores"):
+            if not np.isfinite(res[k]).all():
+                fail(f"SST frame {s}: non-finite {k}")
+    diags = []
+    with torch.inference_mode():
+        for s, frame in enumerate(frames):
+            diag = {}
+            model.extract_feat(prepare_batch(model, frame.points[0]),
+                               diag=diag)
+            diags.append({k: float(v) for k, v in diag.items()})
+            note = "" if diags[-1]["num_window_dropped_voxels"] == 0 else (
+                " -- window caps DROPPED voxels on this frame")
+            print(f"  frame {s}: [1, {max_num}] predictions, "
+                  f"{int(results[s]['valid'].sum())} valid boxes; "
+                  f"{diags[-1]}{note}", flush=True)
+
+    timed = [event_ms(lambda f=frames[r % len(frames)]: inference_detector(
+        model, f.points[0])) for r in range(12)]
+    lat = statistics.median(timed)
+    print(f"SST predict latency (median of 12 CUDA-event runs after "
+          f"warm-up, inference_detector incl. host I/O): {lat:.2f} ms; runs "
+          f"{[round(t, 2) for t in timed]}", flush=True)
+    return launches, split, lat, diags
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -510,8 +777,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     model = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
-                         torch.Generator().manual_seed(0))
-    model = model.to(device).eval()
+                         torch.Generator().manual_seed(0)).eval()
     frames = _frames(4)
     print(f"model: fsdv2_waymo_dense f32, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
@@ -531,8 +797,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     sparse = init_weights(fsdv2_waymo(dtype=torch.float32, backbone="sparse"),
-                          torch.Generator().manual_seed(0))
-    sparse = sparse.to(device).eval()
+                          torch.Generator().manual_seed(0)).eval()
     n_convs = sum(isinstance(m, SparseConvLayer) for m in sparse.modules())
     print(f"model: fsdv2_waymo(backbone='sparse') f32, "
           f"{sum(p.numel() for p in sparse.parameters())} parameters, "
@@ -554,9 +819,42 @@ def main() -> None:
     if recorded != Counter(conv_split):
         fail(f"the convs timed in phase 6 {dict(recorded)} are not those "
              f"launched per frame in phase 7 {conv_split}")
+    del sparse, calls
 
-    per_frame = [(s["ms"] * s["calls_per_frame"],
-                  s["plain_ms"] * s["calls_per_frame"]) for s in shapes]
+    t0 = time.perf_counter()
+    sst = init_weights(sst_waymo(train_buckets=False, num_point_features=3),
+                       torch.Generator().manual_seed(0)).eval()
+    sst_frames = _sst_frames(4)
+    buckets = [(b.max_tokens, b.max_windows) for b in sst.buckets]
+    print(f"model: sst_waymo(train_buckets=False) f32 (bf16 attention), "
+          f"{sum(p.numel() for p in sst.parameters())} parameters, buckets "
+          f"(T, windows) {buckets}, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    mha_shapes, mha_err, sdpa_err = phase_sst_kernels(sst, sst_frames[0],
+                                                      device)
+    mha_launches, mha_split, sst_lat, sst_diags = phase_sst_predict(
+        sst, sst_frames)
+    untimed = set(mha_split) - set(mha_shapes)
+    if untimed:
+        fail(f"the SST path launched window_mha at (T, C, H) {untimed}, "
+             f"which phase 8 did not check or time")
+    for key, shape in mha_shapes.items():
+        shape["calls_per_frame"] = mha_split.get(key, 0)
+
+    def per_frame(rows, calls_key):
+        """Each timed shape times its launches per frame, summed."""
+        return {k: sum(r[k] * r[calls_key] for r in rows)
+                for k in ("ms", "plain_ms", "bound_ms")}
+
+    def bound_by(rows, calls_key):
+        by = Counter()
+        for r in rows:
+            by[r["bound_by"]] += r["bound_ms"] * r[calls_key]
+        return by.most_common(1)[0][0]
+
+    sr_frame = per_frame(shapes, "calls_per_frame")
+    mha_rows = list(mha_shapes.values())
+    mha_frame = per_frame(mha_rows, "calls_per_frame")
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
         "route": "cuda",
@@ -570,8 +868,13 @@ def main() -> None:
         "max_abs_err": max_err,
         # per frame of either path (the same segmentor VFE): each timed
         # shape times its launches per frame, as counted in phase 4
-        "ms": sum(k for k, _ in per_frame),
-        "plain_ms": sum(p for _, p in per_frame),
+        "ms": sr_frame["ms"],
+        "plain_ms": sr_frame["plain_ms"],
+        "bound_ms": sr_frame["bound_ms"],
+        "bound_by": bound_by(shapes, "calls_per_frame"),
+        # the twin is one index_add_ / scatter_reduce_ call into a zeroed
+        # buffer: the library call is the twin
+        "library_ms": sr_frame["plain_ms"],
         "shapes": shapes,
     }, {
         "name": "sparse_conv_gemm",
@@ -582,12 +885,37 @@ def main() -> None:
         "max_abs_err": conv_err,
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
-        "ms": conv_per_frame[0],
-        "plain_ms": conv_per_frame[1],
+        "ms": conv_per_frame["ms"],
+        "plain_ms": conv_per_frame["plain_ms"],
+        "bound_ms": conv_per_frame["bound_ms"],
+        "bound_by": bound_by(conv_shapes, "convs_per_frame"),
+        # no single PyTorch call gathers through a neighbour table and
+        # multiplies per tap
+        "library_ms": None,
         "shapes": conv_shapes,
+    }, {
+        "name": "window_mha",
+        "route": "cuda",
+        "source": "sst_tpu_torch/csrc/window_mha.cu",
+        "replaces": "sst_tpu/ops/pallas_attention.py:25",
+        "launches": mha_launches,
+        "max_abs_err": mha_err,
+        # per frame of the SST path: each bucket shape at its time on the
+        # first layer's inputs (phase 8) times its launches per frame
+        "ms": mha_frame["ms"],
+        "plain_ms": mha_frame["plain_ms"],
+        "bound_ms": mha_frame["bound_ms"],
+        "bound_by": bound_by(mha_rows, "calls_per_frame"),
+        "library_ms": sum(r["library_ms"] * r["calls_per_frame"]
+                          for r in mha_rows),
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "library_max_abs_err_vs_twin": sdpa_err,
+        "shapes": mha_rows,
     }], "build_s": build_s, "nvcc_s": nvcc_s, "predict_ms": {
         "dense_bev_sorted_reduce_kernel": lat[True],
-        "dense_bev_scatter": lat[False], "sparse": sparse_lat},
+        "dense_bev_scatter": lat[False], "sparse": sparse_lat,
+        "sst": sst_lat},
+        "sst_capacity_counters": sst_diags,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

@@ -5,6 +5,28 @@ from __future__ import annotations
 import torch
 
 
+def delta_decode(anchors, deltas):
+    """SECOND-style anchor residuals -> boxes (the inverse of the JAX
+    package's ``delta_encode``): z is the bottom centre on both sides, the
+    residuals compare centres. Extra channels add to the anchor's."""
+    xa, ya, za, wa, la, ha, ra = anchors[..., :7].unbind(-1)
+    xt, yt, zt, wt, lt, ht, rt = deltas[..., :7].unbind(-1)
+    za = za + ha / 2
+    diag = torch.sqrt(la**2 + wa**2)
+    xg = xt * diag + xa
+    yg = yt * diag + ya
+    zg = zt * ha + za
+    wg = torch.exp(wt) * wa
+    lg = torch.exp(lt) * la
+    hg = torch.exp(ht) * ha
+    rg = rt + ra
+    zg = zg - hg / 2
+    out = torch.stack([xg, yg, zg, wg, lg, hg, rg], dim=-1)
+    if deltas.shape[-1] > 7:
+        out = torch.cat([out, deltas[..., 7:] + anchors[..., 7:]], dim=-1)
+    return out
+
+
 def base_point_decode(base_points, preds, scale: float):
     """FSD coder: centre offset from a base point, log dims, (sin, cos) yaw;
     extra channels (velocity) pass through."""

@@ -20,8 +20,9 @@
 //   * drops ids outside [0, num_segments) for free: negative ids sort before
 //     segment 0 and ids >= num_segments after the last segment, so no binary
 //     search ever lands on them;
-//   * lets NaN through, as the plain twin and the TPU kernel do: a max over a
-//     segment holding a NaN is NaN (fmaxf would drop it).
+//   * writes 0 for a max that is not finite, the JAX package's segment_reduce
+//     function: a NaN sticks once seen (fmaxf would drop it) and is then
+//     zeroed with any +-inf maximum; a sum is written as it is.
 // Narrow rows (C = 3 on the flagship's cluster-centre pass) leave most lanes
 // of a warp idle; that is left for a later, faster version.
 //
@@ -80,7 +81,8 @@ sorted_segment_reduce_kernel(const float* __restrict__ data,
           acc += v;
         }
       }
-      out[static_cast<long long>(s) * c + ch] = end > start ? acc : 0.0f;
+      const bool keep = end > start && (!kMax || isfinite(acc));
+      out[static_cast<long long>(s) * c + ch] = keep ? acc : 0.0f;
     }
   }
 }

@@ -1,5 +1,9 @@
-"""Flagship model builders and the synthetic Waymo-like frame generator
-(counterpart of ``sst_tpu/flagship.py``, the FSDv2 builds only)."""
+"""Flagship model builders and the synthetic frame generators (counterpart
+of ``sst_tpu/flagship.py``: the SST and FSDv2 builds).
+
+Every builder returns its module on ``device``, the card by default, and
+raises if there is no card and the caller named no other device
+(:func:`on_device`)."""
 
 from __future__ import annotations
 
@@ -9,15 +13,130 @@ import numpy as np
 import torch
 from torch import nn
 
-from sst_tpu_torch.models import PointBatch
+from sst_tpu_torch.models import DynamicVoxelNet, PointBatch
 from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
 from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegHead
 from sst_tpu_torch.models.sparse_unet import SparseConvLayer
+from sst_tpu_torch.ops.window import BucketSpec
+
+
+def sst_waymo(max_points: int = 196608, max_voxels: int = 65536,
+              train_buckets: bool = True, dtype=torch.float32,
+              num_point_features: int = 5, device="cuda"):
+    """Full-scale SST-Waymo (configs/sst/sst_waymoD5_1x_3class_8heads.py):
+    the widths and caps of ``sst_tpu/flagship.py sst_waymo``. 468x468
+    pillars of 0.32 m, 12x12 windows, at most 2,048 windows per shift;
+    drop buckets (max tokens, window cap) (30, 1536), (60, 1280),
+    (100, 768) for training and (30, 896), (60, 768), (100, 320),
+    (144, 160) at test time (``train_buckets=False``); a 6-block d128,
+    8-head, FFN-256 SSTv2 with three attached 3x3 convs (the last at
+    dilation 2), SECONDFPN(384) and a 3-class Anchor3DHead with 2
+    rotations. Every window attention runs the hand-written window MHA
+    kernel on the card.
+
+    Only float32 is ported (the attention is bf16 inside, as on the JAX
+    Pallas path). ``max_points`` is the point cap ``apis.prepare_batch``
+    pads to; ``num_point_features`` the width of a point row."""
+    if train_buckets:
+        buckets = (
+            BucketSpec(30, 0, 30, 1536),
+            BucketSpec(60, 30, 60, 1280),
+            BucketSpec(100, 60, 100000, 768),
+        )
+    else:
+        buckets = (
+            BucketSpec(30, 0, 30, 896),
+            BucketSpec(60, 30, 60, 768),
+            BucketSpec(100, 60, 100, 320),
+            BucketSpec(144, 100, 100000, 160),
+        )
+    return on_device(DynamicVoxelNet(
+        num_point_features=num_point_features,
+        voxel_size=(0.32, 0.32, 6.0),
+        point_cloud_range=(-74.88, -74.88, -2.0, 74.88, 74.88, 4.0),
+        max_voxels=max_voxels,
+        max_total_windows=2048,
+        window_shape=(12, 12),
+        buckets=buckets,
+        vfe=dict(feat_channels=(64, 128)),
+        backbone=dict(
+            d_model=(128,) * 6, nhead=(8,) * 6, num_blocks=6,
+            dim_feedforward=(256,) * 6, num_attached_conv=3,
+            conv_kwargs=(
+                {"kernel_size": 3, "dilation": 1},
+                {"kernel_size": 3, "dilation": 1},
+                {"kernel_size": 3, "dilation": 2},
+            ),
+            conv_out_channel=128, in_channel=128,
+        ),
+        neck=dict(out_channels=(384,)),
+        head=dict(num_classes=3, feat_channels=384),
+        dtype=dtype,
+    ), device, max_points)
+
+
+def tiny_sst(grid: int = 32, num_point_features: int = 3, device="cuda"):
+    """Small SST for CPU tests (same config as the JAX ``tiny_sst``), on
+    ``device``."""
+    half = grid * 0.4 / 2
+    return on_device(DynamicVoxelNet(
+        num_point_features=num_point_features,
+        voxel_size=(0.4, 0.4, 6.0),
+        point_cloud_range=(-half, -half, -2.0, half, half, 4.0),
+        max_voxels=512,
+        max_total_windows=128,
+        window_shape=(4, 4),
+        buckets=(BucketSpec(8, 0, 8, 64), BucketSpec(16, 8, 100000, 32)),
+        vfe=dict(feat_channels=(16, 32)),
+        backbone=dict(
+            d_model=(32, 32), nhead=(2, 2), num_blocks=2,
+            dim_feedforward=(64, 64), num_attached_conv=1,
+            conv_kwargs=({"kernel_size": 3, "dilation": 1},),
+            conv_out_channel=32, in_channel=32,
+        ),
+        neck=dict(out_channels=(64,)),
+        head=dict(
+            num_classes=3, feat_channels=64,
+            anchor_ranges=(
+                (-half, -half, -0.0345, half, half, -0.0345),
+                (-half, -half, -0.1188, half, half, -0.1188),
+                (-half, -half, 0.0, half, half, 0.0),
+            ),
+        ),
+        test_cfg=dict(score_thr=0.1, nms_thr=0.25, nms_pre=64, max_num=32,
+                      use_rotate_nms=True),
+    ), device)
+
+
+def tiny_batch(batch_size: int = 2, num_points: int = 512,
+               seed: int = 0) -> PointBatch:
+    """Uniform points in the ``tiny_sst`` range as numpy arrays,
+    bit-identical to the JAX package's ``tiny_batch``."""
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-6, 6, (batch_size, num_points, 3)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1, 2, (batch_size, num_points))
+    g = 8
+    boxes = np.concatenate(
+        [
+            rng.uniform(-5, 5, (batch_size, g, 2)),
+            np.full((batch_size, g, 1), -0.1),
+            rng.uniform(0.8, 4.0, (batch_size, g, 3)),
+            rng.uniform(-np.pi, np.pi, (batch_size, g, 1)),
+        ],
+        -1,
+    ).astype(np.float32)
+    return PointBatch(
+        points=pts,
+        valid=np.ones((batch_size, num_points), bool),
+        gt_boxes=boxes,
+        gt_labels=rng.randint(0, 3, (batch_size, g)).astype(np.int32),
+        gt_valid=np.ones((batch_size, g), bool),
+    )
 
 
 def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
                 as_rpn: bool = False, backbone: str = "dense_bev",
-                num_point_features: int = 5):
+                num_point_features: int = 5, device="cuda"):
     """Full-scale FSDv2-Waymo (configs/fsdv2/fsdv2_waymo_1x.py): segmentor
     voxels 0.25x0.25x0.2 m over (-80, 80) m, 0.5 m virtual voxels.
 
@@ -33,15 +152,18 @@ def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
     sort-based voxel unique, so its three per-voxel reductions run the
     sorted segment reduce kernel too.
 
-    Only float32 is ported; ``max_points`` is unused, as in the JAX builder;
-    ``num_point_features`` is the width of a point row."""
+    Only float32 is ported; ``max_points`` is the point cap
+    ``apis.prepare_batch`` pads to; ``num_point_features`` is the width of a
+    point row. The module is returned on ``device`` (see :func:`on_device`).
+    """
     if backbone == "dense_bev":
         return fsdv2_waymo_dense(max_points=max_points, dtype=dtype,
                                  as_rpn=as_rpn,
-                                 num_point_features=num_point_features)
+                                 num_point_features=num_point_features,
+                                 device=device)
     if backbone != "sparse":
         raise NotImplementedError(f"backbone={backbone!r}")
-    return SingleStageFSDV2(
+    return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
         point_cloud_range=(-80.0, -80.0, -2.0, 80.0, 80.0, 4.0),
         virtual_voxel_size=(0.5, 0.5, 0.5),
@@ -95,12 +217,13 @@ def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
         test_cfg=dict(score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
                       use_rotate_nms=True),
         dtype=dtype,
-    )
+    ), device, max_points)
 
 
 def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
                       as_rpn: bool = False, z_groups: int = 4,
-                      cap_scale: int = 1, num_point_features: int = 5):
+                      cap_scale: int = 1, num_point_features: int = 5,
+                      device="cuda"):
     """Full-scale FSDv2-Waymo, dense-BEV build: the same widths and caps as
     ``sst_tpu/flagship.py fsdv2_waymo_dense`` (segmentor at 0.25x0.25x0.2 m
     over (-80, 80) m, 2D UNet at 640² → 80², dense z-sliced mixer over the
@@ -115,13 +238,14 @@ def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
     ``chip_smoke.py`` records. The virtual-grid VFE takes the canvas unique,
     which yields no sort order, so it stays on scatters either way.
 
-    Only float32 is ported; ``max_points`` is unused (the point cap is the
-    caller's padded batch size), as in the JAX builder.
+    Only float32 is ported; ``max_points`` is the point cap
+    ``apis.prepare_batch`` pads to. The module is returned on ``device``
+    (see :func:`on_device`).
 
     num_point_features: width of a point row (x, y, z + intensity,
     elongation for Waymo)."""
     k = cap_scale
-    return SingleStageFSDV2(
+    return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
         point_cloud_range=(-80.0, -80.0, -2.0, 80.0, 80.0, 4.0),
         virtual_voxel_size=(0.5, 0.5, 0.5),
@@ -171,14 +295,16 @@ def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
         test_cfg=dict(score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
                       use_rotate_nms=True),
         dtype=dtype,
-    )
+    ), device, max_points)
 
 
 def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
-                     num_point_features: int = 3, segmentor_overrides=None):
+                     num_point_features: int = 3, segmentor_overrides=None,
+                     device="cuda"):
     """Small dense-BEV FSDv2 for CPU tests (same config as the JAX
-    ``tiny_fsdv2_dense``). ``segmentor_overrides`` updates the segmentor
-    dict, e.g. a finer voxel so that its voxel unique sorts."""
+    ``tiny_fsdv2_dense``), on ``device``. ``segmentor_overrides`` updates
+    the segmentor dict, e.g. a finer voxel so that its voxel unique
+    sorts."""
     half = grid * 0.5 / 2
     segmentor = dict(
         voxel_size=(0.5, 0.5, 0.5),
@@ -196,7 +322,7 @@ def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
         head=dict(num_classes=3, hidden_dims=(16, 16)),
     )
     segmentor.update(segmentor_overrides or {})
-    return SingleStageFSDV2(
+    return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
         point_cloud_range=(-half, -half, -2.0, half, half, 4.0),
         virtual_voxel_size=(0.5, 0.5, 0.5),
@@ -220,14 +346,15 @@ def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
         ),
         test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
                       use_rotate_nms=True),
-    )
+    ), device)
 
 
-def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3):
+def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3,
+                        device="cuda"):
     """Small sparse-UNet FSDv2 for CPU tests (same config as the JAX
-    ``tiny_fsdv2_flagship``)."""
+    ``tiny_fsdv2_flagship``), on ``device``."""
     half = grid * 0.5 / 2
-    return SingleStageFSDV2(
+    return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
         point_cloud_range=(-half, -half, -2.0, half, half, 4.0),
         virtual_voxel_size=(0.5, 0.5, 0.5),
@@ -267,7 +394,25 @@ def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3):
         ),
         test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
                       use_rotate_nms=True),
-    )
+    ), device)
+
+
+def on_device(model: nn.Module, device="cuda",
+              max_points: int | None = None) -> nn.Module:
+    """``model`` moved to ``device``, with ``max_points`` (where the builder
+    gives one) kept as the point cap of ``apis.prepare_batch``.
+
+    The builders default to the card and never fall back to the CPU: asking
+    for a CUDA device where there is none raises. Pass ``device="cpu"`` for
+    the CPU (the tests do)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} asked for, but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to build the model on the CPU")
+    if max_points is not None:
+        model.max_points = max_points
+    return model.to(device)
 
 
 @torch.no_grad()
@@ -276,24 +421,30 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     initializer families: Linear and Conv weights normal with variance
     1/fan_in, sparse conv weights [K, Cin, Cout] normal with variance
     1/(K*Cin), biases 0 (the seg head's class bias ``init_bias``), norm
-    scales 1, z embeddings normal(0, 0.02). Call before moving the model to
-    its device, with a CPU generator, so the weights do not depend on the
+    scales 1 and offsets 0, z embeddings normal(0, 0.02). Each tensor is
+    drawn on the CPU from ``generator`` (a CPU generator) and copied into
+    the parameter wherever it lies, so the weights do not depend on the
     device."""
+
+    def normal_(param, std):
+        param.copy_(torch.empty(param.shape).normal_(0.0, std,
+                                                     generator=generator))
+
     for mod in model.modules():
         if isinstance(mod, SparseConvLayer):
             fan_in = mod.weight.shape[0] * mod.weight.shape[1]
-            mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
-                               generator=generator)
+            normal_(mod.weight, 1.0 / math.sqrt(fan_in))
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            fan_in = mod.weight[0].numel()
-            mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
-                               generator=generator)
+            normal_(mod.weight, 1.0 / math.sqrt(mod.weight[0].numel()))
             if mod.bias is not None:
                 mod.bias.zero_()
+        if isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
         if isinstance(mod, VoteSegHead):
             mod.conv_seg.bias.fill_(mod.init_bias)
         if hasattr(mod, "z_embed"):
-            mod.z_embed.normal_(0.0, 0.02, generator=generator)
+            normal_(mod.z_embed, 0.02)
     return model
 
 

@@ -34,3 +34,12 @@ class PointBatch:
 
         return PointBatch(**{f.name: conv(getattr(self, f.name))
                              for f in fields(self)})
+
+
+# the detectors import PointBatch from here, so they come after it
+from sst_tpu_torch.models.detectors.dynamic_voxelnet import (  # noqa: E402
+    DynamicVoxelNet,
+)
+from sst_tpu_torch.models.fsd.fsdv2 import SingleStageFSDV2  # noqa: E402
+
+__all__ = ["DynamicVoxelNet", "PointBatch", "SingleStageFSDV2"]

@@ -1,0 +1,122 @@
+"""DynamicVoxelNet, the SST detector (counterpart of
+``sst_tpu/models/detectors/dynamic_voxelnet.py``; inference).
+
+Dynamic voxelize -> DynamicVFE -> SST input layer (window plans) -> SSTv2
+-> SECONDFPN -> Anchor3DHead. The static capacities (voxels, windows per
+bucket) come from the config; ``extract_feat(diag=...)`` reports what they
+dropped. ``head_type="center"`` (CenterHead) is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sst_tpu_torch.models import PointBatch
+from sst_tpu_torch.models.heads.anchor3d import Anchor3DHead
+from sst_tpu_torch.models.layers import require_inference
+from sst_tpu_torch.models.second import SECONDFPN
+from sst_tpu_torch.models.sst import SSTv1, SSTv2
+from sst_tpu_torch.models.sst_input import sst_input_layer
+from sst_tpu_torch.models.vfe import DynamicVFE
+from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
+from sst_tpu_torch.ops.window import BucketSpec
+
+DEFAULT_TEST_CFG = dict(score_thr=0.1, nms_thr=0.25, nms_pre=1024,
+                        max_num=500, use_rotate_nms=True)
+
+
+class DynamicVoxelNet(nn.Module):
+    """``num_point_features`` is the width of the raw point rows (xyz
+    first)."""
+
+    def __init__(self, num_point_features: int = 3,
+                 voxel_size: tuple = (0.32, 0.32, 6.0),
+                 point_cloud_range: tuple = (-74.88, -74.88, -2.0, 74.88,
+                                             74.88, 4.0),
+                 max_voxels: int = 32768, max_total_windows: int = 8192,
+                 window_shape: tuple = (12, 12),
+                 buckets: tuple = (BucketSpec(30, 0, 30, 2048),
+                                   BucketSpec(60, 30, 60, 512),
+                                   BucketSpec(100, 60, 100000, 256)),
+                 vfe: dict | None = None, backbone: dict | None = None,
+                 neck: dict | None = None, head: dict | None = None,
+                 head_type: str = "anchor", backbone_type: str = "sstv2",
+                 test_cfg: dict | None = None, dtype=torch.float32):
+        super().__init__()
+        if head_type != "anchor":
+            raise NotImplementedError(f"head_type={head_type!r}")
+        if backbone_type not in ("sstv2", "sstv1"):
+            raise NotImplementedError(f"backbone_type={backbone_type!r}")
+        if dtype != torch.float32:
+            raise NotImplementedError(f"dtype={dtype}: only float32 is ported")
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.max_voxels = max_voxels
+        self.max_total_windows = max_total_windows
+        self.window_shape = tuple(window_shape)
+        self.buckets = tuple(buckets)
+        self.test_cfg = dict(test_cfg or DEFAULT_TEST_CFG)
+        _, ny, nx = grid_shape_zyx(self.point_cloud_range, self.voxel_size)
+        self.bev_shape = (ny, nx)
+
+        self.vfe_mod = DynamicVFE(num_point_features,
+                                  voxel_size=self.voxel_size,
+                                  point_cloud_range=self.point_cloud_range,
+                                  **(vfe or {}))
+        bb = dict(output_shape=self.bev_shape)
+        bb.update(backbone or {})
+        sst_cls = SSTv1 if backbone_type == "sstv1" else SSTv2
+        self.backbone_mod = sst_cls(**bb)
+        self.neck_mod = SECONDFPN(self.backbone_mod.out_channels,
+                                  **(neck or {}))
+        self.head_mod = Anchor3DHead(**(head or {}))
+
+    def extract_feat(self, batch: PointBatch, train: bool = False,
+                     diag: dict | None = None):
+        """BEV features [B, C, H, W]. ``diag``, if given, receives the
+        capacity counters: ``num_voxels``, ``num_voxel_overflow_points``
+        (points whose voxel fell past ``max_voxels``),
+        ``num_window_seat_trimmed_voxels`` (SST's own drop rule, expected
+        on dense frames) and ``num_window_dropped_voxels`` (window-cap
+        overflow, which should be 0)."""
+        require_inference(train)
+        b, p, _ = batch.points.shape
+        pts = batch.points.reshape(b * p, -1)
+        batch_idx = torch.arange(b, dtype=torch.int32,
+                                 device=pts.device).repeat_interleave(p)
+        vm = dynamic_voxelize(pts, batch_idx, batch.valid.reshape(-1),
+                              self.point_cloud_range, self.voxel_size,
+                              self.max_voxels, b)
+        voxel_feats = self.vfe_mod(pts, vm)
+        ny, nx = self.bev_shape
+        plan = sst_input_layer(
+            vm.voxel_coords, vm.voxel_valid, sparse_shape=(nx, ny, 1),
+            window_shape=self.window_shape, buckets=self.buckets,
+            d_model=self.backbone_mod.d_model[0],
+            max_total_windows=self.max_total_windows)
+        bev, _ = self.backbone_mod(voxel_feats, vm.voxel_coords, plan, b)
+        feats = self.neck_mod(bev)
+        if diag is not None:
+            diag["num_voxels"] = vm.voxel_valid.sum().float()
+            diag["num_voxel_overflow_points"] = (
+                vm.valid & (vm.unique.seg_ids >= self.max_voxels)
+            ).sum().float()
+            total_win_lost = (vm.voxel_valid & ~plan.valid).sum().float()
+            seat = plan.num_seat_trimmed.float()
+            diag["num_window_seat_trimmed_voxels"] = seat
+            diag["num_window_dropped_voxels"] = total_win_lost - seat
+        return feats
+
+    def forward(self, batch: PointBatch, train: bool = False,
+                diag: dict | None = None):
+        return self.head_mod(self.extract_feat(batch, train, diag))
+
+    @torch.inference_mode()
+    def predict(self, batch: PointBatch):
+        """Boxes for a batch: dict of [B, max_num] boxes, scores, labels and
+        valid."""
+        preds = self(batch)
+        h, w = preds["cls"].shape[1:3]
+        anchors = self.head_mod.grid_anchors((h, w), preds["cls"].device)
+        return self.head_mod.get_bboxes(preds, anchors, **self.test_cfg)

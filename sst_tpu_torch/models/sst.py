@@ -1,0 +1,200 @@
+"""SST backbone: windowed multi-head attention over bucketed dense windows
+(counterpart of ``sst_tpu/models/sst.py``).
+
+Submodules keep flax's names (``qk_proj``, ``v_proj``, ``out_proj``,
+``WindowAttention_0``, ``LayerNorm_0/1``, ``Dense_0/1``, ``encoder_{i}``,
+``block_{i}``, ``linear0``, ``attached_conv_{i}``) so that
+``sst_tpu_torch/convert.py`` maps a flax variable tree onto them name for
+name.
+
+The attention of every window bucket is ``ops/window_mha.py window_mha``:
+the JAX package's fused Pallas kernel's function (f32 logits of bf16 q and
+k, bf16 probabilities into AV) on every device, the hand-written kernel on
+the card and its plain twin on the CPU. The JAX einsum fallback, which takes
+bf16 logits, has no counterpart; nor do ``use_pallas`` (the fused kernel is
+the only path) and ``remat_blocks`` (a training memory switch). Cosine
+attention raises.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from sst_tpu_torch.models.layers import (
+    ACTIVATIONS,
+    ConvNormAct,
+    require_inference,
+)
+from sst_tpu_torch.models.sst_input import SSTPlan
+from sst_tpu_torch.ops.window import (
+    FlatToWindow,
+    flat2window,
+    window2flat,
+    window_key_padding,
+)
+from sst_tpu_torch.ops.window_mha import window_mha
+
+
+class WindowAttention(nn.Module):
+    """Bucketed windowed MHA. The projections run on the flat [N, C]
+    voxels; q and k see ``feat + pos``, v sees ``feat``."""
+
+    def __init__(self, d_model: int, nhead: int, cosine: bool = False):
+        super().__init__()
+        if cosine:
+            raise NotImplementedError("cosine window attention")
+        self.d_model = d_model
+        self.nhead = nhead
+        self.qk_proj = nn.Linear(d_model, 2 * d_model)
+        self.v_proj = nn.Linear(d_model, d_model)
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def windows(self, feat, pos, f2w: FlatToWindow):
+        """Per bucket, the attention's inputs (q, k, v, pad): q, k, v are
+        [W, T, C] bf16 column blocks of one windowed [W, T, 3C] buffer,
+        pad is [W, T] bool (True = empty slot)."""
+        qk = self.qk_proj(feat + pos.to(feat.dtype))
+        v = self.v_proj(feat)
+        # cast on the flat rows, so the window gather moves bf16
+        qkv = torch.cat([qk, v], dim=-1).to(torch.bfloat16)
+        return [tuple(qkvw.split(self.d_model, dim=-1)) + (pad,)
+                for qkvw, pad in zip(flat2window(qkv, f2w),
+                                     window_key_padding(f2w))]
+
+    def forward(self, feat, pos, f2w: FlatToWindow):
+        outs = [window_mha(q, k, v, pad, self.nhead)
+                for q, k, v, pad in self.windows(feat, pos, f2w)]
+        # bf16 through the gather back, then f32 on the flat rows
+        flat = window2flat(outs, f2w).to(feat.dtype)
+        return self.out_proj(flat)
+
+
+class EncoderLayer(nn.Module):
+    """Transformer encoder layer, post-norm (default) or pre-norm; flax
+    LayerNorm eps 1e-6."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 activation: str = "gelu", post_norm: bool = True,
+                 cosine: bool = False):
+        super().__init__()
+        self.post_norm = post_norm
+        self.act = ACTIVATIONS[activation]
+        self.WindowAttention_0 = WindowAttention(d_model, nhead, cosine)
+        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=1e-6)
+        self.Dense_0 = nn.Linear(d_model, dim_feedforward)
+        self.Dense_1 = nn.Linear(dim_feedforward, d_model)
+        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, src, pos, f2w: FlatToWindow):
+        if self.post_norm:
+            src = self.LayerNorm_0(src + self.WindowAttention_0(src, pos,
+                                                                f2w))
+            src2 = self.Dense_1(self.act(self.Dense_0(src)))
+            return self.LayerNorm_1(src + src2)
+        src = src + self.WindowAttention_0(self.LayerNorm_0(src), pos, f2w)
+        src2 = self.Dense_0(self.LayerNorm_1(src))
+        return src + self.Dense_1(self.act(src2))
+
+
+class BasicShiftBlock(nn.Module):
+    """Two encoder layers: the unshifted windows, then the shifted ones."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 activation: str = "gelu", cosine: bool = False):
+        super().__init__()
+        for i in range(2):
+            self.add_module(f"encoder_{i}", EncoderLayer(
+                d_model, nhead, dim_feedforward, activation, cosine=cosine))
+
+    def forward(self, src, plan: SSTPlan):
+        for i in range(2):
+            src = getattr(self, f"encoder_{i}")(src, plan.pos[i],
+                                                plan.f2w[i])
+        return src
+
+
+def recover_bev(voxel_feat, voxel_coords, voxel_valid, batch_size: int,
+                output_shape) -> torch.Tensor:
+    """Voxel features onto a dense BEV canvas: one scatter into NHWC rows
+    ``(b * ny + y) * nx + x``, returned as an NCHW view of them
+    ([B, C, ny, nx], channels-last strides, no copy)."""
+    ny, nx = output_shape
+    c = voxel_feat.shape[-1]
+    size = batch_size * ny * nx
+    flat_idx = (voxel_coords[:, 0] * ny + voxel_coords[:, 2]) * nx \
+        + voxel_coords[:, 3]
+    flat_idx = torch.where(voxel_valid, flat_idx, size).long()
+    canvas = voxel_feat.new_zeros((size + 1, c))
+    canvas[flat_idx] = torch.where(voxel_valid[:, None], voxel_feat, 0.0)
+    return canvas[:size].reshape(batch_size, ny, nx, c).permute(0, 3, 1, 2)
+
+
+class SSTv2(nn.Module):
+    """Single-stride sparse transformer backbone. Returns (BEV map NCHW,
+    surviving-voxel mask). The JAX module's ``to_bev=False`` and
+    ``conv_shortcut`` options are not ported.
+
+    ``in_channel``: width of the voxel features; with it, ``linear0``
+    projects them to ``d_model[0]``, without it they must be that wide.
+    ``conv_kwargs``: per attached conv, its ``kernel_size`` and
+    ``dilation``."""
+
+    def __init__(self, d_model: Sequence[int] = (128,) * 6,
+                 nhead: Sequence[int] = (8,) * 6, num_blocks: int = 6,
+                 dim_feedforward: Sequence[int] = (256,) * 6,
+                 activation: str = "gelu", output_shape: tuple = (468, 468),
+                 num_attached_conv: int = 3,
+                 conv_kwargs: tuple = ({"kernel_size": 3, "dilation": 1},
+                                       {"kernel_size": 3, "dilation": 1},
+                                       {"kernel_size": 3, "dilation": 2}),
+                 conv_out_channel: int = 128, in_channel: int | None = None,
+                 cosine: bool = False):
+        super().__init__()
+        if cosine:
+            raise NotImplementedError("cosine window attention")
+        self.d_model = tuple(d_model)
+        self.num_blocks = num_blocks
+        self.output_shape = tuple(output_shape)
+        self.num_attached_conv = num_attached_conv
+        if in_channel is not None:
+            self.linear0 = nn.Linear(in_channel, self.d_model[0])
+        else:
+            self.linear0 = None
+        for i in range(num_blocks):
+            self.add_module(f"block_{i}", BasicShiftBlock(
+                self.d_model[i], nhead[i], dim_feedforward[i], activation))
+        c = self.d_model[num_blocks - 1]
+        for i in range(num_attached_conv):
+            self.add_module(f"attached_conv_{i}", ConvNormAct(
+                c, conv_out_channel, act="relu", **conv_kwargs[i]))
+            c = conv_out_channel
+        self.out_channels = c
+
+    def forward(self, voxel_feats, voxel_coords, plan: SSTPlan,
+                batch_size: int, train: bool = False):
+        require_inference(train)
+        x = voxel_feats
+        if self.linear0 is not None:
+            x = self.linear0(x)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x, plan)
+        bev = recover_bev(x, voxel_coords, plan.valid, batch_size,
+                          self.output_shape)
+        for i in range(self.num_attached_conv):
+            bev = getattr(self, f"attached_conv_{i}")(bev)
+        return bev, plan.valid
+
+
+class SSTv1(SSTv2):
+    """SSTv1: under the static window plan its forward is SSTv2's; only the
+    defaults differ (two dilation-2 attached convs)."""
+
+    def __init__(self, num_attached_conv: int = 2,
+                 conv_kwargs: tuple = ({"kernel_size": 3, "dilation": 2},
+                                       {"kernel_size": 3, "dilation": 2}),
+                 **kw):
+        super().__init__(num_attached_conv=num_attached_conv,
+                         conv_kwargs=conv_kwargs, **kw)

@@ -135,7 +135,9 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
 
     Returns [num_segments, C]. Empty segments are 0 in every mode; max and
     min ignore the zero init (``include_self=False``), so a segment of
-    negative values keeps its negative maximum.
+    negative values keeps its negative maximum. A max or min that is not
+    finite (a segment holding a NaN, or an infinite extreme) is written as
+    0, as the JAX package does.
     """
     squeeze = data.dim() == 1
     if squeeze:
@@ -152,6 +154,7 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
         out.scatter_reduce_(0, idx[:, None].expand_as(data), data,
                             "amax" if mode == "max" else "amin",
                             include_self=False)
+        out = torch.where(torch.isfinite(out), out, 0.0)
     else:
         raise NotImplementedError(mode)
     out = out[:num_segments]

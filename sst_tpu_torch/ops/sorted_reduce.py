@@ -57,7 +57,8 @@ def sorted_segment_reduce_ref(data: torch.Tensor, seg: torch.Tensor,
 
     Ids outside [0, num_segments) go to an extra row that is sliced off;
     max ignores the zero init (``include_self=False``), so empty segments
-    read 0 and negative maxima stay negative. Rows need not be sorted."""
+    read 0 and negative maxima stay negative, and a max that is not finite
+    reads 0. Rows need not be sorted."""
     idx = seg.long()
     idx = torch.where((idx >= 0) & (idx < num_segments), idx, num_segments)
     out = data.new_zeros((num_segments + 1, data.shape[1]))
@@ -66,6 +67,7 @@ def sorted_segment_reduce_ref(data: torch.Tensor, seg: torch.Tensor,
     else:
         out.scatter_reduce_(0, idx[:, None].expand_as(data), data, "amax",
                             include_self=False)
+        out = torch.where(torch.isfinite(out), out, 0.0)
     return out[:num_segments]
 
 
@@ -107,10 +109,10 @@ def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
         dropped.
       num_segments: output rows.
       mode: 'sum' | 'max'.
-    Returns [num_segments, C] float32; empty segments are 0, and a max over
-    a segment holding a NaN is NaN, in the kernel and in the twin alike (the
-    JAX package's scatter max reads 0 there and its Pallas kernel is not
-    defined on NaN; the port does not hide a NaN).
+    Returns [num_segments, C] float32; empty segments are 0, and a max that
+    is not finite (a segment holding a NaN, or a maximum of +-inf) is 0, in
+    the kernel and in the twin alike: the JAX package's ``segment_reduce``
+    function. A sum holding a NaN or an inf stays non-finite.
     """
     _check(data, seg, num_segments, mode)
     if data.device.type == "cpu":

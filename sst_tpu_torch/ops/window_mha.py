@@ -1,0 +1,140 @@
+"""Fused multi-head attention inside SST's windows, as a Hopper kernel.
+
+Counterpart of ``sst_tpu/ops/pallas_attention.py`` (``_mha_kernel``, reached
+through ``window_mha``). For q, k, v ``[W, T, C]`` bf16 and a key padding
+mask ``[W, T]`` (True = padded slot) it computes, per window and head of
+width ``dh = C / H``, the Pallas kernel's function with its roundings: f32
+logits of the bf16 inputs times ``1/sqrt(dh)``, ``-1e4`` added on padded
+keys, a max-subtracted f32 ``exp``, the row sum over the unrounded
+probabilities, ``sum bf16(p) * v`` accumulated in f32, divided by the row
+sum after AV, rounded to bf16. Rows of padded queries are finite and
+meaningless. The kernel is ``csrc/window_mha.cu``; the source note there
+says what bounds it and how it is laid out.
+
+Dispatch is by the device of the tensors alone: a CPU tensor goes to the
+plain PyTorch twin :func:`window_mha_ref`, a CUDA tensor to the kernel (or
+the call raises). ``launches`` counts kernel launches and ``launch_counts``
+splits them by ``(T, C, H)``, so a run can show that its main path went
+through the kernel, and at which shapes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+HEAD_DIM = 16  # the kernel's head width: SST's d_model 128 over 8 heads
+MAX_TOKENS = 320  # the kernel's shared-memory bound on T
+
+launches = 0  # kernel launches in this process
+launch_counts: dict[tuple[int, int, int], int] = {}  # by (T, C, H)
+
+
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+    launch_counts.clear()
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           pad: torch.Tensor, nhead: int) -> None:
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"expected q, k, v of one shape [W, T, C], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    w, t, c = q.shape
+    if pad.shape != (w, t):
+        raise ValueError(f"expected pad [W, T] = {(w, t)}, got "
+                         f"{tuple(pad.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"q, k, v must be bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if pad.dtype != torch.bool:
+        raise TypeError(f"pad must be bool, got {pad.dtype}")
+    if not (q.device == k.device == v.device == pad.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}, pad on {pad.device}")
+    if nhead <= 0 or c % nhead:
+        raise ValueError(f"C={c} is not a multiple of nhead={nhead}")
+
+
+def window_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   pad: torch.Tensor, nhead: int) -> torch.Tensor:
+    """Plain PyTorch twin: f32 einsums of the bf16 inputs with the kernel's
+    roundings (bf16 probabilities into AV, the division after AV, a bf16
+    output)."""
+    w, t, c = q.shape
+    dh = c // nhead
+    q4, k4, v4 = (x.float().reshape(w, t, nhead, dh) for x in (q, k, v))
+    logits = torch.einsum("wthd,wshd->whts", q4, k4) * (1.0 / math.sqrt(dh))
+    logits = logits + pad.float()[:, None, None, :] * -1e4
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    s = p.sum(-1, keepdim=True).permute(0, 2, 1, 3)  # [W, T, H, 1]
+    o = torch.einsum("whts,wshd->wthd", p.bfloat16().float(), v4)
+    return (o / s).to(torch.bfloat16).reshape(w, t, c)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            pad: torch.Tensor, nhead: int) -> torch.Tensor:
+    from sst_tpu_torch.utils.nvcc import load_kernel_library
+
+    global launches
+    w, t, c = q.shape
+    if c != nhead * HEAD_DIM:
+        raise ValueError(f"the kernel takes heads of width {HEAD_DIM}; got "
+                         f"C={c} over {nhead} heads")
+    if t > MAX_TOKENS:
+        raise ValueError(f"the kernel takes T <= {MAX_TOKENS}, got {t}")
+    if not (q.stride() == k.stride() == v.stride()) or q.stride(2) != 1:
+        raise ValueError(f"q, k, v must share their strides and have unit "
+                         f"channel stride, got {q.stride()}, {k.stride()}, "
+                         f"{v.stride()}")
+    if min(q.stride(0), q.stride(1)) <= 0:
+        raise ValueError(f"q, k, v need positive window and row strides, "
+                         f"got {q.stride()}")
+    pad = pad.contiguous()
+    fn = load_kernel_library("window_mha").lib.sst_window_mha_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((w, t, c), dtype=torch.bfloat16, device=q.device)
+    if w == 0 or t == 0:
+        return out
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+                out.data_ptr(), w, t, c, nhead, q.stride(1), q.stride(0),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"window_mha kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    key = (t, c, nhead)
+    launch_counts[key] = launch_counts.get(key, 0) + 1
+    return out
+
+
+def window_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               pad: torch.Tensor, nhead: int) -> torch.Tensor:
+    """Attention inside each window.
+
+    Args:
+      q, k, v: [W, T, C] bfloat16; on the card they may be the three column
+        blocks of one [W, T, 3C] buffer (shared strides, unit channel
+        stride), so the split costs no copy.
+      pad: [W, T] bool, True for a padded key slot.
+      nhead: heads; on the card C must be ``nhead * 16`` and T at most 320.
+    Returns [W, T, C] bfloat16, contiguous.
+    """
+    _check(q, k, v, pad, nhead)
+    if q.device.type == "cpu":
+        return window_mha_ref(q, k, v, pad, nhead)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "window_mha has no backward yet; call it under torch.no_grad() "
+            "or inference_mode()")
+    return _launch(q, k, v, pad, nhead)

@@ -1,17 +1,24 @@
-"""Where the time of FSDv2-Waymo predict goes, on one CUDA card.
+"""Where the time of FSDv2-Waymo or SST-Waymo predict goes, on one CUDA
+card.
 
     python -m sst_tpu_torch.tools.profile_predict [--backbone sparse]
+    python -m sst_tpu_torch.tools.profile_predict --model sst
 
-The model (``fsdv2_waymo(backbone=...)``, dense-BEV by default) and frames
-are those of ``chip_smoke.py``: full widths, float32 with TF32 off, random
-weights from seed 0, synthetic Waymo-like frames of 196,608 points (seeds
-0-3), batch 1. It prints
+The models and frames are those of ``chip_smoke.py``: full widths, float32
+with TF32 off, random weights from seed 0, batch 1, synthetic Waymo-like
+frames of 196,608 points (seeds 0-3; x, y, z + 2 extra channels within
+79.8 m for FSDv2, x, y, z within 74.8 m for SST, the frames the JAX bench
+feeds each). ``--model fsdv2`` (default) builds
+``fsdv2_waymo(backbone=...)``, dense-BEV by default; ``--model sst`` builds
+``sst_waymo(train_buckets=False)``. It prints
 
-  * the median CUDA-event time of each stage of ``predict`` over 8 frames
-    (boundaries marked by hooks on the segmentor's and the head's forward):
-    segmentor; virtual-voxel features (fg sampling, virtual VFE, multiscale
-    fusion, mixer); head MLPs; box decode + NMS; and the device-to-host
-    copy of the result;
+  * the median CUDA-event time of each stage of ``predict`` over 8 frames,
+    from the call to each boundary marked by a hook on a module's forward:
+    FSDv2: segmentor; virtual-voxel features (fg sampling, virtual VFE,
+    multiscale fusion, mixer); head MLPs; box decode + NMS. SST: voxelize +
+    VFE; window plan; SST blocks (and the BEV scatter); attached convs +
+    FPN; head; box decode + NMS. Then the device-to-host copy of the
+    result;
   * the median time of ``apis.inference_detector`` end to end (adds the
     host range filter, padding and host-to-device copy);
   * from ``torch.profiler`` over 2 predicts: the device's busy
@@ -36,6 +43,7 @@ from sst_tpu_torch.apis import inference_detector, prepare_batch
 from sst_tpu_torch.flagship import (
     fsdv2_waymo,
     init_weights,
+    sst_waymo,
     synthetic_waymo_batch,
 )
 from sst_tpu_torch.utils.timing import (
@@ -44,37 +52,54 @@ from sst_tpu_torch.utils.timing import (
     event_ms,
 )
 
-STAGES = ("segmentor", "virtual voxel features", "head MLPs",
-          "box decode + NMS", "device-to-host copy")
 MAX_POINTS = 196608
 FRAMES = 8  # timed frames for the stage table
 PROFILED = 2  # predicts traced by torch.profiler
 
 
-def staged_predict(model, batch):
-    """``model.predict(batch)`` and the copy of its result to the host, with
-    a CUDA event at each stage boundary: the segmentor's and the head's
-    forwards are marked by module hooks, so what runs is predict itself.
+def stage_boundaries(model, name: str):
+    """(stage name, module, "pre" | "post") for each stage that ends at a
+    hook on a module's forward, in the order predict runs them; the stage
+    after the last boundary ends with predict."""
+    if name == "sst":
+        bb = model.backbone_mod
+        return [("voxelize + VFE", model.vfe_mod, "post"),
+                ("window plan", bb, "pre"),
+                ("SST blocks", bb.attached_conv_0, "pre"),
+                ("attached convs + FPN", model.neck_mod, "post"),
+                ("head", model.head_mod, "post")]
+    return [("segmentor", model.segmentor_mod, "post"),
+            ("virtual voxel features", model.head_mod, "pre"),
+            ("head MLPs", model.head_mod, "post")]
 
-    Returns (result as numpy for the frame, ms of each stage in STAGES)."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 1)]
-    hooks = [
-        model.segmentor_mod.register_forward_pre_hook(
-            lambda *_: ev[0].record()),
-        model.segmentor_mod.register_forward_hook(lambda *_: ev[1].record()),
-        model.head_mod.register_forward_pre_hook(lambda *_: ev[2].record()),
-        model.head_mod.register_forward_hook(lambda *_: ev[3].record()),
-    ]
+
+def staged_predict(model, batch, boundaries):
+    """``model.predict(batch)`` and the copy of its result to the host, with
+    a CUDA event before predict, at each boundary, after predict and after
+    the copy: the boundaries are module hooks, so what runs is predict
+    itself.
+
+    Returns (result as numpy for the frame, ms of each stage: one per
+    boundary, then box decode + NMS, then the device-to-host copy)."""
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(boundaries) + 3)]
+    hooks = []
+    for i, (_, mod, kind) in enumerate(boundaries):
+        def mark(*_, e=ev[i + 1]):
+            e.record()
+        hooks.append(mod.register_forward_pre_hook(mark) if kind == "pre"
+                     else mod.register_forward_hook(mark))
     try:
+        ev[0].record()
         res = model.predict(batch)
     finally:
         for h in hooks:
             h.remove()
-    ev[4].record()
+    ev[-2].record()
     host = {k: v[0].cpu().numpy() for k, v in res.items()}
-    ev[5].record()
+    ev[-1].record()
     ev[-1].synchronize()
-    return host, [ev[i].elapsed_time(ev[i + 1]) for i in range(len(STAGES))]
+    return host, [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
 
 
 def device_busy(prof):
@@ -95,39 +120,49 @@ def device_busy(prof):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("fsdv2", "sst"), default="fsdv2")
     ap.add_argument("--backbone", choices=("dense_bev", "sparse"),
-                    default="dense_bev")
+                    default="dense_bev", help="FSDv2's build")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_predict: needs a CUDA card")
     card = card_name_and_power_limit()
     print(card, flush=True)
     disable_tf32()
-    device = torch.device("cuda", 0)
-    model = init_weights(
-        fsdv2_waymo(dtype=torch.float32, backbone=args.backbone),
-        torch.Generator().manual_seed(0)).to(device).eval()
-    frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s, num_extra_feats=2,
-                                    pcr_half=79.8).points[0]
-              for s in range(4)]
+    if args.model == "sst":
+        model = sst_waymo(train_buckets=False, num_point_features=3)
+        title = "sst_waymo(train_buckets=False)"
+        frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s).points[0]
+                  for s in range(4)]
+    else:
+        model = fsdv2_waymo(dtype=torch.float32, backbone=args.backbone)
+        title = f"fsdv2_waymo(backbone={args.backbone!r})"
+        frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s,
+                                        num_extra_feats=2,
+                                        pcr_half=79.8).points[0]
+                  for s in range(4)]
+    model = init_weights(model, torch.Generator().manual_seed(0)).eval()
     batches = [prepare_batch(model, f, MAX_POINTS) for f in frames]
+    boundaries = stage_boundaries(model, args.model)
+    names = [b[0] for b in boundaries] + ["box decode + NMS",
+                                          "device-to-host copy"]
 
     for batch in batches:  # warm-up
-        staged_predict(model, batch)
+        staged_predict(model, batch, boundaries)
 
-    per_stage = [[] for _ in STAGES]
+    per_stage = [[] for _ in names]
     for i in range(FRAMES):
-        _, ms = staged_predict(model, batches[i % len(batches)])
+        _, ms = staged_predict(model, batches[i % len(batches)], boundaries)
         for acc, t in zip(per_stage, ms):
             acc.append(t)
-    stages = {name: statistics.median(t) for name, t in zip(STAGES, per_stage)}
+    stages = {name: statistics.median(t) for name, t in zip(names, per_stage)}
     totals = [sum(ms) for ms in zip(*per_stage)]
     e2e = statistics.median(
         event_ms(lambda f=frames[i % len(frames)]: inference_detector(
             model, f, MAX_POINTS)) for i in range(FRAMES))
 
-    print(f"fsdv2_waymo(backbone={args.backbone!r}) predict stages, median "
-          f"of {FRAMES} frames (CUDA events; {card}; TF32 off):", flush=True)
+    print(f"{title} predict stages, median of {FRAMES} frames (CUDA "
+          f"events; {card}; TF32 off):", flush=True)
     for name, ms in stages.items():
         print(f"  {name:<24} {ms:9.3f} ms", flush=True)
     print(f"  {'total (no host I/O)':<24} {statistics.median(totals):9.3f} ms",
@@ -160,7 +195,7 @@ def main() -> None:
         print(f"  {ms:9.3f} ms  {name}", flush=True)
 
     print(json.dumps({
-        "card": card, "backbone": args.backbone, "frames": FRAMES,
+        "card": card, "model": title, "frames": FRAMES,
         "stages_ms": stages,
         "total_ms": statistics.median(totals), "inference_detector_ms": e2e,
         "profiled_predicts": PROFILED, "device_busy_ms": busy,

@@ -56,7 +56,8 @@ def _run_both(segmentor_overrides=None):
                                           method=jm.run_pipeline))(v, jb)
     jpred = jax.jit(lambda v, b: jm.apply(v, b, method=jm.predict))(v, jb)
 
-    tm = tflag.tiny_fsdv2_dense(segmentor_overrides=segmentor_overrides)
+    tm = tflag.tiny_fsdv2_dense(segmentor_overrides=segmentor_overrides,
+                                device="cpu")
     load_flax_variables(tm, v).eval()
     sr.launches = 0
     with torch.inference_mode():
@@ -152,7 +153,8 @@ def tiny_vars():
 
 
 def test_converter_loads_every_leaf(tiny_vars):
-    tm = load_flax_variables(tflag.tiny_fsdv2_dense(), tiny_vars)
+    tm = load_flax_variables(tflag.tiny_fsdv2_dense(device="cpu"),
+                             tiny_vars)
     k = tiny_vars["params"]["segmentor_mod"]["unet_mod"]["enc_0_0"]["Conv_0"][
         "kernel"]
     w = tm.segmentor_mod.unet_mod.enc_0_0.Conv_0.weight.detach().numpy()
@@ -196,11 +198,11 @@ def test_converter_is_strict(tiny_vars, case):
         bad = dict(tiny_vars, cache={})
         err = ValueError
     with pytest.raises(err):
-        load_flax_variables(tflag.tiny_fsdv2_dense(), bad)
+        load_flax_variables(tflag.tiny_fsdv2_dense(device="cpu"), bad)
 
 
 def test_flagship_builder_uses_the_kernel_on_the_segmentor_only():
-    m = tflag.fsdv2_waymo_dense()
+    m = tflag.fsdv2_waymo_dense(device="cpu")
     assert m.segmentor_mod.vfe_mod.use_sorted_reduce
     assert not m.vfe_mod.use_sorted_reduce
     assert m.segmentor_mod.grid == (30, 640, 640)
@@ -213,7 +215,7 @@ def test_flagship_builder_uses_the_kernel_on_the_segmentor_only():
 ])
 def test_flagship_options_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError):
-        tflag.fsdv2_waymo_dense(**kw)
+        tflag.fsdv2_waymo_dense(device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -233,7 +235,7 @@ def test_model_options_outside_the_slice_raise(kw):
 
 
 def test_train_mode_raises():
-    tm = tflag.tiny_fsdv2_dense()
+    tm = tflag.tiny_fsdv2_dense(device="cpu")
     batch = tflag.synthetic_waymo_batch(1, 256, pcr_half=3.8).to("cpu")
     with pytest.raises(NotImplementedError):
         tm.run_pipeline(batch, train=True)

@@ -53,7 +53,8 @@ def both(monkeypatch_module):
     jpipe, jpred = jax.jit(lambda v, b: jm.apply(
         v, b, method=_pipeline_and_predict))(v, jb)
 
-    tm = load_flax_variables(tflag.tiny_fsdv2_flagship(), v).eval()
+    tm = load_flax_variables(tflag.tiny_fsdv2_flagship(device="cpu"),
+                             v).eval()
     batch = tflag.synthetic_waymo_batch(1, 2048, pcr_half=3.8).to("cpu")
     scg.reset_launch_counts()
     sr.reset_launch_counts()
@@ -121,11 +122,11 @@ def test_converter_stays_strict_on_the_sparse_model(both, case):
     else:
         bad, err = _edit(both["v"], path, k[None, None]), ValueError
     with pytest.raises(err):
-        load_flax_variables(tflag.tiny_fsdv2_flagship(), bad)
+        load_flax_variables(tflag.tiny_fsdv2_flagship(device="cpu"), bad)
 
 
 def test_flagship_sparse_builder():
-    m = tflag.fsdv2_waymo(backbone="sparse")
+    m = tflag.fsdv2_waymo(backbone="sparse", device="cpu")
     seg = m.segmentor_mod
     assert seg.backbone == "sparse" and m.mixer_type == "sparse"
     assert seg.vfe_mod.use_sorted_reduce  # the segmentor grid sorts
@@ -139,12 +140,13 @@ def test_flagship_sparse_builder():
     assert n_sparse == 58  # 39 in the segmentor UNet, 19 in the mixer
     merge = seg.unet_mod.merge_6.weight
     assert tuple(merge.shape) == (27, 512, 256)
-    assert isinstance(tflag.fsdv2_waymo(), type(m))
-    assert tflag.fsdv2_waymo().segmentor_mod.backbone == "dense_bev"
+    dense = tflag.fsdv2_waymo(device="cpu")
+    assert isinstance(dense, type(m))
+    assert dense.segmentor_mod.backbone == "dense_bev"
 
 
 def test_init_weights_scales_sparse_convs():
-    m = tflag.init_weights(tflag.fsdv2_waymo(backbone="sparse"),
+    m = tflag.init_weights(tflag.fsdv2_waymo(backbone="sparse", device="cpu"),
                            torch.Generator().manual_seed(0))
     w = m.segmentor_mod.unet_mod.merge_6.weight.detach()
     # normal with variance 1 / (K * Cin) = 1 / (27 * 512)

@@ -13,6 +13,7 @@ import torch
 
 from sst_tpu_torch.ops import sorted_reduce as sr
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
+from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.ops.segment import unique_segments
 
 
@@ -64,18 +65,23 @@ def test_sorted_reduce_kernel_refuses_autograd():
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["sum", "max"])
 def test_sorted_reduce_kernel_lets_nan_through(mode):
-    # held against the twin on the CPU: the twin on the card goes through
-    # ATen's CUDA atomics, whose NaN rule is not documented
+    # a NaN passes through a sum; a max that is not finite (NaN, +-inf)
+    # reads 0, as JAX segment_reduce does. Held against the twin on the
+    # CPU: the twin on the card goes through ATen's CUDA atomics, whose NaN
+    # rule is not documented
     device = _cuda()
     data, seg = _sorted_rows(4096, 1500, 16, seed=7, device=device)
     data[::97, ::5] = float("nan")
+    data[5::89, 1::7] = float("inf")
+    data[7::83, 2::6] = -float("inf")
     got = sr.sorted_segment_reduce(data, seg, 1500, mode).cpu()
     ref = sr.sorted_segment_reduce_ref(data.cpu(), seg.cpu(), 1500, mode)
-    assert torch.equal(got.isnan(), ref.isnan())
-    assert got.isnan().any()
     if mode == "max":
-        assert torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, ref)
     else:
+        assert torch.equal(got.isnan(), ref.isnan())
+        assert got.isnan().any()
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5,
                                    equal_nan=True)
 
@@ -143,3 +149,64 @@ def test_sparse_conv_kernel_refuses_autograd():
     feats, nbr, w = _conv_case(64, 64, 27, 8, 8, 0, device)
     with pytest.raises(NotImplementedError):
         scg.sparse_conv_gemm(feats, nbr, w.requires_grad_(), "subm")
+
+
+def _mha_case(w, t, h, seed, device, strided=True):
+    """q, k, v [W, T, 16H] bf16 (the three column blocks of one [W, T, 48H]
+    buffer when ``strided``) and a pad mask with, for W > 1, an all-padded
+    window (0) and a one-token window (1)."""
+    rng = np.random.RandomState(seed)
+    c = 16 * h
+    qkv = torch.from_numpy(rng.randn(w, t, 3 * c).astype(np.float32))
+    qkv[..., 2 * c:] *= 2.0
+    qkv = qkv.to(device=device, dtype=torch.bfloat16)
+    pad = rng.rand(w, t) > 0.6
+    if w > 1:
+        pad[0] = True
+        pad[1] = True
+        pad[1, t // 2] = False
+    pad = torch.from_numpy(pad).to(device)
+    q, k, v = qkv.split(c, dim=-1)
+    if not strided:
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    return q, k, v, pad
+
+
+def _assert_mha_close(got, ref, v, pad):
+    """Valid query rows within 1 bf16 ulp (rtol 2^-7) plus 2^-8 * max|v|
+    for a bf16(p) that rounds the other way after another f32 sum order;
+    padded rows finite."""
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    rows = ~pad
+    tol = 2.0**-7 * ref.abs() + 2.0**-8 * v.float().abs().max()
+    assert bool(((got - ref).abs() <= tol)[rows].all())
+
+
+# the buckets (T, windows) of sst_waymo(train_buckets=False) at d_model 128,
+# 8 heads, and edge cases: T off the multiples of 16, W = 1, two heads
+MHA_CASES = [(896, 30, 8), (768, 60, 8), (320, 100, 8), (160, 144, 8),
+             (1, 30, 8), (16, 8, 2), (7, 100, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,t,h", MHA_CASES)
+@pytest.mark.parametrize("strided", [True, False])
+def test_window_mha_kernel_matches_twin(w, t, h, strided):
+    device = _cuda()
+    q, k, v, pad = _mha_case(w, t, h, seed=w + t + h, device=device,
+                             strided=strided)
+    wm.reset_launch_counts()
+    got = wm.window_mha(q, k, v, pad, h)
+    torch.cuda.synchronize()
+    assert wm.launches == 1 and wm.launch_counts == {(t, 16 * h, h): 1}
+    ref = wm.window_mha_ref(q, k, v, pad, h)
+    _assert_mha_close(got, ref, v, pad)
+
+
+@pytest.mark.cuda
+def test_window_mha_kernel_refuses_autograd():
+    device = _cuda()
+    q, k, v, pad = _mha_case(4, 30, 8, seed=0, device=device)
+    with pytest.raises(NotImplementedError):
+        wm.window_mha(q, k.detach().requires_grad_(), v, pad, 8)

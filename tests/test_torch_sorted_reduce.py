@@ -72,9 +72,9 @@ def test_negative_ids_dropped_and_negative_maxima_kept():
 
 
 def test_nan_stays_in_its_segment():
-    # NaN is not hidden: a segment holding one reads NaN in that channel, in
-    # both modes, and no other segment is touched. (The JAX package's
-    # kernel is not defined on NaN, so this is held against numpy.)
+    # a NaN touches no other segment: a segment holding one reads NaN in
+    # that channel for sum, and 0 for max (JAX ``segment_reduce`` zeroes
+    # every non-finite maximum). Held against numpy.
     seg = np.array([-1, 0, 0, 1, 1, 1, 3, 3, 5], np.int32)
     data = np.arange(36, dtype=np.float32).reshape(9, 4) - 20.0
     for r, c in ((0, 1), (1, 2), (4, 0), (8, 3)):
@@ -85,9 +85,46 @@ def test_nan_stays_in_its_segment():
             rows = data[seg == s]
             if len(rows):
                 want[s] = fn(rows, axis=0)
+        if mode == "max":
+            want = np.where(np.isfinite(want), want, 0.0)
         got = sr.sorted_segment_reduce(torch.from_numpy(data),
                                        torch.from_numpy(seg), 4, mode)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _non_finite_rows():
+    """Sorted rows whose segments hold NaN, +inf and -inf beside finite
+    values, and one segment of -inf only."""
+    seg = np.array([0, 0, 1, 1, 2, 2, 3, 4, 4, 6, 6, 6], np.int32)
+    data = np.tile(np.arange(12, dtype=np.float32)[:, None] - 5.0, (1, 3))
+    data[1, 0] = np.nan
+    data[3, 1] = np.inf
+    data[5, 2] = -np.inf
+    data[6, :] = -np.inf
+    data[8, 0] = np.nan
+    data[10, 1] = np.inf
+    return data, seg
+
+
+@pytest.mark.parametrize("fn", ["segment_reduce", "sorted_segment_reduce"])
+def test_non_finite_maxima_read_zero_as_in_jax(fn):
+    from sst_tpu.ops.segment import segment_reduce as jax_segment_reduce
+    from sst_tpu_torch.ops.segment import segment_reduce
+
+    data, seg = _non_finite_rows()
+    ref = np.asarray(jax_segment_reduce(jnp.asarray(data), jnp.asarray(seg),
+                                        8, "max"))
+    port = segment_reduce if fn == "segment_reduce" else \
+        sr.sorted_segment_reduce
+    got = port(torch.from_numpy(data), torch.from_numpy(seg), 8, "max")
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert np.isfinite(ref).all() and (ref == 0).sum() > 8  # zeros written
+    if fn == "segment_reduce":
+        ref_min = np.asarray(jax_segment_reduce(
+            jnp.asarray(data), jnp.asarray(seg), 8, "min"))
+        got_min = segment_reduce(torch.from_numpy(data),
+                                 torch.from_numpy(seg), 8, "min")
+        np.testing.assert_array_equal(got_min.numpy(), ref_min)
 
 
 @pytest.mark.parametrize("bad,err", [
