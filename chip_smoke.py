@@ -1,8 +1,10 @@
-"""GPU smoke run of the PyTorch port's three ``predict`` paths at full width
-on one CUDA card, through their hand-written kernels: FSDv2-Waymo's
-dense-BEV build (sorted segment reduce kernel), its sparse-UNet build
-(sorted segment reduce and sparse conv kernels) and SST-Waymo (window MHA
-kernel).
+"""GPU smoke run of the PyTorch port's three ``predict`` paths and its train
+step at full width on one CUDA card, through their hand-written kernels:
+FSDv2-Waymo's dense-BEV build (sorted segment reduce kernel), its
+sparse-UNet build (sorted segment reduce and sparse conv kernels; in
+training also the sparse conv's weight-gradient kernel, and the conv kernel
+over the transposed tables for the input gradient) and SST-Waymo (window
+MHA kernel).
 
     python3 chip_smoke.py
 
@@ -24,6 +26,19 @@ Phases (each one that fails ends the run with a non-zero exit code):
   7. sparse predict  ``fsdv2_waymo(backbone="sparse")`` answers the four
               frames; 58 sparse conv launches and 3 sorted reduce launches
               per frame, counted at the launch sites; latency timed.
+ 10. backward kernels  on labelled frame 0 (``synthetic_labeled_batch``),
+              hooks record every conv's input and rulebook; the weight-
+              gradient kernel and the input gradient (the conv kernel over
+              the transposed table) against their twins at all 58 convs,
+              with a seeded output gradient, and on edge cases; two runs
+              equal bit for bit; both timed per step beside the bound.
+ 11. train    the same model trains on four labelled frames: 2 warm-up and
+              6 timed ``train_step`` calls in the detection schedule's
+              step-0 mode (``pretrain=True``), 3 more steps timed by stage
+              (loss, backward, optimizer), then one ``pretrain=False``
+              step; step ms, peak memory, losses, grad norms and launches
+              per step by kind (forward, recompute, input gradient, weight
+              gradient, sorted reduce), held against the modules.
   8. SST kernels  the window MHA kernel against its twin on the attention
               inputs of every bucket of every layer of one frame of
               ``sst_waymo(train_buckets=False)`` (recorded by hooks on each
@@ -33,8 +48,8 @@ Phases (each one that fails ends the run with a non-zero exit code):
               z); 48 window MHA launches per frame at the shapes phase 8
               checked; capacity counters per frame; latency timed.
 
-TF32 is turned off for convolutions and matmuls, so every comparison is in
-full float32. The line before the last is the kernels JSON (every kernel's
+Phases 10 and 11 run after phase 7, on the sparse model. TF32 is turned
+off for convolutions and matmuls, so every comparison is in full float32. The line before the last is the kernels JSON (every kernel's
 time, its plain twin's, its bound on the card and a library call's where
 there is one); the last line of standard output is the result JSON.
 """
@@ -57,14 +72,20 @@ from sst_tpu_torch.flagship import (
     fsdv2_waymo_dense,
     init_weights,
     sst_waymo,
+    synthetic_labeled_batch,
     synthetic_waymo_batch,
 )
-from sst_tpu_torch.models.sparse_unet import SparseConvLayer
+from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, SparseConvLayer
 from sst_tpu_torch.models.sst import WindowAttention
 from sst_tpu_torch.ops import sorted_reduce as sr
+from sst_tpu_torch.ops import sparse_conv_dw as sdw
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
+from sst_tpu_torch.train.schedules import FSDDetectionSchedule
+from sst_tpu_torch.train.state import make_optimizer
+from sst_tpu_torch.train.step import train_step
+from sst_tpu_torch.utils import remat
 from sst_tpu_torch.utils.nvcc import load_kernel_libraries
 from sst_tpu_torch.utils.timing import (
     card_name_and_power_limit,
@@ -93,7 +114,8 @@ def phase_device():
     return card
 
 
-KERNELS = ("sorted_reduce", "sparse_conv_gemm", "window_mha")
+KERNELS = ("sorted_reduce", "sparse_conv_gemm", "sparse_conv_dw",
+           "window_mha")
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): HBM bytes/s, f32 FLOP/s outside the tensor
@@ -107,7 +129,7 @@ BF16_FLOP_PER_S = 989e12
 
 def reset_launch_counts() -> None:
     """Every kernel's launch count to 0, before a path is driven."""
-    for mod in (sr, scg, wm):
+    for mod in (sr, scg, sdw, wm):
         mod.reset_launch_counts()
 
 
@@ -375,14 +397,16 @@ SPARSE_TOL = 1e-4  # max-abs and relative: f32 sums of up to 27*512 terms
 
 def _record_sparse_convs(model, frame):
     """Predict one frame with a hook on every SparseConvLayer; returns each
-    conv's (module name, input rows, rulebook, weight shape) in call order.
-    The rulebooks are those the main path builds for this frame."""
+    conv's (module name, input rows, rulebook, weight shape, input features,
+    output-row validity) in call order. The rulebooks are those the main
+    path builds for this frame."""
     calls, hooks = [], []
     for name, mod in model.named_modules():
         if isinstance(mod, SparseConvLayer):
             hooks.append(mod.register_forward_pre_hook(
                 lambda m, args, name=name: calls.append(
-                    (name, args[0].shape[0], args[1], tuple(m.weight.shape)))))
+                    (name, args[0].shape[0], args[1], tuple(m.weight.shape),
+                     args[0], args[2]))))
     try:
         inference_detector(model, frame.points[0], max_points=196608)
     finally:
@@ -456,7 +480,7 @@ def phase_sparse_kernels(model, frame, device):
     print(f"sparse kernels: sparse_conv_gemm on the rulebooks of frame 0 of "
           f"fsdv2_waymo(backbone='sparse'): {len(calls)} convs", flush=True)
     cases = {}
-    for name, vin, cp, wshape in calls:
+    for name, vin, cp, wshape, _, _ in calls:
         key = (id(cp.nbr), wshape[1], wshape[2])
         if key not in cases:
             cases[key] = dict(name=name, mode=cp.mode, nbr=cp.nbr, vin=vin,
@@ -555,6 +579,334 @@ def phase_sparse_predict(model, frames, n_convs):
           f"warm-up, inference_detector incl. host I/O): {lat:.2f} ms; runs "
           f"{[round(t, 2) for t in timed]}", flush=True)
     return conv_launches, sr_launches, split, lat
+
+
+def _labeled_frames(n_frames: int):
+    """Labelled Waymo-like frames (x, y, z + 2 extra channels within 79.8 m;
+    the gt boxes own their points), seeds 0 .. n_frames - 1."""
+    return [synthetic_labeled_batch(1, 196608, seed=s, num_extra_feats=2,
+                                    pcr_half=79.8)[0]
+            for s in range(n_frames)]
+
+
+DW_TOL = 1e-4  # times the twin on |feats|, |dout|, plus 1e-6 absolute
+
+
+def _check_dw(name, feats, nbr, dout, mode, errs):
+    """The weight-gradient kernel against its twin: |kernel - twin| <=
+    1e-4 * (|feats|^T |dout| per element) + 1e-6 (f32 sums of the same
+    products in another order)."""
+    got = sdw.sparse_conv_dw(feats, nbr, dout, mode)
+    ref = sdw.sparse_conv_dw_ref(feats, nbr, dout)
+    tol = DW_TOL * sdw.sparse_conv_dw_ref(feats.abs(), nbr, dout.abs()) + 1e-6
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err = diff.max().item()
+    ok = bool((diff <= tol).all())
+    errs.append(err)
+    print(f"  dW    {name:<44} {mode:<8} {feats.shape[1]:>3}->"
+          f"{dout.shape[1]:<3} Vin={feats.shape[0]:<6} Vout={nbr.shape[1]:<6} "
+          f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"sparse_conv_dw disagrees with its plain twin on {name}")
+    return got
+
+
+def _check_dgrad(name, dout, nbr_t, w, mode, errs):
+    """The input gradient, the conv kernel over the transposed table with
+    W[k].T, against the conv twin on the same inputs."""
+    wt = w.transpose(1, 2).contiguous()
+    got = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad")
+    ref = scg.sparse_conv_gemm_ref(dout, nbr_t, wt)
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    ok = bool((diff <= SPARSE_TOL + SPARSE_TOL * ref.abs()).all())
+    errs.append(err)
+    if not ok:
+        fail(f"the input gradient (conv kernel over the transposed table) "
+             f"disagrees with the twin on {name}: max_abs_err {err:.3e}")
+
+
+def _dw_edge_cases(device):
+    """(name, feats, nbr, dout): missing entries are Vin, -1 or past Vin;
+    a tile is 64 x 64 channels, a stage 32 rows."""
+    gen = torch.Generator().manual_seed(5)
+
+    def case(vin, vout, cin, cout, missing=0.6):
+        nbr = torch.randint(0, vin, (27, vout), generator=gen,
+                            dtype=torch.int32)
+        drop = torch.rand(27, vout, generator=gen) < missing
+        bad = torch.tensor([vin, -1, vin + 7], dtype=torch.int32)[
+            torch.randint(0, 3, (27, vout), generator=gen)]
+        feats = torch.randn(vin, cin, generator=gen)
+        dout = torch.randn(vout, cout, generator=gen)
+        return (feats.to(device), torch.where(drop, bad, nbr).to(device),
+                dout.to(device))
+
+    out = []
+    feats, nbr, dout = case(500, 300, 64, 64)
+    nbr[13] = 500
+    out.append(("edge: tap with no neighbour anywhere", feats, nbr, dout))
+    feats, nbr, dout = case(500, 300, 64, 64)
+    out.append(("edge: all rows missing", feats, torch.full_like(nbr, -1),
+                dout))
+    out.append(("edge: Vout=1000 off the 64-row tile, 40->72",
+                *case(1200, 1000, 40, 72)))
+    out.append(("edge: 16->32", *case(3000, 2500, 16, 32)))
+    out.append(("edge: 512->256", *case(2048, 2048, 512, 256, 0.7)))
+    return out
+
+
+def phase_backward_kernels(model, frame, device):
+    """The weight-gradient kernel and the input gradient (the conv kernel
+    over the transposed table) against their twins at every conv of one
+    labelled frame, with each conv's recorded input and a seeded output
+    gradient masked at invalid output rows; edge cases; bit-for-bit
+    repeats; both timed per distinct (rulebook, widths) case. Returns (timed
+    cases, per-step ms of kernel, twin and bound summed over the convs,
+    largest dW error, largest dgrad error)."""
+    gen = torch.Generator().manual_seed(4)
+    with torch.inference_mode():
+        calls = _record_sparse_convs(model, frame)
+        print(f"backward kernels: sparse_conv_dw and the input gradient on "
+              f"the rulebooks and inputs of labelled frame 0 of "
+              f"fsdv2_waymo(backbone='sparse'): {len(calls)} convs",
+              flush=True)
+        dw_errs, dg_errs, cases = [], [], {}
+        for name, vin, cp, wshape, feats, out_valid in calls:
+            vout, cout = cp.nbr.shape[1], wshape[2]
+            dout = (torch.randn(vout, cout, generator=gen)
+                    * out_valid.cpu()[:, None]).to(device)
+            short = name.replace("segmentor_mod.unet_mod.", "seg.") \
+                .replace("mixer_mod.", "mix.")
+            _check_dw(short, feats, cp.nbr, dout, cp.mode, dw_errs)
+            nbr_t = cp.transposed(vin)
+            w = model.get_submodule(name).weight.detach()
+            _check_dgrad(short, dout, nbr_t, w, cp.mode, dg_errs)
+            key = (id(cp.nbr), wshape[1], cout)
+            if key not in cases:
+                cases[key] = dict(name=short, mode=cp.mode, feats=feats,
+                                  nbr=cp.nbr, nbr_t=nbr_t, dout=dout, w=w,
+                                  convs=0)
+            cases[key]["convs"] += 1
+        print(f"  every conv: dW max_abs_err {max(dw_errs):.3e} (1e-4 x the "
+              f"twin on absolute values + 1e-6), input gradient "
+              f"max_abs_err {max(dg_errs):.3e} (atol+rtol {SPARSE_TOL:g}) ok",
+              flush=True)
+        widest = max(cases.values(), key=lambda c: c["w"].numel())
+        deepest = max(cases.values(), key=lambda c: c["nbr"].shape[1])
+        for case in (widest, deepest):
+            a = sdw.sparse_conv_dw(case["feats"], case["nbr"], case["dout"],
+                                   case["mode"])
+            b = sdw.sparse_conv_dw(case["feats"], case["nbr"], case["dout"],
+                                   case["mode"])
+            if not torch.equal(a, b):
+                fail(f"sparse_conv_dw gave other bits on a second run of "
+                     f"{case['name']}")
+        print(f"  determinism: two runs equal bit for bit on "
+              f"{widest['name']} and {deepest['name']}", flush=True)
+        for name, feats, nbr, dout in _dw_edge_cases(device):
+            got = _check_dw(name, feats, nbr, dout, "subm", dw_errs)
+            if not torch.equal(got, sdw.sparse_conv_dw(feats, nbr, dout,
+                                                       "subm")):
+                fail(f"sparse_conv_dw gave other bits on a second run of "
+                     f"{name}")
+            zero = (got[13] if "no neighbour" in name
+                    else got if "all rows" in name else None)
+            if zero is not None and not torch.equal(zero,
+                                                    torch.zeros_like(zero)):
+                fail(f"{name}: the taps without a neighbour are not zeros")
+
+        shapes = []
+        for case in cases.values():
+            feats, nbr, dout, mode = (case["feats"], case["nbr"],
+                                      case["dout"], case["mode"])
+            wt = case["w"].transpose(1, 2).contiguous()
+            fns = {
+                "plain": lambda: sdw.sparse_conv_dw_ref(feats, nbr, dout),
+                "kernel": lambda: sdw.sparse_conv_dw(feats, nbr, dout, mode),
+                "dgrad": lambda: scg.sparse_conv_gemm(
+                    dout, case["nbr_t"], wt, mode, kind="dgrad"),
+                "dgrad_plain": lambda: scg.sparse_conv_gemm_ref(
+                    dout, case["nbr_t"], wt)}
+            runs = {k: [] for k in fns}
+            for kind in ("plain", "kernel", "dgrad", "dgrad_plain",
+                         "dgrad_plain", "dgrad", "kernel", "plain"):
+                runs[kind].append(cuda_ms(fns[kind], 5, warmup=1))
+            vin, cin = feats.shape
+            taps, vout = nbr.shape
+            cout = dout.shape[1]
+            pairs = int(((nbr >= 0) & (nbr < vin)).sum())
+            bound_ms, bound_by = bound(
+                4 * (vin * cin + taps * vout + vout * cout
+                     + taps * cin * cout),
+                2 * pairs * cin * cout, F32_FLOP_PER_S)
+            row = {"conv": case["name"], "convs_per_step": case["convs"],
+                   "mode": mode, "cin": cin, "cout": cout, "vin": vin,
+                   "vout": vout, "neighbour_share": pairs / (taps * vout),
+                   "splits": sdw.split_rows(taps, cin, cout, vout)[0],
+                   "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "dgrad_ms": min(runs["dgrad"]),
+                   "dgrad_plain_ms": min(runs["dgrad_plain"])}
+            shapes.append(row)
+            print(f"    time {case['name']:<28} x{case['convs']} {cin:>3}->"
+                  f"{cout:<3} Vout={vout:<6}: dW kernel {row['ms']:.4f} ms "
+                  f"(runs {runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}, "
+                  f"{row['splits']} row splits), twin {row['plain_ms']:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by}); input gradient "
+                  f"kernel {row['dgrad_ms']:.4f} ms, twin "
+                  f"{row['dgrad_plain_ms']:.4f} ms", flush=True)
+    per_step = {k: sum(r[k] * r["convs_per_step"] for r in shapes)
+                for k in ("ms", "plain_ms", "bound_ms", "dgrad_ms",
+                          "dgrad_plain_ms")}
+    print(f"backward kernels: per step over its {len(calls)} convs: dW "
+          f"kernel {per_step['ms']:.3f} ms, twin {per_step['plain_ms']:.3f} "
+          f"ms, bound {per_step['bound_ms']:.3f} ms; input gradient kernel "
+          f"{per_step['dgrad_ms']:.3f} ms, twin "
+          f"{per_step['dgrad_plain_ms']:.3f} ms", flush=True)
+    return shapes, per_step, max(dw_errs), max(dg_errs)
+
+
+def _losses(metrics) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _stage_ms(model, opt, batch, kw):
+    """One step of ``train_step``'s body with CUDA events between its
+    stages: the loss (forward), backward (with the remat recompute) and the
+    clip + AdamW step. Returns (ms by stage, the step's metrics)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    opt.zero_grad()
+    out = model.loss(batch, train=True, **kw)
+    total = sum(v for k, v in out.items() if k.startswith("loss"))
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    norm = opt.step()
+    ev[3].record()
+    ev[3].synchronize()
+    metrics = {k: v.detach() for k, v in out.items()}
+    metrics.update(loss_total=total.detach(), grad_norm=norm)
+    return {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+            enumerate(("loss", "backward", "optimizer"))}, metrics
+
+
+def phase_train(model, device, n_convs):
+    """Drive the train path: ``train_step`` on labelled frames (seeds 0-3),
+    the optimizer of the config (AdamW, base_lr 1e-5, weight decay 0.05,
+    clip 10) and FSDDetectionSchedule's step-0 mode (``pretrain=True``): 2
+    warm-up and 6 timed steps, 3 steps timed by stage, then one
+    ``pretrain=False`` step. Launches
+    per step are counted at the launch sites by kind and held against the
+    modules. Returns the phase's record."""
+    frames = [f.to(device) for f in _labeled_frames(4)]
+    opt = make_optimizer(model.parameters(), base_lr=1e-5, weight_decay=0.05,
+                         clip_norm=10.0, total_steps=10000)
+    schedule = FSDDetectionSchedule(enable_after=4000, buffer_start=0.3)
+    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    needs_dgrad = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: None if remat.recomputing()
+        else needs_dgrad.append(bool(args[0].requires_grad))) for m in convs]
+    n_warmup, n_timed, n_staged = 2, 6, 3
+    steps, stages = [], []
+    reset_launch_counts()  # the train path's run starts here
+    for i in range(n_warmup + n_timed + n_staged + 1):
+        kw = (schedule(opt.count) if i < n_warmup + n_timed + n_staged
+              else dict(pretrain=False, thr_extra=0.0))
+        if i == n_warmup:
+            torch.cuda.reset_peak_memory_stats()
+        before = (dict(scg.kind_counts), sdw.launches, sr.launches)
+        out = {}
+        batch = frames[i % len(frames)]
+        if n_warmup + n_timed <= i < n_warmup + n_timed + n_staged:
+            stage, out = _stage_ms(model, opt, batch, kw)
+            stages.append(stage)
+            ms = sum(stage.values())
+        else:
+            ms = event_ms(lambda: out.update(train_step(model, opt, batch,
+                                                        kw)))
+        if i == 0:
+            for h in hooks:
+                h.remove()
+        launches = {k: v - before[0].get(k, 0)
+                    for k, v in scg.kind_counts.items()}
+        launches["dw"] = sdw.launches - before[1]
+        launches["sorted_reduce"] = sr.launches - before[2]
+        metrics = _losses(out)
+        steps.append(dict(ms=ms, kw=kw, launches=launches, metrics=metrics,
+                          params_without_grad=opt.params_without_grad))
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            fail(f"train step {i}: non-finite {bad} (a non-finite grad_norm "
+                 f"means a non-finite gradient)")
+        if opt.params_without_grad:
+            fail(f"train step {i}: {opt.params_without_grad} parameters got "
+                 f"no gradient; every leaf gets one in JAX")
+    peak = torch.cuda.max_memory_allocated()
+    stage_ms = {k: statistics.median(st[k] for st in stages)
+                for k in stages[0]}
+    expected = {"forward": n_convs, "recompute": n_remat,
+                "dgrad": sum(needs_dgrad), "dw": n_convs, "sorted_reduce": 3}
+    if len(needs_dgrad) != n_convs:
+        fail(f"the hooks saw {len(needs_dgrad)} conv calls in a step, the "
+             f"model has {n_convs} convs")
+    for i, st in enumerate(steps):
+        got = {k: st["launches"].get(k, 0) for k in expected}
+        if got != expected:
+            fail(f"train step {i}: launches by kind {got}, expected "
+                 f"{expected} from the modules")
+    timed = [st["ms"] for st in steps[n_warmup:n_warmup + n_timed]]
+    first, last = steps[n_warmup], steps[n_warmup + n_timed - 1]
+    detection = steps[-1]
+    print(f"train: fsdv2_waymo(backbone='sparse') f32, batch 1, AdamW "
+          f"(base_lr 1e-5, wd 0.05, clip 10, 10,000-step one-cycle); "
+          f"{n_warmup} warm-up + {n_timed} timed + {n_staged} staged steps "
+          f"in the schedule's "
+          f"step-0 mode {first['kw']}, then one step with "
+          f"{detection['kw']}", flush=True)
+    print(f"  launches per step by kind (counted at the launch sites; the "
+          f"modules give {expected}: every conv's input needs a gradient "
+          f"{'in all' if sum(needs_dgrad) == n_convs else 'in some'} "
+          f"{n_convs} convs, {n_remat} convs sit in rematerialised UNets): "
+          f"{steps[0]['launches']}", flush=True)
+    print(f"  step ms (CUDA events around train_step, {n_timed} steps): "
+          f"median {statistics.median(timed):.2f}, min {min(timed):.2f}, "
+          f"max {max(timed):.2f}; runs {[round(t, 2) for t in timed]}; "
+          f"warm-up {[round(st['ms'], 2) for st in steps[:n_warmup]]}",
+          flush=True)
+    print(f"  stages (CUDA events inside {n_staged} more steps, median ms): "
+          f"{ {k: round(v, 2) for k, v in stage_ms.items()} }", flush=True)
+    print(f"  peak memory (torch.cuda.max_memory_allocated over the timed "
+          f"and staged steps): {peak / 2**30:.3f} GiB", flush=True)
+    print(f"  first timed step: {first['metrics']}", flush=True)
+    print(f"  last timed step: {last['metrics']}", flush=True)
+    print(f"  grad_norm per step: "
+          f"{[round(st['metrics']['grad_norm'], 4) for st in steps]}",
+          flush=True)
+    print(f"  num_virtual: pretrain steps "
+          f"{[st['metrics']['num_virtual'] for st in steps[:-1]]}, "
+          f"pretrain=False step {detection['metrics']['num_virtual']}",
+          flush=True)
+    print(f"  pretrain=False step: {detection['ms']:.2f} ms, "
+          f"{detection['metrics']}", flush=True)
+    return {"step_ms_median": statistics.median(timed),
+            "step_ms_min": min(timed), "step_ms_max": max(timed),
+            "step_ms_runs": timed, "stage_ms": stage_ms,
+            "peak_memory_bytes": peak,
+            "launches_per_step": steps[0]["launches"],
+            "launches": {"sparse_conv_gemm": scg.launches,
+                         "sparse_conv_dw": sdw.launches,
+                         "sorted_reduce": sr.launches},
+            "loss_first": first["metrics"], "loss_last": last["metrics"],
+            "detection_step": detection["metrics"],
+            "detection_step_ms": detection["ms"]}
 
 
 def _sst_frames(n_frames: int):
@@ -815,11 +1167,17 @@ def main() -> None:
     if untimed:
         fail(f"the sparse path launched the kernel at (mode, Cin, Cout) "
              f"{untimed}, which phase 6 did not check or time")
-    recorded = Counter((cp.mode, w[1], w[2]) for _, _, cp, w in calls)
+    recorded = Counter((cp.mode, w[1], w[2]) for _, _, cp, w, _, _ in calls)
     if recorded != Counter(conv_split):
         fail(f"the convs timed in phase 6 {dict(recorded)} are not those "
              f"launched per frame in phase 7 {conv_split}")
-    del sparse, calls
+    del calls
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        sparse, _labeled_frames(1)[0], device)
+    train = phase_train(sparse.train(), device, n_convs)
+    train["card"] = card
+    del sparse
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     sst = init_weights(sst_waymo(train_buckets=False, num_point_features=3),
@@ -860,11 +1218,14 @@ def main() -> None:
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/sorted_reduce.cu",
         "replaces": "sst_tpu/ops/sorted_reduce.py:72",
-        # counted in the dense path's run (phase 4) and the sparse path's
-        # run (phase 7), each from 0
-        "launches": launches + sr_sparse_launches,
+        # counted in the dense path's run (phase 4), the sparse path's
+        # run (phase 7) and the train path's run (phase 11), each from 0
+        "launches": (launches + sr_sparse_launches
+                     + train["launches"]["sorted_reduce"]),
         "launches_by_path": {"dense_bev": launches,
-                             "sparse": sr_sparse_launches},
+                             "sparse": sr_sparse_launches,
+                             "sparse_train": train["launches"][
+                                 "sorted_reduce"]},
         "max_abs_err": max_err,
         # per frame of either path (the same segmentor VFE): each timed
         # shape times its launches per frame, as counted in phase 4
@@ -881,8 +1242,14 @@ def main() -> None:
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/sparse_conv_gemm.cu",
         "replaces": "sst_tpu/ops/sparse_conv_pallas.py:375",
-        "launches": conv_launches,
-        "max_abs_err": conv_err,
+        # predict (phase 7) and train (phase 11: forward, recompute and
+        # input-gradient launches), each counted from 0
+        "launches": conv_launches + train["launches"]["sparse_conv_gemm"],
+        "launches_by_path": {"sparse": conv_launches,
+                             "sparse_train": train["launches"][
+                                 "sparse_conv_gemm"]},
+        "max_abs_err": max(conv_err, dgrad_err),
+        "dgrad_max_abs_err": dgrad_err,
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
         "ms": conv_per_frame["ms"],
@@ -893,6 +1260,27 @@ def main() -> None:
         # multiplies per tap
         "library_ms": None,
         "shapes": conv_shapes,
+        # the input gradient per train step: this kernel over the
+        # transposed tables (phase 10)
+        "dgrad_ms_per_step": dw_step["dgrad_ms"],
+        "dgrad_plain_ms_per_step": dw_step["dgrad_plain_ms"],
+    }, {
+        "name": "sparse_conv_dw",
+        "route": "cuda",
+        "source": "sst_tpu_torch/csrc/sparse_conv_dw.cu",
+        "replaces": "sst_tpu/ops/sparse_conv_pallas.py:397",
+        "launches": train["launches"]["sparse_conv_dw"],
+        "max_abs_err": dw_err,
+        # per train step: each of the 58 convs at the time of its rulebook
+        # and widths (phase 10)
+        "ms": dw_step["ms"],
+        "plain_ms": dw_step["plain_ms"],
+        "bound_ms": dw_step["bound_ms"],
+        "bound_by": bound_by(dw_shapes, "convs_per_step"),
+        # no single PyTorch call gathers through a neighbour table and
+        # multiplies per tap
+        "library_ms": None,
+        "shapes": dw_shapes,
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -916,6 +1304,7 @@ def main() -> None:
         "dense_bev_scatter": lat[False], "sparse": sparse_lat,
         "sst": sst_lat},
         "sst_capacity_counters": sst_diags,
+        "train": train,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

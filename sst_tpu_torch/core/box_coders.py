@@ -1,4 +1,5 @@
-"""Box coders (counterpart of ``sst_tpu/core/box_coders.py``; decode only)."""
+"""Box coders (counterpart of ``sst_tpu/core/box_coders.py``: the SECOND
+decoder and the FSD base-point coder)."""
 
 from __future__ import annotations
 
@@ -37,3 +38,17 @@ def base_point_decode(base_points, preds, scale: float):
     if preds.shape[-1] > 8:
         out = torch.cat([out, preds[..., 8:]], dim=-1)
     return out
+
+
+def base_point_encode(base_points, gts, scale: float):
+    """FSD coder targets w.r.t. a base point: centre offset / scale, log
+    dims, (sin, cos) yaw; extra channels (velocity) pass through. As in the
+    JAX package there is no clamp: a box of zero size encodes to -inf."""
+    delta = (gts[..., :3] - base_points) / scale
+    dims = torch.log(gts[..., 3:6])
+    yaw = gts[..., 6]
+    enc = torch.cat([delta, dims, torch.stack([torch.sin(yaw), torch.cos(yaw)],
+                                              dim=-1)], dim=-1)
+    if gts.shape[-1] > 7:
+        enc = torch.cat([enc, gts[..., 7:]], dim=-1)
+    return enc

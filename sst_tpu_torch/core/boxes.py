@@ -1,5 +1,6 @@
 """LiDAR 3D box ops in the mmdet3d-v0.15 convention (counterpart of
-``sst_tpu/core/boxes.py``; the parts the rotated IoU and the decoder use).
+``sst_tpu/core/boxes.py``; the parts the rotated IoU, the decoder and the
+FSD targets use).
 
 A box is a row [x, y, z, w, l, h, yaw, ...] with (x, y, z) the bottom
 centre; yaw rotates around +z with x' = x cos θ + y sin θ,
@@ -53,3 +54,21 @@ def bev_corners(boxes_bev):
     dims = boxes_bev[:, None, 2:4] * norm[None]
     rot = rotate_2d(dims, boxes_bev[:, None, 4])
     return rot + boxes_bev[:, None, :2]
+
+
+def gravity_center(boxes):
+    """[N, 3] centre with z at mid-height."""
+    return torch.cat([boxes[:, :2], (boxes[:, 2] + boxes[:, 5] * 0.5)[:, None]],
+                     dim=-1)
+
+
+def points_in_boxes(points_xyz, boxes, margin: float = 0.0):
+    """[P, N] bool: point p inside (rotated) box n, faces included."""
+    rel = points_xyz[:, None, :2] - boxes[None, :, :2]
+    local = rotate_2d(rel, -boxes[None, :, 6])  # into the box frame
+    in_x = torch.abs(local[..., 0]) <= boxes[None, :, 3] / 2 + margin
+    in_y = torch.abs(local[..., 1]) <= boxes[None, :, 4] / 2 + margin
+    z = points_xyz[:, None, 2]
+    in_z = (z >= boxes[None, :, 2] - margin) & (
+        z <= boxes[None, :, 2] + boxes[None, :, 5] + margin)
+    return in_x & in_y & in_z

@@ -1,6 +1,6 @@
 """FSDv2 — virtual-voxel fully-sparse detector (counterpart of
-``sst_tpu/models/fsd/fsdv2.py``), single-stage, inference, in its sparse and
-dense-BEV builds.
+``sst_tpu/models/fsd/fsdv2.py``), single-stage: inference in its sparse and
+dense-BEV builds, ``loss`` (train mode) in its sparse build.
 
 Pipeline: VoteSegmentor (multiscale) → per-class fg sampling (threshold +
 static top-k) → virtual points = vote-shifted centres with ``virtual_proj``
@@ -14,6 +14,11 @@ with the virtual voxels into a union grid, and mixed by VirtualVoxelMixer
 (a sparse UNet). ``mixer_type="dense_bev"`` (with the dense-BEV segmentor):
 each virtual voxel gathers its xy cell from the decoder BEV maps and
 DenseBEVMixer mixes them.
+
+``loss``: the segmentor's focal and vote losses against the points' gt
+boxes, and the head's per-task losses against the virtual voxels' gt boxes.
+``seg_logits``, ``seg_vote_preds`` and ``offsets`` reach the detection
+branch detached (``detach_seg``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,11 +28,15 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from sst_tpu_torch.core.target_assign import gt_point_class_labels
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.dense_bev import DenseBEVMixer
 from sst_tpu_torch.models.fsd.sparse_cluster_head import SparseClusterHeadV2
-from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegmentor
-from sst_tpu_torch.models.layers import MLP, require_inference
+from sst_tpu_torch.models.fsd.vote_segmentor import (
+    VoteSegmentor,
+    seg_targets,
+)
+from sst_tpu_torch.models.layers import MLP
 from sst_tpu_torch.models.sparse_unet import VirtualVoxelMixer, build_unet_plan
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops.ccl import topk_compact
@@ -106,6 +115,9 @@ class SingleStageFSDV2(nn.Module):
         unknown = set(train_cfg) - {"add_gt_fg_points", "group_offset_scale"}
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        # add_gt_fg_points: at train time, points inside a same-class gt box
+        # join the fg selection (single_stage_fsd.py:776-796)
+        self.add_gt_fg_points = bool(train_cfg.get("add_gt_fg_points", False))
         self.mixer_type = mixer_type
         self.mixer_strides = tuple(tuple(s) for s in mixer_strides)
         self.mixer_paddings = tuple(tuple(p) for p in mixer_paddings)
@@ -168,11 +180,19 @@ class SingleStageFSDV2(nn.Module):
             [torch.clamp(xyz[:, i], pcr[i] + eps, pcr[i + 3] - eps)
              for i in range(3)], dim=-1)
 
-    def sample_class(self, data: dict, cls: int, thr_extra: float = 0.0):
-        """fg selection for one class: threshold + top-k compaction."""
+    def sample_class(self, data: dict, cls: int, thr_extra: float = 0.0,
+                     pretrain: bool = False):
+        """fg selection for one class: threshold + top-k compaction;
+        ``pretrain`` (the detection warm-up) takes the top-k of every valid
+        point by score, with no threshold."""
         cap = self.caps.fg_per_class[cls]
         scores = torch.sigmoid(data["seg_logits"][:, cls])
-        fg = data["valid"] & (scores > self.score_thresh[cls] + thr_extra)
+        if pretrain:
+            fg = data["valid"]
+        else:
+            fg = data["valid"] & (scores > self.score_thresh[cls] + thr_extra)
+            if data.get("gt_point_labels") is not None:
+                fg = fg | (data["valid"] & (data["gt_point_labels"] == cls))
         idx, sel_valid = topk_compact(scores, fg, cap)
         pts = data["seg_points"][idx]
         offsets = data["offsets"][idx].reshape(-1, self.num_classes, 3)[:, cls]
@@ -187,7 +207,8 @@ class SingleStageFSDV2(nn.Module):
 
     # ----------------------------------------------------------- feature path
 
-    def _dense_fusion_and_mixer(self, data, vm, voxel_feats, batch_size):
+    def _dense_fusion_and_mixer(self, data, vm, voxel_feats, batch_size,
+                                train: bool):
         """Every virtual voxel gathers its xy cell from each decoder BEV map
         (NHWC); DenseBEVMixer over the virtual voxels' own slots."""
         vgrid = self.vgrid
@@ -202,13 +223,14 @@ class SingleStageFSDV2(nn.Module):
             cell = (torch.clamp(vc[:, 0], min=0) * hl + cy) * wl + cx
             g = m.reshape(b * hl * wl, -1)[cell.long()]
             feats_sum = feats_sum + getattr(self, f"ms_projs_{i}")(
-                g, vm.voxel_valid)
+                g, vm.voxel_valid, train)
             n_contrib += 1.0
         union_feats = feats_sum / n_contrib
         return self.mixer_mod(union_feats, vc, vm.voxel_valid, batch_size,
-                              vgrid[1:])
+                              vgrid[1:], train)
 
-    def _sparse_fusion_and_mixer(self, data, vm, voxel_feats, batch_size):
+    def _sparse_fusion_and_mixer(self, data, vm, voxel_feats, batch_size,
+                                 train: bool):
         """Decoder features projected onto the virtual grid and merged with
         the virtual voxels by segment mean into a union grid, mixed by
         VirtualVoxelMixer; returns the union output at the virtual voxels'
@@ -235,8 +257,8 @@ class SingleStageFSDV2(nn.Module):
                                 c[:, 2] * ys + ys // 2,
                                 c[:, 3] * xs + xs // 2], dim=-1)
             keys_l.append(linearize_coords(proj, vgrid, sgl.valid))
-            feats_l.append(getattr(self, f"ms_projs_{i}")(ms[lvl_idx],
-                                                          sgl.valid))
+            feats_l.append(getattr(self, f"ms_projs_{i}")(
+                ms[lvl_idx], sgl.valid, train))
             valid_l.append(sgl.valid)
 
         caps = self.caps
@@ -254,24 +276,23 @@ class SingleStageFSDV2(nn.Module):
             level_caps.append(level_caps[-1] // 2)
         plan = build_unet_plan(union_sg, tuple(level_caps),
                                self.mixer_strides, self.mixer_paddings)
-        out_feats = self.mixer_mod(union_feats, plan)
+        out_feats = self.mixer_mod(union_feats, plan, train)
         # the virtual-grid voxels are the first caps.voxels union inputs
         return gather_segments(out_feats, uu.seg_ids[:caps.voxels])
 
     def extract_feat(self, data: dict, batch_size: int, train: bool = False,
-                     thr_extra: float = 0.0):
-        require_inference(train)
+                     thr_extra: float = 0.0, pretrain: bool = False):
         caps = self.caps
-        samples = [self.sample_class(data, c, thr_extra)
+        samples = [self.sample_class(data, c, thr_extra, pretrain)
                    for c in range(self.num_classes)]
         vir_xyz = torch.cat([s["centers"] for s in samples])
         vir_in = torch.cat([s["proj_in"] for s in samples])
         vir_valid = torch.cat([s["valid"] for s in samples])
         vir_batch = torch.cat([s["batch_idx"] for s in samples])
-        vir_feat = self.virtual_proj(vir_in, vir_valid)
+        vir_feat = self.virtual_proj(vir_in, vir_valid, train)
 
         ori_xyz = data["seg_points"][:, :3]
-        ori_feat = self.ori_proj(data["seg_feats"], data["valid"])
+        ori_feat = self.ori_proj(data["seg_feats"], data["valid"], train)
 
         cat_xyz = torch.cat([ori_xyz, vir_xyz])
         cat_feat = torch.cat([ori_feat, vir_feat])
@@ -286,7 +307,7 @@ class SingleStageFSDV2(nn.Module):
         vm = dynamic_voxelize(vfe_in, cat_batch, cat_valid,
                               self.point_cloud_range, self.virtual_voxel_size,
                               caps.voxels, batch_size)
-        voxel_feats, vfe_aux = self.vfe_mod(vfe_in, vm,
+        voxel_feats, vfe_aux = self.vfe_mod(vfe_in, vm, train,
                                             extra_sum=indicator[:, None])
         counts_f = torch.clamp(vm.unique.counts, min=1).float()
         vox_indicator = vfe_aux["extra_sum"][:, 0] / counts_f
@@ -296,10 +317,10 @@ class SingleStageFSDV2(nn.Module):
         vc = vm.voxel_coords
         if self.mixer_type == "sparse":
             orig_out = self._sparse_fusion_and_mixer(data, vm, voxel_feats,
-                                                     batch_size)
+                                                     batch_size, train)
         else:
             orig_out = self._dense_fusion_and_mixer(data, vm, voxel_feats,
-                                                    batch_size)
+                                                    batch_size, train)
 
         # compact virtual voxels for the head
         vidx, vvalid = topk_compact(vox_indicator, virtual_mask,
@@ -326,28 +347,72 @@ class SingleStageFSDV2(nn.Module):
     # ---------------------------------------------------------------- wiring
 
     def run_pipeline(self, batch: PointBatch, train: bool = False,
-                     thr_extra: float = 0.0):
-        require_inference(train)
+                     thr_extra: float = 0.0, pretrain: bool = False,
+                     detach_seg: bool = True):
+        if train and self.mixer_type != "sparse":
+            raise NotImplementedError(
+                "train mode of the dense-BEV build (BatchNorm and "
+                "ConvNormAct statistics) is not ported")
         b, p, _ = batch.points.shape
         pts = batch.points.reshape(b * p, -1)
         batch_idx = torch.arange(b, dtype=torch.int32,
                                  device=pts.device).repeat_interleave(p)
         seg_out = self.segmentor_mod(pts, batch_idx, batch.valid.reshape(-1),
-                                     b)
+                                     b, train)
         data = {k: seg_out[k] for k in (
             "seg_points", "seg_logits", "seg_vote_preds", "offsets",
             "seg_feats", "batch_idx", "valid", "decoder_features",
             "unet_plan", "decoder_maps") if k in seg_out}
-        ex = self.extract_feat(data, b, thr_extra=thr_extra)
-        outs = self.head_mod(ex["virtual_feats"], ex["virtual_valid"])
+        if train and self.add_gt_fg_points:
+            data["gt_point_labels"] = gt_point_class_labels(
+                seg_out["seg_points"][:, :3], seg_out["batch_idx"],
+                seg_out["valid"], batch.gt_boxes, batch.gt_labels,
+                batch.gt_valid)
+        if detach_seg:
+            for k in ("seg_logits", "seg_vote_preds", "offsets"):
+                data[k] = data[k].detach()
+        ex = self.extract_feat(data, b, train, thr_extra, pretrain)
+        outs = self.head_mod(ex["virtual_feats"], ex["virtual_valid"], train)
         return {"seg_out": seg_out, "data": data, "ex": ex, "outs": outs,
                 "batch_size": b}
+
+    def seg_losses(self, batch: PointBatch, seg_out: dict) -> dict:
+        """The segmentor's losses against each sample's gt boxes."""
+        targets = [seg_targets(batch.points[i, :, :3], batch.valid[i],
+                               batch.gt_boxes[i], batch.gt_labels[i],
+                               batch.gt_valid[i], self.num_classes)
+                   for i in range(batch.points.shape[0])]
+        lbl, vt, vmask = (torch.cat(t) for t in zip(*targets))
+        return self.segmentor_mod.head_mod.losses(
+            seg_out["seg_logits"], seg_out["seg_vote_preds"], lbl, vt, vmask,
+            seg_out["valid"])
+
+    def losses_from_pipeline(self, batch: PointBatch, pipe: dict) -> dict:
+        losses = self.seg_losses(batch, pipe["seg_out"])
+        ex = pipe["ex"]
+        losses.update(self.head_mod.loss(
+            pipe["outs"], ex["virtual_centers"], ex["virtual_batch"],
+            ex["virtual_valid"], batch.gt_boxes, batch.gt_labels,
+            batch.gt_valid))
+        losses["num_virtual"] = ex["num_virtual"].float()
+        losses["num_union_overflow_points"] = (
+            ex["num_union_overflow_points"].float())
+        return losses
+
+    def loss(self, batch: PointBatch, train: bool = True,
+             thr_extra: float = 0.0, pretrain: bool = False) -> dict:
+        """The training losses of a labelled batch (``loss*`` keys, summed
+        by ``train/step.py``) and two counters, as the JAX model returns
+        them. ``pretrain`` and ``thr_extra`` come from
+        ``train/schedules.py FSDDetectionSchedule``."""
+        pipe = self.run_pipeline(batch, train, thr_extra, pretrain)
+        return self.losses_from_pipeline(batch, pipe)
 
     @torch.inference_mode()
     def predict(self, batch: PointBatch):
         """Boxes for a batch: dict of [B, max_num] boxes, scores, labels and
         valid."""
-        pipe = self.run_pipeline(batch)
+        pipe = self.run_pipeline(batch, detach_seg=False)
         ex = pipe["ex"]
         return self.head_mod.get_bboxes(
             pipe["outs"], ex["virtual_centers"], ex["virtual_batch"],

@@ -1,9 +1,10 @@
 """SparseClusterHeadV2 — FSD's single-stage head over cluster features
-(counterpart of ``sst_tpu/models/fsd/sparse_cluster_head.py``; forward and
-``get_bboxes``).
+(counterpart of ``sst_tpu/models/fsd/sparse_cluster_head.py``: forward,
+``loss`` and ``get_bboxes``).
 
 Per task (class group): shared MLP → separate MLPs for score / centre / dim /
-rot. Boxes decode with the base-point coder w.r.t. each cluster's centre.
+rot. Boxes decode with the base-point coder w.r.t. each cluster's centre; a
+cluster whose centre lies in a gt box of the task is that box's positive.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.core.box_coders import base_point_decode
+from sst_tpu_torch.core import losses as L
+from sst_tpu_torch.core.box_coders import base_point_decode, base_point_encode
+from sst_tpu_torch.core.boxes import points_in_boxes
 from sst_tpu_torch.core.nms import box3d_multiclass_nms
 from sst_tpu_torch.models.layers import MLP
 
@@ -45,12 +48,32 @@ class SparseClusterHeadV2(nn.Module):
                  common_attrs: tuple = (("center", 3, 2, 128),
                                         ("dim", 3, 2, 128),
                                         ("rot", 2, 2, 128)),
-                 bbox_coder_scale: float = 1.0, norm: str = "ln",
-                 act: str = "relu", with_vel: bool = False,
-                 with_iou: bool = False, **_loss_cfg):
+                 bbox_coder_scale: float = 1.0,
+                 enlarge_width: float | None = None,
+                 loss_cls_weight: float = 2.0,
+                 loss_center_weight: float = 0.5,
+                 loss_size_weight: float = 0.5,
+                 loss_rot_weight: float = 0.2, focal_gamma: float = 2.0,
+                 focal_alpha: float = 0.25, norm: str = "ln",
+                 act: str = "relu", code_size: int = 8,
+                 with_vel: bool = False, loss_vel_weight: float = 0.2,
+                 with_iou: bool = False, loss_iou_weight: float = 1.0,
+                 iou_score_weight: float = 0.5):
+        """``code_size``, ``loss_vel_weight``, ``loss_iou_weight`` and
+        ``iou_score_weight`` belong to the velocity and IoU branches, which
+        are not ported (they raise)."""
         super().__init__()
         if with_vel or with_iou:
             raise NotImplementedError("with_vel / with_iou")
+        if enlarge_width is not None:
+            raise NotImplementedError("enlarge_width")
+        if code_size != 8:
+            raise NotImplementedError(f"code_size={code_size}")
+        self.loss_weights = dict(cls=loss_cls_weight,
+                                 center=loss_center_weight,
+                                 size=loss_size_weight, rot=loss_rot_weight)
+        self.focal_gamma = focal_gamma
+        self.focal_alpha = focal_alpha
         self.num_classes = num_classes
         self.tasks = tuple(tuple(t) for t in tasks)
         self.class_names = tuple(class_names)
@@ -80,6 +103,65 @@ class SparseClusterHeadV2(nn.Module):
             reg_preds.append(torch.cat([ret["center"], ret["dim"], ret["rot"]],
                                        dim=-1))
         return {"cls_logits": cls_logits, "reg_preds": reg_preds}
+
+    def loss(self, outs, cluster_xyz, cluster_batch, cluster_valid,
+             gt_boxes, gt_labels, gt_valid):
+        """gt_*: [B, G, ...]; cluster_* are flat [C] with a batch index.
+        Per task: ``loss_cls``, ``loss_center``, ``loss_size`` and
+        ``loss_rot`` with a ``.task{t}`` suffix."""
+        losses = {}
+        for t in range(len(self.tasks)):
+            losses.update(self._loss_single_task(
+                t, outs["cls_logits"][t], outs["reg_preds"][t], cluster_xyz,
+                cluster_batch, cluster_valid, gt_boxes, gt_labels, gt_valid))
+        return losses
+
+    def _loss_single_task(self, task_id, cls_logits, reg_preds, cluster_xyz,
+                          cluster_batch, cluster_valid, gt_boxes, gt_labels,
+                          gt_valid):
+        ids = self._task_class_ids(task_id)
+        # gt labels as task-local ids; boxes of other classes are dropped
+        task_gt_valid = gt_valid & torch.isin(
+            gt_labels, torch.tensor(ids, dtype=gt_labels.dtype,
+                                    device=gt_labels.device))
+        local = torch.zeros_like(gt_labels)
+        for li, ci in enumerate(ids):
+            local = torch.where(gt_labels == ci, li, local)
+
+        # a cluster's box: the first of its sample's task boxes that holds
+        # its centre
+        b, g = gt_boxes.shape[:2]
+        assigned = torch.full(cluster_xyz.shape[:1], -1, dtype=torch.int64,
+                              device=cluster_xyz.device)
+        for i in range(b):
+            inb = (points_in_boxes(cluster_xyz, gt_boxes[i])
+                   & task_gt_valid[i][None, :]
+                   & (cluster_batch == i)[:, None])
+            first = torch.argmax(inb.to(torch.uint8), dim=1)
+            assigned = torch.where(inb.any(dim=1) & cluster_valid,
+                                   i * g + first, assigned)
+
+        is_pos = assigned >= 0
+        safe = torch.clamp(assigned, min=0)
+        labels = torch.where(is_pos, local.reshape(-1)[safe], len(ids))
+        matched = gt_boxes.reshape(b * g, -1)[safe]
+
+        num_total = torch.clamp(cluster_valid.sum().float(), min=1.0)
+        loss_cls = L.sigmoid_focal_loss(
+            cls_logits, labels.to(torch.int32), weight=cluster_valid.float(),
+            gamma=self.focal_gamma, alpha=self.focal_alpha,
+            avg_factor=num_total) * self.loss_weights["cls"]
+        targets = base_point_encode(cluster_xyz, matched[:, :7],
+                                    self.bbox_coder_scale)
+        pw = is_pos.float()
+        num_pos = torch.clamp(pw.sum(), min=1.0)
+        out = {f"loss_cls.task{task_id}": loss_cls}
+        for name, sl in (("center", slice(0, 3)), ("size", slice(3, 6)),
+                         ("rot", slice(6, 8))):
+            out[f"loss_{name}.task{task_id}"] = L.l1_loss(
+                reg_preds[:, sl], targets[:, sl], pw, num_pos) \
+                * self.loss_weights[name]
+        return out
 
     def get_bboxes(self, outs, cluster_xyz, cluster_batch, cluster_valid,
                    batch_size: int, score_thr=0.1, nms_thr=0.25, max_num=500,

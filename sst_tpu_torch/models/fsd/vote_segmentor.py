@@ -6,7 +6,9 @@ Flow: tanh on the channels past xyz → dynamic voxelize → DynamicVFE →
 backbone → per-point gather + local-xyz decoration → MLP → (seg logits
 [P, C], vote preds [P, 3C]). The backbone is either SimpleSparseUNet over
 the voxel grid's rulebooks (``backbone="sparse"``) or BEVScatter →
-DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``).
+DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``). Train mode and
+the head's losses are ported for the sparse backbone; the dense-BEV
+modules raise in train mode.
 """
 
 from __future__ import annotations
@@ -16,12 +18,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from sst_tpu_torch.core import losses as L
+from sst_tpu_torch.core.boxes import gravity_center, points_in_boxes
 from sst_tpu_torch.models.dense_bev import (
     BEVScatter,
     DenseBEVUNet,
     DenseVoxelDecode,
 )
-from sst_tpu_torch.models.layers import MLP, require_inference
+from sst_tpu_torch.models.layers import MLP
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, build_unet_plan
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops.segment import INT_SENTINEL, gather_segments
@@ -29,17 +33,43 @@ from sst_tpu_torch.ops.sparse_conv import SparseGrid
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
 
 
+def encode_vote(delta):
+    """sign(d) * sqrt(|d|)."""
+    return torch.sign(delta) * torch.sqrt(torch.abs(delta))
+
+
 def decode_vote(pred):
     return pred * torch.abs(pred)
+
+
+def seg_targets(points_xyz, points_valid, gt_boxes, gt_labels, gt_valid,
+                num_classes: int):
+    """Per-point class label (background = num_classes), vote target
+    ``encode_vote(gravity centre - point)`` and vote mask, for one sample:
+    the first valid gt box holding the point decides."""
+    inb = points_in_boxes(points_xyz, gt_boxes) & gt_valid[None, :]
+    any_in = inb.any(dim=1)
+    first = torch.argmax(inb.to(torch.uint8), dim=1)
+    lbl = torch.where(any_in, gt_labels[first], num_classes)
+    delta = torch.where(any_in[:, None],
+                        gravity_center(gt_boxes)[first] - points_xyz, 0.0)
+    lbl = torch.where(points_valid, lbl, num_classes).to(torch.int32)
+    return lbl, encode_vote(delta), any_in & points_valid
 
 
 class VoteSegHead(nn.Module):
     def __init__(self, in_channels: int, num_classes: int = 3,
                  hidden_dims: Sequence[int] = (128, 128),
-                 init_bias: float = -2.0, **_loss_cfg):
+                 init_bias: float = -2.0, gamma: float = 3.0,
+                 alpha: float = 0.8, loss_seg_weight: float = 1.0,
+                 loss_vote_weight: float = 1.0):
         super().__init__()
         self.num_classes = num_classes
         self.init_bias = init_bias
+        self.gamma = gamma
+        self.alpha = alpha
+        self.loss_seg_weight = loss_seg_weight
+        self.loss_vote_weight = loss_vote_weight
         self.pre_seg = MLP(in_channels, tuple(hidden_dims), norm="bn")
         c = self.pre_seg.out_channels
         self.conv_seg = nn.Linear(c, num_classes)
@@ -48,6 +78,23 @@ class VoteSegHead(nn.Module):
     def forward(self, feats, valid, train: bool = False):
         x = self.pre_seg(feats, valid, train)
         return self.conv_seg(x), self.voting(x)
+
+    def losses(self, logits, votes, labels, vote_targets, vote_mask, valid):
+        """Focal segmentation loss over valid points and L1 vote loss over
+        the target class's 3 offsets of foreground points."""
+        num_valid = torch.clamp(valid.sum().float(), min=1.0)
+        loss_seg = L.sigmoid_focal_loss(
+            logits, torch.where(valid, labels, self.num_classes),
+            weight=valid.float(), gamma=self.gamma, alpha=self.alpha,
+            avg_factor=num_valid) * self.loss_seg_weight
+        v = votes.reshape(-1, self.num_classes, 3)
+        safe = torch.clamp(labels.long(), max=self.num_classes - 1)
+        picked = torch.gather(v, 1, safe[:, None, None].expand(-1, 1, 3))[:, 0]
+        vm = vote_mask & valid
+        num_vote = torch.clamp(vm.sum().float(), min=1.0)
+        loss_vote = L.l1_loss(picked, vote_targets, weight=vm.float(),
+                              avg_factor=num_vote) * self.loss_vote_weight
+        return {"loss_sem_seg": loss_seg, "loss_vote": loss_vote}
 
 
 class VoteSegmentor(nn.Module):
@@ -130,12 +177,11 @@ class VoteSegmentor(nn.Module):
     def forward(self, points, batch_idx, points_valid, batch_size: int,
                 train: bool = False):
         """points: [P, C] flat batch. Returns the per-point seg dict."""
-        require_inference(train)
         pts = self.preprocess(points)
         vm = dynamic_voxelize(pts, batch_idx, points_valid,
                               self.point_cloud_range, self.voxel_size,
                               self.max_voxels, batch_size)
-        voxel_feats = self.vfe_mod(pts, vm)
+        voxel_feats = self.vfe_mod(pts, vm, train)
         if self.backbone == "sparse":
             # the voxel unique already sorted the voxels by key, so the
             # SparseGrid is built without a re-sort
@@ -147,15 +193,15 @@ class VoteSegmentor(nn.Module):
             plan = build_unet_plan(
                 sg, (self.max_voxels,) + self.unet_level_caps[1:],
                 self.unet_strides, self.unet_paddings)
-            unet_out = self.unet_mod(voxel_feats, plan)
+            unet_out = self.unet_mod(voxel_feats, plan, train)
             vox_out = unet_out["voxel_feats"]
         else:
             canvas = self.scatter_mod(voxel_feats, vm.voxel_coords,
                                       vm.voxel_valid, batch_size,
-                                      self.grid[1:])
-            bev_out, decoder_maps = self.unet_mod(canvas)
+                                      self.grid[1:], train)
+            bev_out, decoder_maps = self.unet_mod(canvas, train)
             vox_out = self.decode_mod(bev_out, vm.voxel_coords,
-                                      vm.voxel_valid)
+                                      vm.voxel_valid, train)
 
         pt_vox_feats = gather_segments(vox_out, vm.point_seg_ids)
         vs = torch.tensor(self.voxel_size, dtype=torch.float32,
@@ -166,7 +212,7 @@ class VoteSegmentor(nn.Module):
         local_xyz = torch.where(vm.valid[:, None], pts[:, :3] - centers, 0.0)
         feats = torch.cat([pt_vox_feats, local_xyz], dim=-1)
 
-        logits, votes = self.head_mod(feats, vm.valid)
+        logits, votes = self.head_mod(feats, vm.valid, train)
         out = {
             "seg_points": pts,
             "seg_logits": logits,

@@ -3,8 +3,9 @@
 Submodules keep flax's automatic names (``Dense_0``, ``LayerNorm_0``,
 ``MaskedBatchNorm_0``, ``Conv_0``, ``BatchNorm_0``) so that
 ``sst_tpu_torch/convert.py`` maps a flax variable tree onto these modules
-name for name. Only the inference (running-statistics) path of batch norm is
-ported; ``train=True`` raises.
+name for name. ``MaskedBatchNorm`` and ``MLP`` take ``train=True``; the
+dense ``BatchNorm`` (and so ``ConvNormAct``) is ported for inference only
+and raises in train mode.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sst_tpu_torch.utils import remat
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -51,11 +54,37 @@ class BatchNorm(nn.Module):
 
 
 class MaskedBatchNorm(BatchNorm):
-    """BatchNorm over rows of [N, C]. At inference the running statistics
-    normalise every row, so the validity mask is not read."""
+    """BatchNorm over rows of [N, C] with a validity mask (``sst_tpu``'s
+    ``MaskedBatchNorm``). At inference the running statistics normalise
+    every row, so the mask is not read. In train mode the statistics are
+    taken over the valid rows only (``mask`` None: every row), with the
+    biased variance, and the running statistics move by flax's rule
+    ``r = 0.99 r + 0.01 batch`` (``F.batch_norm`` would take every row, the
+    unbiased variance and torch's momentum). The update is skipped while a
+    rematerialised call is recomputed in the backward (``utils/remat.py``),
+    where JAX discards it."""
+
+    momentum = 0.99
 
     def forward(self, x, mask=None, train: bool = False):
-        return super().forward(x, train)
+        if not train:
+            return super().forward(x)
+        if mask is None:
+            m = x.new_ones((x.shape[0], 1))
+        else:
+            m = mask.to(x.dtype)[:, None]
+        n = torch.clamp(m.sum(), min=1.0)
+        mean = (x * m).sum(0) / n
+        var = torch.clamp((torch.square(x) * m).sum(0) / n
+                          - torch.square(mean), min=0.0)
+        if not remat.recomputing():
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1 - self.momentum) * var)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
 
 
 class MLP(nn.Module):
@@ -85,13 +114,12 @@ class MLP(nn.Module):
         self.out_channels = c_in
 
     def forward(self, x, mask=None, train: bool = False):
-        require_inference(train)
         for i in range(self.depth):
             x = getattr(self, f"Dense_{i}")(x)
             if i == self.depth - 1 and self.is_head:
                 break
             if self.norm == "bn":
-                x = getattr(self, f"MaskedBatchNorm_{i}")(x, mask)
+                x = getattr(self, f"MaskedBatchNorm_{i}")(x, mask, train)
             elif self.norm == "ln":
                 x = getattr(self, f"LayerNorm_{i}")(x)
             x = self.act(x)

@@ -7,6 +7,12 @@ channel-reduce residual, SparseInverseConv upsample). The rulebooks of every
 level are built once per forward by :func:`build_unet_plan` and shared by all
 convs at that level. Modules keep flax's names so that
 ``sst_tpu_torch/convert.py`` maps a flax variable tree onto them.
+
+``train=True`` takes batch statistics in every ``MaskedBatchNorm`` and runs
+each conv through the sparse conv's autograd function
+(``ops/sparse_conv.py``). With ``remat=True`` (flax's ``nn.remat``) every
+conv layer and basic block that ``SimpleSparseUNet`` calls is rematerialised
+in the backward (``utils/remat.py``); the mixer's ``conv_out`` is not.
 """
 
 from __future__ import annotations
@@ -17,11 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import (
-    ACTIVATIONS,
-    MaskedBatchNorm,
-    require_inference,
-)
+from sst_tpu_torch.models.layers import ACTIVATIONS, MaskedBatchNorm
 from sst_tpu_torch.ops.sparse_conv import (
     ConvPlan,
     SparseGrid,
@@ -29,6 +31,7 @@ from sst_tpu_torch.ops.sparse_conv import (
     downsample_grid,
     windowed_sparse_conv,
 )
+from sst_tpu_torch.utils import remat
 
 
 @dataclass
@@ -75,13 +78,12 @@ class SparseConvLayer(nn.Module):
         self.act = ACTIVATIONS[act]
 
     def forward(self, feats, cp: ConvPlan, out_valid, train: bool = False):
-        require_inference(train)
         x = windowed_sparse_conv(feats, self.weight, cp)
         # masked before the norm and again after it: at inference the BN
         # bias makes padding rows non-zero in between
         x = torch.where(out_valid[:, None], x, 0.0)
         if self.MaskedBatchNorm_0 is not None:
-            x = self.MaskedBatchNorm_0(x, out_valid)
+            x = self.MaskedBatchNorm_0(x, out_valid, train)
         return torch.where(out_valid[:, None], self.act(x), 0.0)
 
 
@@ -105,9 +107,9 @@ class SparseBasicBlock(nn.Module):
 
 class SimpleSparseUNet(nn.Module):
     """``in_channels`` is the width of the input features (the JAX module
-    reads it from the input). ``output_channels`` is unused (no densify),
-    and ``remat`` is stored only: it changes nothing at inference, and
-    training is not ported."""
+    reads it from the input). ``output_channels`` is unused (no densify).
+    ``remat`` rematerialises each conv layer and basic block in train mode;
+    it changes nothing at inference."""
 
     def __init__(self, in_channels: int = 64, base_channels: int = 64,
                  output_channels: int = 128,
@@ -148,19 +150,26 @@ class SimpleSparseUNet(nn.Module):
                             SparseConvLayer(chans[1], chans[2], act=act))
             c = chans[2]
 
+    def _call(self, name: str, x, cp: ConvPlan, valid, train: bool):
+        mod = getattr(self, name)
+        if self.remat and train and torch.is_grad_enabled():
+            return remat.checkpoint(mod, x, cp, valid, train)
+        return mod(x, cp, valid, train)
+
     def forward(self, feats, plan: UNetPlan, train: bool = False):
-        require_inference(train)
         num_stages = len(self.encoder_channels)
-        x = self.conv_input(feats, plan.subm[0], plan.levels[0].valid)
+        x = self._call("conv_input", feats, plan.subm[0],
+                       plan.levels[0].valid, train)
         encode = []
         for i, blocks in enumerate(self.encoder_channels):
             for j in range(len(blocks)):
                 if i != 0 and j == 0:  # strided conv: level i-1 → i
-                    x = getattr(self, f"encoder_{i}_{j}_down")(
-                        x, plan.down[i - 1], plan.levels[i].valid)
+                    x = self._call(f"encoder_{i}_{j}_down", x,
+                                   plan.down[i - 1], plan.levels[i].valid,
+                                   train)
                 else:
-                    x = getattr(self, f"encoder_{i}_{j}")(
-                        x, plan.subm[i], plan.levels[i].valid)
+                    x = self._call(f"encoder_{i}_{j}", x, plan.subm[i],
+                                   plan.levels[i].valid, train)
             encode.append(x)
 
         decode = []
@@ -168,19 +177,21 @@ class SimpleSparseUNet(nn.Module):
         for d, chans in enumerate(self.decoder_channels):
             s = num_stages - d
             lvl = s - 1
-            lateral = getattr(self, f"lateral_{s}")(
-                encode[lvl], plan.subm[lvl], plan.levels[lvl].valid)
+            lateral = self._call(f"lateral_{s}", encode[lvl],
+                                 plan.subm[lvl], plan.levels[lvl].valid,
+                                 train)
             cat = torch.cat([x, lateral], dim=-1)
-            merge = getattr(self, f"merge_{s}")(cat, plan.subm[lvl],
-                                                plan.levels[lvl].valid)
+            merge = self._call(f"merge_{s}", cat, plan.subm[lvl],
+                               plan.levels[lvl].valid, train)
             # channel-reduce residual: sums groups of consecutive channels
             n, cin = cat.shape
             x = merge + cat.reshape(n, chans[1], cin // chans[1]).sum(-1)
-            up = getattr(self, f"upsample_{s}")
             if s != 1:
-                x = up(x, plan.inv[lvl - 1], plan.levels[lvl - 1].valid)
+                x = self._call(f"upsample_{s}", x, plan.inv[lvl - 1],
+                               plan.levels[lvl - 1].valid, train)
             else:
-                x = up(x, plan.subm[0], plan.levels[0].valid)
+                x = self._call(f"upsample_{s}", x, plan.subm[0],
+                               plan.levels[0].valid, train)
             decode.append(x)
 
         out = {

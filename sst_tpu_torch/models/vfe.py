@@ -6,7 +6,9 @@ With ``use_sorted_reduce=True`` and a sort-based voxel mapping
 (``vm.unique.order`` present), rows are gathered into voxel order once and
 every per-voxel reduction goes through the sorted segment reduce kernel
 (``ops/sorted_reduce.py``); otherwise the reductions are scatters
-(``ops/segment.py``).
+(``ops/segment.py``). Gradients follow JAX on each path: a scatter max
+splits a tie evenly among the rows that hold the maximum, the sorted
+reduce's max hands it to the first of them.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import MaskedBatchNorm, require_inference
+from sst_tpu_torch.models.layers import MaskedBatchNorm
 from sst_tpu_torch.ops.segment import gather_segments, segment_reduce
 from sst_tpu_torch.ops.sorted_reduce import sorted_segment_reduce
 from sst_tpu_torch.ops.voxelize import VoxelMapping
@@ -110,7 +112,6 @@ class DynamicVFE(nn.Module):
 
     def forward(self, points, vm: VoxelMapping, train: bool = False,
                 extra_sum=None):
-        require_inference(train)
         num_vox = vm.num_voxel_slots
         counts = vm.unique.counts
         if self.sorted_path(vm):
@@ -142,7 +143,7 @@ class DynamicVFE(nn.Module):
         n_layers = len(self.feat_channels)
         for i in range(n_layers):
             layer = getattr(self, f"DynamicVFELayer_{i}")
-            point_feats = layer(point_feats, valid)
+            point_feats = layer(point_feats, valid, train)
             voxel_feats = reduce_fn(point_feats, self.mode)
             if i != n_layers - 1:
                 back = gather_segments(voxel_feats, seg)

@@ -11,6 +11,11 @@ PyTorch twin :func:`sorted_segment_reduce_ref`, a CUDA tensor to the kernel
 (or the call raises). ``launches`` counts kernel launches and
 ``launch_counts`` splits them by ``(mode, C)``, so a run can show that its
 main path went through the kernel, and with which shapes.
+
+The gradient is JAX's custom vjp (``sst_tpu/ops/sorted_reduce.py`` ``_bwd``,
+plain XLA there and plain PyTorch here): a sum hands each row its segment's
+gradient; a max hands it to the first row of the segment that holds the
+maximum, and 0 to every other row. Ids outside [0, num_segments) get 0.
 """
 
 from __future__ import annotations
@@ -98,6 +103,49 @@ def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
     return out
 
 
+def _reduce(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
+            mode: str) -> torch.Tensor:
+    if data.device.type == "cpu":
+        return sorted_segment_reduce_ref(data, seg, num_segments, mode)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    return _launch(data, seg, num_segments, mode)
+
+
+def _backward(data, seg, out, g, num_segments: int, mode: str):
+    """JAX's ``_bwd``: the gradient of ``data`` from the gradient ``g`` of
+    the [num_segments, C] result."""
+    idx = seg.long()
+    keep = ((idx >= 0) & (idx < num_segments))[:, None]
+    safe = torch.clamp(idx, 0, max(num_segments - 1, 0))
+    g_rows = g[safe]
+    if mode == "sum":
+        return torch.where(keep, g_rows, 0.0)
+    n = data.shape[0]
+    is_max = (data == out[safe]) & keep
+    rows = torch.arange(n, device=data.device)[:, None].expand_as(data)
+    rows = torch.where(is_max, rows, n)
+    first = torch.full((num_segments, data.shape[1]), n, dtype=rows.dtype,
+                       device=data.device)
+    first.scatter_reduce_(0, safe[:, None].expand_as(data), rows, "amin")
+    return torch.where(rows == first[safe], g_rows, 0.0)
+
+
+class _SortedSegmentReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, seg, num_segments, mode):
+        out = _reduce(data, seg, num_segments, mode)
+        ctx.save_for_backward(data, seg, out)
+        ctx.num_segments, ctx.mode = num_segments, mode
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, seg, out = ctx.saved_tensors
+        return (_backward(data, seg, out, g, ctx.num_segments, ctx.mode),
+                None, None, None)
+
+
 def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
                           num_segments: int, mode: str = "sum"
                           ) -> torch.Tensor:
@@ -112,15 +160,10 @@ def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
     Returns [num_segments, C] float32; empty segments are 0, and a max that
     is not finite (a segment holding a NaN, or a maximum of +-inf) is 0, in
     the kernel and in the twin alike: the JAX package's ``segment_reduce``
-    function. A sum holding a NaN or an inf stays non-finite.
+    function. A sum holding a NaN or an inf stays non-finite. Where autograd
+    needs the gradient of ``data``, it is JAX's (see the module note).
     """
     _check(data, seg, num_segments, mode)
-    if data.device.type == "cpu":
-        return sorted_segment_reduce_ref(data, seg, num_segments, mode)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
-    if data.requires_grad:
-        raise NotImplementedError(
-            "sorted_segment_reduce has no backward yet; call it under "
-            "torch.no_grad() or inference_mode()")
-    return _launch(data, seg, num_segments, mode)
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _SortedSegmentReduce.apply(data, seg, num_segments, mode)
+    return _reduce(data, seg, num_segments, mode)

@@ -13,6 +13,16 @@ each tap's neighbour is found by one ``torch.searchsorted``. The compute is
 ``ops/sparse_conv_gemm.py`` (the Hopper kernel and its plain twin, which is
 JAX's ``gather_gemm``).
 
+Training runs the conv through one ``torch.autograd.Function`` (JAX's
+``_windowed_conv`` custom vjp). Its input gradient is the transposed conv,
+the same kernel over the transposed table ``nbr_t`` [K, Vin] (``Vout``
+marking a missing neighbour) with ``W[k].T``: each input row appears at most
+once per tap in these tables, so ``nbr_t[k, nbr[k, v]] = v`` is a unique
+scatter. That is JAX's mapping in ``_windowed_conv_bwd``: a subm conv's
+transposed table is its own with the taps reversed, and a strided conv's
+and its inverse's are each other's, in the same tap order. The weight
+gradient is ``ops/sparse_conv_dw.py``.
+
 Not ported, because they exist only to feed or gate the TPU kernel:
 ``WindowPlan``, ``build_window_plan``, ``_center_targets``, ``_pack``,
 ``plan_nbr``, ``pallas_eligible``, ``use_window_plans`` and the
@@ -31,6 +41,7 @@ from typing import Sequence
 import torch
 
 from sst_tpu_torch.ops.segment import INT_SENTINEL
+from sst_tpu_torch.ops.sparse_conv_dw import sparse_conv_dw
 from sst_tpu_torch.ops.sparse_conv_gemm import sparse_conv_gemm
 
 
@@ -58,10 +69,22 @@ class SparseGrid:
 @dataclass
 class ConvPlan:
     """One conv's rulebook: ``nbr`` [K, Vout] int32 (Vin = missing), and the
-    conv's mode ('subm' | 'strided' | 'inverse')."""
+    conv's mode ('subm' | 'strided' | 'inverse'). ``nbr_t`` caches the
+    transposed table (:func:`transpose_table`), built by the first conv
+    over this plan that needs an input gradient; every subm conv of a level
+    shares its plan, and so the cache."""
 
     nbr: torch.Tensor
     mode: str
+    nbr_t: torch.Tensor | None = None
+
+    def transposed(self, vin: int) -> torch.Tensor:
+        if self.nbr_t is None:
+            self.nbr_t = transpose_table(self.nbr, vin)
+        elif self.nbr_t.shape[1] != vin:
+            raise ValueError(f"plan transposed for {self.nbr_t.shape[1]} "
+                             f"input rows, called with {vin}")
+        return self.nbr_t
 
 
 def _offsets(device) -> torch.Tensor:
@@ -199,8 +222,54 @@ def build_conv_plans(out_sg: SparseGrid, in_sg: SparseGrid, mode: str,
                     mode=mode)
 
 
+def transpose_table(nbr: torch.Tensor, vin: int) -> torch.Tensor:
+    """The transposed conv's table [K, Vin] int32: ``nbr_t[k, i]`` is the
+    output row that read input row ``i`` at tap ``k``, ``Vout`` where none
+    did. Missing entries of ``nbr`` (outside [0, Vin)) scatter into one
+    extra column that is sliced off."""
+    taps, vout = nbr.shape
+    idx = nbr.long()
+    idx = torch.where((idx >= 0) & (idx < vin), idx, vin)
+    rows = torch.arange(vout, dtype=torch.int32, device=nbr.device)
+    out = torch.full((taps, vin + 1), vout, dtype=torch.int32,
+                     device=nbr.device)
+    out.scatter_(1, idx, rows.expand(taps, vout))
+    return out[:, :vin].contiguous()
+
+
+class _SparseConv(torch.autograd.Function):
+    """The conv with JAX's backward (``_windowed_conv_bwd``): dfeats by the
+    conv kernel over the transposed table with ``W[k].T``, dW by the weight
+    gradient kernel (their twins for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, nbr, nbr_t, mode):
+        ctx.save_for_backward(feats, weights, nbr, nbr_t)
+        ctx.mode = mode
+        return sparse_conv_gemm(feats, nbr, weights, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, weights, nbr, nbr_t = ctx.saved_tensors
+        grad = grad.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            dfeats = sparse_conv_gemm(grad, nbr_t,
+                                      weights.transpose(1, 2).contiguous(),
+                                      ctx.mode, kind="dgrad")
+        if ctx.needs_input_grad[1]:
+            dw = sparse_conv_dw(feats, nbr, grad, ctx.mode)
+        return dfeats, dw, None, None, None
+
+
 def windowed_sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
                          cp: ConvPlan) -> torch.Tensor:
     """One sparse conv: feats [Vin, Cin], weights [K, Cin, Cout] →
-    [Vout, Cout], through the kernel wrapper (its twin on the CPU)."""
+    [Vout, Cout], through the kernel wrapper (its twin on the CPU). Where
+    autograd needs its gradient it runs through :class:`_SparseConv`, and
+    the plan's transposed table is built (once) for the input gradient."""
+    if torch.is_grad_enabled() and (feats.requires_grad
+                                    or weights.requires_grad):
+        return _SparseConv.apply(feats, weights, cp.nbr,
+                                 cp.transposed(feats.shape[0]), cp.mode)
     return sparse_conv_gemm(feats, cp.nbr, weights, cp.mode)

@@ -15,7 +15,11 @@ Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`sparse_conv_gemm_ref`, a CUDA tensor to the kernel
 (or the call raises). ``launches`` counts kernel launches and
 ``launch_counts`` splits them by ``(mode, Cin, Cout)``, so a run can show that
-its main path went through the kernel, and with which widths.
+its main path went through the kernel, and with which widths;
+``kind_counts`` splits them by what the launch computed: a conv's
+``"forward"``, its ``"recompute"`` in the backward of a rematerialised call
+(``utils/remat.py``), or the input gradient (``"dgrad"``: this kernel over
+the transposed table, see ``ops/sparse_conv.py``).
 """
 
 from __future__ import annotations
@@ -24,16 +28,21 @@ import ctypes
 
 import torch
 
+from sst_tpu_torch.utils import remat
+
 MODES = ("subm", "strided", "inverse")
+KINDS = ("forward", "dgrad")
 
 launches = 0  # kernel launches in this process
 launch_counts: dict[tuple[str, int, int], int] = {}  # by (mode, Cin, Cout)
+kind_counts: dict[str, int] = {}  # forward, recompute, dgrad
 
 
 def reset_launch_counts() -> None:
     global launches
     launches = 0
     launch_counts.clear()
+    kind_counts.clear()
 
 
 def _check(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
@@ -79,7 +88,7 @@ def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-            mode: str) -> torch.Tensor:
+            mode: str, kind: str) -> torch.Tensor:
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
     global launches
@@ -104,12 +113,15 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     launches += 1
     key = (mode, cin, cout)
     launch_counts[key] = launch_counts.get(key, 0) + 1
+    if kind == "forward" and remat.recomputing():
+        kind = "recompute"
+    kind_counts[kind] = kind_counts.get(kind, 0) + 1
     return out
 
 
 def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
-                     weights: torch.Tensor, mode: str = "subm"
-                     ) -> torch.Tensor:
+                     weights: torch.Tensor, mode: str = "subm",
+                     kind: str = "forward") -> torch.Tensor:
     """One sparse conv from its neighbour table.
 
     Args:
@@ -118,16 +130,14 @@ def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
         an index outside [0, Vin) reads zeros.
       weights: [K, Cin, Cout] float32.
       mode: 'subm' | 'strided' | 'inverse'; only read by the launch count.
+      kind: 'forward' | 'dgrad'; only read by the launch count.
     Returns [Vout, Cout] float32.
     """
     _check(feats, nbr, weights, mode)
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if feats.device.type == "cpu":
         return sparse_conv_gemm_ref(feats, nbr, weights)
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
-    if torch.is_grad_enabled() and (feats.requires_grad
-                                    or weights.requires_grad):
-        raise NotImplementedError(
-            "sparse_conv_gemm has no backward yet; call it under "
-            "torch.no_grad() or inference_mode()")
-    return _launch(feats, nbr, weights, mode)
+    return _launch(feats, nbr, weights, mode, kind)

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from sst_tpu_torch.ops import sorted_reduce as sr
+from sst_tpu_torch.ops import sparse_conv as tsc
+from sst_tpu_torch.ops import sparse_conv_dw as scd
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.ops.segment import unique_segments
@@ -54,12 +56,23 @@ def test_sorted_reduce_kernel_matches_twin(mode, n, v, c):
 
 
 @pytest.mark.cuda
-def test_sorted_reduce_kernel_refuses_autograd():
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_sorted_reduce_kernel_backward_matches_twin(mode):
+    """Autograd through the kernel (JAX's backward, in plain PyTorch)
+    against autograd through the twin on the CPU: exact, ties included."""
     device = _cuda()
-    data = torch.ones(8, 2, device=device, requires_grad=True)
-    seg = torch.zeros(8, dtype=torch.int32, device=device)
-    with pytest.raises(NotImplementedError):
-        sr.sorted_segment_reduce(data, seg, 4, "sum")
+    data, seg = _sorted_rows(4096, 1500, 16, seed=11, device=device)
+    data[1::7] = data[::7][:data[1::7].shape[0]]  # ties inside segments
+    g = torch.randn(1500, 16, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for dev in (device, "cpu"):
+        d = data.detach().to(dev).requires_grad_()
+        sr.reset_launch_counts()
+        (sr.sorted_segment_reduce(d, seg.to(dev), 1500, mode) * g.to(dev)) \
+            .sum().backward()
+        assert sr.launches == (1 if dev == device else 0)
+        grads.append(d.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.cuda
@@ -143,12 +156,100 @@ def test_sparse_conv_kernel_matches_twin(name):
         assert torch.equal(got[64:128], torch.zeros_like(got[64:128]))
 
 
+def _dw_close(got, feats, nbr, dout):
+    """|kernel - twin| <= 1e-4 * (|feats|^T |dout| per element, the twin on
+    absolute values) + 1e-6: f32 sums in another order."""
+    ref = scd.sparse_conv_dw_ref(feats, nbr, dout)
+    tol = 1e-4 * scd.sparse_conv_dw_ref(feats.abs(), nbr, dout.abs()) + 1e-6
+    return bool(((got - ref).abs() <= tol).all())
+
+
+DW_CASES = ("tap with no neighbour", "all rows missing",
+            "Vout off the row tile, 1000 rows, 40->72", "16->32",
+            "merge width 512->256")
+
+
+def _dw_case(name, device):
+    if name == "tap with no neighbour":
+        feats, nbr, w = _conv_case(500, 300, 27, 64, 64, 12, device)
+        nbr[13] = 500
+    elif name == "all rows missing":
+        feats, nbr, w = _conv_case(500, 300, 27, 64, 64, 13, device)
+        nbr[:] = -1
+    elif name == "16->32":
+        feats, nbr, w = _conv_case(3000, 2500, 27, 16, 32, 14, device)
+    else:
+        feats, nbr, w = _edge_case(name, device)
+    dout = torch.randn(nbr.shape[1], w.shape[2],
+                       generator=torch.Generator().manual_seed(1)).to(device)
+    return feats, nbr, dout
+
+
 @pytest.mark.cuda
-def test_sparse_conv_kernel_refuses_autograd():
+@pytest.mark.parametrize("name", DW_CASES)
+def test_sparse_conv_dw_kernel_matches_twin(name):
     device = _cuda()
-    feats, nbr, w = _conv_case(64, 64, 27, 8, 8, 0, device)
-    with pytest.raises(NotImplementedError):
-        scg.sparse_conv_gemm(feats, nbr, w.requires_grad_(), "subm")
+    feats, nbr, dout = _dw_case(name, device)
+    scd.reset_launch_counts()
+    got = scd.sparse_conv_dw(feats, nbr, dout, "subm")
+    again = scd.sparse_conv_dw(feats, nbr, dout, "subm")
+    torch.cuda.synchronize()
+    assert scd.launches == 2
+    assert scd.launch_counts == {("subm", feats.shape[1], dout.shape[1]): 2}
+    assert torch.equal(got, again)  # no float atomics: the same bits
+    assert _dw_close(got, feats, nbr, dout)
+    if name == "tap with no neighbour":
+        assert torch.equal(got[13], torch.zeros_like(got[13]))
+    if name == "all rows missing":
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def _grid_plans(device, seed=0, cap=3000, fill=2600, grid=(16, 64, 64)):
+    """The subm, strided and inverse plans of a random two-level grid."""
+    rng = np.random.RandomState(seed)
+    nz, ny, nx = grid
+    coords = np.unique(np.stack([
+        rng.randint(0, 2, fill), rng.randint(0, nz, fill),
+        rng.randint(0, ny, fill), rng.randint(0, nx, fill)], 1), axis=0)
+    n = coords.shape[0]
+    coords = np.concatenate([coords, -np.ones((cap - n, 4), np.int64)])
+    valid = torch.from_numpy(np.arange(cap) < n).to(device)
+    g0, _ = tsc.make_sparse_grid(
+        torch.from_numpy(coords.astype(np.int32)).to(device), valid, grid, 2)
+    g1 = tsc.downsample_grid(g0, 2048)
+    return {"subm": (g0, g0), "strided": (g0, g1), "inverse": (g1, g0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["subm", "strided", "inverse"])
+def test_sparse_conv_autograd_runs_the_kernels(mode):
+    """Autograd through the sparse conv on the card: dfeats by the conv
+    kernel over the transposed table, dW by the weight-gradient kernel,
+    against autograd through the twins on the CPU."""
+    device = _cuda()
+    gin, gout = _grid_plans(device)[mode]
+    plan = tsc.build_conv_plans(gout, gin, mode)
+    gen = torch.Generator().manual_seed(2)
+    feats = torch.randn(gin.cap, 32, generator=gen) * gin.valid.cpu()[:, None]
+    w = torch.randn(27, 32, 48, generator=gen) / 30.0
+    g = torch.randn(gout.cap, 48, generator=gen) * gout.valid.cpu()[:, None]
+    grads = []
+    for dev in (device, "cpu"):
+        cp = tsc.ConvPlan(nbr=plan.nbr.to(dev), mode=mode)
+        f = feats.detach().to(dev).requires_grad_()
+        ww = w.detach().to(dev).requires_grad_()
+        scg.reset_launch_counts()
+        scd.reset_launch_counts()
+        (tsc.windowed_sparse_conv(f, ww, cp) * g.to(dev)).sum().backward()
+        if dev == device:
+            torch.cuda.synchronize()
+            assert scg.kind_counts == {"forward": 1, "dgrad": 1}
+            assert scd.launches == 1
+        grads.append((f.grad.cpu(), ww.grad.cpu()))
+    (df_k, dw_k), (df_t, dw_t) = grads
+    torch.testing.assert_close(df_k, df_t, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw_k, dw_t, rtol=1e-4, atol=1e-4)
+    assert df_t.abs().sum() > 0
 
 
 def _mha_case(w, t, h, seed, device, strided=True):
