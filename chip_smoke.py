@@ -21,8 +21,13 @@ Phases (each one that fails ends the run with a non-zero exit code):
               (scatter path): segmentor outputs agree, both latencies timed.
   6. sparse kernels  the sparse conv kernel against its twin at every conv
               of one frame of ``fsdv2_waymo(backbone="sparse")`` (the
-              rulebooks of frame 0, recorded by hooks on each
-              SparseConvLayer) and on edge cases, both timed.
+              rulebooks of frame 0 and their row schedules, recorded by
+              hooks on each SparseConvLayer) and on edge cases, both timed;
+              a second run without the plan's schedule (the wrapper builds
+              one) gives the same bits; per conv the share of (row, tap)
+              pairs with a neighbour, the executed share of the earlier
+              SIMT kernel's 8-row-group skip and of the tile schedule, and
+              the schedule's build time.
   7. sparse predict  ``fsdv2_waymo(backbone="sparse")`` answers the four
               frames; 58 sparse conv launches and 3 sorted reduce launches
               per frame, counted at the launch sites; latency timed.
@@ -43,15 +48,23 @@ Phases (each one that fails ends the run with a non-zero exit code):
               inputs of every bucket of every layer of one frame of
               ``sst_waymo(train_buckets=False)`` (recorded by hooks on each
               WindowAttention), on valid query rows, and on edge cases;
-              kernel, twin and ``F.scaled_dot_product_attention`` timed.
+              kernel, twin and ``F.scaled_dot_product_attention`` timed on
+              each of those inputs (the kernel's work follows the pad), and
+              the wrapper's host time per call; the bound counts the bytes
+              and operations that input's pad leaves to the kernel; a
+              second run gives the same bits, and rows of all-padded
+              windows and 16-row query tiles are zeros.
   9. SST predict  ``sst_waymo`` answers four synthetic Waymo frames (x, y,
               z); 48 window MHA launches per frame at the shapes phase 8
               checked; capacity counters per frame; latency timed.
 
 Phases 10 and 11 run after phase 7, on the sparse model. TF32 is turned
-off for convolutions and matmuls, so every comparison is in full float32. The line before the last is the kernels JSON (every kernel's
-time, its plain twin's, its bound on the card and a library call's where
-there is one); the last line of standard output is the result JSON.
+off for convolutions and matmuls, so every comparison is in full float32.
+Kernel, twin and library times are device times: each timed call is queued
+behind a short ``torch.cuda._sleep`` (``utils/timing.py cuda_ms``). The
+line before the last is the kernels JSON (every kernel's time, its plain
+twin's, its bound on the card and a library call's where there is one);
+the last line of standard output is the result JSON.
 """
 
 from __future__ import annotations
@@ -119,12 +132,16 @@ KERNELS = ("sorted_reduce", "sparse_conv_gemm", "sparse_conv_dw",
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): HBM bytes/s, f32 FLOP/s outside the tensor
-# cores, bf16 tensor-core FLOP/s. A kernel's bound is the larger of its
-# bytes (each input read once, each output written once) over the first and
-# its operations over the peak for their type.
+# cores, bf16 tensor-core FLOP/s, and f32-accurate products on the TF32
+# tensor cores (3xTF32: three TF32 products per f32 product, 495 / 3). A
+# kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the first and its operations over the fastest
+# route the card has for their type: the sparse convs' f32 products take
+# 3xTF32 (their SIMT bound at 67 TFLOP/s is kept beside it, named).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+F32_TC_FLOP_PER_S = 495e12 / 3
 
 
 def reset_launch_counts() -> None:
@@ -415,8 +432,11 @@ def _record_sparse_convs(model, frame):
     return calls
 
 
-def _check_conv(name, feats, nbr, w, mode, errs):
-    got = scg.sparse_conv_gemm(feats, nbr, w, mode)
+def _check_conv(name, feats, nbr, w, mode, errs, schedule=None):
+    """The kernel (over ``schedule`` when given) against its twin, and a
+    second run over a schedule the wrapper builds itself: the same bits."""
+    got = scg.sparse_conv_gemm(feats, nbr, w, mode, schedule=schedule)
+    again = scg.sparse_conv_gemm(feats, nbr, w, mode)
     ref = scg.sparse_conv_gemm_ref(feats, nbr, w)
     torch.cuda.synchronize()
     diff = (got - ref).abs()
@@ -429,6 +449,28 @@ def _check_conv(name, feats, nbr, w, mode, errs):
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail(f"sparse conv kernel disagrees with its plain twin on {name}")
+    if not torch.equal(got, again):
+        fail(f"sparse conv kernel gave other bits on a second run of {name}")
+    return got
+
+
+def _executed_shares(nbr, vin, schedule):
+    """Shares of the K x Vout (row, tap) pairs: those with a neighbour, and
+    those computed by the earlier SIMT kernel (a tap skipped only where all
+    8 rows of a warp's group lack it, groups in row order) and by the tile
+    schedule (every row of a tile computes every tap set in its mask)."""
+    taps, vout = nbr.shape
+    has = (nbr >= 0) & (nbr < vin)
+    groups = -(-vout // 8)
+    grouped = torch.zeros((taps, groups * 8), dtype=torch.bool,
+                          device=nbr.device)
+    grouped[:, :vout] = has
+    old = int(grouped.view(taps, groups, 8).any(-1).sum()) * 8
+    bits = (schedule.tile_mask.long() & 0xFFFFFFFF)[:, None] >> torch.arange(
+        32, device=nbr.device)
+    new = int((bits & 1).sum()) * scg.TILE_ROWS
+    total = taps * vout
+    return int(has.sum()) / total, old / total, new / total
 
 
 def _sparse_inputs(vin, cin, cout, taps, gen, device):
@@ -440,7 +482,9 @@ def _sparse_inputs(vin, cin, cout, taps, gen, device):
 
 def _sparse_edge_cases(gen, device):
     """(name, feats, nbr, weights): missing entries are Vin, -1 or past
-    Vin; tiles are 64 rows x 64 channels."""
+    Vin; rows 64-127 of the first case have no neighbour at all (the
+    schedule gathers them into a tile of zeros); tiles are 64 rows x 64
+    channels."""
     def table(vin, vout, taps, missing=0.6):
         nbr = torch.randint(0, vin, (taps, vout), generator=gen,
                             device=device, dtype=torch.int32)
@@ -483,54 +527,75 @@ def phase_sparse_kernels(model, frame, device):
     for name, vin, cp, wshape, _, _ in calls:
         key = (id(cp.nbr), wshape[1], wshape[2])
         if key not in cases:
-            cases[key] = dict(name=name, mode=cp.mode, nbr=cp.nbr, vin=vin,
+            cases[key] = dict(name=name, mode=cp.mode, plan=cp, vin=vin,
                               taps=wshape[0], cin=wshape[1], cout=wshape[2],
                               convs=0)
         cases[key]["convs"] += 1
-    errs, shapes = [], []
+    errs, shapes, tables = [], [], {}
+    simt_ms = 0.0  # the bound on the f32 SIMT cores, printed beside
     for case in cases.values():
-        nbr = case["nbr"]
-        feats, w = _sparse_inputs(case["vin"], case["cin"], case["cout"],
+        nbr, vin, mode = case["plan"].nbr, case["vin"], case["mode"]
+        sched = case["plan"].schedule(vin)  # built by the recorded predict
+        feats, w = _sparse_inputs(vin, case["cin"], case["cout"],
                                   case["taps"], gen, device)
         short = case["name"].replace("segmentor_mod.unet_mod.", "seg.") \
             .replace("mixer_mod.", "mix.")
-        _check_conv(f"{short} (x{case['convs']})", feats, nbr, w,
-                    case["mode"], errs)
+        _check_conv(f"{short} (x{case['convs']})", feats, nbr, w, mode, errs,
+                    schedule=sched)
         # alternate plain and kernel timings: plain, kernel, kernel, plain
         runs = [cuda_ms(fn, 10, warmup=2) for fn in (
             lambda: scg.sparse_conv_gemm_ref(feats, nbr, w),
-            lambda: scg.sparse_conv_gemm(feats, nbr, w, case["mode"]),
-            lambda: scg.sparse_conv_gemm(feats, nbr, w, case["mode"]),
+            lambda: scg.sparse_conv_gemm(feats, nbr, w, mode, schedule=sched),
+            lambda: scg.sparse_conv_gemm(feats, nbr, w, mode, schedule=sched),
             lambda: scg.sparse_conv_gemm_ref(feats, nbr, w))]
         kern, plain = min(runs[1], runs[2]), min(runs[0], runs[3])
-        vin, vout, taps = case["vin"], nbr.shape[1], case["taps"]
-        pairs = int(((nbr >= 0) & (nbr < vin)).sum())
-        hit = pairs / (taps * vout)
-        bound_ms, bound_by = bound(
-            4 * (vin * case["cin"] + taps * vout
-                 + taps * case["cin"] * case["cout"] + vout * case["cout"]),
-            2 * pairs * case["cin"] * case["cout"], F32_FLOP_PER_S)
+        if id(nbr) not in tables:  # one schedule per table, shared
+            tables[id(nbr)] = cuda_ms(lambda: scg.conv_schedule(nbr, vin), 5,
+                                      warmup=1)
+        taps, vout = nbr.shape
+        hit, old, new = _executed_shares(nbr, vin, sched)
+        flops = 2 * hit * taps * vout * case["cin"] * case["cout"]
+        nbytes = 4 * (vin * case["cin"] + taps * vout
+                      + taps * case["cin"] * case["cout"] + vout * case["cout"])
+        bound_ms, bound_by = bound(nbytes, flops, F32_TC_FLOP_PER_S)
+        simt_ms += bound(nbytes, flops, F32_FLOP_PER_S)[0] * case["convs"]
         print(f"    time: kernel {kern:.4f} ms (runs {runs[1]:.4f}, "
               f"{runs[2]:.4f}), plain twin {plain:.4f} ms (runs "
-              f"{runs[0]:.4f}, {runs[3]:.4f}); {hit:.3f} of (row, tap) "
-              f"pairs have a neighbour", flush=True)
+              f"{runs[0]:.4f}, {runs[3]:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}); (row, tap) pairs: {hit:.3f} have a neighbour, "
+              f"{old:.3f} executed by the 8-row-group skip, {new:.3f} by the "
+              f"tile schedule; schedule built in {tables[id(nbr)]:.4f} ms",
+              flush=True)
         shapes.append({"conv": case["name"], "convs_per_frame": case["convs"],
-                       "mode": case["mode"], "cin": case["cin"],
-                       "cout": case["cout"], "vin": case["vin"],
-                       "vout": nbr.shape[1], "neighbour_share": hit,
+                       "mode": mode, "cin": case["cin"],
+                       "cout": case["cout"], "vin": vin, "vout": vout,
+                       "neighbour_share": hit, "executed_share_8row": old,
+                       "executed_share_tiles": new,
+                       "schedule_ms": tables[id(nbr)],
                        "ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
                        "bound_by": bound_by, "max_abs_err": errs[-1]})
     for name, feats, nbr, w in _sparse_edge_cases(gen, device):
-        _check_conv(name, feats, nbr, w, "subm", errs)
-        if name == "edge: all-missing tile":
-            got = scg.sparse_conv_gemm(feats, nbr, w, "subm")[64:128]
-            if not torch.equal(got, torch.zeros_like(got)):
-                fail("the all-missing tile is not written as zeros")
+        got = _check_conv(name, feats, nbr, w, "subm", errs)
+        if name == "edge: all-missing tile" and not torch.equal(
+                got[64:128], torch.zeros_like(got[64:128])):
+            fail("the all-missing rows are not written as zeros")
     per_frame = {k: sum(s[k] * s["convs_per_frame"] for s in shapes)
                  for k in ("ms", "plain_ms", "bound_ms")}
+    per_frame["schedule_ms"] = sum(tables.values())
+    work = {k: sum(s[k] * s["convs_per_frame"] * s["vout"] * s["cin"]
+                   * s["cout"] for s in shapes) for k in (
+        "neighbour_share", "executed_share_8row", "executed_share_tiles")}
+    dense = sum(s["convs_per_frame"] * s["vout"] * s["cin"] * s["cout"]
+                for s in shapes)
+    per_frame["shares"] = {k: v / dense for k, v in work.items()}
     print(f"sparse kernels: per frame over its {len(calls)} convs: kernel "
           f"{per_frame['ms']:.3f} ms, plain twin {per_frame['plain_ms']:.3f} "
-          f"ms, bound {per_frame['bound_ms']:.3f} ms", flush=True)
+          f"ms, bound {per_frame['bound_ms']:.3f} ms (3xTF32; "
+          f"{simt_ms:.3f} ms on the f32 SIMT cores); "
+          f"{len(tables)} schedules built in {per_frame['schedule_ms']:.3f} "
+          f"ms; shares of the (row, tap) x Cin x Cout work "
+          f"{ {k: round(v, 4) for k, v in per_frame['shares'].items()} }",
+          flush=True)
     return shapes, per_frame, max(errs), calls
 
 
@@ -612,11 +677,13 @@ def _check_dw(name, feats, nbr, dout, mode, errs):
     return got
 
 
-def _check_dgrad(name, dout, nbr_t, w, mode, errs):
-    """The input gradient, the conv kernel over the transposed table with
-    W[k].T, against the conv twin on the same inputs."""
+def _check_dgrad(name, dout, nbr_t, sched_t, w, mode, errs):
+    """The input gradient, the conv kernel over the transposed table (and
+    the plan's schedule of it) with W[k].T, against the conv twin on the
+    same inputs."""
     wt = w.transpose(1, 2).contiguous()
-    got = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad")
+    got = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad",
+                               schedule=sched_t)
     ref = scg.sparse_conv_gemm_ref(dout, nbr_t, wt)
     torch.cuda.synchronize()
     diff = (got - ref).abs()
@@ -682,13 +749,14 @@ def phase_backward_kernels(model, frame, device):
                 .replace("mixer_mod.", "mix.")
             _check_dw(short, feats, cp.nbr, dout, cp.mode, dw_errs)
             nbr_t = cp.transposed(vin)
+            sched_t = cp.transposed_schedule(vin)
             w = model.get_submodule(name).weight.detach()
-            _check_dgrad(short, dout, nbr_t, w, cp.mode, dg_errs)
+            _check_dgrad(short, dout, nbr_t, sched_t, w, cp.mode, dg_errs)
             key = (id(cp.nbr), wshape[1], cout)
             if key not in cases:
                 cases[key] = dict(name=short, mode=cp.mode, feats=feats,
-                                  nbr=cp.nbr, nbr_t=nbr_t, dout=dout, w=w,
-                                  convs=0)
+                                  nbr=cp.nbr, nbr_t=nbr_t, sched_t=sched_t,
+                                  dout=dout, w=w, convs=0)
             cases[key]["convs"] += 1
         print(f"  every conv: dW max_abs_err {max(dw_errs):.3e} (1e-4 x the "
               f"twin on absolute values + 1e-6), input gradient "
@@ -704,7 +772,16 @@ def phase_backward_kernels(model, frame, device):
             if not torch.equal(a, b):
                 fail(f"sparse_conv_dw gave other bits on a second run of "
                      f"{case['name']}")
-        print(f"  determinism: two runs equal bit for bit on "
+            wt = case["w"].transpose(1, 2).contiguous()
+            a, b = (scg.sparse_conv_gemm(case["dout"], case["nbr_t"], wt,
+                                         case["mode"], kind="dgrad",
+                                         schedule=sched)
+                    for sched in (case["sched_t"], None))
+            if not torch.equal(a, b):
+                fail(f"the input gradient gave other bits on a second run "
+                     f"of {case['name']}")
+        print(f"  determinism: dW and input gradient, two runs equal bit for "
+              f"bit on "
               f"{widest['name']} and {deepest['name']}", flush=True)
         for name, feats, nbr, dout in _dw_edge_cases(device):
             got = _check_dw(name, feats, nbr, dout, "subm", dw_errs)
@@ -719,6 +796,7 @@ def phase_backward_kernels(model, frame, device):
                 fail(f"{name}: the taps without a neighbour are not zeros")
 
         shapes = []
+        simt_ms = 0.0  # the bound on the f32 SIMT cores, printed beside
         for case in cases.values():
             feats, nbr, dout, mode = (case["feats"], case["nbr"],
                                       case["dout"], case["mode"])
@@ -727,7 +805,8 @@ def phase_backward_kernels(model, frame, device):
                 "plain": lambda: sdw.sparse_conv_dw_ref(feats, nbr, dout),
                 "kernel": lambda: sdw.sparse_conv_dw(feats, nbr, dout, mode),
                 "dgrad": lambda: scg.sparse_conv_gemm(
-                    dout, case["nbr_t"], wt, mode, kind="dgrad"),
+                    dout, case["nbr_t"], wt, mode, kind="dgrad",
+                    schedule=case["sched_t"]),
                 "dgrad_plain": lambda: scg.sparse_conv_gemm_ref(
                     dout, case["nbr_t"], wt)}
             runs = {k: [] for k in fns}
@@ -738,10 +817,12 @@ def phase_backward_kernels(model, frame, device):
             taps, vout = nbr.shape
             cout = dout.shape[1]
             pairs = int(((nbr >= 0) & (nbr < vin)).sum())
-            bound_ms, bound_by = bound(
-                4 * (vin * cin + taps * vout + vout * cout
-                     + taps * cin * cout),
-                2 * pairs * cin * cout, F32_FLOP_PER_S)
+            nbytes = 4 * (vin * cin + taps * vout + vout * cout
+                          + taps * cin * cout)
+            bound_ms, bound_by = bound(nbytes, 2 * pairs * cin * cout,
+                                       F32_TC_FLOP_PER_S)
+            simt_ms += bound(nbytes, 2 * pairs * cin * cout,
+                             F32_FLOP_PER_S)[0] * case["convs"]
             row = {"conv": case["name"], "convs_per_step": case["convs"],
                    "mode": mode, "cin": cin, "cout": cout, "vin": vin,
                    "vout": vout, "neighbour_share": pairs / (taps * vout),
@@ -763,7 +844,9 @@ def phase_backward_kernels(model, frame, device):
                           "dgrad_plain_ms")}
     print(f"backward kernels: per step over its {len(calls)} convs: dW "
           f"kernel {per_step['ms']:.3f} ms, twin {per_step['plain_ms']:.3f} "
-          f"ms, bound {per_step['bound_ms']:.3f} ms; input gradient kernel "
+          f"ms, bound {per_step['bound_ms']:.3f} ms (3xTF32; "
+          f"{simt_ms:.3f} ms on the f32 SIMT cores), the "
+          f"same for the input gradient; input gradient kernel "
           f"{per_step['dgrad_ms']:.3f} ms, twin "
           f"{per_step['dgrad_plain_ms']:.3f} ms", flush=True)
     return shapes, per_step, max(dw_errs), max(dg_errs)
@@ -946,6 +1029,28 @@ def _mha_close(got, ref, v, pad):
     return err, bool((diff <= tol).all()) and bool(torch.isfinite(got).all())
 
 
+def _check_mha(name, q, k, v, pad, nhead, errs):
+    """The kernel against its twin on valid query rows; a second run gives
+    the same bits; skipped rows are zeros. Returns the kernel's output and
+    the twin's."""
+    got = wm.window_mha(q, k, v, pad, nhead)
+    again = wm.window_mha(q, k, v, pad, nhead)
+    ref = wm.window_mha_ref(q, k, v, pad, nhead)
+    torch.cuda.synchronize()
+    err, ok = _mha_close(got, ref, v, pad)
+    errs.append(err)
+    if not ok:
+        fail(f"window_mha disagrees with its twin on {name}: max_abs_err "
+             f"{err:.3e}")
+    if not torch.equal(got, again):
+        fail(f"window_mha gave other bits on a second run of {name}")
+    skipped = got[wm.skipped_rows(pad)]
+    if not torch.equal(skipped, torch.zeros_like(skipped)):
+        fail(f"window_mha did not write zeros on the all-padded windows and "
+             f"query tiles of {name}")
+    return got, ref
+
+
 def _sdpa(q, k, v, pad, nhead):
     """The library yardstick: one ``F.scaled_dot_product_attention`` call on
     [W, H, T, dh] bf16 views with an additive [W, 1, 1, T] mask. It
@@ -958,9 +1063,10 @@ def _sdpa(q, k, v, pad, nhead):
 
 
 def _mha_edge_cases(device):
-    """(name, q, k, v, pad, nhead): an all-padded window and a one-token
-    window, T off the multiples of 16, W = 1, and q/k/v as contiguous
-    copies of the strided column blocks."""
+    """(name, q, k, v, pad, nhead): an all-padded window, a one-token
+    window and a window with all-padded 16-row query tiles, random pads
+    elsewhere, T off the multiples of 16 and at the kernel's 320, W = 1,
+    and q/k/v as contiguous copies of the strided column blocks."""
     gen = torch.Generator(device=device).manual_seed(3)
     out = []
     for name, w, t, h in (("edge: T=30, all-padded + one-token windows",
@@ -968,7 +1074,9 @@ def _mha_edge_cases(device):
                           ("edge: T=100, all-padded + one-token windows",
                            16, 100, 8),
                           ("edge: W=1, T=144", 1, 144, 8),
-                          ("edge: T=8, 2 heads", 16, 8, 2)):
+                          ("edge: T=8, 2 heads", 16, 8, 2),
+                          ("edge: T=320, all-padded + one-token windows",
+                           6, 320, 8)):
         qkv = torch.randn(w, t, 48 * h, generator=gen, device=device)
         qkv = qkv.to(torch.bfloat16)
         pad = torch.rand(w, t, generator=gen, device=device) > 0.6
@@ -976,6 +1084,7 @@ def _mha_edge_cases(device):
             pad[0] = True
             pad[1] = True
             pad[1, t // 2] = False
+            pad[2, 16:48] = True  # two all-padded query tiles (one if T < 48)
         out.append((name, *qkv.split(16 * h, dim=-1), pad, h))
     name, q, k, v, pad, h = out[0]
     out.append(("edge: contiguous copies of the column blocks",
@@ -983,40 +1092,59 @@ def _mha_edge_cases(device):
     return out
 
 
+def _mha_bound(pad, c):
+    """(bound ms, bound_by) of the kernel's function on one input: the pad
+    (read) and the output (written) at every slot, k and v at the slots of
+    windows with a valid slot, q at the rows of live 16-row query tiles, all
+    bf16; and QK^T and PV of those rows against every key of their window
+    (padded keys of an occupied window are computed, as in the Pallas
+    kernel), on the bf16 tensor cores."""
+    w, t = pad.shape
+    computed = int((~wm.skipped_rows(pad)).sum())
+    occupied = int((~pad).any(1).sum())
+    nbytes = w * t * (1 + 2 * c) + 2 * 2 * occupied * t * c + 2 * computed * c
+    return bound(nbytes, 4 * computed * t * c, BF16_FLOP_PER_S)
+
+
+def _host_ms(fn, n=20):
+    """The host's time per call of ``fn`` (Python, checks, ctypes, launch)
+    with the card idle at the start; the calls are not waited for."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e3 / n
+
+
 def phase_sst_kernels(model, frame, device):
     """The window MHA kernel against its twin on the attention inputs of
     every bucket of every layer of one frame, then on edge cases; kernel,
-    twin and SDPA timed on the first layer's inputs of each bucket.
-    Returns (timed shapes by (T, C, H), largest error, SDPA's largest
-    error)."""
+    twin and SDPA timed on each of those inputs, since the kernel's work
+    follows the pad. Returns (per (T, C, H): the inputs' means per launch,
+    largest error, SDPA's largest error)."""
     with torch.inference_mode():
         calls = _record_attention(model, frame)
         n_inputs = sum(len(b) for _, _, b in calls)
         print(f"SST kernels: window_mha on the attention inputs of frame 0 "
               f"of sst_waymo(train_buckets=False): {len(calls)} attention "
-              f"layers, {n_inputs} (layer, bucket) inputs", flush=True)
-        errs, sdpa_errs, shapes = [], [], {}
+              f"layers, {n_inputs} (layer, bucket) inputs, each timed",
+              flush=True)
+        errs, sdpa_errs, inputs = [], [], {}
         for name, nhead, buckets in calls:
             for q, k, v, pad in buckets:
                 w, t, c = q.shape
-                got = wm.window_mha(q, k, v, pad, nhead)
-                ref = wm.window_mha_ref(q, k, v, pad, nhead)
-                torch.cuda.synchronize()
-                err, ok = _mha_close(got, ref, v, pad)
-                errs.append(err)
-                if not ok:
-                    fail(f"window_mha disagrees with its twin on {name}, "
-                         f"T={t}, W={w}: max_abs_err {err:.3e}")
                 key = (t, c, nhead)
-                if key in shapes:
-                    continue
+                _, ref = _check_mha(f"{name}, T={t}, W={w}", q, k, v, pad,
+                                    nhead, errs)
                 sdpa_err, _ = _mha_close(_sdpa(q, k, v, pad, nhead).transpose(
                     1, 2).reshape(w, t, c), ref, v, pad)
                 sdpa_errs.append(sdpa_err)
                 # a gross disagreement means the yardstick computes another
                 # function; its rounding differs by design
                 if sdpa_err > 0.1 * v.float().abs().max().item():
-                    fail(f"SDPA disagrees with the twin at {key}: "
+                    fail(f"SDPA disagrees with the twin at {key} in {name}: "
                          f"{sdpa_err:.3e}")
                 runs = {"plain": [], "kernel": [], "library": []}
                 fns = {"plain": lambda: wm.window_mha_ref(q, k, v, pad, nhead),
@@ -1025,41 +1153,50 @@ def phase_sst_kernels(model, frame, device):
                 for kind in ("plain", "kernel", "library", "library",
                              "kernel", "plain"):
                     runs[kind].append(cuda_ms(fns[kind], 10, warmup=2))
-                slots = w * t
-                bound_ms, bound_by = bound(
-                    2 * 4 * slots * c + slots, 4 * w * t * t * c,
-                    BF16_FLOP_PER_S)
-                shapes[key] = {
-                    "t": t, "c": c, "h": nhead, "w": w,
-                    "valid_slots": int((~pad).sum()),
+                bound_ms, bound_by = _mha_bound(pad, c)
+                inputs.setdefault(key, []).append({
+                    "w": w, "valid_slots": int((~pad).sum()),
+                    "computed_slots": int((~wm.skipped_rows(pad)).sum()),
                     "occupied_windows": int((~pad).any(1).sum()),
                     "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
                     "library_ms": min(runs["library"]),
+                    "host_ms": _host_ms(fns["kernel"]),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "max_abs_err": err, "sdpa_max_abs_err": sdpa_err}
-                print(f"  T={t:<3} W={w:<4} C={c} H={nhead}: "
-                      f"{shapes[key]['occupied_windows']} windows and "
-                      f"{shapes[key]['valid_slots']} of {slots} slots "
-                      f"occupied; kernel {shapes[key]['ms']:.4f} ms (runs "
-                      f"{runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), "
-                      f"twin {shapes[key]['plain_ms']:.4f} ms, SDPA "
-                      f"{shapes[key]['library_ms']:.4f} ms, bound "
-                      f"{bound_ms:.4f} ms ({bound_by}); max_abs_err "
-                      f"{err:.3e}, SDPA vs twin {sdpa_err:.3e}", flush=True)
+                    "max_abs_err": errs[-1], "sdpa_max_abs_err": sdpa_err})
+        shapes = {}
+        for (t, c, nhead), rows in inputs.items():
+            n = len(rows)
+            by = Counter()
+            for r in rows:
+                by[r["bound_by"]] += r["bound_ms"]
+            shapes[(t, c, nhead)] = s = {
+                "t": t, "c": c, "h": nhead, "w": rows[0]["w"], "inputs": n,
+                **{k: sum(r[k] for r in rows) / n for k in (
+                    "valid_slots", "computed_slots", "occupied_windows", "ms",
+                    "plain_ms", "library_ms", "host_ms", "bound_ms")},
+                "bound_by": by.most_common(1)[0][0],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "sdpa_max_abs_err": max(r["sdpa_max_abs_err"] for r in rows)}
+            ms = [r["ms"] for r in rows]
+            print(f"  T={t:<3} W={s['w']:<4} C={c} H={nhead}, means over "
+                  f"{n} inputs: {s['occupied_windows']:.1f} windows and "
+                  f"{s['valid_slots']:.1f} of {s['w'] * t} slots occupied "
+                  f"({s['computed_slots']:.1f} computed); kernel "
+                  f"{s['ms']:.4f} ms ({min(ms):.4f}-{max(ms):.4f}), twin "
+                  f"{s['plain_ms']:.4f} ms, SDPA {s['library_ms']:.4f} ms, "
+                  f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), wrapper "
+                  f"host time {s['host_ms'] * 1e3:.1f} us per call; "
+                  f"max_abs_err {s['max_abs_err']:.3e}, SDPA vs twin "
+                  f"{s['sdpa_max_abs_err']:.3e}", flush=True)
         print(f"  every (layer, bucket) input: max_abs_err {max(errs):.3e} "
-              f"(rtol 2^-7 + 2^-8 max|v| on valid query rows) ok",
-              flush=True)
+              f"(rtol 2^-7 + 2^-8 max|v| on valid query rows); two runs "
+              f"equal bit for bit; skipped rows zero", flush=True)
         edges = _mha_edge_cases(device)
         for name, q, k, v, pad, h in edges:
-            got = wm.window_mha(q, k, v, pad, h)
-            ref = wm.window_mha_ref(q, k, v, pad, h)
-            torch.cuda.synchronize()
-            err, ok = _mha_close(got, ref, v, pad)
-            errs.append(err)
-            print(f"  {name:<48} max_abs_err={err:.3e} "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
-            if not ok:
-                fail(f"window_mha disagrees with its twin on {name}")
+            got, _ = _check_mha(name, q, k, v, pad, h, errs)
+            print(f"  {name:<48} max_abs_err={errs[-1]:.3e} ok (bit-equal "
+                  f"repeat, {int(wm.skipped_rows(pad).sum())} skipped rows "
+                  f"zero)", flush=True)
             if name.startswith("edge: contiguous"):
                 strided = wm.window_mha(*edges[0][1:])
                 if not torch.equal(got, strided):
@@ -1198,6 +1335,10 @@ def main() -> None:
              f"which phase 8 did not check or time")
     for key, shape in mha_shapes.items():
         shape["calls_per_frame"] = mha_split.get(key, 0)
+        if shape["inputs"] != shape["calls_per_frame"]:
+            fail(f"phase 8 timed {shape['inputs']} inputs at (T, C, H) "
+                 f"{key}, the SST path launched {shape['calls_per_frame']} "
+                 f"per frame")
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -1256,6 +1397,9 @@ def main() -> None:
         "plain_ms": conv_per_frame["plain_ms"],
         "bound_ms": conv_per_frame["bound_ms"],
         "bound_by": bound_by(conv_shapes, "convs_per_frame"),
+        # the rulebook layer: the row schedules of the frame's tables
+        "schedule_ms_per_frame": conv_per_frame["schedule_ms"],
+        "work_shares": conv_per_frame["shares"],
         # no single PyTorch call gathers through a neighbour table and
         # multiplies per tap
         "library_ms": None,
@@ -1288,8 +1432,8 @@ def main() -> None:
         "replaces": "sst_tpu/ops/pallas_attention.py:25",
         "launches": mha_launches,
         "max_abs_err": mha_err,
-        # per frame of the SST path: each bucket shape at its time on the
-        # first layer's inputs (phase 8) times its launches per frame
+        # per frame of the SST path: the sum over frame 0's (layer, bucket)
+        # inputs, each timed and bounded on its own pad (phase 8)
         "ms": mha_frame["ms"],
         "plain_ms": mha_frame["plain_ms"],
         "bound_ms": mha_frame["bound_ms"],
@@ -1298,6 +1442,8 @@ def main() -> None:
                           for r in mha_rows),
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "library_max_abs_err_vs_twin": sdpa_err,
+        # the wrapper's host time (Python, checks, ctypes, launch) per frame
+        "host_ms": sum(r["host_ms"] * r["calls_per_frame"] for r in mha_rows),
         "shapes": mha_rows,
     }], "build_s": build_s, "nvcc_s": nvcc_s, "predict_ms": {
         "dense_bev_sorted_reduce_kernel": lat[True],

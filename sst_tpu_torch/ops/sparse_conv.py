@@ -11,7 +11,9 @@ follow the weight order (dz, dy, dx) lexicographically, with ``Vin`` marking
 a missing neighbour: the sites of a grid are sorted by linearized key, so
 each tap's neighbour is found by one ``torch.searchsorted``. The compute is
 ``ops/sparse_conv_gemm.py`` (the Hopper kernel and its plain twin, which is
-JAX's ``gather_gemm``).
+JAX's ``gather_gemm``). The kernel runs over the table's mask-sorted row
+schedule (``conv_schedule``), which the plan builds once and caches, as it
+does the transposed table and its schedule.
 
 Training runs the conv through one ``torch.autograd.Function`` (JAX's
 ``_windowed_conv`` custom vjp). Its input gradient is the transposed conv,
@@ -42,7 +44,11 @@ import torch
 
 from sst_tpu_torch.ops.segment import INT_SENTINEL
 from sst_tpu_torch.ops.sparse_conv_dw import sparse_conv_dw
-from sst_tpu_torch.ops.sparse_conv_gemm import sparse_conv_gemm
+from sst_tpu_torch.ops.sparse_conv_gemm import (
+    ConvSchedule,
+    conv_schedule,
+    sparse_conv_gemm,
+)
 
 
 @dataclass
@@ -69,14 +75,18 @@ class SparseGrid:
 @dataclass
 class ConvPlan:
     """One conv's rulebook: ``nbr`` [K, Vout] int32 (Vin = missing), and the
-    conv's mode ('subm' | 'strided' | 'inverse'). ``nbr_t`` caches the
-    transposed table (:func:`transpose_table`), built by the first conv
-    over this plan that needs an input gradient; every subm conv of a level
-    shares its plan, and so the cache."""
+    conv's mode ('subm' | 'strided' | 'inverse'). Three caches, each built
+    by the first conv over this plan that needs it: ``sched``, the kernel's
+    row schedule of ``nbr``; ``nbr_t``, the transposed table
+    (:func:`transpose_table`), and ``sched_t``, its schedule, for the input
+    gradient. Every subm conv of a level shares its plan, and so the
+    caches."""
 
     nbr: torch.Tensor
     mode: str
     nbr_t: torch.Tensor | None = None
+    sched: ConvSchedule | None = None
+    sched_t: ConvSchedule | None = None
 
     def transposed(self, vin: int) -> torch.Tensor:
         if self.nbr_t is None:
@@ -85,6 +95,23 @@ class ConvPlan:
             raise ValueError(f"plan transposed for {self.nbr_t.shape[1]} "
                              f"input rows, called with {vin}")
         return self.nbr_t
+
+    def schedule(self, vin: int) -> ConvSchedule:
+        """The row schedule of ``nbr`` read against ``vin`` input rows."""
+        if self.sched is None:
+            self.sched = conv_schedule(self.nbr, vin)
+        elif self.sched.vin != vin:
+            raise ValueError(f"plan scheduled for {self.sched.vin} input "
+                             f"rows, called with {vin}")
+        return self.sched
+
+    def transposed_schedule(self, vin: int) -> ConvSchedule:
+        """The row schedule of ``nbr_t``, whose entries index the forward's
+        ``Vout`` output rows."""
+        nbr_t = self.transposed(vin)
+        if self.sched_t is None:
+            self.sched_t = conv_schedule(nbr_t, self.nbr.shape[1])
+        return self.sched_t
 
 
 def _offsets(device) -> torch.Tensor:
@@ -239,14 +266,16 @@ def transpose_table(nbr: torch.Tensor, vin: int) -> torch.Tensor:
 
 class _SparseConv(torch.autograd.Function):
     """The conv with JAX's backward (``_windowed_conv_bwd``): dfeats by the
-    conv kernel over the transposed table with ``W[k].T``, dW by the weight
-    gradient kernel (their twins for CPU tensors)."""
+    conv kernel over the transposed table (and its schedule) with
+    ``W[k].T``, dW by the weight gradient kernel (their twins for CPU
+    tensors)."""
 
     @staticmethod
-    def forward(ctx, feats, weights, nbr, nbr_t, mode):
+    def forward(ctx, feats, weights, nbr, nbr_t, sched, sched_t, mode):
         ctx.save_for_backward(feats, weights, nbr, nbr_t)
         ctx.mode = mode
-        return sparse_conv_gemm(feats, nbr, weights, mode)
+        ctx.sched_t = sched_t
+        return sparse_conv_gemm(feats, nbr, weights, mode, schedule=sched)
 
     @staticmethod
     def backward(ctx, grad):
@@ -256,20 +285,25 @@ class _SparseConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dfeats = sparse_conv_gemm(grad, nbr_t,
                                       weights.transpose(1, 2).contiguous(),
-                                      ctx.mode, kind="dgrad")
+                                      ctx.mode, kind="dgrad",
+                                      schedule=ctx.sched_t)
         if ctx.needs_input_grad[1]:
             dw = sparse_conv_dw(feats, nbr, grad, ctx.mode)
-        return dfeats, dw, None, None, None
+        return dfeats, dw, None, None, None, None, None
 
 
 def windowed_sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
                          cp: ConvPlan) -> torch.Tensor:
     """One sparse conv: feats [Vin, Cin], weights [K, Cin, Cout] →
-    [Vout, Cout], through the kernel wrapper (its twin on the CPU). Where
-    autograd needs its gradient it runs through :class:`_SparseConv`, and
-    the plan's transposed table is built (once) for the input gradient."""
+    [Vout, Cout], through the kernel wrapper (its twin on the CPU) over the
+    plan's row schedule. Where autograd needs its gradient it runs through
+    :class:`_SparseConv`, and the plan's transposed table and its schedule
+    are built (once) for the input gradient."""
+    vin = feats.shape[0]
     if torch.is_grad_enabled() and (feats.requires_grad
                                     or weights.requires_grad):
-        return _SparseConv.apply(feats, weights, cp.nbr,
-                                 cp.transposed(feats.shape[0]), cp.mode)
-    return sparse_conv_gemm(feats, cp.nbr, weights, cp.mode)
+        return _SparseConv.apply(feats, weights, cp.nbr, cp.transposed(vin),
+                                 cp.schedule(vin),
+                                 cp.transposed_schedule(vin), cp.mode)
+    return sparse_conv_gemm(feats, cp.nbr, weights, cp.mode,
+                            schedule=cp.schedule(vin))

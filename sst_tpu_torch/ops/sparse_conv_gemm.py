@@ -9,7 +9,11 @@ rulebook (``ops/sparse_conv.py build_conv_plans``) gives each conv a
 
 with an index outside [0, Vin) reading a zero row. The kernel is
 ``csrc/sparse_conv_gemm.cu``; the source note there says what bounds it and
-how it is laid out.
+how it is laid out. It runs over a :class:`ConvSchedule` of the table
+(:func:`conv_schedule`): the output rows sorted by their tap mask, and per
+64-row tile the taps any of its rows has. A plan builds it once per table
+and shares it (``ops/sparse_conv.py ConvPlan.schedule``); a caller without
+one gets one built by the wrapper.
 
 Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`sparse_conv_gemm_ref`, a CUDA tensor to the kernel
@@ -25,6 +29,7 @@ the transposed table, see ``ops/sparse_conv.py``).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -32,6 +37,8 @@ from sst_tpu_torch.utils import remat
 
 MODES = ("subm", "strided", "inverse")
 KINDS = ("forward", "dgrad")
+TILE_ROWS = 64  # output rows per tile of the kernel (kRows)
+MAX_TAPS = 32  # a tap mask is one 32-bit word
 
 launches = 0  # kernel launches in this process
 launch_counts: dict[tuple[str, int, int], int] = {}  # by (mode, Cin, Cout)
@@ -72,6 +79,66 @@ def _check(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         raise ValueError("row counts must fit in int32")
 
 
+@dataclass(frozen=True)
+class ConvSchedule:
+    """The kernel's row schedule of one neighbour table.
+
+    perm: [Vout] int32, the output rows sorted (stably) by their tap mask;
+      tile ``i`` computes rows ``perm[64 i : 64 (i + 1)]``.
+    tile_mask: [ceil(Vout / 64)] int32, bit ``k`` set if a row of the tile
+      has a neighbour at tap ``k`` (the OR of its rows' masks; bit 31 reads
+      as the sign).
+    vin: the input rows the table was read against (valid entries lie in
+      [0, vin)).
+    """
+
+    perm: torch.Tensor
+    tile_mask: torch.Tensor
+    vin: int
+
+
+SIGN = -2**31  # int32 bit 31: XOR with it maps unsigned order onto signed
+
+
+def conv_schedule(nbr: torch.Tensor, vin: int) -> ConvSchedule:
+    """The mask-sorted row schedule of ``nbr`` [K, Vout] (K <= 32): a stable
+    sort of the rows by tap mask, as unsigned 32-bit words (rows without
+    neighbours, mask 0, come first and fill whole tiles of their own where
+    they are many), and the OR of each tile's masks. Plain torch on the
+    table's device, in int32 throughout, with no host synchronisation."""
+    taps, vout = nbr.shape
+    if taps > MAX_TAPS:
+        raise ValueError(f"the kernel's tap masks hold {MAX_TAPS} taps, the "
+                         f"table has {taps}")
+    bits = 1 << torch.arange(taps, dtype=torch.int32, device=nbr.device)
+    masks = torch.where((nbr >= 0) & (nbr < vin), bits[:, None], 0).sum(
+        0, dtype=torch.int32)
+    key, perm = torch.sort(masks ^ SIGN, stable=True)
+    tiles = -(-vout // TILE_ROWS)
+    key = torch.nn.functional.pad(key ^ SIGN, (0, tiles * TILE_ROWS - vout))
+    has = (key.view(tiles, TILE_ROWS, 1) & bits).ne(0).any(1)
+    tile_mask = torch.where(has, bits, 0).sum(-1, dtype=torch.int32)
+    return ConvSchedule(perm=perm.to(torch.int32), tile_mask=tile_mask,
+                        vin=vin)
+
+
+def _check_schedule(schedule: ConvSchedule, nbr: torch.Tensor,
+                    vin: int) -> None:
+    vout = nbr.shape[1]
+    tiles = -(-vout // TILE_ROWS)
+    if schedule.vin != vin:
+        raise ValueError(f"schedule built for Vin={schedule.vin}, called "
+                         f"with {vin}")
+    for name, t, n in (("perm", schedule.perm, vout),
+                       ("tile_mask", schedule.tile_mask, tiles)):
+        if t.shape != (n,) or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"schedule {name} must be [{n}] int32 "
+                             f"contiguous, got {tuple(t.shape)} {t.dtype}")
+        if t.device != nbr.device:
+            raise ValueError(f"schedule {name} on {t.device}, nbr on "
+                             f"{nbr.device}")
+
+
 def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
                          weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin (``gather_gemm`` semantics): one gather and one
@@ -88,14 +155,14 @@ def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-            mode: str, kind: str) -> torch.Tensor:
+            mode: str, kind: str,
+            schedule: ConvSchedule | None) -> torch.Tensor:
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
     global launches
     fn = load_kernel_library("sparse_conv_gemm").lib.sst_sparse_conv_gemm_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     vin, cin = feats.shape
     taps, vout = nbr.shape
@@ -103,8 +170,12 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     out = torch.empty((vout, cout), dtype=torch.float32, device=feats.device)
     if vout == 0 or cout == 0:
         return out
+    if schedule is None:
+        schedule = conv_schedule(nbr, vin)
+    _check_schedule(schedule, nbr, vin)
     with torch.cuda.device(feats.device):
         rc = fn(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+                schedule.perm.data_ptr(), schedule.tile_mask.data_ptr(),
                 out.data_ptr(), vin, vout, cin, cout, taps,
                 torch.cuda.current_stream(feats.device).cuda_stream)
     if rc != 0:
@@ -121,7 +192,8 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
 
 def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
                      weights: torch.Tensor, mode: str = "subm",
-                     kind: str = "forward") -> torch.Tensor:
+                     kind: str = "forward",
+                     schedule: ConvSchedule | None = None) -> torch.Tensor:
     """One sparse conv from its neighbour table.
 
     Args:
@@ -131,6 +203,8 @@ def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
       weights: [K, Cin, Cout] float32.
       mode: 'subm' | 'strided' | 'inverse'; only read by the launch count.
       kind: 'forward' | 'dgrad'; only read by the launch count.
+      schedule: :func:`conv_schedule` of ``(nbr, Vin)``, built here when
+        None; read only by the kernel (the twin needs none).
     Returns [Vout, Cout] float32.
     """
     _check(feats, nbr, weights, mode)
@@ -140,4 +214,4 @@ def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
         return sparse_conv_gemm_ref(feats, nbr, weights)
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
-    return _launch(feats, nbr, weights, mode, kind)
+    return _launch(feats, nbr, weights, mode, kind, schedule)

@@ -8,8 +8,10 @@ logits of the bf16 inputs times ``1/sqrt(dh)``, ``-1e4`` added on padded
 keys, a max-subtracted f32 ``exp``, the row sum over the unrounded
 probabilities, ``sum bf16(p) * v`` accumulated in f32, divided by the row
 sum after AV, rounded to bf16. Rows of padded queries are finite and
-meaningless. The kernel is ``csrc/window_mha.cu``; the source note there
-says what bounds it and how it is laid out.
+meaningless to the caller; the kernel writes zeros where a whole window or
+a whole 16-row query tile is padded (it skips their work) and computes the
+other padded rows. The kernel is ``csrc/window_mha.cu``; the source note
+there says what bounds it and how it is laid out.
 
 Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`window_mha_ref`, a CUDA tensor to the kernel (or
@@ -26,7 +28,8 @@ import math
 import torch
 
 HEAD_DIM = 16  # the kernel's head width: SST's d_model 128 over 8 heads
-MAX_TOKENS = 320  # the kernel's shared-memory bound on T
+MAX_TOKENS = 320  # the kernel's bound on T
+TILE = 16  # the kernel's query rows per warp task and keys per chunk
 
 launches = 0  # kernel launches in this process
 launch_counts: dict[tuple[int, int, int], int] = {}  # by (T, C, H)
@@ -76,6 +79,18 @@ def window_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o / s).to(torch.bfloat16).reshape(w, t, c)
 
 
+def skipped_rows(pad: torch.Tensor) -> torch.Tensor:
+    """[W, T] bool: the rows the kernel writes as zeros without computing
+    them, those of a window without a valid slot or of a 16-row query tile
+    whose rows are all padded."""
+    w, t = pad.shape
+    tiles = -(-t // TILE)
+    live = torch.zeros((w, tiles * TILE), dtype=torch.bool, device=pad.device)
+    live[:, :t] = ~pad
+    live = live.view(w, tiles, TILE).any(-1)
+    return ~live.repeat_interleave(TILE, 1)[:, :t]
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             pad: torch.Tensor, nhead: int) -> torch.Tensor:
     from sst_tpu_torch.utils.nvcc import load_kernel_library
@@ -91,9 +106,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v must share their strides and have unit "
                          f"channel stride, got {q.stride()}, {k.stride()}, "
                          f"{v.stride()}")
-    if min(q.stride(0), q.stride(1)) <= 0:
-        raise ValueError(f"q, k, v need positive window and row strides, "
-                         f"got {q.stride()}")
+    if any(st <= 0 or st % 8 for st in q.stride()[:2]) or any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"the kernel copies 16-byte rows: q, k, v need "
+                         f"window and row strides that are positive "
+                         f"multiples of 8 and 16-byte aligned data, got "
+                         f"strides {q.stride()}")
     pad = pad.contiguous()
     fn = load_kernel_library("window_mha").lib.sst_window_mha_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -121,8 +139,8 @@ def window_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Args:
       q, k, v: [W, T, C] bfloat16; on the card they may be the three column
-        blocks of one [W, T, 3C] buffer (shared strides, unit channel
-        stride), so the split costs no copy.
+        blocks of one [W, T, 3C] buffer (shared strides, multiples of 8,
+        unit channel stride), so the split costs no copy.
       pad: [W, T] bool, True for a padded key slot.
       nhead: heads; on the card C must be ``nhead * 16`` and T at most 320.
     Returns [W, T, C] bfloat16, contiguous.

@@ -23,11 +23,22 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+# ~0.25 ms of GPU clock: longer than a kernel wrapper's host time
+QUEUE_CYCLES = 500_000
+
+
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after ``warmup`` calls."""
+    """Median device time of ``fn()`` in ms, after ``warmup`` calls. Each
+    timed call is queued behind a ``torch.cuda._sleep``, so its kernels are
+    already enqueued when its start event runs: the host's launch time
+    (Python, checks, ctypes) stays out of a short kernel's time."""
     for _ in range(warmup):
         fn()
-    return statistics.median(event_ms(fn) for _ in range(reps))
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(QUEUE_CYCLES)
+        times.append(event_ms(fn))
+    return statistics.median(times)
 
 
 def card_name_and_power_limit() -> str:

@@ -142,15 +142,21 @@ SPARSE_CONV_EDGE_CASES = ("all-missing tile", "tap with no neighbour", "K=3",
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SPARSE_CONV_EDGE_CASES)
 def test_sparse_conv_kernel_matches_twin(name):
+    """Over a precomputed schedule and over one the wrapper builds: the
+    same bits (no atomics, a fixed order), within 1e-4 of the twin."""
     device = _cuda()
     feats, nbr, w = _edge_case(name, device)
+    sched = scg.conv_schedule(nbr, feats.shape[0])
     scg.reset_launch_counts()
-    got = scg.sparse_conv_gemm(feats, nbr, w, "subm")
+    got = scg.sparse_conv_gemm(feats, nbr, w, "subm", schedule=sched)
+    again = scg.sparse_conv_gemm(feats, nbr, w, "subm")
     torch.cuda.synchronize()
-    assert scg.launches == 1
-    assert scg.launch_counts == {("subm", w.shape[1], w.shape[2]): 1}
+    assert scg.launches == 2
+    assert scg.launch_counts == {("subm", w.shape[1], w.shape[2]): 2}
+    assert torch.equal(got, again)
     ref = scg.sparse_conv_gemm_ref(feats, nbr, w)
-    # f32 sums over up to 27 * 512 terms in another order: 1e-4 abs + rel
+    # f32 sums over up to 27 * 512 terms in another order, 3xTF32 products
+    # (~2^-21 relative each): 1e-4 abs + rel
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
     if name == "all-missing tile":
         assert torch.equal(got[64:128], torch.zeros_like(got[64:128]))
@@ -241,10 +247,17 @@ def test_sparse_conv_autograd_runs_the_kernels(mode):
         scg.reset_launch_counts()
         scd.reset_launch_counts()
         (tsc.windowed_sparse_conv(f, ww, cp) * g.to(dev)).sum().backward()
+        # the dgrad ran over the plan's transposed table and its schedule
+        assert cp.sched_t is not None and cp.sched_t.vin == gout.cap
         if dev == device:
             torch.cuda.synchronize()
             assert scg.kind_counts == {"forward": 1, "dgrad": 1}
             assert scd.launches == 1
+            again = scg.sparse_conv_gemm(
+                g.to(dev).contiguous(), cp.nbr_t,
+                ww.detach().transpose(1, 2).contiguous(), mode,
+                kind="dgrad")
+            assert torch.equal(f.grad, again)  # the same bits, fresh schedule
         grads.append((f.grad.cpu(), ww.grad.cpu()))
     (df_k, dw_k), (df_t, dw_t) = grads
     torch.testing.assert_close(df_k, df_t, rtol=1e-4, atol=1e-4)
@@ -255,7 +268,8 @@ def test_sparse_conv_autograd_runs_the_kernels(mode):
 def _mha_case(w, t, h, seed, device, strided=True):
     """q, k, v [W, T, 16H] bf16 (the three column blocks of one [W, T, 48H]
     buffer when ``strided``) and a pad mask with, for W > 1, an all-padded
-    window (0) and a one-token window (1)."""
+    window (0), a one-token window (1) and, for W > 2 and T > 16, a window
+    whose 16-row query tiles from row 16 to 47 are all padded (2)."""
     rng = np.random.RandomState(seed)
     c = 16 * h
     qkv = torch.from_numpy(rng.randn(w, t, 3 * c).astype(np.float32))
@@ -266,6 +280,8 @@ def _mha_case(w, t, h, seed, device, strided=True):
         pad[0] = True
         pad[1] = True
         pad[1, t // 2] = False
+    if w > 2:
+        pad[2, 16:48] = True
     pad = torch.from_numpy(pad).to(device)
     q, k, v = qkv.split(c, dim=-1)
     if not strided:
@@ -285,24 +301,33 @@ def _assert_mha_close(got, ref, v, pad):
 
 
 # the buckets (T, windows) of sst_waymo(train_buckets=False) at d_model 128,
-# 8 heads, and edge cases: T off the multiples of 16, W = 1, two heads
+# 8 heads, and edge cases: T off the multiples of 16, T at the kernel's 320,
+# W = 1, two heads
 MHA_CASES = [(896, 30, 8), (768, 60, 8), (320, 100, 8), (160, 144, 8),
-             (1, 30, 8), (16, 8, 2), (7, 100, 2)]
+             (1, 30, 8), (16, 8, 2), (7, 100, 2), (12, 320, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,t,h", MHA_CASES)
 @pytest.mark.parametrize("strided", [True, False])
 def test_window_mha_kernel_matches_twin(w, t, h, strided):
+    """Within the tolerance on valid query rows; rows of all-padded windows
+    and query tiles are zeros; a second run gives the same bits."""
     device = _cuda()
     q, k, v, pad = _mha_case(w, t, h, seed=w + t + h, device=device,
                              strided=strided)
     wm.reset_launch_counts()
     got = wm.window_mha(q, k, v, pad, h)
+    again = wm.window_mha(q, k, v, pad, h)
     torch.cuda.synchronize()
-    assert wm.launches == 1 and wm.launch_counts == {(t, 16 * h, h): 1}
+    assert wm.launches == 2 and wm.launch_counts == {(t, 16 * h, h): 2}
+    assert torch.equal(got, again)
     ref = wm.window_mha_ref(q, k, v, pad, h)
     _assert_mha_close(got, ref, v, pad)
+    skipped = got[wm.skipped_rows(pad)]
+    assert torch.equal(skipped, torch.zeros_like(skipped))
+    if w > 2 and t > 16:
+        assert wm.skipped_rows(pad)[2].any()
 
 
 @pytest.mark.cuda

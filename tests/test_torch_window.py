@@ -212,6 +212,22 @@ def test_window_mha_twin_accepts_strided_views():
         rtol=0, atol=0)
 
 
+def test_skipped_rows_are_all_padded_windows_and_query_tiles():
+    """The rows the kernel writes as zeros: every row of a window without a
+    valid slot, and the rows of a 16-row query tile that are all padded
+    (slots past T count as padded); no row of a tile with a valid slot."""
+    pad = torch.zeros(3, 40, dtype=torch.bool)
+    pad[0] = True  # no valid slot
+    pad[1, 16:32] = True  # one whole tile
+    pad[2, 32:] = True  # the last tile, 8 slots of it past T
+    pad[2, 3] = True  # one padded row of a live tile
+    want = torch.zeros(3, 40, dtype=torch.bool)
+    want[0] = True
+    want[1, 16:32] = True
+    want[2, 32:] = True
+    assert torch.equal(wm.skipped_rows(pad), want)
+
+
 @pytest.mark.parametrize("bad,err", [
     (dict(q=torch.zeros(2, 8, 32)), TypeError),
     (dict(pad=torch.zeros(2, 8)), TypeError),
