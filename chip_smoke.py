@@ -12,8 +12,13 @@ Phases (each one that fails ends the run with a non-zero exit code):
   1. device   the card's name and power limit; there is no CPU path.
   2. build    compile every kernel from ``sst_tpu_torch/csrc``, one nvcc per
               source, all started together.
-  3. kernels  the sorted reduce against its plain PyTorch twin on the card,
-              at the dense path's shapes and on edge cases, both timed.
+  3. kernels  the sorted reduce and its offsets kernel against their plain
+              PyTorch twins on the card, at the dense path's shapes and on
+              edge cases (a mostly empty segment range at the segmentor's
+              196,608 rows and 131,072 segments among them); offsets
+              computed by the wrapper and passed in give the same bits;
+              kernel, twin and ``torch.segment_reduce`` timed, and the
+              wrapper's host time per call.
   4. predict  ``fsdv2_waymo_dense`` (random weights from a seed) answers four
               synthetic Waymo frames through ``apis.inference_detector``;
               the kernels' launch counts show that the path went through them.
@@ -35,8 +40,11 @@ Phases (each one that fails ends the run with a non-zero exit code):
               hooks record every conv's input and rulebook; the weight-
               gradient kernel and the input gradient (the conv kernel over
               the transposed table) against their twins at all 58 convs,
-              with a seeded output gradient, and on edge cases; two runs
-              equal bit for bit; both timed per step beside the bound.
+              with a seeded output gradient, and on edge cases; dW over the
+              plan's row schedule and over one the wrapper builds, and two
+              runs, equal bit for bit; both timed per step beside the
+              bound, per conv the executed share of (row, tap) pairs, and
+              the dW wrapper's host time.
  11. train    the same model trains on four labelled frames: 2 warm-up and
               6 timed ``train_step`` calls in the detection schedule's
               step-0 mode (``pretrain=True``), 3 more steps timed by stage
@@ -189,15 +197,29 @@ def _segmentor_rows(model, frame, device):
     return pts[order], vm.point_seg_ids[order].contiguous(), seg_mod.max_voxels
 
 
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _check_case(name, data, seg, num_segments, mode, results,
                 twin_on_cpu=False):
-    got = sr.sorted_segment_reduce(data, seg, num_segments, mode)
+    """The kernel over offsets it computes and over offsets passed in (the
+    same bits), the offsets against ``torch.searchsorted`` (exactly), the
+    result against the twin."""
+    offsets = sr.segment_offsets(seg, num_segments)
+    got = sr.sorted_segment_reduce(data, seg, num_segments, mode, offsets)
+    again = sr.sorted_segment_reduce(data, seg, num_segments, mode)
     if twin_on_cpu:
         ref = sr.sorted_segment_reduce_ref(data.cpu(), seg.cpu(),
                                            num_segments, mode).to(data.device)
     else:
         ref = sr.sorted_segment_reduce_ref(data, seg, num_segments, mode)
     torch.cuda.synchronize()
+    if not torch.equal(offsets, sr.segment_offsets_ref(seg, num_segments)):
+        fail(f"the offsets kernel disagrees with torch.searchsorted in {name}")
+    if not _same_bits(got, again):
+        fail(f"the sorted reduce gave other bits over the offsets passed in "
+             f"than over its own in {name} ({mode})")
     if mode == "max" and not bool(torch.isfinite(got).all()):
         fail(f"the kernel wrote a non-finite max in {name}: a max that is "
              f"not finite must read 0, as JAX segment_reduce does")
@@ -223,23 +245,56 @@ def _check_case(name, data, seg, num_segments, mode, results,
         ok = bool(((got - ref).abs() <= tol).all())
         rule = "rtol 1e-5, atol 1e-5*sqrt(rows)"
     print(f"  {name:<34} {mode:<3} C={data.shape[1]:<3} "
-          f"max_abs_err={err:.3e} ({rule}) {'ok' if ok else 'MISMATCH'}",
-          flush=True)
+          f"max_abs_err={err:.3e} ({rule}), offsets exact, same bits over "
+          f"given offsets {'ok' if ok else 'MISMATCH'}", flush=True)
     results.append(err)
     if not ok:
         fail(f"kernel disagrees with its plain twin on {name} ({mode})")
 
 
+def _segment_reduce_library(data, offsets, num_segments, mode):
+    """The library yardstick: one ``torch.segment_reduce`` call over the
+    in-range rows (one contiguous range of the sorted rows), with lengths
+    from the same offsets. It writes -inf (not 0) for an empty max and does
+    not zero a non-finite one, so it is timed, not used."""
+    lengths = offsets[1:] - offsets[:-1]
+    rows = data[int(offsets[0]):int(offsets[-1])]
+    return lambda: torch.segment_reduce(rows, mode, lengths=lengths,
+                                        unsafe=True)
+
+
 def phase_kernels(model, frame, device):
-    """The kernel against its twin at the shapes the segmentor VFE gives it:
-    a sum over the xyz rows (cluster centres), a max over each layer's
-    width. Returns the timed shapes and the largest error."""
+    """The kernels against their twins at the shapes the segmentor VFE gives
+    them: one offsets array of the sorted ids, a sum over the xyz rows
+    (cluster centres), a max over each layer's width. Returns the timed
+    reduce shapes, the offsets kernel's record and the largest error."""
     gen = torch.Generator(device=device).manual_seed(0)
     pts_sorted, seg, nseg = _segmentor_rows(model, frame, device)
     n = seg.shape[0]
     n_valid = int((seg < nseg).sum())
+    offsets = sr.segment_offsets(seg, nseg)
+    occupied = int(((offsets[1:] - offsets[:-1]) > 0).sum())
     print(f"kernels: sorted_segment_reduce at the segmentor's shapes: N={n} "
-          f"rows ({n_valid} in range), {nseg} segments", flush=True)
+          f"rows ({n_valid} in range), {nseg} segments ({occupied} "
+          f"occupied)", flush=True)
+    runs = {k: [] for k in ("plain", "kernel")}
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        runs[kind].append(cuda_ms(
+            (lambda: sr.segment_offsets_ref(seg, nseg)) if kind == "plain"
+            else (lambda: sr.segment_offsets(seg, nseg)), 20))
+    if not torch.equal(offsets, sr.segment_offsets_ref(seg, nseg)):
+        fail("the offsets kernel disagrees with torch.searchsorted at the "
+             "segmentor's shapes")
+    off_bound, off_by = bound(4 * (n + nseg + 1), 0, F32_FLOP_PER_S)
+    offsets_rec = {"n": n, "num_segments": nseg, "ms": min(runs["kernel"]),
+                   "plain_ms": min(runs["plain"]), "bound_ms": off_bound,
+                   "bound_by": off_by, "max_abs_err": 0.0,
+                   "host_ms": _host_ms(lambda: sr.segment_offsets(seg, nseg))}
+    print(f"  time offsets: kernel {offsets_rec['ms']:.4f} ms (runs "
+          f"{runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), "
+          f"torch.searchsorted {offsets_rec['plain_ms']:.4f} ms, bound "
+          f"{off_bound:.4f} ms ({off_by}), wrapper host time "
+          f"{offsets_rec['host_ms'] * 1e3:.1f} us per call", flush=True)
     errs = []
     shapes = []
     main_cases = [("segmentor cluster-centre sum",
@@ -249,27 +304,31 @@ def phase_kernels(model, frame, device):
             n, c, generator=gen, device=device), "max"))
     for name, data, mode in main_cases:
         _check_case(name, data, seg, nseg, mode, errs)
-        # alternate plain and kernel timings: plain, kernel, kernel, plain
-        plain_a = cuda_ms(lambda: sr.sorted_segment_reduce_ref(
-            data, seg, nseg, mode), 20)
-        kern_a = cuda_ms(lambda: sr.sorted_segment_reduce(
-            data, seg, nseg, mode), 20)
-        kern_b = cuda_ms(lambda: sr.sorted_segment_reduce(
-            data, seg, nseg, mode), 20)
-        plain_b = cuda_ms(lambda: sr.sorted_segment_reduce_ref(
-            data, seg, nseg, mode), 20)
-        kern = min(kern_a, kern_b)
-        plain = min(plain_a, plain_b)
-        print(f"  time {mode} C={data.shape[1]}: kernel {kern:.4f} ms "
-              f"(runs {kern_a:.4f}, {kern_b:.4f}), plain twin {plain:.4f} ms "
-              f"(runs {plain_a:.4f}, {plain_b:.4f})", flush=True)
+        fns = {"plain": lambda: sr.sorted_segment_reduce_ref(
+                   data, seg, nseg, mode),
+               "kernel": lambda: sr.sorted_segment_reduce(
+                   data, seg, nseg, mode, offsets),
+               "library": _segment_reduce_library(data, offsets, nseg, mode)}
+        runs = {k: [] for k in fns}
+        for kind in ("plain", "kernel", "library", "library", "kernel",
+                     "plain"):
+            runs[kind].append(cuda_ms(fns[kind], 20))
         c = data.shape[1]
-        bound_ms, bound_by = bound(4 * (n * c + n + nseg * c), n * c,
-                                   F32_FLOP_PER_S)
-        shapes.append({"mode": mode, "c": c, "n": n,
-                       "num_segments": nseg, "ms": kern, "plain_ms": plain,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": errs[-1]})
+        bound_ms, bound_by = bound(4 * (n * c + (nseg + 1) + nseg * c),
+                                   n * c, F32_FLOP_PER_S)
+        rec = {"mode": mode, "c": c, "n": n, "num_segments": nseg,
+               **{("ms" if k == "kernel" else f"{k}_ms"): min(v)
+                  for k, v in runs.items()},
+               "host_ms": _host_ms(fns["kernel"]),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": errs[-1]}
+        shapes.append(rec)
+        print(f"  time {mode} C={c}: kernel {rec['ms']:.4f} ms (runs "
+              f"{runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), plain "
+              f"twin {rec['plain_ms']:.4f} ms, torch.segment_reduce "
+              f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), wrapper host time "
+              f"{rec['host_ms'] * 1e3:.1f} us per call", flush=True)
 
     # edge cases
     m = 4096
@@ -307,7 +366,17 @@ def phase_kernels(model, frame, device):
     for mode in ("sum", "max"):
         _check_case("NaN and +-inf in some rows", with_nan, gaps,
                     int(gaps[-1]) + 1, mode, errs, twin_on_cpu=True)
-    return shapes, max(errs)
+    # the segmentor's row and segment counts with most segments empty: ids
+    # dense in [0, 40000), the invalid rows' ids at num_segments
+    sparse_ids = torch.sort(torch.randint(0, 40000, (196608,), generator=gen,
+                                          device=device).to(
+        torch.int32)).values
+    sparse_ids[-20000:] = 131072
+    for c, mode in ((3, "sum"), (64, "max"), (64, "sum")):
+        _check_case("mostly empty, N=196608, S=131072",
+                    torch.randn(196608, c, generator=gen, device=device),
+                    sparse_ids, 131072, mode, errs)
+    return shapes, offsets_rec, max(errs)
 
 
 def _frames(n_frames: int):
@@ -316,25 +385,31 @@ def _frames(n_frames: int):
 
 
 def phase_predict(model, frames):
-    """Drive the main path; returns the results, the kernel's launches and
-    its launches per frame by (mode, C), as counted at the launch site."""
+    """Drive the main path; returns the results, the kernels' launches
+    (reduce, offsets) and the reduce's launches per frame by (mode, C), as
+    counted at the launch sites."""
     results, per_frame = [], []
     reset_launch_counts()
     for frame in frames:
-        before = dict(sr.launch_counts)
+        before = (dict(sr.launch_counts), sr.offsets_launches)
         results.append(inference_detector(model, frame.points[0],
                                           max_points=196608))
-        per_frame.append({k: v - before.get(k, 0)
-                          for k, v in sr.launch_counts.items()})
-    launches = sr.launches
-    split = per_frame[0]
+        per_frame.append(({k: v - before[0].get(k, 0)
+                           for k, v in sr.launch_counts.items()},
+                          sr.offsets_launches - before[1]))
+    launches = (sr.launches, sr.offsets_launches)
+    split, n_offsets = per_frame[0]
     print(f"predict: fsdv2_waymo_dense on {len(frames)} frames; "
-          f"sorted_segment_reduce launches {launches}, per frame by "
-          f"(mode, C) {split}", flush=True)
-    if any(f != split for f in per_frame):
-        fail(f"the kernel's launches differ between frames: {per_frame}")
+          f"sorted_segment_reduce launches {launches[0]}, per frame by "
+          f"(mode, C) {split}; segment_offsets launches {launches[1]}, "
+          f"{n_offsets} per frame", flush=True)
+    if any(f != (split, n_offsets) for f in per_frame):
+        fail(f"the kernels' launches differ between frames: {per_frame}")
     if sum(split.values()) != 3:
         fail(f"expected 3 kernel launches per frame, counted {split}")
+    if n_offsets != 1:
+        fail(f"expected one offsets launch per frame (the VFE's three "
+             f"reductions share it), counted {n_offsets}")
     max_num = model.test_cfg["max_num"]
     for s, res in enumerate(results):
         if res["boxes"].shape != (max_num, 7) or res["scores"].shape != (
@@ -605,21 +680,26 @@ def phase_sparse_predict(model, frames, n_convs):
     results, per_frame = [], []
     reset_launch_counts()
     for frame in frames:
-        before = (dict(scg.launch_counts), dict(sr.launch_counts))
+        before = (dict(scg.launch_counts), dict(sr.launch_counts),
+                  sr.offsets_launches)
         results.append(inference_detector(model, frame.points[0],
                                           max_points=196608))
         per_frame.append(tuple(
             {k: v - b.get(k, 0) for k, v in counts.items()}
             for counts, b in zip((scg.launch_counts, sr.launch_counts),
-                                 before)))
-    conv_launches, sr_launches = scg.launches, sr.launches
-    split, sr_split = per_frame[0]
+                                 before)) + (sr.offsets_launches - before[2],))
+    conv_launches = scg.launches
+    sr_launches = (sr.launches, sr.offsets_launches)
+    split, sr_split, n_offsets = per_frame[0]
     print(f"sparse predict: fsdv2_waymo(backbone='sparse') on {len(frames)} "
           f"frames; sparse_conv_gemm launches {conv_launches}, per frame by "
           f"(mode, Cin, Cout) {split}; sorted_segment_reduce launches "
-          f"{sr_launches}, per frame {sr_split}", flush=True)
-    if any(f != (split, sr_split) for f in per_frame):
+          f"{sr_launches[0]}, per frame {sr_split}; segment_offsets launches "
+          f"{sr_launches[1]}, {n_offsets} per frame", flush=True)
+    if any(f != (split, sr_split, n_offsets) for f in per_frame):
         fail(f"launches differ between frames: {per_frame}")
+    if n_offsets != 1:
+        fail(f"expected one offsets launch per frame, counted {n_offsets}")
     if sum(split.values()) != n_convs:
         fail(f"expected {n_convs} sparse conv launches per frame (one per "
              f"SparseConvLayer), counted {sum(split.values())}")
@@ -657,23 +737,31 @@ def _labeled_frames(n_frames: int):
 DW_TOL = 1e-4  # times the twin on |feats|, |dout|, plus 1e-6 absolute
 
 
-def _check_dw(name, feats, nbr, dout, mode, errs):
-    """The weight-gradient kernel against its twin: |kernel - twin| <=
-    1e-4 * (|feats|^T |dout| per element) + 1e-6 (f32 sums of the same
-    products in another order)."""
-    got = sdw.sparse_conv_dw(feats, nbr, dout, mode)
+def _dw_error(got, feats, nbr, dout):
+    """(largest |got - twin|, whether every element is within DW_TOL)."""
     ref = sdw.sparse_conv_dw_ref(feats, nbr, dout)
     tol = DW_TOL * sdw.sparse_conv_dw_ref(feats.abs(), nbr, dout.abs()) + 1e-6
-    torch.cuda.synchronize()
     diff = (got - ref).abs()
-    err = diff.max().item()
-    ok = bool((diff <= tol).all())
+    return diff.max().item(), bool((diff <= tol).all())
+
+
+def _check_dw(name, feats, nbr, dout, mode, errs, schedule=None):
+    """The weight-gradient kernel (over ``schedule`` when given) against its
+    twin: |kernel - twin| <= 1e-4 * (|feats|^T |dout| per element) + 1e-6
+    (f32 sums of the same products in another order); a second run over a
+    schedule the wrapper builds itself gives the same bits."""
+    got = sdw.sparse_conv_dw(feats, nbr, dout, mode, schedule=schedule)
+    again = sdw.sparse_conv_dw(feats, nbr, dout, mode)
+    err, ok = _dw_error(got, feats, nbr, dout)
     errs.append(err)
     print(f"  dW    {name:<44} {mode:<8} {feats.shape[1]:>3}->"
           f"{dout.shape[1]:<3} Vin={feats.shape[0]:<6} Vout={nbr.shape[1]:<6} "
           f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail(f"sparse_conv_dw disagrees with its plain twin on {name}")
+    if not torch.equal(got, again):
+        fail(f"sparse_conv_dw gave other bits over a schedule it built than "
+             f"over the plan's on {name}")
     return got
 
 
@@ -747,7 +835,8 @@ def phase_backward_kernels(model, frame, device):
                     * out_valid.cpu()[:, None]).to(device)
             short = name.replace("segmentor_mod.unet_mod.", "seg.") \
                 .replace("mixer_mod.", "mix.")
-            _check_dw(short, feats, cp.nbr, dout, cp.mode, dw_errs)
+            _check_dw(short, feats, cp.nbr, dout, cp.mode, dw_errs,
+                      schedule=cp.schedule(vin))
             nbr_t = cp.transposed(vin)
             sched_t = cp.transposed_schedule(vin)
             w = model.get_submodule(name).weight.detach()
@@ -755,7 +844,8 @@ def phase_backward_kernels(model, frame, device):
             key = (id(cp.nbr), wshape[1], cout)
             if key not in cases:
                 cases[key] = dict(name=short, mode=cp.mode, feats=feats,
-                                  nbr=cp.nbr, nbr_t=nbr_t, sched_t=sched_t,
+                                  nbr=cp.nbr, sched=cp.schedule(vin),
+                                  nbr_t=nbr_t, sched_t=sched_t,
                                   dout=dout, w=w, convs=0)
             cases[key]["convs"] += 1
         print(f"  every conv: dW max_abs_err {max(dw_errs):.3e} (1e-4 x the "
@@ -765,10 +855,10 @@ def phase_backward_kernels(model, frame, device):
         widest = max(cases.values(), key=lambda c: c["w"].numel())
         deepest = max(cases.values(), key=lambda c: c["nbr"].shape[1])
         for case in (widest, deepest):
-            a = sdw.sparse_conv_dw(case["feats"], case["nbr"], case["dout"],
-                                   case["mode"])
-            b = sdw.sparse_conv_dw(case["feats"], case["nbr"], case["dout"],
-                                   case["mode"])
+            a, b = (sdw.sparse_conv_dw(case["feats"], case["nbr"],
+                                       case["dout"], case["mode"],
+                                       schedule=case["sched"])
+                    for _ in range(2))
             if not torch.equal(a, b):
                 fail(f"sparse_conv_dw gave other bits on a second run of "
                      f"{case['name']}")
@@ -780,9 +870,10 @@ def phase_backward_kernels(model, frame, device):
             if not torch.equal(a, b):
                 fail(f"the input gradient gave other bits on a second run "
                      f"of {case['name']}")
-        print(f"  determinism: dW and input gradient, two runs equal bit for "
-              f"bit on "
-              f"{widest['name']} and {deepest['name']}", flush=True)
+        print(f"  determinism: dW over the plan's schedule and over one the "
+              f"wrapper builds equal bit for bit on every conv; dW and input "
+              f"gradient, two runs equal bit for bit on {widest['name']} and "
+              f"{deepest['name']}", flush=True)
         for name, feats, nbr, dout in _dw_edge_cases(device):
             got = _check_dw(name, feats, nbr, dout, "subm", dw_errs)
             if not torch.equal(got, sdw.sparse_conv_dw(feats, nbr, dout,
@@ -798,12 +889,14 @@ def phase_backward_kernels(model, frame, device):
         shapes = []
         simt_ms = 0.0  # the bound on the f32 SIMT cores, printed beside
         for case in cases.values():
-            feats, nbr, dout, mode = (case["feats"], case["nbr"],
-                                      case["dout"], case["mode"])
+            feats, nbr, dout, mode, sched = (case["feats"], case["nbr"],
+                                             case["dout"], case["mode"],
+                                             case["sched"])
             wt = case["w"].transpose(1, 2).contiguous()
             fns = {
                 "plain": lambda: sdw.sparse_conv_dw_ref(feats, nbr, dout),
-                "kernel": lambda: sdw.sparse_conv_dw(feats, nbr, dout, mode),
+                "kernel": lambda: sdw.sparse_conv_dw(feats, nbr, dout, mode,
+                                                     schedule=sched),
                 "dgrad": lambda: scg.sparse_conv_gemm(
                     dout, case["nbr_t"], wt, mode, kind="dgrad",
                     schedule=case["sched_t"]),
@@ -816,6 +909,7 @@ def phase_backward_kernels(model, frame, device):
             vin, cin = feats.shape
             taps, vout = nbr.shape
             cout = dout.shape[1]
+            hit, _, executed = _executed_shares(nbr, vin, sched)
             pairs = int(((nbr >= 0) & (nbr < vin)).sum())
             nbytes = 4 * (vin * cin + taps * vout + vout * cout
                           + taps * cin * cout)
@@ -826,8 +920,10 @@ def phase_backward_kernels(model, frame, device):
             row = {"conv": case["name"], "convs_per_step": case["convs"],
                    "mode": mode, "cin": cin, "cout": cout, "vin": vin,
                    "vout": vout, "neighbour_share": pairs / (taps * vout),
-                   "splits": sdw.split_rows(taps, cin, cout, vout)[0],
+                   "executed_share_tiles": executed,
+                   "splits": sdw.split_rows(taps, cin, cout, vout),
                    "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+                   "host_ms": _host_ms(fns["kernel"]),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "dgrad_ms": min(runs["dgrad"]),
                    "dgrad_plain_ms": min(runs["dgrad_plain"])}
@@ -835,18 +931,32 @@ def phase_backward_kernels(model, frame, device):
             print(f"    time {case['name']:<28} x{case['convs']} {cin:>3}->"
                   f"{cout:<3} Vout={vout:<6}: dW kernel {row['ms']:.4f} ms "
                   f"(runs {runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}, "
-                  f"{row['splits']} row splits), twin {row['plain_ms']:.4f} "
-                  f"ms, bound {bound_ms:.4f} ms ({bound_by}); input gradient "
-                  f"kernel {row['dgrad_ms']:.4f} ms, twin "
+                  f"{row['splits']} tile splits), twin {row['plain_ms']:.4f} "
+                  f"ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), wrapper host time "
+                  f"{row['host_ms'] * 1e3:.1f} us per call; (row, tap) pairs: "
+                  f"{hit:.3f} have a neighbour, {executed:.3f} executed by the "
+                  f"tile schedule; input gradient kernel "
+                  f"{row['dgrad_ms']:.4f} ms, twin "
                   f"{row['dgrad_plain_ms']:.4f} ms", flush=True)
     per_step = {k: sum(r[k] * r["convs_per_step"] for r in shapes)
-                for k in ("ms", "plain_ms", "bound_ms", "dgrad_ms",
+                for k in ("ms", "plain_ms", "bound_ms", "host_ms", "dgrad_ms",
                           "dgrad_plain_ms")}
+    work = sum(r["convs_per_step"] * r["vout"] * r["cin"] * r["cout"]
+               for r in shapes)
+    per_step["shares"] = {k: sum(r[k] * r["convs_per_step"] * r["vout"]
+                                 * r["cin"] * r["cout"] for r in shapes) / work
+                          for k in ("neighbour_share",
+                                    "executed_share_tiles")}
     print(f"backward kernels: per step over its {len(calls)} convs: dW "
           f"kernel {per_step['ms']:.3f} ms, twin {per_step['plain_ms']:.3f} "
           f"ms, bound {per_step['bound_ms']:.3f} ms (3xTF32; "
           f"{simt_ms:.3f} ms on the f32 SIMT cores), the "
-          f"same for the input gradient; input gradient kernel "
+          f"same for the input gradient; wrapper host time "
+          f"{per_step['host_ms']:.3f} ms; shares of the (row, tap) x Cin x "
+          f"Cout work "
+          f"{({k: round(v, 4) for k, v in per_step['shares'].items()})}"
+          f"; input gradient kernel "
           f"{per_step['dgrad_ms']:.3f} ms, twin "
           f"{per_step['dgrad_plain_ms']:.3f} ms", flush=True)
     return shapes, per_step, max(dw_errs), max(dg_errs)
@@ -905,7 +1015,8 @@ def phase_train(model, device, n_convs):
               else dict(pretrain=False, thr_extra=0.0))
         if i == n_warmup:
             torch.cuda.reset_peak_memory_stats()
-        before = (dict(scg.kind_counts), sdw.launches, sr.launches)
+        before = (dict(scg.kind_counts), sdw.launches, sr.launches,
+                  sr.offsets_launches)
         out = {}
         batch = frames[i % len(frames)]
         if n_warmup + n_timed <= i < n_warmup + n_timed + n_staged:
@@ -922,6 +1033,7 @@ def phase_train(model, device, n_convs):
                     for k, v in scg.kind_counts.items()}
         launches["dw"] = sdw.launches - before[1]
         launches["sorted_reduce"] = sr.launches - before[2]
+        launches["segment_offsets"] = sr.offsets_launches - before[3]
         metrics = _losses(out)
         steps.append(dict(ms=ms, kw=kw, launches=launches, metrics=metrics,
                           params_without_grad=opt.params_without_grad))
@@ -936,7 +1048,8 @@ def phase_train(model, device, n_convs):
     stage_ms = {k: statistics.median(st[k] for st in stages)
                 for k in stages[0]}
     expected = {"forward": n_convs, "recompute": n_remat,
-                "dgrad": sum(needs_dgrad), "dw": n_convs, "sorted_reduce": 3}
+                "dgrad": sum(needs_dgrad), "dw": n_convs, "sorted_reduce": 3,
+                "segment_offsets": 1}
     if len(needs_dgrad) != n_convs:
         fail(f"the hooks saw {len(needs_dgrad)} conv calls in a step, the "
              f"model has {n_convs} convs")
@@ -986,7 +1099,8 @@ def phase_train(model, device, n_convs):
             "launches_per_step": steps[0]["launches"],
             "launches": {"sparse_conv_gemm": scg.launches,
                          "sparse_conv_dw": sdw.launches,
-                         "sorted_reduce": sr.launches},
+                         "sorted_reduce": sr.launches,
+                         "segment_offsets": sr.offsets_launches},
             "loss_first": first["metrics"], "loss_last": last["metrics"],
             "detection_step": detection["metrics"],
             "detection_step_ms": detection["ms"]}
@@ -1272,7 +1386,7 @@ def main() -> None:
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    shapes, max_err = phase_kernels(model, frames[0], device)
+    shapes, offsets_rec, max_err = phase_kernels(model, frames[0], device)
     results, launches, split = phase_predict(model, frames)
     timed = {(s["mode"], s["c"]) for s in shapes}
     untimed = set(split) - timed
@@ -1351,33 +1465,60 @@ def main() -> None:
             by[r["bound_by"]] += r["bound_ms"] * r[calls_key]
         return by.most_common(1)[0][0]
 
-    sr_frame = per_frame(shapes, "calls_per_frame")
+    sr_frame = {k: sum(r[k] * r["calls_per_frame"] for r in shapes)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                          "host_ms")}
     mha_rows = list(mha_shapes.values())
     mha_frame = per_frame(mha_rows, "calls_per_frame")
+    # counted in the dense path's run (phase 4), the sparse path's run
+    # (phase 7) and the train path's run (phase 11), each from 0
+    sr_launches = {"dense_bev": launches[0], "sparse": sr_sparse_launches[0],
+                   "sparse_train": train["launches"]["sorted_reduce"]}
+    off_launches = {"dense_bev": launches[1],
+                    "sparse": sr_sparse_launches[1],
+                    "sparse_train": train["launches"]["segment_offsets"]}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/sorted_reduce.cu",
         "replaces": "sst_tpu/ops/sorted_reduce.py:72",
-        # counted in the dense path's run (phase 4), the sparse path's
-        # run (phase 7) and the train path's run (phase 11), each from 0
-        "launches": (launches + sr_sparse_launches
-                     + train["launches"]["sorted_reduce"]),
-        "launches_by_path": {"dense_bev": launches,
-                             "sparse": sr_sparse_launches,
-                             "sparse_train": train["launches"][
-                                 "sorted_reduce"]},
+        "launches": sum(sr_launches.values()),
+        "launches_by_path": sr_launches,
         "max_abs_err": max_err,
         # per frame of either path (the same segmentor VFE): each timed
-        # shape times its launches per frame, as counted in phase 4
+        # shape times its launches per frame, as counted in phase 4, over
+        # the frame's one offsets array (the segment_offsets entry)
         "ms": sr_frame["ms"],
         "plain_ms": sr_frame["plain_ms"],
         "bound_ms": sr_frame["bound_ms"],
         "bound_by": bound_by(shapes, "calls_per_frame"),
-        # the twin is one index_add_ / scatter_reduce_ call into a zeroed
-        # buffer: the library call is the twin
-        "library_ms": sr_frame["plain_ms"],
+        # one torch.segment_reduce call per reduction, over the same rows
+        # with lengths from the same offsets; a yardstick only (-inf for an
+        # empty max, non-finite maxima kept)
+        "library_ms": sr_frame["library_ms"],
+        "library": "torch.segment_reduce",
+        # the wrapper's host time (Python, checks, ctypes, launch) per frame
+        "host_ms": sr_frame["host_ms"],
         "shapes": shapes,
+    }, {
+        "name": "segment_offsets",
+        "route": "cuda",
+        "source": "sst_tpu_torch/csrc/sorted_reduce.cu",
+        # the segment bounds that the TPU kernel found per block
+        "replaces": "sst_tpu/ops/sorted_reduce.py:72",
+        "launches": sum(off_launches.values()),
+        "launches_by_path": off_launches,
+        "max_abs_err": offsets_rec["max_abs_err"],
+        # per frame: one launch, shared by the frame's three reductions
+        "ms": offsets_rec["ms"],
+        "plain_ms": offsets_rec["plain_ms"],
+        "bound_ms": offsets_rec["bound_ms"],
+        "bound_by": offsets_rec["bound_by"],
+        # the twin is one torch.searchsorted call
+        "library_ms": offsets_rec["plain_ms"],
+        "library": "torch.searchsorted",
+        "host_ms": offsets_rec["host_ms"],
+        "shapes": [offsets_rec],
     }, {
         "name": "sparse_conv_gemm",
         "route": "cuda",
@@ -1424,6 +1565,10 @@ def main() -> None:
         # no single PyTorch call gathers through a neighbour table and
         # multiplies per tap
         "library_ms": None,
+        # the wrapper's host time per step, and the executed share of the
+        # (row, tap) x Cin x Cout work over the forward's schedule
+        "host_ms": dw_step["host_ms"],
+        "work_shares": dw_step["shares"],
         "shapes": dw_shapes,
     }, {
         "name": "window_mha",

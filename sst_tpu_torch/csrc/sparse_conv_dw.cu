@@ -1,5 +1,5 @@
 // Weight gradient of the sparse 3D convolution over a neighbour table, for
-// Hopper.
+// Hopper, on the tensor cores at f32 accuracy (3xTF32).
 //
 // Replaces the TPU kernel sst_tpu/ops/sparse_conv_pallas.py:_dw_kernel. That
 // kernel streamed the key-sorted input through VMEM per block of 128 output
@@ -15,157 +15,442 @@
 // where an index outside [0, vin) reads a zero row (the kernel checks the
 // bound itself).
 //
-// What bounds it: f32 arithmetic on the SIMT cores, the same useful work as
-// the forward conv (2 * Cin * Cout FLOP per (row, tap) pair that has a
-// neighbour). The design:
-//   * the grid runs over (tap k, 64-channel Cin tile, 64-channel Cout tile)
-//     and over S splits of the output rows; each block owns one 64 x 64 tile
-//     of dW[k] for its split, 256 threads each accumulating a 4 x 4 register
-//     tile in f32 FMA, in a fixed order (row by row);
-//   * per chunk of 32 output rows the block loads the rows' tap-k neighbour
-//     indices; if no row of the chunk has that neighbour (__syncthreads_or)
-//     the chunk is skipped; otherwise it gathers the rows' feats[nbr[k, v],
-//     c0:c0+64] into shared memory (a missing row reads 0) and stages
-//     dout[v, n0:n0+64] beside it;
+// What bounds it: operations, the same useful work as the forward conv (2 *
+// Cin * Cout FLOP per (row, tap) pair that has a neighbour), which must stay
+// f32-accurate. The design:
+//   * the forward's mask-sorted row schedule (sst_tpu_torch/ops/
+//     sparse_conv_gemm.py conv_schedule, cached on the conv's plan): tile i
+//     holds output rows perm[64 i .. 64 i + 63], and only the tiles whose
+//     tile_mask[i] has bit k contribute to dW[k]. Rows that share a mask
+//     share a tile, so the executed (row, tap) pairs are the forward's;
+//   * a first kernel lists, per tap k, the schedule's tiles whose mask has
+//     bit k (a ballot per warp, one block per tap). The grid runs over (tap
+//     k, 64-channel Cin tile, 64-channel Cout tile) and over S splits; split
+//     s of tap k takes the s-th of S equal shares of k's list, in schedule
+//     order, so the blocks of one tap carry equal work wherever its tiles lie
+//     in the mask order (splits over the schedule's own tile ranges left the
+//     tiles of a high tap bit to a few of them). Per tile a block gathers,
+//     in two 32-row stages, feats[nbr[k, perm[r]], c0:c0+64] and
+//     dout[perm[r], n0:n0+64]
+//     (16-byte cp.async; src-size 0 zero-fills a missing row or a row past
+//     vout) into a 2-stage ring, so the next stage's gathers overlap this
+//     stage's products. The tile's output rows (perm) are copied two tiles
+//     ahead and its neighbour indices (nbr[k, perm[r]]) one tile ahead, both
+//     by cp.async, so no thread waits on an index load;
+//   * 3xTF32 on mma.sync.m16n8k8, as the forward conv: M = Cin, N = Cout
+//     and the reduction runs over the stage's rows. Each operand is split
+//     a = hi + lo (hi rounded to TF32 as cvt.rna rounds, lo = a - hi exact
+//     in f32), and lo*hi + hi*lo + hi*hi are accumulated. A is feats^T, so
+//     its fragments read the [rows][channels] stage transposed; rows are
+//     padded to 72 floats, which keeps both operands' fragment loads free of
+//     bank conflicts (lane (g, t) reads row t, column g: bank 8 t + g). The
+//     tensor cores' f32 accumulation does not round to nearest, and here the
+//     reduction runs over up to ~10^5 rows per tap: each 32-row stage is
+//     summed from zero and added to the f32 accumulators with IEEE adds;
 //   * blocks on different SMs cannot carry a sum across the TPU's sequential
 //     grid, so each split writes its partial tile to a workspace
-//     [S, K, Cin, Cout], and a second kernel sums the S partials in split
+//     [S, K, Cin, Cout], and a last kernel sums the S partials in split
 //     order. No float atomics: the result is the same bit for bit in every
-//     run. With S = 1 the first kernel writes dW itself;
-//   * every element of dW is written (0 for a tap that no row has); any K,
-//     Cin, Cout, vin and vout are taken, with the ragged edges masked.
-// Left for later: TF32 or bf16 wgmma, a per-tap compacted rulebook (so that
-// missing (row, tap) pairs cost nothing), cp.async/TMA double buffering.
+//     run. With S = 1 the main kernel writes dW itself. 4 warps of 32 x 32
+//     outputs, at most 128 registers a thread and 40 KB of shared memory: 4
+//     blocks share an SM, and the wrapper sizes S so the grid fills the 132
+//     SMs with them several times over;
+//   * every element of dW is written (0 for a tap that no row has); any
+//     K <= 32, Cin, Cout, vin and vout are taken, with the ragged edges
+//     masked; widths that are not a multiple of 4 (or unaligned bases) take
+//     4-byte cp.async copies in the same kernel.
 //
 // Contract (checked by the Python wrapper sst_tpu_torch/ops/
 // sparse_conv_dw.py): feats [vin, cin] f32, nbr [taps, vout] int32, dout
-// [vout, cout] f32, workspace [splits, taps, cin, cout] f32 (unused when
-// splits == 1) and dw [taps, cin, cout] f32, all contiguous on the device of
-// the stream; split s covers output rows [s * rows_per_split, (s + 1) *
-// rows_per_split), rows_per_split a multiple of 32. Launches on the given
-// stream and does not synchronise. Returns cudaGetLastError() after the
-// launches.
+// [vout, cout] f32, perm [vout] int32 (a permutation of the output rows),
+// tile_mask [T = ceil(vout / 64)] int32 (bit k set if a row of the tile has
+// a neighbour at tap k), lists [taps * T + taps] int32 (scratch),
+// workspace [splits, taps, cin, cout] f32 (unused when splits == 1) and dw
+// [taps, cin, cout] f32, all contiguous on the device of the stream;
+// ceil(T / splits) <= 512. Launches on the given stream and does not
+// synchronise. Returns cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTileC = 64;     // input channels per block (rows of the tile)
-constexpr int kTileN = 64;     // output channels per block
-constexpr int kChunk = 32;     // output rows per shared-memory stage
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 tile each
+constexpr int kTileRows = 64;   // rows per schedule tile (TILE_ROWS)
+constexpr int kStageRows = 32;  // rows per stage: half a tile
+constexpr int kTileC = 64;      // input channels per block (M)
+constexpr int kTileN = 64;      // output channels per block (N)
+constexpr int kThreads = 128;   // 4 warps of 32 x 32
+constexpr int kBlocksPerSm = 4; // bounds the registers at 128 a thread
+constexpr int kLd = kTileC + 8; // shared row: 72 floats
+constexpr int kStage = kStageRows * kLd;
+constexpr int kMaxTaps = 32;
+constexpr int kMaxSplitTiles = 512;  // a split's share of a tap's tiles
+constexpr int kListThreads = 1024;
 constexpr int kMaxGridY = 65535;
+static_assert(kTileC == kTileN, "both operands share the stage layout");
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared copies; src_bytes below the copy size zero-fills the rest
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// a = hi + lo: hi is a rounded to TF32, to nearest with ties away from
+// zero (cvt.rna.tf32's rounding, as an integer add and mask); lo = a - hi is
+// exact in f32 and the mma truncates it to TF32. The same split as
+// sparse_conv_gemm.cu.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(a, __uint_as_float(hi)));
+}
+
+// d += a * b, m16n8k8, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The output rows of schedule tile `tile` into rows[0 .. 63]: one 4-byte
+// copy per row by threads 0 .. 63; rows past vout are zero-filled (and
+// masked again where they are read).
+__device__ __forceinline__ void load_tile_rows(int* rows,
+                                               const int* __restrict__ perm,
+                                               int tile, int vout, int tid) {
+  if (tid < kTileRows) {
+    const int v = tile * kTileRows + tid;
+    cp_async4(rows + tid, v < vout ? perm + v : perm, v < vout ? 4 : 0);
+  }
+}
+
+// The feats rows of schedule tile `tile` at this tap into src[0 .. 63]: one
+// 4-byte copy nbr[k, rows[r]] per row by threads 0 .. 63, from the tile's
+// output rows (already in shared memory), so no thread waits on the load;
+// rows past vout are written as -1. An index outside [0, vin) is masked
+// where it is read.
+__device__ __forceinline__ void load_tile_src(int* src, const int* rows,
+                                              const int* __restrict__ nbr_k,
+                                              int tile, int vout, int tid) {
+  if (tid < kTileRows) {
+    if (tile * kTileRows + tid < vout) {
+      cp_async4(src + tid, nbr_k + rows[tid], 4);
+    } else {
+      src[tid] = -1;
+    }
+  }
+}
+
+// One 32-row stage: a_s[r][cc] = feats[src[r], c0 + cc] (0 where src[r] is
+// outside [0, vin)) and
+// b_s[r][nn] = dout[rows[r], n0 + nn] for r < 32 (src and rows offset to the
+// stage's half of the tile; v0 the stage's first schedule position).
+__device__ __forceinline__ void issue_stage(
+    float* a_s, float* b_s, const float* __restrict__ feats,
+    const float* __restrict__ dout, const int* rows, const int* src, int v0,
+    int c0, int n0, int vin, int vout, int cin, int cout, bool a_vec,
+    bool b_vec, int tid) {
+  if (a_vec) {
+#pragma unroll
+    for (int i = 0; i < kStageRows * kTileC / 4 / kThreads; ++i) {
+      const int q = tid + i * kThreads;
+      const int r = q >> 4;
+      const int cc = 4 * (q & 15);
+      const int s = src[r];
+      const int c = c0 + cc;
+      const bool ok = s >= 0 && s < vin && c < cin;
+      cp_async16(a_s + r * kLd + cc,
+                 ok ? feats + static_cast<long long>(s) * cin + c : feats,
+                 ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kStageRows * kTileC / kThreads; ++i) {
+      const int q = tid + i * kThreads;
+      const int r = q >> 6;
+      const int cc = q & 63;
+      const int s = src[r];
+      const int c = c0 + cc;
+      const bool ok = s >= 0 && s < vin && c < cin;
+      cp_async4(a_s + r * kLd + cc,
+                ok ? feats + static_cast<long long>(s) * cin + c : feats,
+                ok ? 4 : 0);
+    }
+  }
+  if (b_vec) {
+#pragma unroll
+    for (int i = 0; i < kStageRows * kTileN / 4 / kThreads; ++i) {
+      const int q = tid + i * kThreads;
+      const int r = q >> 4;
+      const int nn = 4 * (q & 15);
+      const int n = n0 + nn;
+      const bool ok = v0 + r < vout && n < cout;
+      cp_async16(b_s + r * kLd + nn,
+                 ok ? dout + static_cast<long long>(rows[r]) * cout + n
+                    : dout,
+                 ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kStageRows * kTileN / kThreads; ++i) {
+      const int q = tid + i * kThreads;
+      const int r = q >> 6;
+      const int nn = q & 63;
+      const int n = n0 + nn;
+      const bool ok = v0 + r < vout && n < cout;
+      cp_async4(b_s + r * kLd + nn,
+                ok ? dout + static_cast<long long>(rows[r]) * cout + n
+                   : dout,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// lists[k][0 .. counts[k]) = the schedule's tiles whose mask has bit k, in
+// schedule order: one block per tap, a ballot per warp.
+__global__ void __launch_bounds__(kListThreads)
+tap_tile_lists_kernel(const unsigned* __restrict__ tile_mask, int n_sched,
+                      int* __restrict__ lists, int* __restrict__ counts) {
+  __shared__ int warp_s[kListThreads / 32];
+  const int k = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* list = lists + static_cast<long long>(k) * n_sched;
+  int count = 0;
+  for (int base = 0; base < n_sched; base += kListThreads) {
+    const int i = base + threadIdx.x;
+    const bool has = i < n_sched && ((__ldg(tile_mask + i) >> k) & 1u);
+    const unsigned ballot = __ballot_sync(0xffffffffu, has);
+    if (lane == 0) {
+      warp_s[warp] = __popc(ballot);
+    }
+    __syncthreads();
+    int at = count;
+    for (int w = 0; w < warp; ++w) {
+      at += warp_s[w];
+    }
+    if (has) {
+      list[at + __popc(ballot & ((1u << lane) - 1u))] = i;
+    }
+    for (int w = 0; w < kListThreads / 32; ++w) {
+      count += warp_s[w];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    counts[k] = count;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 sparse_conv_dw_kernel(const float* __restrict__ feats,
                       const int* __restrict__ nbr,
                       const float* __restrict__ dout,
+                      const int* __restrict__ perm,
+                      const int* __restrict__ lists,
+                      const int* __restrict__ counts,
                       float* __restrict__ partial, int vin, int vout, int cin,
-                      int cout, int taps, int rows_per_split) {
-  // gathered input rows a_s[row][channel] and output-gradient rows
-  // b_s[row][channel] of one chunk
-  __shared__ __align__(16) float a_s[kChunk][kTileC];
-  __shared__ __align__(16) float b_s[kChunk][kTileN];
-  __shared__ int idx_s[kChunk];
+                      int cout, int taps, int splits, bool a_vec,
+                      bool b_vec) {
+  __shared__ __align__(16) float a_s[2][kStage];  // feats rows, per stage
+  __shared__ __align__(16) float b_s[2][kStage];  // dout rows, per stage
+  __shared__ int rows_s[3][kTileRows];  // perm of three tiles in flight
+  __shared__ int src_s[2][kTileRows];   // their neighbour rows at tap k
+  __shared__ int list_s[kMaxSplitTiles];  // the split's tiles with bit k
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // output channels n0 + 4*tx .. 4*tx+3
-  const int ty = tid >> 4;  // input channels c0 + 4*ty .. 4*ty+3
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int n_tiles = (cout + kTileN - 1) / kTileN;
   const int c_tiles = (cin + kTileC - 1) / kTileC;
-  int t = blockIdx.x;
-  const int n0 = (t % n_tiles) * kTileN;
-  t /= n_tiles;
-  const int c0 = (t % c_tiles) * kTileC;
-  const int k = t / c_tiles;
+  int b = blockIdx.x;
+  const int n0 = (b % n_tiles) * kTileN;
+  b /= n_tiles;
+  const int c0 = (b % c_tiles) * kTileC;
+  const int k = b / c_tiles;
   const int s = blockIdx.y;
-  const long long v_begin = static_cast<long long>(s) * rows_per_split;
-  const long long v_end =
-      v_begin + rows_per_split < vout ? v_begin + rows_per_split : vout;
+  const int n_sched = (vout - 1) / kTileRows + 1;
   const int* nbr_k = nbr + static_cast<long long>(k) * vout;
 
-  float acc[4][4];
+  // this split's share of the tap's tiles (those whose mask has bit k)
+  const long long listed = __ldg(counts + k);
+  const int lo = static_cast<int>(listed * s / splits);
+  const int count = static_cast<int>(listed * (s + 1) / splits) - lo;
+  const int* list_k = lists + static_cast<long long>(k) * n_sched + lo;
+  for (int i = tid; i < count; i += kThreads) {
+    cp_async4(list_s + i, list_k + i, 4);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = (warp >> 1) * 32;  // the warp's input channels in the tile
+  const int wn = (warp & 1) * 32;   // its output channels
+  float acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.0f;
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mi][ni][e] = 0.0f;
+      }
     }
   }
 
-  for (long long v0 = v_begin; v0 < v_end; v0 += kChunk) {
-    int has = 0;
-    if (tid < kChunk) {
-      const long long v = v0 + tid;
-      int idx = -1;
-      if (v < v_end) {
-        idx = __ldg(nbr_k + v);
-        if (idx < 0 || idx >= vin) {
-          idx = -1;
+  // stage it is half (it & 1) of listed tile it >> 1
+  const int n_iter = 2 * count;
+  if (n_iter > 0) {
+    load_tile_rows(rows_s[0], perm, list_s[0], vout, tid);
+    if (count > 1) {
+      load_tile_rows(rows_s[1], perm, list_s[1], vout, tid);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    load_tile_src(src_s[0], rows_s[0], nbr_k, list_s[0], vout, tid);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    issue_stage(a_s[0], b_s[0], feats, dout, rows_s[0], src_s[0],
+                list_s[0] * kTileRows, c0, n0, vin, vout, cin, cout, a_vec,
+                b_vec, tid);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    const int p = it >> 1;
+    const int half = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage `it` has landed; stage it - 1 is consumed
+    // at a tile's first half: copy the next tile's neighbour rows (its
+    // perm landed a tile ago) and the perm of the tile after it
+    if (half == 0 && p + 1 < count) {
+      load_tile_src(src_s[(p + 1) & 1], rows_s[(p + 1) % 3], nbr_k,
+                    list_s[p + 1], vout, tid);
+    }
+    if (half == 0 && p + 2 < count) {
+      load_tile_rows(rows_s[(p + 2) % 3], perm, list_s[p + 2], vout, tid);
+    }
+    if (it + 1 < n_iter) {
+      const int q = (it + 1) >> 1;
+      const int h = (it + 1) & 1;
+      issue_stage(a_s[(it + 1) & 1], b_s[(it + 1) & 1], feats, dout,
+                  rows_s[q % 3] + h * kStageRows,
+                  src_s[q & 1] + h * kStageRows,
+                  list_s[q] * kTileRows + h * kStageRows, c0, n0, vin, vout,
+                  cin, cout, a_vec, b_vec, tid);
+    }
+    cp_async_commit();
+
+    const float* a = a_s[it & 1];
+    const float* bb = b_s[it & 1];
+    float part[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          part[mi][ni][e] = 0.0f;
         }
       }
-      idx_s[tid] = idx;
-      has = idx >= 0;
     }
-    if (!__syncthreads_or(has)) {
-      continue;  // no row of the chunk has this neighbour
-    }
-    // stage: element e of the 32 x 64 chunk is row e / 64, channel e % 64,
-    // so a warp reads 32 consecutive channels of one row
 #pragma unroll
-    for (int i = 0; i < kChunk * kTileC / kThreads; ++i) {
-      const int e = tid + kThreads * i;
-      const int r = e / kTileC;
-      const int col = e % kTileC;
-      const int idx = idx_s[r];
-      const int c = c0 + col;
-      a_s[r][col] = (idx >= 0 && c < cin)
-                        ? __ldg(feats + static_cast<long long>(idx) * cin + c)
-                        : 0.0f;
-      const long long v = v0 + r;
-      const int n = n0 + col;
-      b_s[r][col] = (v < v_end && n < cout)
-                        ? __ldg(dout + v * cout + n)
-                        : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < kChunk; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[r][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&b_s[r][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kk = 0; kk < kStageRows; kk += 8) {
+      // A = feats^T: A[channel][row], fragments (channels g, g + 8; rows t,
+      // t + 4) read from a[row][channel]; B = dout rows: (rows t, t + 4;
+      // channel g)
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* ar = a + (kk + t) * kLd + wm + 16 * mi + g;
+        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
+        split_tf32(ar[8], a_hi[mi][1], a_lo[mi][1]);
+        split_tf32(ar[4 * kLd], a_hi[mi][2], a_lo[mi][2]);
+        split_tf32(ar[4 * kLd + 8], a_hi[mi][3], a_lo[mi][3]);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* br = bb + (kk + t) * kLd + wn + 8 * ni + g;
+        split_tf32(br[0], b_hi[ni][0], b_lo[ni][0]);
+        split_tf32(br[4 * kLd], b_hi[ni][1], b_lo[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_tf32(part[mi][ni], a_lo[mi], b_hi[ni]);
+          mma_tf32(part[mi][ni], a_hi[mi], b_lo[ni]);
+          mma_tf32(part[mi][ni], a_hi[mi], b_hi[ni]);
         }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], part[mi][ni][e]);
+        }
+      }
+    }
   }
 
+  // c0, c1: channel g, outputs 2t, 2t + 1; c2, c3: channel g + 8
   float* out = partial +
                (static_cast<long long>(s) * taps + k) *
                    static_cast<long long>(cin) * cout;
-  const int nb = n0 + 4 * tx;
-  const bool vec = (cout & 3) == 0 && nb + 3 < cout;
+  const bool pair = (cout & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + 4 * ty + i;
-    if (c >= cin) {
-      continue;
-    }
-    float* row = out + static_cast<long long>(c) * cout;
-    if (vec) {
-      *reinterpret_cast<float4*>(row + nb) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
+  for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (nb + j < cout) {
-          row[nb + j] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + wm + 16 * mi + g + 8 * h;
+      if (c >= cin) {
+        continue;
+      }
+      float* row = out + static_cast<long long>(c) * cout;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wn + 8 * ni + 2 * t;
+        const float x = acc[mi][ni][2 * h];
+        const float y = acc[mi][ni][2 * h + 1];
+        if (pair && n + 1 < cout) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(x, y);
+        } else {
+          if (n < cout) {
+            row[n] = x;
+          }
+          if (n + 1 < cout) {
+            row[n + 1] = y;
+          }
         }
       }
     }
@@ -173,7 +458,7 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
 }
 
 // dw[i] = sum over s of partial[s, i], in split order
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ dw,
                   long long n, int splits) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -191,42 +476,59 @@ sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ dw,
 }  // namespace
 
 extern "C" int sst_sparse_conv_dw_f32(const void* feats, const void* nbr,
-                                      const void* dout, void* workspace,
-                                      void* dw, int vin, int vout, int cin,
-                                      int cout, int taps, int splits,
-                                      int rows_per_split, void* stream) {
+                                      const void* dout, const void* perm,
+                                      const void* tile_mask, void* lists,
+                                      void* workspace, void* dw, int vin,
+                                      int vout, int cin, int cout, int taps,
+                                      int splits, void* stream) {
+  const long long n_sched =
+      (static_cast<long long>(vout) + kTileRows - 1) / kTileRows;
   if (vin < 0 || vout <= 0 || cin <= 0 || cout <= 0 || taps <= 0 ||
-      splits <= 0 || splits > kMaxGridY || rows_per_split <= 0 ||
-      rows_per_split % kChunk != 0 ||
-      static_cast<long long>(splits) * rows_per_split < vout ||
+      taps > kMaxTaps || splits <= 0 || splits > kMaxGridY ||
+      (n_sched + splits - 1) / splits > kMaxSplitTiles || lists == nullptr ||
       (splits > 1 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long tiles = static_cast<long long>(taps) *
-                          ((cin + kTileC - 1) / kTileC) *
-                          ((cout + kTileN - 1) / kTileN);
-  if (tiles > 0x7fffffffLL) {
+  const long long blocks = static_cast<long long>(taps) *
+                           ((cin + kTileC - 1) / kTileC) *
+                           ((cout + kTileN - 1) / kTileN);
+  if (blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  const bool a_vec = cin % 4 == 0 && aligned(feats);
+  const bool b_vec = cout % 4 == 0 && aligned(dout);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* list_ptr = static_cast<int*>(lists);
+  int* count_ptr = list_ptr + static_cast<long long>(taps) * n_sched;
+  tap_tile_lists_kernel<<<taps, kListThreads, 0, st>>>(
+      static_cast<const unsigned*>(tile_mask), static_cast<int>(n_sched),
+      list_ptr, count_ptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
   float* partial = splits > 1 ? static_cast<float*>(workspace)
                               : static_cast<float*>(dw);
-  const dim3 grid(static_cast<unsigned int>(tiles),
+  const dim3 grid(static_cast<unsigned int>(blocks),
                   static_cast<unsigned int>(splits));
   sparse_conv_dw_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(feats), static_cast<const int*>(nbr),
-      static_cast<const float*>(dout), partial, vin, vout, cin, cout, taps,
-      rows_per_split);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const float*>(dout), static_cast<const int*>(perm),
+      list_ptr, count_ptr, partial, vin, vout, cin, cout, taps, splits, a_vec,
+      b_vec);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) {
     return static_cast<int>(err);
   }
   const long long n = static_cast<long long>(taps) * cin * cout;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) {
-    blocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
+  long long sum_blocks = (n + 255) / 256;
+  if (sum_blocks > 132 * 16) {
+    sum_blocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
   }
-  sum_splits_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
+  sum_splits_kernel<<<static_cast<unsigned int>(sum_blocks), 256, 0, st>>>(
       partial, static_cast<float*>(dw), n, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -150,7 +150,12 @@ def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
     sparse conv kernel on the GPU. As in the dense build, the segmentor's
     VFE sets ``use_sorted_reduce=True``: its 30x640x640 grid takes the
     sort-based voxel unique, so its three per-voxel reductions run the
-    sorted segment reduce kernel too.
+    sorted segment reduce kernel too, in predict and in training. That is
+    a declared difference from JAX's builder, which leaves the switch at
+    its default (off): the same function up to f32 summation order, with
+    the gradient of JAX's own sorted path (its custom vjp hands a tied
+    maximum's gradient to the first row that holds it, where the scatter
+    path splits it between them).
 
     Only float32 is ported; ``max_points`` is the point cap
     ``apis.prepare_batch`` pads to; ``num_point_features`` is the width of a
@@ -235,8 +240,12 @@ def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
     channels) runs as the hand-written sorted segment reduce kernel on the
     GPU. The JAX package leaves that switch off because of an A/B on another
     accelerator; whether it stays on here is decided by the GPU A/B that
-    ``chip_smoke.py`` records. The virtual-grid VFE takes the canvas unique,
-    which yields no sort order, so it stays on scatters either way.
+    ``chip_smoke.py`` records. It is a declared difference from JAX's
+    builder defaults: the same function up to f32 summation order, and in
+    training the gradient of JAX's own sorted path (a tied maximum's
+    gradient goes to the first row that holds it). The virtual-grid VFE
+    takes the canvas unique, which yields no sort order, so it stays on
+    scatters either way.
 
     Only float32 is ported; ``max_points`` is the point cap
     ``apis.prepare_batch`` pads to. The module is returned on ``device``

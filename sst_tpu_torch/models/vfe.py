@@ -3,8 +3,9 @@
 Per-point decoration (cluster-centre and voxel-centre offsets), then per
 layer: Linear + BN + ReLU, a per-voxel max (or mean) and a broadcast concat.
 With ``use_sorted_reduce=True`` and a sort-based voxel mapping
-(``vm.unique.order`` present), rows are gathered into voxel order once and
-every per-voxel reduction goes through the sorted segment reduce kernel
+(``vm.unique.order`` present), rows are gathered into voxel order once, the
+segments' row offsets are computed once, and every per-voxel reduction goes
+through the sorted segment reduce kernel over them
 (``ops/sorted_reduce.py``); otherwise the reductions are scatters
 (``ops/segment.py``). Gradients follow JAX on each path: a scatter max
 splits a tie evenly among the rows that hold the maximum, the sorted
@@ -20,7 +21,10 @@ from torch import nn
 
 from sst_tpu_torch.models.layers import MaskedBatchNorm
 from sst_tpu_torch.ops.segment import gather_segments, segment_reduce
-from sst_tpu_torch.ops.sorted_reduce import sorted_segment_reduce
+from sst_tpu_torch.ops.sorted_reduce import (
+    segment_offsets,
+    sorted_segment_reduce,
+)
 from sst_tpu_torch.ops.voxelize import VoxelMapping
 
 
@@ -123,12 +127,14 @@ class DynamicVFE(nn.Module):
             coords = vm.coords[order]
             if extra_sum is not None:
                 extra_sum = extra_sum[order]
+            # read only by the kernel: a CPU tensor's twin finds its rows
+            offsets = segment_offsets(seg, num_vox) if seg.is_cuda else None
 
             def reduce_fn(x, mode):
                 if mode == "mean":
-                    s = sorted_segment_reduce(x, seg, num_vox, "sum")
+                    s = sorted_segment_reduce(x, seg, num_vox, "sum", offsets)
                     return s / torch.clamp(counts, min=1).to(s.dtype)[:, None]
-                return sorted_segment_reduce(x, seg, num_vox, mode)
+                return sorted_segment_reduce(x, seg, num_vox, mode, offsets)
         else:
             valid, seg, coords = vm.valid, vm.point_seg_ids, vm.coords
 

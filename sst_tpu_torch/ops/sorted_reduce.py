@@ -3,14 +3,19 @@
 Counterpart of ``sst_tpu/ops/sorted_reduce.py``. The sort-path voxelizer
 (``ops/segment.py unique_segments``) has already grouped rows by voxel, so
 each per-voxel sum or max is one streaming pass over contiguous row ranges
-instead of a scatter. The kernel is ``csrc/sorted_reduce.cu``; the source
-note there says what bounds it and how it is laid out.
+instead of a scatter. The kernels are ``csrc/sorted_reduce.cu``; the source
+note there says what bounds them and how they are laid out. Each segment's
+row range comes from :func:`segment_offsets` (``[S + 1]`` int32, the first
+row of each segment), computed once per sorted id array: the reductions of
+one VFE forward share it.
 
 Dispatch is by the device of the tensor alone: a CPU tensor goes to the plain
-PyTorch twin :func:`sorted_segment_reduce_ref`, a CUDA tensor to the kernel
-(or the call raises). ``launches`` counts kernel launches and
-``launch_counts`` splits them by ``(mode, C)``, so a run can show that its
-main path went through the kernel, and with which shapes.
+PyTorch twins :func:`sorted_segment_reduce_ref` and
+:func:`segment_offsets_ref`, a CUDA tensor to the kernels (or the call
+raises). ``launches`` counts reduce-kernel launches and ``launch_counts``
+splits them by ``(mode, C)``, so a run can show that its main path went
+through the kernel, and with which shapes; ``offsets_launches`` counts the
+offsets kernel's.
 
 The gradient is JAX's custom vjp (``sst_tpu/ops/sorted_reduce.py`` ``_bwd``,
 plain XLA there and plain PyTorch here): a sum hands each row its segment's
@@ -21,38 +26,106 @@ maximum, and 0 to every other row. Ids outside [0, num_segments) get 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 MODES = {"sum": 0, "max": 1}
 
-launches = 0  # kernel launches in this process
+launches = 0  # reduce-kernel launches in this process
 launch_counts: dict[tuple[str, int], int] = {}  # the same, by (mode, C)
+offsets_launches = 0  # offsets-kernel launches in this process
 
 
 def reset_launch_counts() -> None:
-    global launches
+    global launches, offsets_launches
     launches = 0
+    offsets_launches = 0
     launch_counts.clear()
 
 
+@functools.cache
+def _kernels():
+    """The two C entry points, bound once: (offsets, reduce)."""
+    from sst_tpu_torch.utils.nvcc import load_kernel_library
+
+    lib = load_kernel_library("sorted_reduce").lib
+    offsets = lib.sst_segment_offsets_i32
+    offsets.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p]
+    offsets.restype = ctypes.c_int
+    reduce = lib.sst_sorted_segment_reduce_f32
+    reduce.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    reduce.restype = ctypes.c_int
+    return offsets, reduce
+
+
+def _check_seg(seg: torch.Tensor, num_segments: int) -> None:
+    if seg.dim() != 1:
+        raise ValueError(f"expected seg [N], got {tuple(seg.shape)}")
+    if seg.dtype != torch.int32:
+        raise TypeError(f"seg must be int32, got {seg.dtype}")
+    if not seg.is_contiguous():
+        raise ValueError("seg must be contiguous")
+    if not 0 <= num_segments < 2**31 - 1:
+        raise ValueError(f"num_segments out of int32 range: {num_segments}")
+
+
+def segment_offsets_ref(seg: torch.Tensor, num_segments: int
+                        ) -> torch.Tensor:
+    """Plain PyTorch twin of the offsets kernel: ``offsets[s]`` is the first
+    row of the nondecreasing ``seg`` whose id is >= s, for s in [0, S]."""
+    bounds = torch.arange(num_segments + 1, dtype=torch.int32,
+                          device=seg.device)
+    return torch.searchsorted(seg, bounds, out_int32=True)
+
+
+def segment_offsets(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[num_segments + 1] int32 row offsets of the segments of ``seg`` [N]
+    (int32, nondecreasing): segment ``s`` is rows ``offsets[s]`` to
+    ``offsets[s + 1]``; ids outside [0, num_segments) fall outside every
+    range. One thread per boundary on the card, no host synchronisation."""
+    _check_seg(seg, num_segments)
+    if seg.device.type == "cpu":
+        return segment_offsets_ref(seg, num_segments)
+    if seg.device.type != "cuda":
+        raise ValueError(f"unsupported device {seg.device}")
+    global offsets_launches
+    out = torch.empty(num_segments + 1, dtype=torch.int32, device=seg.device)
+    with torch.cuda.device(seg.device):
+        rc = _kernels()[0](seg.data_ptr(), out.data_ptr(), seg.shape[0],
+                           num_segments,
+                           torch.cuda.current_stream(seg.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_offsets kernel launch failed: CUDA error "
+                           f"{rc}")
+    offsets_launches += 1
+    return out
+
+
 def _check(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
-           mode: str) -> None:
+           mode: str, offsets: torch.Tensor | None) -> None:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    if data.dim() != 2 or seg.dim() != 1 or seg.shape[0] != data.shape[0]:
+    _check_seg(seg, num_segments)
+    if data.dim() != 2 or seg.shape[0] != data.shape[0]:
         raise ValueError(f"expected data [N, C] and seg [N], got "
                          f"{tuple(data.shape)} and {tuple(seg.shape)}")
     if data.dtype != torch.float32:
         raise TypeError(f"data must be float32, got {data.dtype}")
-    if seg.dtype != torch.int32:
-        raise TypeError(f"seg must be int32, got {seg.dtype}")
     if data.device != seg.device:
         raise ValueError(f"data on {data.device} but seg on {seg.device}")
-    if not (data.is_contiguous() and seg.is_contiguous()):
-        raise ValueError("data and seg must be contiguous")
-    if not 0 <= num_segments < 2**31 - 1:
-        raise ValueError(f"num_segments out of int32 range: {num_segments}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    if offsets is not None and (
+            offsets.shape != (num_segments + 1,)
+            or offsets.dtype != torch.int32 or not offsets.is_contiguous()
+            or offsets.device != seg.device):
+        raise ValueError(f"offsets must be [{num_segments + 1}] int32 "
+                         f"contiguous on {seg.device}, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype} on "
+                         f"{offsets.device}")
 
 
 def sorted_segment_reduce_ref(data: torch.Tensor, seg: torch.Tensor,
@@ -77,24 +150,19 @@ def sorted_segment_reduce_ref(data: torch.Tensor, seg: torch.Tensor,
 
 
 def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
-            mode: str) -> torch.Tensor:
-    from sst_tpu_torch.utils.nvcc import load_kernel_library
-
+            mode: str, offsets: torch.Tensor | None) -> torch.Tensor:
     global launches
-    fn = load_kernel_library("sorted_reduce").lib.sst_sorted_segment_reduce_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    n, c = data.shape
+    c = data.shape[1]
     out = torch.empty((num_segments, c), dtype=torch.float32,
                       device=data.device)
     if num_segments == 0 or c == 0:
         return out
+    if offsets is None:
+        offsets = segment_offsets(seg, num_segments)
     with torch.cuda.device(data.device):
-        rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), n, c,
-                num_segments, MODES[mode],
-                torch.cuda.current_stream(data.device).cuda_stream)
+        rc = _kernels()[1](data.data_ptr(), offsets.data_ptr(),
+                           out.data_ptr(), c, num_segments, MODES[mode],
+                           torch.cuda.current_stream(data.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sorted_segment_reduce kernel launch failed: "
                            f"CUDA error {rc}")
@@ -104,12 +172,12 @@ def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
 
 
 def _reduce(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
-            mode: str) -> torch.Tensor:
+            mode: str, offsets: torch.Tensor | None) -> torch.Tensor:
     if data.device.type == "cpu":
         return sorted_segment_reduce_ref(data, seg, num_segments, mode)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    return _launch(data, seg, num_segments, mode)
+    return _launch(data, seg, num_segments, mode, offsets)
 
 
 def _backward(data, seg, out, g, num_segments: int, mode: str):
@@ -133,8 +201,8 @@ def _backward(data, seg, out, g, num_segments: int, mode: str):
 
 class _SortedSegmentReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, seg, num_segments, mode):
-        out = _reduce(data, seg, num_segments, mode)
+    def forward(ctx, data, seg, num_segments, mode, offsets):
+        out = _reduce(data, seg, num_segments, mode, offsets)
         ctx.save_for_backward(data, seg, out)
         ctx.num_segments, ctx.mode = num_segments, mode
         return out
@@ -143,11 +211,12 @@ class _SortedSegmentReduce(torch.autograd.Function):
     def backward(ctx, g):
         data, seg, out = ctx.saved_tensors
         return (_backward(data, seg, out, g, ctx.num_segments, ctx.mode),
-                None, None, None)
+                None, None, None, None)
 
 
 def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
-                          num_segments: int, mode: str = "sum"
+                          num_segments: int, mode: str = "sum",
+                          offsets: torch.Tensor | None = None
                           ) -> torch.Tensor:
     """Per-segment sum or max over rows sorted by segment id.
 
@@ -157,13 +226,16 @@ def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
         dropped.
       num_segments: output rows.
       mode: 'sum' | 'max'.
+      offsets: :func:`segment_offsets` of ``(seg, num_segments)``, computed
+        here when None; read only by the kernel (the twin needs none).
     Returns [num_segments, C] float32; empty segments are 0, and a max that
     is not finite (a segment holding a NaN, or a maximum of +-inf) is 0, in
     the kernel and in the twin alike: the JAX package's ``segment_reduce``
     function. A sum holding a NaN or an inf stays non-finite. Where autograd
     needs the gradient of ``data``, it is JAX's (see the module note).
     """
-    _check(data, seg, num_segments, mode)
+    _check(data, seg, num_segments, mode, offsets)
     if torch.is_grad_enabled() and data.requires_grad:
-        return _SortedSegmentReduce.apply(data, seg, num_segments, mode)
-    return _reduce(data, seg, num_segments, mode)
+        return _SortedSegmentReduce.apply(data, seg, num_segments, mode,
+                                          offsets)
+    return _reduce(data, seg, num_segments, mode, offsets)

@@ -23,7 +23,7 @@ once per tap in these tables, so ``nbr_t[k, nbr[k, v]] = v`` is a unique
 scatter. That is JAX's mapping in ``_windowed_conv_bwd``: a subm conv's
 transposed table is its own with the taps reversed, and a strided conv's
 and its inverse's are each other's, in the same tap order. The weight
-gradient is ``ops/sparse_conv_dw.py``.
+gradient is ``ops/sparse_conv_dw.py``, over the forward's schedule.
 
 Not ported, because they exist only to feed or gate the TPU kernel:
 ``WindowPlan``, ``build_window_plan``, ``_center_targets``, ``_pack``,
@@ -267,14 +267,14 @@ def transpose_table(nbr: torch.Tensor, vin: int) -> torch.Tensor:
 class _SparseConv(torch.autograd.Function):
     """The conv with JAX's backward (``_windowed_conv_bwd``): dfeats by the
     conv kernel over the transposed table (and its schedule) with
-    ``W[k].T``, dW by the weight gradient kernel (their twins for CPU
-    tensors)."""
+    ``W[k].T``, dW by the weight gradient kernel over the forward's
+    schedule (their twins for CPU tensors)."""
 
     @staticmethod
     def forward(ctx, feats, weights, nbr, nbr_t, sched, sched_t, mode):
         ctx.save_for_backward(feats, weights, nbr, nbr_t)
         ctx.mode = mode
-        ctx.sched_t = sched_t
+        ctx.sched, ctx.sched_t = sched, sched_t
         return sparse_conv_gemm(feats, nbr, weights, mode, schedule=sched)
 
     @staticmethod
@@ -288,7 +288,8 @@ class _SparseConv(torch.autograd.Function):
                                       ctx.mode, kind="dgrad",
                                       schedule=ctx.sched_t)
         if ctx.needs_input_grad[1]:
-            dw = sparse_conv_dw(feats, nbr, grad, ctx.mode)
+            dw = sparse_conv_dw(feats, nbr, grad, ctx.mode,
+                                schedule=ctx.sched)
         return dfeats, dw, None, None, None, None, None
 
 

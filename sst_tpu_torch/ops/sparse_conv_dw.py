@@ -7,7 +7,10 @@ Counterpart of ``sst_tpu/ops/sparse_conv_pallas.py`` ``_dw_kernel`` /
 
 with an index outside [0, Vin) reading a zero row. The kernel is
 ``csrc/sparse_conv_dw.cu``; the source note there says what bounds it and how
-it is laid out.
+it is laid out. It runs over the forward's :class:`ConvSchedule` (the output
+rows sorted by tap mask in 64-row tiles; ``ops/sparse_conv.py`` passes the
+one its plan caches): tap k reads only the tiles whose mask has bit k. A
+caller without a schedule gets one built by the wrapper.
 
 Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`sparse_conv_dw_ref`, a CUDA tensor to the kernel
@@ -18,18 +21,27 @@ plain PyTorch twin :func:`sparse_conv_dw_ref`, a CUDA tensor to the kernel
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from sst_tpu_torch.ops.sparse_conv_gemm import MODES
+from sst_tpu_torch.ops.sparse_conv_gemm import (
+    MODES,
+    TILE_ROWS,
+    ConvSchedule,
+    check_schedule,
+    conv_schedule,
+)
 
 launches = 0  # kernel launches in this process
 launch_counts: dict[tuple[str, int, int], int] = {}  # by (mode, Cin, Cout)
 
-_CHUNK = 32  # output rows per stage of the kernel; a split is a multiple
 _TILE = 64  # channels per tile side
-_TARGET_BLOCKS = 132 * 8  # 8 resident blocks on each of the H100's 132 SMs
-_MIN_ROWS_PER_SPLIT = 512
+# 4 resident blocks (128 registers a thread) on each of the H100's 132 SMs,
+# eight waves of them, so that the taps' unequal work evens out
+_TARGET_BLOCKS = 132 * 4 * 8
+_MIN_TILES_PER_SPLIT = 8
+_MAX_TILES_PER_SPLIT = 512  # a split's share of a tap's tiles, in shared mem
 
 
 def reset_launch_counts() -> None:
@@ -78,27 +90,34 @@ def sparse_conv_dw_ref(feats: torch.Tensor, nbr: torch.Tensor,
     return out
 
 
-def split_rows(taps: int, cin: int, cout: int, vout: int) -> tuple[int, int]:
-    """(splits, rows per split) of the output rows: enough splits that the
-    grid of (tap, Cin tile, Cout tile, split) blocks fills the card, at
-    least 512 rows each, each a multiple of the kernel's 32-row stage."""
-    tiles = taps * -(-cin // _TILE) * -(-cout // _TILE)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles),
-                        -(-vout // _MIN_ROWS_PER_SPLIT)))
-    rows = -(-vout // splits)
-    rows = -(-rows // _CHUNK) * _CHUNK
-    return -(-vout // rows), rows
+def split_rows(taps: int, cin: int, cout: int, vout: int) -> int:
+    """The number of splits S: each tap's list of the schedule's 64-row
+    tiles is cut into S equal shares, enough that the grid of (tap, Cin
+    tile, Cout tile, split) blocks fills the card eight times over, while a
+    split could take 8 tiles and takes at most 512."""
+    blocks = taps * -(-cin // _TILE) * -(-cout // _TILE)
+    tiles = -(-vout // TILE_ROWS)
+    splits = max(1, min(-(-_TARGET_BLOCKS // blocks),
+                        -(-tiles // _MIN_TILES_PER_SPLIT)),
+                 -(-tiles // _MAX_TILES_PER_SPLIT))
+    return splits
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, bound once."""
+    from sst_tpu_torch.utils.nvcc import load_kernel_library
+
+    fn = load_kernel_library("sparse_conv_dw").lib.sst_sparse_conv_dw_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
-            mode: str) -> torch.Tensor:
-    from sst_tpu_torch.utils.nvcc import load_kernel_library
-
+            mode: str, schedule: ConvSchedule | None) -> torch.Tensor:
     global launches
-    fn = load_kernel_library("sparse_conv_dw").lib.sst_sparse_conv_dw_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     vin, cin = feats.shape
     taps, vout = nbr.shape
     cout = dout.shape[1]
@@ -108,14 +127,22 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
         return dw
     if vout == 0:
         return dw.zero_()
-    splits, rows = split_rows(taps, cin, cout, vout)
+    if schedule is None:
+        schedule = conv_schedule(nbr, vin)
+    check_schedule(schedule, nbr, vin)
+    splits = split_rows(taps, cin, cout, vout)
+    tiles = schedule.tile_mask.shape[0]
+    lists = torch.empty(taps * (tiles + 1), dtype=torch.int32,
+                        device=feats.device)
     work = (torch.empty((splits, taps, cin, cout), dtype=torch.float32,
                         device=feats.device) if splits > 1 else None)
     with torch.cuda.device(feats.device):
-        rc = fn(feats.data_ptr(), nbr.data_ptr(), dout.data_ptr(),
-                work.data_ptr() if work is not None else None, dw.data_ptr(),
-                vin, vout, cin, cout, taps, splits, rows,
-                torch.cuda.current_stream(feats.device).cuda_stream)
+        rc = _kernel()(feats.data_ptr(), nbr.data_ptr(), dout.data_ptr(),
+                       schedule.perm.data_ptr(),
+                       schedule.tile_mask.data_ptr(), lists.data_ptr(),
+                       work.data_ptr() if work is not None else None,
+                       dw.data_ptr(), vin, vout, cin, cout, taps, splits,
+                       torch.cuda.current_stream(feats.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sparse_conv_dw kernel launch failed: CUDA error "
                            f"{rc}")
@@ -126,7 +153,8 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
 
 
 def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
-                   mode: str = "subm") -> torch.Tensor:
+                   mode: str = "subm",
+                   schedule: ConvSchedule | None = None) -> torch.Tensor:
     """The weight gradient of one sparse conv from its neighbour table.
 
     Args:
@@ -135,6 +163,8 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
         index outside [0, Vin) read zeros.
       dout: [Vout, Cout] float32, the gradient of the conv's output.
       mode: 'subm' | 'strided' | 'inverse'; only read by the launch count.
+      schedule: :func:`conv_schedule` of ``(nbr, Vin)`` (the forward's),
+        built here when None; read only by the kernel (the twin needs none).
     Returns [K, Cin, Cout] float32.
     """
     _check(feats, nbr, dout, mode)
@@ -142,4 +172,4 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
         return sparse_conv_dw_ref(feats, nbr, dout)
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
-    return _launch(feats, nbr, dout, mode)
+    return _launch(feats, nbr, dout, mode, schedule)

@@ -122,8 +122,8 @@ def conv_schedule(nbr: torch.Tensor, vin: int) -> ConvSchedule:
                         vin=vin)
 
 
-def _check_schedule(schedule: ConvSchedule, nbr: torch.Tensor,
-                    vin: int) -> None:
+def check_schedule(schedule: ConvSchedule, nbr: torch.Tensor,
+                   vin: int) -> None:
     vout = nbr.shape[1]
     tiles = -(-vout // TILE_ROWS)
     if schedule.vin != vin:
@@ -172,7 +172,7 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         return out
     if schedule is None:
         schedule = conv_schedule(nbr, vin)
-    _check_schedule(schedule, nbr, vin)
+    check_schedule(schedule, nbr, vin)
     with torch.cuda.device(feats.device):
         rc = fn(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
                 schedule.perm.data_ptr(), schedule.tile_mask.data_ptr(),

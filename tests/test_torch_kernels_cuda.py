@@ -57,6 +57,39 @@ def test_sorted_reduce_kernel_matches_twin(mode, n, v, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("c", [3, 64])
+def test_sorted_reduce_kernel_mostly_empty_segments(mode, c):
+    """The segmentor's shape: 196,608 rows over 131,072 segments of which
+    only ~40,000 are occupied, the trailing slots empty and the invalid
+    rows' ids at num_segments, as the voxel sort hands them over. The
+    offsets kernel equals ``torch.searchsorted`` exactly; the reduce equals
+    its twin (max exactly, sum within rtol/atol 1e-5), with the offsets
+    computed by the wrapper or passed in (the same bits)."""
+    device = _cuda()
+    n, v = 196608, 131072
+    gen = torch.Generator(device=device).manual_seed(c)
+    seg = torch.sort(torch.randint(0, 40000, (n,), generator=gen,
+                                   device=device).to(torch.int32)).values
+    seg[-20000:] = v
+    data = torch.randn(n, c, generator=gen, device=device)
+    sr.reset_launch_counts()
+    offsets = sr.segment_offsets(seg, v)
+    got = sr.sorted_segment_reduce(data, seg, v, mode, offsets)
+    again = sr.sorted_segment_reduce(data, seg, v, mode)
+    torch.cuda.synchronize()
+    assert sr.launches == 2 and sr.offsets_launches == 2
+    assert torch.equal(offsets, sr.segment_offsets_ref(seg, v))
+    assert torch.equal(got, again)
+    ref = sr.sorted_segment_reduce_ref(data, seg, v, mode)
+    if mode == "max":
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[40000:], torch.zeros_like(got[40000:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "max"])
 def test_sorted_reduce_kernel_backward_matches_twin(mode):
     """Autograd through the kernel (JAX's backward, in plain PyTorch)
     against autograd through the twin on the CPU: exact, ties included."""
@@ -194,15 +227,20 @@ def _dw_case(name, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", DW_CASES)
 def test_sparse_conv_dw_kernel_matches_twin(name):
+    """Over a precomputed schedule, again over the same one and over one
+    the wrapper builds: the same bits (no float atomics, a fixed order),
+    within 1e-4 of the twin on absolute values."""
     device = _cuda()
     feats, nbr, dout = _dw_case(name, device)
+    sched = scg.conv_schedule(nbr, feats.shape[0])
     scd.reset_launch_counts()
-    got = scd.sparse_conv_dw(feats, nbr, dout, "subm")
+    got = scd.sparse_conv_dw(feats, nbr, dout, "subm", schedule=sched)
+    repeat = scd.sparse_conv_dw(feats, nbr, dout, "subm", schedule=sched)
     again = scd.sparse_conv_dw(feats, nbr, dout, "subm")
     torch.cuda.synchronize()
-    assert scd.launches == 2
-    assert scd.launch_counts == {("subm", feats.shape[1], dout.shape[1]): 2}
-    assert torch.equal(got, again)  # no float atomics: the same bits
+    assert scd.launches == 3
+    assert scd.launch_counts == {("subm", feats.shape[1], dout.shape[1]): 3}
+    assert torch.equal(got, repeat) and torch.equal(got, again)
     assert _dw_close(got, feats, nbr, dout)
     if name == "tap with no neighbour":
         assert torch.equal(got[13], torch.zeros_like(got[13]))

@@ -140,3 +140,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
     args.update(bad)
     with pytest.raises(err):
         sr.sorted_segment_reduce(**args)
+
+
+def _ids(case):
+    """Nondecreasing int32 ids and the segment count of an offsets case."""
+    rng = np.random.RandomState(len(case))
+    if case == "gaps between ids":
+        return np.sort((np.arange(700) // 7 * 5).astype(np.int32)), 520
+    if case == "ids < 0 and >= num_segments":
+        return np.sort(rng.randint(-50, 700, 900)).astype(np.int32), 600
+    if case == "one long segment":
+        seg = np.zeros(4000, np.int32)
+        seg[3000:] = 1
+        return seg, 4
+    if case == "all rows dropped":
+        return np.full(300, 300, np.int32), 300
+    if case == "mostly empty, as the VFE's trailing voxel slots":
+        seg = np.sort(rng.randint(0, 90, 2000)).astype(np.int32)
+        seg[1800:] = 1000  # invalid points carry num_segments
+        return seg, 1000
+    return np.zeros(0, np.int32), 17  # no rows
+
+
+OFFSET_CASES = ["gaps between ids", "ids < 0 and >= num_segments",
+                "one long segment", "all rows dropped",
+                "mostly empty, as the VFE's trailing voxel slots", "no rows"]
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_segment_offsets_match_numpy_searchsorted(case):
+    """Exactly: offsets[s] is the first row whose id is >= s, so segment s
+    is rows offsets[s] to offsets[s + 1] and ids outside [0, S) fall
+    outside every range."""
+    seg, v = _ids(case)
+    sr.reset_launch_counts()
+    got = sr.segment_offsets(torch.from_numpy(seg), v)
+    assert got.dtype == torch.int32 and got.shape == (v + 1,)
+    np.testing.assert_array_equal(
+        got.numpy(), np.searchsorted(seg, np.arange(v + 1), side="left"))
+    assert sr.offsets_launches == 0  # CPU tensors take the twin
+    counts = np.diff(got.numpy())
+    keep = (seg >= 0) & (seg < v)
+    np.testing.assert_array_equal(counts, np.bincount(seg[keep],
+                                                      minlength=v))
+
+
+def test_given_offsets_are_checked_and_change_nothing():
+    """The VFE passes one offsets array to its three reductions: on the CPU
+    the twin reads ``seg`` and the result is the same; an offsets array of
+    another shape or type is refused before any launch."""
+    data, seg = _mk(700, 300, 24, seed=9)
+    data, seg = torch.from_numpy(data), torch.from_numpy(seg)
+    offsets = sr.segment_offsets(seg, 300)
+    for mode in ("sum", "max"):
+        torch.testing.assert_close(
+            sr.sorted_segment_reduce(data, seg, 300, mode, offsets),
+            sr.sorted_segment_reduce(data, seg, 300, mode), rtol=0, atol=0)
+    for bad in (offsets[:-1], offsets.long()):
+        with pytest.raises(ValueError):
+            sr.sorted_segment_reduce(data, seg, 300, "sum", bad)

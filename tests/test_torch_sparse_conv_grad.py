@@ -308,10 +308,15 @@ def test_dw_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("cin,cout,vout", [(64, 64, 204800), (512, 256, 2048),
                                            (16, 32, 100), (128, 128, 1)])
 def test_dw_row_splits_cover_the_rows_and_fill_the_card(cin, cout, vout):
-    """The row splits cover every row in 32-row stages, and where the rows
-    allow, the grid holds 8 blocks for each of the H100's 132 SMs."""
-    splits, rows = scd.split_rows(27, cin, cout, vout)
-    assert rows % 32 == 0 and (splits - 1) * rows < vout <= splits * rows
-    tiles = 27 * -(-cin // 64) * -(-cout // 64)
-    if vout >= 512 * 132 * 8 // tiles:
-        assert tiles * splits >= 132 * 8  # 8 blocks on each of 132 SMs
+    """Each tap's tiles are cut into ``splits`` shares that together cover
+    every 64-row tile of the schedule, a share holding at most 512 tiles
+    (the kernel lists a share in shared memory); where the rows allow 8
+    tiles a split, the grid holds eight waves of 4 blocks (128 registers a
+    thread) on each of the H100's 132 SMs."""
+    splits = scd.split_rows(27, cin, cout, vout)
+    tiles = -(-vout // 64)
+    share = -(-tiles // splits)  # the most tiles one split takes of a tap
+    assert share <= 512 and splits * share * 64 >= vout
+    blocks = 27 * -(-cin // 64) * -(-cout // 64)
+    if tiles >= 8 * -(-132 * 4 * 8 // blocks):
+        assert blocks * splits >= 132 * 4 * 8

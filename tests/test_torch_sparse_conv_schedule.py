@@ -206,5 +206,5 @@ def test_wrapper_checks_a_given_schedule():
         scg.sparse_conv_gemm(feats, nbr, w, schedule=sched),
         scg.sparse_conv_gemm_ref(feats, nbr, w))
     with pytest.raises(ValueError):
-        scg._check_schedule(scg.conv_schedule(nbr, 99), nbr, 100)
-    scg._check_schedule(sched, nbr, 100)
+        scg.check_schedule(scg.conv_schedule(nbr, 99), nbr, 100)
+    scg.check_schedule(sched, nbr, 100)
