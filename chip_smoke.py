@@ -1,10 +1,11 @@
-"""GPU smoke run of the PyTorch port's three ``predict`` paths and its train
-step at full width on one CUDA card, through their hand-written kernels:
-FSDv2-Waymo's dense-BEV build (sorted segment reduce kernel), its
-sparse-UNet build (sorted segment reduce and sparse conv kernels; in
-training also the sparse conv's weight-gradient kernel, and the conv kernel
-over the transposed tables for the input gradient) and SST-Waymo (window
-MHA kernel).
+"""GPU smoke run of the PyTorch port's three ``predict`` paths and their
+three train steps at full width on one CUDA card, through their
+hand-written kernels: FSDv2-Waymo's dense-BEV build (sorted segment reduce
+kernel, in predict and training), its sparse-UNet build (sorted segment
+reduce and sparse conv kernels; in training also the sparse conv's
+weight-gradient kernel, and the conv kernel over the transposed tables for
+the input gradient) and SST-Waymo (window MHA kernel; in training under
+autograd, with the JAX package's einsum-recompute backward in torch ops).
 
     python3 chip_smoke.py
 
@@ -24,6 +25,13 @@ Phases (each one that fails ends the run with a non-zero exit code):
               the kernels' launch counts show that the path went through them.
   5. A/B      the same weights with the segmentor's sorted reduce off
               (scatter path): segmentor outputs agree, both latencies timed.
+ 12. dense train  the same model trains on four labelled frames
+              (``synthetic_labeled_batch``): 2 warm-up and 6 timed
+              ``train_step`` calls in the detection schedule's step-0 mode,
+              3 more steps timed by stage (loss, backward, optimizer), one
+              ``pretrain=False`` step; step ms, peak memory, losses, grad
+              norms, and 3 sorted reduce + 1 offsets launches per step,
+              counted at the launch sites.
   6. sparse kernels  the sparse conv kernel against its twin at every conv
               of one frame of ``fsdv2_waymo(backbone="sparse")`` (the
               rulebooks of frame 0 and their row schedules, recorded by
@@ -65,8 +73,21 @@ Phases (each one that fails ends the run with a non-zero exit code):
   9. SST predict  ``sst_waymo`` answers four synthetic Waymo frames (x, y,
               z); 48 window MHA launches per frame at the shapes phase 8
               checked; capacity counters per frame; latency timed.
+ 13. SST train  ``sst_waymo(train_buckets=True)`` on four labelled frames
+              within 74.8 m: on the 36 attention inputs of step 0 (hooks on
+              each WindowAttention) the kernel forward + ported backward
+              through autograd against the twin forward + ported backward
+              (outputs at phase 8's tolerance, gradients the same bits) and
+              against the float64 gradient, each input timed; then 2
+              warm-up, 6 timed and 3 staged ``train_step`` calls with a
+              seeded voxel-shuffle generator; step ms, stages, peak memory,
+              losses, capacity counters, and 36 window MHA launches per
+              step (6 blocks x 2 shifts x 3 buckets), counted at the launch
+              site.
 
-Phases 10 and 11 run after phase 7, on the sparse model. TF32 is turned
+Phase 12 runs after phase 5 on the dense model; phases 10 and 11 after
+phase 7, on the sparse model; phase 13 after phase 9, on a model with the
+training buckets. TF32 is turned
 off for convolutions and matmuls, so every comparison is in full float32.
 Kernel, twin and library times are device times: each timed call is queued
 behind a short ``torch.cuda._sleep`` (``utils/timing.py cuda_ms``). The
@@ -987,56 +1008,40 @@ def _stage_ms(model, opt, batch, kw):
             enumerate(("loss", "backward", "optimizer"))}, metrics
 
 
-def phase_train(model, device, n_convs):
-    """Drive the train path: ``train_step`` on labelled frames (seeds 0-3),
-    the optimizer of the config (AdamW, base_lr 1e-5, weight decay 0.05,
-    clip 10) and FSDDetectionSchedule's step-0 mode (``pretrain=True``): 2
-    warm-up and 6 timed steps, 3 steps timed by stage, then one
-    ``pretrain=False`` step. Launches
-    per step are counted at the launch sites by kind and held against the
-    modules. Returns the phase's record."""
-    frames = [f.to(device) for f in _labeled_frames(4)]
-    opt = make_optimizer(model.parameters(), base_lr=1e-5, weight_decay=0.05,
-                         clip_norm=10.0, total_steps=10000)
-    schedule = FSDDetectionSchedule(enable_after=4000, buffer_start=0.3)
-    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
-    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
-                  if isinstance(u, SimpleSparseUNet) and u.remat
-                  for m in u.modules())
-    needs_dgrad = []
-    hooks = [m.register_forward_pre_hook(
-        lambda m, args: None if remat.recomputing()
-        else needs_dgrad.append(bool(args[0].requires_grad))) for m in convs]
-    n_warmup, n_timed, n_staged = 2, 6, 3
+N_WARMUP, N_TIMED, N_STAGED = 2, 6, 3  # train steps of each train phase
+
+
+def _train_loop(model, opt, frames, kws, counts, after_step=None):
+    """``train_step`` on ``frames`` (step i on frame i mod their number,
+    with loss kwargs ``kws[i]``): steps ``N_WARMUP`` to ``N_WARMUP +
+    N_TIMED - 1`` timed whole by CUDA events, the next ``N_STAGED`` by stage
+    (loss, backward, optimizer), then the rest whole. ``counts()`` reads the
+    kernels' launch counters; a step's launches are the differences.
+    Fails on a non-finite loss or grad norm, or on a parameter without a
+    gradient. Returns (steps, median ms by stage, peak memory over the
+    timed and staged steps)."""
     steps, stages = [], []
-    reset_launch_counts()  # the train path's run starts here
-    for i in range(n_warmup + n_timed + n_staged + 1):
-        kw = (schedule(opt.count) if i < n_warmup + n_timed + n_staged
-              else dict(pretrain=False, thr_extra=0.0))
-        if i == n_warmup:
+    for i, kw in enumerate(kws):
+        if i == N_WARMUP:
             torch.cuda.reset_peak_memory_stats()
-        before = (dict(scg.kind_counts), sdw.launches, sr.launches,
-                  sr.offsets_launches)
+        before = counts()
         out = {}
         batch = frames[i % len(frames)]
-        if n_warmup + n_timed <= i < n_warmup + n_timed + n_staged:
+        if N_WARMUP + N_TIMED <= i < N_WARMUP + N_TIMED + N_STAGED:
             stage, out = _stage_ms(model, opt, batch, kw)
             stages.append(stage)
             ms = sum(stage.values())
         else:
             ms = event_ms(lambda: out.update(train_step(model, opt, batch,
                                                         kw)))
-        if i == 0:
-            for h in hooks:
-                h.remove()
-        launches = {k: v - before[0].get(k, 0)
-                    for k, v in scg.kind_counts.items()}
-        launches["dw"] = sdw.launches - before[1]
-        launches["sorted_reduce"] = sr.launches - before[2]
-        launches["segment_offsets"] = sr.offsets_launches - before[3]
+        if i == N_WARMUP + N_TIMED + N_STAGED - 1:
+            peak = torch.cuda.max_memory_allocated()
+        if after_step is not None:
+            after_step(i)
+        after = counts()
         metrics = _losses(out)
-        steps.append(dict(ms=ms, kw=kw, launches=launches, metrics=metrics,
-                          params_without_grad=opt.params_without_grad))
+        steps.append(dict(ms=ms, kw=kw, metrics=metrics, launches={
+            k: v - before.get(k, 0) for k, v in after.items()}))
         bad = [k for k, v in metrics.items() if not np.isfinite(v)]
         if bad:
             fail(f"train step {i}: non-finite {bad} (a non-finite grad_norm "
@@ -1044,40 +1049,22 @@ def phase_train(model, device, n_convs):
         if opt.params_without_grad:
             fail(f"train step {i}: {opt.params_without_grad} parameters got "
                  f"no gradient; every leaf gets one in JAX")
-    peak = torch.cuda.max_memory_allocated()
     stage_ms = {k: statistics.median(st[k] for st in stages)
                 for k in stages[0]}
-    expected = {"forward": n_convs, "recompute": n_remat,
-                "dgrad": sum(needs_dgrad), "dw": n_convs, "sorted_reduce": 3,
-                "segment_offsets": 1}
-    if len(needs_dgrad) != n_convs:
-        fail(f"the hooks saw {len(needs_dgrad)} conv calls in a step, the "
-             f"model has {n_convs} convs")
-    for i, st in enumerate(steps):
-        got = {k: st["launches"].get(k, 0) for k in expected}
-        if got != expected:
-            fail(f"train step {i}: launches by kind {got}, expected "
-                 f"{expected} from the modules")
-    timed = [st["ms"] for st in steps[n_warmup:n_warmup + n_timed]]
-    first, last = steps[n_warmup], steps[n_warmup + n_timed - 1]
-    detection = steps[-1]
-    print(f"train: fsdv2_waymo(backbone='sparse') f32, batch 1, AdamW "
-          f"(base_lr 1e-5, wd 0.05, clip 10, 10,000-step one-cycle); "
-          f"{n_warmup} warm-up + {n_timed} timed + {n_staged} staged steps "
-          f"in the schedule's "
-          f"step-0 mode {first['kw']}, then one step with "
-          f"{detection['kw']}", flush=True)
-    print(f"  launches per step by kind (counted at the launch sites; the "
-          f"modules give {expected}: every conv's input needs a gradient "
-          f"{'in all' if sum(needs_dgrad) == n_convs else 'in some'} "
-          f"{n_convs} convs, {n_remat} convs sit in rematerialised UNets): "
-          f"{steps[0]['launches']}", flush=True)
-    print(f"  step ms (CUDA events around train_step, {n_timed} steps): "
-          f"median {statistics.median(timed):.2f}, min {min(timed):.2f}, "
-          f"max {max(timed):.2f}; runs {[round(t, 2) for t in timed]}; "
-          f"warm-up {[round(st['ms'], 2) for st in steps[:n_warmup]]}",
-          flush=True)
-    print(f"  stages (CUDA events inside {n_staged} more steps, median ms): "
+    return steps, stage_ms, peak
+
+
+def _print_train(steps, stage_ms, peak):
+    """The timed steps' ms, the stage medians, peak memory, losses and
+    grad norms; returns the phase's record."""
+    timed = [st["ms"] for st in steps[N_WARMUP:N_WARMUP + N_TIMED]]
+    first, last = steps[N_WARMUP], steps[N_WARMUP + N_TIMED - 1]
+    print(f"  step ms (CUDA events around train_step, {N_TIMED} steps "
+          f"after {N_WARMUP} warm-up): median {statistics.median(timed):.2f},"
+          f" min {min(timed):.2f}, max {max(timed):.2f}; runs "
+          f"{[round(t, 2) for t in timed]}; warm-up "
+          f"{[round(st['ms'], 2) for st in steps[:N_WARMUP]]}", flush=True)
+    print(f"  stages (CUDA events inside {N_STAGED} more steps, median ms): "
           f"{ {k: round(v, 2) for k, v in stage_ms.items()} }", flush=True)
     print(f"  peak memory (torch.cuda.max_memory_allocated over the timed "
           f"and staged steps): {peak / 2**30:.3f} GiB", flush=True)
@@ -1086,22 +1073,141 @@ def phase_train(model, device, n_convs):
     print(f"  grad_norm per step: "
           f"{[round(st['metrics']['grad_norm'], 4) for st in steps]}",
           flush=True)
+    return {"step_ms_median": statistics.median(timed),
+            "step_ms_min": min(timed), "step_ms_max": max(timed),
+            "step_ms_runs": timed, "stage_ms": stage_ms,
+            "peak_memory_bytes": peak,
+            "launches_per_step": steps[0]["launches"],
+            "loss_first": first["metrics"], "loss_last": last["metrics"]}
+
+
+def _check_launches(steps, expected):
+    for i, st in enumerate(steps):
+        got = {k: st["launches"].get(k, 0) for k in expected}
+        if got != expected:
+            fail(f"train step {i}: launches by kind {got}, expected "
+                 f"{expected} from the modules")
+
+
+def _adamw(model):
+    """The configs' optimizer (configs/fsdv2/fsdv2_waymo_1x.py,
+    configs/sst/sst_waymoD5_3class.py): AdamW, base_lr 1e-5, weight decay
+    0.05, clip 10, a 10,000-step one-cycle."""
+    return make_optimizer(model.parameters(), base_lr=1e-5,
+                          weight_decay=0.05, clip_norm=10.0,
+                          total_steps=10000)
+
+
+def _fsd_kws():
+    """FSDDetectionSchedule's step-0 mode for every warm-up, timed and
+    staged step, then one ``pretrain=False`` step."""
+    schedule = FSDDetectionSchedule(enable_after=4000, buffer_start=0.3)
+    n = N_WARMUP + N_TIMED + N_STAGED
+    return [schedule(i) for i in range(n)] + [
+        dict(pretrain=False, thr_extra=0.0)]
+
+
+def _sorted_reduce_counts():
+    return {"sorted_reduce": sr.launches,
+            "segment_offsets": sr.offsets_launches,
+            **{f"sorted_reduce {m}/C={c}": v
+               for (m, c), v in sr.launch_counts.items()}}
+
+
+def phase_train(model, device, n_convs):
+    """Drive the sparse build's train path: ``train_step`` on labelled
+    frames (seeds 0-3), the config's optimizer and FSDDetectionSchedule's
+    step-0 mode (``pretrain=True``): 2 warm-up and 6 timed steps, 3 steps
+    timed by stage, then one ``pretrain=False`` step. Launches per step are
+    counted at the launch sites by kind and held against the modules.
+    Returns the phase's record."""
+    frames = [f.to(device) for f in _labeled_frames(4)]
+    opt = _adamw(model)
+    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    needs_dgrad = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: None if remat.recomputing()
+        else needs_dgrad.append(bool(args[0].requires_grad))) for m in convs]
+
+    def remove_hooks(i):
+        if i == 0:
+            for h in hooks:
+                h.remove()
+
+    def counts():
+        return {**scg.kind_counts, "dw": sdw.launches,
+                **_sorted_reduce_counts()}
+
+    reset_launch_counts()  # the train path's run starts here
+    steps, stage_ms, peak = _train_loop(model, opt, frames, _fsd_kws(),
+                                        counts, remove_hooks)
+    expected = {"forward": n_convs, "recompute": n_remat,
+                "dgrad": sum(needs_dgrad), "dw": n_convs, "sorted_reduce": 3,
+                "segment_offsets": 1}
+    if len(needs_dgrad) != n_convs:
+        fail(f"the hooks saw {len(needs_dgrad)} conv calls in a step, the "
+             f"model has {n_convs} convs")
+    _check_launches(steps, expected)
+    detection = steps[-1]
+    print(f"train: fsdv2_waymo(backbone='sparse') f32, batch 1, AdamW "
+          f"(base_lr 1e-5, wd 0.05, clip 10, 10,000-step one-cycle); "
+          f"{N_WARMUP} warm-up + {N_TIMED} timed + {N_STAGED} staged steps "
+          f"in the schedule's step-0 mode {steps[0]['kw']}, then one step "
+          f"with {detection['kw']}", flush=True)
+    print(f"  launches per step by kind (counted at the launch sites; the "
+          f"modules give {expected}: every conv's input needs a gradient "
+          f"{'in all' if sum(needs_dgrad) == n_convs else 'in some'} "
+          f"{n_convs} convs, {n_remat} convs sit in rematerialised UNets): "
+          f"{steps[0]['launches']}", flush=True)
+    record = _print_train(steps, stage_ms, peak)
     print(f"  num_virtual: pretrain steps "
           f"{[st['metrics']['num_virtual'] for st in steps[:-1]]}, "
           f"pretrain=False step {detection['metrics']['num_virtual']}",
           flush=True)
     print(f"  pretrain=False step: {detection['ms']:.2f} ms, "
           f"{detection['metrics']}", flush=True)
-    return {"step_ms_median": statistics.median(timed),
-            "step_ms_min": min(timed), "step_ms_max": max(timed),
-            "step_ms_runs": timed, "stage_ms": stage_ms,
-            "peak_memory_bytes": peak,
-            "launches_per_step": steps[0]["launches"],
+    return {**record,
             "launches": {"sparse_conv_gemm": scg.launches,
                          "sparse_conv_dw": sdw.launches,
                          "sorted_reduce": sr.launches,
                          "segment_offsets": sr.offsets_launches},
-            "loss_first": first["metrics"], "loss_last": last["metrics"],
+            "detection_step": detection["metrics"],
+            "detection_step_ms": detection["ms"]}
+
+
+def phase_dense_train(model, device):
+    """Drive the dense-BEV build's train path (the main path's training):
+    ``train_step`` of ``fsdv2_waymo_dense`` in f32 on labelled frames
+    (seeds 0-3), the config's optimizer, FSDDetectionSchedule's step-0 mode
+    for 2 warm-up, 6 timed and 3 staged steps, then one ``pretrain=False``
+    step. The segmentor VFE's three reductions run the sorted-reduce kernel
+    over one offsets launch per step; launches per step are counted at the
+    launch sites and held against that. Returns the phase's record."""
+    frames = [f.to(device) for f in _labeled_frames(4)]
+    opt = _adamw(model)
+    reset_launch_counts()  # the dense train path's run starts here
+    steps, stage_ms, peak = _train_loop(model, opt, frames, _fsd_kws(),
+                                        _sorted_reduce_counts)
+    expected = {"sorted_reduce": 3, "segment_offsets": 1}
+    _check_launches(steps, expected)
+    detection = steps[-1]
+    print(f"dense train: fsdv2_waymo_dense f32, batch 1, AdamW (base_lr "
+          f"1e-5, wd 0.05, clip 10, 10,000-step one-cycle); {N_WARMUP} "
+          f"warm-up + {N_TIMED} timed + {N_STAGED} staged steps in the "
+          f"schedule's step-0 mode {steps[0]['kw']}, then one step with "
+          f"{detection['kw']}", flush=True)
+    print(f"  launches per step (counted at the launch sites; the "
+          f"segmentor VFE gives {expected}): {steps[0]['launches']}",
+          flush=True)
+    record = _print_train(steps, stage_ms, peak)
+    print(f"  pretrain=False step: {detection['ms']:.2f} ms, "
+          f"{detection['metrics']}", flush=True)
+    return {**record,
+            "launches": {"sorted_reduce": sr.launches,
+                         "segment_offsets": sr.offsets_launches},
             "detection_step": detection["metrics"],
             "detection_step_ms": detection["ms"]}
 
@@ -1373,6 +1479,202 @@ def phase_sst_predict(model, frames):
     return launches, split, lat, diags
 
 
+def _labeled_sst_frames(n_frames: int):
+    """Labelled frames within the SST range (x, y, z within 74.8 m; the gt
+    boxes own their points), seeds 0 .. n_frames - 1."""
+    return [synthetic_labeled_batch(1, 196608, seed=s, num_extra_feats=0,
+                                    pcr_half=74.8)[0]
+            for s in range(n_frames)]
+
+
+def _record_train_attention(model, batch, generator):
+    """One train-mode forward of ``batch`` with a hook on every
+    WindowAttention; returns, in call order, (module name, nhead, [(q, k,
+    v, pad) per bucket]): the attention inputs of that step. The
+    generator's state and the running statistics are put back, so the
+    step that follows sees the same voxel shuffle and statistics."""
+    calls, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, WindowAttention):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: calls.append(
+                    (name, m.nhead, m.windows(*args)))))
+    state = generator.get_state()
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    try:
+        with torch.no_grad():
+            model.extract_feat(batch, train=True, generator=generator)
+    finally:
+        for h in hooks:
+            h.remove()
+        generator.set_state(state)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(stats[k])
+    return calls
+
+
+def _attention_grads_f64(q, k, v, pad, nhead, g):
+    """The exact gradient of softmax attention (every step in float64, by
+    autograd) at the bf16 inputs: the function of the ported ``_mha_bwd``,
+    up to its f32 sums and bf16 results."""
+    w, t, c = q.shape
+    q4, k4, v4 = (x.double().reshape(w, t, nhead, c // nhead)
+                  .requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        logits = torch.einsum("wthd,wshd->whts", q4, k4) / (
+            c // nhead) ** 0.5
+        logits = logits + pad[:, None, None, :].double() * -1e4
+        out = torch.einsum("whts,wshd->wthd", torch.softmax(logits, -1), v4)
+        grads = torch.autograd.grad(
+            out, (q4, k4, v4), g.double().reshape(w, t, nhead, c // nhead))
+    return torch.cat([x.reshape(w, t, c) for x in grads], dim=-1)
+
+
+def _check_mha_grad(name, q, k, v, pad, nhead, gen):
+    """Kernel forward + ported backward against twin forward + ported
+    backward on one input, through autograd on the column views of one
+    qkv buffer, at a seeded bf16 cotangent that is zero on padded query
+    rows (as the window-to-flat gather leaves it): outputs within phase 8's
+    tolerance; the buffer's gradient equal bit for bit to the ported
+    backward at the twin's inputs (the Function's wiring), and within 1
+    bf16 ulp (rtol 2^-7) plus 2^-8 of each gradient's largest magnitude of
+    the exact gradient in float64. Returns (output error, gradient error
+    over the largest magnitude)."""
+    w, t, c = q.shape
+    g = torch.randn(w, t, c, generator=gen, device=q.device)
+    g = torch.where(pad[..., None], 0.0, g).to(torch.bfloat16)
+    qkv = torch.cat([q, k, v], dim=-1).requires_grad_()
+    with torch.enable_grad():
+        out = wm.window_mha(*qkv.split(c, dim=-1), pad, nhead)
+        out.backward(g)
+    ref = wm.window_mha_ref(q, k, v, pad, nhead)
+    ported = torch.cat(wm.window_mha_backward(q, k, v, pad, nhead, g), -1)
+    exact = _attention_grads_f64(q, k, v, pad, nhead, g)
+    torch.cuda.synchronize()
+    err, ok = _mha_close(out.detach(), ref, v, pad)
+    if not ok:
+        fail(f"window_mha (under autograd) disagrees with its twin on "
+             f"{name}: max_abs_err {err:.3e}")
+    if not torch.equal(qkv.grad, ported):
+        fail(f"the window_mha autograd gradient is not the ported backward "
+             f"at the twin's inputs on {name}")
+    gerr = 0.0
+    for i in range(3):
+        got_i = qkv.grad[..., i * c:(i + 1) * c].double()
+        ref_i = exact[..., i * c:(i + 1) * c]
+        scale = ref_i.abs().max()
+        tol = 2.0**-7 * ref_i.abs() + 2.0**-8 * scale
+        if not bool(((got_i - ref_i).abs() <= tol).all()):
+            fail(f"the window_mha gradient d{'qkv'[i]} is off the exact "
+                 f"float64 gradient on {name}")
+        if scale > 0:
+            gerr = max(gerr, ((got_i - ref_i).abs().max() / scale).item())
+    return err, gerr
+
+
+def phase_sst_train(model, device):
+    """Drive the SST train path: first, on the attention inputs of step 0
+    (hooks on every WindowAttention), the kernel forward + ported backward
+    against the twin forward + ported backward, each input timed (kernel
+    forward, backward, twin forward); then ``train_step`` of
+    ``sst_waymo(train_buckets=True)`` on labelled frames (seeds 0-3) with
+    the config's optimizer and a seeded voxel-shuffle generator: 2
+    warm-up, 6 timed and 3 staged steps. Window MHA launches per step are
+    counted at the launch site and held against the modules (attention
+    layers x buckets); the capacity counters are printed per step. Returns
+    (the phase's record, per (T, C, H) the inputs' means)."""
+    frames = [f.to(device) for f in _labeled_sst_frames(4)]
+    gen = torch.Generator(device=device).manual_seed(0)
+    calls = _record_train_attention(model, frames[0], gen)
+    gen_g = torch.Generator(device=device).manual_seed(1)
+    inputs = {}
+    errs, gerrs = [], []
+    for name, nhead, buckets in calls:
+        for q, k, v, pad in buckets:
+            w, t, c = q.shape
+            err, gerr = _check_mha_grad(f"{name}, T={t}, W={w}", q, k, v,
+                                        pad, nhead, gen_g)
+            errs.append(err)
+            gerrs.append(gerr)
+            g = torch.where(pad[..., None], 0.0, torch.randn(
+                w, t, c, generator=gen_g, device=device)).to(torch.bfloat16)
+            inputs.setdefault((t, c, nhead), []).append({
+                "w": w, "valid_slots": int((~pad).sum()),
+                "ms": cuda_ms(lambda: wm.window_mha(q, k, v, pad, nhead), 10),
+                "plain_ms": cuda_ms(
+                    lambda: wm.window_mha_ref(q, k, v, pad, nhead), 5),
+                "backward_ms": cuda_ms(lambda: wm.window_mha_backward(
+                    q, k, v, pad, nhead, g), 5),
+                "bound": _mha_bound(pad, c)})
+    shapes = {}
+    for key, rows in inputs.items():
+        n = len(rows)
+        shapes[key] = {"t": key[0], "c": key[1], "h": key[2],
+                       "w": rows[0]["w"], "inputs": n,
+                       **{k: sum(r[k] for r in rows) / n for k in (
+                           "valid_slots", "ms", "plain_ms", "backward_ms")},
+                       "bound_ms": sum(r["bound"][0] for r in rows) / n,
+                       "bound_by": Counter(
+                           r["bound"][1] for r in rows).most_common(1)[0][0]}
+    n_inputs = sum(len(r) for r in inputs.values())
+    print(f"SST train kernels: window_mha under autograd on the {n_inputs} "
+          f"(layer, bucket) attention inputs of train step 0 of "
+          f"sst_waymo(train_buckets=True): kernel forward vs twin "
+          f"max_abs_err {max(errs):.3e} (phase 8's tolerance on valid query "
+          f"rows), the gradient equal bit for bit to the ported backward "
+          f"at the twin's inputs, and within 1 bf16 ulp + 2^-8 of its "
+          f"largest magnitude of the float64 gradient (largest error "
+          f"{max(gerrs):.3e} of that magnitude)", flush=True)
+    for (t, c, nhead), sh in sorted(shapes.items()):
+        print(f"  T={t:<3} W={sh['w']:<4} C={c} H={nhead}, means over "
+              f"{sh['inputs']} inputs: {sh['valid_slots']:.1f} of "
+              f"{sh['w'] * t} slots occupied; kernel forward "
+              f"{sh['ms']:.4f} ms, twin forward {sh['plain_ms']:.4f} ms, "
+              f"bound {sh['bound_ms']:.4f} ms ({sh['bound_by']}); ported "
+              f"backward (torch ops) {sh['backward_ms']:.4f} ms",
+              flush=True)
+
+    opt = _adamw(model)
+    n_attn = sum(isinstance(m, WindowAttention) for m in model.modules())
+    expected = {"window_mha": n_attn * len(model.buckets)}
+    n_steps = N_WARMUP + N_TIMED + N_STAGED
+    reset_launch_counts()  # the SST train path's run starts here
+    steps, stage_ms, peak = _train_loop(
+        model, opt, frames, [dict(generator=gen)] * n_steps,
+        lambda: {"window_mha": wm.launches,
+                 **{f"window_mha T={t}": v
+                    for (t, _, _), v in wm.launch_counts.items()}})
+    _check_launches(steps, expected)
+    print(f"SST train: sst_waymo(train_buckets=True) f32 (bf16 attention), "
+          f"batch 1, AdamW (base_lr 1e-5, wd 0.05, clip 10, 10,000-step "
+          f"one-cycle), voxel shuffle from a seeded generator; buckets (T, "
+          f"windows) {[(b.max_tokens, b.max_windows) for b in model.buckets]}"
+          f"; {N_WARMUP} warm-up + {N_TIMED} timed + {N_STAGED} staged "
+          f"steps", flush=True)
+    print(f"  launches per step (counted at the launch site; {n_attn} "
+          f"attention layers x {len(model.buckets)} buckets give "
+          f"{expected}): {steps[0]['launches']}", flush=True)
+    record = _print_train(steps, stage_ms, peak)
+    counters = [{k: st["metrics"][k] for k in (
+        "num_voxels", "num_voxel_overflow_points",
+        "num_window_seat_trimmed_voxels", "num_window_dropped_voxels",
+        "num_pos")} for st in steps]
+    print(f"  capacity counters per step (the training buckets may drop "
+          f"voxels by design): {counters}", flush=True)
+    per_step = {k: sum(sh[k] * sh["inputs"] for sh in shapes.values())
+                for k in ("ms", "plain_ms", "backward_ms", "bound_ms")}
+    print(f"  window_mha per step over its {n_inputs} inputs: kernel "
+          f"forward {per_step['ms']:.3f} ms, twin forward "
+          f"{per_step['plain_ms']:.3f} ms, bound {per_step['bound_ms']:.3f} "
+          f"ms; ported backward {per_step['backward_ms']:.3f} ms",
+          flush=True)
+    return {**record, "launches": {"window_mha": wm.launches},
+            "capacity_counters": counters, "mha_max_abs_err": max(errs),
+            "mha_grad_err": max(gerrs), "mha_per_step": per_step,
+            "mha_shapes": list(shapes.values())}
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1396,7 +1698,10 @@ def main() -> None:
     for s in shapes:
         s["calls_per_frame"] = split.get((s["mode"], s["c"]), 0)
     lat = phase_ab(model, frames, results, device)
+    dense_train = phase_dense_train(model.train(), device)
+    dense_train["card"] = card
     del model
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     sparse = init_weights(fsdv2_waymo(dtype=torch.float32, backbone="sparse"),
@@ -1453,6 +1758,19 @@ def main() -> None:
             fail(f"phase 8 timed {shape['inputs']} inputs at (T, C, H) "
                  f"{key}, the SST path launched {shape['calls_per_frame']} "
                  f"per frame")
+    del sst
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sst = init_weights(sst_waymo(train_buckets=True, num_point_features=3),
+                       torch.Generator().manual_seed(0)).train()
+    buckets = [(b.max_tokens, b.max_windows) for b in sst.buckets]
+    print(f"model: sst_waymo(train_buckets=True) f32 (bf16 attention), "
+          f"buckets (T, windows) {buckets}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sst_train = phase_sst_train(sst, device)
+    sst_train["card"] = card
+    del sst
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -1470,11 +1788,17 @@ def main() -> None:
                           "host_ms")}
     mha_rows = list(mha_shapes.values())
     mha_frame = per_frame(mha_rows, "calls_per_frame")
-    # counted in the dense path's run (phase 4), the sparse path's run
-    # (phase 7) and the train path's run (phase 11), each from 0
-    sr_launches = {"dense_bev": launches[0], "sparse": sr_sparse_launches[0],
+    # counted in the dense path's run (phase 4), its train run (phase 12),
+    # the sparse path's run (phase 7) and its train run (phase 11), each
+    # from 0
+    sr_launches = {"dense_bev": launches[0],
+                   "dense_bev_train": dense_train["launches"][
+                       "sorted_reduce"],
+                   "sparse": sr_sparse_launches[0],
                    "sparse_train": train["launches"]["sorted_reduce"]}
     off_launches = {"dense_bev": launches[1],
+                    "dense_bev_train": dense_train["launches"][
+                        "segment_offsets"],
                     "sparse": sr_sparse_launches[1],
                     "sparse_train": train["launches"]["segment_offsets"]}
     summary = {"kernels": [{
@@ -1575,8 +1899,12 @@ def main() -> None:
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/window_mha.cu",
         "replaces": "sst_tpu/ops/pallas_attention.py:25",
-        "launches": mha_launches,
-        "max_abs_err": mha_err,
+        # predict (phase 9) and train (phase 13), each counted from 0
+        "launches": mha_launches + sst_train["launches"]["window_mha"],
+        "launches_by_path": {"sst": mha_launches,
+                             "sst_train": sst_train["launches"][
+                                 "window_mha"]},
+        "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"]),
         # per frame of the SST path: the sum over frame 0's (layer, bucket)
         # inputs, each timed and bounded on its own pad (phase 8)
         "ms": mha_frame["ms"],
@@ -1587,6 +1915,14 @@ def main() -> None:
                           for r in mha_rows),
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "library_max_abs_err_vs_twin": sdpa_err,
+        # per SST train step (phase 13): the kernel forward over step 0's
+        # inputs, and the ported backward (torch ops, no hand kernel in
+        # JAX either)
+        "train_ms_per_step": sst_train["mha_per_step"]["ms"],
+        "train_plain_ms_per_step": sst_train["mha_per_step"]["plain_ms"],
+        "train_bound_ms_per_step": sst_train["mha_per_step"]["bound_ms"],
+        "backward_ms_per_step": sst_train["mha_per_step"]["backward_ms"],
+        "grad_err_vs_f64": sst_train["mha_grad_err"],
         # the wrapper's host time (Python, checks, ctypes, launch) per frame
         "host_ms": sum(r["host_ms"] * r["calls_per_frame"] for r in mha_rows),
         "shapes": mha_rows,
@@ -1596,6 +1932,8 @@ def main() -> None:
         "sst": sst_lat},
         "sst_capacity_counters": sst_diags,
         "train": train,
+        "train_dense_bev": dense_train,
+        "train_sst": sst_train,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

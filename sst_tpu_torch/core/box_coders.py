@@ -1,9 +1,27 @@
 """Box coders (counterpart of ``sst_tpu/core/box_coders.py``: the SECOND
-decoder and the FSD base-point coder)."""
+anchor-residual coder and the FSD base-point coder)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def delta_encode(anchors, gts):
+    """SECOND-style anchor residuals of gt boxes (the anchor head's
+    regression targets): centre offsets over the anchor's BEV diagonal
+    (z over its height, comparing centres from bottom-centre boxes), log
+    size ratios and the yaw difference; extra channels subtract."""
+    xa, ya, za, wa, la, ha, ra = anchors[..., :7].unbind(-1)
+    xg, yg, zg, wg, lg, hg, rg = gts[..., :7].unbind(-1)
+    za = za + ha / 2
+    zg = zg + hg / 2
+    diag = torch.sqrt(la**2 + wa**2)
+    out = torch.stack([(xg - xa) / diag, (yg - ya) / diag, (zg - za) / ha,
+                       torch.log(wg / wa), torch.log(lg / la),
+                       torch.log(hg / ha), rg - ra], dim=-1)
+    if gts.shape[-1] > 7:
+        out = torch.cat([out, gts[..., 7:] - anchors[..., 7:]], dim=-1)
+    return out
 
 
 def delta_decode(anchors, deltas):

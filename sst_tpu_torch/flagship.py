@@ -36,7 +36,12 @@ def sst_waymo(max_points: int = 196608, max_voxels: int = 65536,
 
     Only float32 is ported (the attention is bf16 inside, as on the JAX
     Pallas path). ``max_points`` is the point cap ``apis.prepare_batch``
-    pads to; ``num_point_features`` the width of a point row."""
+    pads to; ``num_point_features`` the width of a point row.
+
+    It trains with the training buckets (``loss`` with a voxel-shuffle
+    generator; ``train/step.py train_step``); the config's optimizer is
+    ``train/state.py make_optimizer`` at base_lr 1e-5, weight decay 0.05,
+    clip 10 (configs/sst/sst_waymoD5_3class.py)."""
     if train_buckets:
         buckets = (
             BucketSpec(30, 0, 30, 1536),
@@ -249,7 +254,10 @@ def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
 
     Only float32 is ported; ``max_points`` is the point cap
     ``apis.prepare_batch`` pads to. The module is returned on ``device``
-    (see :func:`on_device`).
+    (see :func:`on_device`). It trains in f32 (``loss``, ``train/step.py
+    train_step``) with the optimizer of configs/fsdv2/fsdv2_waymo_1x.py:
+    ``train/state.py make_optimizer`` at base_lr 1e-5, weight decay 0.05,
+    clip 10; like JAX's dense build, without rematerialisation.
 
     num_point_features: width of a point row (x, y, z + intensity,
     elongation for Waymo)."""

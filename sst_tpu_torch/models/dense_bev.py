@@ -9,7 +9,9 @@ boundary.
 
 Two max conventions meet here. The canvas scatters below max onto zeros and
 include that zero (JAX ``.at[].max`` onto a zero array), so they use
-``include_self=True``; ``ops/segment.py segment_reduce`` does not.
+``include_self=True``; ``ops/segment.py segment_reduce`` does not. In the
+backward both frameworks split the gradient of a tied maximum equally
+among the rows that hold it, the zero init counted as one of them.
 """
 
 from __future__ import annotations
@@ -18,8 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sst_tpu_torch.models.layers import MLP, ConvNormAct, require_inference
-from sst_tpu_torch.ops.segment import INT_SENTINEL, unique_segments_canvas
+from sst_tpu_torch.models.layers import MLP, ConvNormAct
+from sst_tpu_torch.ops.segment import (
+    INT_SENTINEL,
+    gather_rows,
+    unique_segments_canvas,
+)
 
 
 def _widen(x: torch.Tensor, slot: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -43,21 +49,21 @@ def _canvas(x: torch.Tensor, cell: torch.Tensor, valid: torch.Tensor,
             size: int) -> torch.Tensor:
     """Max-merge rows that share a cell into a compact site table (zero
     init included), then build the [size, C] canvas by an inverse-index row
-    gather; cells with no site read zero."""
+    gather (``ops/segment.py gather_rows``); cells with no site read
+    zero."""
     n = x.shape[0]
     cell_key = torch.where(valid, cell, size)
     uniq = unique_segments_canvas(cell_key, valid, num_segments=n,
                                   key_space=size)
     seg = uniq.seg_ids.long()
-    sites = x.new_zeros((n + 1, x.shape[1]))
-    sites.scatter_reduce_(0, seg[:, None].expand_as(x), x, "amax",
-                          include_self=True)
-    sites[n] = 0.0
+    # row n takes the invalid rows and is dropped
+    sites = x.new_zeros((n + 1, x.shape[1])).scatter_reduce(
+        0, seg[:, None].expand_as(x), x, "amax", include_self=True)[:n]
     site_valid = uniq.unique_keys != INT_SENTINEL
     inv = torch.full((size + 1,), n, dtype=torch.long, device=x.device)
     inv[torch.where(site_valid, uniq.unique_keys, size).long()] = torch.arange(
         n, device=x.device)
-    return sites[inv[:size]]
+    return gather_rows(sites, inv[:size])
 
 
 def _cells(coords, h: int, w: int):
@@ -88,12 +94,12 @@ class BEVScatter(nn.Module):
 
     def forward(self, feats, coords, valid, batch_size: int, grid_hw,
                 train: bool = False):
-        require_inference(train)
         h, w = grid_hw
         g_n = self.z_groups
         x = feats
         if self.pre is not None:
-            x = torch.relu(self.pre(x, valid))  # >= 0: empty cells read zero
+            # >= 0: empty cells read zero
+            x = torch.relu(self.pre(x, valid, train))
         z = torch.clamp(coords[:, 1], 0, self.nz - 1).long()
         x = x + self.z_embed[z]
         x = torch.cat([x, x.new_ones((x.shape[0], 1))], dim=-1)
@@ -138,12 +144,11 @@ class DenseBEVUNet(nn.Module):
         self.out_conv = ConvNormAct(c, out_channels, 3)
 
     def forward(self, x, train: bool = False):
-        require_inference(train)
         x = x.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
         enc = []
         for i, widths in enumerate(self.encoder_channels):
             for j in range(len(widths)):
-                x = getattr(self, f"enc_{i}_{j}")(x)
+                x = getattr(self, f"enc_{i}_{j}")(x, train)
             enc.append(x)
         dec_maps = []
         x = enc[-1]
@@ -151,11 +156,11 @@ class DenseBEVUNet(nn.Module):
         for d in range(len(self.decoder_channels)):
             skip = enc[n_enc - 2 - d]
             x = F.interpolate(x, scale_factor=2, mode="nearest")
-            x = getattr(self, f"up_{d}")(x)
-            lat = getattr(self, f"lat_{d}")(skip)
-            x = getattr(self, f"merge_{d}")(x + lat)
+            x = getattr(self, f"up_{d}")(x, train)
+            lat = getattr(self, f"lat_{d}")(skip, train)
+            x = getattr(self, f"merge_{d}")(x + lat, train)
             dec_maps.append(x)
-        out = self.out_conv(x)
+        out = self.out_conv(x, train)
         return (out.permute(0, 2, 3, 1),
                 [m.permute(0, 2, 3, 1) for m in dec_maps])
 
@@ -176,15 +181,16 @@ class DenseVoxelDecode(nn.Module):
         self.out_channels = out_channels
 
     def forward(self, bev, coords, valid, train: bool = False):
-        require_inference(train)
         b, h, w, c = bev.shape
         z = torch.clamp(coords[:, 1], 0, self.nz - 1).long()
         cell = torch.clamp(_cells(coords, h, w), 0, b * h * w - 1).long()
-        rows = bev.reshape(b * h * w, c)[cell]
+        # index_select: its backward adds repeated cells by index_add_
+        # (the invalid voxels all read cell 0)
+        rows = torch.index_select(bev.reshape(b * h * w, c), 0, cell)
         if self.z_groups > 1:
             rows = _pick(rows, (z * self.z_groups) // self.nz, self.z_groups)
         x = torch.cat([rows, self.z_embed[z]], dim=-1)
-        x = self.fuse(x, valid)
+        x = self.fuse(x, valid, train)
         return torch.where(valid[:, None], x, 0.0)
 
 
@@ -208,16 +214,17 @@ class DenseBEVMixer(nn.Module):
 
     def forward(self, feats, coords, valid, batch_size: int, grid_hw,
                 train: bool = False):
-        require_inference(train)
         h, w = grid_hw
-        x = torch.relu(self.pre(feats, valid))  # >= 0: empty cells read zero
+        # >= 0: empty cells read zero
+        x = torch.relu(self.pre(feats, valid, train))
         z = torch.clamp(coords[:, 1], 0, self.nz - 1).long()
         cell = _cells(coords, h, w)
         size = batch_size * h * w
         xw = _widen(torch.where(valid[:, None], x, 0.0), z, self.nz)
         canvas = _canvas(xw, cell, valid, size).reshape(batch_size, h, w, -1)
-        out2d, _ = self.unet(canvas)
-        rows = out2d.reshape(size, -1)[torch.clamp(cell, 0, size - 1).long()]
+        out2d, _ = self.unet(canvas, train)
+        rows = torch.index_select(out2d.reshape(size, -1), 0,
+                                  torch.clamp(cell, 0, size - 1).long())
         back = _pick(rows, z, self.nz)
-        y = self.post(torch.cat([back, x], dim=-1), valid)
+        y = self.post(torch.cat([back, x], dim=-1), valid, train)
         return torch.where(valid[:, None], y, 0.0)

@@ -1,10 +1,12 @@
 """DynamicVoxelNet, the SST detector (counterpart of
-``sst_tpu/models/detectors/dynamic_voxelnet.py``; inference).
+``sst_tpu/models/detectors/dynamic_voxelnet.py``; inference and ``loss``).
 
 Dynamic voxelize -> DynamicVFE -> SST input layer (window plans) -> SSTv2
 -> SECONDFPN -> Anchor3DHead. The static capacities (voxels, windows per
 bucket) come from the config; ``extract_feat(diag=...)`` reports what they
-dropped. ``head_type="center"`` (CenterHead) is not ported and raises.
+dropped. In training the voxel rows are shuffled before the window plan
+with a permutation drawn from the caller's generator (JAX's ``shuffle``
+rng). ``head_type="center"`` (CenterHead) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -14,13 +16,19 @@ from torch import nn
 
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.heads.anchor3d import Anchor3DHead
-from sst_tpu_torch.models.layers import require_inference
 from sst_tpu_torch.models.second import SECONDFPN
 from sst_tpu_torch.models.sst import SSTv1, SSTv2
 from sst_tpu_torch.models.sst_input import sst_input_layer
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
 from sst_tpu_torch.ops.window import BucketSpec
+
+
+def voxel_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
+    """The training-time voxel shuffle: a random permutation of the ``n``
+    voxel rows, drawn on the generator's device."""
+    return torch.randperm(n, generator=generator, device=generator.device)
+
 
 DEFAULT_TEST_CFG = dict(score_thr=0.1, nms_thr=0.25, nms_pre=1024,
                         max_num=500, use_rotate_nms=True)
@@ -73,14 +81,17 @@ class DynamicVoxelNet(nn.Module):
         self.head_mod = Anchor3DHead(**(head or {}))
 
     def extract_feat(self, batch: PointBatch, train: bool = False,
-                     diag: dict | None = None):
+                     diag: dict | None = None,
+                     generator: torch.Generator | None = None):
         """BEV features [B, C, H, W]. ``diag``, if given, receives the
         capacity counters: ``num_voxels``, ``num_voxel_overflow_points``
         (points whose voxel fell past ``max_voxels``),
         ``num_window_seat_trimmed_voxels`` (SST's own drop rule, expected
         on dense frames) and ``num_window_dropped_voxels`` (window-cap
-        overflow, which should be 0)."""
-        require_inference(train)
+        overflow; the training buckets may drop there by design).
+        ``generator``: in train mode, the source of the voxel shuffle
+        (:func:`voxel_permutation`); None shuffles nothing, as JAX without
+        a ``shuffle`` rng."""
         b, p, _ = batch.points.shape
         pts = batch.points.reshape(b * p, -1)
         batch_idx = torch.arange(b, dtype=torch.int32,
@@ -88,15 +99,19 @@ class DynamicVoxelNet(nn.Module):
         vm = dynamic_voxelize(pts, batch_idx, batch.valid.reshape(-1),
                               self.point_cloud_range, self.voxel_size,
                               self.max_voxels, b)
-        voxel_feats = self.vfe_mod(pts, vm)
+        voxel_feats = self.vfe_mod(pts, vm, train)
+        perm = None
+        if train and generator is not None:
+            perm = voxel_permutation(vm.voxel_coords.shape[0], generator)
         ny, nx = self.bev_shape
         plan = sst_input_layer(
             vm.voxel_coords, vm.voxel_valid, sparse_shape=(nx, ny, 1),
             window_shape=self.window_shape, buckets=self.buckets,
             d_model=self.backbone_mod.d_model[0],
-            max_total_windows=self.max_total_windows)
-        bev, _ = self.backbone_mod(voxel_feats, vm.voxel_coords, plan, b)
-        feats = self.neck_mod(bev)
+            max_total_windows=self.max_total_windows, perm=perm)
+        bev, _ = self.backbone_mod(voxel_feats, vm.voxel_coords, plan, b,
+                                   train)
+        feats = self.neck_mod(bev, train)
         if diag is not None:
             diag["num_voxels"] = vm.voxel_valid.sum().float()
             diag["num_voxel_overflow_points"] = (
@@ -109,8 +124,25 @@ class DynamicVoxelNet(nn.Module):
         return feats
 
     def forward(self, batch: PointBatch, train: bool = False,
-                diag: dict | None = None):
-        return self.head_mod(self.extract_feat(batch, train, diag))
+                diag: dict | None = None,
+                generator: torch.Generator | None = None):
+        return self.head_mod(self.extract_feat(batch, train, diag,
+                                               generator))
+
+    def loss(self, batch: PointBatch, train: bool = True,
+             generator: torch.Generator | None = None) -> dict:
+        """The head's losses (``loss*`` keys, summed by ``train/step.py``),
+        ``num_pos`` and the capacity counters of :meth:`extract_feat`, as
+        the JAX model returns them. ``generator`` drives the voxel
+        shuffle."""
+        diag: dict = {}
+        preds = self(batch, train, diag, generator)
+        h, w = preds["cls"].shape[1:3]
+        anchors = self.head_mod.grid_anchors((h, w), preds["cls"].device)
+        losses = self.head_mod.loss(preds, anchors, batch.gt_boxes,
+                                    batch.gt_labels, batch.gt_valid)
+        losses.update(diag)
+        return losses
 
     @torch.inference_mode()
     def predict(self, batch: PointBatch):

@@ -1,6 +1,6 @@
 """FSDv2 — virtual-voxel fully-sparse detector (counterpart of
-``sst_tpu/models/fsd/fsdv2.py``), single-stage: inference in its sparse and
-dense-BEV builds, ``loss`` (train mode) in its sparse build.
+``sst_tpu/models/fsd/fsdv2.py``), single-stage: inference and ``loss``
+(train mode) in its sparse and dense-BEV builds.
 
 Pipeline: VoteSegmentor (multiscale) → per-class fg sampling (threshold +
 static top-k) → virtual points = vote-shifted centres with ``virtual_proj``
@@ -221,7 +221,10 @@ class SingleStageFSDV2(nn.Module):
             cy = torch.clamp((vc[:, 2] * hl) // vgrid[1], 0, hl - 1)
             cx = torch.clamp((vc[:, 3] * wl) // vgrid[2], 0, wl - 1)
             cell = (torch.clamp(vc[:, 0], min=0) * hl + cy) * wl + cx
-            g = m.reshape(b * hl * wl, -1)[cell.long()]
+            # index_select: its backward adds repeated cells by
+            # index_add_ (the invalid voxels all read one cell)
+            g = torch.index_select(m.reshape(b * hl * wl, -1), 0,
+                                   cell.long())
             feats_sum = feats_sum + getattr(self, f"ms_projs_{i}")(
                 g, vm.voxel_valid, train)
             n_contrib += 1.0
@@ -349,10 +352,6 @@ class SingleStageFSDV2(nn.Module):
     def run_pipeline(self, batch: PointBatch, train: bool = False,
                      thr_extra: float = 0.0, pretrain: bool = False,
                      detach_seg: bool = True):
-        if train and self.mixer_type != "sparse":
-            raise NotImplementedError(
-                "train mode of the dense-BEV build (BatchNorm and "
-                "ConvNormAct statistics) is not ported")
         b, p, _ = batch.points.shape
         pts = batch.points.reshape(b * p, -1)
         batch_idx = torch.arange(b, dtype=torch.int32,

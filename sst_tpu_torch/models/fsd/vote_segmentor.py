@@ -6,9 +6,8 @@ Flow: tanh on the channels past xyz → dynamic voxelize → DynamicVFE →
 backbone → per-point gather + local-xyz decoration → MLP → (seg logits
 [P, C], vote preds [P, 3C]). The backbone is either SimpleSparseUNet over
 the voxel grid's rulebooks (``backbone="sparse"``) or BEVScatter →
-DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``). Train mode and
-the head's losses are ported for the sparse backbone; the dense-BEV
-modules raise in train mode.
+DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``), both with
+train mode and the head's losses.
 """
 
 from __future__ import annotations

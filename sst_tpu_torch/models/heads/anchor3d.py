@@ -1,12 +1,11 @@
 """Anchor-based BEV detection head (counterpart of
-``sst_tpu/models/heads/anchor3d.py``; forward and the fast inference path of
-``get_bboxes``).
+``sst_tpu/models/heads/anchor3d.py``: forward, the per-class max-IoU
+targets and the loss, and the fast inference path of ``get_bboxes``).
 
 Predictions are [B, H, W, A, K] with A = num_classes * num_rots and the
 anchor axis ordered (class range, rotation), as in the JAX package. The
 convolutions give [B, A * K, H, W]; they are permuted to channels last
-before the reshape. Loss and targets are not ported; ``use_wnms=True``
-raises.
+before the reshape. ``use_wnms=True`` raises.
 """
 
 from __future__ import annotations
@@ -16,14 +15,22 @@ import math
 import torch
 from torch import nn
 
+from sst_tpu_torch.core import losses as L
 from sst_tpu_torch.core.anchors import multiclass_aligned_anchors
-from sst_tpu_torch.core.box_coders import delta_decode
+from sst_tpu_torch.core.box_coders import delta_decode, delta_encode
 from sst_tpu_torch.core.boxes import limit_period
+from sst_tpu_torch.core.iou import nearest_iou
 from sst_tpu_torch.core.nms import multiclass_nms_preselected, topk_presort
+from sst_tpu_torch.core.target_assign import IGNORE, max_iou_assign
+
+
+# the JAX head's loss weights, which no config changes
+LOSS_CLS_WEIGHT, LOSS_BBOX_WEIGHT, LOSS_DIR_WEIGHT = 1.0, 0.5, 0.2
 
 
 class Anchor3DHead(nn.Module):
-    """``feat_channels`` is the width of the input map."""
+    """``feat_channels`` is the width of the input map; ``assigner_thrs``
+    per class (pos_iou_thr, neg_iou_thr, min_pos_iou)."""
 
     def __init__(self, num_classes: int = 3, feat_channels: int = 384,
                  use_direction_classifier: bool = True,
@@ -35,6 +42,8 @@ class Anchor3DHead(nn.Module):
                                         (0.84, 1.81, 1.77),
                                         (0.84, 0.91, 1.74)),
                  anchor_rotations: tuple = (0.0, 1.5707963),
+                 assigner_thrs: tuple = ((0.55, 0.4, 0.4), (0.5, 0.3, 0.3),
+                                         (0.5, 0.3, 0.3)),
                  dir_offset: float = 0.7854, box_code_size: int = 7):
         super().__init__()
         self.num_classes = num_classes
@@ -42,6 +51,7 @@ class Anchor3DHead(nn.Module):
         self.anchor_ranges = tuple(anchor_ranges)
         self.anchor_sizes = tuple(anchor_sizes)
         self.anchor_rotations = tuple(anchor_rotations)
+        self.assigner_thrs = tuple(assigner_thrs)
         self.dir_offset = dir_offset
         self.box_code_size = box_code_size
         a = self.num_anchors
@@ -82,6 +92,86 @@ class Anchor3DHead(nn.Module):
                "reg": hwak(self.conv_reg(x), self.box_code_size)}
         if self.use_direction_classifier:
             out["dir"] = hwak(self.conv_dir_cls(x), 2)
+        return out
+
+    def _dir_target(self, yaw):
+        rot = limit_period(yaw - self.dir_offset, 0.0, 2 * math.pi)
+        return torch.clamp(torch.floor(rot / math.pi), 0, 1).to(torch.int32)
+
+    def targets_single(self, anchors_by_cls, gt_boxes, gt_labels, gt_valid):
+        """One sample's targets per anchor, [num_cls, M, ...] for anchors
+        ``anchors_by_cls`` [num_cls, M, 7] (M = H * W * num_rot): each class
+        range's anchors are assigned to the valid gt boxes of that class by
+        nearest-BEV IoU. Labels are the class, ``num_classes`` for
+        background and -1 for ignored anchors."""
+        labels, bbox_t, bbox_w, dir_t, pos = [], [], [], [], []
+        for c in range(self.num_classes):
+            anchors = anchors_by_cls[c]
+            p, n_thr, mp = self.assigner_thrs[c]
+            assigned, _ = max_iou_assign(
+                anchors, gt_boxes, gt_valid & (gt_labels == c), pos_thr=p,
+                neg_thr=n_thr, min_pos_iou=mp, iou_fn=nearest_iou)
+            is_pos = assigned >= 0
+            matched = gt_boxes[torch.clamp(assigned, min=0).long()]
+            lbl = torch.where(is_pos, c, self.num_classes)
+            labels.append(torch.where(assigned == IGNORE, -1, lbl))
+            bt = delta_encode(anchors, matched[:, :self.box_code_size])
+            bbox_t.append(torch.where(is_pos[:, None], bt, 0.0))
+            bbox_w.append(is_pos.float())
+            dir_t.append(torch.where(is_pos, self._dir_target(matched[:, 6]),
+                                     0))
+            pos.append(is_pos)
+        return {"labels": torch.stack(labels),
+                "bbox_targets": torch.stack(bbox_t),
+                "bbox_weights": torch.stack(bbox_w),
+                "dir_targets": torch.stack(dir_t),
+                "num_pos": torch.stack(pos).sum()}
+
+    @staticmethod
+    def _add_sin_difference(pred, target):
+        """sin(a - b) = sin(a) cos(b) - cos(a) sin(b): the yaw channel of
+        the prediction becomes sin(a) cos(b), the target's cos(a) sin(b)."""
+        sin_p = torch.sin(pred[..., 6:7]) * torch.cos(target[..., 6:7])
+        cos_t = torch.cos(pred[..., 6:7]) * torch.sin(target[..., 6:7])
+        return (torch.cat([pred[..., :6], sin_p, pred[..., 7:]], dim=-1),
+                torch.cat([target[..., :6], cos_t, target[..., 7:]], dim=-1))
+
+    def loss(self, preds, anchors_by_cls, gt_boxes, gt_labels, gt_valid):
+        """The focal classification loss over non-ignored anchors, the L1
+        box loss (with the sine yaw difference) and the direction
+        cross-entropy over positive anchors, each over the number of
+        positives, and ``num_pos``. ``preds`` from :meth:`forward`;
+        ``gt_*`` are [B, G, ...] padded."""
+        b, h, w, _, _ = preds["cls"].shape
+        ncls, nrot, k = self.num_classes, self.num_rot, self.box_code_size
+        m = h * w * nrot
+        tgts = [self.targets_single(anchors_by_cls, gt_boxes[i], gt_labels[i],
+                                    gt_valid[i]) for i in range(b)]
+        tgt = {key: torch.stack([t[key] for t in tgts]) for key in tgts[0]}
+
+        def to_cls_major(t):  # [B, H, W, A, K] -> [B, cls * M, K]
+            x = t.reshape(b, h * w, ncls, nrot, t.shape[-1])
+            return x.permute(0, 2, 1, 3, 4).reshape(b, ncls * m, t.shape[-1])
+
+        labels = tgt["labels"].reshape(-1)
+        bbox_w = tgt["bbox_weights"].reshape(-1)
+        num_pos = torch.clamp(tgt["num_pos"].sum().float(), min=1.0)
+        loss_cls = L.sigmoid_focal_loss(
+            to_cls_major(preds["cls"]).reshape(-1, ncls),
+            torch.clamp(labels, min=0), weight=(labels >= 0).float(),
+            avg_factor=num_pos) * LOSS_CLS_WEIGHT
+        rp, rt = self._add_sin_difference(
+            to_cls_major(preds["reg"]).reshape(-1, k),
+            tgt["bbox_targets"].reshape(-1, k))
+        loss_bbox = L.l1_loss(rp, rt, weight=bbox_w,
+                              avg_factor=num_pos) * LOSS_BBOX_WEIGHT
+        out = {"loss_cls": loss_cls, "loss_bbox": loss_bbox,
+               "num_pos": num_pos}
+        if self.use_direction_classifier:
+            out["loss_dir"] = L.cross_entropy_loss(
+                to_cls_major(preds["dir"]).reshape(-1, 2),
+                tgt["dir_targets"].reshape(-1), weight=bbox_w,
+                avg_factor=num_pos) * LOSS_DIR_WEIGHT
         return out
 
     def get_bboxes(self, preds, anchors_by_cls, score_thr=0.1, nms_thr=0.25,

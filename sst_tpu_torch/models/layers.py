@@ -3,9 +3,9 @@
 Submodules keep flax's automatic names (``Dense_0``, ``LayerNorm_0``,
 ``MaskedBatchNorm_0``, ``Conv_0``, ``BatchNorm_0``) so that
 ``sst_tpu_torch/convert.py`` maps a flax variable tree onto these modules
-name for name. ``MaskedBatchNorm`` and ``MLP`` take ``train=True``; the
-dense ``BatchNorm`` (and so ``ConvNormAct``) is ported for inference only
-and raises in train mode.
+name for name. Every module takes ``train=True``: the batch norms then
+normalise with the batch's statistics and move their running statistics
+by flax's rule.
 """
 
 from __future__ import annotations
@@ -29,15 +29,20 @@ ACTIVATIONS = {
 }
 
 
-def require_inference(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "sst_tpu_torch ports the inference path only (train=False)")
-
-
 class BatchNorm(nn.Module):
-    """Batch norm over dim 1 with running statistics (flax ``BatchNorm`` in
-    eval mode; eps 1e-3 as in ``ConvNormAct``)."""
+    """Batch norm over dim 1 (flax ``nn.BatchNorm(momentum=0.99,
+    epsilon=1e-3)`` as ``ConvNormAct`` and ``SECONDFPN`` use it).
+
+    At inference the running statistics normalise. In train mode the
+    statistics of each channel are taken over every other dim (N, H, W of
+    an NCHW map), as flax does: the mean, and the biased variance
+    ``E[x^2] - E[x]^2`` clamped at 0; the running statistics move by
+    ``r = 0.99 r + 0.01 batch`` (``F.batch_norm`` would update them with the
+    unbiased variance and torch's momentum). The update is skipped while a
+    rematerialised call is recomputed in the backward (``utils/remat.py``),
+    where JAX discards it."""
+
+    momentum = 0.99
 
     def __init__(self, num_features: int, eps: float = 1e-3):
         super().__init__()
@@ -48,9 +53,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x, train: bool = False):
-        require_inference(train)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = x.mean(dims)
+        var = torch.clamp(torch.square(x).mean(dims) - torch.square(mean),
+                          min=0.0)
+        self._update_running(mean, var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) \
+            + self.bias.view(shape)
+
+    def _update_running(self, mean, var) -> None:
+        if remat.recomputing():
+            return
+        with torch.no_grad():
+            self.running_mean.copy_(self.momentum * self.running_mean
+                                    + (1 - self.momentum) * mean)
+            self.running_var.copy_(self.momentum * self.running_var
+                                   + (1 - self.momentum) * var)
 
 
 class MaskedBatchNorm(BatchNorm):
@@ -58,13 +81,8 @@ class MaskedBatchNorm(BatchNorm):
     ``MaskedBatchNorm``). At inference the running statistics normalise
     every row, so the mask is not read. In train mode the statistics are
     taken over the valid rows only (``mask`` None: every row), with the
-    biased variance, and the running statistics move by flax's rule
-    ``r = 0.99 r + 0.01 batch`` (``F.batch_norm`` would take every row, the
-    unbiased variance and torch's momentum). The update is skipped while a
-    rematerialised call is recomputed in the backward (``utils/remat.py``),
-    where JAX discards it."""
-
-    momentum = 0.99
+    biased variance, and the running statistics move as
+    :class:`BatchNorm`'s do."""
 
     def forward(self, x, mask=None, train: bool = False):
         if not train:
@@ -77,12 +95,7 @@ class MaskedBatchNorm(BatchNorm):
         mean = (x * m).sum(0) / n
         var = torch.clamp((torch.square(x) * m).sum(0) / n
                           - torch.square(mean), min=0.0)
-        if not remat.recomputing():
-            with torch.no_grad():
-                self.running_mean.copy_(self.momentum * self.running_mean
-                                        + (1 - self.momentum) * mean)
-                self.running_var.copy_(self.momentum * self.running_var
-                                       + (1 - self.momentum) * var)
+        self._update_running(mean, var)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
 
@@ -145,6 +158,4 @@ class ConvNormAct(nn.Module):
         x = self.Conv_0(x)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x, train)
-        else:
-            require_inference(train)
         return self.act(x)

@@ -1,5 +1,5 @@
 """SECOND FPN neck over BEV maps (counterpart of ``sst_tpu/models/second.py``,
-``SECONDFPN`` at upsample stride 1).
+``SECONDFPN`` at upsample stride 1, in inference and train mode).
 
 Maps are NCHW. A stride above 1 needs ``ConvTranspose``, whose flax kernel
 layout ``convert.py`` does not map yet: it raises. The ``SECOND`` backbone is
@@ -13,7 +13,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import BatchNorm, require_inference
+from sst_tpu_torch.models.layers import BatchNorm
 
 
 class SECONDFPN(nn.Module):
@@ -42,10 +42,9 @@ class SECONDFPN(nn.Module):
         self.out_channels = sum(out_channels[:self.levels])
 
     def forward(self, feats, train: bool = False):
-        require_inference(train)
         if not isinstance(feats, (list, tuple)):
             feats = [feats]
         ups = [torch.relu(getattr(self, f"deblock_bn_{i}")(
-            getattr(self, f"deblock_conv_{i}")(x)))
+            getattr(self, f"deblock_conv_{i}")(x), train))
             for i, x in zip(range(self.levels), feats)]
         return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]

@@ -23,11 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import (
-    ACTIVATIONS,
-    ConvNormAct,
-    require_inference,
-)
+from sst_tpu_torch.models.layers import ACTIVATIONS, ConvNormAct
 from sst_tpu_torch.models.sst_input import SSTPlan
 from sst_tpu_torch.ops.window import (
     FlatToWindow,
@@ -175,7 +171,6 @@ class SSTv2(nn.Module):
 
     def forward(self, voxel_feats, voxel_coords, plan: SSTPlan,
                 batch_size: int, train: bool = False):
-        require_inference(train)
         x = voxel_feats
         if self.linear0 is not None:
             x = self.linear0(x)
@@ -184,7 +179,7 @@ class SSTv2(nn.Module):
         bev = recover_bev(x, voxel_coords, plan.valid, batch_size,
                           self.output_shape)
         for i in range(self.num_attached_conv):
-            bev = getattr(self, f"attached_conv_{i}")(bev)
+            bev = getattr(self, f"attached_conv_{i}")(bev, train)
         return bev, plan.valid
 
 

@@ -2,19 +2,22 @@
 batching, the window plans and the sinusoidal in-window position embedding
 (counterpart of ``sst_tpu/models/sst_input.py``).
 
-Parameter-free: :func:`sst_input_layer` returns an :class:`SSTPlan`. Only
-the inference plan is ported: the training-time voxel shuffle
-(``shuffle_rng``) raises.
+Parameter-free: :func:`sst_input_layer` returns an :class:`SSTPlan`. In
+training the voxel rows are shuffled first (a permutation the caller draws),
+so that the rank-based drops fall on random voxels; the plan is built on
+the shuffled rows and mapped back to the given order, as JAX does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
 import torch
 
 from sst_tpu_torch.ops.window import (
+    FlatToWindow,
     assign_drop_levels,
     drop_pass,
     finalize_flat2win,
@@ -71,10 +74,14 @@ def sinusoidal_window_pos(coors_in_win: torch.Tensor, window_shape,
         2 * torch.div(inv_freq, 2, rounding_mode="floor") / pos_length)
 
     def embed(v):
-        e = v[:, None] / inv_freq[None, :]
+        # float32 arguments; sine and cosine taken in float64 and rounded,
+        # so that the embedding does not depend on the accuracy of the
+        # vector math library (torch's CPU sine has given one thread's share
+        # of its first call at MKL's ~11-bit "enhanced performance" accuracy)
+        e = (v[:, None] / inv_freq[None, :]).double()
         # sin of the even columns and cos of the odd ones, interleaved
         return torch.stack([torch.sin(e[:, ::2]), torch.cos(e[:, 1::2])],
-                           dim=-1).reshape(v.shape[0], -1)
+                           dim=-1).reshape(v.shape[0], -1).float()
 
     parts = [embed(x), embed(y)] + ([embed(z)] if ndim == 3 else [])
     pe = torch.cat(parts, dim=-1)
@@ -88,14 +95,21 @@ def sst_input_layer(voxel_coords: torch.Tensor, voxel_valid: torch.Tensor,
                     sparse_shape, window_shape, buckets, d_model: int,
                     max_total_windows: int, pos_temperature: float = 10000.0,
                     normalize_pos: bool = False,
-                    shuffle_rng=None) -> SSTPlan:
-    """The two-shift window plan for a batch of voxels (inference: voxel
-    rows in their given order).
+                    perm: torch.Tensor | None = None) -> SSTPlan:
+    """The two-shift window plan for a batch of voxels.
 
-    sparse_shape is (x, y, z); window_shape is (wx, wy) or (wx, wy, wz)."""
-    if shuffle_rng is not None:
-        raise NotImplementedError(
-            "shuffle_rng (the training-time voxel shuffle) is not ported")
+    sparse_shape is (x, y, z); window_shape is (wx, wy) or (wx, wy, wz).
+    ``perm``, a permutation of the N voxel rows (the training-time voxel
+    shuffle, JAX's ``jax.random.permutation(shuffle_rng, N)``): the ranks
+    that decide the drops are taken in the order ``voxel_coords[perm]``,
+    and the plan is mapped back to the rows' given order. None: the rows'
+    own order (inference)."""
+    n = voxel_coords.shape[0]
+    if perm is not None:
+        perm = perm.to(device=voxel_coords.device, dtype=torch.long)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(n, device=perm.device)
+        voxel_coords, voxel_valid = voxel_coords[perm], voxel_valid[perm]
     win0, ciw0 = get_window_coors(voxel_coords, sparse_shape, window_shape,
                                   False, voxel_valid)
     win1, ciw1 = get_window_coors(voxel_coords, sparse_shape, window_shape,
@@ -128,6 +142,21 @@ def sst_input_layer(voxel_coords: torch.Tensor, voxel_valid: torch.Tensor,
                                  pos_temperature, normalize_pos)
     pos1 = sinusoidal_window_pos(ciw1, window_shape, d_model,
                                  pos_temperature, normalize_pos)
+    if perm is not None:
+        # per-row fields back to the given order; the slot -> row tables
+        # hold shuffled row ids, and shuffled row i is given row perm[i]
+        perm32 = perm.to(torch.int32)
+
+        def unshuffle(f: FlatToWindow) -> FlatToWindow:
+            return dataclasses.replace(
+                f, drop_lvl=f.drop_lvl[inv], flat_inds=f.flat_inds[inv],
+                valid=f.valid[inv], coors_in_win=f.coors_in_win[inv],
+                inv_inds=tuple(torch.where(
+                    iv < n, perm32[torch.clamp(iv, max=n - 1).long()], n)
+                    for iv in f.inv_inds))
+
+        f2w0, f2w1 = unshuffle(f2w0), unshuffle(f2w1)
+        pos0, pos1 = pos0[inv], pos1[inv]
     return SSTPlan(f2w=(f2w0, f2w1), pos=(pos0, pos1),
                    valid=f2w0.valid & f2w1.valid,
                    num_seat_trimmed=num_seat_trimmed)

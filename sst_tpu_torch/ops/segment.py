@@ -161,6 +161,24 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
     return out[:, 0] if squeeze else out
 
 
+def gather_rows(src: torch.Tensor, index: torch.Tensor,
+                fill: float = 0.0) -> torch.Tensor:
+    """[len(index), C]: row j is ``src[index[j]]``, or ``fill`` where
+    ``index[j]`` lies outside [0, N) (the padding slots of an inverse
+    table).
+
+    An ``index_select``, whose backward adds each row's gradient into its
+    source. The rows outside read source ``j mod N`` and are masked: sent
+    all to one source, their zero gradients would be added to that row one
+    after another on the card."""
+    n = src.shape[0]
+    inside = (index >= 0) & (index < n)
+    spread = torch.arange(index.shape[0], device=index.device) % n
+    rows = torch.index_select(src, 0, torch.where(inside, index.long(),
+                                                  spread))
+    return torch.where(inside[:, None], rows, fill)
+
+
 def gather_segments(voxel_data: torch.Tensor, seg_ids: torch.Tensor,
                     fill: float = 0.0) -> torch.Tensor:
     """Broadcast per-segment rows back to elements; ids >= num_segments get

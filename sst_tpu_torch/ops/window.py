@@ -22,7 +22,11 @@ from typing import Sequence
 
 import torch
 
-from sst_tpu_torch.ops.segment import UniqueResult, unique_segments
+from sst_tpu_torch.ops.segment import (
+    UniqueResult,
+    gather_rows,
+    unique_segments,
+)
 
 OOB = 2**31 - 1
 
@@ -198,26 +202,23 @@ def invert_flat_inds(f2w: FlatToWindow):
 def flat2window(feat: torch.Tensor, f2w: FlatToWindow,
                 padding: float = 0.0):
     """[N, C] voxel features -> list of [max_windows_b, max_tokens_b, C]
-    window tensors, one row gather per bucket; empty slots read
-    ``padding``."""
+    window tensors, one row gather per bucket (``ops/segment.py
+    gather_rows``); empty slots read ``padding``."""
     c = feat.shape[-1]
-    ext = torch.cat([feat, feat.new_full((1, c), padding)])
-    return [ext[inv.long()].reshape(b.max_windows, b.max_tokens, c)
+    return [gather_rows(feat, inv, padding).reshape(b.max_windows,
+                                                    b.max_tokens, c)
             for b, inv in zip(f2w.buckets, f2w.inv_inds)]
 
 
 def window2flat(feat_3d_list, f2w: FlatToWindow) -> torch.Tensor:
-    """Per-bucket window tensors back to flat [N, C]; voxels not seated in
-    this shift read 0."""
-    n = f2w.flat_inds.shape[0]
-    c = feat_3d_list[0].shape[-1]
-    out = feat_3d_list[0].new_zeros((n, c))
+    """Per-bucket window tensors back to flat [N, C], one row gather per
+    bucket (``gather_rows``); voxels not seated in this shift read 0."""
+    out = None
     for i, feat in enumerate(feat_3d_list):
-        flat = feat.reshape(-1, c)
+        flat = feat.reshape(-1, feat.shape[-1])
         in_b = f2w.valid & (f2w.drop_lvl == i)
-        idx = torch.where(in_b, f2w.flat_inds, 0)
-        idx = torch.clamp(idx, max=flat.shape[0] - 1).long()
-        out = torch.where(in_b[:, None], flat[idx], out)
+        rows = gather_rows(flat, torch.where(in_b, f2w.flat_inds, -1))
+        out = rows if out is None else torch.where(in_b[:, None], rows, out)
     return out
 
 

@@ -18,6 +18,12 @@ plain PyTorch twin :func:`window_mha_ref`, a CUDA tensor to the kernel (or
 the call raises). ``launches`` counts kernel launches and ``launch_counts``
 splits them by ``(T, C, H)``, so a run can show that its main path went
 through the kernel, and at which shapes.
+
+Under autograd the call is a ``torch.autograd.Function`` (the JAX
+package's ``jax.custom_vjp``): the forward as above, and the backward
+:func:`window_mha_backward`, a port of JAX's ``_mha_bwd``, on either
+device. That backward is no Pallas kernel in JAX (an f32 einsum recompute),
+so plain PyTorch computes it here too.
 """
 
 from __future__ import annotations
@@ -133,26 +139,78 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def window_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pad: torch.Tensor, nhead: int,
+                        grad_out: torch.Tensor):
+    """The gradients (dq, dk, dv) of the attention at ``grad_out``, in q, k
+    and v's dtype: JAX's ``_mha_bwd``. The probabilities P are recomputed
+    in f32 from the bf16 inputs (f32 logits times ``1/sqrt(dh)``, ``-1e4``
+    on padded keys, a softmax), then ``dv = P^T g``, ``dP = g v^T``,
+    ``dS = P (dP - sum(dP P)) / sqrt(dh)``, ``dq = dS k``, ``dk = dS^T q``,
+    all in f32. It is the gradient of softmax attention with f32
+    probabilities, not of the forward's bf16(P) rounding, as in JAX."""
+    w, t, c = q.shape
+    dh = c // nhead
+    scale = math.sqrt(dh)
+    q4, k4, v4 = (x.float().reshape(w, t, nhead, dh) for x in (q, k, v))
+    logits = torch.einsum("wthd,wshd->whts", q4, k4) / scale
+    logits = logits + torch.where(pad[:, None, None, :], -1e4, 0.0)
+    p = torch.softmax(logits, dim=-1)
+    g4 = grad_out.float().reshape(w, t, nhead, dh)
+    dv = torch.einsum("whts,wthd->wshd", p, g4)
+    dp = torch.einsum("wthd,wshd->whts", g4, v4)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / scale
+    dq = torch.einsum("whts,wshd->wthd", ds, k4)
+    dk = torch.einsum("whts,wthd->wshd", ds, q4)
+    return tuple(d.reshape(w, t, c).to(x.dtype)
+                 for d, x in ((dq, q), (dk, k), (dv, v)))
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             pad: torch.Tensor, nhead: int) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return window_mha_ref(q, k, v, pad, nhead)
+    return _launch(q, k, v, pad, nhead)
+
+
+class _WindowMHA(torch.autograd.Function):
+    """The forward of :func:`window_mha` with JAX's custom-vjp backward;
+    no gradient for ``pad``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad, nhead):
+        ctx.save_for_backward(q, k, v, pad)
+        ctx.nhead = nhead
+        return _forward(q, k, v, pad, nhead)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, pad = ctx.saved_tensors
+        dq, dk, dv = window_mha_backward(q, k, v, pad, ctx.nhead, grad_out)
+        return dq, dk, dv, None, None
+
+
 def window_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                pad: torch.Tensor, nhead: int) -> torch.Tensor:
-    """Attention inside each window.
+    """Attention inside each window; differentiable in q, k and v
+    (:func:`window_mha_backward`).
 
     Args:
       q, k, v: [W, T, C] bfloat16; on the card they may be the three column
         blocks of one [W, T, 3C] buffer (shared strides, multiples of 8,
-        unit channel stride), so the split costs no copy.
+        unit channel stride), so the split costs no copy; their gradients
+        then land in that buffer's gradient.
       pad: [W, T] bool, True for a padded key slot.
       nhead: heads; on the card C must be ``nhead * 16`` and T at most 320.
     Returns [W, T, C] bfloat16, contiguous.
     """
     _check(q, k, v, pad, nhead)
-    if q.device.type == "cpu":
-        return window_mha_ref(q, k, v, pad, nhead)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "window_mha has no backward yet; call it under torch.no_grad() "
-            "or inference_mode()")
-    return _launch(q, k, v, pad, nhead)
+        return _WindowMHA.apply(q, k, v, pad, nhead)
+    # with no graph to record, skip the Function: its apply adds ~15-20 us
+    # of host time per call on the card (chip_smoke.py phase 8), about a
+    # third of the wrapper's, on a predict path bound by host time
+    return _forward(q, k, v, pad, nhead)

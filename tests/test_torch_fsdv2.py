@@ -232,10 +232,3 @@ def test_model_options_outside_the_slice_raise(kw):
     cfg.update(kw)
     with pytest.raises(NotImplementedError):
         tflag.SingleStageFSDV2(**cfg)
-
-
-def test_train_mode_raises():
-    tm = tflag.tiny_fsdv2_dense(device="cpu")
-    batch = tflag.synthetic_waymo_batch(1, 256, pcr_half=3.8).to("cpu")
-    with pytest.raises(NotImplementedError):
-        tm.run_pipeline(batch, train=True)

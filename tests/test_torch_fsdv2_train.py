@@ -491,11 +491,3 @@ def test_synthetic_labeled_batch_bit_identical():
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
     assert bool(t.gt_valid[0, 0])  # box 0 encodes the negatives' targets
-
-
-def test_dense_build_refuses_train_mode():
-    """Training of the dense-BEV build is not ported: it raises."""
-    m = tflag.tiny_fsdv2_dense(device="cpu")
-    batch = tflag.synthetic_labeled_batch(**FRAME)[0].to("cpu")
-    with pytest.raises(NotImplementedError):
-        m.loss(batch)

@@ -368,9 +368,65 @@ def test_window_mha_kernel_matches_twin(w, t, h, strided):
         assert wm.skipped_rows(pad)[2].any()
 
 
+def _attention_grads_f64(q, k, v, pad, h, g):
+    """The exact gradient of softmax attention (f32-free: every step in
+    float64 by autograd) at the bf16 inputs: the function the ported
+    ``_mha_bwd`` computes, up to its f32 sums."""
+    w, t, c = q.shape
+    q4, k4, v4 = (x.double().reshape(w, t, h, c // h).requires_grad_()
+                  for x in (q, k, v))
+    logits = torch.einsum("wthd,wshd->whts", q4, k4) / (c // h) ** 0.5
+    logits = logits + pad[:, None, None, :].double() * -1e4
+    out = torch.einsum("whts,wshd->wthd", torch.softmax(logits, -1), v4)
+    grads = torch.autograd.grad(out, (q4, k4, v4),
+                                g.double().reshape(w, t, h, c // h))
+    return [x.reshape(w, t, c) for x in grads]
+
+
+# the training buckets (T, windows) of sst_waymo at d_model 128, 8 heads,
+# a window set with nothing to attend (every slot padded), and W = 1
+MHA_TRAIN_CASES = [(1536, 30, 8), (1280, 60, 8), (768, 100, 8), (5, 30, 8),
+                   (1, 100, 8)]
+
+
 @pytest.mark.cuda
-def test_window_mha_kernel_refuses_autograd():
+@pytest.mark.parametrize("w,t,h", MHA_TRAIN_CASES)
+def test_window_mha_autograd_runs_the_kernel(w, t, h):
+    """Under autograd the forward is the kernel (one launch), within the
+    forward's tolerance of the twin; the gradients land in the qkv buffer
+    of the column views and equal the ported backward (``_mha_bwd``) at the
+    twin's inputs bit for bit; they are within 1 bf16 ulp (rtol 2^-7) plus
+    2^-8 of each gradient's largest magnitude of the exact gradient in
+    float64. The cotangent is zero on padded query rows, as the
+    window-to-flat gather leaves it. Cases: the training buckets (their
+    inputs hold an all-padded window, a one-token window and all-padded
+    query tiles), every slot padded, and one window."""
     device = _cuda()
-    q, k, v, pad = _mha_case(4, 30, 8, seed=0, device=device)
-    with pytest.raises(NotImplementedError):
-        wm.window_mha(q, k.detach().requires_grad_(), v, pad, 8)
+    q, k, v, pad = _mha_case(w, t, h, seed=w + t, device=device)
+    if w == 5:
+        pad[:] = True
+    c = 16 * h
+    qkv = torch.cat([q, k, v], dim=-1).requires_grad_()
+    gen = torch.Generator(device=device).manual_seed(t)
+    g = torch.randn(w, t, c, generator=gen, device=device)
+    g = torch.where(pad[..., None], 0.0, g).to(torch.bfloat16)
+    wm.reset_launch_counts()
+    out = wm.window_mha(*qkv.split(c, dim=-1), pad, h)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert wm.launches == 1 and out.grad_fn is not None
+    _assert_mha_close(out.detach(), wm.window_mha_ref(q, k, v, pad, h), v,
+                      pad)
+    assert qkv.grad.dtype == torch.bfloat16
+    ported = torch.cat(wm.window_mha_backward(q, k, v, pad, h, g), dim=-1)
+    assert torch.equal(qkv.grad, ported)
+    ref = torch.cat(_attention_grads_f64(q, k, v, pad, h, g), dim=-1)
+    for i in range(3):
+        got_i = qkv.grad[..., i * c:(i + 1) * c].double()
+        ref_i = ref[..., i * c:(i + 1) * c]
+        tol = 2.0**-7 * ref_i.abs() + 2.0**-8 * ref_i.abs().max()
+        assert bool(((got_i - ref_i).abs() <= tol).all()), "qkv"[i]
+    if w == 5:
+        assert not qkv.grad.any()
+    else:
+        assert qkv.grad.abs().max() > 0

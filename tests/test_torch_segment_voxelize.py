@@ -100,6 +100,32 @@ def test_gather_segments():
         np.testing.assert_array_equal(np.asarray(j), t.numpy())
 
 
+@pytest.mark.parametrize("n,rows", [(50, 4000), (5000, 300)])
+def test_gather_rows_fills_and_scatters_its_gradient(n, rows):
+    """``gather_rows`` (JAX's gather through an inverse table; no JAX
+    counterpart): rows read their source, or the fill where the index lies
+    outside the sources (with more and with fewer rows than sources); each
+    source's gradient is that of the one row that read it, 0 for a source
+    no row read, exactly."""
+    rng = np.random.RandomState(3)
+    src = torch.from_numpy(rng.randn(n, 3).astype(np.float32))
+    index = np.full(rows, n, np.int32)  # most rows are padding
+    index[::7] = -1
+    used = rng.choice(n, 30, replace=False)
+    slots = rng.choice(rows, 30, replace=False)
+    index[slots] = used
+    src.requires_grad_()
+    out = tseg.gather_rows(src, torch.from_numpy(index), fill=-3.0)
+    want = np.full((rows, 3), -3.0, np.float32)
+    want[slots] = src.detach().numpy()[used]
+    np.testing.assert_array_equal(out.detach().numpy(), want)
+    g = rng.randn(rows, 3).astype(np.float32)
+    out.backward(torch.from_numpy(g))
+    want_grad = np.zeros((n, 3), np.float32)
+    want_grad[used] = g[slots]
+    np.testing.assert_array_equal(src.grad.numpy(), want_grad)
+
+
 @pytest.mark.parametrize("voxel_size,need_ranks,sorts", [
     ((0.5, 0.5, 0.5), False, False),   # 12x16x16 grid → canvas unique
     ((0.5, 0.5, 0.5), True, True),     # forced sort

@@ -254,9 +254,3 @@ def test_sstv1_defaults_two_dilated_convs():
     convs = [m.attached_conv_0.Conv_0, m.attached_conv_1.Conv_0]
     assert m.num_attached_conv == 2
     assert all(c.dilation == (2, 2) and c.padding == (2, 2) for c in convs)
-
-
-def test_train_mode_raises():
-    m = tflag.tiny_sst(device="cpu")
-    with pytest.raises(NotImplementedError):
-        m(tflag.tiny_batch().to("cpu"), train=True)

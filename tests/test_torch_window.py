@@ -151,15 +151,6 @@ def test_sinusoidal_window_pos_matches_jax(d_model, window_shape,
                                atol=1e-6)
 
 
-def test_shuffle_is_not_ported():
-    coords, valid, sparse_shape = _voxels()
-    with pytest.raises(NotImplementedError):
-        tin.sst_input_layer(torch.from_numpy(coords),
-                            torch.from_numpy(valid), sparse_shape, (4, 4),
-                            (twin.BucketSpec(8, 0, 100000, 64),), 32, 128,
-                            shuffle_rng=torch.Generator())
-
-
 def mha_inputs(w, t, h, seed):
     """bf16-rounded q, k, v [W, T, 16H] as f32 numpy, and a pad mask with
     an all-padded window (0) and a one-token window (1)."""
