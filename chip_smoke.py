@@ -1,11 +1,13 @@
 """GPU smoke run of the PyTorch port's three ``predict`` paths and their
 three train steps at full width on one CUDA card, through their
-hand-written kernels: FSDv2-Waymo's dense-BEV build (sorted segment reduce
-kernel, in predict and training), its sparse-UNet build (sorted segment
-reduce and sparse conv kernels; in training also the sparse conv's
-weight-gradient kernel, and the conv kernel over the transposed tables for
-the input gradient) and SST-Waymo (window MHA kernel; in training under
-autograd, with the JAX package's einsum-recompute backward in torch ops).
+hand-written kernels: FSDv2-Waymo's dense-BEV build at its default bf16
+compute policy and in float32 beside it (sorted segment reduce kernel, its
+bf16 and float32 routes, in predict and training), its sparse-UNet build
+(sorted segment reduce and sparse conv kernels; in training also the
+sparse conv's weight-gradient kernel, and the conv kernel over the
+transposed tables for the input gradient) and SST-Waymo (window MHA
+kernel; in training under autograd, with the JAX package's
+einsum-recompute backward in torch ops).
 
     python3 chip_smoke.py
 
@@ -14,24 +16,42 @@ Phases (each one that fails ends the run with a non-zero exit code):
   2. build    compile every kernel from ``sst_tpu_torch/csrc``, one nvcc per
               source, all started together.
   3. kernels  the sorted reduce and its offsets kernel against their plain
-              PyTorch twins on the card, at the dense path's shapes and on
-              edge cases (a mostly empty segment range at the segmentor's
-              196,608 rows and 131,072 segments among them); offsets
-              computed by the wrapper and passed in give the same bits;
-              kernel, twin and ``torch.segment_reduce`` timed, and the
-              wrapper's host time per call.
-  4. predict  ``fsdv2_waymo_dense`` (random weights from a seed) answers four
-              synthetic Waymo frames through ``apis.inference_detector``;
-              the kernels' launch counts show that the path went through them.
-  5. A/B      the same weights with the segmentor's sorted reduce off
-              (scatter path): segmentor outputs agree, both latencies timed.
- 12. dense train  the same model trains on four labelled frames
-              (``synthetic_labeled_batch``): 2 warm-up and 6 timed
-              ``train_step`` calls in the detection schedule's step-0 mode,
-              3 more steps timed by stage (loss, backward, optimizer), one
-              ``pretrain=False`` step; step ms, peak memory, losses, grad
-              norms, and 3 sorted reduce + 1 offsets launches per step,
-              counted at the launch sites.
+              PyTorch twins on the card, at the dense path's shapes: the
+              reductions of the bf16 ``fsdv2_waymo_dense`` (its default
+              dtype) recorded from its main path on frame 0 (a float32
+              cluster-centre sum at C = 3, two bf16 maxima at C = 64) and
+              the float32 build's maxima at the same ids; then edge cases
+              in float32 and bf16 (NaN and +-inf, ids out of range, a
+              3000-row segment, a mostly empty segment range at the
+              segmentor's 196,608 rows and 131,072 segments); a max equal
+              bit for bit, a bf16 sum within one bf16 ulp; offsets computed
+              by the wrapper and passed in give the same bits; kernel,
+              twin and ``torch.segment_reduce`` timed on the same rows, the
+              bound at each dtype's bytes, and the wrapper's host time.
+  4. predict  the bf16 ``fsdv2_waymo_dense`` (random weights from a seed)
+              answers four synthetic Waymo frames through
+              ``apis.inference_detector``; the kernels' launch counts by
+              (mode, C, dtype) must equal the modules' (1 float32 sum at
+              C = 3, 2 bf16 maxima at C = 64, 1 offsets launch per frame).
+  5. A/B      segmentor outputs with the sorted reduce on and off agree, in
+              the bf16 build and in the float32 build with the same
+              weights; the float32 build answers the four frames (its
+              launches counted from zero), how many of its detections the
+              bf16 build shares is printed; predict latency of bf16 with
+              the kernel, bf16 with the scatters and float32 with the
+              kernel, in rotation.
+     batch 4  ``fsdv2_waymo_dense(cap_scale=4)`` with the same weights on
+              ``synthetic_waymo_batch(batch_size=4)``, the counterpart of
+              ``bench.py bench_fsdv2_b4``: 2 timed batches, launches
+              counted, ms per frame amortised.
+ 12. dense train  the bf16 model, then the float32 one, trains on four
+              labelled frames (``synthetic_labeled_batch``): 2 warm-up and
+              6 timed ``train_step`` calls in the detection schedule's
+              step-0 mode, 3 more steps timed by stage (loss, backward,
+              optimizer), one ``pretrain=False`` step; step ms, peak
+              memory, losses, grad norms, and the sorted reduce's and
+              offsets kernel's launches per step by (mode, C, dtype),
+              counted at the launch sites and held against the modules.
   6. sparse kernels  the sparse conv kernel against its twin at every conv
               of one frame of ``fsdv2_waymo(backbone="sparse")`` (the
               rulebooks of frame 0 and their row schedules, recorded by
@@ -41,9 +61,10 @@ Phases (each one that fails ends the run with a non-zero exit code):
               pairs with a neighbour, the executed share of the earlier
               SIMT kernel's 8-row-group skip and of the tile schedule, and
               the schedule's build time.
-  7. sparse predict  ``fsdv2_waymo(backbone="sparse")`` answers the four
-              frames; 58 sparse conv launches and 3 sorted reduce launches
-              per frame, counted at the launch sites; latency timed.
+  7. sparse predict  ``fsdv2_waymo(backbone="sparse")`` (float32) answers
+              the four frames; 58 sparse conv launches and 3 sorted reduce
+              launches per frame, counted at the launch sites; latency
+              timed.
  10. backward kernels  on labelled frame 0 (``synthetic_labeled_batch``),
               hooks record every conv's input and rulebook; the weight-
               gradient kernel and the input gradient (the conv kernel over
@@ -78,22 +99,22 @@ Phases (each one that fails ends the run with a non-zero exit code):
               each WindowAttention) the kernel forward + ported backward
               through autograd against the twin forward + ported backward
               (outputs at phase 8's tolerance, gradients the same bits) and
-              against the float64 gradient, each input timed; then 2
-              warm-up, 6 timed and 3 staged ``train_step`` calls with a
-              seeded voxel-shuffle generator; step ms, stages, peak memory,
-              losses, capacity counters, and 36 window MHA launches per
-              step (6 blocks x 2 shifts x 3 buckets), counted at the launch
-              site.
+              against the float64 gradient, each input timed (kernel, twin
+              and SDPA forward, ported backward); then 2 warm-up, 6 timed
+              and 3 staged ``train_step`` calls with a seeded voxel-shuffle
+              generator; step ms, stages, peak memory, losses, capacity
+              counters, and 36 window MHA launches per step (6 blocks x 2
+              shifts x 3 buckets), counted at the launch site.
 
-Phase 12 runs after phase 5 on the dense model; phases 10 and 11 after
-phase 7, on the sparse model; phase 13 after phase 9, on a model with the
-training buckets. TF32 is turned
-off for convolutions and matmuls, so every comparison is in full float32.
-Kernel, twin and library times are device times: each timed call is queued
-behind a short ``torch.cuda._sleep`` (``utils/timing.py cuda_ms``). The
-line before the last is the kernels JSON (every kernel's time, its plain
-twin's, its bound on the card and a library call's where there is one);
-the last line of standard output is the result JSON.
+Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
+models; phases 10 and 11 after phase 7, on the sparse model; phase 13
+after phase 9, on a model with the training buckets. TF32 is turned off
+for convolutions and matmuls, so every float32 comparison is in full
+float32. Kernel, twin and library times are device times: each timed call
+is queued behind a short ``torch.cuda._sleep`` (``utils/timing.py
+cuda_ms``). The line before the last is the kernels JSON (every kernel's
+time, its plain twin's, its bound on the card and a library call's where
+there is one); the last line of standard output is the result JSON.
 """
 
 from __future__ import annotations
@@ -201,32 +222,52 @@ def phase_build():
     return seconds, {n: lib.build_seconds for n, lib in libs.items()}
 
 
-def _segmentor_rows(model, frame, device):
-    """Sorted segment ids of the segmentor voxelization of one frame, as the
-    main path hands them to the kernel."""
-    seg_mod = model.segmentor_mod
-    pts = torch.from_numpy(frame.points[0]).to(device)
-    valid = torch.from_numpy(frame.valid[0]).to(device)
-    bidx = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
-    pts = seg_mod.preprocess(pts)
-    vm = dynamic_voxelize(pts, bidx, valid, seg_mod.point_cloud_range,
-                          seg_mod.voxel_size, seg_mod.max_voxels, 1)
-    if vm.unique.order is None:
+def _record_sorted_reduce(model, frame):
+    """Predict one frame with the segmentor VFE's ``sorted_segment_reduce``
+    wrapped; returns each call's (mode, data, seg, num_segments) as the main
+    path hands them to the kernel: the frame's sorted rows."""
+    from sst_tpu_torch.models import vfe as vfe_module
+
+    calls = []
+    wrapped = vfe_module.sorted_segment_reduce
+
+    def record(data, seg, num_segments, mode="sum", offsets=None):
+        calls.append((mode, data.detach().clone(), seg, num_segments))
+        return wrapped(data, seg, num_segments, mode, offsets)
+
+    vfe_module.sorted_segment_reduce = record
+    try:
+        inference_detector(model, frame.points[0], max_points=196608)
+    finally:
+        vfe_module.sorted_segment_reduce = wrapped
+    if not calls:
         fail("the segmentor voxelization did not sort; the kernel would not "
              "run on the main path")
-    order = vm.unique.order
-    return pts[order], vm.point_seg_ids[order].contiguous(), seg_mod.max_voxels
+    return calls
 
 
 def _same_bits(a, b) -> bool:
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at each value (the spacing of its binade)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0**-126)))
+    return 2.0 ** (e - 7)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return sr.DTYPES[t.dtype][0]
 
 
 def _check_case(name, data, seg, num_segments, mode, results,
                 twin_on_cpu=False):
     """The kernel over offsets it computes and over offsets passed in (the
     same bits), the offsets against ``torch.searchsorted`` (exactly), the
-    result against the twin."""
+    result against the twin: a max equal bit for bit; a float32 sum within
+    rtol 1e-5 + 1e-5 sqrt(rows), a bfloat16 sum within one bf16 ulp (both
+    reduce in float32, in other orders, and round once)."""
     offsets = sr.segment_offsets(seg, num_segments)
     got = sr.sorted_segment_reduce(data, seg, num_segments, mode, offsets)
     again = sr.sorted_segment_reduce(data, seg, num_segments, mode)
@@ -238,6 +279,9 @@ def _check_case(name, data, seg, num_segments, mode, results,
     torch.cuda.synchronize()
     if not torch.equal(offsets, sr.segment_offsets_ref(seg, num_segments)):
         fail(f"the offsets kernel disagrees with torch.searchsorted in {name}")
+    if got.dtype != data.dtype:
+        fail(f"the sorted reduce returned {got.dtype} for {data.dtype} rows "
+             f"in {name}")
     if not _same_bits(got, again):
         fail(f"the sorted reduce gave other bits over the offsets passed in "
              f"than over its own in {name} ({mode})")
@@ -252,10 +296,13 @@ def _check_case(name, data, seg, num_segments, mode, results,
         fail(f"kernel and plain twin disagree on which outputs are NaN or "
              f"+-inf in {name} ({mode})")
     got, ref = got.masked_fill(~finite, 0.0), ref.masked_fill(~finite, 0.0)
-    err = (got - ref).abs().max().item() if got.numel() else 0.0
+    err = (got - ref).float().abs().max().item() if got.numel() else 0.0
     if mode == "max":
-        ok = torch.equal(got, ref)
-        rule = "exact"
+        ok = _same_bits(got, ref)
+        rule = "same bits"
+    elif data.dtype == torch.bfloat16:
+        ok = bool(((got - ref).float().abs() <= _bf16_ulp(ref)).all())
+        rule = "one bf16 ulp"
     else:
         # the kernel sums each segment in row order, the twin's index_add in
         # another order: rtol 1e-5 plus atol 1e-5 * sqrt(rows in segment)
@@ -265,9 +312,10 @@ def _check_case(name, data, seg, num_segments, mode, results,
         tol = 1e-5 * ref.abs() + 1e-5 * rows.sqrt()[:, None]
         ok = bool(((got - ref).abs() <= tol).all())
         rule = "rtol 1e-5, atol 1e-5*sqrt(rows)"
-    print(f"  {name:<34} {mode:<3} C={data.shape[1]:<3} "
-          f"max_abs_err={err:.3e} ({rule}), offsets exact, same bits over "
-          f"given offsets {'ok' if ok else 'MISMATCH'}", flush=True)
+    print(f"  {name:<40} {mode:<3} C={data.shape[1]:<3} "
+          f"{_dtype_name(data):<8} max_abs_err={err:.3e} ({rule}), offsets "
+          f"exact, same bits over given offsets "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
     results.append(err)
     if not ok:
         fail(f"kernel disagrees with its plain twin on {name} ({mode})")
@@ -284,13 +332,33 @@ def _segment_reduce_library(data, offsets, num_segments, mode):
                                         unsafe=True)
 
 
-def phase_kernels(model, frame, device):
-    """The kernels against their twins at the shapes the segmentor VFE gives
-    them: one offsets array of the sorted ids, a sum over the xyz rows
-    (cluster centres), a max over each layer's width. Returns the timed
-    reduce shapes, the offsets kernel's record and the largest error."""
+def _sorted_reduce_cases(model, f32_model, frame, gen, device):
+    """The reductions each dense build's segmentor VFE hands the kernel on
+    frame 0: (name, data, mode), recorded from the main path where the
+    bf16 build is concerned (its float32 cluster-centre sum and its two
+    bf16 maxima at C = 64); the float32 build's maxima take random rows at
+    the recorded ids and widths."""
+    calls = _record_sorted_reduce(model, frame)
+    seg, nseg = calls[0][2], calls[0][3]
+    cases = [(f"recorded {mode} {i}", data, mode)
+             for i, (mode, data, _, _) in enumerate(calls)]
+    for c in sorted(set(f32_model.segmentor_mod.vfe_mod.feat_channels)):
+        cases.append(("float32 build's layer max", torch.randn(
+            seg.shape[0], c, generator=gen, device=device), "max"))
+    return cases, seg, nseg
+
+
+def phase_kernels(model, f32_model, frame, device):
+    """The kernels against their twins at the shapes the dense builds'
+    segmentor VFE gives them: one offsets array of the frame's sorted ids;
+    the float32 sum over the xyz rows (cluster centres) and the bf16 build's
+    two maxima, recorded from its main path on frame 0; the float32 build's
+    maxima at the same ids. Then edge cases in float32 and bf16. Returns the
+    timed reduce shapes (one per (mode, C, dtype): the mean of its inputs),
+    the offsets kernel's record and the largest error."""
     gen = torch.Generator(device=device).manual_seed(0)
-    pts_sorted, seg, nseg = _segmentor_rows(model, frame, device)
+    main_cases, seg, nseg = _sorted_reduce_cases(model, f32_model, frame,
+                                                 gen, device)
     n = seg.shape[0]
     n_valid = int((seg < nseg).sum())
     offsets = sr.segment_offsets(seg, nseg)
@@ -317,12 +385,7 @@ def phase_kernels(model, frame, device):
           f"{off_bound:.4f} ms ({off_by}), wrapper host time "
           f"{offsets_rec['host_ms'] * 1e3:.1f} us per call", flush=True)
     errs = []
-    shapes = []
-    main_cases = [("segmentor cluster-centre sum",
-                   pts_sorted[:, :3].contiguous(), "sum")]
-    for c in sorted(set(model.segmentor_mod.vfe_mod.feat_channels)):
-        main_cases.append(("segmentor layer max", torch.randn(
-            n, c, generator=gen, device=device), "max"))
+    timed = {}
     for name, data, mode in main_cases:
         _check_case(name, data, seg, nseg, mode, errs)
         fns = {"plain": lambda: sr.sorted_segment_reduce_ref(
@@ -334,69 +397,79 @@ def phase_kernels(model, frame, device):
         for kind in ("plain", "kernel", "library", "library", "kernel",
                      "plain"):
             runs[kind].append(cuda_ms(fns[kind], 20))
-        c = data.shape[1]
-        bound_ms, bound_by = bound(4 * (n * c + (nseg + 1) + nseg * c),
-                                   n * c, F32_FLOP_PER_S)
-        rec = {"mode": mode, "c": c, "n": n, "num_segments": nseg,
+        c, esize = data.shape[1], data.element_size()
+        # each row read once, the offsets and each output row written once
+        bound_ms, bound_by = bound(esize * (n * c + nseg * c)
+                                   + 4 * (nseg + 1), n * c, F32_FLOP_PER_S)
+        rec = {"mode": mode, "c": c, "dtype": _dtype_name(data), "n": n,
+               "num_segments": nseg,
                **{("ms" if k == "kernel" else f"{k}_ms"): min(v)
                   for k, v in runs.items()},
                "host_ms": _host_ms(fns["kernel"]),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "max_abs_err": errs[-1]}
-        shapes.append(rec)
-        print(f"  time {mode} C={c}: kernel {rec['ms']:.4f} ms (runs "
-              f"{runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), plain "
-              f"twin {rec['plain_ms']:.4f} ms, torch.segment_reduce "
-              f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), wrapper host time "
+        timed.setdefault((mode, c, rec["dtype"]), []).append(rec)
+        print(f"  time {mode} C={c} {rec['dtype']} ({name}): kernel "
+              f"{rec['ms']:.4f} ms (runs {runs['kernel'][0]:.4f}, "
+              f"{runs['kernel'][1]:.4f}), plain twin {rec['plain_ms']:.4f} "
+              f"ms, torch.segment_reduce {rec['library_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), wrapper host time "
               f"{rec['host_ms'] * 1e3:.1f} us per call", flush=True)
+    shapes = []
+    for recs in timed.values():
+        mean = {k: sum(r[k] for r in recs) / len(recs) for k in (
+            "ms", "plain_ms", "library_ms", "host_ms", "bound_ms",
+            "max_abs_err")}
+        shapes.append({**recs[0], **mean, "inputs": len(recs)})
 
-    # edge cases
+    # edge cases, in float32 and in bf16
     m = 4096
-    r = torch.randn(m, 16, generator=gen, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    _check_case("all rows dropped", r, torch.full((m,), 300, **i32), 300,
-                "max", errs)
-    _check_case("all rows dropped", r, torch.full((m,), 300, **i32), 300,
-                "sum", errs)
     gaps = torch.sort((torch.arange(m, device=device) // 7 * 5).to(
         torch.int32)).values
-    for mode in ("sum", "max"):
-        _check_case("empty segments between ids", r, gaps, int(gaps[-1]) + 9,
-                    mode, errs)
-    _check_case("negative maxima", -r.abs() - 1.0, gaps, int(gaps[-1]) + 1,
-                "max", errs)
     span = torch.zeros(m, **i32)
     span[3000:] = 1
-    for mode in ("sum", "max"):
-        _check_case("one segment over 3000 rows", r, span, 4, mode, errs)
     wild = torch.sort(torch.randint(-50, 700, (m,), generator=gen,
                                     device=device).to(torch.int32)).values
-    for mode in ("sum", "max"):
-        _check_case("ids < 0 and >= num_segments", r, wild, 600, mode, errs)
-        _check_case("narrow rows, C=3", r[:, :3].contiguous(), wild, 600,
-                    mode, errs)
-    # NaN and inf rows: a sum over a segment holding a NaN is NaN, and a max
-    # that is not finite reads 0 (JAX segment_reduce). Held against the
-    # twin on the CPU: the twin on the card goes through ATen's CUDA
-    # atomics, whose NaN rule is not documented
-    with_nan = r.clone()
-    with_nan[::97, ::5] = float("nan")
-    with_nan[5::89, 1::7] = float("inf")
-    with_nan[7::83, 2::6] = -float("inf")
-    for mode in ("sum", "max"):
-        _check_case("NaN and +-inf in some rows", with_nan, gaps,
-                    int(gaps[-1]) + 1, mode, errs, twin_on_cpu=True)
     # the segmentor's row and segment counts with most segments empty: ids
     # dense in [0, 40000), the invalid rows' ids at num_segments
     sparse_ids = torch.sort(torch.randint(0, 40000, (196608,), generator=gen,
                                           device=device).to(
         torch.int32)).values
     sparse_ids[-20000:] = 131072
-    for c, mode in ((3, "sum"), (64, "max"), (64, "sum")):
-        _check_case("mostly empty, N=196608, S=131072",
-                    torch.randn(196608, c, generator=gen, device=device),
-                    sparse_ids, 131072, mode, errs)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = (torch.randn(m, 16, generator=gen, device=device) * 4).to(dtype)
+        _check_case("all rows dropped", r, torch.full((m,), 300, **i32),
+                    300, "max", errs)
+        _check_case("all rows dropped", r, torch.full((m,), 300, **i32),
+                    300, "sum", errs)
+        for mode in ("sum", "max"):
+            _check_case("empty segments between ids", r, gaps,
+                        int(gaps[-1]) + 9, mode, errs)
+        _check_case("negative maxima", -r.abs() - 1.0, gaps,
+                    int(gaps[-1]) + 1, "max", errs)
+        for mode in ("sum", "max"):
+            _check_case("one segment over 3000 rows", r, span, 4, mode, errs)
+            _check_case("ids < 0 and >= num_segments", r, wild, 600, mode,
+                        errs)
+            _check_case("narrow rows, C=3", r[:, :3].contiguous(), wild, 600,
+                        mode, errs)
+        # NaN and inf rows: a sum over a segment holding a NaN is NaN, and a
+        # max that is not finite reads 0 (JAX segment_reduce). Held against
+        # the twin on the CPU: the twin on the card goes through ATen's CUDA
+        # atomics, whose NaN rule is not documented
+        with_nan = r.clone()
+        with_nan[::97, ::5] = float("nan")
+        with_nan[5::89, 1::7] = float("inf")
+        with_nan[7::83, 2::6] = -float("inf")
+        for mode in ("sum", "max"):
+            _check_case("NaN and +-inf in some rows", with_nan, gaps,
+                        int(gaps[-1]) + 1, mode, errs, twin_on_cpu=True)
+        for c, mode in ((3, "sum"), (64, "max"), (64, "sum")):
+            _check_case("mostly empty, N=196608, S=131072",
+                        torch.randn(196608, c, generator=gen,
+                                    device=device).to(dtype),
+                        sparse_ids, 131072, mode, errs)
     return shapes, offsets_rec, max(errs)
 
 
@@ -405,10 +478,22 @@ def _frames(n_frames: int):
                                   pcr_half=79.8) for s in range(n_frames)]
 
 
-def phase_predict(model, frames):
-    """Drive the main path; returns the results, the kernels' launches
-    (reduce, offsets) and the reduce's launches per frame by (mode, C), as
-    counted at the launch sites."""
+def _expected_reduce_launches(model) -> dict:
+    """The segmentor VFE's reductions per frame by (mode, C, dtype), from
+    the module: the float32 cluster-centre sum over xyz (the decoration
+    stays float32), then one reduction per layer in the compute dtype."""
+    vfe = model.segmentor_mod.vfe_mod
+    out = Counter({("sum", 3, "float32"): 1})
+    for c in vfe.feat_channels:
+        out[(vfe.mode, c, sr.DTYPES[vfe.dtype][0])] += 1
+    return dict(out)
+
+
+def _predict_frames(model, frames, title):
+    """Drive one dense predict path from zero counts; returns the results,
+    the kernels' launches (reduce, offsets) and the reduce's launches per
+    frame by (mode, C, dtype), counted at the launch sites and held
+    against the modules."""
     results, per_frame = [], []
     reset_launch_counts()
     for frame in frames:
@@ -420,14 +505,16 @@ def phase_predict(model, frames):
                           sr.offsets_launches - before[1]))
     launches = (sr.launches, sr.offsets_launches)
     split, n_offsets = per_frame[0]
-    print(f"predict: fsdv2_waymo_dense on {len(frames)} frames; "
-          f"sorted_segment_reduce launches {launches[0]}, per frame by "
-          f"(mode, C) {split}; segment_offsets launches {launches[1]}, "
-          f"{n_offsets} per frame", flush=True)
+    expected = _expected_reduce_launches(model)
+    print(f"predict: {title} on {len(frames)} frames; sorted_segment_reduce "
+          f"launches {launches[0]}, per frame by (mode, C, dtype) {split} "
+          f"(the modules give {expected}); segment_offsets launches "
+          f"{launches[1]}, {n_offsets} per frame", flush=True)
     if any(f != (split, n_offsets) for f in per_frame):
         fail(f"the kernels' launches differ between frames: {per_frame}")
-    if sum(split.values()) != 3:
-        fail(f"expected 3 kernel launches per frame, counted {split}")
+    if split != expected:
+        fail(f"expected kernel launches per frame {expected} from the "
+             f"modules, counted {split}")
     if n_offsets != 1:
         fail(f"expected one offsets launch per frame (the VFE's three "
              f"reductions share it), counted {n_offsets}")
@@ -462,47 +549,157 @@ def _same_detections(a, b) -> float:
         a["valid"] | b["valid"]).any() else 1.0
 
 
-def phase_ab(model, frames, sorted_results, device):
+def _matched_detections(ref, got) -> int:
+    """How many of ``ref``'s valid detections ``got`` has too: the same
+    label, each box value within 2^-3 relative + 0.25, the score within
+    2^-5 (greedy, highest score first)."""
+    rv, gv = ref["valid"], got["valid"]
+    free = set(np.flatnonzero(gv))
+    n = 0
+    for i in np.flatnonzero(rv)[np.argsort(-ref["scores"][rv],
+                                           kind="stable")]:
+        for k in sorted(free, key=lambda k: np.abs(
+                ref["boxes"][i] - got["boxes"][k]).max()):
+            if (got["labels"][k] == ref["labels"][i]
+                    and abs(got["scores"][k] - ref["scores"][i]) <= 2.0**-5
+                    and (np.abs(ref["boxes"][i] - got["boxes"][k])
+                         <= 2.0**-3 * np.abs(ref["boxes"][i]) + 0.25).all()):
+                free.discard(k)
+                n += 1
+                break
+    return n
+
+
+def _kernel_vs_scatter(model, frames, device, close, rule):
+    """The segmentor outputs with the sorted reduce on and off agree within
+    ``close``."""
     vfe = model.segmentor_mod.vfe_mod
     for s, frame in enumerate(frames):
         vfe.use_sorted_reduce = True
-        logits_k, feats_k = _seg_outputs(model, frame, device)
+        out_k = _seg_outputs(model, frame, device)
         vfe.use_sorted_reduce = False
-        logits_s, feats_s = _seg_outputs(model, frame, device)
-        d_logits = (logits_k - logits_s).abs().max().item()
-        d_feats = (feats_k - feats_s).abs().max().item()
-        print(f"A/B frame {s}: kernel vs scatter segmentor max-abs diff: "
-              f"seg_logits {d_logits:.3e}, seg_feats {d_feats:.3e} "
-              f"(atol 1e-4)", flush=True)
-        if d_logits > 1e-4 or d_feats > 1e-4:
+        out_s = _seg_outputs(model, frame, device)
+        vfe.use_sorted_reduce = True
+        diffs = [(a.float() - b.float()).abs().max().item()
+                 for a, b in zip(out_k, out_s)]
+        print(f"A/B frame {s} ({sr.DTYPES[vfe.dtype][0]}): kernel vs scatter "
+              f"segmentor max-abs diff: seg_logits {diffs[0]:.3e}, seg_feats "
+              f"{diffs[1]:.3e} ({rule})", flush=True)
+        if not all(close(a, b) for a, b in zip(out_k, out_s)):
             fail(f"frame {s}: kernel and scatter segmentor outputs differ")
+
+
+def _bf16_close(a, b) -> bool:
+    """Within one bf16 ulp of the value plus 4 of the largest magnitude:
+    the cluster-centre sums differ in float32 order, and a value cast to
+    bf16 on the other side of a rounding moves a few ulps downstream (the
+    CPU tests' tolerance between the packages)."""
+    a, b = a.float(), b.float()
+    tol = 2.0**-7 * b.abs() + 4 * 2.0**-7 * b.abs().max()
+    return bool(((a - b).abs() <= tol).all())
+
+
+def phase_ab(model, f32_model, frames, sorted_results, device):
+    """The sorted reduce against the scatter path (segmentor outputs agree)
+    in the bf16 build and in the float32 build with the same weights; the
+    float32 build's predictions on the frames, its launches from zero
+    counts, and how many detections of the bf16 build it shares (printed,
+    not gated); predict latency of bf16 with the kernel, bf16 with the
+    scatters and float32 with the kernel, alternated. Returns (latencies,
+    the float32 path's launches and split)."""
+    _kernel_vs_scatter(model, frames, device, _bf16_close,
+                       "rtol 2^-7 + 4 x 2^-7 max|ref|")
+    _kernel_vs_scatter(
+        f32_model, frames, device,
+        lambda a, b: (a - b).abs().max().item() <= 1e-4, "atol 1e-4")
+    for s, frame in enumerate(frames):
+        model.segmentor_mod.vfe_mod.use_sorted_reduce = False
         scatter_res = inference_detector(model, frame.points[0],
                                          max_points=196608)
-        print(f"  frame {s}: identical detections "
+        model.segmentor_mod.vfe_mod.use_sorted_reduce = True
+        print(f"  frame {s}: bf16 kernel vs scatter: identical detections "
               f"{_same_detections(sorted_results[s], scatter_res):.4f} of "
               f"the slots valid in either build", flush=True)
+    f32_results, f32_launches, f32_split = _predict_frames(
+        f32_model, frames, "fsdv2_waymo_dense(dtype=torch.float32), the "
+        "same weights")
+    for s, (a, b) in enumerate(zip(f32_results, sorted_results)):
+        print(f"  frame {s}: bf16 build has {_matched_detections(a, b)} of "
+              f"the float32 build's {int(a['valid'].sum())} detections "
+              f"(same label, box within 2^-3 + 0.25, score within 2^-5)",
+              flush=True)
 
-    timed = {True: [], False: []}
-    for flag in (True, False):  # warm-up
-        vfe.use_sorted_reduce = flag
+    builds = {"bf16 kernel": (model, True), "bf16 scatter": (model, False),
+              "f32 kernel": (f32_model, True)}
+    timed = {k: [] for k in builds}
+
+    def run(name, frame):
+        m, flag = builds[name]
+        m.segmentor_mod.vfe_mod.use_sorted_reduce = flag
+        return event_ms(lambda: inference_detector(m, frame.points[0],
+                                                   max_points=196608))
+
+    for name in builds:  # warm-up
         for frame in frames[:2]:
-            inference_detector(model, frame.points[0], max_points=196608)
-
+            run(name, frame)
+    names = list(builds)
     for r in range(12):
         frame = frames[r % len(frames)]
-        for flag in ((True, False) if r % 2 == 0 else (False, True)):
-            vfe.use_sorted_reduce = flag
-            timed[flag].append(event_ms(lambda: inference_detector(
-                model, frame.points[0], max_points=196608)))
-    vfe.use_sorted_reduce = True
+        for name in names[r % 3:] + names[:r % 3]:
+            timed[name].append(run(name, frame))
+    for m, _ in builds.values():
+        m.segmentor_mod.vfe_mod.use_sorted_reduce = True
     lat = {k: statistics.median(v) for k, v in timed.items()}
-    print(f"A/B predict latency (median of 12 CUDA-event runs, "
-          f"inference_detector incl. host I/O): sorted-reduce kernel "
-          f"{lat[True]:.2f} ms, scatter {lat[False]:.2f} ms", flush=True)
-    print(f"  kernel runs: {[round(t, 2) for t in timed[True]]}", flush=True)
-    print(f"  scatter runs: {[round(t, 2) for t in timed[False]]}",
-          flush=True)
-    return lat
+    print(f"A/B predict latency (median of 12 CUDA-event runs each, "
+          f"inference_detector incl. host I/O, the three builds in "
+          f"rotation): " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                     lat.items()), flush=True)
+    for k, v in timed.items():
+        print(f"  {k} runs: {[round(t, 2) for t in v]}", flush=True)
+    return lat, f32_launches, f32_split
+
+
+def phase_batch4(model, device):
+    """The batch-4 counterpart of ``bench.py bench_fsdv2_b4``:
+    ``fsdv2_waymo_dense(cap_scale=4)`` with the bf16 model's weights on
+    ``synthetic_waymo_batch(batch_size=4)`` (seeds 0, 1; one more batch to
+    warm up): 2 timed batches, launches per batch from zero counts, held
+    against the modules (the batch is flattened: one set per batch), ms per
+    frame amortised. Returns the phase's record."""
+    b4 = fsdv2_waymo_dense(cap_scale=4)
+    b4.load_state_dict(model.state_dict())
+    b4.eval()
+    batches = [synthetic_waymo_batch(4, 196608, seed=s, num_extra_feats=2,
+                                     pcr_half=79.8).to(device)
+               for s in range(3)]
+    b4.predict(batches[2])  # warm-up
+    reset_launch_counts()
+    ms, outs = [], []
+    for batch in batches[:2]:
+        ms.append(event_ms(lambda: outs.append(b4.predict(batch))))
+    split = {k: v // 2 for k, v in sr.launch_counts.items()}
+    expected = _expected_reduce_launches(b4)
+    launches = (sr.launches, sr.offsets_launches)
+    print(f"batch 4: fsdv2_waymo_dense(cap_scale=4) bf16, 2 timed batches "
+          f"of 4 frames: {[round(t, 2) for t in ms]} ms per batch, "
+          f"{statistics.mean(ms) / 4:.2f} ms per frame amortised; "
+          f"sorted_segment_reduce launches {launches[0]} by (mode, C, dtype) "
+          f"per batch {split} (the modules give {expected}), "
+          f"segment_offsets {launches[1]}", flush=True)
+    if split != expected or launches != (2 * sum(expected.values()), 2):
+        fail(f"batch 4: launches {launches}, {split}; expected "
+             f"{expected} and one offsets launch per batch")
+    for i, out in enumerate(outs):
+        if out["boxes"].shape != (4, b4.test_cfg["max_num"], 7):
+            fail(f"batch 4: unexpected boxes shape {out['boxes'].shape}")
+        if not bool(torch.isfinite(out["boxes"]).all()
+                    and torch.isfinite(out["scores"]).all()):
+            fail(f"batch 4: non-finite boxes or scores in batch {i}")
+        print(f"  batch {i}: valid boxes per frame "
+              f"{out['valid'].sum(1).tolist()}", flush=True)
+    del b4
+    return {"batch_ms": ms, "ms_per_frame": statistics.mean(ms) / 4,
+            "launches": launches, "split": split}
 
 
 SPARSE_TOL = 1e-4  # max-abs and relative: f32 sums of up to 27*512 terms
@@ -1110,8 +1307,8 @@ def _fsd_kws():
 def _sorted_reduce_counts():
     return {"sorted_reduce": sr.launches,
             "segment_offsets": sr.offsets_launches,
-            **{f"sorted_reduce {m}/C={c}": v
-               for (m, c), v in sr.launch_counts.items()}}
+            **{f"sorted_reduce {m}/C={c}/{d}": v
+               for (m, c, d), v in sr.launch_counts.items()}}
 
 
 def phase_train(model, device, n_convs):
@@ -1180,21 +1377,26 @@ def phase_train(model, device, n_convs):
 
 def phase_dense_train(model, device):
     """Drive the dense-BEV build's train path (the main path's training):
-    ``train_step`` of ``fsdv2_waymo_dense`` in f32 on labelled frames
-    (seeds 0-3), the config's optimizer, FSDDetectionSchedule's step-0 mode
-    for 2 warm-up, 6 timed and 3 staged steps, then one ``pretrain=False``
-    step. The segmentor VFE's three reductions run the sorted-reduce kernel
-    over one offsets launch per step; launches per step are counted at the
-    launch sites and held against that. Returns the phase's record."""
+    ``train_step`` of ``fsdv2_waymo_dense`` (the bf16 default, or the
+    float32 build) on labelled frames (seeds 0-3), the config's optimizer,
+    FSDDetectionSchedule's step-0 mode for 2 warm-up, 6 timed and 3 staged
+    steps, then one ``pretrain=False`` step. The segmentor VFE's three
+    reductions run the sorted-reduce kernel over one offsets launch per
+    step; launches per step, by (mode, C, dtype) too, are counted at the
+    launch sites and held against the modules. Returns the phase's
+    record."""
     frames = [f.to(device) for f in _labeled_frames(4)]
     opt = _adamw(model)
+    dtype = sr.DTYPES[model.segmentor_mod.vfe_mod.dtype][0]
     reset_launch_counts()  # the dense train path's run starts here
     steps, stage_ms, peak = _train_loop(model, opt, frames, _fsd_kws(),
                                         _sorted_reduce_counts)
-    expected = {"sorted_reduce": 3, "segment_offsets": 1}
+    expected = {"sorted_reduce": 3, "segment_offsets": 1,
+                **{f"sorted_reduce {m}/C={c}/{d}": v for (m, c, d), v in
+                   _expected_reduce_launches(model).items()}}
     _check_launches(steps, expected)
     detection = steps[-1]
-    print(f"dense train: fsdv2_waymo_dense f32, batch 1, AdamW (base_lr "
+    print(f"dense train: fsdv2_waymo_dense {dtype}, batch 1, AdamW (base_lr "
           f"1e-5, wd 0.05, clip 10, 10,000-step one-cycle); {N_WARMUP} "
           f"warm-up + {N_TIMED} timed + {N_STAGED} staged steps in the "
           f"schedule's step-0 mode {steps[0]['kw']}, then one step with "
@@ -1604,6 +1806,7 @@ def phase_sst_train(model, device):
                 "ms": cuda_ms(lambda: wm.window_mha(q, k, v, pad, nhead), 10),
                 "plain_ms": cuda_ms(
                     lambda: wm.window_mha_ref(q, k, v, pad, nhead), 5),
+                "library_ms": cuda_ms(lambda: _sdpa(q, k, v, pad, nhead), 5),
                 "backward_ms": cuda_ms(lambda: wm.window_mha_backward(
                     q, k, v, pad, nhead, g), 5),
                 "bound": _mha_bound(pad, c)})
@@ -1613,7 +1816,8 @@ def phase_sst_train(model, device):
         shapes[key] = {"t": key[0], "c": key[1], "h": key[2],
                        "w": rows[0]["w"], "inputs": n,
                        **{k: sum(r[k] for r in rows) / n for k in (
-                           "valid_slots", "ms", "plain_ms", "backward_ms")},
+                           "valid_slots", "ms", "plain_ms", "library_ms",
+                           "backward_ms")},
                        "bound_ms": sum(r["bound"][0] for r in rows) / n,
                        "bound_by": Counter(
                            r["bound"][1] for r in rows).most_common(1)[0][0]}
@@ -1631,7 +1835,8 @@ def phase_sst_train(model, device):
               f"{sh['inputs']} inputs: {sh['valid_slots']:.1f} of "
               f"{sh['w'] * t} slots occupied; kernel forward "
               f"{sh['ms']:.4f} ms, twin forward {sh['plain_ms']:.4f} ms, "
-              f"bound {sh['bound_ms']:.4f} ms ({sh['bound_by']}); ported "
+              f"SDPA forward {sh['library_ms']:.4f} ms, bound "
+              f"{sh['bound_ms']:.4f} ms ({sh['bound_by']}); ported "
               f"backward (torch ops) {sh['backward_ms']:.4f} ms",
               flush=True)
 
@@ -1663,12 +1868,14 @@ def phase_sst_train(model, device):
     print(f"  capacity counters per step (the training buckets may drop "
           f"voxels by design): {counters}", flush=True)
     per_step = {k: sum(sh[k] * sh["inputs"] for sh in shapes.values())
-                for k in ("ms", "plain_ms", "backward_ms", "bound_ms")}
+                for k in ("ms", "plain_ms", "library_ms", "backward_ms",
+                          "bound_ms")}
     print(f"  window_mha per step over its {n_inputs} inputs: kernel "
           f"forward {per_step['ms']:.3f} ms, twin forward "
-          f"{per_step['plain_ms']:.3f} ms, bound {per_step['bound_ms']:.3f} "
-          f"ms; ported backward {per_step['backward_ms']:.3f} ms",
-          flush=True)
+          f"{per_step['plain_ms']:.3f} ms, SDPA forward "
+          f"{per_step['library_ms']:.3f} ms, bound "
+          f"{per_step['bound_ms']:.3f} ms; ported backward "
+          f"{per_step['backward_ms']:.3f} ms", flush=True)
     return {**record, "launches": {"window_mha": wm.launches},
             "capacity_counters": counters, "mha_max_abs_err": max(errs),
             "mha_grad_err": max(gerrs), "mha_per_step": per_step,
@@ -1681,26 +1888,44 @@ def main() -> None:
     build_s, nvcc_s = phase_build()
 
     t0 = time.perf_counter()
-    model = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
+    model = init_weights(fsdv2_waymo_dense(),
                          torch.Generator().manual_seed(0)).eval()
+    f32_model = fsdv2_waymo_dense(dtype=torch.float32)
+    f32_model.load_state_dict(model.state_dict())
+    f32_model.eval()
     frames = _frames(4)
-    print(f"model: fsdv2_waymo_dense f32, "
-          f"{sum(p.numel() for p in model.parameters())} parameters, "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"model: fsdv2_waymo_dense at its default dtype (bf16 compute, "
+          f"float32 parameters), and the same weights at "
+          f"dtype=torch.float32; {sum(p.numel() for p in model.parameters())}"
+          f" parameters, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    shapes, offsets_rec, max_err = phase_kernels(model, frames[0], device)
-    results, launches, split = phase_predict(model, frames)
-    timed = {(s["mode"], s["c"]) for s in shapes}
-    untimed = set(split) - timed
+    shapes, offsets_rec, max_err = phase_kernels(model, f32_model, frames[0],
+                                                 device)
+    results, launches, split = _predict_frames(model, frames,
+                                               "fsdv2_waymo_dense (bf16)")
+    lat, f32_launches, f32_split = phase_ab(model, f32_model, frames,
+                                            results, device)
+    timed = {(s["mode"], s["c"], s["dtype"]) for s in shapes}
+    untimed = (set(split) | set(f32_split)) - timed
     if untimed:
-        fail(f"the main path launched the kernel at (mode, C) {untimed}, "
-             f"which phase 3 did not check or time")
+        fail(f"the dense paths launched the kernel at (mode, C, dtype) "
+             f"{untimed}, which phase 3 did not check or time")
     for s in shapes:
-        s["calls_per_frame"] = split.get((s["mode"], s["c"]), 0)
-    lat = phase_ab(model, frames, results, device)
+        key = (s["mode"], s["c"], s["dtype"])
+        s["calls_per_frame"] = split.get(key, 0)
+        s["calls_per_frame_f32_build"] = f32_split.get(key, 0)
+    batch4 = phase_batch4(model, device)
+    if set(batch4["split"]) - timed:
+        fail(f"the batch-4 path launched the kernel at (mode, C, dtype) "
+             f"{set(batch4['split']) - timed}, which phase 3 did not time")
     dense_train = phase_dense_train(model.train(), device)
     dense_train["card"] = card
     del model
+    torch.cuda.empty_cache()
+    dense_train_f32 = phase_dense_train(f32_model.train(), device)
+    dense_train_f32["card"] = card
+    del f32_model
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1783,24 +2008,29 @@ def main() -> None:
             by[r["bound_by"]] += r["bound_ms"] * r[calls_key]
         return by.most_common(1)[0][0]
 
-    sr_frame = {k: sum(r[k] * r["calls_per_frame"] for r in shapes)
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                          "host_ms")}
+    sr_frame, sr_frame_f32 = ({k: sum(r[k] * r[calls] for r in shapes)
+                               for k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms", "host_ms")}
+                              for calls in ("calls_per_frame",
+                                            "calls_per_frame_f32_build"))
     mha_rows = list(mha_shapes.values())
     mha_frame = per_frame(mha_rows, "calls_per_frame")
-    # counted in the dense path's run (phase 4), its train run (phase 12),
-    # the sparse path's run (phase 7) and its train run (phase 11), each
-    # from 0
-    sr_launches = {"dense_bev": launches[0],
-                   "dense_bev_train": dense_train["launches"][
-                       "sorted_reduce"],
-                   "sparse": sr_sparse_launches[0],
-                   "sparse_train": train["launches"]["sorted_reduce"]}
-    off_launches = {"dense_bev": launches[1],
-                    "dense_bev_train": dense_train["launches"][
-                        "segment_offsets"],
-                    "sparse": sr_sparse_launches[1],
-                    "sparse_train": train["launches"]["segment_offsets"]}
+    # counted in the dense bf16 path's run (phase 4), the float32 build's
+    # predicts (phase 5), the batch-4 run, the bf16 and float32 train runs
+    # (phase 12), the sparse path's run (phase 7) and its train run (phase
+    # 11), each from 0
+    runs = {"dense_bev": launches, "dense_bev_f32": f32_launches,
+            "dense_bev_b4": batch4["launches"],
+            "dense_bev_train": (dense_train["launches"]["sorted_reduce"],
+                                dense_train["launches"]["segment_offsets"]),
+            "dense_bev_f32_train": (
+                dense_train_f32["launches"]["sorted_reduce"],
+                dense_train_f32["launches"]["segment_offsets"]),
+            "sparse": sr_sparse_launches,
+            "sparse_train": (train["launches"]["sorted_reduce"],
+                             train["launches"]["segment_offsets"])}
+    sr_launches = {k: v[0] for k, v in runs.items()}
+    off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
         "route": "cuda",
@@ -1809,13 +2039,16 @@ def main() -> None:
         "launches": sum(sr_launches.values()),
         "launches_by_path": sr_launches,
         "max_abs_err": max_err,
-        # per frame of either path (the same segmentor VFE): each timed
-        # shape times its launches per frame, as counted in phase 4, over
-        # the frame's one offsets array (the segment_offsets entry)
+        # per frame of the main path (the bf16 dense build; the sparse
+        # build's segmentor VFE is the float32 one): each timed shape times
+        # its launches per frame, as counted in phase 4, over the frame's
+        # one offsets array (the segment_offsets entry)
         "ms": sr_frame["ms"],
         "plain_ms": sr_frame["plain_ms"],
         "bound_ms": sr_frame["bound_ms"],
         "bound_by": bound_by(shapes, "calls_per_frame"),
+        # the same per frame of the float32 builds (phase 5's split)
+        "per_frame_f32_build": sr_frame_f32,
         # one torch.segment_reduce call per reduction, over the same rows
         # with lengths from the same offsets; a yardstick only (-inf for an
         # empty max, non-finite maxima kept)
@@ -1921,18 +2154,23 @@ def main() -> None:
         "train_ms_per_step": sst_train["mha_per_step"]["ms"],
         "train_plain_ms_per_step": sst_train["mha_per_step"]["plain_ms"],
         "train_bound_ms_per_step": sst_train["mha_per_step"]["bound_ms"],
+        "train_library_ms_per_step": sst_train["mha_per_step"][
+            "library_ms"],
         "backward_ms_per_step": sst_train["mha_per_step"]["backward_ms"],
         "grad_err_vs_f64": sst_train["mha_grad_err"],
         # the wrapper's host time (Python, checks, ctypes, launch) per frame
         "host_ms": sum(r["host_ms"] * r["calls_per_frame"] for r in mha_rows),
         "shapes": mha_rows,
     }], "build_s": build_s, "nvcc_s": nvcc_s, "predict_ms": {
-        "dense_bev_sorted_reduce_kernel": lat[True],
-        "dense_bev_scatter": lat[False], "sparse": sparse_lat,
-        "sst": sst_lat},
+        "dense_bev_bf16_sorted_reduce_kernel": lat["bf16 kernel"],
+        "dense_bev_bf16_scatter": lat["bf16 scatter"],
+        "dense_bev_f32_sorted_reduce_kernel": lat["f32 kernel"],
+        "dense_bev_bf16_batch4_per_frame": batch4["ms_per_frame"],
+        "sparse": sparse_lat, "sst": sst_lat},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
+        "train_dense_bev_f32": dense_train_f32,
         "train_sst": sst_train,
         "card": card}
     print(json.dumps(summary), flush=True)

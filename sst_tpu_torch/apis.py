@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from sst_tpu_torch.models import PointBatch
 
@@ -38,6 +39,15 @@ def inference_detector(model, points: np.ndarray,
     and ``model.predict``.
 
     Returns a dict of numpy arrays for the frame: boxes [max_num, 7], scores,
-    labels and valid [max_num]."""
-    res = model.predict(prepare_batch(model, points, max_points))
-    return {k: v[0].cpu().numpy() for k, v in res.items()}
+    labels and valid [max_num], in the dtypes of ``model.predict`` (JAX's),
+    except that numpy has no bfloat16: a bfloat16 result (the scores of a
+    bfloat16 model) comes back as the float32 array of the same values."""
+    return frame_to_numpy(model.predict(prepare_batch(model, points,
+                                                      max_points)))
+
+
+def frame_to_numpy(res: dict) -> dict:
+    """Frame 0 of ``model.predict``'s result as numpy arrays, bfloat16 ones
+    as float32 (numpy has no bfloat16)."""
+    return {k: (v[0].float() if v.dtype == torch.bfloat16 else v[0]).cpu()
+            .numpy() for k, v in res.items()}

@@ -10,12 +10,17 @@ import torch.nn.functional as F
 
 
 def _reduce(loss, weight, avg_factor):
+    """The weighted sum over ``avg_factor``, in JAX's result dtype: a float
+    tensor ``avg_factor`` promotes a bfloat16 sum to its dtype, as a float32
+    array does in JAX whatever its rank (torch would keep bfloat16 against a
+    0-dim float32 tensor); a Python number does not."""
     if weight is not None:
         loss = loss * weight
-    return loss.sum() / torch.clamp(torch.as_tensor(avg_factor,
-                                                    dtype=loss.dtype,
-                                                    device=loss.device),
-                                    min=1e-6)
+    total = loss.sum()
+    if torch.is_tensor(avg_factor) and avg_factor.is_floating_point():
+        total = total.to(torch.promote_types(total.dtype, avg_factor.dtype))
+    return total / torch.clamp(torch.as_tensor(avg_factor, dtype=total.dtype,
+                                               device=total.device), min=1e-6)
 
 
 def _sigmoid_bce(logits, targets):

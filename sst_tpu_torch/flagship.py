@@ -139,7 +139,7 @@ def tiny_batch(batch_size: int = 2, num_points: int = 512,
     )
 
 
-def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
+def fsdv2_waymo(max_points: int = 196608, dtype=None,
                 as_rpn: bool = False, backbone: str = "dense_bev",
                 num_point_features: int = 5, device="cuda"):
     """Full-scale FSDv2-Waymo (configs/fsdv2/fsdv2_waymo_1x.py): segmentor
@@ -162,7 +162,10 @@ def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
     maximum's gradient to the first row that holds it, where the scatter
     path splits it between them).
 
-    Only float32 is ported; ``max_points`` is the point cap
+    ``dtype`` None gives each build JAX's default: bfloat16 compute for the
+    dense-BEV build, float32 for the sparse one (``sst_tpu/flagship.py``
+    builds its sparse flagship in float32; a bfloat16 sparse build raises
+    NotImplementedError). ``max_points`` is the point cap
     ``apis.prepare_batch`` pads to; ``num_point_features`` is the width of a
     point row. The module is returned on ``device`` (see :func:`on_device`).
     """
@@ -173,6 +176,7 @@ def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
                                  device=device)
     if backbone != "sparse":
         raise NotImplementedError(f"backbone={backbone!r}")
+    dtype = dtype or torch.float32
     return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
         point_cloud_range=(-80.0, -80.0, -2.0, 80.0, 80.0, 4.0),
@@ -230,7 +234,7 @@ def fsdv2_waymo(max_points: int = 196608, dtype=torch.float32,
     ), device, max_points)
 
 
-def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
+def fsdv2_waymo_dense(max_points: int = 196608, dtype=None,
                       as_rpn: bool = False, z_groups: int = 4,
                       cap_scale: int = 1, num_point_features: int = 5,
                       device="cuda"):
@@ -252,16 +256,29 @@ def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
     takes the canvas unique, which yields no sort order, so it stays on
     scatters either way.
 
-    Only float32 is ported; ``max_points`` is the point cap
-    ``apis.prepare_batch`` pads to. The module is returned on ``device``
-    (see :func:`on_device`). It trains in f32 (``loss``, ``train/step.py
-    train_step``) with the optimizer of configs/fsdv2/fsdv2_waymo_1x.py:
-    ``train/state.py make_optimizer`` at base_lr 1e-5, weight decay 0.05,
-    clip 10; like JAX's dense build, without rematerialisation.
+    ``dtype`` defaults to bfloat16, JAX's flagship policy: every Dense and
+    conv computes in bfloat16 and the canvases and BEV maps are bfloat16,
+    while the parameters, running statistics, gradients and optimizer state
+    stay float32, the norms compute in float32, and the cluster-centre sums,
+    box decode and losses are float32 where JAX's are. The segmentor VFE's
+    two maxima then reduce bfloat16 rows through the kernel's bfloat16
+    route; its cluster-centre sum stays float32. Pass
+    ``dtype=torch.float32`` for the full-precision build. ``max_points`` is
+    the point cap ``apis.prepare_batch`` pads to. The module is returned on
+    ``device`` (see :func:`on_device`). It trains (``loss``,
+    ``train/step.py train_step``) with the optimizer of
+    configs/fsdv2/fsdv2_waymo_1x.py: ``train/state.py make_optimizer`` at
+    base_lr 1e-5, weight decay 0.05, clip 10; like JAX's dense build,
+    without rematerialisation.
 
     num_point_features: width of a point row (x, y, z + intensity,
-    elongation for Waymo)."""
+    elongation for Waymo).
+
+    cap_scale: every batch-global capacity (voxel, fg and virtual caps are
+    flattened across the batch) times this; set it to the batch size for
+    batched inference (``bench.py bench_fsdv2_b4`` runs 4)."""
     k = cap_scale
+    dtype = dtype or torch.bfloat16
     return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
         point_cloud_range=(-80.0, -80.0, -2.0, 80.0, 80.0, 4.0),
@@ -317,11 +334,12 @@ def fsdv2_waymo_dense(max_points: int = 196608, dtype=torch.float32,
 
 def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
                      num_point_features: int = 3, segmentor_overrides=None,
-                     device="cuda"):
+                     dtype=torch.float32, device="cuda"):
     """Small dense-BEV FSDv2 for CPU tests (same config as the JAX
-    ``tiny_fsdv2_dense``), on ``device``. ``segmentor_overrides`` updates
-    the segmentor dict, e.g. a finer voxel so that its voxel unique
-    sorts."""
+    ``tiny_fsdv2_dense``, float32 like it; ``dtype=torch.bfloat16`` is the
+    counterpart of its ``.clone(dtype=jnp.bfloat16)``), on ``device``.
+    ``segmentor_overrides`` updates the segmentor dict, e.g. a finer voxel
+    so that its voxel unique sorts."""
     half = grid * 0.5 / 2
     segmentor = dict(
         voxel_size=(0.5, 0.5, 0.5),
@@ -363,6 +381,7 @@ def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
         ),
         test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
                       use_rotate_nms=True),
+        dtype=dtype,
     ), device)
 
 

@@ -7,6 +7,10 @@ JAX package's layout: BEV maps are NHWC. The convolutions take NCHW-shaped
 views of them (channels-last strides), so no copy is made at the module
 boundary.
 
+Each module takes the compute ``dtype`` of its flax counterpart: canvases,
+maps and the one-hot band selections are in that dtype, the float32 z
+embeddings are cast to it, and its MLPs and convs compute in it.
+
 Two max conventions meet here. The canvas scatters below max onto zeros and
 include that zero (JAX ``.at[].max`` onto a zero array), so they use
 ``include_self=True``; ``ops/segment.py segment_reduce`` does not. In the
@@ -80,14 +84,15 @@ class BEVScatter(nn.Module):
     canvas has G * (c + 1) channels."""
 
     def __init__(self, in_channels: int, nz: int, z_groups: int = 1,
-                 pre_channels: int = 0):
+                 pre_channels: int = 0, dtype=torch.float32):
         super().__init__()
         self.nz = nz
         self.z_groups = z_groups
         c = in_channels
         self.pre = None
         if pre_channels:
-            self.pre = MLP(in_channels, (pre_channels,), norm="ln")
+            self.pre = MLP(in_channels, (pre_channels,), norm="ln",
+                           dtype=dtype)
             c = pre_channels
         self.z_embed = nn.Parameter(torch.zeros(nz, c))
         self.out_channels = z_groups * (c + 1)
@@ -101,7 +106,7 @@ class BEVScatter(nn.Module):
             # >= 0: empty cells read zero
             x = torch.relu(self.pre(x, valid, train))
         z = torch.clamp(coords[:, 1], 0, self.nz - 1).long()
-        x = x + self.z_embed[z]
+        x = x + self.z_embed[z].to(x.dtype)
         x = torch.cat([x, x.new_ones((x.shape[0], 1))], dim=-1)
         x = torch.where(valid[:, None], x, 0.0)
         if g_n > 1:
@@ -121,7 +126,7 @@ class DenseBEVUNet(nn.Module):
                  encoder_channels: tuple = ((64, 64), (128, 128), (256, 256),
                                             (256, 256)),
                  decoder_channels: tuple = (256, 128, 128),
-                 out_channels: int = 128):
+                 out_channels: int = 128, dtype=torch.float32):
         super().__init__()
         self.encoder_channels = tuple(tuple(e) for e in encoder_channels)
         self.decoder_channels = tuple(decoder_channels)
@@ -131,17 +136,20 @@ class DenseBEVUNet(nn.Module):
             for j, cch in enumerate(widths):
                 stride = 2 if (i > 0 and j == 0) else 1
                 self.add_module(f"enc_{i}_{j}",
-                                ConvNormAct(c, cch, 3, stride=stride))
+                                ConvNormAct(c, cch, 3, stride=stride,
+                                            dtype=dtype))
                 c = cch
             enc_widths.append(c)
         n_enc = len(self.encoder_channels)
         for d, cch in enumerate(self.decoder_channels):
             skip = enc_widths[n_enc - 2 - d]
-            self.add_module(f"up_{d}", ConvNormAct(c, cch, 3))
-            self.add_module(f"lat_{d}", ConvNormAct(skip, cch, 1))
-            self.add_module(f"merge_{d}", ConvNormAct(cch, cch, 3))
+            self.add_module(f"up_{d}", ConvNormAct(c, cch, 3, dtype=dtype))
+            self.add_module(f"lat_{d}", ConvNormAct(skip, cch, 1,
+                                                    dtype=dtype))
+            self.add_module(f"merge_{d}", ConvNormAct(cch, cch, 3,
+                                                      dtype=dtype))
             c = cch
-        self.out_conv = ConvNormAct(c, out_channels, 3)
+        self.out_conv = ConvNormAct(c, out_channels, 3, dtype=dtype)
 
     def forward(self, x, train: bool = False):
         x = x.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
@@ -171,13 +179,14 @@ class DenseVoxelDecode(nn.Module):
     fuse with an MLP."""
 
     def __init__(self, in_channels: int, nz: int, out_channels: int = 128,
-                 z_groups: int = 1, group_channels: int = 32):
+                 z_groups: int = 1, group_channels: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         self.nz = nz
         self.z_groups = z_groups
         g_in = group_channels if z_groups > 1 else in_channels
         self.z_embed = nn.Parameter(torch.zeros(nz, 32))
-        self.fuse = MLP(g_in + 32, (out_channels,), norm="ln")
+        self.fuse = MLP(g_in + 32, (out_channels,), norm="ln", dtype=dtype)
         self.out_channels = out_channels
 
     def forward(self, bev, coords, valid, train: bool = False):
@@ -189,7 +198,7 @@ class DenseVoxelDecode(nn.Module):
         rows = torch.index_select(bev.reshape(b * h * w, c), 0, cell)
         if self.z_groups > 1:
             rows = _pick(rows, (z * self.z_groups) // self.nz, self.z_groups)
-        x = torch.cat([rows, self.z_embed[z]], dim=-1)
+        x = torch.cat([rows, self.z_embed[z].to(rows.dtype)], dim=-1)
         x = self.fuse(x, valid, train)
         return torch.where(valid[:, None], x, 0.0)
 
@@ -202,14 +211,16 @@ class DenseBEVMixer(nn.Module):
     def __init__(self, in_channels: int, nz: int, z_channels: int = 32,
                  output_channels: int = 128,
                  encoder_channels: tuple = ((128, 128), (128, 128)),
-                 decoder_channels: tuple = (128,)):
+                 decoder_channels: tuple = (128,), dtype=torch.float32):
         super().__init__()
         self.nz = nz
         self.z_channels = z_channels
-        self.pre = MLP(in_channels, (z_channels,), norm="ln")
+        self.pre = MLP(in_channels, (z_channels,), norm="ln", dtype=dtype)
         self.unet = DenseBEVUNet(nz * z_channels, encoder_channels,
-                                 decoder_channels, out_channels=nz * z_channels)
-        self.post = MLP(2 * z_channels, (output_channels,), norm="ln")
+                                 decoder_channels,
+                                 out_channels=nz * z_channels, dtype=dtype)
+        self.post = MLP(2 * z_channels, (output_channels,), norm="ln",
+                        dtype=dtype)
         self.out_channels = output_channels
 
     def forward(self, feats, coords, valid, batch_size: int, grid_hw,

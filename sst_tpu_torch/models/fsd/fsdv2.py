@@ -67,8 +67,10 @@ class FSDV2Caps:
 
 class SingleStageFSDV2(nn.Module):
     """``num_point_features`` is the width of the raw point rows (xyz
-    first). Options of the JAX model outside this port's slice raise
-    NotImplementedError."""
+    first). ``dtype`` is the compute dtype of every module, float32 or
+    bfloat16, as flax's ``dtype`` (``models/layers.py``); the parameters
+    stay float32. Options of the JAX model outside this port's slice raise
+    NotImplementedError (a bfloat16 sparse segmentor among them)."""
 
     def __init__(self, num_point_features: int = 3,
                  point_cloud_range: tuple = (-80.0, -80.0, -2.0, 80.0, 80.0,
@@ -109,8 +111,9 @@ class SingleStageFSDV2(nn.Module):
             raise NotImplementedError("as_rpn")
         if centroid_alpha is not None:
             raise NotImplementedError("centroid_alpha")
-        if dtype != torch.float32:
-            raise NotImplementedError(f"dtype={dtype}: only float32 is ported")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(
+                f"dtype={dtype}: float32 and bfloat16 are ported")
         # options read only by training or by group sampling
         unknown = set(train_cfg) - {"add_gt_fg_points", "group_offset_scale"}
         if unknown:
@@ -140,36 +143,37 @@ class SingleStageFSDV2(nn.Module):
 
         self.segmentor_mod = VoteSegmentor(
             num_point_features, point_cloud_range=self.point_cloud_range,
-            return_multiscale=True, **segmentor)
+            return_multiscale=True, dtype=dtype, **segmentor)
         seg_c = self.segmentor_mod.feat_channels
         self.virtual_proj = MLP(
             seg_c + 3 + num_classes + num_point_features - 3,
-            tuple(proj_hidden), norm="ln")
-        self.ori_proj = MLP(seg_c, tuple(proj_hidden), norm="ln")
+            tuple(proj_hidden), norm="ln", dtype=dtype)
+        self.ori_proj = MLP(seg_c, tuple(proj_hidden), norm="ln", dtype=dtype)
         self.vfe_mod = DynamicVFE(
             3 + self.ori_proj.out_channels,
             voxel_size=self.virtual_voxel_size,
-            point_cloud_range=self.point_cloud_range,
+            point_cloud_range=self.point_cloud_range, dtype=dtype,
             **(vfe or dict(feat_channels=(64, 128), mode="max")))
         dec_widths = self.segmentor_mod.decoder_widths
         self.n_ms = len(ms_projector_hiddens)
         for i, hid in enumerate(ms_projector_hiddens):
             self.add_module(f"ms_projs_{i}", MLP(
                 dec_widths[self.multiscale_levels[i]],
-                tuple(hid) + (ms_output_dim,), norm="ln"))
+                tuple(hid) + (ms_output_dim,), norm="ln", dtype=dtype))
         if mixer_type == "sparse":
             self.mixer_mod = VirtualVoxelMixer(self.vfe_mod.out_channels,
                                                **(mixer or {}))
         else:
             self.mixer_mod = DenseBEVMixer(self.vfe_mod.out_channels,
-                                           nz=self.vgrid[0], **(mixer or {}))
+                                           nz=self.vgrid[0], dtype=dtype,
+                                           **(mixer or {}))
         # configs may repeat num_classes / class_names inside the head dict;
         # the model-level values win
         head_kw = {k: v for k, v in dict(head or {}).items()
                    if k not in ("num_classes", "class_names")}
         self.head_mod = SparseClusterHeadV2(
             num_classes=num_classes, class_names=tuple(class_names),
-            **head_kw)
+            dtype=dtype, **head_kw)
 
     # --------------------------------------------------------------- sampling
 
@@ -340,11 +344,11 @@ class SingleStageFSDV2(nn.Module):
             "virtual_batch": torch.clamp(vcoords[:, 0], min=0),
             "virtual_valid": vvalid,
             "virtual_centroid": centroid[vidx],
-            "num_virtual": virtual_mask.sum(),
+            "num_virtual": virtual_mask.sum(dtype=torch.int32),
             # union inputs whose voxel fell past the caps.voxels cap
             "num_union_overflow_points": (
                 cat_valid & vm.valid
-                & (vm.point_seg_ids >= caps.voxels)).sum(),
+                & (vm.point_seg_ids >= caps.voxels)).sum(dtype=torch.int32),
         }
 
     # ---------------------------------------------------------------- wiring

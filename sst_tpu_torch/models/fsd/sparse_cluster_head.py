@@ -25,13 +25,14 @@ class FSDSeparateHead(nn.Module):
     """One MLP per attribute, each a child named after its attribute."""
 
     def __init__(self, in_channels: int, attrs: tuple, norm: str = "ln",
-                 act: str = "relu"):
+                 act: str = "relu", dtype=torch.float32):
         super().__init__()
         self.names = tuple(a[0] for a in attrs)
         for name, out_dim, num_layers, hidden in attrs:
             self.add_module(name, MLP(in_channels,
                                       (hidden,) * num_layers + (out_dim,),
-                                      act=act, norm=norm, is_head=True))
+                                      act=act, norm=norm, is_head=True,
+                                      dtype=dtype))
 
     def forward(self, x, valid, train: bool = False):
         return {name: getattr(self, name)(x, valid, train)
@@ -58,7 +59,7 @@ class SparseClusterHeadV2(nn.Module):
                  act: str = "relu", code_size: int = 8,
                  with_vel: bool = False, loss_vel_weight: float = 0.2,
                  with_iou: bool = False, loss_iou_weight: float = 1.0,
-                 iou_score_weight: float = 0.5):
+                 iou_score_weight: float = 0.5, dtype=torch.float32):
         """``code_size``, ``loss_vel_weight``, ``loss_iou_weight`` and
         ``iou_score_weight`` belong to the velocity and IoU branches, which
         are not ported (they raise)."""
@@ -82,12 +83,13 @@ class SparseClusterHeadV2(nn.Module):
         self.shared_mlp = None
         if shared_mlp_dims:
             self.shared_mlp = MLP(in_channel, tuple(shared_mlp_dims), act=act,
-                                  norm=norm)
+                                  norm=norm, dtype=dtype)
             c = self.shared_mlp.out_channels
         for t, names in enumerate(self.tasks):
             attrs = tuple(common_attrs) + (
                 ("score", len(names), num_cls_layer, cls_hidden_dim),)
-            self.add_module(f"task_{t}", FSDSeparateHead(c, attrs, norm, act))
+            self.add_module(f"task_{t}",
+                            FSDSeparateHead(c, attrs, norm, act, dtype))
 
     def _task_class_ids(self, task_id):
         return [self.class_names.index(n) for n in self.tasks[task_id]]

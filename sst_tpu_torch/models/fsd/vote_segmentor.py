@@ -24,7 +24,7 @@ from sst_tpu_torch.models.dense_bev import (
     DenseBEVUNet,
     DenseVoxelDecode,
 )
-from sst_tpu_torch.models.layers import MLP
+from sst_tpu_torch.models.layers import MLP, Dense
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, build_unet_plan
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops.segment import INT_SENTINEL, gather_segments
@@ -61,7 +61,7 @@ class VoteSegHead(nn.Module):
                  hidden_dims: Sequence[int] = (128, 128),
                  init_bias: float = -2.0, gamma: float = 3.0,
                  alpha: float = 0.8, loss_seg_weight: float = 1.0,
-                 loss_vote_weight: float = 1.0):
+                 loss_vote_weight: float = 1.0, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.init_bias = init_bias
@@ -69,10 +69,11 @@ class VoteSegHead(nn.Module):
         self.alpha = alpha
         self.loss_seg_weight = loss_seg_weight
         self.loss_vote_weight = loss_vote_weight
-        self.pre_seg = MLP(in_channels, tuple(hidden_dims), norm="bn")
+        self.pre_seg = MLP(in_channels, tuple(hidden_dims), norm="bn",
+                           dtype=dtype)
         c = self.pre_seg.out_channels
-        self.conv_seg = nn.Linear(c, num_classes)
-        self.voting = nn.Linear(c, num_classes * 3)
+        self.conv_seg = Dense(c, num_classes, dtype=dtype)
+        self.voting = Dense(c, num_classes * 3, dtype=dtype)
 
     def forward(self, feats, valid, train: bool = False):
         x = self.pre_seg(feats, valid, train)
@@ -115,7 +116,7 @@ class VoteSegmentor(nn.Module):
                  head: dict | None = None,
                  voxel_downsampling_size: tuple | None = None,
                  tanh_dims: tuple | None = None,
-                 return_multiscale: bool = False):
+                 return_multiscale: bool = False, dtype=torch.float32):
         super().__init__()
         if backbone not in ("sparse", "dense_bev"):
             raise NotImplementedError(
@@ -123,6 +124,12 @@ class VoteSegmentor(nn.Module):
                 f"ported")
         if voxel_downsampling_size is not None:
             raise NotImplementedError("voxel_downsampling_size")
+        if backbone == "sparse" and dtype != torch.float32:
+            # JAX's sparse flagship is float32 (sst_tpu/flagship.py:95)
+            raise NotImplementedError(
+                f"dtype={dtype} with the sparse backbone: a bf16 sparse build "
+                f"waits for bf16 routes through the sparse conv and dW "
+                f"kernels (ROADMAP queue 1, the bf16 builds)")
         self.backbone = backbone
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
@@ -136,7 +143,7 @@ class VoteSegmentor(nn.Module):
         nz = self.grid[0]
         self.vfe_mod = DynamicVFE(
             in_channels, voxel_size=self.voxel_size,
-            point_cloud_range=self.point_cloud_range,
+            point_cloud_range=self.point_cloud_range, dtype=dtype,
             **(vfe or dict(feat_channels=(64, 64), mode="max")))
         cfg = dict(unet or {})
         if backbone == "sparse":
@@ -153,16 +160,18 @@ class VoteSegmentor(nn.Module):
             cfg.pop("base_channels", None)
             self.scatter_mod = BEVScatter(
                 self.vfe_mod.out_channels, nz, z_groups=z_groups,
-                pre_channels=dense_pre_channels if z_groups > 1 else 0)
+                pre_channels=dense_pre_channels if z_groups > 1 else 0,
+                dtype=dtype)
             unet_out = (z_groups * dense_group_channels if z_groups > 1
                         else out_ch)
             self.unet_mod = DenseBEVUNet(self.scatter_mod.out_channels,
-                                         out_channels=unet_out, **cfg)
+                                         out_channels=unet_out, dtype=dtype,
+                                         **cfg)
             self.decode_mod = DenseVoxelDecode(
                 unet_out, nz, out_channels=out_ch, z_groups=z_groups,
-                group_channels=dense_group_channels)
+                group_channels=dense_group_channels, dtype=dtype)
             self.decoder_widths = self.unet_mod.decoder_channels
-        self.head_mod = VoteSegHead(out_ch + 3, **(head or {}))
+        self.head_mod = VoteSegHead(out_ch + 3, dtype=dtype, **(head or {}))
         self.feat_channels = out_ch + 3
 
     def preprocess(self, points):

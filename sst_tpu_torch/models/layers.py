@@ -6,6 +6,14 @@ Submodules keep flax's automatic names (``Dense_0``, ``LayerNorm_0``,
 name for name. Every module takes ``train=True``: the batch norms then
 normalise with the batch's statistics and move their running statistics
 by flax's rule.
+
+Every module takes a compute ``dtype``, as its flax counterpart does, and
+keeps its parameters and running statistics in float32 (flax's
+``param_dtype``). :class:`Dense` and :class:`Conv` cast their input, kernel
+and bias to ``dtype`` before the product; the norms compute in float32 and
+cast their result to ``dtype``. The same code computes every dtype: at
+float32 the casts do nothing and the bias is added after the product, as
+flax adds it.
 """
 
 from __future__ import annotations
@@ -29,6 +37,53 @@ ACTIVATIONS = {
 }
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` at a compute ``dtype``: input, kernel and bias are
+    cast to ``dtype``, and the bias is added to the rounded product as a
+    separate add, so a bfloat16 result rounds twice, as flax's does (a
+    fused ``F.linear`` with a bias rounds once and misses flax's bits on
+    about a quarter of the outputs)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Conv(nn.Conv2d):
+    """flax ``nn.Conv`` (NCHW here) at a compute ``dtype``: input, kernel and
+    bias cast to ``dtype``, the bias added to the rounded product."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
+                               None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` at a compute ``dtype``: statistics and the
+    normalised result in float32, cast to ``dtype``."""
+
+    def __init__(self, normalized_shape, eps: float = 1e-6,
+                 dtype=torch.float32):
+        super().__init__(normalized_shape, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
+
+
 class BatchNorm(nn.Module):
     """Batch norm over dim 1 (flax ``nn.BatchNorm(momentum=0.99,
     epsilon=1e-3)`` as ``ConvNormAct`` and ``SECONDFPN`` use it).
@@ -40,13 +95,18 @@ class BatchNorm(nn.Module):
     ``r = 0.99 r + 0.01 batch`` (``F.batch_norm`` would update them with the
     unbiased variance and torch's momentum). The update is skipped while a
     rematerialised call is recomputed in the backward (``utils/remat.py``),
-    where JAX discards it."""
+    where JAX discards it. The statistics and the normalised result are
+    float32 whatever the input's dtype; the result is cast to ``dtype``
+    (at inference ``F.batch_norm`` takes a bfloat16 input with the float32
+    statistics and computes in float32)."""
 
     momentum = 0.99
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 dtype=torch.float32):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -55,7 +115,9 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(self.dtype)
+        x = x.float()
         dims = [d for d in range(x.dim()) if d != 1]
         mean = x.mean(dims)
         var = torch.clamp(torch.square(x).mean(dims) - torch.square(mean),
@@ -63,8 +125,8 @@ class BatchNorm(nn.Module):
         self._update_running(mean, var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) \
-            + self.bias.view(shape)
+        return ((x - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape)).to(self.dtype)
 
     def _update_running(self, mean, var) -> None:
         if remat.recomputing():
@@ -81,23 +143,24 @@ class MaskedBatchNorm(BatchNorm):
     ``MaskedBatchNorm``). At inference the running statistics normalise
     every row, so the mask is not read. In train mode the statistics are
     taken over the valid rows only (``mask`` None: every row), with the
-    biased variance, and the running statistics move as
+    biased variance, all in float32, and the running statistics move as
     :class:`BatchNorm`'s do."""
 
     def forward(self, x, mask=None, train: bool = False):
         if not train:
             return super().forward(x)
+        x = x.float()
         if mask is None:
             m = x.new_ones((x.shape[0], 1))
         else:
-            m = mask.to(x.dtype)[:, None]
+            m = mask.float()[:, None]
         n = torch.clamp(m.sum(), min=1.0)
         mean = (x * m).sum(0) / n
         var = torch.clamp((torch.square(x) * m).sum(0) / n
                           - torch.square(mean), min=0.0)
         self._update_running(mean, var)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
-            + self.bias
+        return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
+                + self.bias).to(self.dtype)
 
 
 class MLP(nn.Module):
@@ -105,7 +168,7 @@ class MLP(nn.Module):
 
     def __init__(self, in_channels: int, hidden: Sequence[int],
                  act: str = "relu", norm: str = "bn", is_head: bool = False,
-                 bias: bool = False):
+                 bias: bool = False, dtype=torch.float32):
         super().__init__()
         if norm not in ("bn", "ln", "none"):
             raise NotImplementedError(f"norm={norm!r}")
@@ -117,12 +180,15 @@ class MLP(nn.Module):
         for i, c in enumerate(hidden):
             last = i == len(hidden) - 1
             use_bias = True if (last and is_head) else bias
-            self.add_module(f"Dense_{i}", nn.Linear(c_in, c, bias=use_bias))
+            self.add_module(f"Dense_{i}", Dense(c_in, c, bias=use_bias,
+                                                dtype=dtype))
             if not (last and is_head):
                 if norm == "bn":
-                    self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(c))
+                    self.add_module(f"MaskedBatchNorm_{i}",
+                                    MaskedBatchNorm(c, dtype=dtype))
                 elif norm == "ln":
-                    self.add_module(f"LayerNorm_{i}", nn.LayerNorm(c, eps=1e-6))
+                    self.add_module(f"LayerNorm_{i}",
+                                    LayerNorm(c, eps=1e-6, dtype=dtype))
             c_in = c
         self.out_channels = c_in
 
@@ -145,13 +211,14 @@ class ConvNormAct(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, act: str = "relu",
-                 use_norm: bool = True):
+                 use_norm: bool = True, dtype=torch.float32):
         super().__init__()
         pad = dilation * (kernel_size - 1) // 2
-        self.Conv_0 = nn.Conv2d(in_channels, features, kernel_size,
-                                stride=stride, padding=pad, dilation=dilation,
-                                bias=not use_norm)
-        self.BatchNorm_0 = BatchNorm(features) if use_norm else None
+        self.Conv_0 = Conv(in_channels, features, kernel_size, stride=stride,
+                           padding=pad, dilation=dilation, bias=not use_norm,
+                           dtype=dtype)
+        self.BatchNorm_0 = (BatchNorm(features, dtype=dtype) if use_norm
+                            else None)
         self.act = ACTIVATIONS[act]
 
     def forward(self, x, train: bool = False):

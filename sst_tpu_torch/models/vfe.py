@@ -7,9 +7,11 @@ With ``use_sorted_reduce=True`` and a sort-based voxel mapping
 segments' row offsets are computed once, and every per-voxel reduction goes
 through the sorted segment reduce kernel over them
 (``ops/sorted_reduce.py``); otherwise the reductions are scatters
-(``ops/segment.py``). Gradients follow JAX on each path: a scatter max
-splits a tie evenly among the rows that hold the maximum, the sorted
-reduce's max hands it to the first of them.
+(``ops/segment.py``). The decoration runs in float32 (the cluster-centre
+sum among it); its result is cast to the compute ``dtype``, so the layers'
+maxima reduce rows of that dtype. Gradients follow JAX on each path: a
+scatter max splits a tie evenly among the rows that hold the maximum, the
+sorted reduce's max hands it to the first of them.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import MaskedBatchNorm
+from sst_tpu_torch.models.layers import Dense, MaskedBatchNorm
 from sst_tpu_torch.ops.segment import gather_segments, segment_reduce
 from sst_tpu_torch.ops.sorted_reduce import (
     segment_offsets,
@@ -65,10 +67,12 @@ def _decorate(points, valid, seg_ids, counts, coords, reduce_fn,
 
 
 class DynamicVFELayer(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype=torch.float32):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_channels, out_channels, bias=False)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels)
+        self.Dense_0 = Dense(in_channels, out_channels, bias=False,
+                             dtype=dtype)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, dtype=dtype)
 
     def forward(self, x, mask, train: bool = False):
         return torch.relu(self.MaskedBatchNorm_0(self.Dense_0(x), mask, train))
@@ -89,7 +93,7 @@ class DynamicVFE(nn.Module):
                  point_cloud_range: tuple = (-74.88, -74.88, -2, 74.88, 74.88,
                                              4),
                  mode: str = "max", return_point_feats: bool = False,
-                 use_sorted_reduce: bool = False):
+                 use_sorted_reduce: bool = False, dtype=torch.float32):
         super().__init__()
         if return_point_feats:
             raise NotImplementedError("return_point_feats")
@@ -103,11 +107,13 @@ class DynamicVFE(nn.Module):
         self.point_cloud_range = tuple(point_cloud_range)
         self.mode = mode
         self.use_sorted_reduce = use_sorted_reduce
+        self.dtype = dtype
         self.sorted_calls = 0
         c = (in_channels + 3 * with_cluster_center + 3 * with_voxel_center
              + int(with_distance))
         for i, out in enumerate(self.feat_channels):
-            self.add_module(f"DynamicVFELayer_{i}", DynamicVFELayer(c, out))
+            self.add_module(f"DynamicVFELayer_{i}",
+                            DynamicVFELayer(c, out, dtype))
             c = 2 * out
         self.out_channels = self.feat_channels[-1]
 
@@ -145,7 +151,7 @@ class DynamicVFE(nn.Module):
                            self.point_cloud_range, self.voxel_size,
                            self.with_cluster_center, self.with_voxel_center,
                            self.with_distance, extra_sum=extra_sum)
-        point_feats = x
+        point_feats = x.to(self.dtype)
         n_layers = len(self.feat_channels)
         for i in range(n_layers):
             layer = getattr(self, f"DynamicVFELayer_{i}")

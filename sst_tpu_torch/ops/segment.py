@@ -133,24 +133,33 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
       seg_ids: [N] int32.
       mode: 'sum' | 'mean' | 'max' | 'min'.
 
-    Returns [num_segments, C]. Empty segments are 0 in every mode; max and
-    min ignore the zero init (``include_self=False``), so a segment of
-    negative values keeps its negative maximum. A max or min that is not
-    finite (a segment holding a NaN, or an infinite extreme) is written as
-    0, as the JAX package does.
+    Returns [num_segments, C] in ``data``'s dtype. Empty segments are 0 in
+    every mode; max and min ignore the zero init (``include_self=False``),
+    so a segment of negative values keeps its negative maximum. A max or
+    min that is not finite (a segment holding a NaN, or an infinite
+    extreme) is written as 0, as the JAX package does.
+
+    Sums and means of bfloat16 rows are taken in float32 (the counts too)
+    and rounded once. JAX's ``segment_sum`` in bfloat16 rounds after each
+    add, and ``index_add_`` in bfloat16 would too, in no fixed order on the
+    card; a float32 sum rounded once is nearer the exact one. A max or min
+    is exact in any dtype.
     """
     squeeze = data.dim() == 1
     if squeeze:
         data = data[:, None]
     idx = _drop_row_ids(seg_ids, num_segments)
-    out = data.new_zeros((num_segments + 1, data.shape[1]))
     if mode in ("sum", "mean"):
-        out.index_add_(0, idx, data)
+        acc = data.float()
+        out = acc.new_zeros((num_segments + 1, data.shape[1]))
+        out.index_add_(0, idx, acc)
         if mode == "mean":
-            cnt = data.new_zeros(num_segments + 1)
-            cnt.index_add_(0, idx, data.new_ones(data.shape[0]))
+            cnt = acc.new_zeros(num_segments + 1)
+            cnt.index_add_(0, idx, acc.new_ones(data.shape[0]))
             out = out / torch.clamp(cnt, min=1.0)[:, None]
+        out = out.to(data.dtype)
     elif mode in ("max", "min"):
+        out = data.new_zeros((num_segments + 1, data.shape[1]))
         out.scatter_reduce_(0, idx[:, None].expand_as(data), data,
                             "amax" if mode == "max" else "amin",
                             include_self=False)

@@ -9,18 +9,24 @@ row range comes from :func:`segment_offsets` (``[S + 1]`` int32, the first
 row of each segment), computed once per sorted id array: the reductions of
 one VFE forward share it.
 
+Rows are float32 or bfloat16. A bfloat16 row is reduced in float32 and the
+result rounded to bfloat16, as the TPU kernel does for any dtype (cast to
+float32, reduce, cast back): a max is exact, a sum rounds once.
+
 Dispatch is by the device of the tensor alone: a CPU tensor goes to the plain
 PyTorch twins :func:`sorted_segment_reduce_ref` and
 :func:`segment_offsets_ref`, a CUDA tensor to the kernels (or the call
 raises). ``launches`` counts reduce-kernel launches and ``launch_counts``
-splits them by ``(mode, C)``, so a run can show that its main path went
-through the kernel, and with which shapes; ``offsets_launches`` counts the
-offsets kernel's.
+splits them by ``(mode, C, dtype)`` (dtype ``"float32"`` or
+``"bfloat16"``), so a run can show that its main path went through the
+kernel, and with which shapes; ``offsets_launches`` counts the offsets
+kernel's.
 
 The gradient is JAX's custom vjp (``sst_tpu/ops/sorted_reduce.py`` ``_bwd``,
 plain XLA there and plain PyTorch here): a sum hands each row its segment's
 gradient; a max hands it to the first row of the segment that holds the
 maximum, and 0 to every other row. Ids outside [0, num_segments) get 0.
+The gradient takes the dtype of the result's gradient.
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ import functools
 import torch
 
 MODES = {"sum": 0, "max": 1}
+DTYPES = {torch.float32: ("float32", 0), torch.bfloat16: ("bfloat16", 1)}
 
 launches = 0  # reduce-kernel launches in this process
-launch_counts: dict[tuple[str, int], int] = {}  # the same, by (mode, C)
+# the same, by (mode, C, dtype name)
+launch_counts: dict[tuple[str, int, str], int] = {}
 offsets_launches = 0  # offsets-kernel launches in this process
 
 
@@ -54,8 +62,8 @@ def _kernels():
     offsets.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p]
     offsets.restype = ctypes.c_int
-    reduce = lib.sst_sorted_segment_reduce_f32
-    reduce.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    reduce = lib.sst_sorted_segment_reduce
+    reduce.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     reduce.restype = ctypes.c_int
     return offsets, reduce
@@ -112,8 +120,8 @@ def _check(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
     if data.dim() != 2 or seg.shape[0] != data.shape[0]:
         raise ValueError(f"expected data [N, C] and seg [N], got "
                          f"{tuple(data.shape)} and {tuple(seg.shape)}")
-    if data.dtype != torch.float32:
-        raise TypeError(f"data must be float32, got {data.dtype}")
+    if data.dtype not in DTYPES:
+        raise TypeError(f"data must be float32 or bfloat16, got {data.dtype}")
     if data.device != seg.device:
         raise ValueError(f"data on {data.device} but seg on {seg.device}")
     if not data.is_contiguous():
@@ -136,7 +144,11 @@ def sorted_segment_reduce_ref(data: torch.Tensor, seg: torch.Tensor,
     Ids outside [0, num_segments) go to an extra row that is sliced off;
     max ignores the zero init (``include_self=False``), so empty segments
     read 0 and negative maxima stay negative, and a max that is not finite
-    reads 0. Rows need not be sorted."""
+    reads 0. Rows need not be sorted. bfloat16 rows are reduced in float32
+    and the result rounded to bfloat16."""
+    if data.dtype != torch.float32:
+        return sorted_segment_reduce_ref(data.float(), seg, num_segments,
+                                         mode).to(data.dtype)
     idx = seg.long()
     idx = torch.where((idx >= 0) & (idx < num_segments), idx, num_segments)
     out = data.new_zeros((num_segments + 1, data.shape[1]))
@@ -153,7 +165,8 @@ def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
             mode: str, offsets: torch.Tensor | None) -> torch.Tensor:
     global launches
     c = data.shape[1]
-    out = torch.empty((num_segments, c), dtype=torch.float32,
+    name, code = DTYPES[data.dtype]
+    out = torch.empty((num_segments, c), dtype=data.dtype,
                       device=data.device)
     if num_segments == 0 or c == 0:
         return out
@@ -161,13 +174,14 @@ def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
         offsets = segment_offsets(seg, num_segments)
     with torch.cuda.device(data.device):
         rc = _kernels()[1](data.data_ptr(), offsets.data_ptr(),
-                           out.data_ptr(), c, num_segments, MODES[mode],
+                           out.data_ptr(), c, num_segments, MODES[mode], code,
                            torch.cuda.current_stream(data.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sorted_segment_reduce kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
-    launch_counts[(mode, c)] = launch_counts.get((mode, c), 0) + 1
+    key = (mode, c, name)
+    launch_counts[key] = launch_counts.get(key, 0) + 1
     return out
 
 
@@ -221,17 +235,19 @@ def sorted_segment_reduce(data: torch.Tensor, seg: torch.Tensor,
     """Per-segment sum or max over rows sorted by segment id.
 
     Args:
-      data: [N, C] float32 rows grouped by segment (the voxel sort's order).
+      data: [N, C] float32 or bfloat16 rows grouped by segment (the voxel
+        sort's order).
       seg: [N] int32 nondecreasing ids; ids outside [0, num_segments) are
         dropped.
       num_segments: output rows.
       mode: 'sum' | 'max'.
       offsets: :func:`segment_offsets` of ``(seg, num_segments)``, computed
         here when None; read only by the kernel (the twin needs none).
-    Returns [num_segments, C] float32; empty segments are 0, and a max that
-    is not finite (a segment holding a NaN, or a maximum of +-inf) is 0, in
-    the kernel and in the twin alike: the JAX package's ``segment_reduce``
-    function. A sum holding a NaN or an inf stays non-finite. Where autograd
+    Returns [num_segments, C] in ``data``'s dtype (a bfloat16 result is the
+    float32 reduction rounded to nearest even); empty segments are 0, and a
+    max that is not finite (a segment holding a NaN, or a maximum of +-inf)
+    is 0, in the kernel and in the twin alike: the JAX package's
+    ``segment_reduce`` function. A sum holding a NaN or an inf stays non-finite. Where autograd
     needs the gradient of ``data``, it is JAX's (see the module note).
     """
     _check(data, seg, num_segments, mode, offsets)

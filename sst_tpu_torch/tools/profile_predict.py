@@ -1,16 +1,19 @@
 """Where the time of FSDv2-Waymo or SST-Waymo predict goes, on one CUDA
 card.
 
-    python -m sst_tpu_torch.tools.profile_predict [--backbone sparse]
+    python -m sst_tpu_torch.tools.profile_predict [--dtype float32]
+    python -m sst_tpu_torch.tools.profile_predict --backbone sparse
     python -m sst_tpu_torch.tools.profile_predict --model sst
 
-The models and frames are those of ``chip_smoke.py``: full widths, float32
-with TF32 off, random weights from seed 0, batch 1, synthetic Waymo-like
-frames of 196,608 points (seeds 0-3; x, y, z + 2 extra channels within
-79.8 m for FSDv2, x, y, z within 74.8 m for SST, the frames the JAX bench
-feeds each). ``--model fsdv2`` (default) builds
-``fsdv2_waymo(backbone=...)``, dense-BEV by default; ``--model sst`` builds
-``sst_waymo(train_buckets=False)``. It prints
+The models and frames are those of ``chip_smoke.py``: full widths, TF32
+off, random weights from seed 0, batch 1, synthetic Waymo-like frames of
+196,608 points (seeds 0-3; x, y, z + 2 extra channels within 79.8 m for
+FSDv2, x, y, z within 74.8 m for SST, the frames the JAX bench feeds
+each). ``--model fsdv2`` (default) builds ``fsdv2_waymo(backbone=...)``,
+dense-BEV by default, at ``fsdv2_waymo``'s default dtype (bf16 compute for
+the dense build, float32 for the sparse one) unless ``--dtype`` names one;
+``--model sst`` builds ``sst_waymo(train_buckets=False)`` (float32 with
+bf16 attention). It prints
 
   * the median CUDA-event time of each stage of ``predict`` over 8 frames,
     from the call to each boundary marked by a hook on a module's forward:
@@ -39,7 +42,11 @@ from collections import defaultdict
 
 import torch
 
-from sst_tpu_torch.apis import inference_detector, prepare_batch
+from sst_tpu_torch.apis import (
+    frame_to_numpy,
+    inference_detector,
+    prepare_batch,
+)
 from sst_tpu_torch.flagship import (
     fsdv2_waymo,
     init_weights,
@@ -96,7 +103,7 @@ def staged_predict(model, batch, boundaries):
         for h in hooks:
             h.remove()
     ev[-2].record()
-    host = {k: v[0].cpu().numpy() for k, v in res.items()}
+    host = frame_to_numpy(res)
     ev[-1].record()
     ev[-1].synchronize()
     return host, [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
@@ -123,6 +130,9 @@ def main() -> None:
     ap.add_argument("--model", choices=("fsdv2", "sst"), default="fsdv2")
     ap.add_argument("--backbone", choices=("dense_bev", "sparse"),
                     default="dense_bev", help="FSDv2's build")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default=None, help="FSDv2's compute dtype (default: the "
+                    "fsdv2_waymo's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_predict: needs a CUDA card")
@@ -135,8 +145,10 @@ def main() -> None:
         frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s).points[0]
                   for s in range(4)]
     else:
-        model = fsdv2_waymo(dtype=torch.float32, backbone=args.backbone)
-        title = f"fsdv2_waymo(backbone={args.backbone!r})"
+        dtype = args.dtype and getattr(torch, args.dtype)
+        model = fsdv2_waymo(dtype=dtype, backbone=args.backbone)
+        title = (f"fsdv2_waymo(backbone={args.backbone!r}) "
+                 f"{model.segmentor_mod.vfe_mod.dtype}")
         frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s,
                                         num_extra_feats=2,
                                         pcr_half=79.8).points[0]

@@ -1,10 +1,13 @@
 """Where the time of a train step goes, on one CUDA card: FSDv2-Waymo's
 dense-BEV build or SST-Waymo.
 
-    python -m sst_tpu_torch.tools.profile_train [--model sst]
+    python -m sst_tpu_torch.tools.profile_train [--dtype float32]
+    python -m sst_tpu_torch.tools.profile_train --model sst
 
 The models, frames and optimizer are those of ``chip_smoke.py`` phases 12
-and 13: full widths, float32 with TF32 off, random weights from seed 0,
+and 13: full widths, TF32 off, ``fsdv2_waymo_dense`` at its default
+dtype (bf16 compute) unless ``--dtype`` names one, ``sst_waymo``
+in float32 with bf16 attention, random weights from seed 0,
 batch 1, labelled synthetic Waymo-like frames of 196,608 points (seeds 0-3;
 x, y, z + 2 extra channels within 79.8 m for ``fsdv2_waymo_dense``, x, y, z
 within 74.8 m for ``sst_waymo(train_buckets=True)`` with a seeded voxel
@@ -50,6 +53,9 @@ TOP = 15
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("fsdv2", "sst"), default="fsdv2")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default=None, help="the dense build's compute dtype "
+                    "(default: fsdv2_waymo_dense's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA card")
@@ -67,8 +73,9 @@ def main() -> None:
         gen = torch.Generator(device=device).manual_seed(0)
         kw = dict(generator=gen)
     else:
-        model = fsdv2_waymo_dense(dtype=torch.float32)
-        title = "fsdv2_waymo_dense"
+        model = fsdv2_waymo_dense(dtype=args.dtype and getattr(torch,
+                                                               args.dtype))
+        title = f"fsdv2_waymo_dense {model.segmentor_mod.vfe_mod.dtype}"
         frames = [synthetic_labeled_batch(1, 196608, seed=s,
                                           num_extra_feats=2,
                                           pcr_half=79.8)[0]

@@ -211,7 +211,7 @@ def test_flagship_builder_uses_the_kernel_on_the_segmentor_only():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(dtype=torch.bfloat16), dict(as_rpn=True),
+    dict(as_rpn=True),
 ])
 def test_flagship_options_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -46,13 +46,88 @@ def test_sorted_reduce_kernel_matches_twin(mode, n, v, c):
     sr.reset_launch_counts()
     got = sr.sorted_segment_reduce(data, seg, v, mode)
     torch.cuda.synchronize()
-    assert sr.launches == 1 and sr.launch_counts == {(mode, c): 1}
+    assert sr.launches == 1
+    assert sr.launch_counts == {(mode, c, "float32"): 1}
     ref = sr.sorted_segment_reduce_ref(data, seg, v, mode)
     if mode == "max":
         assert torch.equal(got, ref)  # max is order-free: exact
     else:
         # row-order sum vs index_add's order, f32: rtol/atol 1e-5
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at each value (the spacing of its binade)."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0**-126)))
+    return 2.0 ** (e - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("n,v,c,empty", [
+    (4096, 1500, 64, False),    # 16-byte units of 8 bf16
+    (20000, 9000, 3, False),    # a thread per segment
+    (3000, 40, 130, False),     # C off the 8-channel unit: one per channel
+    (196608, 131072, 64, True),  # the segmentor's shape, mostly empty
+])
+def test_sorted_reduce_kernel_bf16_route_matches_twin(mode, n, v, c, empty):
+    """The bf16 route (bf16 rows reduced in f32, rounded to nearest even)
+    against its twin on the same rows: bf16 out, counted under
+    (mode, C, "bfloat16"); max equal bit for bit, sum within one bf16 ulp
+    (the twin sums in another order before its one rounding); NaN and
+    +-inf rows as the twin on the CPU; the same bits on a second run."""
+    device = _cuda()
+    if empty:
+        gen = torch.Generator(device=device).manual_seed(c)
+        seg = torch.sort(torch.randint(0, 40000, (n,), generator=gen,
+                                       device=device).to(torch.int32)).values
+        seg[-20000:] = v
+        data = torch.randn(n, c, generator=gen, device=device) * 4
+    else:
+        data, seg = _sorted_rows(n, v, c, seed=n + c, device=device)
+        data = data * 4
+    data = data.bfloat16()
+    data[::97, ::5] = float("nan")
+    data[5::89, 1::3] = float("inf")
+    data[7::83, ::4] = -float("inf")
+    sr.reset_launch_counts()
+    got = sr.sorted_segment_reduce(data, seg, v, mode)
+    again = sr.sorted_segment_reduce(data, seg, v, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert sr.launch_counts == {(mode, c, "bfloat16"): 2}
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    ref = sr.sorted_segment_reduce_ref(data.cpu(), seg.cpu(), v, mode)
+    got = got.cpu()
+    finite = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got[torch.isinf(ref)], ref[torch.isinf(ref)])
+    g, r = got[finite].float(), ref[finite].float()
+    if mode == "max":
+        assert torch.equal(g, r)
+    else:
+        assert bool(((g - r).abs() <= _bf16_ulp(r)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_sorted_reduce_kernel_bf16_backward_matches_twin(mode):
+    """Autograd through the bf16 route against autograd through the twin
+    on the CPU: bf16 gradients, equal bit for bit, ties included."""
+    device = _cuda()
+    data, seg = _sorted_rows(4096, 1500, 16, seed=13, device=device)
+    data = data.bfloat16()
+    data[1::7] = data[::7][:data[1::7].shape[0]]  # ties inside segments
+    g = torch.randn(1500, 16, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in (device, "cpu"):
+        d = data.detach().to(dev).requires_grad_()
+        out = sr.sorted_segment_reduce(d, seg.to(dev), 1500, mode)
+        out.backward(g.bfloat16().to(dev))
+        grads.append(d.grad.cpu())
+    assert grads[0].dtype == torch.bfloat16
+    assert torch.equal(grads[0].view(torch.int16), grads[1].view(torch.int16))
 
 
 @pytest.mark.cuda
