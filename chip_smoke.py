@@ -1,13 +1,13 @@
-"""GPU smoke run of the PyTorch port's three ``predict`` paths and their
-three train steps at full width on one CUDA card, through their
-hand-written kernels: FSDv2-Waymo's dense-BEV build at its default bf16
-compute policy and in float32 beside it (sorted segment reduce kernel, its
-bf16 and float32 routes, in predict and training), its sparse-UNet build
-(sorted segment reduce and sparse conv kernels; in training also the
-sparse conv's weight-gradient kernel, and the conv kernel over the
-transposed tables for the input gradient) and SST-Waymo (window MHA
-kernel; in training under autograd, with the JAX package's
-einsum-recompute backward in torch ops).
+"""GPU smoke run of the PyTorch port's four ``predict`` paths and three
+train steps at full width on one CUDA card, through their hand-written
+kernels: FSDv2-Waymo's dense-BEV build at its default bf16 compute policy
+and in float32 beside it (sorted segment reduce kernel, its bf16 and
+float32 routes, in predict and training), its sparse-UNet build (sorted
+segment reduce and sparse conv kernels; in training also the sparse conv's
+weight-gradient kernel, and the conv kernel over the transposed tables for
+the input gradient), SST-Waymo (window MHA kernel; in training under
+autograd, with the JAX package's einsum-recompute backward in torch ops)
+and FSD two-stage predict (sparse conv kernel), built from its config.
 
     python3 chip_smoke.py
 
@@ -106,20 +106,41 @@ Phases (each one that fails ends the run with a non-zero exit code):
               counters, and 36 window MHA launches per step (6 blocks x 2
               shifts x 3 buckets), counted at the launch site.
 
+ 14. FSD      configs/fsd/fsd_waymoD1_1x.py at full width through the
+              port's config loader and ``build_model_from_cfg`` (seed-0
+              weights; the segmentor head's vote weights set to pull points
+              toward their voxel's centre and its class biases set so that
+              0.6 of each fg cap passes its threshold on frame 0, so that
+              no stage runs on an empty set); the sparse conv kernel
+              against its twin on the recorded inputs of all 39 convs of
+              frame 0, timed beside the twin and the bound; two-stage
+              ``predict`` through ``apis.inference_detector`` on the four
+              frames: 39 conv launches per frame, each frame's cap fills
+              (fg points between a quarter and all of each cap, cluster
+              voxels, clusters, CCL rounds, valid rois, paired points, the
+              pool's overflow counters), finite outputs, at most max_num
+              detections; latency of ``inference_detector`` and of
+              ``predict(skip_rcnn=True)`` (median and range of 12 runs),
+              stage times and peak memory; then
+              configs/fsd/fsd_waymoD1_1x_dense.py the same way (no kernel
+              on its path), its latency.
+
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 13
-after phase 9, on a model with the training buckets. TF32 is turned off
-for convolutions and matmuls, so every float32 comparison is in full
-float32. Kernel, twin and library times are device times: each timed call
-is queued behind a short ``torch.cuda._sleep`` (``utils/timing.py
-cuda_ms``). The line before the last is the kernels JSON (every kernel's
-time, its plain twin's, its bound on the card and a library call's where
-there is one); the last line of standard output is the result JSON.
+after phase 9, on a model with the training buckets; phase 14 last. TF32
+is turned off for convolutions and matmuls, so every float32 comparison is
+in full float32. Kernel, twin and library times are device times: each
+timed call is queued behind a short ``torch.cuda._sleep``
+(``utils/timing.py cuda_ms``). The line before the last is the kernels
+JSON (every kernel's time, its plain twin's, its bound on the card and a
+library call's where there is one); the last line of standard output is
+the result JSON.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 from collections import Counter
 import sys
@@ -129,7 +150,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sst_tpu_torch.apis import inference_detector, prepare_batch
+from sst_tpu_torch.apis import (
+    frame_to_numpy,
+    inference_detector,
+    prepare_batch,
+)
 from sst_tpu_torch.flagship import (
     fsdv2_waymo,
     fsdv2_waymo_dense,
@@ -147,8 +172,11 @@ from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
 from sst_tpu_torch.train.schedules import FSDDetectionSchedule
 from sst_tpu_torch.train.state import make_optimizer
+from sst_tpu_torch.tools.profile_predict import device_busy
 from sst_tpu_torch.train.step import train_step
 from sst_tpu_torch.utils import remat
+from sst_tpu_torch.utils.builders import build_model_from_cfg
+from sst_tpu_torch.utils.config import load_config
 from sst_tpu_torch.utils.nvcc import load_kernel_libraries
 from sst_tpu_torch.utils.timing import (
     card_name_and_power_limit,
@@ -1882,6 +1910,474 @@ def phase_sst_train(model, device):
             "mha_shapes": list(shapes.values())}
 
 
+# ---------------------------------------------------------------- phase 14
+
+FSD_CONFIG = "configs/fsd/fsd_waymoD1_1x.py"
+FSD_DENSE_CONFIG = "configs/fsd/fsd_waymoD1_1x_dense.py"
+FSD_FG_FILL = 0.6  # the share of each fg cap the calibrated biases select
+FSD_N_TIMED = 12  # inference_detector runs timed after warm-up
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+FSD_VOTE_GAIN = 8.0  # offset = -gain * l * |l| per axis, l the local x, y
+
+
+def _contract_votes(model):
+    """Set the segmentor head's vote weights (weights, not the config) so
+    that each point's vote pulls it toward the centre of its 0.25 m
+    segmentor voxel: offset = -8 l |l| in x and y, l the point's offset
+    from the voxel centre (|l| <= 0.125 m), which maps a voxel's points
+    into a 6.25 cm square. Random votes scatter the centres, so with the
+    config's ``min_points = 2`` nearly every cluster voxel would hold one
+    point and be dropped: the pedestrians' 5 cm cluster voxels can never
+    hold two pre-voxelized points (0.1 m cells) unless votes move them.
+    Two channels per axis of both pre_seg layers carry +l and -l through
+    the ReLUs (their batch norms the identity); the vote is -sqrt(8) l,
+    decoded as v |v|. Every other weight stays as drawn."""
+    head = model.rpn.segmentor_mod.head_mod
+    mlp = head.pre_seg
+    d0, d1 = mlp.Dense_0, mlp.Dense_1
+    nin = d0.weight.shape[1]  # voxel features, then the local x, y, z
+    gain = math.sqrt(FSD_VOTE_GAIN)
+    with torch.no_grad():
+        for axis in range(2):
+            for half, sign in enumerate((1.0, -1.0)):
+                ch = 2 * axis + half
+                d0.weight[ch] = 0.0
+                d0.weight[ch, nin - 3 + axis] = sign
+                d1.weight[ch] = 0.0
+                d1.weight[ch, ch] = 1.0
+                for bn in (mlp.MaskedBatchNorm_0, mlp.MaskedBatchNorm_1):
+                    bn.running_mean[ch] = 0.0
+                    bn.running_var[ch] = 1.0 - bn.eps
+                    bn.weight[ch] = 1.0
+                    bn.bias[ch] = 0.0
+        head.voting.weight.zero_()
+        head.voting.bias.zero_()
+        for c in range(head.num_classes):
+            for axis in range(2):
+                head.voting.weight[3 * c + axis, 2 * axis] = -gain
+                head.voting.weight[3 * c + axis, 2 * axis + 1] = gain
+
+
+def _calibrate_fg(model, frame):
+    """Shift the segmentor head's class biases (weights, not the config) so
+    that on ``frame`` the top ``FSD_FG_FILL`` of each class's fg cap passes
+    its score threshold. With random weights and ``init_bias = -2`` the
+    scores sit near 0.12, under the thresholds (0.3, 0.25, 0.25): sampling
+    would select nothing, and CCL, SIR and the RoI head would run on empty
+    sets. A bias shift passes through the pre-voxelization's mean exactly,
+    so it moves each pre-voxelized logit by the same amount. Returns the
+    shifts."""
+    rpn = model.rpn
+    with torch.inference_mode():
+        data = rpn.run_pipeline(prepare_batch(model, frame.points[0]))["data"]
+    shifts = []
+    for c, thr in enumerate(rpn.score_thresh):
+        logits = torch.sort(data["seg_logits"][data["valid"], c],
+                            descending=True).values
+        n = int(FSD_FG_FILL * rpn.caps.fg_per_class[c])
+        if logits.numel() <= n:
+            fail(f"fsd: frame 0 has {logits.numel()} pre-voxelized points, "
+                 f"too few to fill {n} of class {c}'s fg cap")
+        target = math.log(thr / (1 - thr))
+        shifts.append(target - float(logits[n - 1] + logits[n]) / 2)
+    with torch.no_grad():
+        rpn.segmentor_mod.head_mod.conv_seg.bias += torch.tensor(
+            shifts, device=rpn.segmentor_mod.head_mod.conv_seg.bias.device)
+    return shifts
+
+
+class _FSDProbe:
+    """Records, for each predict while active, the single stage's counters
+    (``extract``'s ``counts``), the proposals' validity and the pool's
+    fills and overflow counters. Wraps ``extract``, ``_proposals`` and
+    ``roi_head.dynamic_point_pool``; launches nothing."""
+
+    def __init__(self, model):
+        self.model = model
+        self.frames = []
+
+    def __enter__(self):
+        from sst_tpu_torch.models.fsd import roi_head
+
+        rpn, model, rec = self.model.rpn, self.model, {}
+        self._roi_head, self._pool = roi_head, roi_head.dynamic_point_pool
+        extract, proposals, pool = rpn.extract, model._proposals, self._pool
+
+        def extract_rec(*a, **k):
+            out = extract(*a, **k)
+            rec["counts"] = {k: v.tolist() for k, v in out["counts"].items()}
+            return out
+
+        def proposals_rec(*a, **k):
+            out = proposals(*a, **k)
+            rec["rois"] = int(out[3].sum())
+            return out
+
+        def pool_rec(*a, **k):
+            out = pool(*a, **k)
+            rec.update(pairs=int(out["valid"].sum()),
+                       pair_slots=out["valid"].numel(),
+                       membership_overflow=int(out["membership_overflow"]),
+                       inbox_overflow=int(out["inbox_overflow"]))
+            self.frames.append(dict(rec))
+            return out
+
+        rpn.extract, model._proposals = extract_rec, proposals_rec
+        roi_head.dynamic_point_pool = pool_rec
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.rpn.extract, self.model._proposals
+        self._roi_head.dynamic_point_pool = self._pool
+
+
+FSD_STAGES = ("segmentor", "pre-voxelize", "sampling + CCL", "SIR + head",
+              "RoI pool", "RoI head", "decode + NMS")
+
+
+def _fsd_stage_ms(model, frame):
+    """One two-stage predict with CUDA events around its stages (module
+    and method boundaries), the card synchronised at each boundary: a
+    stage's time is its own device work and the host's time to launch it,
+    and no stage absorbs the queued work of the one before (the model
+    copies small constants to the card, and each copy waits for the
+    queue). The pool and the SIR² head run inside ``roi.predict``; decode +
+    NMS is the rest of it. Returns ms by stage, "other" (the predict
+    outside the stages) and "total" (with the synchronisations)."""
+    from sst_tpu_torch.models.fsd import roi_head
+
+    rpn, spans = model.rpn, []
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            start, end = _event(), _event()
+            torch.cuda.synchronize()
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            spans.append((stage, start, end))
+            return out
+        return run
+
+    patched = [(rpn.segmentor_mod, "forward", "segmentor"),
+               (rpn, "pre_voxelize", "pre-voxelize"),
+               (rpn, "sample_class", "sampling + CCL"),
+               (rpn, "cluster_class", "sampling + CCL"),
+               (rpn.backbone_mod, "forward", "SIR + head"),
+               (rpn.head_mod, "forward", "SIR + head"),
+               (model.roi.bbox_head_mod, "forward", "RoI head"),
+               (model.roi, "predict", "roi.predict")]
+    for obj, name, stage in patched:
+        setattr(obj, name, timed(stage, getattr(obj, name)))
+    pool = roi_head.dynamic_point_pool
+    roi_head.dynamic_point_pool = timed("RoI pool", pool)
+    try:
+        batch = prepare_batch(model, frame.points[0])
+        start, end = _event(), _event()
+        start.record()
+        model.predict(batch)
+        end.record()
+        end.synchronize()
+    finally:
+        roi_head.dynamic_point_pool = pool
+        for obj, name, _ in patched:
+            delattr(obj, name)
+    ms = Counter()
+    for stage, s, e in spans:
+        ms[stage] += s.elapsed_time(e)
+    ms["decode + NMS"] = ms.pop("roi.predict") - ms["RoI pool"] \
+        - ms["RoI head"]
+    out = {k: ms[k] for k in FSD_STAGES}
+    out["total"] = start.elapsed_time(end)
+    out["other"] = out["total"] - sum(ms[k] for k in FSD_STAGES)
+    return out
+
+
+def phase_fsd_kernels(model, frame, device):
+    """The sparse conv kernel against its twin on every conv of one FSD
+    frame, on the conv's recorded input features, rulebook and weights
+    (hooks on each SparseConvLayer, frame 0 of the main path), one case
+    per distinct (rulebook, Cin, Cout): phase 6's tolerance and bit-equal
+    repeat; kernel and twin timed (plain, kernel, kernel, plain), the bound
+    at 3xTF32 over the (row, tap) pairs with a neighbour, and the executed
+    shares. Returns (shapes, per-frame sums, largest error, the frame's
+    convs by (mode, Cin, Cout))."""
+    calls = _record_sparse_convs(model, frame)
+    cases = {}
+    for name, vin, cp, wshape, feats, _ in calls:
+        key = (id(cp.nbr), wshape[1], wshape[2])
+        if key not in cases:
+            cases[key] = dict(name=name, plan=cp, vin=vin, feats=feats,
+                              w=model.get_submodule(name).weight.detach(),
+                              convs=0)
+        cases[key]["convs"] += 1
+    convs = Counter((cp.mode, w[1], w[2]) for _, _, cp, w, _, _ in calls)
+    print(f"fsd kernels: sparse_conv_gemm on the recorded inputs of the "
+          f"{len(calls)} convs of frame 0 ({len(cases)} distinct rulebook "
+          f"and widths); convs by (mode, Cin, Cout) {dict(convs)}",
+          flush=True)
+    errs, shapes = [], []
+    for case in cases.values():
+        cp, vin, feats, w = case["plan"], case["vin"], case["feats"], case["w"]
+        nbr, mode = cp.nbr, cp.mode
+        sched = cp.schedule(vin)
+        short = case["name"].replace("rpn.segmentor_mod.unet_mod.", "")
+        _check_conv(f"{short} (x{case['convs']})", feats, nbr, w, mode, errs,
+                    schedule=sched)
+        runs = [cuda_ms(fn, 10, warmup=2) for fn in (
+            lambda: scg.sparse_conv_gemm_ref(feats, nbr, w),
+            lambda: scg.sparse_conv_gemm(feats, nbr, w, mode, schedule=sched),
+            lambda: scg.sparse_conv_gemm(feats, nbr, w, mode, schedule=sched),
+            lambda: scg.sparse_conv_gemm_ref(feats, nbr, w))]
+        kern, plain = min(runs[1], runs[2]), min(runs[0], runs[3])
+        taps, vout = nbr.shape
+        cin, cout = w.shape[1], w.shape[2]
+        hit, _, executed = _executed_shares(nbr, vin, sched)
+        flops = 2 * hit * taps * vout * cin * cout
+        nbytes = 4 * (vin * cin + taps * vout + taps * cin * cout
+                      + vout * cout)
+        bound_ms, bound_by = bound(nbytes, flops, F32_TC_FLOP_PER_S)
+        print(f"    time: kernel {kern:.4f} ms per call (runs {runs[1]:.4f}, "
+              f"{runs[2]:.4f}), plain twin {plain:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, 3xTF32); (row, tap) pairs: "
+              f"{hit:.3f} have a neighbour, {executed:.3f} executed by the "
+              f"tile schedule", flush=True)
+        shapes.append({"conv": case["name"], "convs_per_frame": case["convs"],
+                       "mode": mode, "cin": cin, "cout": cout, "vin": vin,
+                       "vout": vout, "neighbour_share": hit,
+                       "executed_share_tiles": executed, "ms": kern,
+                       "plain_ms": plain, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": errs[-1]})
+    covered = {(s["mode"], s["cin"], s["cout"]) for s in shapes}
+    for width in sorted({c for _, c, _ in covered}):
+        modes = {m for m, c, _ in covered if c == width}
+        print(f"  Cin {width}: checked {sorted(modes)}", flush=True)
+    if not {"subm", "strided", "inverse"} <= {m for m, _, _ in covered}:
+        fail(f"fsd kernels: not every conv mode was checked: {covered}")
+    per_frame = {k: sum(s[k] * s["convs_per_frame"] for s in shapes)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"fsd kernels: per frame over its {len(calls)} convs: kernel "
+          f"{per_frame['ms']:.3f} ms, plain twin {per_frame['plain_ms']:.3f} "
+          f"ms, bound {per_frame['bound_ms']:.3f} ms (3xTF32); largest "
+          f"error {max(errs):.3e}", flush=True)
+    del calls, cases
+    return shapes, per_frame, max(errs), convs
+
+
+def _check_fsd_frame(model, s, res, rec):
+    """The frame's fills and outputs: each fg cap filled between a quarter
+    and all, no stage fed an empty set, finite outputs, at most max_num
+    detections."""
+    rpn = model.rpn
+    caps = rpn.caps
+    c = rec["counts"]
+    rounds = c["ccl_rounds"]
+    print(f"  frame {s}: fg points {c['fg']} of {list(caps.fg_per_class)}; "
+          f"cluster voxels {c['cluster_voxels']} of "
+          f"{list(caps.cluster_voxels_per_class)}; clusters {c['clusters']} "
+          f"of {list(caps.clusters_per_class)} (before the cap); CCL rounds "
+          f"{rounds} (64-round cap reached: {[r >= 64 for r in rounds]}); "
+          f"valid rois {rec['rois']} of {model.rois_per_sample}; paired "
+          f"points {rec['pairs']} of {rec['pair_slots']}; "
+          f"membership_overflow {rec['membership_overflow']}, "
+          f"inbox_overflow {rec['inbox_overflow']}; "
+          f"{int(res['valid'].sum())} detections", flush=True)
+    for k, cap in zip(c["fg"], caps.fg_per_class):
+        if not cap // 4 <= k <= cap:
+            fail(f"fsd frame {s}: fg fill {c['fg']} outside a quarter to "
+                 f"all of the caps {caps.fg_per_class}")
+    for name, n in (("cluster voxels", min(c["cluster_voxels"])),
+                    ("clusters", min(c["clusters"])),
+                    ("valid rois", rec["rois"]),
+                    ("paired points", rec["pairs"]),
+                    ("detections", int(res["valid"].sum()))):
+        if n == 0:
+            fail(f"fsd frame {s}: no {name}: a stage ran on an empty set")
+    rows = min(rpn.test_cfg["max_num"],
+               model.rois_per_sample)
+    if res["boxes"].shape != (rows, 7) or int(res["valid"].sum()) > rows:
+        fail(f"fsd frame {s}: boxes {res['boxes'].shape}, "
+             f"{int(res['valid'].sum())} valid; expected [{rows}, 7]")
+    for k in ("boxes", "scores"):
+        if not np.isfinite(res[k]).all():
+            fail(f"fsd frame {s}: non-finite {k}")
+
+
+def _latency(fn, frames, n):
+    """Median and range of ``n`` CUDA-event runs of ``fn(frame)`` over the
+    frames in turn, after one warm-up run per frame."""
+    for frame in frames:
+        fn(frame)
+    runs = [event_ms(lambda f=frames[r % len(frames)]: fn(f))
+            for r in range(n)]
+    return {"median": statistics.median(runs), "min": min(runs),
+            "max": max(runs), "runs": runs}
+
+
+def phase_fsd_predict(model, frames, n_convs):
+    """Drive FSD two-stage predict through ``inference_detector`` from zero
+    counts on every frame; conv launches per frame held to the module's
+    convs; fills, counters and outputs per frame; latency of
+    ``inference_detector`` and of ``predict(skip_rcnn=True)``; stage times
+    and peak memory. Returns the phase's record."""
+    results, per_frame = [], []
+    with _FSDProbe(model) as probe:
+        reset_launch_counts()
+        for frame in frames:
+            before = dict(scg.launch_counts)
+            results.append(inference_detector(model, frame.points[0]))
+            per_frame.append({k: v - before.get(k, 0)
+                              for k, v in scg.launch_counts.items()})
+        launches = scg.launches
+        reduce_launches = sr.launches
+    split = per_frame[0]
+    print(f"fsd predict: {FSD_CONFIG} on {len(frames)} frames; "
+          f"sparse_conv_gemm launches {launches}, per frame by (mode, Cin, "
+          f"Cout) {split}; sorted_segment_reduce launches {reduce_launches} "
+          f"(the config leaves use_sorted_reduce off)", flush=True)
+    if any(f != split for f in per_frame):
+        fail(f"fsd: conv launches differ between frames: {per_frame}")
+    if sum(split.values()) != n_convs:
+        fail(f"fsd: expected {n_convs} sparse conv launches per frame (one "
+             f"per SparseConvLayer), counted {sum(split.values())}")
+    if reduce_launches:
+        fail(f"fsd: the sorted reduce launched {reduce_launches} times")
+    for s, (res, rec) in enumerate(zip(results, probe.frames)):
+        _check_fsd_frame(model, s, res, rec)
+
+    lat = _latency(lambda f: inference_detector(model, f.points[0]), frames,
+                   FSD_N_TIMED)
+    lat_rpn = _latency(lambda f: frame_to_numpy(model.predict(
+        prepare_batch(model, f.points[0]), skip_rcnn=True)), frames,
+        FSD_N_TIMED)
+    for name, l in (("inference_detector (two stage)", lat),
+                    ("predict(skip_rcnn=True) incl. host I/O", lat_rpn)):
+        print(f"fsd latency, {name}: median {l['median']:.2f} ms, range "
+              f"{l['min']:.2f}-{l['max']:.2f} over {FSD_N_TIMED} CUDA-event "
+              f"runs after warm-up; runs {[round(t, 2) for t in l['runs']]}",
+              flush=True)
+    stages = [_fsd_stage_ms(model, f) for f in frames[:3]]
+    stage_ms = {k: statistics.median(s[k] for s in stages)
+                for k in stages[0]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inference_detector(model, frames[0].points[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fsd stages, ms (median of 3 frames, CUDA events at module and "
+          f"method boundaries, the card synchronised at each): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"; peak memory of one predict {peak:.3f} GiB", flush=True)
+    return {"launches": launches, "split": split, "latency": lat,
+            "latency_skip_rcnn": lat_rpn, "stage_ms": stage_ms,
+            "peak_gib": peak, "frames": probe.frames,
+            "detections": [int(r["valid"].sum()) for r in results],
+            "trace": _fsd_trace(model, frames)}
+
+
+def _fsd_trace(model, frames, n=2):
+    """``torch.profiler`` over ``n`` two-stage predicts: the device's busy
+    time (the union of its kernel and copy intervals), the wall time, the
+    idle share (profiler on) and the kernels taking the most device
+    time."""
+    batches = [prepare_batch(model, f.points[0]) for f in frames[:n]]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            model.predict(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_busy(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    idle = 1.0 - busy / wall if busy > 0 else None
+    print(f"fsd trace over {n} predicts (profiler on): device busy "
+          f"{busy:.3f} ms of {wall:.3f} ms wall, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; top kernels:",
+          flush=True)
+    for name, ms in top:
+        print(f"  {ms:9.3f} ms  {name[:100]}", flush=True)
+    return {"predicts": n, "device_busy_ms": busy, "wall_ms": wall,
+            "idle_share": idle,
+            "top_kernels_ms": {k[:100]: v for k, v in top}}
+
+
+def phase_fsd_dense(frames):
+    """configs/fsd/fsd_waymoD1_1x_dense.py through the same builder (seed-0
+    weights, the fg biases calibrated on frame 0): its outputs checked as
+    the sparse build's, its predict timed. The dense-BEV segmentor runs no
+    hand-written kernel (its VFE leaves the sorted reduce off)."""
+    t0 = time.perf_counter()
+    model = init_weights(build_model_from_cfg(load_config(FSD_DENSE_CONFIG),
+                                              train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    _contract_votes(model)
+    shifts = _calibrate_fg(model, frames[0])
+    print(f"model: {FSD_DENSE_CONFIG}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, built "
+          f"in {time.perf_counter() - t0:.1f} s; fg bias shifts "
+          f"{[round(x, 3) for x in shifts]}", flush=True)
+    with _FSDProbe(model) as probe:
+        reset_launch_counts()
+        results = [inference_detector(model, f.points[0]) for f in frames]
+        launches = scg.launches + sr.launches
+    if launches:
+        fail(f"fsd dense: {launches} kernel launches; its path runs none")
+    for s, (res, rec) in enumerate(zip(results, probe.frames)):
+        _check_fsd_frame(model, s, res, rec)
+    lat = _latency(lambda f: inference_detector(model, f.points[0]), frames,
+                   FSD_N_TIMED // 2)
+    print(f"fsd dense latency, inference_detector (two stage): median "
+          f"{lat['median']:.2f} ms, range {lat['min']:.2f}-{lat['max']:.2f} "
+          f"over {FSD_N_TIMED // 2} runs; runs "
+          f"{[round(t, 2) for t in lat['runs']]}", flush=True)
+    return {"latency": lat, "frames": probe.frames}
+
+
+def phase_fsd(device):
+    """Phase 14: FSD two-stage at the full width of configs/fsd/
+    fsd_waymoD1_1x.py, built by the port's config loader and builder (seed-0
+    weights, TF32 off). Returns the phase's record."""
+    t0 = time.perf_counter()
+    model = init_weights(build_model_from_cfg(load_config(FSD_CONFIG),
+                                              train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _frames(4)  # bench.py bench_fsd's frames
+    _contract_votes(model)
+    shifts = _calibrate_fg(model, frames[0])
+    print(f"model: {FSD_CONFIG} through build_model_from_cfg, f32, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{n_convs} sparse convs, built in {time.perf_counter() - t0:.1f} "
+          f"s; votes contracted toward the segmentor voxel centres, fg bias "
+          f"shifts {[round(x, 3) for x in shifts]} (a {FSD_FG_FILL} fill "
+          f"of each fg cap on frame 0)", flush=True)
+    shapes, per_frame, err, convs = phase_fsd_kernels(model, frames[0],
+                                                      device)
+    if sum(convs.values()) != n_convs:
+        fail(f"fsd: frame 0 ran {sum(convs.values())} sparse convs, the "
+             f"model has {n_convs}")
+    rec = phase_fsd_predict(model, frames, n_convs)
+    if Counter(rec["split"]) != convs:
+        fail(f"fsd: the convs checked {dict(convs)} are not those launched "
+             f"per frame {rec['split']}")
+    rec["split"] = {f"{m} {a}->{b}": n for (m, a, b), n in
+                    rec["split"].items()}
+    del model
+    torch.cuda.empty_cache()
+    rec["dense"] = phase_fsd_dense(frames)
+    rec.update(shapes=shapes, per_frame=per_frame, max_abs_err=err)
+    return rec
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1996,6 +2492,10 @@ def main() -> None:
     sst_train = phase_sst_train(sst, device)
     sst_train["card"] = card
     del sst
+    torch.cuda.empty_cache()
+
+    fsd = phase_fsd(device)
+    fsd["card"] = card
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -2081,13 +2581,16 @@ def main() -> None:
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/sparse_conv_gemm.cu",
         "replaces": "sst_tpu/ops/sparse_conv_pallas.py:375",
-        # predict (phase 7) and train (phase 11: forward, recompute and
-        # input-gradient launches), each counted from 0
-        "launches": conv_launches + train["launches"]["sparse_conv_gemm"],
+        # predict (phase 7), train (phase 11: forward, recompute and
+        # input-gradient launches) and FSD predict (phase 14), each counted
+        # from 0
+        "launches": (conv_launches + train["launches"]["sparse_conv_gemm"]
+                     + fsd["launches"]),
         "launches_by_path": {"sparse": conv_launches,
                              "sparse_train": train["launches"][
-                                 "sparse_conv_gemm"]},
-        "max_abs_err": max(conv_err, dgrad_err),
+                                 "sparse_conv_gemm"],
+                             "fsd": fsd["launches"]},
+        "max_abs_err": max(conv_err, dgrad_err, fsd["max_abs_err"]),
         "dgrad_max_abs_err": dgrad_err,
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
@@ -2106,6 +2609,14 @@ def main() -> None:
         # transposed tables (phase 10)
         "dgrad_ms_per_step": dw_step["dgrad_ms"],
         "dgrad_plain_ms_per_step": dw_step["dgrad_plain_ms"],
+        # per frame of FSD (phase 14): each of its 39 convs at the time of
+        # its recorded input, rulebook and widths
+        "fsd_ms_per_frame": fsd["per_frame"]["ms"],
+        "fsd_plain_ms_per_frame": fsd["per_frame"]["plain_ms"],
+        "fsd_bound_ms_per_frame": fsd["per_frame"]["bound_ms"],
+        "fsd_bound_by": bound_by(fsd["shapes"], "convs_per_frame"),
+        "fsd_max_abs_err": fsd["max_abs_err"],
+        "fsd_shapes": fsd.pop("shapes"),
     }, {
         "name": "sparse_conv_dw",
         "route": "cuda",
@@ -2166,12 +2677,16 @@ def main() -> None:
         "dense_bev_bf16_scatter": lat["bf16 scatter"],
         "dense_bev_f32_sorted_reduce_kernel": lat["f32 kernel"],
         "dense_bev_bf16_batch4_per_frame": batch4["ms_per_frame"],
-        "sparse": sparse_lat, "sst": sst_lat},
+        "sparse": sparse_lat, "sst": sst_lat,
+        "fsd": fsd["latency"]["median"],
+        "fsd_skip_rcnn": fsd["latency_skip_rcnn"]["median"],
+        "fsd_dense": fsd["dense"]["latency"]["median"]},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
         "train_dense_bev_f32": dense_train_f32,
         "train_sst": sst_train,
+        "fsd": fsd,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

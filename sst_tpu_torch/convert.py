@@ -14,6 +14,12 @@ The torch modules keep flax's module names (``segmentor_mod``,
 
 The conversion is strict: it raises if a flax leaf has no torch target, if a
 shape differs, or if any torch parameter or buffer is left unset.
+:func:`check_flax_shapes` runs the same checks on a tree of shapes alone
+(``jax.eval_shape`` of a full-width init), with nothing allocated.
+
+FSD maps by the same names: ``rpn`` / ``roi`` (two stage), ``segmentor_mod``,
+``backbone_mod`` / ``block_i`` / ``rel_mlp`` and ``vfe_i`` (SIR, MLPs with
+LayerNorm), ``head_mod``, ``bbox_head_mod`` / ``conv_cls`` / ``conv_reg``.
 """
 
 from __future__ import annotations
@@ -49,10 +55,11 @@ def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
-@torch.no_grad()
-def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
-    """Fill ``module`` from ``{"params": ..., "batch_stats": ...}`` (nested
-    dicts of numpy arrays) and return it."""
+def _matched(module: nn.Module, variables: Mapping):
+    """Yield (torch key, target tensor, flax leaf name, flax value) for
+    every flax leaf, its shape in the torch layout checked against the
+    target's; raise on a leaf without a target and on a target left
+    unset. ``value`` needs only ``.shape`` and ``.ndim``."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
@@ -69,16 +76,33 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             if key not in state:
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has "
                                f"no torch target {key!r}")
-            arr = _to_torch_layout(leaf, np.asarray(value))
+            shape = _to_torch_layout(
+                leaf, np.broadcast_to(np.float32(0), value.shape)).shape
             target = state[key]
-            if tuple(arr.shape) != tuple(target.shape):
-                raise ValueError(f"{key}: flax shape {arr.shape} (torch "
+            if tuple(shape) != tuple(target.shape):
+                raise ValueError(f"{key}: flax shape {tuple(shape)} (torch "
                                  f"layout) != torch shape "
                                  f"{tuple(target.shape)}")
-            target.copy_(torch.from_numpy(np.array(arr)))
             done.add(key)
+            yield key, target, leaf, value
     missing = sorted(set(state) - done)
     if missing:
         raise KeyError(f"torch parameters/buffers not set by the flax "
                        f"variables: {missing}")
+
+
+@torch.no_grad()
+def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Fill ``module`` from ``{"params": ..., "batch_stats": ...}`` (nested
+    dicts of numpy arrays) and return it."""
+    for _, target, leaf, value in list(_matched(module, variables)):
+        arr = _to_torch_layout(leaf, np.asarray(value))
+        target.copy_(torch.from_numpy(np.array(arr)))
     return module
+
+
+def check_flax_shapes(module: nn.Module, shapes: Mapping) -> int:
+    """The checks of :func:`load_flax_variables` on a tree of shapes only
+    (``jax.eval_shape`` of a flax init: objects with ``.shape`` and
+    ``.ndim``), copying nothing; returns the number of leaves matched."""
+    return len(list(_matched(module, shapes)))

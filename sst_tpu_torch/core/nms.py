@@ -1,5 +1,6 @@
 """Greedy rotated / nearest BEV NMS with static output shapes (counterpart
-of ``sst_tpu/core/nms.py``; the non-weighted multiclass path).
+of ``sst_tpu/core/nms.py``: ``nms_bev`` and the non-weighted multiclass
+path).
 
 Candidates are score-sorted and statically capped; the [K, K] IoU matrix is
 computed once and greedy suppression is solved as a fixed point (see
@@ -49,6 +50,19 @@ def _pairwise_chunked(fn, boxes: torch.Tensor, chunk: int) -> torch.Tensor:
     live polygon-clipping intermediates to chunk * K."""
     return torch.cat([fn(boxes[i:i + chunk], boxes)
                       for i in range(0, boxes.shape[0], chunk)])
+
+
+def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+            thr: float, use_rotate_nms: bool = True,
+            chunk: int = 256) -> torch.Tensor:
+    """Greedy NMS over score-sorted boxes [K, 7+]; returns the keep mask
+    [K]. The caller passes the boxes sorted by descending score, padding
+    rows masked by ``valid`` (:func:`topk_presort`); ``scores`` is not
+    read, as in the JAX package. ``use_rotate_nms`` picks the rotated BEV
+    IoU, else the axis-aligned one of the nearest-90-degree boxes."""
+    fn = boxes_iou_bev if use_rotate_nms else nearest_iou
+    iou = _pairwise_chunked(fn, boxes[:, :7], chunk)
+    return _greedy_suppress(iou, valid, thr)
 
 
 def topk_presort(scores: torch.Tensor, valid: torch.Tensor, k: int):

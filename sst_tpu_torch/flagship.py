@@ -1,5 +1,6 @@
 """Flagship model builders and the synthetic frame generators (counterpart
-of ``sst_tpu/flagship.py``: the SST and FSDv2 builds).
+of ``sst_tpu/flagship.py``: the SST, FSDv2 and tiny FSD builds; the
+full-width FSD is built from its config, ``utils/builders.py``).
 
 Every builder returns its module on ``device``, the card by default, and
 raises if there is no card and the caller named no other device
@@ -15,6 +16,8 @@ from torch import nn
 
 from sst_tpu_torch.models import DynamicVoxelNet, PointBatch
 from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
+from sst_tpu_torch.models.fsd.single_stage import FSDCaps, SingleStageFSD
+from sst_tpu_torch.models.fsd.two_stage import FSD
 from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegHead
 from sst_tpu_torch.models.sparse_unet import SparseConvLayer
 from sst_tpu_torch.ops.window import BucketSpec
@@ -430,6 +433,85 @@ def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3,
         ),
         test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
                       use_rotate_nms=True),
+    ), device)
+
+
+_TINY_FSD_PCR = (-8.0, -8.0, -2.0, 8.0, 8.0, 4.0)
+
+
+def _tiny_fsd_cfg() -> dict:
+    return dict(
+        point_cloud_range=_TINY_FSD_PCR,
+        score_thresh=(0.05, 0.05, 0.05),
+        cluster_voxel_size=((0.3, 0.3, 6.0), (0.05, 0.05, 6.0),
+                            (0.2, 0.2, 6.0)),
+        connected_dist=(0.6, 0.1, 0.4),
+        min_points=1,
+        pre_voxelization_size=(0.1, 0.1, 0.1),
+        caps=FSDCaps(
+            fg_per_class=(256, 128, 128),
+            cluster_voxels_per_class=(256, 256, 256),
+            clusters_per_class=(32, 32, 32),
+            pre_voxels=1024,
+        ),
+        segmentor=dict(
+            voxel_size=(0.25, 0.25, 0.2),
+            max_voxels=1024,
+            unet_level_caps=(1024, 512, 256, 128),
+            unet_strides=((2, 2, 2),) * 3,
+            unet_paddings=((1, 1, 1),) * 3,
+            vfe=dict(feat_channels=(16, 16), mode="max"),
+            unet=dict(
+                in_channels=16, base_channels=16,
+                encoder_channels=((16,), (16, 16), (32, 32)),
+                decoder_channels=((32, 32, 16), (16, 16, 16), (16, 16, 16)),
+            ),
+            head=dict(num_classes=3, hidden_dims=(32, 32)),
+        ),
+        backbone=dict(
+            num_blocks=2,
+            in_channels=(0, 0),
+            feat_channels=((32, 32), (32, 32)),
+            rel_mlp_hidden=((8, 8), (8, 8)),
+        ),
+        head=dict(
+            in_channel=128,
+            shared_mlp_dims=(64, 64),
+            common_attrs=(("center", 3, 1, 32), ("dim", 3, 1, 32),
+                          ("rot", 2, 1, 32)),
+            num_cls_layer=1,
+            cls_hidden_dim=32,
+        ),
+        test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=64, max_num=32,
+                      use_rotate_nms=True),
+    )
+
+
+def tiny_fsd(num_point_features: int = 5, device="cuda"):
+    """Small SingleStageFSD for CPU tests (same config as the JAX
+    ``tiny_fsd``: segmentor → CCL clustering → SIR → cluster head), on
+    ``device``. ``num_point_features``: 5 for ``fsd_batch``'s rows."""
+    return on_device(SingleStageFSD(num_point_features=num_point_features,
+                                    **_tiny_fsd_cfg()), device)
+
+
+def tiny_fsd_two_stage(num_point_features: int = 5, device="cuda"):
+    """Small two-stage FSD (+ GroupCorrectionHead, SIR² refinement) for CPU
+    tests, the config of the JAX ``tiny_fsd_two_stage``, on ``device``."""
+    return on_device(FSD(
+        num_point_features=num_point_features,
+        single_stage=_tiny_fsd_cfg(),
+        roi_head=dict(
+            max_inbox_point=32,
+            bbox_head=dict(
+                num_blocks=2,
+                feat_channels=((32, 32),) * 2,
+                rel_mlp_hidden=((8, 8),) * 2,
+                reg_mlp=(64, 64),
+                cls_mlp=(64, 64),
+            ),
+        ),
+        rois_per_sample=16,
     ), device)
 
 

@@ -1,0 +1,145 @@
+"""FSD — the two-stage fully-sparse detector, inference (counterpart of
+``sst_tpu/models/fsd/two_stage.py``).
+
+SingleStageFSD as the RPN, then GroupCorrectionHead refinement. Proposals
+are the top cluster boxes of each sample by score (no NMS), at most
+``rois_per_sample``; the RoI point set is the pre-voxelized cloud with the
+SIR point features written back onto its rows.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sst_tpu_torch.core.box_coders import base_point_decode
+from sst_tpu_torch.models import PointBatch
+from sst_tpu_torch.models.fsd.roi_head import GroupCorrectionHead
+from sst_tpu_torch.models.fsd.single_stage import (
+    _FSD_TRAINING,
+    SingleStageFSD,
+)
+from sst_tpu_torch.ops.ccl import topk_compact
+
+
+def scatter_last_wins(rows: torch.Tensor, index: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """[rows, C]: row r holds ``values[j]`` for the largest j with
+    ``index[j] == r``, zeros where no j names r; indices outside [0, rows)
+    are dropped. The winner among duplicate indices is explicit (the
+    highest position, a ``scatter_reduce`` amax of the positions), where a
+    scatter-set with duplicates promises no order on the card."""
+    pos = torch.arange(index.shape[0], device=index.device)
+    inside = (index >= 0) & (index < rows)
+    winner = torch.full((rows + 1,), -1, dtype=pos.dtype,
+                        device=index.device)
+    winner.scatter_reduce_(0, torch.where(inside, index.long(), rows), pos,
+                           "amax")
+    winner = winner[:rows]
+    out = values[torch.clamp(winner, min=0)]
+    return torch.where(winner[:, None] >= 0, out, 0.0)
+
+
+class FSD(nn.Module):
+    """``num_point_features`` is the width of the raw point rows (xyz
+    first), passed to the single stage's segmentor and SIR and to the RoI
+    head, whose widths flax infers."""
+
+    def __init__(self, num_point_features: int = 5,
+                 single_stage: dict | None = None,
+                 roi_head: dict | None = None, rois_per_sample: int = 128,
+                 dtype=torch.float32):
+        super().__init__()
+        self.rpn = SingleStageFSD(num_point_features=num_point_features,
+                                  dtype=dtype, **(single_stage or {}))
+        self.rois_per_sample = rois_per_sample
+        seg = self.rpn.segmentor_mod
+        self.roi = GroupCorrectionHead(
+            num_point_features,
+            self.rpn.backbone_mod.out_channels + seg.feat_channels,
+            num_classes=self.rpn.num_classes, dtype=dtype, **(roi_head or {}))
+
+    @property
+    def point_cloud_range(self):
+        return self.rpn.point_cloud_range
+
+    @property
+    def test_cfg(self):
+        return self.rpn.test_cfg
+
+    def _proposals(self, pipe: dict):
+        """Per-sample top-k decoded cluster boxes across tasks → flat rois
+        (boxes, scores, labels, valid, batch)."""
+        ex, outs = pipe["ex"], pipe["outs"]
+        head = self.rpn.head_mod
+        boxes_l, scores_l, labels_l = [], [], []
+        for t in range(len(head.tasks)):
+            scores = torch.sigmoid(outs["cls_logits"][t])
+            boxes_l.append(base_point_decode(ex["cluster_xyz"],
+                                             outs["reg_preds"][t],
+                                             head.bbox_coder_scale))
+            scores_l.append(scores.amax(dim=-1))
+            local = scores.argmax(dim=-1)
+            lbl = torch.zeros_like(local, dtype=torch.int32)
+            for li, ci in enumerate(head._task_class_ids(t)):
+                lbl = torch.where(local == li, ci, lbl)
+            labels_l.append(lbl)
+        n_tasks = len(head.tasks)
+        boxes = torch.cat(boxes_l)
+        scores = torch.cat(scores_l)
+        labels = torch.cat(labels_l)
+        valid = torch.cat([ex["cluster_valid"]] * n_tasks)
+        batch = torch.cat([ex["cluster_batch"]] * n_tasks)
+
+        k = self.rois_per_sample
+        out = [[], [], [], [], []]
+        for i in range(pipe["batch_size"]):
+            idx, sv = topk_compact(scores, valid & (batch == i), k)
+            for lst, v in zip(out, (boxes[idx],
+                                    torch.where(sv, scores[idx], 0.0),
+                                    labels[idx], sv,
+                                    torch.full((k,), i, dtype=torch.int32,
+                                               device=idx.device))):
+                lst.append(v)
+        return tuple(torch.cat(lst) for lst in out)
+
+    def _roi_points(self, pipe: dict):
+        """RoI point set: the pre-voxelized points, their features the SIR
+        point features (zeros on rows no class selected) beside the
+        segmentor's. A row that two classes selected takes the features of
+        the later class's stream (the highest stream position)."""
+        data, ex = pipe["data"], pipe["ex"]
+        pv = data["seg_points"].shape[0]
+        idx = torch.where(ex["pt_valid"], ex["pt_idx"], pv)
+        sir_feats = scatter_last_wins(pv, idx, ex["pt_feats"])
+        feats = torch.cat([sir_feats, data["seg_feats"]], dim=-1)
+        return data["seg_points"], feats, data["valid"], data["batch_idx"]
+
+    def loss(self, batch: PointBatch, *args, **kwargs):
+        raise NotImplementedError(_FSD_TRAINING)
+
+    @torch.inference_mode()
+    def predict(self, batch: PointBatch, skip_rcnn: bool = False) -> dict:
+        """Boxes for a batch. ``skip_rcnn``: the single stage's boxes
+        ([B, max_num]); else the refined proposals ([B, min(max_num,
+        B * rois_per_sample)])."""
+        pipe = self.rpn.run_pipeline(batch, detach_seg=False)
+        if skip_rcnn:
+            ex = pipe["ex"]
+            return self.rpn.head_mod.get_bboxes(
+                pipe["outs"], ex["cluster_xyz"], ex["cluster_batch"],
+                ex["cluster_valid"], pipe["batch_size"], **self.test_cfg)
+        rois, rscores, rlabels, rvalid, rbatch = self._proposals(pipe)
+        pts, feats, pvalid, pbatch = self._roi_points(pipe)
+        return self.roi.predict(
+            pts, feats, pvalid, pbatch, rois, rscores, rlabels, rvalid,
+            rbatch, pipe["batch_size"],
+            **{k: v for k, v in self.test_cfg.items()
+               if k in ("nms_thr", "score_thr", "max_num", "use_rotate_nms")})
+
+    def forward(self, batch: PointBatch, train: bool = False):
+        pipe = self.rpn.run_pipeline(batch, train)
+        rois, _, _, rvalid, rbatch = self._proposals(pipe)
+        pts, feats, pvalid, pbatch = self._roi_points(pipe)
+        return self.roi.pool_and_forward(pts, feats, pvalid, pbatch,
+                                         rois[:, :7], rvalid, rbatch, train)

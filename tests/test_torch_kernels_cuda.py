@@ -270,6 +270,75 @@ def test_sparse_conv_kernel_matches_twin(name):
         assert torch.equal(got[64:128], torch.zeros_like(got[64:128]))
 
 
+FSD_LEVEL_CAPS = (131072, 65536, 32768, 16384, 8192, 4096)
+
+
+@pytest.fixture(scope="module")
+def fsd_levels():
+    """The six level grids of configs/fsd/fsd_waymoD1_1x.py's segmentor UNet
+    (caps 131,072 → 4,096, k3 s2 p1 downsamples) over a 30x640x640 grid:
+    ~100k voxels in 3,000 clusters of a few metres around z = 8, and
+    levels 1 and 2 fill their caps, as the drop semantics allow."""
+    device = _cuda()
+    rng = np.random.RandomState(8)
+    grid = (30, 640, 640)
+    n = 120000
+    centres = rng.randint(0, 640, (3000, 2))[rng.randint(0, 3000, n)]
+    xy = np.clip(centres + np.round(rng.randn(n, 2) * 6), 0, 639)
+    z = np.clip(np.round(8 + rng.randn(n) * 3), 0, 29)
+    coords = np.unique(np.stack([np.zeros(n), z, xy[:, 1], xy[:, 0]],
+                                1).astype(np.int32), axis=0)
+    cap = FSD_LEVEL_CAPS[0]
+    assert len(coords) <= cap
+    coords = np.concatenate([coords, -np.ones((cap - len(coords), 4),
+                                              np.int32)])
+    valid = torch.from_numpy(np.arange(cap) < (coords[:, 0] >= 0).sum())
+    g0, _ = tsc.make_sparse_grid(torch.from_numpy(coords).to(device),
+                                 valid.to(device), grid, 1)
+    levels = [g0]
+    for c in FSD_LEVEL_CAPS[1:]:
+        levels.append(tsc.downsample_grid(levels[-1], c))
+    return levels
+
+
+# (mode, level, Cin, Cout): encoder_0_0, encoder_1_0_down, upsample_2,
+# the deepest encoder and decoder convs, merge_6
+FSD_CONV_CASES = [("subm", 0, 64, 128), ("strided", 1, 128, 128),
+                  ("inverse", 1, 128, 128), ("subm", 4, 256, 256),
+                  ("strided", 5, 256, 256), ("inverse", 5, 256, 256),
+                  ("subm", 5, 512, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,level,cin,cout", FSD_CONV_CASES)
+def test_sparse_conv_kernel_at_fsd_shapes(fsd_levels, mode, level, cin,
+                                          cout):
+    """The FSD segmentor's level caps and widths: subm at a level, strided
+    from level - 1 to level, inverse from level back to level - 1; within
+    1e-4 of the twin."""
+    if mode == "subm":
+        out_g = in_g = fsd_levels[level]
+    elif mode == "strided":
+        out_g, in_g = fsd_levels[level], fsd_levels[level - 1]
+    else:
+        out_g, in_g = fsd_levels[level - 1], fsd_levels[level]
+    plan = tsc.build_conv_plans(out_g, in_g, mode)
+    assert (plan.nbr.shape[1], in_g.cap) == (out_g.cap, in_g.cap)
+    gen = torch.Generator(device=plan.nbr.device).manual_seed(level)
+    feats = torch.randn(in_g.cap, cin, generator=gen,
+                        device=plan.nbr.device) * in_g.valid[:, None]
+    w = torch.randn(27, cin, cout, generator=gen,
+                    device=plan.nbr.device) / (27 * cin) ** 0.5
+    scg.reset_launch_counts()
+    got = scg.sparse_conv_gemm(feats, plan.nbr, w, mode,
+                               schedule=plan.schedule(in_g.cap))
+    torch.cuda.synchronize()
+    assert scg.launch_counts == {(mode, cin, cout): 1}
+    ref = scg.sparse_conv_gemm_ref(feats, plan.nbr, w)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert int(out_g.valid.sum()) > 0 and got.abs().sum() > 0
+
+
 def _dw_close(got, feats, nbr, dout):
     """|kernel - twin| <= 1e-4 * (|feats|^T |dout| per element, the twin on
     absolute values) + 1e-6: f32 sums in another order."""
