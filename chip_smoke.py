@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's four ``predict`` paths and three
+"""GPU smoke run of the PyTorch port's four ``predict`` paths and four
 train steps at full width on one CUDA card, through their hand-written
 kernels: FSDv2-Waymo's dense-BEV build at its default bf16 compute policy
 and in float32 beside it (sorted segment reduce kernel, its bf16 and
@@ -7,7 +7,9 @@ segment reduce and sparse conv kernels; in training also the sparse conv's
 weight-gradient kernel, and the conv kernel over the transposed tables for
 the input gradient), SST-Waymo (window MHA kernel; in training under
 autograd, with the JAX package's einsum-recompute backward in torch ops)
-and FSD two-stage predict (sparse conv kernel), built from its config.
+and FSD two-stage predict and training (sparse conv kernel; in training
+also the weight-gradient kernel and the input gradient), built from its
+config.
 
     python3 chip_smoke.py
 
@@ -125,10 +127,30 @@ Phases (each one that fails ends the run with a non-zero exit code):
               configs/fsd/fsd_waymoD1_1x_dense.py the same way (no kernel
               on its path), its latency.
 
+ 15. FSD train  configs/fsd/fsd_waymoD1_1x.py at full width through
+              ``build_model_from_cfg(cfg, train=True)`` (seed-0 weights;
+              phase 14's vote and fg settings, the vote channels' batch
+              norms set to pass them in train mode and the fg biases to a
+              0.6 fill at thr_extra 0.3); dW and the input gradient against
+              their twins on the recorded inputs of all 39 convs of a
+              ``pretrain=False`` step, timed beside the bound; the config's
+              AdamW and FSDDetectionSchedule: 2 warm-up, 6 timed and 3
+              staged ``train_step`` calls at step 0 (``pretrain=True``,
+              the segmentor alone), the same at ``enable_after``
+              (``thr_extra=0.3``), one step at ``thr_extra=0.0``, the RoI
+              sampler drawing from a seeded generator; 39 forward, 39
+              recompute, 39 input-gradient and 39 dW launches per step;
+              losses, counters, the sampler's kept positives and negatives
+              per IoU piece; the RoI loss and its backward on 256 proposals
+              made from frame 0's gt boxes with seeded jitter (positives,
+              cars among them, finite gradients); a trace of 2 steps with
+              the gathers as they are and 2 with the plain clamped gathers
+              (``indexing_backward_kernel`` ms per step, idle share).
+
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 13
-after phase 9, on a model with the training buckets; phase 14 last. TF32
-is turned off for convolutions and matmuls, so every float32 comparison is
+after phase 9, on a model with the training buckets; phases 14 and 15
+last. TF32 is turned off for convolutions and matmuls, so every float32 comparison is
 in full float32. Kernel, twin and library times are device times: each
 timed call is queued behind a short ``torch.cuda._sleep``
 (``utils/timing.py cuda_ms``). The line before the last is the kernels
@@ -175,7 +197,11 @@ from sst_tpu_torch.train.state import make_optimizer
 from sst_tpu_torch.tools.profile_predict import device_busy
 from sst_tpu_torch.train.step import train_step
 from sst_tpu_torch.utils import remat
-from sst_tpu_torch.utils.builders import build_model_from_cfg
+from sst_tpu_torch.utils.builders import (
+    build_model_from_cfg,
+    optimizer_from_cfg,
+    schedule_from_cfg,
+)
 from sst_tpu_torch.utils.config import load_config
 from sst_tpu_torch.utils.nvcc import load_kernel_libraries
 from sst_tpu_torch.utils.timing import (
@@ -733,20 +759,23 @@ def phase_batch4(model, device):
 SPARSE_TOL = 1e-4  # max-abs and relative: f32 sums of up to 27*512 terms
 
 
-def _record_sparse_convs(model, frame):
-    """Predict one frame with a hook on every SparseConvLayer; returns each
-    conv's (module name, input rows, rulebook, weight shape, input features,
-    output-row validity) in call order. The rulebooks are those the main
-    path builds for this frame."""
+def _record_sparse_convs(model, frame, drive=None):
+    """Predict one frame (or call ``drive()``) with a hook on every
+    SparseConvLayer; returns each conv's (module name, input rows,
+    rulebook, weight shape, input features, output-row validity) in call
+    order. The rulebooks are those the main path builds for this frame."""
     calls, hooks = [], []
     for name, mod in model.named_modules():
         if isinstance(mod, SparseConvLayer):
             hooks.append(mod.register_forward_pre_hook(
                 lambda m, args, name=name: calls.append(
                     (name, args[0].shape[0], args[1], tuple(m.weight.shape),
-                     args[0], args[2]))))
+                     args[0].detach(), args[2]))))
     try:
-        inference_detector(model, frame.points[0], max_points=196608)
+        if drive is None:
+            inference_detector(model, frame.points[0], max_points=196608)
+        else:
+            drive()
     finally:
         for h in hooks:
             h.remove()
@@ -1059,20 +1088,24 @@ def _dw_edge_cases(device):
     return out
 
 
-def phase_backward_kernels(model, frame, device):
+def phase_backward_kernels(model, frame, device, calls=None,
+                           title="labelled frame 0 of fsdv2_waymo(backbone="
+                                 "'sparse')"):
     """The weight-gradient kernel and the input gradient (the conv kernel
     over the transposed table) against their twins at every conv of one
     labelled frame, with each conv's recorded input and a seeded output
     gradient masked at invalid output rows; edge cases; bit-for-bit
-    repeats; both timed per distinct (rulebook, widths) case. Returns (timed
-    cases, per-step ms of kernel, twin and bound summed over the convs,
-    largest dW error, largest dgrad error)."""
+    repeats; both timed per distinct (rulebook, widths) case. ``calls``:
+    the convs' recorded inputs (``_record_sparse_convs``' tuples), recorded
+    from a predict of ``frame`` where none are given. Returns (timed cases,
+    per-step ms of kernel, twin and bound summed over the convs, largest
+    dW error, largest dgrad error)."""
     gen = torch.Generator().manual_seed(4)
     with torch.inference_mode():
-        calls = _record_sparse_convs(model, frame)
+        if calls is None:
+            calls = _record_sparse_convs(model, frame)
         print(f"backward kernels: sparse_conv_dw and the input gradient on "
-              f"the rulebooks and inputs of labelled frame 0 of "
-              f"fsdv2_waymo(backbone='sparse'): {len(calls)} convs",
+              f"the rulebooks and inputs of {title}: {len(calls)} convs",
               flush=True)
         dw_errs, dg_errs, cases = [], [], {}
         for name, vin, cp, wshape, feats, out_valid in calls:
@@ -1236,14 +1269,16 @@ def _stage_ms(model, opt, batch, kw):
 N_WARMUP, N_TIMED, N_STAGED = 2, 6, 3  # train steps of each train phase
 
 
-def _train_loop(model, opt, frames, kws, counts, after_step=None):
+def _train_loop(model, opt, frames, kws, counts, after_step=None,
+                no_grad_params: int = 0):
     """``train_step`` on ``frames`` (step i on frame i mod their number,
     with loss kwargs ``kws[i]``): steps ``N_WARMUP`` to ``N_WARMUP +
     N_TIMED - 1`` timed whole by CUDA events, the next ``N_STAGED`` by stage
     (loss, backward, optimizer), then the rest whole. ``counts()`` reads the
     kernels' launch counters; a step's launches are the differences.
     Fails on a non-finite loss or grad norm, or on a parameter without a
-    gradient. Returns (steps, median ms by stage, peak memory over the
+    gradient (beyond the ``no_grad_params`` that no loss of the mode
+    reaches). Returns (steps, median ms by stage, peak memory over the
     timed and staged steps)."""
     steps, stages = [], []
     for i, kw in enumerate(kws):
@@ -1271,9 +1306,10 @@ def _train_loop(model, opt, frames, kws, counts, after_step=None):
         if bad:
             fail(f"train step {i}: non-finite {bad} (a non-finite grad_norm "
                  f"means a non-finite gradient)")
-        if opt.params_without_grad:
+        if opt.params_without_grad != no_grad_params:
             fail(f"train step {i}: {opt.params_without_grad} parameters got "
-                 f"no gradient; every leaf gets one in JAX")
+                 f"no gradient, {no_grad_params} expected; every other leaf "
+                 f"gets one in JAX")
     stage_ms = {k: statistics.median(st[k] for st in stages)
                 for k in stages[0]}
     return steps, stage_ms, peak
@@ -1975,6 +2011,13 @@ def _calibrate_fg(model, frame):
     rpn = model.rpn
     with torch.inference_mode():
         data = rpn.run_pipeline(prepare_batch(model, frame.points[0]))["data"]
+    return _shift_fg_biases(rpn, data)
+
+
+def _shift_fg_biases(rpn, data, thr_extra: float = 0.0):
+    """Shift the seg head's class biases so that the top ``FSD_FG_FILL`` of
+    each fg cap of ``data`` (a pipeline's pre-voxelized points) scores
+    above its threshold plus ``thr_extra``. Returns the shifts."""
     shifts = []
     for c, thr in enumerate(rpn.score_thresh):
         logits = torch.sort(data["seg_logits"][data["valid"], c],
@@ -1983,6 +2026,7 @@ def _calibrate_fg(model, frame):
         if logits.numel() <= n:
             fail(f"fsd: frame 0 has {logits.numel()} pre-voxelized points, "
                  f"too few to fill {n} of class {c}'s fg cap")
+        thr = thr + thr_extra
         target = math.log(thr / (1 - thr))
         shifts.append(target - float(logits[n - 1] + logits[n]) / 2)
     with torch.no_grad():
@@ -2377,6 +2421,359 @@ def phase_fsd(device):
     rec.update(shapes=shapes, per_frame=per_frame, max_abs_err=err)
     return rec
 
+# ---------------------------------------------------------------- phase 15
+
+FSD_TRAIN_TOTAL_STEPS = 10000  # the one-cycle of the config's AdamW
+
+
+class _KeptRunningStats:
+    """Puts every running statistic of ``model`` back on exit: a train-mode
+    forward that only measures must not move them."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        self.kept = {k: v.clone() for k, v in self.model.state_dict().items()
+                     if "running_" in k}
+        return self
+
+    def __exit__(self, *exc):
+        state = self.model.state_dict()
+        with torch.no_grad():
+            for k, v in self.kept.items():
+                state[k].copy_(v)
+
+
+def _train_vote_norms(model, batch):
+    """In train mode the seg head's batch norms normalise the four vote
+    channels that ``_contract_votes`` routes through them (+-local x, y)
+    by the batch's statistics, which would scale the votes by ~14. Set
+    those channels' scale and bias to the batch's standard deviation and
+    mean on ``batch`` (weights, not the config), so that both norms pass
+    them through as at inference. Returns the scales set."""
+    mlp = model.rpn.segmentor_mod.head_mod.pre_seg
+    scales = []
+    for bn in (mlp.MaskedBatchNorm_0, mlp.MaskedBatchNorm_1):
+        seen = []
+        hook = bn.register_forward_pre_hook(
+            lambda m, args: seen.append((args[0][:, :4].detach(),
+                                         args[1])))
+        try:
+            with torch.no_grad(), _KeptRunningStats(model):
+                model.rpn.segmentor_mod(
+                    batch.points.reshape(-1, batch.points.shape[-1]),
+                    torch.zeros(batch.points.shape[1], dtype=torch.int32,
+                                device=batch.points.device),
+                    batch.valid.reshape(-1), 1, True)
+        finally:
+            hook.remove()
+        x, mask = seen[0]
+        x = x[mask] if mask is not None else x
+        mean = x.mean(0)
+        var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.weight[:4] = torch.sqrt(var + bn.eps)
+            bn.bias[:4] = mean
+        scales.append([round(v, 4) for v in bn.weight[:4].tolist()])
+    return scales
+
+
+class _SamplerProbe:
+    """Records what the RoI sampler kept on each call while active: the
+    positives and the negatives of each IoU piece (wraps
+    ``roi_head.iou_neg_piecewise_sample``; launches nothing, reads the
+    host once per call)."""
+
+    def __enter__(self):
+        from sst_tpu_torch.models.fsd import roi_head
+
+        self._mod, self._fn, self.calls = roi_head, \
+            roi_head.iou_neg_piecewise_sample, []
+        fn = self._fn
+
+        def probe(max_iou, is_pos, valid, num, pos_fraction, fractions,
+                  thrs, **kw):
+            keep = fn(max_iou, is_pos, valid, num, pos_fraction, fractions,
+                      thrs, **kw)
+            neg = keep & ~is_pos
+            bounds = list(thrs) + [0.0]
+            self.calls.append({
+                "valid": int(valid.sum()), "positives": int(
+                    (is_pos & valid).sum()), "kept_positives": int(
+                    (keep & is_pos).sum()),
+                "kept_negatives_by_piece": [
+                    int((neg & (max_iou >= bounds[i + 1])
+                         & (max_iou < bounds[i])).sum())
+                    for i in range(len(fractions))]})
+            return keep
+
+        roi_head.iou_neg_piecewise_sample = probe
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.iou_neg_piecewise_sample = self._fn
+
+
+def _plain_gather(src, index, fill=0.0):
+    """The padded gathers before the repair: every outside slot reads one
+    clamped row (``src[index]``, whose backward is the sort-based index
+    backward) and is masked."""
+    inside = (index >= 0) & (index < src.shape[0])
+    out = src[torch.clamp(index.long(), 0, src.shape[0] - 1)]
+    return torch.where(inside[:, None], out, fill)
+
+
+def _index_backward_trace(model, opt, frames, kw, n=2):
+    """``torch.profiler`` over ``n`` train steps: the device time of the
+    sort-based index backward (``indexing_backward_kernel``) per step, the
+    device's busy share and idle share, and the top kernels."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            train_step(model, opt, frames[i % len(frames)], kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_busy(prof)
+    index_ms = sum(v for k, v in by_name.items()
+                   if "indexing_backward_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": n, "index_backward_ms_per_step": index_ms / n,
+            "device_busy_ms": busy, "wall_ms": wall,
+            "idle_share": 1.0 - busy / wall if busy > 0 else None,
+            "top_kernels_ms": {k[:100]: v for k, v in top}}
+
+
+FSD_JITTER = (0.03, 0.1, 0.3, 0.8)  # proposal jitter scales, in turn
+FSD_JITTER_AXES = (1.0, 1.0, 0.3, 0.2, 0.2, 0.1, 0.5)  # x y z w l h yaw
+
+
+def _fsd_roi_positives(model, batch, gen):
+    """``GroupCorrectionHead.loss`` and its backward at full width on frame
+    0's RoI point set (a train-mode pipeline, no gradient into it) with 256
+    proposals made from the frame's valid gt boxes and seeded jitter of
+    four sizes, the config's sampler on. Random weights rarely propose a
+    box at IoU 0.55, so the main path's steps may see no positive; here
+    positives (cars among them) must exist, and every gradient of the RoI
+    head and of the point features must be finite. Returns the losses and
+    the car positives."""
+    roi = model.roi
+    with torch.no_grad(), _KeptRunningStats(model):
+        pipe = model.rpn.run_pipeline(batch, train=True)
+        pts, feats, pvalid, pbatch = model._roi_points(pipe)
+    gv = batch.gt_valid[0]
+    gt, gl = batch.gt_boxes[0][gv], batch.gt_labels[0][gv]
+    k = model.rois_per_sample
+    pick = torch.arange(k, device=gt.device) % gt.shape[0]
+    scale = torch.tensor(FSD_JITTER, device=gt.device)[
+        (torch.arange(k, device=gt.device) // gt.shape[0]) % len(FSD_JITTER)]
+    noise = torch.randn(k, 7, generator=gen, device=gt.device) * scale[
+        :, None] * torch.tensor(FSD_JITTER_AXES, device=gt.device)
+    props = gt[pick] + noise
+    props[:, 3:6] = torch.abs(props[:, 3:6]) + 0.1
+    feats = feats.detach().requires_grad_()
+    valid = torch.ones(k, dtype=torch.bool, device=gt.device)
+    sample = torch.zeros(k, dtype=torch.int32, device=gt.device)
+    for p in roi.parameters():
+        p.grad = None
+    with _SamplerProbe() as probe:
+        out = roi.loss(pts, feats, pvalid, pbatch, props, gl[pick], valid,
+                       sample, batch.gt_boxes, batch.gt_labels,
+                       batch.gt_valid, True, generator=gen)
+    sum(v for n, v in out.items() if n.startswith("loss")).backward()
+    _, argmax, is_pos = roi.assign_and_sample(
+        props, gl[pick], valid, sample, batch.gt_boxes, batch.gt_labels,
+        batch.gt_valid)
+    car_pos = int((is_pos & (batch.gt_labels.reshape(-1)[argmax] == 0)).sum())
+    losses = {n: float(v.detach()) for n, v in out.items()}
+    grads = [p.grad for p in roi.parameters()] + [feats.grad]
+    bad = [i for i, g in enumerate(grads)
+           if g is None or not torch.isfinite(g).all()]
+    print(f"  RoI loss at full width on frame 0's RoI point set, {k} "
+          f"proposals from its {gt.shape[0]} valid gt boxes with jitter "
+          f"{FSD_JITTER} (x, y, z, w, l, h, yaw weighted {FSD_JITTER_AXES}), "
+          f"the config's sampler on: {losses}; car positives {car_pos}; "
+          f"sampler kept {probe.calls[-1]}", flush=True)
+    if losses["num_pos_rois"] <= 0 or car_pos <= 0 \
+            or losses["loss_rcnn_corner"] <= 0:
+        fail(f"fsd train: the jittered-gt RoI loss has no (car) positive: "
+             f"{losses}, car positives {car_pos}")
+    if bad or not all(np.isfinite(v) for v in losses.values()):
+        fail(f"fsd train: the jittered-gt RoI loss or its gradients are not "
+             f"finite ({len(bad)} gradients)")
+    return {"losses": losses, "car_positives": car_pos,
+            "sampler": probe.calls[-1]}
+
+
+def phase_fsd_train(device):
+    """Phase 15: train configs/fsd/fsd_waymoD1_1x.py at full width, built by
+    ``build_model_from_cfg(cfg, train=True)`` (seed-0 weights, TF32 off),
+    with the config's AdamW and FSDDetectionSchedule: 2 warm-up, 6 timed
+    and 3 staged steps in the schedule's step-0 mode (``pretrain=True``),
+    the same at ``enable_after`` (``pretrain=False, thr_extra=0.3``), one
+    step at ``thr_extra=0.0``; the sampler draws from a seeded generator.
+    Conv, recompute, input-gradient and dW launches per step held against
+    the modules; dW and the input gradient against their twins on the
+    inputs of every conv of a ``pretrain=False`` step; the RoI loss with
+    positives on jittered gt; the index backward's device time from a
+    trace, with the repaired gathers and with the plain ones. Returns the
+    phase's record."""
+    t0 = time.perf_counter()
+    cfg = load_config(FSD_CONFIG)
+    model = init_weights(build_model_from_cfg(cfg, train=True),
+                         torch.Generator().manual_seed(0)).train()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = [f.to(device) for f in _labeled_frames(4)]
+    schedule = schedule_from_cfg(cfg)
+    pretrain_kw = schedule(0)
+    detect_kw = schedule(schedule.enable_after)
+    final_kw = schedule(schedule.delay_buffer_until)
+    _contract_votes(model)
+    vote_scales = _train_vote_norms(model, frames[0])
+    with torch.no_grad(), _KeptRunningStats(model):
+        data = model.rpn.run_pipeline(frames[0], train=True)["data"]
+        shifts = _shift_fg_biases(model.rpn, data, detect_kw["thr_extra"])
+    del data
+    print(f"model: {FSD_CONFIG} through build_model_from_cfg(train=True), "
+          f"f32, {sum(p.numel() for p in model.parameters())} parameters, "
+          f"{n_convs} sparse convs, remat "
+          f"{model.rpn.segmentor_mod.unet_mod.remat}, RoI sampler "
+          f"{model.roi.sampler}, built in {time.perf_counter() - t0:.1f} s; "
+          f"votes contracted (vote channels' train-mode norm scales "
+          f"{vote_scales}), fg bias shifts {[round(x, 3) for x in shifts]} "
+          f"(a {FSD_FG_FILL} fill of each fg cap on labelled frame 0 in "
+          f"train mode at thr_extra {detect_kw['thr_extra']})", flush=True)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def train_forward():
+        # one pretrain=False forward of the loss in train mode: no
+        # gradient, running statistics put back
+        with torch.no_grad(), _KeptRunningStats(model):
+            model.loss(frames[0], train=True, **detect_kw, generator=gen)
+
+    calls = _record_sparse_convs(model, frames[0], train_forward)
+    modes = Counter((cp.mode, w[1], w[2]) for _, _, cp, w, _, _ in calls)
+    if len(calls) != n_convs or not {"subm", "strided", "inverse"} <= {
+            m for m, _, _ in modes}:
+        fail(f"fsd train: recorded {len(calls)} convs by (mode, Cin, Cout) "
+             f"{dict(modes)}; the model has {n_convs}")
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        model, frames[0], device, calls=calls,
+        title=f"a pretrain=False train step of {FSD_CONFIG} (labelled frame "
+              f"0, train mode)")
+    del calls
+
+    opt = optimizer_from_cfg(model, cfg, FSD_TRAIN_TOTAL_STEPS)
+    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    needs_dgrad = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: None if remat.recomputing()
+        else needs_dgrad.append(bool(args[0].requires_grad))) for m in convs]
+
+    def remove_hooks(i):
+        if i == 0:
+            for h in hooks:
+                h.remove()
+
+    def counts():
+        return {**scg.kind_counts, "dw": sdw.launches,
+                **_sorted_reduce_counts()}
+
+    outside_segmentor = sum(1 for n, p in model.named_parameters()
+                            if p.requires_grad and "segmentor_mod" not in n)
+    n_steps = N_WARMUP + N_TIMED + N_STAGED
+    reset_launch_counts()  # the FSD train path's run starts here
+    pre_steps, pre_stage, pre_peak = _train_loop(
+        model, opt, frames, [dict(pretrain_kw, generator=gen)] * n_steps,
+        counts, remove_hooks, no_grad_params=outside_segmentor)
+    expected = {"forward": n_convs, "recompute": n_remat,
+                "dgrad": sum(needs_dgrad), "dw": n_convs,
+                "sorted_reduce": 0}
+    if len(needs_dgrad) != n_convs:
+        fail(f"fsd train: the hooks saw {len(needs_dgrad)} conv calls in a "
+             f"step, the model has {n_convs} convs")
+    _check_launches(pre_steps, expected)
+    with _SamplerProbe() as probe:
+        det_steps, det_stage, det_peak = _train_loop(
+            model, opt, frames,
+            [dict(detect_kw, generator=gen)] * n_steps
+            + [dict(final_kw, generator=gen)], counts)
+    _check_launches(det_steps, expected)
+    launches = {"sparse_conv_gemm": scg.launches,
+                "sparse_conv_dw": sdw.launches,
+                "sorted_reduce": sr.launches}
+    print(f"fsd train: {FSD_CONFIG}, batch 1, AdamW from the config "
+          f"({cfg['optimizer']}, a {FSD_TRAIN_TOTAL_STEPS}-step one-cycle), "
+          f"FSDDetectionSchedule from the config; launches per step by kind "
+          f"(counted at the launch sites; the modules give {expected}: "
+          f"{n_convs} convs, {n_remat} in the rematerialised UNet, the "
+          f"input of {sum(needs_dgrad)} needing a gradient): "
+          f"{pre_steps[0]['launches']}; in the whole run {launches}",
+          flush=True)
+    print(f" pretrain: {N_WARMUP} warm-up + {N_TIMED} timed + {N_STAGED} "
+          f"staged steps in the schedule's step-0 mode {pretrain_kw} "
+          f"({outside_segmentor} parameters outside the segmentor get no "
+          f"gradient, zeros as in JAX)", flush=True)
+    pre = _print_train(pre_steps, pre_stage, pre_peak)
+    print(f" detection: the same at enable_after {detect_kw}, then one "
+          f"step at {final_kw}", flush=True)
+    det = _print_train(det_steps[:-1], det_stage, det_peak)
+    keys = ("num_fg_points", "num_clusters", "num_pos_rois",
+            "roi_membership_overflow")
+    for name in keys:
+        print(f"  {name} per step: "
+              f"{[st['metrics'][name] for st in det_steps]}", flush=True)
+    print(f"  sampler per step (valid proposals, positives, kept positives, "
+          f"kept negatives in [0.1, 0.55) and [0, 0.1)): {probe.calls}",
+          flush=True)
+    final = det_steps[-1]
+    print(f"  thr_extra 0.0 step: {final['ms']:.2f} ms, {final['metrics']}",
+          flush=True)
+
+    positives = _fsd_roi_positives(
+        model, frames[0], torch.Generator(device=device).manual_seed(1))
+    trace = _index_backward_trace(model, opt, frames,
+                                  dict(detect_kw, generator=gen))
+    from sst_tpu_torch.models.fsd import roi_head, two_stage
+    from sst_tpu_torch.ops import segment
+
+    patched = [(mod, getattr(mod, "gather_rows"))
+               for mod in (segment, roi_head, two_stage)]
+    for mod, _ in patched:
+        mod.gather_rows = _plain_gather
+    try:
+        plain = _index_backward_trace(model, opt, frames,
+                                      dict(detect_kw, generator=gen))
+    finally:
+        for mod, fn in patched:
+            mod.gather_rows = fn
+    for name, tr in (("repaired gathers", trace),
+                     ("plain clamped gathers (before the repair)", plain)):
+        top = {k[:60]: round(v, 2) for k, v in tr["top_kernels_ms"].items()}
+        print(f"  trace of {tr['steps']} pretrain=False steps, {name} "
+              f"(profiler on): indexing_backward_kernel "
+              f"{tr['index_backward_ms_per_step']:.3f} ms per step; device "
+              f"busy {tr['device_busy_ms']:.1f} of {tr['wall_ms']:.1f} ms "
+              f"wall, idle share {tr['idle_share']:.3f}; top kernels {top}",
+              flush=True)
+    return {"pretrain": pre, "detection": det, "launches": launches,
+            "launches_per_step": expected, "final_step": final["metrics"],
+            "final_step_ms": final["ms"],
+            "counters": {k: [st["metrics"][k] for st in det_steps]
+                         for k in keys},
+            "sampler": probe.calls, "positives": positives,
+            "trace": trace, "trace_plain_gathers": plain,
+            "dw_shapes": dw_shapes, "dw_step": dw_step, "dw_err": dw_err,
+            "dgrad_err": dgrad_err}
+
+
 
 def main() -> None:
     card = phase_device()
@@ -2496,6 +2893,9 @@ def main() -> None:
 
     fsd = phase_fsd(device)
     fsd["card"] = card
+    torch.cuda.empty_cache()
+    fsd_train = phase_fsd_train(device)
+    fsd_train["card"] = card
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -2582,16 +2982,23 @@ def main() -> None:
         "source": "sst_tpu_torch/csrc/sparse_conv_gemm.cu",
         "replaces": "sst_tpu/ops/sparse_conv_pallas.py:375",
         # predict (phase 7), train (phase 11: forward, recompute and
-        # input-gradient launches) and FSD predict (phase 14), each counted
-        # from 0
+        # input-gradient launches), FSD predict (phase 14) and FSD train
+        # (phase 15, the same three kinds), each counted from 0
         "launches": (conv_launches + train["launches"]["sparse_conv_gemm"]
-                     + fsd["launches"]),
+                     + fsd["launches"]
+                     + fsd_train["launches"]["sparse_conv_gemm"]),
         "launches_by_path": {"sparse": conv_launches,
                              "sparse_train": train["launches"][
                                  "sparse_conv_gemm"],
-                             "fsd": fsd["launches"]},
-        "max_abs_err": max(conv_err, dgrad_err, fsd["max_abs_err"]),
-        "dgrad_max_abs_err": dgrad_err,
+                             "fsd": fsd["launches"],
+                             "fsd_train": fsd_train["launches"][
+                                 "sparse_conv_gemm"]},
+        "launches_per_fsd_train_step": {
+            k: v for k, v in fsd_train["launches_per_step"].items()
+            if k in ("forward", "recompute", "dgrad")},
+        "max_abs_err": max(conv_err, dgrad_err, fsd["max_abs_err"],
+                           fsd_train["dgrad_err"]),
+        "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"]),
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
         "ms": conv_per_frame["ms"],
@@ -2617,13 +3024,24 @@ def main() -> None:
         "fsd_bound_by": bound_by(fsd["shapes"], "convs_per_frame"),
         "fsd_max_abs_err": fsd["max_abs_err"],
         "fsd_shapes": fsd.pop("shapes"),
+        # the input gradient per FSD train step (phase 15): this kernel over
+        # the transposed tables of each of its 39 convs
+        "fsd_train_dgrad_ms_per_step": fsd_train["dw_step"]["dgrad_ms"],
+        "fsd_train_dgrad_plain_ms_per_step": fsd_train["dw_step"][
+            "dgrad_plain_ms"],
     }, {
         "name": "sparse_conv_dw",
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/sparse_conv_dw.cu",
         "replaces": "sst_tpu/ops/sparse_conv_pallas.py:397",
-        "launches": train["launches"]["sparse_conv_dw"],
-        "max_abs_err": dw_err,
+        # the sparse step (phase 11) and the FSD step (phase 15), each
+        # counted from 0
+        "launches": (train["launches"]["sparse_conv_dw"]
+                     + fsd_train["launches"]["sparse_conv_dw"]),
+        "launches_by_path": {"sparse_train": train["launches"][
+            "sparse_conv_dw"], "fsd_train": fsd_train["launches"][
+                "sparse_conv_dw"]},
+        "max_abs_err": max(dw_err, fsd_train["dw_err"]),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -2638,6 +3056,16 @@ def main() -> None:
         "host_ms": dw_step["host_ms"],
         "work_shares": dw_step["shares"],
         "shapes": dw_shapes,
+        # per FSD train step (phase 15): each of its 39 convs at the time of
+        # its rulebook and widths, inputs recorded from a pretrain=False
+        # step
+        "fsd_train_ms_per_step": fsd_train["dw_step"]["ms"],
+        "fsd_train_plain_ms_per_step": fsd_train["dw_step"]["plain_ms"],
+        "fsd_train_bound_ms_per_step": fsd_train["dw_step"]["bound_ms"],
+        "fsd_train_bound_by": bound_by(fsd_train["dw_shapes"],
+                                       "convs_per_step"),
+        "fsd_train_work_shares": fsd_train["dw_step"]["shares"],
+        "fsd_train_shapes": fsd_train.pop("dw_shapes"),
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -2687,6 +3115,7 @@ def main() -> None:
         "train_dense_bev_f32": dense_train_f32,
         "train_sst": sst_train,
         "fsd": fsd,
+        "train_fsd": fsd_train,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

@@ -1,6 +1,6 @@
 """LiDAR 3D box ops in the mmdet3d-v0.15 convention (counterpart of
-``sst_tpu/core/boxes.py``; the parts the rotated IoU, the decoder and the
-FSD targets use).
+``sst_tpu/core/boxes.py``; the parts the rotated IoU, the decoder, the FSD
+targets and the RoI head's corner loss use).
 
 A box is a row [x, y, z, w, l, h, yaw, ...] with (x, y, z) the bottom
 centre; yaw rotates around +z with x' = x cos θ + y sin θ,
@@ -54,6 +54,16 @@ def bev_corners(boxes_bev):
     dims = boxes_bev[:, None, 2:4] * norm[None]
     rot = rotate_2d(dims, boxes_bev[:, None, 4])
     return rot + boxes_bev[:, None, :2]
+
+
+def corners(boxes):
+    """[N, 8, 3] 3D corners, the bottom four then the top four (the BEV
+    corners' order)."""
+    cb = bev_corners(bev(boxes))
+    z0 = boxes[:, None, 2].expand(cb.shape[:2])
+    z1 = z0 + boxes[:, None, 5]
+    return torch.cat([torch.cat([cb, z0[..., None]], -1),
+                      torch.cat([cb, z1[..., None]], -1)], dim=1)
 
 
 def gravity_center(boxes):

@@ -1,4 +1,5 @@
-"""Rotated / nearest BEV IoU (counterpart of ``sst_tpu/core/iou.py``).
+"""Rotated BEV and 3D IoU, nearest BEV IoU (counterpart of
+``sst_tpu/core/iou.py``).
 
 Green's theorem, sort-free: the boundary of A∩B is the part of A's edges
 inside B plus the part of B's edges inside A. Each sub-segment's line
@@ -68,6 +69,20 @@ def boxes_iou_bev(boxes_a, boxes_b, eps: float = 1e-6):
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=eps)
+
+
+def boxes_iou_3d(boxes_a, boxes_b, eps: float = 1e-6):
+    """[N, M] rotated 3D IoU: the BEV overlap times the overlap of the z
+    extents, ``boxes[:, 2]`` the bottom and ``boxes[:, 5]`` the height."""
+    inter_bev = bev_overlap(boxes_a, boxes_b)
+    za1, za2 = boxes_a[:, 2][:, None], (boxes_a[:, 2] + boxes_a[:, 5])[:, None]
+    zb1, zb2 = boxes_b[:, 2][None, :], (boxes_b[:, 2] + boxes_b[:, 5])[None, :]
+    inter_h = torch.clamp(torch.minimum(za2, zb2) - torch.maximum(za1, zb1),
+                          min=0.0)
+    inter = inter_bev * inter_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=eps)
 
 
 def _aligned_overlap_2d(xyxy_a, xyxy_b):

@@ -1,15 +1,23 @@
-"""FSD two-stage RoI refinement, inference: ``dynamic_point_pool``,
-``FullySparseBboxHead`` and ``GroupCorrectionHead`` (counterpart of
-``sst_tpu/models/fsd/roi_head.py``).
+"""FSD two-stage RoI refinement: ``dynamic_point_pool``,
+``FullySparseBboxHead`` and ``GroupCorrectionHead`` with its targets and
+losses (counterpart of ``sst_tpu/models/fsd/roi_head.py``).
 
 The pooling is a static [R, K] pairing: per roi, the first K in-box points
 in ascending point index with their 13-dim geometry, built roi-major
 (candidate compaction, a column cumsum of the [M, R] membership, a
 per-roi ``searchsorted``), so a point pairs with every roi that contains
 it. Pair (r, k) belongs to group r, so the SIR² pooling needs no unique.
+The pairs' rows (their points for the geometry, then their points and
+features for the head) are read by ``gather_rows``: the empty slots (about
+70% of a full-width frame's 65,536) do not all send their zero gradients to
+one point's row.
 
-The head's training half (``assign_and_sample``, ``loss``, ``canonical_gt``)
-waits for FSD training (ROADMAP queue 1 item 7).
+Training: ``assign_and_sample`` (each proposal's best same-sample,
+same-class 3D IoU), the IoU-piecewise sampler
+(``core/target_assign.py iou_neg_piecewise_sample``), and ``loss``: the
+soft-label classification, the L1 of the residuals to the gt in the roi's
+canonical frame (``canonical_gt``) and the corner loss against the gt and
+its flipped twin.
 """
 
 from __future__ import annotations
@@ -19,12 +27,15 @@ import math
 import torch
 from torch import nn
 
-from sst_tpu_torch.core.box_coders import delta_decode
-from sst_tpu_torch.core.boxes import rotate_2d
+from sst_tpu_torch.core import losses as L
+from sst_tpu_torch.core.box_coders import delta_decode, delta_encode
+from sst_tpu_torch.core.boxes import corners, rotate_2d
+from sst_tpu_torch.core.iou import boxes_iou_3d
 from sst_tpu_torch.core.nms import nms_bev, topk_presort
+from sst_tpu_torch.core.target_assign import iou_neg_piecewise_sample
 from sst_tpu_torch.models.fsd.sir import SIRLayer
 from sst_tpu_torch.models.layers import MLP
-from sst_tpu_torch.ops.segment import segment_reduce
+from sst_tpu_torch.ops.segment import gather_rows, segment_reduce
 
 
 def _local_frame(points_xyz, pts_rois):
@@ -116,8 +127,10 @@ def dynamic_point_pool(points_xyz, pts_valid, pts_batch, rois, roi_valid,
     pv = (qs[None, :] <= counts[:, None]) & roi_valid[:, None]
     idx = torch.where(pv, cand_idx[torch.clamp(pos, max=m - 1)], 0)
 
-    # 13-dim geometry of the selected [R, K] pairs
-    pts = points_xyz[idx.reshape(-1)]
+    # 13-dim geometry of the selected [R, K] pairs; the empty slots read
+    # no point (a gather_rows: they would all send their zero gradients to
+    # point 0) and are zeroed below
+    pts = gather_rows(points_xyz, torch.where(pv, idx, -1).reshape(-1))
     proi = rois.repeat_interleave(k, dim=0)
     lw, ll, lz = _local_frame(pts, proi)
     w2, l2, h2 = proi[:, 3] / 2, proi[:, 4] / 2, proi[:, 5] / 2
@@ -130,6 +143,33 @@ def dynamic_point_pool(points_xyz, pts_valid, pts_batch, rois, roi_valid,
     return {"idx": idx.to(torch.int32), "valid": pv, "geo": geo,
             "membership_overflow": mem_overflow,
             "inbox_overflow": inbox_overflow}
+
+
+def canonical_gt(rois, gts):
+    """gt boxes [N, 7] in the canonical frame of their rois [N, 7]: the
+    centre offset rotated by the roi's yaw (taken mod 2 pi), the yaw
+    difference mod 2 pi with opposite headings flipped, wrapped to
+    (-pi, pi] and clipped to [-pi/2, pi/2]."""
+    ctr = gts[:, :3] - rois[:, :3]
+    roi_ry = rois[:, 6] % (2 * math.pi)
+    ang = -(roi_ry + math.pi / 2)
+    rot = rotate_2d(ctr[:, :2], -ang)
+    ry = (gts[:, 6] - roi_ry) % (2 * math.pi)
+    opposite = (ry > math.pi * 0.5) & (ry < math.pi * 1.5)
+    ry = torch.where(opposite, (ry + math.pi) % (2 * math.pi), ry)
+    ry = torch.where(ry > math.pi, ry - 2 * math.pi, ry)
+    ry = torch.clamp(ry, -math.pi / 2, math.pi / 2)
+    return torch.cat([rot, ctr[:, 2:3], gts[:, 3:6], ry[:, None]], dim=-1)
+
+
+def _per_class(values: tuple, labels):
+    """``jnp.asarray(values)[minimum(labels, C - 1)]`` for class ids >= 0,
+    as float32 ``where``s of Python scalars (no copy to the card)."""
+    out = torch.full(labels.shape, values[-1], dtype=torch.float32,
+                     device=labels.device)
+    for c in range(len(values) - 1):
+        out = torch.where(labels == c, values[c], out)
+    return out
 
 
 def decode_rcnn(rois, preds):
@@ -199,26 +239,39 @@ class FullySparseBboxHead(nn.Module):
 
 
 class GroupCorrectionHead(nn.Module):
-    """Pool each proposal's in-box points and refine it with SIR²."""
+    """Assign and sample proposals, pool each one's in-box points and
+    refine it with SIR².
+
+    ``sampler``: the IoU-piecewise sampler's ``dict(num, pos_fraction,
+    neg_piece_fractions, neg_iou_piece_thrs)``; None keeps every valid
+    proposal. ``num_rois`` is read by no layer, as in the JAX module."""
 
     def __init__(self, point_channels: int, feat_channels_in: int,
                  num_classes: int = 3, extra_wlh: tuple = (0.5, 0.5, 0.5),
                  max_inbox_point: int = 256, max_paired_points: int = 65536,
-                 num_rois: int = 256, bbox_head: dict | None = None,
-                 dtype=torch.float32, **train_cfg):
+                 num_rois: int = 256,
+                 pos_iou_thr: tuple = (0.45, 0.35, 0.35),
+                 cls_pos_thr: tuple = (0.8, 0.65, 0.65),
+                 cls_neg_thr: tuple = (0.2, 0.15, 0.15),
+                 loss_bbox_weight: float = 2.0, loss_cls_weight: float = 1.0,
+                 corner_loss_weight: float = 1.0,
+                 corner_loss_only_car: bool = True,
+                 sampler: dict | None = None, bbox_head: dict | None = None,
+                 dtype=torch.float32):
         super().__init__()
-        # read by the training half only (assign, sample, losses)
-        unknown = set(train_cfg) - {
-            "pos_iou_thr", "cls_pos_thr", "cls_neg_thr", "loss_bbox_weight",
-            "loss_cls_weight", "corner_loss_weight", "corner_loss_only_car",
-            "sampler"}
-        if unknown:
-            raise TypeError(f"unexpected arguments {sorted(unknown)}")
         del num_rois
         self.num_classes = num_classes
         self.extra_wlh = tuple(extra_wlh)
         self.max_inbox_point = max_inbox_point
         self.max_paired_points = max_paired_points
+        self.pos_iou_thr = tuple(pos_iou_thr)
+        self.cls_pos_thr = tuple(cls_pos_thr)
+        self.cls_neg_thr = tuple(cls_neg_thr)
+        self.loss_bbox_weight = loss_bbox_weight
+        self.loss_cls_weight = loss_cls_weight
+        self.corner_loss_weight = corner_loss_weight
+        self.corner_loss_only_car = corner_loss_only_car
+        self.sampler = None if sampler is None else dict(sampler)
         self.bbox_head_mod = FullySparseBboxHead(
             point_channels, feat_channels_in, dtype=dtype,
             **(bbox_head or {}))
@@ -231,14 +284,105 @@ class GroupCorrectionHead(nn.Module):
             pts_xyz[:, :3], pts_valid, pts_batch, rois, roi_valid, roi_batch,
             self.extra_wlh, self.max_inbox_point, self.max_paired_points)
         r, _ = pool["idx"].shape
-        flat_idx = pool["idx"].reshape(-1).long()
         pair_valid = pool["valid"].reshape(-1)
-        pair_pts = torch.where(pair_valid[:, None], pts_xyz[flat_idx], 0.0)
-        pair_feats = torch.where(pair_valid[:, None], pts_feats[flat_idx],
-                                 0.0)
+        flat_idx = torch.where(pair_valid, pool["idx"].reshape(-1), -1)
         return self.bbox_head_mod(
-            pair_pts, pair_feats, pool["geo"].reshape(-1, 13), pair_valid, r,
+            gather_rows(pts_xyz, flat_idx), gather_rows(pts_feats, flat_idx),
+            pool["geo"].reshape(-1, 13), pair_valid, r,
             train) + (pool["membership_overflow"],)
+
+    # -------------------------------------------------------------- training
+
+    def assign_and_sample(self, proposals, prop_labels, prop_valid,
+                          prop_batch, gt_boxes, gt_labels, gt_valid):
+        """Each proposal's best 3D IoU among the valid gt boxes of its
+        sample and class (-1 where there is none), the gt's flat index
+        [B * G] (the first best) and whether it reaches its class's
+        ``pos_iou_thr``."""
+        b, g = gt_boxes.shape[:2]
+        gt_flat = gt_boxes.reshape(b * g, -1)
+        gt_b = torch.arange(b, dtype=prop_batch.dtype,
+                            device=prop_batch.device).repeat_interleave(g)
+        iou = boxes_iou_3d(proposals[:, :7], gt_flat[:, :7])  # [P, B*G]
+        ok = ((prop_batch[:, None] == gt_b[None, :])
+              & (prop_labels[:, None] == gt_labels.reshape(1, -1))
+              & gt_valid.reshape(1, -1))
+        iou = torch.where(ok, iou, -1.0)
+        max_iou, argmax = iou.max(dim=1)
+        is_pos = (max_iou >= _per_class(self.pos_iou_thr, prop_labels)) \
+            & prop_valid
+        return max_iou, argmax, is_pos
+
+    def loss(self, pts_xyz, pts_feats, pts_valid, pts_batch, proposals,
+             prop_labels, prop_valid, prop_batch, gt_boxes, gt_labels,
+             gt_valid, train: bool = True, generator=None,
+             draws=None) -> dict:
+        """``loss_rcnn_cls`` (BCE to the IoU's soft label over the sampled
+        non-empty proposals), ``loss_rcnn_bbox`` (L1 of the canonical
+        residuals) and ``loss_rcnn_corner`` (car only by default) over the
+        sampled non-empty positives, ``num_pos_rois`` and
+        ``roi_membership_overflow``. ``generator`` / ``draws``: the
+        sampler's uniforms (``iou_neg_piecewise_sample``). No host read."""
+        max_iou, argmax, is_pos = self.assign_and_sample(
+            proposals, prop_labels, prop_valid, prop_batch, gt_boxes,
+            gt_labels, gt_valid)
+        sampled = prop_valid
+        if train and self.sampler is not None:
+            sm = self.sampler
+            sampled = iou_neg_piecewise_sample(
+                max_iou, is_pos, prop_valid, sm["num"], sm["pos_fraction"],
+                tuple(sm["neg_piece_fractions"]),
+                tuple(sm["neg_iou_piece_thrs"]), generator=generator,
+                draws=draws)
+        cls_score, bbox_pred, nonempty, mem_overflow = self.pool_and_forward(
+            pts_xyz, pts_feats, pts_valid, pts_batch, proposals[:, :7],
+            prop_valid, prop_batch, train)
+        # soft labels between the class's negative and positive IoUs
+        pos_t = _per_class(self.cls_pos_thr, prop_labels)
+        neg_t = _per_class(self.cls_neg_thr, prop_labels)
+        soft = torch.clamp((max_iou - neg_t) / (pos_t - neg_t), 0.0, 1.0)
+        lw = (sampled & nonempty).float()
+        loss_cls = L.binary_cross_entropy_loss(
+            cls_score, soft, weight=lw,
+            avg_factor=torch.clamp(lw.sum(), min=1.0)) * self.loss_cls_weight
+
+        gt_flat = gt_boxes.reshape(-1, gt_boxes.shape[-1])
+        matched = gt_flat[argmax]
+        # a zero-size padded gt would make delta_encode's log NaN (and
+        # 0 * NaN is NaN through the weights): non-positives take a unit box
+        unit = torch.zeros_like(matched[0])
+        unit[3:6] = 1.0
+        matched = torch.where(is_pos[:, None], matched, unit)
+        ct = canonical_gt(proposals[:, :7], matched[:, :7])
+        anchors = torch.cat([torch.zeros_like(proposals[:, :3]),
+                             proposals[:, 3:6],
+                             torch.zeros_like(proposals[:, 6:7])], dim=-1)
+        targets = delta_encode(anchors, ct)
+        rw = (is_pos & sampled & nonempty).float()
+        loss_bbox = L.l1_loss(
+            bbox_pred, targets, weight=rw,
+            avg_factor=torch.clamp(rw.sum(), min=1.0)) * self.loss_bbox_weight
+
+        # corner loss against the gt and its flipped twin
+        pred_corners = corners(decode_rcnn(proposals[:, :7], bbox_pred))
+        flipped = torch.cat([matched[:, :6], matched[:, 6:7] + math.pi], -1)
+        cd = torch.minimum(
+            torch.linalg.vector_norm(pred_corners - corners(matched[:, :7]),
+                                     dim=-1),
+            torch.linalg.vector_norm(pred_corners - corners(flipped), dim=-1))
+        huber = torch.where(cd < 1.0, 0.5 * cd**2, cd - 0.5).mean(-1)
+        cw = rw
+        if self.corner_loss_only_car:
+            cw = cw * (gt_labels.reshape(-1)[argmax] == 0).float()
+        loss_corner = (huber * cw).sum() / torch.clamp(cw.sum(), min=1.0) \
+            * self.corner_loss_weight
+        return {
+            "loss_rcnn_cls": loss_cls,
+            "loss_rcnn_bbox": loss_bbox,
+            "loss_rcnn_corner": loss_corner,
+            "num_pos_rois": is_pos.sum().float(),
+            "roi_membership_overflow": mem_overflow.float(),
+        }
 
     def predict(self, pts_xyz, pts_feats, pts_valid, pts_batch, proposals,
                 prop_scores, prop_labels, prop_valid, prop_batch,

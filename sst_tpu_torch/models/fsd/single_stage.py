@@ -1,5 +1,5 @@
-"""SingleStageFSD — the fully-sparse detector (FSD, NeurIPS 2022), inference
-(counterpart of ``sst_tpu/models/fsd/single_stage.py``).
+"""SingleStageFSD — the fully-sparse detector (FSD, NeurIPS 2022), predict
+and loss (counterpart of ``sst_tpu/models/fsd/single_stage.py``).
 
 VoteSegmentor → 0.1 m pre-voxelization (one wide segment mean) → per-class
 fg selection (score threshold + static top-k) → per-class cluster
@@ -12,11 +12,16 @@ JAX package: per-class fg caps, cluster-voxel caps and cluster caps.
 class's fg points, cluster voxels, clusters before the cap and CCL rounds),
 read by ``chip_smoke.py``; they cost a few reductions and no host sync.
 
-Not in this slice, raising ``NotImplementedError``: training (``loss``,
-``add_gt_fg_points`` is read there only), group sampling (``group_names``,
-the Argo2 recipe) and the key-point assigner (``"ssg"`` in
-``assigner_per_class``, which needs ``ops/fps.py``), all ROADMAP queue 1
-item 7; a compute dtype other than float32 (JAX's FSD builds are float32).
+Training: ``loss`` (``pretrain`` runs the segmentor alone), the segmentor
+branch's logits, votes and offsets detached before sampling (its features
+keep their gradient), ``add_gt_fg_points`` ORing the points inside a gt box
+of the class into its fg, CCL without autograd (its labels are integers).
+
+Not ported, raising ``NotImplementedError``: group sampling
+(``group_names``, the Argo2 recipe) and the key-point assigner (``"ssg"``
+in ``assigner_per_class``, which needs ``ops/fps.py``), ROADMAP queue 1
+items 7c and 7d; a compute dtype other than float32 (JAX's FSD builds are
+float32).
 """
 
 from __future__ import annotations
@@ -26,10 +31,14 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from sst_tpu_torch.core.target_assign import gt_point_class_labels
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.fsd.sir import SIR
 from sst_tpu_torch.models.fsd.sparse_cluster_head import SparseClusterHeadV2
-from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegmentor
+from sst_tpu_torch.models.fsd.vote_segmentor import (
+    VoteSegmentor,
+    seg_targets,
+)
 from sst_tpu_torch.ops.ccl import (
     compact_labels,
     connected_components,
@@ -42,9 +51,6 @@ from sst_tpu_torch.ops.segment import (
     unique_segments,
 )
 from sst_tpu_torch.ops.voxelize import grid_shape_zyx
-
-_FSD_TRAINING = "FSD training (ROADMAP queue 1 item 7)"
-
 
 def _cell_coords(xyz: torch.Tensor, lo, size) -> torch.Tensor:
     """[N, 3] int32 ``floor((xyz - lo) / size)``, column by column with
@@ -96,14 +102,15 @@ class SingleStageFSD(nn.Module):
         if group_names is not None:
             raise NotImplementedError(
                 "group_names (group sampling, the Argo2 recipe): ROADMAP "
-                "queue 1 item 7")
+                "queue 1 item 7c")
         if assigner_per_class is not None and "ssg" in assigner_per_class:
             raise NotImplementedError(
                 "assigner_per_class 'ssg' (the key-point assigner, needs "
-                "ops/fps.py): ROADMAP queue 1 item 7")
+                "ops/fps.py): ROADMAP queue 1 item 7d")
         if dtype != torch.float32:
             raise NotImplementedError(
-                f"dtype={dtype}: FSD is ported in float32, as JAX builds it")
+                f"dtype={dtype}: FSD is ported in float32, as JAX builds it "
+                f"(a bf16 FSD: ROADMAP queue 1 item 11)")
         del ssg_radius, ssg_num_fps  # read by the 'ssg' assigner only
         for name, val in (("score_thresh", score_thresh),
                           ("cluster_voxel_size", cluster_voxel_size),
@@ -121,7 +128,7 @@ class SingleStageFSD(nn.Module):
         self.min_points = min_points
         self.pre_voxelization_size = (None if pre_voxelization_size is None
                                       else tuple(pre_voxelization_size))
-        del add_gt_fg_points  # read by training only
+        self.add_gt_fg_points = add_gt_fg_points
         self.caps = caps or FSDCaps()
         self.test_cfg = dict(test_cfg or dict(
             score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
@@ -175,10 +182,14 @@ class SingleStageFSD(nn.Module):
 
     def sample_class(self, data: dict, cls: int,
                      thr_extra: float = 0.0) -> dict:
-        """fg selection for one class: threshold + top-k compaction."""
+        """fg selection for one class: threshold + top-k compaction; in
+        training with ``gt_point_labels`` in ``data``, the points inside a
+        gt box of the class are fg too."""
         cap = self.caps.fg_per_class[cls]
         scores = torch.sigmoid(data["seg_logits"][:, cls])
         fg = data["valid"] & (scores > self.score_thresh[cls] + thr_extra)
+        if data.get("gt_point_labels") is not None:
+            fg = fg | (data["valid"] & (data["gt_point_labels"] == cls))
         idx, sel_valid = topk_compact(scores, fg, cap)
         pts = data["seg_points"][idx]
         offsets = data["offsets"][idx].reshape(idx.shape[0], -1, 3)[:, cls]
@@ -220,8 +231,9 @@ class SingleStageFSD(nn.Module):
         wide = torch.cat([centers, sample["batch_idx"].float()[:, None]], -1)
         red = segment_reduce(wide, uniq.seg_ids, vcap, "mean")
         vox_batch = torch.round(red[:, 3]).to(torch.int32)
-        labels, rounds = connected_components(
-            red[:, :2], vox_batch, vox_valid, self.connected_dist[cls])
+        with torch.no_grad():
+            labels, rounds = connected_components(
+                red[:, :2], vox_batch, vox_valid, self.connected_dist[cls])
         comp_ids, num_clusters = compact_labels(labels, vox_valid, ccap)
         pt_cluster = torch.where(pt_valid, comp_ids[in_cap], ccap)
         pt_valid = pt_valid & (pt_cluster < ccap)
@@ -289,9 +301,9 @@ class SingleStageFSD(nn.Module):
     def run_pipeline(self, batch: PointBatch, train: bool = False,
                      thr_extra: float = 0.0, detach_seg: bool = True) -> dict:
         """Segmentor → pre-voxelize → sample/cluster → SIR → head outputs,
-        with every intermediate the prediction and the RoI stage read."""
-        if train:
-            raise NotImplementedError(_FSD_TRAINING)
+        with every intermediate the prediction, the losses and the RoI
+        stage read. ``detach_seg`` detaches the segmentor's logits, votes
+        and offsets (not its features), as JAX's ``stop_gradient``s."""
         b, p, _ = batch.points.shape
         pts = batch.points.reshape(b * p, -1)
         batch_idx = torch.arange(b, dtype=torch.int32,
@@ -306,13 +318,58 @@ class SingleStageFSD(nn.Module):
                 data[k] = data[k].detach()
         if self.pre_voxelization_size is not None:
             data = self.pre_voxelize(data, b)
+        if train and self.add_gt_fg_points:
+            # the segmentor's misses inside gt boxes, on the (pre-voxelized)
+            # points
+            data["gt_point_labels"] = gt_point_class_labels(
+                data["seg_points"][:, :3], data["batch_idx"], data["valid"],
+                batch.gt_boxes, batch.gt_labels, batch.gt_valid)
         ex = self.extract(data, b, train, thr_extra)
         outs = self.head_mod(ex["cluster_feats"], ex["cluster_valid"], train)
         return {"seg_out": seg_out, "data": data, "ex": ex, "outs": outs,
                 "batch_size": b}
 
-    def loss(self, batch: PointBatch, *args, **kwargs):
-        raise NotImplementedError(_FSD_TRAINING)
+    def seg_losses(self, batch: PointBatch, seg_out: dict) -> dict:
+        """The segmentor head's losses against each sample's gt boxes."""
+        targets = [seg_targets(batch.points[i, :, :3], batch.valid[i],
+                               batch.gt_boxes[i], batch.gt_labels[i],
+                               batch.gt_valid[i], self.num_classes)
+                   for i in range(batch.points.shape[0])]
+        lbl, vt, vmask = (torch.cat(t) for t in zip(*targets))
+        return self.segmentor_mod.head_mod.losses(
+            seg_out["seg_logits"], seg_out["seg_vote_preds"], lbl, vt, vmask,
+            seg_out["valid"])
+
+    def losses_from_pipeline(self, batch: PointBatch, pipe: dict) -> dict:
+        losses = self.seg_losses(batch, pipe["seg_out"])
+        ex = pipe["ex"]
+        losses.update(self.head_mod.loss(
+            pipe["outs"], ex["cluster_xyz"], ex["cluster_batch"],
+            ex["cluster_valid"], batch.gt_boxes, batch.gt_labels,
+            batch.gt_valid))
+        losses["num_clusters"] = ex["cluster_valid"].sum().float()
+        losses["num_fg_points"] = ex["pt_valid"].sum().float()
+        return losses
+
+    def loss(self, batch: PointBatch, train: bool = True,
+             thr_extra: float = 0.0, pretrain: bool = False) -> dict:
+        """The training losses of a labelled batch (``loss*`` keys, summed
+        by ``train/step.py``) and two counters, as the JAX model returns
+        them. ``pretrain``: the segmentor alone and its losses (the
+        detection schedule's warm-up, and the segmentation pretrain
+        recipe); ``pretrain`` and ``thr_extra`` come from
+        ``train/schedules.py FSDDetectionSchedule``."""
+        if pretrain:
+            b, p, _ = batch.points.shape
+            batch_idx = torch.arange(
+                b, dtype=torch.int32,
+                device=batch.points.device).repeat_interleave(p)
+            seg_out = self.segmentor_mod(batch.points.reshape(b * p, -1),
+                                         batch_idx, batch.valid.reshape(-1),
+                                         b, train)
+            return self.seg_losses(batch, seg_out)
+        return self.losses_from_pipeline(
+            batch, self.run_pipeline(batch, train, thr_extra))
 
     @torch.inference_mode()
     def predict(self, batch: PointBatch) -> dict:

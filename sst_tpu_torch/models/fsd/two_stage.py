@@ -1,5 +1,5 @@
-"""FSD — the two-stage fully-sparse detector, inference (counterpart of
-``sst_tpu/models/fsd/two_stage.py``).
+"""FSD — the two-stage fully-sparse detector, predict and loss
+(counterpart of ``sst_tpu/models/fsd/two_stage.py``).
 
 SingleStageFSD as the RPN, then GroupCorrectionHead refinement. Proposals
 are the top cluster boxes of each sample by score (no NMS), at most
@@ -15,11 +15,9 @@ from torch import nn
 from sst_tpu_torch.core.box_coders import base_point_decode
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.fsd.roi_head import GroupCorrectionHead
-from sst_tpu_torch.models.fsd.single_stage import (
-    _FSD_TRAINING,
-    SingleStageFSD,
-)
+from sst_tpu_torch.models.fsd.single_stage import SingleStageFSD
 from sst_tpu_torch.ops.ccl import topk_compact
+from sst_tpu_torch.ops.segment import gather_rows
 
 
 def scatter_last_wins(rows: torch.Tensor, index: torch.Tensor,
@@ -28,16 +26,16 @@ def scatter_last_wins(rows: torch.Tensor, index: torch.Tensor,
     ``index[j] == r``, zeros where no j names r; indices outside [0, rows)
     are dropped. The winner among duplicate indices is explicit (the
     highest position, a ``scatter_reduce`` amax of the positions), where a
-    scatter-set with duplicates promises no order on the card."""
+    scatter-set with duplicates promises no order on the card. The rows are
+    read by ``gather_rows``: the rows no j names (most of them) do not all
+    send their zero gradients to ``values[0]``."""
     pos = torch.arange(index.shape[0], device=index.device)
     inside = (index >= 0) & (index < rows)
     winner = torch.full((rows + 1,), -1, dtype=pos.dtype,
                         device=index.device)
     winner.scatter_reduce_(0, torch.where(inside, index.long(), rows), pos,
                            "amax")
-    winner = winner[:rows]
-    out = values[torch.clamp(winner, min=0)]
-    return torch.where(winner[:, None] >= 0, out, 0.0)
+    return gather_rows(values, winner[:rows])
 
 
 class FSD(nn.Module):
@@ -115,8 +113,26 @@ class FSD(nn.Module):
         feats = torch.cat([sir_feats, data["seg_feats"]], dim=-1)
         return data["seg_points"], feats, data["valid"], data["batch_idx"]
 
-    def loss(self, batch: PointBatch, *args, **kwargs):
-        raise NotImplementedError(_FSD_TRAINING)
+    def loss(self, batch: PointBatch, train: bool = True,
+             thr_extra: float = 0.0, pretrain: bool = False,
+             generator: torch.Generator | None = None) -> dict:
+        """The training losses of a labelled batch (``loss*`` keys, summed
+        by ``train/step.py``) and the counters JAX's returns.
+        ``pretrain``: the segmentor's losses alone (the single stage's
+        ``loss``). Otherwise the single stage's losses, then the RoI head's
+        on the detached proposals. ``generator``: the source of the RoI
+        sampler's uniforms (JAX's ``sampler`` rng)."""
+        if pretrain:
+            return self.rpn.loss(batch, train, thr_extra, pretrain=True)
+        pipe = self.rpn.run_pipeline(batch, train, thr_extra)
+        losses = self.rpn.losses_from_pipeline(batch, pipe)
+        rois, _, rlabels, rvalid, rbatch = self._proposals(pipe)
+        pts, feats, pvalid, pbatch = self._roi_points(pipe)
+        losses.update(self.roi.loss(
+            pts, feats, pvalid, pbatch, rois.detach(), rlabels, rvalid,
+            rbatch, batch.gt_boxes, batch.gt_labels, batch.gt_valid, train,
+            generator=generator))
+        return losses
 
     @torch.inference_mode()
     def predict(self, batch: PointBatch, skip_rcnn: bool = False) -> dict:

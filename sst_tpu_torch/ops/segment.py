@@ -190,11 +190,8 @@ def gather_rows(src: torch.Tensor, index: torch.Tensor,
 
 def gather_segments(voxel_data: torch.Tensor, seg_ids: torch.Tensor,
                     fill: float = 0.0) -> torch.Tensor:
-    """Broadcast per-segment rows back to elements; ids >= num_segments get
-    ``fill``."""
-    num_segments = voxel_data.shape[0]
-    safe = torch.clamp(seg_ids.long(), max=num_segments - 1)
-    out = voxel_data[safe]
-    oob = (seg_ids >= num_segments).view((-1,) + (1,) * (voxel_data.dim() - 1))
-    return torch.where(oob, torch.as_tensor(fill, dtype=out.dtype,
-                                            device=out.device), out)
+    """Broadcast per-segment rows [S, C] back to elements; ids outside
+    [0, S) (the invalid elements' id S) get ``fill``. A ``gather_rows``, so
+    the invalid elements do not all add their zero gradients into one
+    segment's row in the backward."""
+    return gather_rows(voxel_data, seg_ids, fill)

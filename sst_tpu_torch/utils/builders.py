@@ -8,6 +8,12 @@ Only the detector types the port has are registered: ``FSD``,
 ROADMAP queue item. The JAX modules read the point width from their input;
 the port's take it at construction, so the builder does too
 (``num_point_features``), and it returns the model on ``device``.
+
+The training half of a config (what the JAX package's ``tools/train.py``
+reads): ``optimizer_from_cfg`` (``optimizer``) and ``schedule_from_cfg``
+(``fsd_detection_schedule``). A model's own train settings (FSD's RoI
+sampler, thresholds and loss weights, the UNet's ``remat``) sit in
+``model`` and reach its modules through ``build_model_from_cfg``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from sst_tpu_torch.utils.registry import MODELS
 
 # detector types of the JAX registry not yet ported, by ROADMAP queue 1 item
 UNPORTED_TYPES = {
-    "FSDV2": "ROADMAP queue 1 item 7 (FSDV2 two-stage)",
+    "FSDV2": "ROADMAP queue 1 item 7b (FSDV2 two-stage)",
     "TwoStageFSDPP": "ROADMAP queue 1 item 8 (FSD++)",
     "TrackletDetector": "ROADMAP queue 1 item 8 (CTRL)",
     "PointPillars": "ROADMAP queue 1 item 10 (PointPillars)",
@@ -107,3 +113,31 @@ def build_model_from_cfg(cfg: dict, train: bool = True,
             kwargs["buckets"] = buckets_from_cfg(cfg[rb_key])
     model = MODELS.build(kwargs, num_point_features=num_point_features)
     return on_device(model, device, cap.get("max_points", 65536))
+
+
+def optimizer_from_cfg(model: torch.nn.Module, cfg: dict,
+                       total_steps: int):
+    """The config's ``optimizer`` (base_lr, weight_decay, clip_norm; JAX's
+    ``tools/train.py`` defaults where it gives none) over the model's
+    parameters: ``train/state.py make_optimizer``, a ``total_steps``
+    one-cycle."""
+    from sst_tpu_torch.train.state import make_optimizer
+
+    opt = cfg.get("optimizer", {})
+    return make_optimizer(model.parameters(),
+                          base_lr=opt.get("base_lr", 1e-5),
+                          weight_decay=opt.get("weight_decay", 0.05),
+                          total_steps=total_steps,
+                          clip_norm=opt.get("clip_norm", 10.0))
+
+
+def schedule_from_cfg(cfg: dict):
+    """The config's ``fsd_detection_schedule`` as
+    ``train/schedules.py FSDDetectionSchedule`` (its ``pretrain`` /
+    ``thr_extra`` per step are the loss's keyword arguments), or None where
+    the config has none."""
+    from sst_tpu_torch.train.schedules import FSDDetectionSchedule
+
+    if "fsd_detection_schedule" not in cfg:
+        return None
+    return FSDDetectionSchedule(**cfg["fsd_detection_schedule"])

@@ -373,8 +373,8 @@ def test_builder_raises_on_types_not_ported():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(group_names=(("Car",), ("Pedestrian", "Cyclist"))),
-     "group_names"),
-    (dict(assigner_per_class=("ccl", "ssg", "ccl")), "ssg"),
+     "group_names.*item 7c"),
+    (dict(assigner_per_class=("ccl", "ssg", "ccl")), "ssg.*item 7d"),
     (dict(dtype=torch.bfloat16), "float32"),
 ])
 def test_fsd_options_outside_the_slice_raise(kw, match):
@@ -386,12 +386,12 @@ def test_fsd_options_outside_the_slice_raise(kw, match):
         SingleStageFSD(**cfg)
 
 
-def test_fsd_training_raises(both):
-    tm = tflag.tiny_fsd_two_stage(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tm.rpn.run_pipeline(both["batch"], train=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tm.loss(both["batch"])
+def test_fsd_training_raises():
+    """FSD trains since the training slice (``tests/test_torch_fsd_train.py``
+    holds it against JAX); what of its training is not ported raises,
+    naming its queue item: the FSDV2 two-stage build (7b)."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
+        build_model_from_cfg({"model": {"type": "FSDV2"}}, device="cpu")
 
 
 def test_builders_need_a_card_unless_told():

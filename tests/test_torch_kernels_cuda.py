@@ -339,6 +339,47 @@ def test_sparse_conv_kernel_at_fsd_shapes(fsd_levels, mode, level, cin,
     assert int(out_g.valid.sum()) > 0 and got.abs().sum() > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,level,cin,cout", FSD_CONV_CASES)
+def test_sparse_conv_backward_at_fsd_shapes(fsd_levels, mode, level, cin,
+                                            cout):
+    """The FSD segmentor's training at its level caps and widths (the
+    256-wide deepest levels and the 512 -> 256 merge included): the dW
+    kernel over the plan's schedule, within 1e-4 of the twin on absolute
+    values, and the input gradient (the conv kernel over the transposed
+    table and its schedule, with W[k]^T) within 1e-4 of the twin."""
+    if mode == "subm":
+        out_g = in_g = fsd_levels[level]
+    elif mode == "strided":
+        out_g, in_g = fsd_levels[level], fsd_levels[level - 1]
+    else:
+        out_g, in_g = fsd_levels[level - 1], fsd_levels[level]
+    plan = tsc.build_conv_plans(out_g, in_g, mode)
+    dev = plan.nbr.device
+    gen = torch.Generator(device=dev).manual_seed(10 + level)
+    feats = torch.randn(in_g.cap, cin, generator=gen,
+                        device=dev) * in_g.valid[:, None]
+    dout = torch.randn(out_g.cap, cout, generator=gen,
+                       device=dev) * out_g.valid[:, None]
+    wt = (torch.randn(27, cin, cout, generator=gen, device=dev)
+          / (27 * cin) ** 0.5).transpose(1, 2).contiguous()
+    scg.reset_launch_counts()
+    scd.reset_launch_counts()
+    dw = scd.sparse_conv_dw(feats, plan.nbr, dout, mode,
+                            schedule=plan.schedule(in_g.cap))
+    nbr_t = plan.transposed(in_g.cap)
+    dfeats = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad",
+                                  schedule=plan.transposed_schedule(
+                                      in_g.cap))
+    torch.cuda.synchronize()
+    assert scd.launch_counts == {(mode, cin, cout): 1}
+    assert scg.kind_counts == {"dgrad": 1}
+    assert _dw_close(dw, feats, plan.nbr, dout) and dw.abs().sum() > 0
+    ref = scg.sparse_conv_gemm_ref(dout, nbr_t, wt)
+    torch.testing.assert_close(dfeats, ref, rtol=1e-4, atol=1e-4)
+    assert dfeats.shape == (in_g.cap, cin) and dfeats.abs().sum() > 0
+
+
 def _dw_close(got, feats, nbr, dout):
     """|kernel - twin| <= 1e-4 * (|feats|^T |dout| per element, the twin on
     absolute values) + 1e-6: f32 sums in another order."""
