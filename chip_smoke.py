@@ -1,15 +1,17 @@
-"""GPU smoke run of the PyTorch port's four ``predict`` paths and four
-train steps at full width on one CUDA card, through their hand-written
-kernels: FSDv2-Waymo's dense-BEV build at its default bf16 compute policy
-and in float32 beside it (sorted segment reduce kernel, its bf16 and
-float32 routes, in predict and training), its sparse-UNet build (sorted
-segment reduce and sparse conv kernels; in training also the sparse conv's
+"""GPU smoke run of the PyTorch port's ``predict`` paths and train steps at
+full width on one CUDA card, through their hand-written kernels:
+FSDv2-Waymo's dense-BEV build at its default bf16 compute policy and in
+float32 beside it (sorted segment reduce kernel, its bf16 and float32
+routes, in predict and training), its sparse-UNet build (sorted segment
+reduce and sparse conv kernels; in training also the sparse conv's
 weight-gradient kernel, and the conv kernel over the transposed tables for
-the input gradient), SST-Waymo (window MHA kernel; in training under
-autograd, with the JAX package's einsum-recompute backward in torch ops)
-and FSD two-stage predict and training (sparse conv kernel; in training
-also the weight-gradient kernel and the input gradient), built from its
-config.
+the input gradient), SST-Waymo in float32 and at its bf16 default (window
+MHA kernel; in training under autograd, with the JAX package's
+einsum-recompute backward in torch ops, the blocks rematerialised), FSD
+two-stage predict and training (sparse conv kernel; in training also the
+weight-gradient kernel and the input gradient), built from its config, and
+FSD++ (the FSD two stage behind the incremental point selection, sparse
+and dense-BEV) predict and training, built from its config.
 
     python3 chip_smoke.py
 
@@ -106,7 +108,16 @@ Phases (each one that fails ends the run with a non-zero exit code):
               and 3 staged ``train_step`` calls with a seeded voxel-shuffle
               generator; step ms, stages, peak memory, losses, capacity
               counters, and 36 window MHA launches per step (6 blocks x 2
-              shifts x 3 buckets), counted at the launch site.
+              shifts x 3 buckets) and 36 more in the rematerialised
+              blocks' recompute, counted at the launch site by kind.
+ 16. SST bf16  ``sst_waymo(train_buckets=False, dtype=torch.bfloat16)``
+              (``bench.py bench_sst``'s build) with phase 9's weights: phase
+              8's kernel checks and timings on its frame 0's 48 attention
+              inputs, phase 9's predict on the four frames (48 launches per
+              frame), detections shared with the float32 build (printed),
+              bf16 and float32 latency alternated, peak memory; after phase
+              13, ``sst_waymo(train_buckets=True, dtype=torch.bfloat16)``
+              trains as phase 13 does.
 
  14. FSD      configs/fsd/fsd_waymoD1_1x.py at full width through the
               port's config loader and ``build_model_from_cfg`` (seed-0
@@ -146,12 +157,32 @@ Phases (each one that fails ends the run with a non-zero exit code):
               cars among them, finite gradients); a trace of 2 steps with
               the gathers as they are and 2 with the plain clamped gathers
               (``indexing_backward_kernel`` ms per step, idle share).
+ 17. FSD++    configs/fsdpp/fsdpp_waymo_2x.py at full width through the
+              port's loader and ``build_model_from_cfg`` (seed-0 weights,
+              phase 14's vote and fg settings on ``model.fsd_mod``, taken
+              on the points FSD++ selects); the sparse conv kernel against
+              its twin on all 39 convs of frame 0 at the half caps;
+              ``predict`` on four ``bench.py bench_fsdpp`` frames
+              (``flagship.synthetic_temporal_batch``): 39 launches per
+              frame, the point selection's counts (residual current points,
+              seed-cropped previous points, kept points, overflow), phase
+              14's fills and outputs, latency with and without the RoI
+              stage, stage times (the point selection first), a profiler
+              trace, peak memory; configs/fsdpp/fsdpp_waymo_2x_dense.py
+              predict (no kernel on its path), timed; then training with
+              ``build_model_from_cfg(cfg, train=True)`` and the config's
+              AdamW at thr_extra 0.3, the seed noise and the RoI sampler
+              from one seeded generator: dW and the input gradient against
+              their twins on all 39 convs of a train step, 2 + 6 + 3
+              steps, 39 forward, 39 recompute, 39 input-gradient and 39 dW
+              launches per step.
 
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
-models; phases 10 and 11 after phase 7, on the sparse model; phase 13
-after phase 9, on a model with the training buckets; phases 14 and 15
-last. TF32 is turned off for convolutions and matmuls, so every float32 comparison is
-in full float32. Kernel, twin and library times are device times: each
+models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
+predict after phase 9, then phase 13 and phase 16's training on models
+with the training buckets; phases 14, 15 and 17 last. TF32 is turned
+off for convolutions and matmuls, so every float32 comparison is in full
+float32. Kernel, twin and library times are device times: each
 timed call is queued behind a short ``torch.cuda._sleep``
 (``utils/timing.py cuda_ms``). The line before the last is the kernels
 JSON (every kernel's time, its plain twin's, its bound on the card and a
@@ -183,6 +214,7 @@ from sst_tpu_torch.flagship import (
     init_weights,
     sst_waymo,
     synthetic_labeled_batch,
+    synthetic_temporal_batch,
     synthetic_waymo_batch,
 )
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, SparseConvLayer
@@ -1495,7 +1527,7 @@ def _record_attention(model, frame):
                 lambda m, args, name=name: calls.append(
                     (name, m.nhead, m.windows(*args)))))
     try:
-        inference_detector(model, frame.points[0])
+        inference_detector(model, frame.points[0], model.max_points)
     finally:
         for h in hooks:
             h.remove()
@@ -1604,7 +1636,8 @@ def _host_ms(fn, n=20):
     return seconds * 1e3 / n
 
 
-def phase_sst_kernels(model, frame, device):
+def phase_sst_kernels(model, frame, device,
+                      title="sst_waymo(train_buckets=False)"):
     """The window MHA kernel against its twin on the attention inputs of
     every bucket of every layer of one frame, then on edge cases; kernel,
     twin and SDPA timed on each of those inputs, since the kernel's work
@@ -1614,7 +1647,7 @@ def phase_sst_kernels(model, frame, device):
         calls = _record_attention(model, frame)
         n_inputs = sum(len(b) for _, _, b in calls)
         print(f"SST kernels: window_mha on the attention inputs of frame 0 "
-              f"of sst_waymo(train_buckets=False): {len(calls)} attention "
+              f"of {title}: {len(calls)} attention "
               f"layers, {n_inputs} (layer, bucket) inputs, each timed",
               flush=True)
         errs, sdpa_errs, inputs = [], [], {}
@@ -1691,19 +1724,21 @@ def phase_sst_kernels(model, frame, device):
     return shapes, max(errs), max(sdpa_errs)
 
 
-def phase_sst_predict(model, frames):
+def phase_sst_predict(model, frames, title="sst_waymo(train_buckets=False)"):
     """Drive the SST path; returns (window MHA launches, launches per frame
-    by (T, C, H), latency, capacity counters per frame)."""
+    by (T, C, H), latency, capacity counters per frame, the frames'
+    results)."""
     results, per_frame = [], []
     reset_launch_counts()
     for frame in frames:
         before = dict(wm.launch_counts)
-        results.append(inference_detector(model, frame.points[0]))
+        results.append(inference_detector(model, frame.points[0],
+                                          model.max_points))
         per_frame.append({k: v - before.get(k, 0)
                           for k, v in wm.launch_counts.items()})
     launches, others = wm.launches, sr.launches + scg.launches
     split = per_frame[0]
-    print(f"SST predict: sst_waymo(train_buckets=False) on {len(frames)} "
+    print(f"SST predict: {title} on {len(frames)} "
           f"frames; window_mha launches {launches}, per frame by (T, C, H) "
           f"{split}; other kernels' launches {others}", flush=True)
     if any(f != split for f in per_frame):
@@ -1727,7 +1762,8 @@ def phase_sst_predict(model, frames):
     with torch.inference_mode():
         for s, frame in enumerate(frames):
             diag = {}
-            model.extract_feat(prepare_batch(model, frame.points[0]),
+            model.extract_feat(prepare_batch(model, frame.points[0],
+                                             model.max_points),
                                diag=diag)
             diags.append({k: float(v) for k, v in diag.items()})
             note = "" if diags[-1]["num_window_dropped_voxels"] == 0 else (
@@ -1737,12 +1773,12 @@ def phase_sst_predict(model, frames):
                   f"{diags[-1]}{note}", flush=True)
 
     timed = [event_ms(lambda f=frames[r % len(frames)]: inference_detector(
-        model, f.points[0])) for r in range(12)]
+        model, f.points[0], model.max_points)) for r in range(12)]
     lat = statistics.median(timed)
     print(f"SST predict latency (median of 12 CUDA-event runs after "
           f"warm-up, inference_detector incl. host I/O): {lat:.2f} ms; runs "
           f"{[round(t, 2) for t in timed]}", flush=True)
-    return launches, split, lat, diags
+    return launches, split, lat, diags, results
 
 
 def _labeled_sst_frames(n_frames: int):
@@ -1839,7 +1875,9 @@ def _check_mha_grad(name, q, k, v, pad, nhead, gen):
     return err, gerr
 
 
-def phase_sst_train(model, device):
+def phase_sst_train(model, device,
+                    title="sst_waymo(train_buckets=True) f32 (bf16 "
+                          "attention)"):
     """Drive the SST train path: first, on the attention inputs of step 0
     (hooks on every WindowAttention), the kernel forward + ported backward
     against the twin forward + ported backward, each input timed (kernel
@@ -1906,24 +1944,33 @@ def phase_sst_train(model, device):
 
     opt = _adamw(model)
     n_attn = sum(isinstance(m, WindowAttention) for m in model.modules())
-    expected = {"window_mha": n_attn * len(model.buckets)}
+    per_pass = n_attn * len(model.buckets)
+    # the rematerialised blocks launch each attention again in the backward
+    recompute = per_pass if model.backbone_mod.remat_blocks else 0
+    expected = {"window_mha": per_pass + recompute,
+                "window_mha forward": per_pass,
+                "window_mha recompute": recompute}
     n_steps = N_WARMUP + N_TIMED + N_STAGED
     reset_launch_counts()  # the SST train path's run starts here
     steps, stage_ms, peak = _train_loop(
         model, opt, frames, [dict(generator=gen)] * n_steps,
         lambda: {"window_mha": wm.launches,
+                 "window_mha forward": wm.kind_counts.get("forward", 0),
+                 "window_mha recompute": wm.kind_counts.get("recompute", 0),
                  **{f"window_mha T={t}": v
                     for (t, _, _), v in wm.launch_counts.items()}})
     _check_launches(steps, expected)
-    print(f"SST train: sst_waymo(train_buckets=True) f32 (bf16 attention), "
+    print(f"SST train: {title}, "
           f"batch 1, AdamW (base_lr 1e-5, wd 0.05, clip 10, 10,000-step "
-          f"one-cycle), voxel shuffle from a seeded generator; buckets (T, "
+          f"one-cycle), voxel shuffle from a seeded generator, blocks "
+          f"rematerialised {model.backbone_mod.remat_blocks}; buckets (T, "
           f"windows) {[(b.max_tokens, b.max_windows) for b in model.buckets]}"
           f"; {N_WARMUP} warm-up + {N_TIMED} timed + {N_STAGED} staged "
           f"steps", flush=True)
     print(f"  launches per step (counted at the launch site; {n_attn} "
-          f"attention layers x {len(model.buckets)} buckets give "
-          f"{expected}): {steps[0]['launches']}", flush=True)
+          f"attention layers x {len(model.buckets)} buckets, forward and "
+          f"recompute, give {expected}): {steps[0]['launches']}",
+          flush=True)
     record = _print_train(steps, stage_ms, peak)
     counters = [{k: st["metrics"][k] for k in (
         "num_voxels", "num_voxel_overflow_points",
@@ -1941,6 +1988,7 @@ def phase_sst_train(model, device):
           f"{per_step['bound_ms']:.3f} ms; ported backward "
           f"{per_step['backward_ms']:.3f} ms", flush=True)
     return {**record, "launches": {"window_mha": wm.launches},
+            "launches_per_step_expected": expected,
             "capacity_counters": counters, "mha_max_abs_err": max(errs),
             "mha_grad_err": max(gerrs), "mha_per_step": per_step,
             "mha_shapes": list(shapes.values())}
@@ -2010,7 +2058,8 @@ def _calibrate_fg(model, frame):
     shifts."""
     rpn = model.rpn
     with torch.inference_mode():
-        data = rpn.run_pipeline(prepare_batch(model, frame.points[0]))["data"]
+        data = rpn.run_pipeline(prepare_batch(model, frame.points[0],
+                                              model.max_points))["data"]
     return _shift_fg_biases(rpn, data)
 
 
@@ -2091,11 +2140,14 @@ def _fsd_stage_ms(model, frame):
     and no stage absorbs the queued work of the one before (the model
     copies small constants to the card, and each copy waits for the
     queue). The pool and the SIR² head run inside ``roi.predict``; decode +
-    NMS is the rest of it. Returns ms by stage, "other" (the predict
-    outside the stages) and "total" (with the synchronisations)."""
+    NMS is the rest of it. An FSD++ model (``frame`` a ``TemporalBatch``)
+    adds its point selection before them. Returns ms by stage, "other"
+    (the predict outside the stages) and "total" (with the
+    synchronisations)."""
     from sst_tpu_torch.models.fsd import roi_head
 
-    rpn, spans = model.rpn, []
+    fsd = getattr(model, "fsd_mod", model)
+    rpn, spans = fsd.rpn, []
 
     def timed(stage, fn):
         def run(*a, **k):
@@ -2115,14 +2167,19 @@ def _fsd_stage_ms(model, frame):
                (rpn, "cluster_class", "sampling + CCL"),
                (rpn.backbone_mod, "forward", "SIR + head"),
                (rpn.head_mod, "forward", "SIR + head"),
-               (model.roi.bbox_head_mod, "forward", "RoI head"),
-               (model.roi, "predict", "roi.predict")]
+               (fsd.roi.bbox_head_mod, "forward", "RoI head"),
+               (fsd.roi, "predict", "roi.predict")]
+    stages = FSD_STAGES
+    if fsd is not model:
+        patched.append((model, "to_point_batch", "point selection"))
+        stages = ("point selection",) + FSD_STAGES
     for obj, name, stage in patched:
         setattr(obj, name, timed(stage, getattr(obj, name)))
     pool = roi_head.dynamic_point_pool
     roi_head.dynamic_point_pool = timed("RoI pool", pool)
     try:
-        batch = prepare_batch(model, frame.points[0])
+        batch = frame if fsd is not model else prepare_batch(
+            model, frame.points[0], model.max_points)
         start, end = _event(), _event()
         start.record()
         model.predict(batch)
@@ -2137,22 +2194,23 @@ def _fsd_stage_ms(model, frame):
         ms[stage] += s.elapsed_time(e)
     ms["decode + NMS"] = ms.pop("roi.predict") - ms["RoI pool"] \
         - ms["RoI head"]
-    out = {k: ms[k] for k in FSD_STAGES}
+    out = {k: ms[k] for k in stages}
     out["total"] = start.elapsed_time(end)
-    out["other"] = out["total"] - sum(ms[k] for k in FSD_STAGES)
+    out["other"] = out["total"] - sum(ms[k] for k in stages)
     return out
 
 
-def phase_fsd_kernels(model, frame, device):
+def phase_fsd_kernels(model, frame, device, drive=None, title=FSD_CONFIG):
     """The sparse conv kernel against its twin on every conv of one FSD
     frame, on the conv's recorded input features, rulebook and weights
     (hooks on each SparseConvLayer, frame 0 of the main path), one case
     per distinct (rulebook, Cin, Cout): phase 6's tolerance and bit-equal
     repeat; kernel and twin timed (plain, kernel, kernel, plain), the bound
     at 3xTF32 over the (row, tap) pairs with a neighbour, and the executed
-    shares. Returns (shapes, per-frame sums, largest error, the frame's
-    convs by (mode, Cin, Cout))."""
-    calls = _record_sparse_convs(model, frame)
+    shares. ``drive``: the call that runs frame 0 (an FSD predict through
+    ``inference_detector`` where none is given). Returns (shapes, per-frame
+    sums, largest error, the frame's convs by (mode, Cin, Cout))."""
+    calls = _record_sparse_convs(model, frame, drive)
     cases = {}
     for name, vin, cp, wshape, feats, _ in calls:
         key = (id(cp.nbr), wshape[1], wshape[2])
@@ -2162,8 +2220,9 @@ def phase_fsd_kernels(model, frame, device):
                               convs=0)
         cases[key]["convs"] += 1
     convs = Counter((cp.mode, w[1], w[2]) for _, _, cp, w, _, _ in calls)
-    print(f"fsd kernels: sparse_conv_gemm on the recorded inputs of the "
-          f"{len(calls)} convs of frame 0 ({len(cases)} distinct rulebook "
+    print(f"fsd kernels ({title}): sparse_conv_gemm on the recorded inputs "
+          f"of the {len(calls)} convs of frame 0 ({len(cases)} distinct "
+          f"rulebook "
           f"and widths); convs by (mode, Cin, Cout) {dict(convs)}",
           flush=True)
     errs, shapes = [], []
@@ -2171,7 +2230,7 @@ def phase_fsd_kernels(model, frame, device):
         cp, vin, feats, w = case["plan"], case["vin"], case["feats"], case["w"]
         nbr, mode = cp.nbr, cp.mode
         sched = cp.schedule(vin)
-        short = case["name"].replace("rpn.segmentor_mod.unet_mod.", "")
+        short = case["name"].split("segmentor_mod.unet_mod.")[-1]
         _check_conv(f"{short} (x{case['convs']})", feats, nbr, w, mode, errs,
                     schedule=sched)
         runs = [cuda_ms(fn, 10, warmup=2) for fn in (
@@ -2275,7 +2334,8 @@ def phase_fsd_predict(model, frames, n_convs):
         reset_launch_counts()
         for frame in frames:
             before = dict(scg.launch_counts)
-            results.append(inference_detector(model, frame.points[0]))
+            results.append(inference_detector(model, frame.points[0],
+                                              model.max_points))
             per_frame.append({k: v - before.get(k, 0)
                               for k, v in scg.launch_counts.items()})
         launches = scg.launches
@@ -2295,11 +2355,11 @@ def phase_fsd_predict(model, frames, n_convs):
     for s, (res, rec) in enumerate(zip(results, probe.frames)):
         _check_fsd_frame(model, s, res, rec)
 
-    lat = _latency(lambda f: inference_detector(model, f.points[0]), frames,
-                   FSD_N_TIMED)
+    lat = _latency(lambda f: inference_detector(
+        model, f.points[0], model.max_points), frames, FSD_N_TIMED)
     lat_rpn = _latency(lambda f: frame_to_numpy(model.predict(
-        prepare_batch(model, f.points[0]), skip_rcnn=True)), frames,
-        FSD_N_TIMED)
+        prepare_batch(model, f.points[0], model.max_points),
+        skip_rcnn=True)), frames, FSD_N_TIMED)
     for name, l in (("inference_detector (two stage)", lat),
                     ("predict(skip_rcnn=True) incl. host I/O", lat_rpn)):
         print(f"fsd latency, {name}: median {l['median']:.2f} ms, range "
@@ -2311,7 +2371,7 @@ def phase_fsd_predict(model, frames, n_convs):
                 for k in stages[0]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    inference_detector(model, frames[0].points[0])
+    inference_detector(model, frames[0].points[0], model.max_points)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"fsd stages, ms (median of 3 frames, CUDA events at module and "
@@ -2330,7 +2390,8 @@ def _fsd_trace(model, frames, n=2):
     time (the union of its kernel and copy intervals), the wall time, the
     idle share (profiler on) and the kernels taking the most device
     time."""
-    batches = [prepare_batch(model, f.points[0]) for f in frames[:n]]
+    batches = [f if hasattr(model, "fsd_mod") else prepare_batch(
+        model, f.points[0], model.max_points) for f in frames[:n]]
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2371,14 +2432,15 @@ def phase_fsd_dense(frames):
           f"{[round(x, 3) for x in shifts]}", flush=True)
     with _FSDProbe(model) as probe:
         reset_launch_counts()
-        results = [inference_detector(model, f.points[0]) for f in frames]
+        results = [inference_detector(model, f.points[0], model.max_points)
+                   for f in frames]
         launches = scg.launches + sr.launches
     if launches:
         fail(f"fsd dense: {launches} kernel launches; its path runs none")
     for s, (res, rec) in enumerate(zip(results, probe.frames)):
         _check_fsd_frame(model, s, res, rec)
-    lat = _latency(lambda f: inference_detector(model, f.points[0]), frames,
-                   FSD_N_TIMED // 2)
+    lat = _latency(lambda f: inference_detector(
+        model, f.points[0], model.max_points), frames, FSD_N_TIMED // 2)
     print(f"fsd dense latency, inference_detector (two stage): median "
           f"{lat['median']:.2f} ms, range {lat['min']:.2f}-{lat['max']:.2f} "
           f"over {FSD_N_TIMED // 2} runs; runs "
@@ -2775,6 +2837,374 @@ def phase_fsd_train(device):
 
 
 
+# ---------------------------------------------------------------- phase 16
+
+SST_BF16 = "sst_waymo(train_buckets=False, dtype=torch.bfloat16)"
+
+
+def phase_sst_bf16_predict(f32_model, frames, f32_results, device):
+    """Phase 16, predict: ``sst_waymo`` at bf16 compute (``bench.py
+    bench_sst``'s build) with phase 9's seed-0 weights: the window MHA
+    kernel against its twin on the 48 (layer, bucket) attention inputs of
+    frame 0 of the bf16 model (phase 8's checks and timings); predict on
+    the four frames through ``inference_detector`` (48 launches per frame,
+    capacity counters, detections shared with the float32 build, printed);
+    bf16 and float32 latency in rotation; peak memory of one predict.
+    Returns the phase's record."""
+    t0 = time.perf_counter()
+    model = sst_waymo(train_buckets=False, dtype=torch.bfloat16,
+                      num_point_features=3)
+    model.load_state_dict(f32_model.state_dict())
+    model.eval()
+    print(f"model: {SST_BF16} with phase 9's weights (float32 parameters, "
+          f"bf16 compute), built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    shapes, err, sdpa_err = phase_sst_kernels(model, frames[0], device,
+                                              title=SST_BF16)
+    launches, split, lat, diags, results = phase_sst_predict(
+        model, frames, title=SST_BF16)
+    if set(split) - set(shapes):
+        fail(f"the bf16 SST path launched window_mha at (T, C, H) "
+             f"{set(split) - set(shapes)}, which phase 16 did not check")
+    for key, shape in shapes.items():
+        shape["calls_per_frame"] = split.get(key, 0)
+        if shape["inputs"] != shape["calls_per_frame"]:
+            fail(f"phase 16 timed {shape['inputs']} inputs at (T, C, H) "
+                 f"{key}, the bf16 SST path launched "
+                 f"{shape['calls_per_frame']} per frame")
+    if any(r["scores"].dtype != np.float32 for r in results):
+        fail("the bf16 SST path's scores did not come back as float32 "
+             "numpy arrays of bf16 values")
+    shared = []
+    for s, (a, b) in enumerate(zip(f32_results, results)):
+        shared.append(_matched_detections(a, b))
+        print(f"  frame {s}: the bf16 build has {shared[-1]} of the float32 "
+              f"build's {int(a['valid'].sum())} detections (same label, box "
+              f"within 2^-3 + 0.25, score within 2^-5; not gated)",
+              flush=True)
+    builds = {"bf16": model, "f32": f32_model}
+    timed = {k: [] for k in builds}
+    for r in range(12):
+        frame = frames[r % len(frames)]
+        for name in (("bf16", "f32") if r % 2 else ("f32", "bf16")):
+            m = builds[name]
+            timed[name].append(event_ms(lambda: inference_detector(
+                m, frame.points[0], m.max_points)))
+    rotation = {k: statistics.median(v) for k, v in timed.items()}
+    print(f"SST bf16 vs f32 predict latency (median of 12 CUDA-event runs "
+          f"each, inference_detector incl. host I/O, alternated): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in rotation.items()),
+          flush=True)
+    for k, v in timed.items():
+        print(f"  {k} runs: {[round(t, 2) for t in v]}", flush=True)
+    peaks = {}
+    for name, m in builds.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        inference_detector(m, frames[0].points[0], m.max_points)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak memory of one predict (both models resident): "
+          f"{ {k: round(v, 3) for k, v in peaks.items()} } GiB", flush=True)
+    return {"shapes": list(shapes.values()), "max_abs_err": err,
+            "sdpa_max_abs_err": sdpa_err, "launches": launches,
+            "split": {f"T={t} C={c} H={h}": n
+                      for (t, c, h), n in split.items()}, "latency": lat,
+            "latency_rotation": rotation, "runs_rotation": timed,
+            "capacity_counters": diags, "shared_with_f32": shared,
+            "f32_detections": [int(r["valid"].sum()) for r in f32_results],
+            "peak_gib": peaks}
+
+
+# ---------------------------------------------------------------- phase 17
+
+FSDPP_CONFIG = "configs/fsdpp/fsdpp_waymo_2x.py"
+FSDPP_DENSE_CONFIG = "configs/fsdpp/fsdpp_waymo_2x_dense.py"
+FSDPP_THR_EXTRA = 0.3  # the detection-mode threshold raise of its steps
+
+
+def _fsdpp_frames(n_frames: int, device):
+    """``bench.py bench_fsdpp``'s frames (seeds 0 .. n_frames - 1) on the
+    card: 262,144 points of seven frames and 256 seed boxes each."""
+    return [synthetic_temporal_batch(s).to(device) for s in range(n_frames)]
+
+
+def _fsdpp_set_weights(model, batch, train: bool):
+    """Phase 14's vote and fg settings on ``model.fsd_mod`` (weights, not
+    the config), taken on the point batch that FSD++ selects from
+    ``batch``: votes contracted toward the segmentor voxel centres, in
+    train mode the vote channels' norms set to pass them, the fg biases
+    shifted to a 0.6 fill of each fg cap (at ``FSDPP_THR_EXTRA`` in train
+    mode). Returns (vote norm scales or None, bias shifts)."""
+    fsd = model.fsd_mod
+    _contract_votes(fsd)
+    with torch.no_grad(), _KeptRunningStats(model):
+        pb, _ = model.to_point_batch(batch, False)
+        scales = _train_vote_norms(fsd, pb) if train else None
+        data = fsd.rpn.run_pipeline(pb, train=train)["data"]
+        shifts = _shift_fg_biases(fsd.rpn, data,
+                                  FSDPP_THR_EXTRA if train else 0.0)
+    return scales, shifts
+
+
+def _fsdpp_counts(model, batch) -> dict:
+    """The point selection's counters on one frame (residual current
+    points, seed-cropped previous points, kept points, the overflow past
+    the residual cap)."""
+    diag = {}
+    with torch.inference_mode():
+        model.to_point_batch(batch, False, diag=diag)
+    return {k: int(v) for k, v in diag.items()}
+
+
+def phase_fsdpp_predict(model, frames, n_convs):
+    """Drive FSD++ predict on the frames from zero counts: conv launches
+    per frame held to the module's convs, the point selection's counters,
+    FSD's fills and outputs per frame (phase 14's checks), latency of
+    ``predict`` and of ``predict(skip_rcnn=True)`` (host I/O included:
+    the results to numpy), stage times, a trace of 2 predicts, peak
+    memory. Returns the phase's record."""
+    fsd = model.fsd_mod
+    results, per_frame = [], []
+    with _FSDProbe(fsd) as probe:
+        reset_launch_counts()
+        for frame in frames:
+            before = dict(scg.launch_counts)
+            results.append(frame_to_numpy(model.predict(frame)))
+            per_frame.append({k: v - before.get(k, 0)
+                              for k, v in scg.launch_counts.items()})
+        launches, others = scg.launches, sr.launches + wm.launches
+    split = per_frame[0]
+    print(f"fsdpp predict: {FSDPP_CONFIG} on {len(frames)} frames; "
+          f"sparse_conv_gemm launches {launches}, per frame by (mode, Cin, "
+          f"Cout) {split}; other kernels' launches {others}", flush=True)
+    if any(f != split for f in per_frame):
+        fail(f"fsdpp: conv launches differ between frames: {per_frame}")
+    if sum(split.values()) != n_convs:
+        fail(f"fsdpp: expected {n_convs} sparse conv launches per frame (one "
+             f"per SparseConvLayer), counted {sum(split.values())}")
+    if others:
+        fail(f"fsdpp: {others} launches of kernels its path does not run")
+    selection = []
+    for s, (frame, res, rec) in enumerate(zip(frames, results,
+                                              probe.frames)):
+        selection.append(_fsdpp_counts(model, frame))
+        print(f"  frame {s}: point selection {selection[-1]} (of "
+              f"{int(frame.valid.sum())} valid points, "
+              f"{int((frame.valid & (frame.frame_inds == 0)).sum())} in the "
+              f"current frame)", flush=True)
+        if not 0 < selection[-1]["num_input_points"] \
+                <= model.residual_points_cap:
+            fail(f"fsdpp frame {s}: {selection[-1]} points selected")
+        _check_fsd_frame(fsd, s, res, rec)
+
+    def numpy_predict(f, **kw):
+        return frame_to_numpy(model.predict(f, **kw))
+
+    lat = _latency(numpy_predict, frames, FSD_N_TIMED)
+    lat_rpn = _latency(lambda f: numpy_predict(f, skip_rcnn=True), frames,
+                       FSD_N_TIMED)
+    for name, l in (("predict (two stage)", lat),
+                    ("predict(skip_rcnn=True)", lat_rpn)):
+        print(f"fsdpp latency, {name} incl. results to numpy: median "
+              f"{l['median']:.2f} ms, range {l['min']:.2f}-{l['max']:.2f} "
+              f"over {FSD_N_TIMED} CUDA-event runs after warm-up; runs "
+              f"{[round(t, 2) for t in l['runs']]}", flush=True)
+    stages = [_fsd_stage_ms(model, f) for f in frames[:3]]
+    stage_ms = {k: statistics.median(s[k] for s in stages)
+                for k in stages[0]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    numpy_predict(frames[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fsdpp stages, ms (median of 3 frames, CUDA events at module and "
+          f"method boundaries, the card synchronised at each): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"; peak memory of one predict {peak:.3f} GiB", flush=True)
+    return {"launches": launches, "split": split, "latency": lat,
+            "latency_skip_rcnn": lat_rpn, "stage_ms": stage_ms,
+            "peak_gib": peak, "selection": selection,
+            "frames": probe.frames,
+            "detections": [int(r["valid"].sum()) for r in results],
+            "trace": _fsd_trace(model, frames)}
+
+
+def phase_fsdpp_dense(frames):
+    """configs/fsdpp/fsdpp_waymo_2x_dense.py through the same loader and
+    builder (seed-0 weights, phase 14's settings on frame 0): its outputs
+    checked as the sparse build's, its predict timed; its path runs no
+    hand-written kernel."""
+    t0 = time.perf_counter()
+    model = init_weights(build_model_from_cfg(load_config(
+        FSDPP_DENSE_CONFIG), train=False), torch.Generator().manual_seed(
+            0)).eval()
+    _, shifts = _fsdpp_set_weights(model, frames[0], train=False)
+    print(f"model: {FSDPP_DENSE_CONFIG}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, built "
+          f"in {time.perf_counter() - t0:.1f} s; fg bias shifts "
+          f"{[round(x, 3) for x in shifts]}", flush=True)
+    with _FSDProbe(model.fsd_mod) as probe:
+        reset_launch_counts()
+        results = [frame_to_numpy(model.predict(f)) for f in frames]
+        launches = scg.launches + sr.launches + wm.launches
+    if launches:
+        fail(f"fsdpp dense: {launches} kernel launches; its path runs none")
+    for s, (res, rec) in enumerate(zip(results, probe.frames)):
+        _check_fsd_frame(model.fsd_mod, s, res, rec)
+    lat = _latency(lambda f: frame_to_numpy(model.predict(f)), frames,
+                   FSD_N_TIMED // 2)
+    print(f"fsdpp dense latency, predict (two stage) incl. results to "
+          f"numpy: median {lat['median']:.2f} ms, range {lat['min']:.2f}-"
+          f"{lat['max']:.2f} over {FSD_N_TIMED // 2} runs; runs "
+          f"{[round(t, 2) for t in lat['runs']]}", flush=True)
+    return {"latency": lat, "frames": probe.frames}
+
+
+def phase_fsdpp(device):
+    """Phase 17, predict: FSD++ at the full width of
+    configs/fsdpp/fsdpp_waymo_2x.py (the FSD two stage at half caps behind
+    the incremental point selection), built by the port's config loader and
+    builder (seed-0 weights, TF32 off); the sparse conv kernel against its
+    twin on all 39 convs of frame 0; predict on four ``bench_fsdpp``
+    frames; then the dense-BEV config. Returns the phase's record."""
+    t0 = time.perf_counter()
+    model = init_weights(build_model_from_cfg(load_config(FSDPP_CONFIG),
+                                              train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _fsdpp_frames(4, device)
+    _, shifts = _fsdpp_set_weights(model, frames[0], train=False)
+    print(f"model: {FSDPP_CONFIG} through build_model_from_cfg, f32, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{n_convs} sparse convs, residual cap "
+          f"{model.residual_points_cap}, built in "
+          f"{time.perf_counter() - t0:.1f} s; votes contracted, fg bias "
+          f"shifts {[round(x, 3) for x in shifts]} (a {FSD_FG_FILL} fill of "
+          f"each fg cap on frame 0's selected points)", flush=True)
+
+    def drive():
+        with torch.inference_mode():
+            model.predict(frames[0])
+
+    shapes, per_frame, err, convs = phase_fsd_kernels(
+        model, frames[0], device, drive, title=FSDPP_CONFIG)
+    if sum(convs.values()) != n_convs:
+        fail(f"fsdpp: frame 0 ran {sum(convs.values())} sparse convs, the "
+             f"model has {n_convs}")
+    rec = phase_fsdpp_predict(model, frames, n_convs)
+    if Counter(rec["split"]) != convs:
+        fail(f"fsdpp: the convs checked {dict(convs)} are not those "
+             f"launched per frame {rec['split']}")
+    rec["split"] = {f"{m} {a}->{b}": n for (m, a, b), n in
+                    rec["split"].items()}
+    del model
+    torch.cuda.empty_cache()
+    rec["dense"] = phase_fsdpp_dense(frames)
+    rec.update(shapes=shapes, per_frame=per_frame, max_abs_err=err)
+    return rec
+
+
+def phase_fsdpp_train(device):
+    """Phase 17, training: configs/fsdpp/fsdpp_waymo_2x.py through
+    ``build_model_from_cfg(cfg, train=True)`` (seed-0 weights, phase 14's
+    vote and fg settings in train mode at ``thr_extra`` 0.3) with the
+    config's AdamW: dW and the input gradient against their twins on the
+    recorded inputs of all 39 convs of a train step; 2 warm-up, 6 timed and
+    3 staged ``train_step`` calls at ``thr_extra`` 0.3, the seed noise and
+    the RoI sampler drawing from one seeded generator; forward, recompute,
+    input-gradient and dW launches per step held against the modules.
+    Returns the phase's record."""
+    t0 = time.perf_counter()
+    cfg = load_config(FSDPP_CONFIG)
+    model = init_weights(build_model_from_cfg(cfg, train=True),
+                         torch.Generator().manual_seed(0)).train()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _fsdpp_frames(4, device)
+    scales, shifts = _fsdpp_set_weights(model, frames[0], train=True)
+    kw = dict(thr_extra=FSDPP_THR_EXTRA)
+    print(f"model: {FSDPP_CONFIG} through build_model_from_cfg(train=True), "
+          f"f32, {n_convs} sparse convs, remat "
+          f"{model.fsd_mod.rpn.segmentor_mod.unet_mod.remat}, RoI sampler "
+          f"{model.fsd_mod.roi.sampler}, seed noise (centre, size, yaw) "
+          f"{(model.center_noise, model.dim_noise, model.yaw_noise)}, built "
+          f"in {time.perf_counter() - t0:.1f} s; vote norm scales {scales}, "
+          f"fg bias shifts {[round(x, 3) for x in shifts]} (train mode, "
+          f"thr_extra {FSDPP_THR_EXTRA})", flush=True)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def train_forward():
+        with torch.no_grad(), _KeptRunningStats(model):
+            model.loss(frames[0], train=True, **kw,
+                       generator=torch.Generator(device=device).manual_seed(
+                           0))
+
+    calls = _record_sparse_convs(model, frames[0], train_forward)
+    if len(calls) != n_convs:
+        fail(f"fsdpp train: recorded {len(calls)} convs; the model has "
+             f"{n_convs}")
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        model, frames[0], device, calls=calls,
+        title=f"a train step of {FSDPP_CONFIG} (frame 0, train mode)")
+    del calls
+
+    opt = optimizer_from_cfg(model, cfg, FSD_TRAIN_TOTAL_STEPS)
+    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    needs_dgrad = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: None if remat.recomputing()
+        else needs_dgrad.append(bool(args[0].requires_grad))) for m in convs]
+
+    def remove_hooks(i):
+        if i == 0:
+            for h in hooks:
+                h.remove()
+
+    def counts():
+        return {**scg.kind_counts, "dw": sdw.launches,
+                "sorted_reduce": sr.launches, "window_mha": wm.launches}
+
+    n_steps = N_WARMUP + N_TIMED + N_STAGED
+    reset_launch_counts()  # the FSD++ train path's run starts here
+    with _SamplerProbe() as probe:
+        steps, stage_ms, peak = _train_loop(
+            model, opt, frames, [dict(kw, generator=gen)] * n_steps, counts,
+            remove_hooks)
+    expected = {"forward": n_convs, "recompute": n_remat,
+                "dgrad": sum(needs_dgrad), "dw": n_convs,
+                "sorted_reduce": 0, "window_mha": 0}
+    if len(needs_dgrad) != n_convs:
+        fail(f"fsdpp train: the hooks saw {len(needs_dgrad)} conv calls in a "
+             f"step, the model has {n_convs} convs")
+    _check_launches(steps, expected)
+    launches = {"sparse_conv_gemm": scg.launches,
+                "sparse_conv_dw": sdw.launches}
+    print(f"fsdpp train: {FSDPP_CONFIG}, batch 1, AdamW from the config "
+          f"({cfg['optimizer']}, a {FSD_TRAIN_TOTAL_STEPS}-step one-cycle), "
+          f"thr_extra {FSDPP_THR_EXTRA}; launches per step by kind (counted "
+          f"at the launch sites; the modules give {expected}: {n_convs} "
+          f"convs, {n_remat} in the rematerialised UNet, the input of "
+          f"{sum(needs_dgrad)} needing a gradient): {steps[0]['launches']}; "
+          f"in the whole run {launches}", flush=True)
+    record = _print_train(steps, stage_ms, peak)
+    keys = ("num_input_points", "num_residual_overflow", "num_fg_points",
+            "num_clusters", "num_pos_rois", "roi_membership_overflow")
+    for name in keys:
+        print(f"  {name} per step: "
+              f"{[st['metrics'][name] for st in steps]}", flush=True)
+    print(f"  sampler, last step (valid proposals, positives, kept "
+          f"positives, kept negatives by IoU piece): "
+          f"{probe.calls[-1] if probe.calls else 'no sampler'}", flush=True)
+    return {**record, "launches": launches, "launches_per_step": expected,
+            "counters": {k: [st["metrics"][k] for st in steps]
+                         for k in keys},
+            "dw_shapes": dw_shapes, "dw_step": dw_step, "dw_err": dw_err,
+            "dgrad_err": dgrad_err}
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -2864,8 +3294,8 @@ def main() -> None:
           flush=True)
     mha_shapes, mha_err, sdpa_err = phase_sst_kernels(sst, sst_frames[0],
                                                       device)
-    mha_launches, mha_split, sst_lat, sst_diags = phase_sst_predict(
-        sst, sst_frames)
+    mha_launches, mha_split, sst_lat, sst_diags, sst_results = \
+        phase_sst_predict(sst, sst_frames)
     untimed = set(mha_split) - set(mha_shapes)
     if untimed:
         fail(f"the SST path launched window_mha at (T, C, H) {untimed}, "
@@ -2876,6 +3306,8 @@ def main() -> None:
             fail(f"phase 8 timed {shape['inputs']} inputs at (T, C, H) "
                  f"{key}, the SST path launched {shape['calls_per_frame']} "
                  f"per frame")
+    sst_bf16 = phase_sst_bf16_predict(sst, sst_frames, sst_results, device)
+    sst_bf16["card"] = card
     del sst
     torch.cuda.empty_cache()
 
@@ -2891,11 +3323,30 @@ def main() -> None:
     del sst
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    sst = init_weights(sst_waymo(train_buckets=True, dtype=torch.bfloat16,
+                                 num_point_features=3),
+                       torch.Generator().manual_seed(0)).train()
+    print(f"model: sst_waymo(train_buckets=True, dtype=torch.bfloat16), "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    sst_bf16_train = phase_sst_train(
+        sst, device, title="sst_waymo(train_buckets=True, "
+                           "dtype=torch.bfloat16)")
+    sst_bf16_train["card"] = card
+    del sst
+    torch.cuda.empty_cache()
+
     fsd = phase_fsd(device)
     fsd["card"] = card
     torch.cuda.empty_cache()
     fsd_train = phase_fsd_train(device)
     fsd_train["card"] = card
+    torch.cuda.empty_cache()
+    fsdpp = phase_fsdpp(device)
+    fsdpp["card"] = card
+    torch.cuda.empty_cache()
+    fsdpp_train = phase_fsdpp_train(device)
+    fsdpp_train["card"] = card
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -2986,19 +3437,29 @@ def main() -> None:
         # (phase 15, the same three kinds), each counted from 0
         "launches": (conv_launches + train["launches"]["sparse_conv_gemm"]
                      + fsd["launches"]
-                     + fsd_train["launches"]["sparse_conv_gemm"]),
+                     + fsd_train["launches"]["sparse_conv_gemm"]
+                     + fsdpp["launches"]
+                     + fsdpp_train["launches"]["sparse_conv_gemm"]),
         "launches_by_path": {"sparse": conv_launches,
                              "sparse_train": train["launches"][
                                  "sparse_conv_gemm"],
                              "fsd": fsd["launches"],
                              "fsd_train": fsd_train["launches"][
+                                 "sparse_conv_gemm"],
+                             "fsdpp": fsdpp["launches"],
+                             "fsdpp_train": fsdpp_train["launches"][
                                  "sparse_conv_gemm"]},
+        "launches_per_fsdpp_train_step": {
+            k: v for k, v in fsdpp_train["launches_per_step"].items()
+            if k in ("forward", "recompute", "dgrad")},
         "launches_per_fsd_train_step": {
             k: v for k, v in fsd_train["launches_per_step"].items()
             if k in ("forward", "recompute", "dgrad")},
         "max_abs_err": max(conv_err, dgrad_err, fsd["max_abs_err"],
-                           fsd_train["dgrad_err"]),
-        "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"]),
+                           fsd_train["dgrad_err"], fsdpp["max_abs_err"],
+                           fsdpp_train["dgrad_err"]),
+        "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"],
+                                 fsdpp_train["dgrad_err"]),
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
         "ms": conv_per_frame["ms"],
@@ -3029,6 +3490,15 @@ def main() -> None:
         "fsd_train_dgrad_ms_per_step": fsd_train["dw_step"]["dgrad_ms"],
         "fsd_train_dgrad_plain_ms_per_step": fsd_train["dw_step"][
             "dgrad_plain_ms"],
+        # per frame of FSD++ (phase 17): its 39 convs at the half caps
+        "fsdpp_ms_per_frame": fsdpp["per_frame"]["ms"],
+        "fsdpp_plain_ms_per_frame": fsdpp["per_frame"]["plain_ms"],
+        "fsdpp_bound_ms_per_frame": fsdpp["per_frame"]["bound_ms"],
+        "fsdpp_bound_by": bound_by(fsdpp["shapes"], "convs_per_frame"),
+        "fsdpp_shapes": fsdpp.pop("shapes"),
+        "fsdpp_train_dgrad_ms_per_step": fsdpp_train["dw_step"]["dgrad_ms"],
+        "fsdpp_train_dgrad_plain_ms_per_step": fsdpp_train["dw_step"][
+            "dgrad_plain_ms"],
     }, {
         "name": "sparse_conv_dw",
         "route": "cuda",
@@ -3037,11 +3507,14 @@ def main() -> None:
         # the sparse step (phase 11) and the FSD step (phase 15), each
         # counted from 0
         "launches": (train["launches"]["sparse_conv_dw"]
-                     + fsd_train["launches"]["sparse_conv_dw"]),
+                     + fsd_train["launches"]["sparse_conv_dw"]
+                     + fsdpp_train["launches"]["sparse_conv_dw"]),
         "launches_by_path": {"sparse_train": train["launches"][
             "sparse_conv_dw"], "fsd_train": fsd_train["launches"][
-                "sparse_conv_dw"]},
-        "max_abs_err": max(dw_err, fsd_train["dw_err"]),
+                "sparse_conv_dw"], "fsdpp_train": fsdpp_train["launches"][
+                    "sparse_conv_dw"]},
+        "max_abs_err": max(dw_err, fsd_train["dw_err"],
+                           fsdpp_train["dw_err"]),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -3066,17 +3539,34 @@ def main() -> None:
                                        "convs_per_step"),
         "fsd_train_work_shares": fsd_train["dw_step"]["shares"],
         "fsd_train_shapes": fsd_train.pop("dw_shapes"),
+        # per FSD++ train step (phase 17): its 39 convs at the half caps
+        "fsdpp_train_ms_per_step": fsdpp_train["dw_step"]["ms"],
+        "fsdpp_train_plain_ms_per_step": fsdpp_train["dw_step"]["plain_ms"],
+        "fsdpp_train_bound_ms_per_step": fsdpp_train["dw_step"]["bound_ms"],
+        "fsdpp_train_bound_by": bound_by(fsdpp_train["dw_shapes"],
+                                         "convs_per_step"),
+        "fsdpp_train_shapes": fsdpp_train.pop("dw_shapes"),
     }, {
         "name": "window_mha",
         "route": "cuda",
         "source": "sst_tpu_torch/csrc/window_mha.cu",
         "replaces": "sst_tpu/ops/pallas_attention.py:25",
-        # predict (phase 9) and train (phase 13), each counted from 0
-        "launches": mha_launches + sst_train["launches"]["window_mha"],
+        # predict (phase 9), train (phase 13), and both at bf16 compute
+        # (phase 16), each counted from 0
+        "launches": (mha_launches + sst_train["launches"]["window_mha"]
+                     + sst_bf16["launches"]
+                     + sst_bf16_train["launches"]["window_mha"]),
         "launches_by_path": {"sst": mha_launches,
                              "sst_train": sst_train["launches"][
+                                 "window_mha"],
+                             "sst_bf16": sst_bf16["launches"],
+                             "sst_bf16_train": sst_bf16_train["launches"][
                                  "window_mha"]},
-        "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"]),
+        "launches_per_train_step": sst_train[
+            "launches_per_step_expected"],
+        "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"],
+                           sst_bf16["max_abs_err"],
+                           sst_bf16_train["mha_max_abs_err"]),
         # per frame of the SST path: the sum over frame 0's (layer, bucket)
         # inputs, each timed and bounded on its own pad (phase 8)
         "ms": mha_frame["ms"],
@@ -3100,6 +3590,16 @@ def main() -> None:
         # the wrapper's host time (Python, checks, ctypes, launch) per frame
         "host_ms": sum(r["host_ms"] * r["calls_per_frame"] for r in mha_rows),
         "shapes": mha_rows,
+        # per frame of the bf16 SST build (phase 16): its own frame 0's
+        # inputs, timed and bounded as phase 8's
+        **{f"sst_bf16_{k}_per_frame": v for k, v in per_frame(
+            sst_bf16["shapes"], "calls_per_frame").items()},
+        "sst_bf16_library_ms_per_frame": sum(
+            r["library_ms"] * r["calls_per_frame"]
+            for r in sst_bf16["shapes"]),
+        "sst_bf16_train_ms_per_step": sst_bf16_train["mha_per_step"]["ms"],
+        "sst_bf16_train_backward_ms_per_step": sst_bf16_train[
+            "mha_per_step"]["backward_ms"],
     }], "build_s": build_s, "nvcc_s": nvcc_s, "predict_ms": {
         "dense_bev_bf16_sorted_reduce_kernel": lat["bf16 kernel"],
         "dense_bev_bf16_scatter": lat["bf16 scatter"],
@@ -3108,7 +3608,12 @@ def main() -> None:
         "sparse": sparse_lat, "sst": sst_lat,
         "fsd": fsd["latency"]["median"],
         "fsd_skip_rcnn": fsd["latency_skip_rcnn"]["median"],
-        "fsd_dense": fsd["dense"]["latency"]["median"]},
+        "fsd_dense": fsd["dense"]["latency"]["median"],
+        "sst_bf16": sst_bf16["latency"],
+        "sst_bf16_rotation": sst_bf16["latency_rotation"],
+        "fsdpp": fsdpp["latency"]["median"],
+        "fsdpp_skip_rcnn": fsdpp["latency_skip_rcnn"]["median"],
+        "fsdpp_dense": fsdpp["dense"]["latency"]["median"]},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -3116,6 +3621,10 @@ def main() -> None:
         "train_sst": sst_train,
         "fsd": fsd,
         "train_fsd": fsd_train,
+        "sst_bf16": sst_bf16,
+        "train_sst_bf16": sst_bf16_train,
+        "fsdpp": fsdpp,
+        "train_fsdpp": fsdpp_train,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

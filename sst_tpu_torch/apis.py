@@ -7,23 +7,24 @@ import torch
 
 from sst_tpu_torch.models import PointBatch
 
-DEFAULT_MAX_POINTS = 65536  # the JAX API's cap, for models built without one
+DEFAULT_MAX_POINTS = 65536  # the JAX API's cap, whatever the model
 
 
 def prepare_batch(model, points: np.ndarray,
                   max_points: int | None = None) -> PointBatch:
     """Range-filter one raw [N, C] numpy point cloud and pad it to
     ``max_points`` rows: a batch of one on the model's device. The default
-    cap is the model's ``max_points``, which the full-size builders of
-    ``flagship.py`` set (65,536 for a model built without one). Serves
-    ``SingleStageFSDV2`` and ``DynamicVoxelNet`` alike: both read
-    ``point_cloud_range``."""
+    cap is 65,536 whatever the model, as JAX's ``inference_detector``: the
+    points in range past it are dropped, the first ones kept. A caller that
+    wants more passes ``max_points`` (the full-size builders keep their
+    cap, 196,608 points, as ``model.max_points``). Serves every detector
+    with a ``point_cloud_range``."""
     pcr = model.point_cloud_range
     m = ((points[:, 0] >= pcr[0]) & (points[:, 0] < pcr[3])
          & (points[:, 1] >= pcr[1]) & (points[:, 1] < pcr[4])
          & (points[:, 2] >= pcr[2]) & (points[:, 2] < pcr[5]))
     pts = points[m]
-    cap = max_points or getattr(model, "max_points", DEFAULT_MAX_POINTS)
+    cap = max_points or DEFAULT_MAX_POINTS
     out = np.zeros((cap, points.shape[1]), np.float32)
     n = min(len(pts), cap)
     out[:n] = pts[:n]

@@ -1,6 +1,7 @@
 """Flagship model builders and the synthetic frame generators (counterpart
-of ``sst_tpu/flagship.py``: the SST, FSDv2 and tiny FSD builds; the
-full-width FSD is built from its config, ``utils/builders.py``).
+of ``sst_tpu/flagship.py``: the SST, FSDv2 and tiny FSD and FSD++ builds;
+the full-width FSD and FSD++ are built from their configs,
+``utils/builders.py``).
 
 Every builder returns its module on ``device``, the card by default, and
 raises if there is no card and the caller named no other device
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from sst_tpu_torch.models import DynamicVoxelNet, PointBatch
+from sst_tpu_torch.models.fsd.fsdpp import TemporalBatch, TwoStageFSDPP
 from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
 from sst_tpu_torch.models.fsd.single_stage import FSDCaps, SingleStageFSD
 from sst_tpu_torch.models.fsd.two_stage import FSD
@@ -37,9 +39,15 @@ def sst_waymo(max_points: int = 196608, max_voxels: int = 65536,
     rotations. Every window attention runs the hand-written window MHA
     kernel on the card.
 
-    Only float32 is ported (the attention is bf16 inside, as on the JAX
-    Pallas path). ``max_points`` is the point cap ``apis.prepare_batch``
-    pads to; ``num_point_features`` the width of a point row.
+    ``dtype`` is the compute dtype (flax's policy: float32 parameters,
+    products in ``dtype``); float32 by default, as JAX's builder, and
+    ``torch.bfloat16`` as ``bench.py bench_sst`` and
+    configs/sst/sst_waymoD5_3class_bf16.py run it. The attention is bf16
+    inside at either dtype, as on the JAX Pallas path. Each SST block is
+    rematerialised in training (``remat_blocks``, JAX's default).
+    ``max_points`` is the model's point cap (pass it to
+    ``apis.prepare_batch`` for frames beyond its 65,536 default);
+    ``num_point_features`` the width of a point row.
 
     It trains with the training buckets (``loss`` with a voxel-shuffle
     generator; ``train/step.py train_step``); the config's optimizer is
@@ -83,9 +91,10 @@ def sst_waymo(max_points: int = 196608, max_voxels: int = 65536,
     ), device, max_points)
 
 
-def tiny_sst(grid: int = 32, num_point_features: int = 3, device="cuda"):
-    """Small SST for CPU tests (same config as the JAX ``tiny_sst``), on
-    ``device``."""
+def tiny_sst(grid: int = 32, num_point_features: int = 3,
+             dtype=torch.float32, device="cuda"):
+    """Small SST for CPU tests (same config as the JAX ``tiny_sst``, no
+    remat), at compute ``dtype``, on ``device``."""
     half = grid * 0.4 / 2
     return on_device(DynamicVoxelNet(
         num_point_features=num_point_features,
@@ -100,7 +109,7 @@ def tiny_sst(grid: int = 32, num_point_features: int = 3, device="cuda"):
             d_model=(32, 32), nhead=(2, 2), num_blocks=2,
             dim_feedforward=(64, 64), num_attached_conv=1,
             conv_kwargs=({"kernel_size": 3, "dilation": 1},),
-            conv_out_channel=32, in_channel=32,
+            conv_out_channel=32, in_channel=32, remat_blocks=False,
         ),
         neck=dict(out_channels=(64,)),
         head=dict(
@@ -113,6 +122,7 @@ def tiny_sst(grid: int = 32, num_point_features: int = 3, device="cuda"):
         ),
         test_cfg=dict(score_thr=0.1, nms_thr=0.25, nms_pre=64, max_num=32,
                       use_rotate_nms=True),
+        dtype=dtype,
     ), device)
 
 
@@ -495,11 +505,8 @@ def tiny_fsd(num_point_features: int = 5, device="cuda"):
                                     **_tiny_fsd_cfg()), device)
 
 
-def tiny_fsd_two_stage(num_point_features: int = 5, device="cuda"):
-    """Small two-stage FSD (+ GroupCorrectionHead, SIR² refinement) for CPU
-    tests, the config of the JAX ``tiny_fsd_two_stage``, on ``device``."""
-    return on_device(FSD(
-        num_point_features=num_point_features,
+def _tiny_two_stage_cfg() -> dict:
+    return dict(
         single_stage=_tiny_fsd_cfg(),
         roi_head=dict(
             max_inbox_point=32,
@@ -512,13 +519,33 @@ def tiny_fsd_two_stage(num_point_features: int = 5, device="cuda"):
             ),
         ),
         rois_per_sample=16,
+    )
+
+
+def tiny_fsd_two_stage(num_point_features: int = 5, device="cuda"):
+    """Small two-stage FSD (+ GroupCorrectionHead, SIR² refinement) for CPU
+    tests, the config of the JAX ``tiny_fsd_two_stage``, on ``device``."""
+    return on_device(FSD(num_point_features=num_point_features,
+                         **_tiny_two_stage_cfg()), device)
+
+
+def tiny_fsdpp(num_point_features: int = 5, device="cuda"):
+    """Small FSD++ (the tiny two stage behind the incremental point
+    selection, seed noise on) for CPU tests, the config of the JAX
+    ``tiny_fsdpp``, on ``device``. ``num_point_features``: 5 for
+    :func:`temporal_batch`'s rows (the inner FSD sees 6)."""
+    return on_device(TwoStageFSDPP(
+        num_point_features=num_point_features, fsd=_tiny_two_stage_cfg(),
+        point_cloud_range=_TINY_FSD_PCR, inc_voxel_size=(0.4, 0.4, 0.4),
+        pre_score_thr=0.1, center_noise=0.1, dim_noise=0.05, yaw_noise=0.1,
     ), device)
 
 
 def on_device(model: nn.Module, device="cuda",
               max_points: int | None = None) -> nn.Module:
     """``model`` moved to ``device``, with ``max_points`` (where the builder
-    gives one) kept as the point cap of ``apis.prepare_batch``.
+    gives one) kept as ``model.max_points``, the cap its callers pass to
+    ``apis.prepare_batch``.
 
     The builders default to the card and never fall back to the CPU: asking
     for a CUDA device where there is none raises. Pass ``device="cpu"`` for
@@ -618,6 +645,77 @@ def synthetic_waymo_batch(batch_size: int = 1, num_points: int = 196608,
         gt_labels=rng.randint(0, 3, (batch_size, g)).astype(np.int32),
         gt_valid=np.ones((batch_size, g), bool),
     )
+
+
+def fsd_batch(rng: np.random.RandomState, b: int = 2, p: int = 1024,
+              g: int = 6) -> PointBatch:
+    """Clustered points in the tiny-FSD range (half around six gt boxes,
+    half uniform), x, y, z + 2 channels, as numpy arrays: bit-identical to
+    the JAX package's ``fsd_batch`` for the same ``rng`` state."""
+    boxes = np.concatenate([
+        rng.uniform(-6, 6, (b, g, 2)),
+        np.full((b, g, 1), -0.5),
+        rng.uniform(1.0, 3.0, (b, g, 3)),
+        rng.uniform(-np.pi, np.pi, (b, g, 1)),
+    ], -1).astype(np.float32)
+    pts = []
+    for i in range(b):
+        obj = boxes[i, rng.randint(0, g, p // 2), :3] \
+            + rng.randn(p // 2, 3) * 0.5
+        bgp = rng.uniform(-7, 7, (p - p // 2, 3))
+        pp = np.concatenate([obj, bgp]).astype(np.float32)
+        pp[:, 2] = np.clip(pp[:, 2], -1.5, 3.5)
+        inten = rng.rand(p, 2).astype(np.float32)
+        pts.append(np.concatenate([pp, inten], -1))
+    return PointBatch(points=np.stack(pts), valid=np.ones((b, p), bool),
+                      gt_boxes=boxes,
+                      gt_labels=rng.randint(0, 3, (b, g)).astype(np.int32),
+                      gt_valid=np.ones((b, g), bool))
+
+
+def temporal_batch(rng: np.random.RandomState, b: int = 2, p: int = 1024,
+                   g: int = 6, s: int = 8) -> TemporalBatch:
+    """FSD++ input for the tiny model as numpy arrays: :func:`fsd_batch`,
+    frame indices 0-2 and ``s`` seed boxes; bit-identical to the JAX
+    package's ``temporal_batch`` for the same ``rng`` state."""
+    base = fsd_batch(rng, b, p, g)
+    frame_inds = rng.randint(0, 3, (b, p)).astype(np.int32)
+    seed_boxes = np.concatenate(
+        [rng.uniform(-6, 6, (b, s, 2)), np.full((b, s, 1), -0.5),
+         rng.uniform(1, 3, (b, s, 3)), rng.uniform(-3, 3, (b, s, 1))], -1,
+    ).astype(np.float32)
+    return TemporalBatch(
+        points=base.points, valid=base.valid, frame_inds=frame_inds,
+        gt_boxes=base.gt_boxes, gt_labels=base.gt_labels,
+        gt_valid=base.gt_valid, seed_boxes=seed_boxes,
+        seed_labels=rng.randint(0, 3, (b, s)).astype(np.int32),
+        seed_scores=rng.rand(b, s).astype(np.float32),
+        seed_valid=np.ones((b, s), bool))
+
+
+def synthetic_temporal_batch(seed: int = 0, num_points: int = 262144,
+                             num_seeds: int = 256) -> TemporalBatch:
+    """A Waymo-like multi-frame FSD++ input of one sample as numpy arrays,
+    bit-identical to ``bench.py bench_fsdpp``'s frames: the
+    :func:`synthetic_waymo_batch` sweep of ``num_points`` points (x, y, z +
+    2 channels within 79.8 m) with frame indices 0-6, and ``num_seeds``
+    seed boxes anywhere within 70 m."""
+    base = synthetic_waymo_batch(batch_size=1, num_points=num_points,
+                                 num_extra_feats=2, pcr_half=79.8, seed=seed)
+    rng = np.random.RandomState(seed)
+    s = num_seeds
+    seeds = np.concatenate(
+        [rng.uniform(-70, 70, (1, s, 2)), np.full((1, s, 1), -0.5),
+         rng.uniform(1, 5, (1, s, 3)),
+         rng.uniform(-np.pi, np.pi, (1, s, 1))], -1).astype(np.float32)
+    return TemporalBatch(
+        points=base.points, valid=base.valid,
+        frame_inds=rng.randint(0, 7, base.points.shape[:2]).astype(np.int32),
+        gt_boxes=base.gt_boxes, gt_labels=base.gt_labels,
+        gt_valid=base.gt_valid, seed_boxes=seeds,
+        seed_labels=rng.randint(0, 3, (1, s)).astype(np.int32),
+        seed_scores=rng.rand(1, s).astype(np.float32),
+        seed_valid=np.ones((1, s), bool))
 
 
 # Labelled synthetic scenes: the gt boxes generate their points, so the

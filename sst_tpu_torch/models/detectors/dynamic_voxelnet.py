@@ -7,6 +7,11 @@ bucket) come from the config; ``extract_feat(diag=...)`` reports what they
 dropped. In training the voxel rows are shuffled before the window plan
 with a permutation drawn from the caller's generator (JAX's ``shuffle``
 rng). ``head_type="center"`` (CenterHead) is not ported and raises.
+
+``dtype`` is the compute dtype of every module (the VFE, the backbone, the
+neck and the head), as in JAX: float32 parameters, products in ``dtype``
+(``models/layers.py``). At bfloat16 the head's predictions, and the scores
+of ``predict``, are bfloat16.
 """
 
 from __future__ import annotations
@@ -56,8 +61,6 @@ class DynamicVoxelNet(nn.Module):
             raise NotImplementedError(f"head_type={head_type!r}")
         if backbone_type not in ("sstv2", "sstv1"):
             raise NotImplementedError(f"backbone_type={backbone_type!r}")
-        if dtype != torch.float32:
-            raise NotImplementedError(f"dtype={dtype}: only float32 is ported")
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.max_voxels = max_voxels
@@ -71,14 +74,14 @@ class DynamicVoxelNet(nn.Module):
         self.vfe_mod = DynamicVFE(num_point_features,
                                   voxel_size=self.voxel_size,
                                   point_cloud_range=self.point_cloud_range,
-                                  **(vfe or {}))
+                                  dtype=dtype, **(vfe or {}))
         bb = dict(output_shape=self.bev_shape)
         bb.update(backbone or {})
         sst_cls = SSTv1 if backbone_type == "sstv1" else SSTv2
-        self.backbone_mod = sst_cls(**bb)
+        self.backbone_mod = sst_cls(dtype=dtype, **bb)
         self.neck_mod = SECONDFPN(self.backbone_mod.out_channels,
-                                  **(neck or {}))
-        self.head_mod = Anchor3DHead(**(head or {}))
+                                  dtype=dtype, **(neck or {}))
+        self.head_mod = Anchor3DHead(dtype=dtype, **(head or {}))
 
     def extract_feat(self, batch: PointBatch, train: bool = False,
                      diag: dict | None = None,

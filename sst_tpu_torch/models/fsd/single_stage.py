@@ -19,7 +19,7 @@ of the class into its fg, CCL without autograd (its labels are integers).
 
 Not ported, raising ``NotImplementedError``: group sampling
 (``group_names``, the Argo2 recipe) and the key-point assigner (``"ssg"``
-in ``assigner_per_class``, which needs ``ops/fps.py``), ROADMAP queue 1
+in ``assigner_per_class``, built on ``ops/fps.py``), ROADMAP queue 1
 items 7c and 7d; a compute dtype other than float32 (JAX's FSD builds are
 float32).
 """
@@ -105,7 +105,7 @@ class SingleStageFSD(nn.Module):
                 "queue 1 item 7c")
         if assigner_per_class is not None and "ssg" in assigner_per_class:
             raise NotImplementedError(
-                "assigner_per_class 'ssg' (the key-point assigner, needs "
+                "assigner_per_class 'ssg' (the key-point assigner on "
                 "ops/fps.py): ROADMAP queue 1 item 7d")
         if dtype != torch.float32:
             raise NotImplementedError(

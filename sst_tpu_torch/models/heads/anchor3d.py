@@ -6,6 +6,11 @@ Predictions are [B, H, W, A, K] with A = num_classes * num_rots and the
 anchor axis ordered (class range, rotation), as in the JAX package. The
 convolutions give [B, A * K, H, W]; they are permuted to channels last
 before the reshape. ``use_wnms=True`` raises.
+
+At a compute ``dtype`` below float32 (flax's ``dtype``) the convolutions'
+products, and so the predictions, are in that dtype; ``loss`` and
+``get_bboxes`` take them through JAX's promotions (the decoded boxes are
+float32, the scores stay in the predictions' dtype).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from sst_tpu_torch.core.boxes import limit_period
 from sst_tpu_torch.core.iou import nearest_iou
 from sst_tpu_torch.core.nms import multiclass_nms_preselected, topk_presort
 from sst_tpu_torch.core.target_assign import IGNORE, max_iou_assign
+from sst_tpu_torch.models.layers import Conv
 
 
 # the JAX head's loss weights, which no config changes
@@ -44,7 +50,8 @@ class Anchor3DHead(nn.Module):
                  anchor_rotations: tuple = (0.0, 1.5707963),
                  assigner_thrs: tuple = ((0.55, 0.4, 0.4), (0.5, 0.3, 0.3),
                                          (0.5, 0.3, 0.3)),
-                 dir_offset: float = 0.7854, box_code_size: int = 7):
+                 dir_offset: float = 0.7854, box_code_size: int = 7,
+                 dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.use_direction_classifier = use_direction_classifier
@@ -55,10 +62,10 @@ class Anchor3DHead(nn.Module):
         self.dir_offset = dir_offset
         self.box_code_size = box_code_size
         a = self.num_anchors
-        self.conv_cls = nn.Conv2d(feat_channels, a * num_classes, 1)
-        self.conv_reg = nn.Conv2d(feat_channels, a * box_code_size, 1)
+        self.conv_cls = Conv(feat_channels, a * num_classes, 1, dtype=dtype)
+        self.conv_reg = Conv(feat_channels, a * box_code_size, 1, dtype=dtype)
         if use_direction_classifier:
-            self.conv_dir_cls = nn.Conv2d(feat_channels, a * 2, 1)
+            self.conv_dir_cls = Conv(feat_channels, a * 2, 1, dtype=dtype)
         self._anchors = {}  # (H, W, device) -> [num_cls, H*W*num_rot, 7]
 
     @property

@@ -18,6 +18,7 @@ flax adds it.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -26,9 +27,24 @@ from torch import nn
 
 from sst_tpu_torch.utils import remat
 
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``gelu`` (the tanh form) in ``x``'s dtype. Below float32 it is
+    evaluated op by op as ``jax.nn.gelu`` writes it, each op rounded to the
+    dtype (``x * x * x`` as JAX's integer power, two products); a fused
+    ``F.gelu`` computes in float32 and rounds once, which differs from
+    JAX's bfloat16 result on ~40% of inputs."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(_SQRT_2_OVER_PI, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * (x * x))))))
+
+
 ACTIVATIONS = {
     "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax gelu default
+    "gelu": gelu,  # flax gelu default
     "silu": F.silu,
     "swish": F.silu,
     "leakyrelu": lambda x: F.leaky_relu(x, 0.01),

@@ -13,18 +13,20 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import BatchNorm
+from sst_tpu_torch.models.layers import BatchNorm, Conv
 
 
 class SECONDFPN(nn.Module):
     """Per level: a 1x1 conv without bias, BN (eps 1e-3), ReLU; the levels
     are concatenated along channels.
 
-    ``in_channels``: the width of each input level (an int for one)."""
+    ``in_channels``: the width of each input level (an int for one);
+    ``dtype``: the compute dtype of the convs and norms."""
 
     def __init__(self, in_channels: int | Sequence[int],
                  out_channels: Sequence[int] = (384,),
-                 upsample_strides: Sequence[int] = (1,)):
+                 upsample_strides: Sequence[int] = (1,),
+                 dtype=torch.float32):
         super().__init__()
         if isinstance(in_channels, int):
             in_channels = (in_channels,)
@@ -35,10 +37,10 @@ class SECONDFPN(nn.Module):
                 raise NotImplementedError(
                     f"upsample stride {upsample_strides[i]} "
                     f"(ConvTranspose) is not ported")
-            self.add_module(f"deblock_conv_{i}", nn.Conv2d(
-                in_channels[i], out_channels[i], 1, bias=False))
-            self.add_module(f"deblock_bn_{i}", BatchNorm(out_channels[i],
-                                                         eps=1e-3))
+            self.add_module(f"deblock_conv_{i}", Conv(
+                in_channels[i], out_channels[i], 1, bias=False, dtype=dtype))
+            self.add_module(f"deblock_bn_{i}", BatchNorm(
+                out_channels[i], eps=1e-3, dtype=dtype))
         self.out_channels = sum(out_channels[:self.levels])
 
     def forward(self, feats, train: bool = False):

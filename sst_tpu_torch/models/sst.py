@@ -11,9 +11,15 @@ The attention of every window bucket is ``ops/window_mha.py window_mha``:
 the JAX package's fused Pallas kernel's function (f32 logits of bf16 q and
 k, bf16 probabilities into AV) on every device, the hand-written kernel on
 the card and its plain twin on the CPU. The JAX einsum fallback, which takes
-bf16 logits, has no counterpart; nor do ``use_pallas`` (the fused kernel is
-the only path) and ``remat_blocks`` (a training memory switch). Cosine
-attention raises.
+bf16 logits, has no counterpart, and ``use_pallas`` is accepted and ignored:
+the fused kernel is the only path. Cosine attention raises.
+
+Every module takes flax's compute ``dtype`` (``models/layers.py``): float32
+parameters, products and layer norms' results in ``dtype``. At bfloat16 the
+projections' q, k and v reach the kernel as they are and its bfloat16
+output stays so through the window-to-flat gather, as in JAX.
+``remat_blocks`` rematerialises each ``BasicShiftBlock`` in train mode
+(flax's ``nn.remat``, ``utils/remat.py``), as JAX does by default.
 """
 
 from __future__ import annotations
@@ -23,7 +29,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import ACTIVATIONS, ConvNormAct
+from sst_tpu_torch.models.layers import (
+    ACTIVATIONS,
+    ConvNormAct,
+    Dense,
+    LayerNorm,
+)
 from sst_tpu_torch.models.sst_input import SSTPlan
 from sst_tpu_torch.ops.window import (
     FlatToWindow,
@@ -32,21 +43,23 @@ from sst_tpu_torch.ops.window import (
     window_key_padding,
 )
 from sst_tpu_torch.ops.window_mha import window_mha
+from sst_tpu_torch.utils import remat
 
 
 class WindowAttention(nn.Module):
     """Bucketed windowed MHA. The projections run on the flat [N, C]
     voxels; q and k see ``feat + pos``, v sees ``feat``."""
 
-    def __init__(self, d_model: int, nhead: int, cosine: bool = False):
+    def __init__(self, d_model: int, nhead: int, cosine: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         if cosine:
             raise NotImplementedError("cosine window attention")
         self.d_model = d_model
         self.nhead = nhead
-        self.qk_proj = nn.Linear(d_model, 2 * d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.qk_proj = Dense(d_model, 2 * d_model, dtype=dtype)
+        self.v_proj = Dense(d_model, d_model, dtype=dtype)
+        self.out_proj = Dense(d_model, d_model, dtype=dtype)
 
     def windows(self, feat, pos, f2w: FlatToWindow):
         """Per bucket, the attention's inputs (q, k, v, pad): q, k, v are
@@ -63,7 +76,8 @@ class WindowAttention(nn.Module):
     def forward(self, feat, pos, f2w: FlatToWindow):
         outs = [window_mha(q, k, v, pad, self.nhead)
                 for q, k, v, pad in self.windows(feat, pos, f2w)]
-        # bf16 through the gather back, then f32 on the flat rows
+        # bf16 through the gather back, then the feature dtype on the flat
+        # rows
         flat = window2flat(outs, f2w).to(feat.dtype)
         return self.out_proj(flat)
 
@@ -74,15 +88,16 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  activation: str = "gelu", post_norm: bool = True,
-                 cosine: bool = False):
+                 cosine: bool = False, dtype=torch.float32):
         super().__init__()
         self.post_norm = post_norm
         self.act = ACTIVATIONS[activation]
-        self.WindowAttention_0 = WindowAttention(d_model, nhead, cosine)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=1e-6)
-        self.Dense_0 = nn.Linear(d_model, dim_feedforward)
-        self.Dense_1 = nn.Linear(dim_feedforward, d_model)
-        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=1e-6)
+        self.WindowAttention_0 = WindowAttention(d_model, nhead, cosine,
+                                                 dtype)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=1e-6, dtype=dtype)
+        self.Dense_0 = Dense(d_model, dim_feedforward, dtype=dtype)
+        self.Dense_1 = Dense(dim_feedforward, d_model, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=1e-6, dtype=dtype)
 
     def forward(self, src, pos, f2w: FlatToWindow):
         if self.post_norm:
@@ -99,11 +114,13 @@ class BasicShiftBlock(nn.Module):
     """Two encoder layers: the unshifted windows, then the shifted ones."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 activation: str = "gelu", cosine: bool = False):
+                 activation: str = "gelu", cosine: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         for i in range(2):
             self.add_module(f"encoder_{i}", EncoderLayer(
-                d_model, nhead, dim_feedforward, activation, cosine=cosine))
+                d_model, nhead, dim_feedforward, activation, cosine=cosine,
+                dtype=dtype))
 
     def forward(self, src, plan: SSTPlan):
         for i in range(2):
@@ -114,9 +131,9 @@ class BasicShiftBlock(nn.Module):
 
 def recover_bev(voxel_feat, voxel_coords, voxel_valid, batch_size: int,
                 output_shape) -> torch.Tensor:
-    """Voxel features onto a dense BEV canvas: one scatter into NHWC rows
-    ``(b * ny + y) * nx + x``, returned as an NCHW view of them
-    ([B, C, ny, nx], channels-last strides, no copy)."""
+    """Voxel features onto a dense BEV canvas in their dtype: one scatter
+    into NHWC rows ``(b * ny + y) * nx + x``, returned as an NCHW view of
+    them ([B, C, ny, nx], channels-last strides, no copy)."""
     ny, nx = output_shape
     c = voxel_feat.shape[-1]
     size = batch_size * ny * nx
@@ -130,13 +147,19 @@ def recover_bev(voxel_feat, voxel_coords, voxel_valid, batch_size: int,
 
 class SSTv2(nn.Module):
     """Single-stride sparse transformer backbone. Returns (BEV map NCHW,
-    surviving-voxel mask). The JAX module's ``to_bev=False`` and
-    ``conv_shortcut`` options are not ported.
+    surviving-voxel mask), or with ``to_bev=False`` (the voxel features
+    [N, C], that mask).
 
     ``in_channel``: width of the voxel features; with it, ``linear0``
     projects them to ``d_model[0]``, without it they must be that wide.
-    ``conv_kwargs``: per attached conv, its ``kernel_size`` and
-    ``dilation``."""
+    ``conv_kwargs``: per attached conv (or one dict for all), its
+    ``kernel_size`` and ``dilation``. ``conv_shortcut`` adds each attached
+    conv's input to its output where their shapes agree. ``remat_blocks``:
+    each block is rematerialised in the backward of a train-mode call.
+    ``use_pallas`` is accepted and ignored (the window MHA kernel is the
+    only path).
+    ``dtype``: the compute dtype of the blocks and the attached convs; the
+    voxel features are cast to it first."""
 
     def __init__(self, d_model: Sequence[int] = (128,) * 6,
                  nhead: Sequence[int] = (8,) * 6, num_blocks: int = 6,
@@ -147,39 +170,59 @@ class SSTv2(nn.Module):
                                        {"kernel_size": 3, "dilation": 1},
                                        {"kernel_size": 3, "dilation": 2}),
                  conv_out_channel: int = 128, in_channel: int | None = None,
-                 cosine: bool = False):
+                 to_bev: bool = True, conv_shortcut: bool = False,
+                 cosine: bool = False, use_pallas: bool | None = None,
+                 remat_blocks: bool = True, dtype=torch.float32):
         super().__init__()
         if cosine:
             raise NotImplementedError("cosine window attention")
+        del use_pallas  # the fused kernel is the only path
         self.d_model = tuple(d_model)
         self.num_blocks = num_blocks
         self.output_shape = tuple(output_shape)
-        self.num_attached_conv = num_attached_conv
+        self.to_bev = to_bev
+        self.conv_shortcut = conv_shortcut
+        self.remat_blocks = remat_blocks
+        self.dtype = dtype
         if in_channel is not None:
-            self.linear0 = nn.Linear(in_channel, self.d_model[0])
+            self.linear0 = Dense(in_channel, self.d_model[0], dtype=dtype)
         else:
             self.linear0 = None
         for i in range(num_blocks):
             self.add_module(f"block_{i}", BasicShiftBlock(
-                self.d_model[i], nhead[i], dim_feedforward[i], activation))
+                self.d_model[i], nhead[i], dim_feedforward[i], activation,
+                dtype=dtype))
         c = self.d_model[num_blocks - 1]
-        for i in range(num_attached_conv):
+        self.num_attached_conv = num_attached_conv if to_bev else 0
+        for i in range(self.num_attached_conv):
+            kw = conv_kwargs if isinstance(conv_kwargs, dict) \
+                else conv_kwargs[i]
+            kw = {k: v for k, v in kw.items()
+                  if k not in ("padding", "stride")}
             self.add_module(f"attached_conv_{i}", ConvNormAct(
-                c, conv_out_channel, act="relu", **conv_kwargs[i]))
+                c, conv_out_channel, act="relu", dtype=dtype, **kw))
             c = conv_out_channel
         self.out_channels = c
 
     def forward(self, voxel_feats, voxel_coords, plan: SSTPlan,
                 batch_size: int, train: bool = False):
-        x = voxel_feats
+        x = voxel_feats.to(self.dtype)
         if self.linear0 is not None:
             x = self.linear0(x)
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, plan)
+            block = getattr(self, f"block_{i}")
+            if self.remat_blocks and train and torch.is_grad_enabled():
+                x = remat.checkpoint(block, x, plan)
+            else:
+                x = block(x, plan)
+        if not self.to_bev:
+            return x, plan.valid
         bev = recover_bev(x, voxel_coords, plan.valid, batch_size,
                           self.output_shape)
         for i in range(self.num_attached_conv):
-            bev = getattr(self, f"attached_conv_{i}")(bev, train)
+            out = getattr(self, f"attached_conv_{i}")(bev, train)
+            bev = out + bev if (self.conv_shortcut
+                                and out.shape == bev.shape) else out
         return bev, plan.valid
 
 

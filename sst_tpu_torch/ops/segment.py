@@ -172,9 +172,9 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
 
 def gather_rows(src: torch.Tensor, index: torch.Tensor,
                 fill: float = 0.0) -> torch.Tensor:
-    """[len(index), C]: row j is ``src[index[j]]``, or ``fill`` where
+    """[len(index), ...]: row j is ``src[index[j]]``, or ``fill`` where
     ``index[j]`` lies outside [0, N) (the padding slots of an inverse
-    table).
+    table). ``src`` is [N, ...] of any rank.
 
     An ``index_select``, whose backward adds each row's gradient into its
     source. The rows outside read source ``j mod N`` and are masked: sent
@@ -185,12 +185,13 @@ def gather_rows(src: torch.Tensor, index: torch.Tensor,
     spread = torch.arange(index.shape[0], device=index.device) % n
     rows = torch.index_select(src, 0, torch.where(inside, index.long(),
                                                   spread))
-    return torch.where(inside[:, None], rows, fill)
+    return torch.where(inside.view((-1,) + (1,) * (src.dim() - 1)), rows,
+                       fill)
 
 
 def gather_segments(voxel_data: torch.Tensor, seg_ids: torch.Tensor,
                     fill: float = 0.0) -> torch.Tensor:
-    """Broadcast per-segment rows [S, C] back to elements; ids outside
+    """Broadcast per-segment rows [S, ...] back to elements; ids outside
     [0, S) (the invalid elements' id S) get ``fill``. A ``gather_rows``, so
     the invalid elements do not all add their zero gradients into one
     segment's row in the backward."""

@@ -17,7 +17,9 @@ Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`window_mha_ref`, a CUDA tensor to the kernel (or
 the call raises). ``launches`` counts kernel launches and ``launch_counts``
 splits them by ``(T, C, H)``, so a run can show that its main path went
-through the kernel, and at which shapes.
+through the kernel, and at which shapes; ``kind_counts`` splits them into a
+call's ``"forward"`` and its ``"recompute"`` in the backward of a
+rematerialised block (``utils/remat.py``).
 
 Under autograd the call is a ``torch.autograd.Function`` (the JAX
 package's ``jax.custom_vjp``): the forward as above, and the backward
@@ -33,18 +35,22 @@ import math
 
 import torch
 
+from sst_tpu_torch.utils import remat
+
 HEAD_DIM = 16  # the kernel's head width: SST's d_model 128 over 8 heads
 MAX_TOKENS = 320  # the kernel's bound on T
 TILE = 16  # the kernel's query rows per warp task and keys per chunk
 
 launches = 0  # kernel launches in this process
 launch_counts: dict[tuple[int, int, int], int] = {}  # by (T, C, H)
+kind_counts: dict[str, int] = {}  # forward, recompute
 
 
 def reset_launch_counts() -> None:
     global launches
     launches = 0
     launch_counts.clear()
+    kind_counts.clear()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -136,6 +142,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     key = (t, c, nhead)
     launch_counts[key] = launch_counts.get(key, 0) + 1
+    kind = "recompute" if remat.recomputing() else "forward"
+    kind_counts[kind] = kind_counts.get(kind, 0) + 1
     return out
 
 

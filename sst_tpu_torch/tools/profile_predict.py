@@ -3,7 +3,8 @@ card.
 
     python -m sst_tpu_torch.tools.profile_predict [--dtype float32]
     python -m sst_tpu_torch.tools.profile_predict --backbone sparse
-    python -m sst_tpu_torch.tools.profile_predict --model sst
+    python -m sst_tpu_torch.tools.profile_predict --model sst \
+        [--dtype bfloat16]
 
 The models and frames are those of ``chip_smoke.py``: full widths, TF32
 off, random weights from seed 0, batch 1, synthetic Waymo-like frames of
@@ -13,7 +14,8 @@ each). ``--model fsdv2`` (default) builds ``fsdv2_waymo(backbone=...)``,
 dense-BEV by default, at ``fsdv2_waymo``'s default dtype (bf16 compute for
 the dense build, float32 for the sparse one) unless ``--dtype`` names one;
 ``--model sst`` builds ``sst_waymo(train_buckets=False)`` (float32 with
-bf16 attention). It prints
+bf16 attention, or ``--dtype bfloat16``, ``bench.py bench_sst``'s build).
+It prints
 
   * the median CUDA-event time of each stage of ``predict`` over 8 frames,
     from the call to each boundary marked by a hook on a module's forward:
@@ -131,21 +133,22 @@ def main() -> None:
     ap.add_argument("--backbone", choices=("dense_bev", "sparse"),
                     default="dense_bev", help="FSDv2's build")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
-                    default=None, help="FSDv2's compute dtype (default: the "
-                    "fsdv2_waymo's)")
+                    default=None, help="the compute dtype (default: the "
+                    "builder's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_predict: needs a CUDA card")
     card = card_name_and_power_limit()
     print(card, flush=True)
     disable_tf32()
+    dtype = args.dtype and getattr(torch, args.dtype)
     if args.model == "sst":
-        model = sst_waymo(train_buckets=False, num_point_features=3)
-        title = "sst_waymo(train_buckets=False)"
+        model = sst_waymo(train_buckets=False, num_point_features=3,
+                          dtype=dtype or torch.float32)
+        title = f"sst_waymo(train_buckets=False) {model.backbone_mod.dtype}"
         frames = [synthetic_waymo_batch(1, MAX_POINTS, seed=s).points[0]
                   for s in range(4)]
     else:
-        dtype = args.dtype and getattr(torch, args.dtype)
         model = fsdv2_waymo(dtype=dtype, backbone=args.backbone)
         title = (f"fsdv2_waymo(backbone={args.backbone!r}) "
                  f"{model.segmentor_mod.vfe_mod.dtype}")

@@ -3,7 +3,8 @@
 ``build_model_from_cfg``).
 
 Only the detector types the port has are registered: ``FSD``,
-``SingleStageFSD``, ``SingleStageFSDV2`` and ``DynamicVoxelNet``. Any other
+``SingleStageFSD``, ``SingleStageFSDV2``, ``DynamicVoxelNet`` and
+``TwoStageFSDPP``. Any other
 ``type`` of the JAX registry raises ``NotImplementedError`` naming its
 ROADMAP queue item. The JAX modules read the point width from their input;
 the port's take it at construction, so the builder does too
@@ -26,8 +27,7 @@ from sst_tpu_torch.utils.registry import MODELS
 # detector types of the JAX registry not yet ported, by ROADMAP queue 1 item
 UNPORTED_TYPES = {
     "FSDV2": "ROADMAP queue 1 item 7b (FSDV2 two-stage)",
-    "TwoStageFSDPP": "ROADMAP queue 1 item 8 (FSD++)",
-    "TrackletDetector": "ROADMAP queue 1 item 8 (CTRL)",
+    "TrackletDetector": "ROADMAP queue 1 item 8b (CTRL)",
     "PointPillars": "ROADMAP queue 1 item 10 (PointPillars)",
 }
 
@@ -38,10 +38,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 def _register_ported() -> None:
     # imported here: the models import the ops that import this package
     from sst_tpu_torch.models import DynamicVoxelNet, SingleStageFSDV2
+    from sst_tpu_torch.models.fsd.fsdpp import TwoStageFSDPP
     from sst_tpu_torch.models.fsd.single_stage import SingleStageFSD
     from sst_tpu_torch.models.fsd.two_stage import FSD
 
-    for cls in (FSD, SingleStageFSD, SingleStageFSDV2, DynamicVoxelNet):
+    for cls in (FSD, SingleStageFSD, SingleStageFSDV2, DynamicVoxelNet,
+                TwoStageFSDPP):
         MODELS.register(cls)
 
 
@@ -65,7 +67,8 @@ def _tuplify(x):
 
 
 def _convert_caps(kwargs: dict) -> dict:
-    """``caps`` dicts in configs → the static caps dataclasses."""
+    """``caps`` dicts in configs → the static caps dataclasses (also the
+    inner FSD's of a ``TwoStageFSDPP``)."""
     from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps
     from sst_tpu_torch.models.fsd.single_stage import FSDCaps
 
@@ -73,11 +76,20 @@ def _convert_caps(kwargs: dict) -> dict:
     cls_by_type = {"SingleStageFSD": FSDCaps, "SingleStageFSDV2": FSDV2Caps}
     if t in cls_by_type and isinstance(kwargs.get("caps"), dict):
         kwargs["caps"] = cls_by_type[t](**kwargs["caps"])
-    if t == "FSD" and isinstance(kwargs.get("single_stage"), dict):
-        ss = dict(kwargs["single_stage"])
-        if isinstance(ss.get("caps"), dict):
-            ss["caps"] = FSDCaps(**ss["caps"])
-        kwargs["single_stage"] = ss
+
+    def inner_caps(fsd: dict) -> dict:
+        fsd = dict(fsd)
+        if isinstance(fsd.get("single_stage"), dict):
+            ss = dict(fsd["single_stage"])
+            if isinstance(ss.get("caps"), dict):
+                ss["caps"] = FSDCaps(**ss["caps"])
+            fsd["single_stage"] = ss
+        return fsd
+
+    if t == "FSD":
+        kwargs = inner_caps(kwargs)
+    if t == "TwoStageFSDPP" and isinstance(kwargs.get("fsd"), dict):
+        kwargs["fsd"] = inner_caps(kwargs["fsd"])
     return kwargs
 
 
@@ -90,8 +102,9 @@ def build_model_from_cfg(cfg: dict, train: bool = True,
     ``num_point_features`` is the width of a point row (5 for Waymo's x, y,
     z, intensity, elongation, as ``bench.py`` feeds FSD). A ``model.dtype``
     string ('bfloat16' | 'float32') selects the compute dtype.
-    ``capacity.max_points`` becomes the point cap ``apis.prepare_batch``
-    pads to (65,536 where the config gives none, as JAX's ``init_model``)."""
+    ``capacity.max_points`` becomes ``model.max_points``, the point cap to
+    pass to ``apis.prepare_batch`` (65,536 where the config gives none, as
+    JAX's ``init_model``)."""
     from sst_tpu_torch.flagship import on_device
 
     _register_ported()

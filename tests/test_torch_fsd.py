@@ -353,7 +353,7 @@ def test_dense_fsd_config_predicts_at_shrunken_caps():
     assert m.rpn.segmentor_mod.backbone == "dense_bev"
     frame = tflag.synthetic_waymo_batch(1, 2048, num_extra_feats=2,
                                         pcr_half=7.8)
-    batch = prepare_batch(m, frame.points[0])
+    batch = prepare_batch(m, frame.points[0], m.max_points)
     for skip in (True, False):
         out = frame_to_numpy(m.predict(batch, skip_rcnn=skip))
         rows = 500 if skip else 32
@@ -363,7 +363,7 @@ def test_dense_fsd_config_predicts_at_shrunken_caps():
 
 
 def test_builder_raises_on_types_not_ported():
-    cfg = {"model": {"type": "TwoStageFSDPP"}}
+    cfg = {"model": {"type": "TrackletDetector"}}
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         build_model_from_cfg(cfg, device="cpu")
     cfg = {"model": {"type": "PointPillars"}}

@@ -380,6 +380,83 @@ def test_sparse_conv_backward_at_fsd_shapes(fsd_levels, mode, level, cin,
     assert dfeats.shape == (in_g.cap, cin) and dfeats.abs().sum() > 0
 
 
+FSDPP_LEVEL_CAPS = (65536, 32768, 16384, 8192, 4096, 2048)
+
+
+@pytest.fixture(scope="module")
+def fsdpp_levels():
+    """The six level grids of configs/fsdpp/fsdpp_waymo_2x.py's segmentor
+    UNet (FSD's at half caps, 65,536 → 2,048) over the 30x640x640 grid: a
+    residual-sized cloud of ~55k voxels in 1,500 clusters; levels 1 and 2
+    fill their caps."""
+    device = _cuda()
+    rng = np.random.RandomState(9)
+    n = 60000
+    centres = rng.randint(0, 640, (1500, 2))[rng.randint(0, 1500, n)]
+    xy = np.clip(centres + np.round(rng.randn(n, 2) * 6), 0, 639)
+    z = np.clip(np.round(8 + rng.randn(n) * 3), 0, 29)
+    coords = np.unique(np.stack([np.zeros(n), z, xy[:, 1], xy[:, 0]],
+                                1).astype(np.int32), axis=0)
+    cap = FSDPP_LEVEL_CAPS[0]
+    assert len(coords) <= cap
+    valid = torch.from_numpy(np.arange(cap) < len(coords))
+    coords = np.concatenate([coords, -np.ones((cap - len(coords), 4),
+                                              np.int32)])
+    g0, _ = tsc.make_sparse_grid(torch.from_numpy(coords).to(device),
+                                 valid.to(device), (30, 640, 640), 1)
+    levels = [g0]
+    for c in FSDPP_LEVEL_CAPS[1:]:
+        levels.append(tsc.downsample_grid(levels[-1], c))
+    return levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,level,cin,cout", [
+    ("subm", 0, 64, 128), ("strided", 2, 128, 128), ("inverse", 5, 256, 256),
+    ("subm", 5, 512, 256)])
+def test_sparse_conv_kernels_at_fsdpp_shapes(fsdpp_levels, mode, level, cin,
+                                             cout):
+    """FSD++'s segmentor at its half caps: the conv kernel (forward), the
+    input gradient (the conv kernel over the transposed table) and the dW
+    kernel, each within 1e-4 of its twin (dW on absolute values), one
+    launch each."""
+    if mode == "subm":
+        out_g = in_g = fsdpp_levels[level]
+    elif mode == "strided":
+        out_g, in_g = fsdpp_levels[level], fsdpp_levels[level - 1]
+    else:
+        out_g, in_g = fsdpp_levels[level - 1], fsdpp_levels[level]
+    plan = tsc.build_conv_plans(out_g, in_g, mode)
+    dev = plan.nbr.device
+    gen = torch.Generator(device=dev).manual_seed(20 + level)
+    feats = torch.randn(in_g.cap, cin, generator=gen,
+                        device=dev) * in_g.valid[:, None]
+    w = torch.randn(27, cin, cout, generator=gen, device=dev) / (
+        27 * cin) ** 0.5
+    dout = torch.randn(out_g.cap, cout, generator=gen,
+                       device=dev) * out_g.valid[:, None]
+    scg.reset_launch_counts()
+    scd.reset_launch_counts()
+    got = scg.sparse_conv_gemm(feats, plan.nbr, w, mode,
+                               schedule=plan.schedule(in_g.cap))
+    nbr_t = plan.transposed(in_g.cap)
+    wt = w.transpose(1, 2).contiguous()
+    dfeats = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad",
+                                  schedule=plan.transposed_schedule(
+                                      in_g.cap))
+    dw = scd.sparse_conv_dw(feats, plan.nbr, dout, mode,
+                            schedule=plan.schedule(in_g.cap))
+    torch.cuda.synchronize()
+    assert scg.kind_counts == {"forward": 1, "dgrad": 1}
+    assert scd.launch_counts == {(mode, cin, cout): 1}
+    torch.testing.assert_close(got, scg.sparse_conv_gemm_ref(
+        feats, plan.nbr, w), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dfeats, scg.sparse_conv_gemm_ref(
+        dout, nbr_t, wt), rtol=1e-4, atol=1e-4)
+    assert _dw_close(dw, feats, plan.nbr, dout)
+    assert got.abs().sum() > 0 and dw.abs().sum() > 0
+
+
 def _dw_close(got, feats, nbr, dout):
     """|kernel - twin| <= 1e-4 * (|feats|^T |dout| per element, the twin on
     absolute values) + 1e-6: f32 sums in another order."""
@@ -615,3 +692,34 @@ def test_window_mha_autograd_runs_the_kernel(w, t, h):
         assert not qkv.grad.any()
     else:
         assert qkv.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_window_mha_counts_its_remat_recompute():
+    """A rematerialised call (``utils/remat.py``, as SST's blocks in
+    training) launches the kernel in the forward and again in the backward's
+    recompute; ``kind_counts`` tells them apart, and the gradient equals the
+    call's without remat bit for bit."""
+    from sst_tpu_torch.utils import remat
+
+    device = _cuda()
+    q, k, v, pad = _mha_case(768, 100, 8, seed=3, device=device)
+    c = q.shape[-1]
+    g = torch.randn(q.shape, generator=torch.Generator(
+        device=device).manual_seed(4), device=device).to(torch.bfloat16)
+    grads = []
+    for use_remat in (False, True):
+        qkv = torch.cat([q, k, v], dim=-1).requires_grad_()
+
+        def attend(x):
+            return wm.window_mha(*x.split(c, dim=-1), pad, 8)
+
+        wm.reset_launch_counts()
+        out = remat.checkpoint(attend, qkv) if use_remat else attend(qkv)
+        out.backward(g)
+        torch.cuda.synchronize()
+        expected = {"forward": 1, "recompute": 1} if use_remat else {
+            "forward": 1}
+        assert wm.kind_counts == expected and wm.launches == len(expected)
+        grads.append(qkv.grad)
+    assert torch.equal(grads[0], grads[1])

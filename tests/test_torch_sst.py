@@ -182,12 +182,16 @@ def test_sst_waymo_builder():
 
 
 def test_prepare_batch_pads_to_the_model_cap():
+    """The default cap is JAX's 65,536 whatever the model's ``max_points``
+    (which callers pass to keep more); an explicit cap wins."""
     m = tflag.tiny_sst(device="cpu")
     pts = tflag.tiny_batch(1, 300).points[0]
     assert apis.prepare_batch(m, pts).points.shape == (
-        1, apis.DEFAULT_MAX_POINTS, 3)
+        1, apis.DEFAULT_MAX_POINTS, 3) == (1, 65536, 3)
     m.max_points = 1000
     b = apis.prepare_batch(m, pts)
+    assert b.points.shape == (1, 65536, 3) and int(b.valid.sum()) == 300
+    b = apis.prepare_batch(m, pts, m.max_points)
     assert b.points.shape == (1, 1000, 3) and int(b.valid.sum()) == 300
     assert apis.prepare_batch(m, pts, 400).points.shape == (1, 400, 3)
 
@@ -197,7 +201,6 @@ def test_prepare_batch_pads_to_the_model_cap():
     lambda: SSTv2(cosine=True),
     lambda: SECONDFPN((128, 128), (128, 128), (1, 2)),
     lambda: DynamicVoxelNet(head_type="center"),
-    lambda: DynamicVoxelNet(dtype=torch.bfloat16),
 ])
 def test_options_outside_the_slice_raise(make):
     with pytest.raises(NotImplementedError):
