@@ -9,9 +9,13 @@ the input gradient), SST-Waymo in float32 and at its bf16 default (window
 MHA kernel; in training under autograd, with the JAX package's
 einsum-recompute backward in torch ops, the blocks rematerialised), FSD
 two-stage predict and training (sparse conv kernel; in training also the
-weight-gradient kernel and the input gradient), built from its config, and
+weight-gradient kernel and the input gradient), built from its config,
 FSD++ (the FSD two stage behind the incremental point selection, sparse
-and dense-BEV) predict and training, built from its config.
+and dense-BEV) predict and training, built from its config, CTRL's
+``TrackletDetector`` (its data path, predict and train step; sparse conv,
+input gradient and dW kernels) and the ``FSDV2`` two stage (sorted reduce
+and sparse conv kernels; its loss's backward through dW), both built
+through the config builder.
 
     python3 chip_smoke.py
 
@@ -177,10 +181,43 @@ Phases (each one that fails ends the run with a non-zero exit code):
               steps, 39 forward, 39 recompute, 39 input-gradient and 39 dW
               launches per step.
 
+ 18. CTRL     configs/ctrl/ctrl_veh_24e.py at full width through the
+              port's loader and ``build_model_from_cfg`` (float32, seed-0
+              weights, nothing cut) on ``bench.py bench_ctrl``'s tracks
+              (32,768 points over 200 frames): the sparse conv kernel
+              against its twin at all 18 convs of track 0, timed, and the
+              wrapper's host time with its ctypes entry point bound once
+              and set on every call; ``predict`` on four tracks (18 launches
+              per track, the voxel fill, the pool's pairs and overflow
+              counters, latency over 12 runs, peak memory); one track
+              through the ported ``WaymoTrackletDataset`` and
+              ``collate_tracklets`` from a world written to a temporary
+              directory, and ``predict``; training on batches of 2 tracks
+              (gt = tracker boxes + N(0, 0.05)) with the config's AdamW: dW
+              and the input gradient against their twins at all 18 convs,
+              2 + 6 + 3 ``train_step`` calls, 18 forward + 18 input-gradient
+              + 18 dW launches per step, finite losses, ``mean_roi_iou``
+              above 0.3.
+ 19. FSDV2    ``dict(type="FSDV2", single_stage=<fsdv2_waymo_1x.py's model
+              without its type>)`` through ``build_model_from_cfg`` (the RoI
+              head and ``rois_per_sample`` at the class defaults; the
+              segmentor VFE on the sorted reduce, as the port's FSDv2
+              builders set it; float32, seed-0 weights, the seg head's class
+              biases shifted to a 0.6 fill of each fg cap): the sparse conv
+              kernel against its twin at all 58 convs of frame 0, timed;
+              refined and ``skip_rcnn`` predict on two of phase 7's frames
+              (58 conv + 3 sorted reduce + 1 offsets launches per frame, the
+              RoI pool's counters, latency, peak memory); one loss and
+              backward on a labelled frame (dW and the input gradient
+              against their twins at its 58 convs, finite losses and
+              gradients, 58 forward and 58 dW launches).
+
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
-with the training buckets; phases 14, 15 and 17 last. TF32 is turned
+with the training buckets; phases 14, 15, 17, 18 and 19 last. Phase 8
+also measures the window MHA wrapper's host time with its entry point
+bound once and set on every call. TF32 is turned
 off for convolutions and matmuls, so every float32 comparison is in full
 float32. Kernel, twin and library times are device times: each
 timed call is queued behind a short ``torch.cuda._sleep``
@@ -192,11 +229,14 @@ the result JSON.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import os
 import statistics
 from collections import Counter
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -217,6 +257,7 @@ from sst_tpu_torch.flagship import (
     synthetic_temporal_batch,
     synthetic_waymo_batch,
 )
+from sst_tpu_torch.models.ctrl import TrackletBatch
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, SparseConvLayer
 from sst_tpu_torch.models.sst import WindowAttention
 from sst_tpu_torch.ops import sorted_reduce as sr
@@ -1710,6 +1751,11 @@ def phase_sst_kernels(model, frame, device,
         print(f"  every (layer, bucket) input: max_abs_err {max(errs):.3e} "
               f"(rtol 2^-7 + 2^-8 max|v| on valid query rows); two runs "
               f"equal bit for bit; skipped rows zero", flush=True)
+        if "window_mha" not in WRAPPER_HOST_US:
+            _, nhead, buckets = calls[0]
+            q, k, v, pad = buckets[0]
+            _binding_host_us("window_mha", lambda: wm.window_mha(
+                q, k, v, pad, nhead), wm, "window_mha")
         edges = _mha_edge_cases(device)
         for name, q, k, v, pad, h in edges:
             got, _ = _check_mha(name, q, k, v, pad, h, errs)
@@ -3205,6 +3251,556 @@ def phase_fsdpp_train(device):
             "dgrad_err": dgrad_err}
 
 
+# ---------------------------------------------------------------- phase 18
+
+CTRL_CONFIG = "configs/ctrl/ctrl_veh_24e.py"
+CTRL_N_TIMED = 12  # predicts timed after warm-up
+CTRL_TRAIN_TOTAL_STEPS = 10000  # the one-cycle of the config's AdamW
+WRAPPER_HOST_US = {}  # the wrappers' host time per call, by _binding_host_us
+
+
+def _binding_host_us(name, call, mod, lib_name):
+    """The wrapper's host time per call (Python, checks, ctypes, launch;
+    ``_host_ms`` over 50 calls) as it is, its ctypes entry point bound
+    once, and with the entry point looked up and its ``argtypes`` and
+    ``restype`` set before every call, as the wrapper did before;
+    alternated (once, per call, per call, once), the smaller of each pair,
+    in microseconds."""
+    from sst_tpu_torch.utils.nvcc import load_kernel_library
+
+    fn = mod._kernel()
+    symbol, argtypes = fn.__name__, list(fn.argtypes)
+
+    def bound_per_call():
+        f = getattr(load_kernel_library(lib_name).lib, symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        call()
+
+    fns = {"bound_once": call, "bound_per_call": bound_per_call}
+    runs = {k: [] for k in fns}
+    for kind in ("bound_once", "bound_per_call", "bound_per_call",
+                 "bound_once"):
+        runs[kind].append(_host_ms(fns[kind], n=50) * 1e3)
+    rec = {k: min(v) for k, v in runs.items()}
+    WRAPPER_HOST_US[name] = rec
+    print(f"  {name} wrapper host time per call: {rec['bound_once']:.1f} us "
+          f"with its entry point bound once, {rec['bound_per_call']:.1f} us "
+          f"with argtypes set on every call (runs "
+          f"{ {k: [round(x, 1) for x in v] for k, v in runs.items()} })",
+          flush=True)
+    return rec
+
+
+def _ctrl_tracks(seeds, device, noisy_gt=False):
+    """``bench.py bench_ctrl``'s tracks, one per seed, stacked into one
+    batch on the card: 32,768 points each (x, y, z ``clip(randn * 1.5,
+    +-6)``, two channels, the time lag ``frame * 0.1``) over 200 frames,
+    tracker boxes of a car near the origin. ``noisy_gt``: the gt candidates
+    are the tracker boxes plus N(0, 0.05) noise (seeded ``1000 + seed``),
+    as ``flagship.tracklet_batch`` gives them; identical boxes meet XLA's
+    coincident-edge IoUs. Otherwise the tracker boxes, as bench_ctrl."""
+    rows = []
+    for seed in seeds:
+        rng = np.random.RandomState(seed)
+        b, p, f = 1, 32768, 200
+        pts = np.clip(rng.randn(b, p, 3).astype(np.float32) * 1.5, -6, 6)
+        ts = rng.randint(0, f, (b, p)).astype(np.int32)
+        points = np.concatenate(
+            [pts, rng.rand(b, p, 2).astype(np.float32),
+             ts[..., None].astype(np.float32) * 0.1], -1)
+        trk = np.concatenate(
+            [rng.uniform(-0.5, 0.5, (b, f, 2)), np.full((b, f, 1), -1.0),
+             np.tile([[1.9, 4.5, 1.7]], (b, f, 1))
+             * rng.uniform(0.9, 1.1, (b, f, 3)),
+             rng.uniform(-0.3, 0.3, (b, f, 1))], -1).astype(np.float32)
+        gt = trk
+        if noisy_gt:
+            gt = trk + np.random.RandomState(1000 + seed).randn(
+                b, f, 7).astype(np.float32) * 0.05
+        rows.append(dict(
+            points=points, valid=np.ones((b, p), bool), frame_inds=ts,
+            trk_boxes=trk, trk_scores=rng.rand(b, f).astype(np.float32),
+            trk_valid=np.ones((b, f), bool), labels=np.zeros((b,), np.int32),
+            gt_boxes=gt, gt_valid=np.ones((b, f), bool)))
+    return TrackletBatch(**{k: np.concatenate([r[k] for r in rows])
+                            for k in rows[0]}).to(device)
+
+
+class _PoolProbe:
+    """Records each ``roi_head.dynamic_point_pool`` call while active: the
+    paired points, the pair slots and the two overflow counters (reads the
+    host once per call; launches nothing)."""
+
+    def __enter__(self):
+        from sst_tpu_torch.models.fsd import roi_head
+
+        self._mod, self._fn, self.calls = roi_head, \
+            roi_head.dynamic_point_pool, []
+        fn = self._fn
+
+        def probe(*a, **k):
+            out = fn(*a, **k)
+            self.calls.append(dict(
+                pairs=int(out["valid"].sum()), pair_slots=out["valid"].numel(),
+                membership_overflow=int(out["membership_overflow"]),
+                inbox_overflow=int(out["inbox_overflow"])))
+            return out
+
+        roi_head.dynamic_point_pool = probe
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.dynamic_point_pool = self._fn
+
+
+def _ctrl_voxel_fill(model, batch):
+    """The segmentor's voxel fill on ``batch``: valid voxels of its cap and
+    the valid points that fell past the cap or out of range (a forward
+    hook on the VFE reads its voxel mapping)."""
+    seen = []
+    hook = model.segmentor_mod.vfe_mod.register_forward_pre_hook(
+        lambda m, args: seen.append(args[1]))
+    try:
+        with torch.inference_mode():
+            model.predict(batch)
+    finally:
+        hook.remove()
+    vm = seen[0]
+    return {"voxels": int(vm.voxel_valid.sum()),
+            "voxel_cap": vm.voxel_valid.numel(),
+            "points_dropped": int((batch.valid.reshape(-1)
+                                   & ~vm.valid).sum())}
+
+
+def _ctrl_world(root):
+    """The world of ``tests/test_tracklet_dataset.py`` under ``root``: one
+    moving car track over 6 frames at identity poses, each frame 300 points
+    on the car and 700 in a 80 m cube (x, y, z + 3 channels), the gt
+    candidates the boxes + 0.05."""
+    import pickle
+
+    from sst_tpu_torch.core.tracklet import LiDARTracklet
+
+    rng = np.random.RandomState(0)
+    ctx, n_frames = "ctx0", 6
+    timestamps = [1000 + 100 * i for i in range(n_frames)]
+    centers = np.stack([np.linspace(5, 8, n_frames),
+                        np.linspace(2, 2.5, n_frames),
+                        np.full(n_frames, -1.0)], 1)
+    boxes = np.concatenate(
+        [centers, np.tile([[2.0, 4.5, 1.6]], (n_frames, 1)),
+         np.zeros((n_frames, 1))], 1).astype(np.float32)
+    trk = LiDARTracklet(ctx, "car-1", 1, timestamps, boxes,
+                        np.full(n_frames, 0.9, np.float32))
+    frame_index = {}
+    for i, ts in enumerate(timestamps):
+        obj = centers[i] + rng.randn(300, 3) * np.asarray([1.0, 0.5, 0.4])
+        obj[:, 2] = np.clip(obj[:, 2], -1.0, 0.6)
+        bg = rng.uniform(-40, 40, (700, 3))
+        pts = np.concatenate([obj, bg]).astype(np.float32)
+        arr = np.concatenate([pts, rng.rand(1000, 3).astype(np.float32)], 1)
+        arr.tofile(os.path.join(root, f"frame_{i}.bin"))
+        frame_index[(ctx, ts)] = f"frame_{i}.bin"
+    for name, obj in (
+            ("poses.pkl", {ctx: {ts: np.eye(4) for ts in timestamps}}),
+            ("frame_index.pkl", frame_index), ("tracklets.pkl", [trk]),
+            ("cands.pkl", [dict(boxes=boxes + 0.05,
+                                valid=np.ones(n_frames, bool))])):
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(obj, f)
+
+
+def _ctrl_data_path(model, device):
+    """One track through the ported ``WaymoTrackletDataset`` and
+    ``collate_tracklets`` from the world of ``_ctrl_world`` in a temporary
+    directory, at the config's caps, onto the card and through
+    ``predict``; its launches counted."""
+    from sst_tpu_torch.data.tracklet_dataset import (
+        WaymoTrackletDataset,
+        collate_tracklets,
+    )
+
+    cap = load_config(CTRL_CONFIG)["capacity"]
+    with tempfile.TemporaryDirectory() as root:
+        _ctrl_world(root)
+        ds = WaymoTrackletDataset(
+            data_root=root, tracklet_path=os.path.join(root, "tracklets.pkl"),
+            poses_path=os.path.join(root, "poses.pkl"),
+            frame_index_path=os.path.join(root, "frame_index.pkl"),
+            candidates_path=os.path.join(root, "cands.pkl"),
+            max_points=cap["max_points"], max_frames=cap["max_frames"])
+        sample = ds[0]
+    batch = collate_tracklets([sample], device)
+    reset_launch_counts()
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    launches = scg.launches
+    n_frames = int(batch.trk_valid.sum())
+    rec = {"points": int(batch.valid.sum()), "frames": n_frames,
+           "refined": int(out["valid"].sum()), "launches": launches}
+    print(f"ctrl data path: WaymoTrackletDataset[0] of a 6-frame world "
+          f"(one car, 6,000 points) -> collate_tracklets on {device}: "
+          f"{rec['points']} cropped points of the {cap['max_points']} cap, "
+          f"{n_frames} tracker frames of {cap['max_frames']}; predict "
+          f"refined {rec['refined']} frames; sparse_conv_gemm launches "
+          f"{launches}", flush=True)
+    if n_frames != 6 or rec["points"] < 100:
+        fail(f"ctrl data path: {rec}")
+    if not all(bool(torch.isfinite(out[k]).all()) for k in ("boxes",
+                                                              "scores")):
+        fail("ctrl data path: non-finite refined boxes or scores")
+    return rec
+
+
+def phase_ctrl(device):
+    """Phase 18: CTRL at the full width of configs/ctrl/ctrl_veh_24e.py,
+    through the port's loader and ``build_model_from_cfg`` (f32, seed-0
+    weights, nothing cut): the sparse conv kernel against its twin at every
+    conv of one ``bench_ctrl`` track; predict on four tracks (launches per
+    track held to the module's convs, the pool's counters, latency, peak
+    memory); the train step on batches of 2 tracks (dW and the input
+    gradient against their twins, 2 + 6 + 3 steps, launches per step held
+    against the modules, finite losses, ``mean_roi_iou`` > 0.3); the data
+    path. Returns the phase's record."""
+    t0 = time.perf_counter()
+    cfg = load_config(CTRL_CONFIG)
+    model = init_weights(build_model_from_cfg(cfg, train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    tracks = [_ctrl_tracks([s], device) for s in range(4)]
+    print(f"model: {CTRL_CONFIG} through build_model_from_cfg, f32, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{n_convs} sparse convs, point cap {model.max_points}, built in "
+          f"{time.perf_counter() - t0:.1f} s; tracks of bench.py bench_ctrl "
+          f"(32,768 points, 200 frames)", flush=True)
+
+    def drive():
+        with torch.inference_mode():
+            model.predict(tracks[0])
+
+    shapes, per_track, err, convs = phase_fsd_kernels(
+        model, tracks[0], device, drive, title=CTRL_CONFIG)
+    if sum(convs.values()) != n_convs:
+        fail(f"ctrl: track 0 ran {sum(convs.values())} sparse convs, the "
+             f"model has {n_convs}")
+    calls = _record_sparse_convs(model, tracks[0], drive)
+    widest = max(calls, key=lambda c: c[1] * c[3][1] * c[3][2])
+    _, vin, cp, _, feats, _ = widest
+    w = model.get_submodule(widest[0]).weight.detach()
+    sched = cp.schedule(vin)
+    binding = _binding_host_us(
+        "sparse_conv_gemm", lambda: scg.sparse_conv_gemm(
+            feats, cp.nbr, w, cp.mode, schedule=sched), scg,
+        "sparse_conv_gemm")
+    del calls, widest, feats
+
+    fill = _ctrl_voxel_fill(model, tracks[0])
+    results, per = [], []
+    with _PoolProbe() as pool:
+        reset_launch_counts()
+        for trk in tracks:
+            before = dict(scg.launch_counts)
+            res = model.predict(trk)
+            results.append({k: v.cpu().numpy() for k, v in res.items()})
+            per.append({k: v - before.get(k, 0)
+                        for k, v in scg.launch_counts.items()})
+        launches, others = scg.launches, sr.launches + sdw.launches \
+            + wm.launches
+    split = per[0]
+    print(f"ctrl predict: {len(tracks)} tracks; sparse_conv_gemm launches "
+          f"{launches}, per track by (mode, Cin, Cout) {split}; other "
+          f"kernels' launches {others}; voxels {fill['voxels']} of "
+          f"{fill['voxel_cap']}, {fill['points_dropped']} valid points past "
+          f"the voxel cap", flush=True)
+    if any(p != split for p in per) or sum(split.values()) != n_convs:
+        fail(f"ctrl: expected {n_convs} conv launches per track, counted "
+             f"{per}")
+    if Counter(split) != convs:
+        fail(f"ctrl: the convs checked {dict(convs)} are not those launched "
+             f"per track {split}")
+    if others:
+        fail(f"ctrl: {others} launches of kernels its path does not run")
+    for s, (res, pc) in enumerate(zip(results, pool.calls)):
+        print(f"  track {s}: {int(res['valid'].sum())} of 200 frames refined "
+              f"(non-empty rois); paired points {pc['pairs']} of "
+              f"{pc['pair_slots']}; membership_overflow "
+              f"{pc['membership_overflow']}, inbox_overflow "
+              f"{pc['inbox_overflow']}; mean score "
+              f"{float(res['scores'].mean()):.4f}", flush=True)
+        if res["boxes"].shape != (1, 200, 7) or not all(
+                np.isfinite(res[k]).all() for k in ("boxes", "scores")):
+            fail(f"ctrl track {s}: boxes {res['boxes'].shape} or non-finite "
+                 f"outputs")
+        if pc["pairs"] == 0:
+            fail(f"ctrl track {s}: no point paired with a roi")
+
+    lat = _latency(lambda t: {k: v.cpu() for k, v in
+                              model.predict(t).items()},
+                   tracks, CTRL_N_TIMED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.predict(tracks[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"ctrl latency, predict of one track incl. results to the host: "
+          f"median {lat['median']:.2f} ms ({1e3 / lat['median']:.2f} tracks "
+          f"per s), range {lat['min']:.2f}-{lat['max']:.2f} over "
+          f"{CTRL_N_TIMED} CUDA-event runs after warm-up; runs "
+          f"{[round(t, 2) for t in lat['runs']]}; peak memory of one "
+          f"predict {peak:.3f} GiB", flush=True)
+    data_path = _ctrl_data_path(model, device)
+    del tracks
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- training
+    batches = [_ctrl_tracks([2 * k, 2 * k + 1], device, noisy_gt=True)
+               for k in range(2)]  # samples_per_device = 2
+    model.train()
+
+    def train_forward():
+        with torch.no_grad(), _KeptRunningStats(model):
+            model.loss(batches[0], train=True)
+
+    calls = _record_sparse_convs(model, batches[0], train_forward)
+    if len(calls) != n_convs:
+        fail(f"ctrl train: recorded {len(calls)} convs; the model has "
+             f"{n_convs}")
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        model, batches[0], device, calls=calls,
+        title=f"a train step of {CTRL_CONFIG} (2 tracks, train mode)")
+    del calls
+    opt = optimizer_from_cfg(model, cfg, CTRL_TRAIN_TOTAL_STEPS)
+    convs_m = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    needs_dgrad = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: needs_dgrad.append(bool(args[0].requires_grad)))
+        for m in convs_m]
+
+    def remove_hooks(i):
+        if i == 0:
+            for h in hooks:
+                h.remove()
+
+    def counts():
+        return {**scg.kind_counts, "dw": sdw.launches,
+                "sorted_reduce": sr.launches, "window_mha": wm.launches}
+
+    n_steps = N_WARMUP + N_TIMED + N_STAGED
+    with _PoolProbe() as pool:
+        reset_launch_counts()  # the CTRL train path's run starts here
+        steps, stage_ms, peak_train = _train_loop(
+            model, opt, batches, [{}] * n_steps, counts, remove_hooks)
+    expected = {"forward": n_convs, "recompute": 0,
+                "dgrad": sum(needs_dgrad), "dw": n_convs,
+                "sorted_reduce": 0, "window_mha": 0}
+    if len(needs_dgrad) != n_convs:
+        fail(f"ctrl train: the hooks saw {len(needs_dgrad)} conv calls in a "
+             f"step, the model has {n_convs} convs")
+    _check_launches(steps, expected)
+    train_launches = {"sparse_conv_gemm": scg.launches,
+                      "sparse_conv_dw": sdw.launches}
+    print(f"ctrl train: {CTRL_CONFIG}, 2 tracks per step (65,536 points, 400 "
+          f"rois), AdamW from the config ({cfg['optimizer']}, a "
+          f"{CTRL_TRAIN_TOTAL_STEPS}-step one-cycle); launches per step by "
+          f"kind (counted at the launch sites; the modules give {expected}): "
+          f"{steps[0]['launches']}; in the whole run {train_launches}",
+          flush=True)
+    record = _print_train(steps, stage_ms, peak_train)
+    ious = [st["metrics"]["mean_roi_iou"] for st in steps]
+    overflow = [st["metrics"]["roi_membership_overflow"] for st in steps]
+    print(f"  mean_roi_iou per step {[round(x, 4) for x in ious]}; "
+          f"roi_membership_overflow per step {overflow}; pool per step "
+          f"(pairs of slots) {[(c['pairs'], c['pair_slots']) for c in pool.calls[:2]]}",
+          flush=True)
+    if min(ious) <= 0.3:
+        fail(f"ctrl train: mean_roi_iou {min(ious):.4f} <= 0.3 on rois "
+             f"within N(0, 0.05) of their gt")
+    del model, batches, opt
+    torch.cuda.empty_cache()
+    return {"launches": launches, "split": {
+        f"{m} {a}->{b}": n for (m, a, b), n in split.items()},
+        "latency": lat, "peak_gib": peak, "voxel_fill": fill,
+        "pool": pool.calls[:2], "shapes": shapes, "per_track": per_track,
+        "max_abs_err": err, "binding_host_us": binding,
+        "data_path": data_path,
+        "train": {**record, "launches": train_launches,
+                  "launches_per_step": expected, "mean_roi_iou": ious,
+                  "roi_membership_overflow": overflow,
+                  "dw_shapes": dw_shapes, "dw_step": dw_step,
+                  "dw_err": dw_err, "dgrad_err": dgrad_err}}
+
+
+# ---------------------------------------------------------------- phase 19
+
+FSDV2_CONFIG = "configs/fsdv2/fsdv2_waymo_1x.py"
+
+
+def _fsdv2_two_stage_cfg() -> dict:
+    """``dict(type="FSDV2", single_stage=<the config's model without its
+    type>)`` (the RoI head and ``rois_per_sample`` at the class defaults),
+    the config's capacity; the segmentor's VFE on the sorted reduce, as the
+    port's FSDv2 builders set it (a declared difference: JAX leaves it
+    off)."""
+    cfg = load_config(FSDV2_CONFIG)
+    ss = dict(cfg["model"])
+    ss.pop("type")
+    ss["segmentor"] = dict(ss["segmentor"], vfe=dict(
+        ss["segmentor"]["vfe"], use_sorted_reduce=True))
+    return {"model": dict(type="FSDV2", single_stage=ss),
+            "capacity": cfg["capacity"], "optimizer": cfg["optimizer"]}
+
+
+def phase_fsdv2_two_stage(device):
+    """Phase 19: the FSDV2 two stage over the full-width single stage of
+    configs/fsdv2/fsdv2_waymo_1x.py through ``build_model_from_cfg`` (f32,
+    seed-0 weights, the seg head's class biases shifted to a 0.6 fill of
+    each fg cap on frame 0): the sparse conv kernel against its twin at
+    every conv of frame 0; refined and ``skip_rcnn`` predict on two of
+    phase 7's frames, conv and sorted-reduce launches per frame held to the
+    modules, timed; one loss and backward on a labelled frame (dW and the
+    input gradient against their twins at its convs, finite losses,
+    launches counted). Returns the phase's record."""
+    t0 = time.perf_counter()
+    model = init_weights(build_model_from_cfg(_fsdv2_two_stage_cfg(),
+                                              train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    rpn = model.rpn
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = [prepare_batch(model, f.points[0], model.max_points)
+              for f in _frames(2)]
+    with torch.inference_mode():
+        data = rpn.run_pipeline(frames[0])["data"]
+    shifts = _shift_fg_biases(rpn, data)
+    del data
+    print(f"model: FSDV2 over the single stage of {FSDV2_CONFIG} through "
+          f"build_model_from_cfg, f32, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{n_convs} sparse convs, rois_per_sample {model.rois_per_sample}, "
+          f"built in {time.perf_counter() - t0:.1f} s; fg bias shifts "
+          f"{[round(x, 3) for x in shifts]}", flush=True)
+
+    def drive():
+        with torch.inference_mode():
+            model.predict(frames[0])
+
+    shapes, per_frame, err, convs = phase_fsd_kernels(
+        model, frames[0], device, drive, title=f"FSDV2 over {FSDV2_CONFIG}")
+    if sum(convs.values()) != n_convs:
+        fail(f"fsdv2 two stage: frame 0 ran {sum(convs.values())} sparse "
+             f"convs, the model has {n_convs}")
+    results, per = {}, []
+    with _PoolProbe() as pool:
+        reset_launch_counts()
+        for skip in (False, True):
+            for frame in frames:
+                before = (scg.launches, sr.launches, sr.offsets_launches)
+                res = frame_to_numpy(model.predict(frame, skip_rcnn=skip))
+                results.setdefault(skip, []).append(res)
+                per.append((scg.launches - before[0],
+                            sr.launches - before[1],
+                            sr.offsets_launches - before[2]))
+        launches = {"sparse_conv_gemm": scg.launches,
+                    "sorted_reduce": (sr.launches, sr.offsets_launches),
+                    "others": sdw.launches + wm.launches}
+    print(f"fsdv2 two stage predict: {len(frames)} frames, refined then "
+          f"skip_rcnn; launches per frame (conv, sorted reduce, offsets) "
+          f"{per}; in the run {launches}", flush=True)
+    if any(p != (n_convs, 3, 1) for p in per) or launches["others"]:
+        fail(f"fsdv2 two stage: expected {n_convs} conv, 3 sorted reduce "
+             f"and 1 offsets launches per frame and no other kernel, "
+             f"counted {per}, {launches}")
+    max_num = rpn.test_cfg["max_num"]
+    rows = {False: min(max_num, model.rois_per_sample), True: max_num}
+    for skip, outs in results.items():
+        for s, res in enumerate(outs):
+            if res["boxes"].shape != (rows[skip], 7) or not all(
+                    np.isfinite(res[k]).all() for k in ("boxes", "scores")):
+                fail(f"fsdv2 two stage frame {s} (skip_rcnn {skip}): boxes "
+                     f"{res['boxes'].shape} or non-finite outputs")
+            print(f"  frame {s}, skip_rcnn {skip}: "
+                  f"{int(res['valid'].sum())} detections of {rows[skip]}",
+                  flush=True)
+    for s, pc in enumerate(pool.calls):
+        print(f"  frame {s} RoI pool: paired points {pc['pairs']} of "
+              f"{pc['pair_slots']}, membership_overflow "
+              f"{pc['membership_overflow']}, inbox_overflow "
+              f"{pc['inbox_overflow']}", flush=True)
+    if any(c["pairs"] == 0 for c in pool.calls):
+        fail("fsdv2 two stage: a RoI pool paired no point")
+
+    def numpy_predict(f, **kw):
+        return frame_to_numpy(model.predict(f, **kw))
+
+    lat = _latency(numpy_predict, frames, 6)
+    lat_rpn = _latency(lambda f: numpy_predict(f, skip_rcnn=True), frames, 6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    numpy_predict(frames[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, l in (("predict (two stage)", lat),
+                    ("predict(skip_rcnn=True)", lat_rpn)):
+        print(f"fsdv2 two stage latency, {name} incl. results to numpy: "
+              f"median {l['median']:.2f} ms, range {l['min']:.2f}-"
+              f"{l['max']:.2f} over 6 runs; runs "
+              f"{[round(t, 2) for t in l['runs']]}", flush=True)
+    print(f"  peak memory of one predict {peak:.3f} GiB", flush=True)
+    del frames
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- one loss + backward
+    model.train()
+    batch = _labeled_frames(1)[0].to(device)
+
+    def train_forward():
+        with torch.no_grad(), _KeptRunningStats(model):
+            model.loss(batch, train=True)
+
+    calls = _record_sparse_convs(model, batch, train_forward)
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        model, batch, device, calls=calls,
+        title=f"a loss of FSDV2 over {FSDV2_CONFIG} (labelled frame 0)")
+    del calls
+    reset_launch_counts()
+    ev = [_event() for _ in range(3)]
+    ev[0].record()
+    out = model.loss(batch, train=True)
+    total = sum(v for k, v in out.items() if k.startswith("loss"))
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    ev[2].synchronize()
+    loss_launches = {**scg.kind_counts, "dw": sdw.launches,
+                     "sorted_reduce": sr.launches,
+                     "segment_offsets": sr.offsets_launches}
+    losses = _losses({k: v.detach() for k, v in out.items()})
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters() if p.grad is not None)
+    print(f"fsdv2 two stage loss: {ev[0].elapsed_time(ev[1]):.2f} ms, "
+          f"backward {ev[1].elapsed_time(ev[2]):.2f} ms; launches "
+          f"{loss_launches}; losses {losses}; gradients finite "
+          f"{grads_finite}", flush=True)
+    bad = [k for k, v in losses.items() if not np.isfinite(v)]
+    if bad or not grads_finite:
+        fail(f"fsdv2 two stage loss: non-finite {bad} or gradients")
+    if loss_launches.get("forward") != n_convs or \
+            loss_launches["dw"] != n_convs or \
+            loss_launches["sorted_reduce"] != 3:
+        fail(f"fsdv2 two stage loss: launches {loss_launches}, expected "
+             f"{n_convs} forward and dW, 3 sorted reduce")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_frame_launches": per[0],
+            "latency": lat, "latency_skip_rcnn": lat_rpn, "peak_gib": peak,
+            "pool": pool.calls, "shapes": shapes, "per_frame": per_frame,
+            "max_abs_err": err, "loss": losses,
+            "loss_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "loss_launches": loss_launches, "dw_shapes": dw_shapes,
+            "dw_step": dw_step, "dw_err": dw_err, "dgrad_err": dgrad_err}
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -3347,6 +3943,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     fsdpp_train = phase_fsdpp_train(device)
     fsdpp_train["card"] = card
+    torch.cuda.empty_cache()
+    ctrl = phase_ctrl(device)
+    ctrl["card"] = card
+    torch.cuda.empty_cache()
+    fsdv2_ts = phase_fsdv2_two_stage(device)
+    fsdv2_ts["card"] = card
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -3379,8 +3981,33 @@ def main() -> None:
                 dense_train_f32["launches"]["segment_offsets"]),
             "sparse": sr_sparse_launches,
             "sparse_train": (train["launches"]["sorted_reduce"],
-                             train["launches"]["segment_offsets"])}
+                             train["launches"]["segment_offsets"]),
+            "fsdv2_two_stage": fsdv2_ts["launches"]["sorted_reduce"],
+            "fsdv2_two_stage_loss": (
+                fsdv2_ts["loss_launches"]["sorted_reduce"],
+                fsdv2_ts["loss_launches"]["segment_offsets"])}
     sr_launches = {k: v[0] for k, v in runs.items()}
+    # the conv kernel's launches in each path's run, each counted from 0
+    conv_by_path = {
+        "sparse": conv_launches,
+        "sparse_train": train["launches"]["sparse_conv_gemm"],
+        "fsd": fsd["launches"],
+        "fsd_train": fsd_train["launches"]["sparse_conv_gemm"],
+        "fsdpp": fsdpp["launches"],
+        "fsdpp_train": fsdpp_train["launches"]["sparse_conv_gemm"],
+        "ctrl": ctrl["launches"],
+        "ctrl_data_path": ctrl["data_path"]["launches"],
+        "ctrl_train": ctrl["train"]["launches"]["sparse_conv_gemm"],
+        "fsdv2_two_stage": fsdv2_ts["launches"]["sparse_conv_gemm"],
+        "fsdv2_two_stage_loss": (fsdv2_ts["loss_launches"]["forward"]
+                                 + fsdv2_ts["loss_launches"].get("dgrad",
+                                                                 0))}
+    dw_by_path = {
+        "sparse_train": train["launches"]["sparse_conv_dw"],
+        "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
+        "fsdpp_train": fsdpp_train["launches"]["sparse_conv_dw"],
+        "ctrl_train": ctrl["train"]["launches"]["sparse_conv_dw"],
+        "fsdv2_two_stage_loss": fsdv2_ts["loss_launches"]["dw"]}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -3435,20 +4062,8 @@ def main() -> None:
         # predict (phase 7), train (phase 11: forward, recompute and
         # input-gradient launches), FSD predict (phase 14) and FSD train
         # (phase 15, the same three kinds), each counted from 0
-        "launches": (conv_launches + train["launches"]["sparse_conv_gemm"]
-                     + fsd["launches"]
-                     + fsd_train["launches"]["sparse_conv_gemm"]
-                     + fsdpp["launches"]
-                     + fsdpp_train["launches"]["sparse_conv_gemm"]),
-        "launches_by_path": {"sparse": conv_launches,
-                             "sparse_train": train["launches"][
-                                 "sparse_conv_gemm"],
-                             "fsd": fsd["launches"],
-                             "fsd_train": fsd_train["launches"][
-                                 "sparse_conv_gemm"],
-                             "fsdpp": fsdpp["launches"],
-                             "fsdpp_train": fsdpp_train["launches"][
-                                 "sparse_conv_gemm"]},
+        "launches": sum(conv_by_path.values()),
+        "launches_by_path": conv_by_path,
         "launches_per_fsdpp_train_step": {
             k: v for k, v in fsdpp_train["launches_per_step"].items()
             if k in ("forward", "recompute", "dgrad")},
@@ -3457,9 +4072,13 @@ def main() -> None:
             if k in ("forward", "recompute", "dgrad")},
         "max_abs_err": max(conv_err, dgrad_err, fsd["max_abs_err"],
                            fsd_train["dgrad_err"], fsdpp["max_abs_err"],
-                           fsdpp_train["dgrad_err"]),
+                           fsdpp_train["dgrad_err"], ctrl["max_abs_err"],
+                           ctrl["train"]["dgrad_err"],
+                           fsdv2_ts["max_abs_err"], fsdv2_ts["dgrad_err"]),
         "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"],
-                                 fsdpp_train["dgrad_err"]),
+                                 fsdpp_train["dgrad_err"],
+                                 ctrl["train"]["dgrad_err"],
+                                 fsdv2_ts["dgrad_err"]),
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
         "ms": conv_per_frame["ms"],
@@ -3499,6 +4118,27 @@ def main() -> None:
         "fsdpp_train_dgrad_ms_per_step": fsdpp_train["dw_step"]["dgrad_ms"],
         "fsdpp_train_dgrad_plain_ms_per_step": fsdpp_train["dw_step"][
             "dgrad_plain_ms"],
+        # per CTRL track (phase 18): its 18 convs, and the input gradient
+        # per CTRL train step (2 tracks)
+        **{f"ctrl_{k}_per_track": v for k, v in ctrl["per_track"].items()},
+        "ctrl_bound_by": bound_by(ctrl["shapes"], "convs_per_frame"),
+        "ctrl_shapes": ctrl.pop("shapes"),
+        "ctrl_train_dgrad_ms_per_step": ctrl["train"]["dw_step"]["dgrad_ms"],
+        "ctrl_train_dgrad_plain_ms_per_step": ctrl["train"]["dw_step"][
+            "dgrad_plain_ms"],
+        # per frame of the FSDV2 two stage (phase 19): its 58 convs, and the
+        # input gradient of its one loss
+        **{f"fsdv2_two_stage_{k}_per_frame": v
+           for k, v in fsdv2_ts["per_frame"].items()},
+        "fsdv2_two_stage_bound_by": bound_by(fsdv2_ts["shapes"],
+                                             "convs_per_frame"),
+        "fsdv2_two_stage_shapes": fsdv2_ts.pop("shapes"),
+        "fsdv2_two_stage_loss_dgrad_ms": fsdv2_ts["dw_step"]["dgrad_ms"],
+        "fsdv2_two_stage_loss_dgrad_plain_ms": fsdv2_ts["dw_step"][
+            "dgrad_plain_ms"],
+        # the wrapper's host time per call, its entry point bound once and
+        # set on every call (phase 18, the widest CTRL conv)
+        "host_us": WRAPPER_HOST_US.get("sparse_conv_gemm"),
     }, {
         "name": "sparse_conv_dw",
         "route": "cuda",
@@ -3506,15 +4146,11 @@ def main() -> None:
         "replaces": "sst_tpu/ops/sparse_conv_pallas.py:397",
         # the sparse step (phase 11) and the FSD step (phase 15), each
         # counted from 0
-        "launches": (train["launches"]["sparse_conv_dw"]
-                     + fsd_train["launches"]["sparse_conv_dw"]
-                     + fsdpp_train["launches"]["sparse_conv_dw"]),
-        "launches_by_path": {"sparse_train": train["launches"][
-            "sparse_conv_dw"], "fsd_train": fsd_train["launches"][
-                "sparse_conv_dw"], "fsdpp_train": fsdpp_train["launches"][
-                    "sparse_conv_dw"]},
+        "launches": sum(dw_by_path.values()),
+        "launches_by_path": dw_by_path,
         "max_abs_err": max(dw_err, fsd_train["dw_err"],
-                           fsdpp_train["dw_err"]),
+                           fsdpp_train["dw_err"], ctrl["train"]["dw_err"],
+                           fsdv2_ts["dw_err"]),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -3546,6 +4182,18 @@ def main() -> None:
         "fsdpp_train_bound_by": bound_by(fsdpp_train["dw_shapes"],
                                          "convs_per_step"),
         "fsdpp_train_shapes": fsdpp_train.pop("dw_shapes"),
+        # per CTRL train step (phase 18, 2 tracks) and the FSDV2 two stage's
+        # one loss (phase 19)
+        **{f"ctrl_train_{k}_per_step": ctrl["train"]["dw_step"][k]
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "ctrl_train_bound_by": bound_by(ctrl["train"]["dw_shapes"],
+                                        "convs_per_step"),
+        "ctrl_train_shapes": ctrl["train"].pop("dw_shapes"),
+        **{f"fsdv2_two_stage_loss_{k}": fsdv2_ts["dw_step"][k]
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "fsdv2_two_stage_loss_bound_by": bound_by(fsdv2_ts["dw_shapes"],
+                                                  "convs_per_step"),
+        "fsdv2_two_stage_loss_shapes": fsdv2_ts.pop("dw_shapes"),
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -3589,6 +4237,9 @@ def main() -> None:
         "grad_err_vs_f64": sst_train["mha_grad_err"],
         # the wrapper's host time (Python, checks, ctypes, launch) per frame
         "host_ms": sum(r["host_ms"] * r["calls_per_frame"] for r in mha_rows),
+        # the wrapper's host time per call, its entry point bound once and
+        # set on every call (phase 8, one input)
+        "host_us": WRAPPER_HOST_US.get("window_mha"),
         "shapes": mha_rows,
         # per frame of the bf16 SST build (phase 16): its own frame 0's
         # inputs, timed and bounded as phase 8's
@@ -3613,7 +4264,11 @@ def main() -> None:
         "sst_bf16_rotation": sst_bf16["latency_rotation"],
         "fsdpp": fsdpp["latency"]["median"],
         "fsdpp_skip_rcnn": fsdpp["latency_skip_rcnn"]["median"],
-        "fsdpp_dense": fsdpp["dense"]["latency"]["median"]},
+        "fsdpp_dense": fsdpp["dense"]["latency"]["median"],
+        "ctrl": ctrl["latency"]["median"],
+        "fsdv2_two_stage": fsdv2_ts["latency"]["median"],
+        "fsdv2_two_stage_skip_rcnn": fsdv2_ts["latency_skip_rcnn"][
+            "median"]},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -3625,6 +4280,9 @@ def main() -> None:
         "train_sst_bf16": sst_bf16_train,
         "fsdpp": fsdpp,
         "train_fsdpp": fsdpp_train,
+        "ctrl": ctrl,
+        "fsdv2_two_stage": fsdv2_ts,
+        "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)
     # one card drove every phase

@@ -71,17 +71,26 @@ def boxes_iou_bev(boxes_a, boxes_b, eps: float = 1e-6):
     return inter / torch.clamp(area_a + area_b - inter, min=eps)
 
 
-def boxes_iou_3d(boxes_a, boxes_b, eps: float = 1e-6):
+def boxes_iou_3d(boxes_a, boxes_b, eps: float = 1e-6,
+                 aligned: bool = False):
     """[N, M] rotated 3D IoU: the BEV overlap times the overlap of the z
-    extents, ``boxes[:, 2]`` the bottom and ``boxes[:, 5]`` the height."""
-    inter_bev = bev_overlap(boxes_a, boxes_b)
-    za1, za2 = boxes_a[:, 2][:, None], (boxes_a[:, 2] + boxes_a[:, 5])[:, None]
-    zb1, zb2 = boxes_b[:, 2][None, :], (boxes_b[:, 2] + boxes_b[:, 5])[None, :]
-    inter_h = torch.clamp(torch.minimum(za2, zb2) - torch.maximum(za1, zb1),
-                          min=0.0)
+    extents, ``boxes[:, 2]`` the bottom and ``boxes[:, 5]`` the height.
+    ``aligned``: the [N] IoUs of row i of ``boxes_a`` with row i of
+    ``boxes_b`` alone, the JAX package's ``vmap`` of the [1, 1] IoU over
+    the pairs, op by op, with no [N, N] formed."""
+    if aligned:
+        inter_bev = rect_intersection_area(bev_corners(bev(boxes_a)).float(),
+                                           bev_corners(bev(boxes_b)).float())
+        a, b = boxes_a, boxes_b
+    else:
+        inter_bev = bev_overlap(boxes_a, boxes_b)
+        a, b = boxes_a[:, None], boxes_b[None, :]
+    inter_h = torch.clamp(torch.minimum(a[..., 2] + a[..., 5],
+                                        b[..., 2] + b[..., 5])
+                          - torch.maximum(a[..., 2], b[..., 2]), min=0.0)
     inter = inter_bev * inter_h
-    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
-    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    vol_a = a[..., 3] * a[..., 4] * a[..., 5]
+    vol_b = b[..., 3] * b[..., 4] * b[..., 5]
     return inter / torch.clamp(vol_a + vol_b - inter, min=eps)
 
 

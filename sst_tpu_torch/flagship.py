@@ -1,7 +1,7 @@
 """Flagship model builders and the synthetic frame generators (counterpart
-of ``sst_tpu/flagship.py``: the SST, FSDv2 and tiny FSD and FSD++ builds;
-the full-width FSD and FSD++ are built from their configs,
-``utils/builders.py``).
+of ``sst_tpu/flagship.py``: the SST, FSDv2 and tiny FSD, FSD++ and CTRL
+builds; the full-width FSD, FSD++, FSDV2 two stage and CTRL are built from
+their configs, ``utils/builders.py``).
 
 Every builder returns its module on ``device``, the card by default, and
 raises if there is no card and the caller named no other device
@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from sst_tpu_torch.models import DynamicVoxelNet, PointBatch
+from sst_tpu_torch.models.ctrl import TrackletBatch, TrackletDetector
 from sst_tpu_torch.models.fsd.fsdpp import TemporalBatch, TwoStageFSDPP
 from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
 from sst_tpu_torch.models.fsd.single_stage import FSDCaps, SingleStageFSD
@@ -505,21 +506,22 @@ def tiny_fsd(num_point_features: int = 5, device="cuda"):
                                     **_tiny_fsd_cfg()), device)
 
 
-def _tiny_two_stage_cfg() -> dict:
+def _tiny_roi_head_cfg() -> dict:
     return dict(
-        single_stage=_tiny_fsd_cfg(),
-        roi_head=dict(
-            max_inbox_point=32,
-            bbox_head=dict(
-                num_blocks=2,
-                feat_channels=((32, 32),) * 2,
-                rel_mlp_hidden=((8, 8),) * 2,
-                reg_mlp=(64, 64),
-                cls_mlp=(64, 64),
-            ),
+        max_inbox_point=32,
+        bbox_head=dict(
+            num_blocks=2,
+            feat_channels=((32, 32),) * 2,
+            rel_mlp_hidden=((8, 8),) * 2,
+            reg_mlp=(64, 64),
+            cls_mlp=(64, 64),
         ),
-        rois_per_sample=16,
     )
+
+
+def _tiny_two_stage_cfg() -> dict:
+    return dict(single_stage=_tiny_fsd_cfg(), roi_head=_tiny_roi_head_cfg(),
+                rois_per_sample=16)
 
 
 def tiny_fsd_two_stage(num_point_features: int = 5, device="cuda"):
@@ -538,6 +540,28 @@ def tiny_fsdpp(num_point_features: int = 5, device="cuda"):
         num_point_features=num_point_features, fsd=_tiny_two_stage_cfg(),
         point_cloud_range=_TINY_FSD_PCR, inc_voxel_size=(0.4, 0.4, 0.4),
         pre_score_thr=0.1, center_noise=0.1, dim_noise=0.05, yaw_noise=0.1,
+    ), device)
+
+
+def tiny_ctrl(device="cuda"):
+    """Small CTRL ``TrackletDetector`` (tracklet segmentor + track RoI head)
+    for CPU tests, the config of the JAX ``tiny_ctrl``, on ``device``; its
+    points are :func:`tracklet_batch`'s six channels."""
+    return on_device(TrackletDetector(
+        num_point_features=6,
+        segmentor=dict(
+            point_cloud_range=(-3.2, -3.2, -4.0, 3.2, 3.2, 4.0),
+            voxel_size=(0.2, 0.2, 0.4),
+            max_voxels=512,
+            unet_level_caps=(512, 256, 128),
+            vfe=dict(feat_channels=(16, 16), mode="max"),
+            unet=dict(
+                in_channels=16, base_channels=16,
+                encoder_channels=((16,), (16, 16), (16, 16)),
+                decoder_channels=((16, 16, 16), (16, 16, 16), (16, 16, 16)),
+            ),
+        ),
+        roi_head=dict(num_classes=1, **_tiny_roi_head_cfg()),
     ), device)
 
 
@@ -805,3 +829,28 @@ def synthetic_labeled_batch(batch_size: int = 1, num_points: int = 196608,
                     num_points=npts_meta[i][gvalid[i]])
                for i in range(batch_size)]
     return batch, gt_meta
+
+
+def tracklet_batch(rng: np.random.RandomState, b: int = 2, p: int = 512,
+                   f: int = 8, device="cuda") -> TrackletBatch:
+    """CTRL input for the tiny model on ``device``: track-frame points
+    (x, y, z, two channels, the time lag ``frame * 0.1``), tracker boxes and
+    gt candidates at the tracker boxes plus N(0, 0.05) noise. The same numpy
+    draws from ``rng`` as the JAX package's ``tracklet_batch``."""
+    pts = np.clip(rng.randn(b, p, 3).astype(np.float32), -3.0, 3.0)
+    inten = rng.rand(b, p, 2).astype(np.float32)
+    ts = rng.randint(0, f, (b, p)).astype(np.int32)
+    points = np.concatenate(
+        [pts, inten, ts[..., None].astype(np.float32) * 0.1], -1)
+    trk = np.concatenate(
+        [rng.uniform(-0.5, 0.5, (b, f, 2)), np.full((b, f, 1), -1.0),
+         np.tile([[.9, 2.0, 1.5]], (b, f, 1))
+         * rng.uniform(0.9, 1.1, (b, f, 3)),
+         rng.uniform(-0.3, 0.3, (b, f, 1))], -1,
+    ).astype(np.float32)
+    gt = trk + rng.randn(b, f, 7).astype(np.float32) * 0.05
+    return TrackletBatch(
+        points=points, valid=np.ones((b, p), bool), frame_inds=ts,
+        trk_boxes=trk, trk_scores=rng.rand(b, f).astype(np.float32),
+        trk_valid=np.ones((b, f), bool), labels=np.zeros((b,), np.int32),
+        gt_boxes=gt, gt_valid=np.ones((b, f), bool)).to(device)

@@ -25,15 +25,21 @@ class PointBatch:
     gt_valid: Any = None
 
     def to(self, device) -> "PointBatch":
-        def conv(x):
-            if x is None:
-                return None
-            if isinstance(x, np.ndarray):
-                x = torch.from_numpy(x)
-            return x.to(device)
+        return batch_to(self, device)
 
-        return PointBatch(**{f.name: conv(getattr(self, f.name))
-                             for f in fields(self)})
+
+def batch_to(batch, device):
+    """A copy of the batch dataclass ``batch`` whose fields are tensors on
+    ``device`` (numpy arrays converted, None kept)."""
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(device)
+
+    return type(batch)(**{f.name: conv(getattr(batch, f.name))
+                          for f in fields(batch)})
 
 
 # the detectors import PointBatch from here, so they come after it
@@ -42,4 +48,4 @@ from sst_tpu_torch.models.detectors.dynamic_voxelnet import (  # noqa: E402
 )
 from sst_tpu_torch.models.fsd.fsdv2 import SingleStageFSDV2  # noqa: E402
 
-__all__ = ["DynamicVoxelNet", "PointBatch", "SingleStageFSDV2"]
+__all__ = ["DynamicVoxelNet", "PointBatch", "SingleStageFSDV2", "batch_to"]

@@ -22,15 +22,14 @@ adds no noise.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from sst_tpu_torch.core.boxes import points_in_boxes
-from sst_tpu_torch.models import PointBatch
+from sst_tpu_torch.models import PointBatch, batch_to
 from sst_tpu_torch.models.fsd.two_stage import FSD
 from sst_tpu_torch.ops.ccl import topk_compact
 from sst_tpu_torch.ops.fps import group_fps_mask
@@ -63,13 +62,7 @@ class TemporalBatch:
     seed_valid: Any
 
     def to(self, device) -> "TemporalBatch":
-        def conv(x):
-            if isinstance(x, np.ndarray):
-                x = torch.from_numpy(x)
-            return x.to(device)
-
-        return TemporalBatch(**{f.name: conv(getattr(self, f.name))
-                                for f in fields(self)})
+        return batch_to(self, device)
 
 
 class SeedDraws(NamedTuple):

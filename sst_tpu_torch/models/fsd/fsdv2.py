@@ -1,6 +1,8 @@
 """FSDv2 — virtual-voxel fully-sparse detector (counterpart of
-``sst_tpu/models/fsd/fsdv2.py``), single-stage: inference and ``loss``
-(train mode) in its sparse and dense-BEV builds.
+``sst_tpu/models/fsd/fsdv2.py``): the single stage, inference and ``loss``
+(train mode) in its sparse and dense-BEV builds, and the two stage
+``FSDV2`` (the single stage as its RPN, then ``GroupCorrectionHead`` over
+the recovered per-point features).
 
 Pipeline: VoteSegmentor (multiscale) → per-class fg sampling (threshold +
 static top-k) → virtual points = vote-shifted centres with ``virtual_proj``
@@ -19,6 +21,10 @@ DenseBEVMixer mixes them.
 boxes, and the head's per-task losses against the virtual voxels' gt boxes.
 ``seg_logits``, ``seg_vote_preds`` and ``offsets`` reach the detection
 branch detached (``detach_seg``), as in the JAX package.
+
+``as_rpn``: ``extract_feat`` also recovers per-point features for an RoI
+stage: each real and virtual point takes its virtual voxel's mixed
+features and its offset from the voxel centre through ``recover_proj``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from torch import nn
 from sst_tpu_torch.core.target_assign import gt_point_class_labels
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.dense_bev import DenseBEVMixer
+from sst_tpu_torch.models.fsd.roi_head import GroupCorrectionHead
 from sst_tpu_torch.models.fsd.sparse_cluster_head import SparseClusterHeadV2
+from sst_tpu_torch.models.fsd.two_stage import top_proposals
 from sst_tpu_torch.models.fsd.vote_segmentor import (
     VoteSegmentor,
     seg_targets,
@@ -106,9 +114,9 @@ class SingleStageFSDV2(nn.Module):
                 f"{backbone!r}: the port runs 'sparse' with 'sparse' and "
                 f"'dense_bev' with 'dense_bev'")
         if group_names is not None:
-            raise NotImplementedError("group_names (batched group sampling)")
-        if as_rpn:
-            raise NotImplementedError("as_rpn")
+            raise NotImplementedError(
+                "group_names (batched group sampling): ROADMAP queue 1 "
+                "item 7c")
         if centroid_alpha is not None:
             raise NotImplementedError("centroid_alpha")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -122,6 +130,7 @@ class SingleStageFSDV2(nn.Module):
         # join the fg selection (single_stage_fsd.py:776-796)
         self.add_gt_fg_points = bool(train_cfg.get("add_gt_fg_points", False))
         self.mixer_type = mixer_type
+        self.as_rpn = as_rpn
         self.mixer_strides = tuple(tuple(s) for s in mixer_strides)
         self.mixer_paddings = tuple(tuple(p) for p in mixer_paddings)
         self.point_cloud_range = tuple(point_cloud_range)
@@ -174,6 +183,11 @@ class SingleStageFSDV2(nn.Module):
         self.head_mod = SparseClusterHeadV2(
             num_classes=num_classes, class_names=tuple(class_names),
             dtype=dtype, **head_kw)
+        if as_rpn:
+            # per-point recovery: the voxel's mixed features and the
+            # point's offset from the voxel centre
+            self.recover_proj = MLP(self.mixer_mod.out_channels + 3,
+                                    (128, 128), norm="ln", dtype=dtype)
 
     # --------------------------------------------------------------- sampling
 
@@ -338,7 +352,7 @@ class SingleStageFSDV2(nn.Module):
                            device=vc.device)
         vcoords = vc[vidx]
         vcenters = (vcoords[:, [3, 2, 1]].float() + 0.5) * vs + pcr
-        return {
+        out = {
             "virtual_feats": orig_out[vidx],
             "virtual_centers": torch.where(vvalid[:, None], vcenters, 0.0),
             "virtual_batch": torch.clamp(vcoords[:, 0], min=0),
@@ -350,6 +364,17 @@ class SingleStageFSDV2(nn.Module):
                 cat_valid & vm.valid
                 & (vm.point_seg_ids >= caps.voxels)).sum(dtype=torch.int32),
         }
+        if self.as_rpn:
+            pt_feat = gather_segments(orig_out, vm.point_seg_ids)
+            pt_vc = (vm.coords[:, [3, 2, 1]].float() + 0.5) * vs + pcr
+            offset = torch.where(vm.valid[:, None],
+                                 (pt_vc - cat_xyz) / vs * 2.0, 0.0)
+            out.update(
+                pts_feats=self.recover_proj(
+                    torch.cat([pt_feat, offset], dim=-1), vm.valid, train),
+                pts_xyz=cat_xyz, pts_batch=cat_batch,
+                pts_valid=cat_valid & vm.valid)
+        return out
 
     # ---------------------------------------------------------------- wiring
 
@@ -423,3 +448,89 @@ class SingleStageFSDV2(nn.Module):
 
     def forward(self, batch: PointBatch, train: bool = False):
         return self.run_pipeline(batch, train)["outs"]
+
+
+class FSDV2(nn.Module):
+    """Two-stage FSDv2: ``SingleStageFSDV2`` with ``as_rpn`` as the RPN,
+    its boxes' per-sample top ``rois_per_sample`` as proposals, and
+    ``GroupCorrectionHead`` over the recovered per-point features of the
+    real and virtual points. ``num_point_features`` is the width of a raw
+    point row, passed to the single stage."""
+
+    def __init__(self, num_point_features: int = 5,
+                 single_stage: dict | None = None,
+                 roi_head: dict | None = None, rois_per_sample: int = 128,
+                 dtype=torch.float32):
+        super().__init__()
+        ss = dict(single_stage or {}, as_rpn=True)
+        self.rpn = SingleStageFSDV2(num_point_features=num_point_features,
+                                    dtype=dtype, **ss)
+        self.rois_per_sample = rois_per_sample
+        self.roi = GroupCorrectionHead(
+            3, self.rpn.recover_proj.out_channels,
+            num_classes=self.rpn.num_classes, dtype=dtype, **(roi_head or {}))
+
+    @property
+    def point_cloud_range(self):
+        return self.rpn.point_cloud_range
+
+    @property
+    def test_cfg(self):
+        return self.rpn.test_cfg
+
+    def _proposals(self, pipe: dict):
+        """Per-sample top-k decoded virtual-voxel boxes across tasks → flat
+        rois (boxes, scores, labels, valid, batch)."""
+        ex = pipe["ex"]
+        return top_proposals(self.rpn.head_mod, pipe["outs"],
+                             ex["virtual_centers"], ex["virtual_valid"],
+                             ex["virtual_batch"], pipe["batch_size"],
+                             self.rois_per_sample)
+
+    @staticmethod
+    def _roi_points(pipe: dict):
+        ex = pipe["ex"]
+        return ex["pts_xyz"], ex["pts_feats"], ex["pts_valid"], ex["pts_batch"]
+
+    def loss(self, batch: PointBatch, train: bool = True,
+             thr_extra: float = 0.0, pretrain: bool = False,
+             generator: torch.Generator | None = None) -> dict:
+        """The single stage's losses, then the RoI head's on the detached
+        proposals (``loss*`` keys, summed by ``train/step.py``) and the
+        counters JAX's returns. ``generator``: the RoI sampler's uniforms,
+        where the RoI head has a sampler."""
+        pipe = self.rpn.run_pipeline(batch, train, thr_extra, pretrain)
+        losses = self.rpn.losses_from_pipeline(batch, pipe)
+        rois, _, rlabels, rvalid, rbatch = self._proposals(pipe)
+        pts, feats, pvalid, pbatch = self._roi_points(pipe)
+        losses.update(self.roi.loss(
+            pts, feats, pvalid, pbatch, rois.detach(), rlabels, rvalid,
+            rbatch, batch.gt_boxes, batch.gt_labels, batch.gt_valid, train,
+            generator=generator))
+        return losses
+
+    @torch.inference_mode()
+    def predict(self, batch: PointBatch, skip_rcnn: bool = False) -> dict:
+        """Boxes for a batch. ``skip_rcnn``: the single stage's boxes
+        ([B, max_num]); else the refined proposals ([B, min(max_num,
+        B * rois_per_sample)])."""
+        pipe = self.rpn.run_pipeline(batch, detach_seg=False)
+        if skip_rcnn:
+            ex = pipe["ex"]
+            return self.rpn.head_mod.get_bboxes(
+                pipe["outs"], ex["virtual_centers"], ex["virtual_batch"],
+                ex["virtual_valid"], pipe["batch_size"], **self.test_cfg)
+        rois, rscores, rlabels, rvalid, rbatch = self._proposals(pipe)
+        pts, feats, pvalid, pbatch = self._roi_points(pipe)
+        return self.roi.predict(
+            pts, feats, pvalid, pbatch, rois, rscores, rlabels, rvalid,
+            rbatch, pipe["batch_size"],
+            **{k: v for k, v in self.test_cfg.items()
+               if k in ("nms_thr", "score_thr", "max_num", "use_rotate_nms")})
+
+    def forward(self, batch: PointBatch, train: bool = False):
+        pipe = self.rpn.run_pipeline(batch, train)
+        rois, _, _, rvalid, rbatch = self._proposals(pipe)
+        pts, feats, pvalid, pbatch = self._roi_points(pipe)
+        return self.roi.pool_and_forward(pts, feats, pvalid, pbatch,
+                                         rois[:, :7], rvalid, rbatch, train)

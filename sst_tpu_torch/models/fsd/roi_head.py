@@ -238,6 +238,25 @@ class FullySparseBboxHead(nn.Module):
         return cls_score[:, 0], bbox_pred, nonempty
 
 
+def pool_and_refine(head, pts_xyz, pts_feats, pts_valid, pts_group, rois,
+                    roi_valid, roi_group, train: bool = False):
+    """``dynamic_point_pool`` of the points in each roi of their group, at
+    ``head``'s ``extra_wlh``, ``max_inbox_point`` and ``max_paired_points``,
+    then ``head.bbox_head_mod`` over the pairs: (cls_score [R], bbox_pred
+    [R, 7], nonempty [R], membership_overflow). ``pts_xyz`` rows are the
+    pairs' point rows (xyz first)."""
+    pool = dynamic_point_pool(
+        pts_xyz[:, :3], pts_valid, pts_group, rois, roi_valid, roi_group,
+        head.extra_wlh, head.max_inbox_point, head.max_paired_points)
+    r, _ = pool["idx"].shape
+    pair_valid = pool["valid"].reshape(-1)
+    flat_idx = torch.where(pair_valid, pool["idx"].reshape(-1), -1)
+    return head.bbox_head_mod(
+        gather_rows(pts_xyz, flat_idx), gather_rows(pts_feats, flat_idx),
+        pool["geo"].reshape(-1, 13), pair_valid, r,
+        train) + (pool["membership_overflow"],)
+
+
 class GroupCorrectionHead(nn.Module):
     """Assign and sample proposals, pool each one's in-box points and
     refine it with SIR².
@@ -280,16 +299,8 @@ class GroupCorrectionHead(nn.Module):
                          rois, roi_valid, roi_batch, train: bool = False):
         """(cls_score [R], bbox_pred [R, 7], nonempty [R],
         membership_overflow)."""
-        pool = dynamic_point_pool(
-            pts_xyz[:, :3], pts_valid, pts_batch, rois, roi_valid, roi_batch,
-            self.extra_wlh, self.max_inbox_point, self.max_paired_points)
-        r, _ = pool["idx"].shape
-        pair_valid = pool["valid"].reshape(-1)
-        flat_idx = torch.where(pair_valid, pool["idx"].reshape(-1), -1)
-        return self.bbox_head_mod(
-            gather_rows(pts_xyz, flat_idx), gather_rows(pts_feats, flat_idx),
-            pool["geo"].reshape(-1, 13), pair_valid, r,
-            train) + (pool["membership_overflow"],)
+        return pool_and_refine(self, pts_xyz, pts_feats, pts_valid,
+                               pts_batch, rois, roi_valid, roi_batch, train)
 
     # -------------------------------------------------------------- training
 

@@ -50,13 +50,15 @@ from sst_tpu_torch.ops.segment import (
     segment_reduce,
     unique_segments,
 )
-from sst_tpu_torch.ops.voxelize import grid_shape_zyx
+from sst_tpu_torch.ops.voxelize import f32_reciprocal, grid_shape_zyx
 
 def _cell_coords(xyz: torch.Tensor, lo, size) -> torch.Tensor:
-    """[N, 3] int32 ``floor((xyz - lo) / size)``, column by column with
-    Python scalars (float32 arithmetic, as JAX's float32 arrays; no small
+    """[N, 3] int32 ``floor((xyz - lo) * (1 / size))``, column by column
+    with Python scalars (float32 arithmetic, as JAX's float32 arrays, and
+    its float32 reciprocal, ``ops/voxelize.py f32_reciprocal``; no small
     tensor copied to the card, which would wait for its queue)."""
-    return torch.stack([torch.floor((xyz[:, i] - lo[i]) / size[i])
+    return torch.stack([torch.floor((xyz[:, i] - lo[i])
+                                    * f32_reciprocal(size[i]))
                         for i in range(3)], dim=-1).to(torch.int32)
 
 

@@ -38,6 +38,42 @@ def scatter_last_wins(rows: torch.Tensor, index: torch.Tensor,
     return gather_rows(values, winner[:rows])
 
 
+def top_proposals(head, outs: dict, centers, valid, batch,
+                  batch_size: int, k: int):
+    """The single stage's boxes as rois: each task's boxes decoded at the
+    ``centers`` (``head.bbox_coder_scale``), scored by their best class and
+    labelled with its class id, then per sample the ``k`` best valid ones
+    over all tasks (``topk_compact``, no NMS). Returns flat [B * k] (boxes,
+    scores (0 on empty slots), labels, valid, batch)."""
+    boxes_l, scores_l, labels_l = [], [], []
+    for t in range(len(head.tasks)):
+        scores = torch.sigmoid(outs["cls_logits"][t])
+        boxes_l.append(base_point_decode(centers, outs["reg_preds"][t],
+                                         head.bbox_coder_scale))
+        scores_l.append(scores.amax(dim=-1))
+        local = scores.argmax(dim=-1)
+        lbl = torch.zeros_like(local, dtype=torch.int32)
+        for li, ci in enumerate(head._task_class_ids(t)):
+            lbl = torch.where(local == li, ci, lbl)
+        labels_l.append(lbl)
+    n_tasks = len(head.tasks)
+    boxes = torch.cat(boxes_l)
+    scores = torch.cat(scores_l)
+    labels = torch.cat(labels_l)
+    valid = torch.cat([valid] * n_tasks)
+    batch = torch.cat([batch] * n_tasks)
+
+    out = [[], [], [], [], []]
+    for i in range(batch_size):
+        idx, sv = topk_compact(scores, valid & (batch == i), k)
+        for lst, v in zip(out, (boxes[idx], torch.where(sv, scores[idx], 0.0),
+                                labels[idx], sv,
+                                torch.full((k,), i, dtype=torch.int32,
+                                           device=idx.device))):
+            lst.append(v)
+    return tuple(torch.cat(lst) for lst in out)
+
+
 class FSD(nn.Module):
     """``num_point_features`` is the width of the raw point rows (xyz
     first), passed to the single stage's segmentor and SIR and to the RoI
@@ -68,38 +104,11 @@ class FSD(nn.Module):
     def _proposals(self, pipe: dict):
         """Per-sample top-k decoded cluster boxes across tasks → flat rois
         (boxes, scores, labels, valid, batch)."""
-        ex, outs = pipe["ex"], pipe["outs"]
-        head = self.rpn.head_mod
-        boxes_l, scores_l, labels_l = [], [], []
-        for t in range(len(head.tasks)):
-            scores = torch.sigmoid(outs["cls_logits"][t])
-            boxes_l.append(base_point_decode(ex["cluster_xyz"],
-                                             outs["reg_preds"][t],
-                                             head.bbox_coder_scale))
-            scores_l.append(scores.amax(dim=-1))
-            local = scores.argmax(dim=-1)
-            lbl = torch.zeros_like(local, dtype=torch.int32)
-            for li, ci in enumerate(head._task_class_ids(t)):
-                lbl = torch.where(local == li, ci, lbl)
-            labels_l.append(lbl)
-        n_tasks = len(head.tasks)
-        boxes = torch.cat(boxes_l)
-        scores = torch.cat(scores_l)
-        labels = torch.cat(labels_l)
-        valid = torch.cat([ex["cluster_valid"]] * n_tasks)
-        batch = torch.cat([ex["cluster_batch"]] * n_tasks)
-
-        k = self.rois_per_sample
-        out = [[], [], [], [], []]
-        for i in range(pipe["batch_size"]):
-            idx, sv = topk_compact(scores, valid & (batch == i), k)
-            for lst, v in zip(out, (boxes[idx],
-                                    torch.where(sv, scores[idx], 0.0),
-                                    labels[idx], sv,
-                                    torch.full((k,), i, dtype=torch.int32,
-                                               device=idx.device))):
-                lst.append(v)
-        return tuple(torch.cat(lst) for lst in out)
+        ex = pipe["ex"]
+        return top_proposals(self.rpn.head_mod, pipe["outs"],
+                             ex["cluster_xyz"], ex["cluster_valid"],
+                             ex["cluster_batch"], pipe["batch_size"],
+                             self.rois_per_sample)
 
     def _roi_points(self, pipe: dict):
         """RoI point set: the pre-voxelized points, their features the SIR

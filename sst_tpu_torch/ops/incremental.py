@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from sst_tpu_torch.ops.voxelize import f32_reciprocal
+
 
 def points_frame_transform(points_xyz: torch.Tensor, pre_pose: torch.Tensor,
                            cur_pose_inv: torch.Tensor) -> torch.Tensor:
@@ -55,13 +57,13 @@ def _grid_size(point_cloud_range, voxel_size) -> tuple[int, int, int]:
 def _voxel_keys(points_xyz: torch.Tensor, valid: torch.Tensor,
                 point_cloud_range, voxel_size):
     """(int32 cell key per point, ``size`` for invalid or out-of-range
-    points; in-range mask; the canvas size). Cells are ``floor((xyz - lo) /
-    voxel)`` in float32, column by column with Python scalars (no small
-    tensor copied to the card)."""
+    points; in-range mask; the canvas size). Cells are ``floor((xyz - lo) *
+    (1 / voxel))`` in float32 (``ops/voxelize.py f32_reciprocal``), column
+    by column with Python scalars (no small tensor copied to the card)."""
     nx, ny, nz = _grid_size(point_cloud_range, voxel_size)
     c = torch.stack([torch.floor((points_xyz[:, i] - point_cloud_range[i])
-                                 / voxel_size[i]) for i in range(3)],
-                    dim=-1).to(torch.int32)
+                                 * f32_reciprocal(voxel_size[i]))
+                     for i in range(3)], dim=-1).to(torch.int32)
     ok = valid & (c >= 0).all(-1) & (c[:, 0] < nx) & (c[:, 1] < ny) \
         & (c[:, 2] < nz)
     key = (c[:, 2] * ny + c[:, 1]) * nx + c[:, 0]

@@ -29,6 +29,7 @@ the transposed table, see ``ops/sparse_conv.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -154,16 +155,23 @@ def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
     return out
 
 
-def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-            mode: str, kind: str,
-            schedule: ConvSchedule | None) -> torch.Tensor:
+@functools.cache
+def _kernel():
+    """The C entry point, bound once."""
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
-    global launches
     fn = load_kernel_library("sparse_conv_gemm").lib.sst_sparse_conv_gemm_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
+            mode: str, kind: str,
+            schedule: ConvSchedule | None) -> torch.Tensor:
+    global launches
+    fn = _kernel()
     vin, cin = feats.shape
     taps, vout = nbr.shape
     cout = weights.shape[2]

@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from sst_tpu_torch.ops.segment import (
@@ -69,14 +70,27 @@ class VoxelMapping:
         return self.unique.seg_ids
 
 
+def f32_reciprocal(x: float) -> float:
+    """The float32 ``1 / x`` as a Python float. Jitted XLA divides by a
+    constant as the product with the constant's float32 reciprocal, so a
+    coordinate exactly on a cell boundary (``(x - lo) / size`` a hair
+    under an integer, its product with the reciprocal the integer) falls
+    in the upper cell in the JAX package: the port's cell floors multiply
+    by this reciprocal to land in the same cell."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
 def compute_voxel_coords(xyz, batch_idx, valid, point_cloud_range,
                          voxel_size):
-    """Per-point (b, z, y, x) int32 voxel coords + in-range mask."""
+    """Per-point (b, z, y, x) int32 voxel coords + in-range mask; the cell
+    is ``floor((xyz - lo) * (1 / size))`` in float32 (see
+    :func:`f32_reciprocal`)."""
     pcr = torch.tensor(point_cloud_range, dtype=torch.float32,
                        device=xyz.device)
-    vs = torch.tensor(voxel_size, dtype=torch.float32, device=xyz.device)
+    inv = torch.tensor([f32_reciprocal(v) for v in voxel_size],
+                       dtype=torch.float32, device=xyz.device)
     nz, ny, nx = grid_shape_zyx(point_cloud_range, voxel_size)
-    c = torch.floor((xyz[:, :3].float() - pcr[:3]) / vs).to(torch.int32)
+    c = torch.floor((xyz[:, :3].float() - pcr[:3]) * inv).to(torch.int32)
     cx, cy, cz = c[:, 0], c[:, 1], c[:, 2]
     in_range = ((cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) & (cz >= 0)
                 & (cz < nz) & valid)

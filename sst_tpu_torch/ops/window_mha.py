@@ -31,6 +31,7 @@ so plain PyTorch computes it here too.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -103,10 +104,20 @@ def skipped_rows(pad: torch.Tensor) -> torch.Tensor:
     return ~live.repeat_interleave(TILE, 1)[:, :t]
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            pad: torch.Tensor, nhead: int) -> torch.Tensor:
+@functools.cache
+def _kernel():
+    """The C entry point, bound once."""
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
+    fn = load_kernel_library("window_mha").lib.sst_window_mha_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            pad: torch.Tensor, nhead: int) -> torch.Tensor:
     global launches
     w, t, c = q.shape
     if c != nhead * HEAD_DIM:
@@ -125,10 +136,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"multiples of 8 and 16-byte aligned data, got "
                          f"strides {q.stride()}")
     pad = pad.contiguous()
-    fn = load_kernel_library("window_mha").lib.sst_window_mha_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel()
     out = torch.empty((w, t, c), dtype=torch.bfloat16, device=q.device)
     if w == 0 or t == 0:
         return out

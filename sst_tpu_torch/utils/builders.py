@@ -3,12 +3,12 @@
 ``build_model_from_cfg``).
 
 Only the detector types the port has are registered: ``FSD``,
-``SingleStageFSD``, ``SingleStageFSDV2``, ``DynamicVoxelNet`` and
-``TwoStageFSDPP``. Any other
-``type`` of the JAX registry raises ``NotImplementedError`` naming its
-ROADMAP queue item. The JAX modules read the point width from their input;
-the port's take it at construction, so the builder does too
-(``num_point_features``), and it returns the model on ``device``.
+``SingleStageFSD``, ``SingleStageFSDV2``, ``FSDV2``, ``DynamicVoxelNet``,
+``TwoStageFSDPP`` and ``TrackletDetector``. Any other ``type`` of the JAX
+registry raises ``NotImplementedError`` naming its ROADMAP queue item. The
+JAX modules read the point width from their input; the port's take it at
+construction, so the builder does too (``num_point_features``), and it
+returns the model on ``device``.
 
 The training half of a config (what the JAX package's ``tools/train.py``
 reads): ``optimizer_from_cfg`` (``optimizer``) and ``schedule_from_cfg``
@@ -26,10 +26,12 @@ from sst_tpu_torch.utils.registry import MODELS
 
 # detector types of the JAX registry not yet ported, by ROADMAP queue 1 item
 UNPORTED_TYPES = {
-    "FSDV2": "ROADMAP queue 1 item 7b (FSDV2 two-stage)",
-    "TrackletDetector": "ROADMAP queue 1 item 8b (CTRL)",
     "PointPillars": "ROADMAP queue 1 item 10 (PointPillars)",
 }
+
+# the point width a type reads where the caller gives none: the CTRL
+# tracklet rows carry a time lag after Waymo's five channels
+_POINT_WIDTH = {"TrackletDetector": 6}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -38,12 +40,14 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 def _register_ported() -> None:
     # imported here: the models import the ops that import this package
     from sst_tpu_torch.models import DynamicVoxelNet, SingleStageFSDV2
+    from sst_tpu_torch.models.ctrl import TrackletDetector
     from sst_tpu_torch.models.fsd.fsdpp import TwoStageFSDPP
+    from sst_tpu_torch.models.fsd.fsdv2 import FSDV2
     from sst_tpu_torch.models.fsd.single_stage import SingleStageFSD
     from sst_tpu_torch.models.fsd.two_stage import FSD
 
-    for cls in (FSD, SingleStageFSD, SingleStageFSDV2, DynamicVoxelNet,
-                TwoStageFSDPP):
+    for cls in (FSD, SingleStageFSD, SingleStageFSDV2, FSDV2,
+                DynamicVoxelNet, TwoStageFSDPP, TrackletDetector):
         MODELS.register(cls)
 
 
@@ -68,7 +72,8 @@ def _tuplify(x):
 
 def _convert_caps(kwargs: dict) -> dict:
     """``caps`` dicts in configs → the static caps dataclasses (also the
-    inner FSD's of a ``TwoStageFSDPP``)."""
+    single stage's of an ``FSD`` or ``FSDV2`` and the inner FSD's of a
+    ``TwoStageFSDPP``)."""
     from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps
     from sst_tpu_torch.models.fsd.single_stage import FSDCaps
 
@@ -77,30 +82,33 @@ def _convert_caps(kwargs: dict) -> dict:
     if t in cls_by_type and isinstance(kwargs.get("caps"), dict):
         kwargs["caps"] = cls_by_type[t](**kwargs["caps"])
 
-    def inner_caps(fsd: dict) -> dict:
+    def inner_caps(fsd: dict, caps_cls) -> dict:
         fsd = dict(fsd)
         if isinstance(fsd.get("single_stage"), dict):
             ss = dict(fsd["single_stage"])
             if isinstance(ss.get("caps"), dict):
-                ss["caps"] = FSDCaps(**ss["caps"])
+                ss["caps"] = caps_cls(**ss["caps"])
             fsd["single_stage"] = ss
         return fsd
 
-    if t == "FSD":
-        kwargs = inner_caps(kwargs)
+    if t in ("FSD", "FSDV2"):
+        kwargs = inner_caps(kwargs, FSDCaps if t == "FSD" else FSDV2Caps)
     if t == "TwoStageFSDPP" and isinstance(kwargs.get("fsd"), dict):
-        kwargs["fsd"] = inner_caps(kwargs["fsd"])
+        kwargs["fsd"] = inner_caps(kwargs["fsd"], FSDCaps)
     return kwargs
 
 
 def build_model_from_cfg(cfg: dict, train: bool = True,
-                         num_point_features: int = 5, device="cuda"):
+                         num_point_features: int | None = None,
+                         device="cuda"):
     """Build a detector from a loaded config dict (``model``, ``capacity``,
     ``region_batching_{train,test}`` keys) on ``device``, the card by
     default (``flagship.on_device``: no fallback to the CPU).
 
-    ``num_point_features`` is the width of a point row (5 for Waymo's x, y,
-    z, intensity, elongation, as ``bench.py`` feeds FSD). A ``model.dtype``
+    ``num_point_features`` is the width of a point row; None gives 5 for
+    Waymo's x, y, z, intensity, elongation (as ``bench.py`` feeds FSD), and
+    6 for a ``TrackletDetector`` (the tracklet dataset's five channels and
+    the time lag). A ``model.dtype``
     string ('bfloat16' | 'float32') selects the compute dtype.
     ``capacity.max_points`` becomes ``model.max_points``, the point cap to
     pass to ``apis.prepare_batch`` (65,536 where the config gives none, as
@@ -124,6 +132,8 @@ def build_model_from_cfg(cfg: dict, train: bool = True,
         rb_key = "region_batching_train" if train else "region_batching_test"
         if rb_key in cfg:
             kwargs["buckets"] = buckets_from_cfg(cfg[rb_key])
+    if num_point_features is None:
+        num_point_features = _POINT_WIDTH.get(t, 5)
     model = MODELS.build(kwargs, num_point_features=num_point_features)
     return on_device(model, device, cap.get("max_points", 65536))
 

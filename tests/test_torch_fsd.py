@@ -363,9 +363,11 @@ def test_dense_fsd_config_predicts_at_shrunken_caps():
 
 
 def test_builder_raises_on_types_not_ported():
-    cfg = {"model": {"type": "TrackletDetector"}}
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        build_model_from_cfg(cfg, device="cpu")
+    """Since CTRL and the FSDV2 two stage build, PointPillars is the one
+    detector type of the JAX registry the port lacks."""
+    from sst_tpu_torch.utils.builders import UNPORTED_TYPES
+
+    assert sorted(UNPORTED_TYPES) == ["PointPillars"]
     cfg = {"model": {"type": "PointPillars"}}
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         build_model_from_cfg(cfg, device="cpu")
@@ -388,10 +390,13 @@ def test_fsd_options_outside_the_slice_raise(kw, match):
 
 def test_fsd_training_raises():
     """FSD trains since the training slice (``tests/test_torch_fsd_train.py``
-    holds it against JAX); what of its training is not ported raises,
-    naming its queue item: the FSDV2 two-stage build (7b)."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-        build_model_from_cfg({"model": {"type": "FSDV2"}}, device="cpu")
+    holds it against JAX), and the FSDV2 two stage builds since CTRL's
+    (``tests/test_torch_fsdv2_two_stage.py``); what of the family is not
+    ported raises, naming its queue item: the FSDv2 group sampling (7c)."""
+    cfg = {"model": {"type": "FSDV2", "single_stage": {
+        "group_names": (("Car",), ("Pedestrian", "Cyclist"))}}}
+    with pytest.raises(NotImplementedError, match="queue 1 item 7c"):
+        build_model_from_cfg(cfg, device="cpu")
 
 
 def test_builders_need_a_card_unless_told():

@@ -331,7 +331,10 @@ def test_fp_insertion_fills_empty_slots():
 def test_delta_points_mask_equals_jax():
     """Current points whose 0.4 m voxel no previous point occupies, on a
     cloud with repeats of previous voxels, points out of range on each
-    side, invalid rows and points on voxel faces: JAX's mask exactly."""
+    side, invalid rows and points on voxel faces: JAX's mask exactly, with
+    JAX's function jitted and the range and voxel size constants, as the
+    FSD++ model runs it (XLA then takes a face point's cell with the
+    voxel's float32 reciprocal, see ``ops/voxelize.py f32_reciprocal``)."""
     rng = np.random.RandomState(0)
     pcr, vs = (-8.0, -8.0, -2.0, 8.0, 8.0, 4.0), (0.4, 0.4, 0.4)
     prev = rng.uniform(-9, 9, (600, 3)).astype(np.float32)
@@ -340,7 +343,8 @@ def test_delta_points_mask_equals_jax():
                           rng.uniform(-9, 9, (300, 3)),
                           np.round(prev[:40] / 0.4) * 0.4]).astype(np.float32)
     cv, pv = rng.rand(len(cur)) > 0.1, rng.rand(len(prev)) > 0.2
-    ref = np.asarray(jinc.delta_points_mask(cur, cv, prev, pv, pcr, vs))
+    ref = np.asarray(jax.jit(lambda *a: jinc.delta_points_mask(
+        *a, pcr, vs))(cur, cv, prev, pv))
     got = tinc.delta_points_mask(*(torch.from_numpy(x) for x in (
         cur, cv, prev, pv)), pcr, vs)
     np.testing.assert_array_equal(_np(got), ref)
@@ -537,6 +541,12 @@ class _NoJax:
 
 
 sys.meta_path.insert(0, _NoJax())
+import chip_smoke  # noqa: F401
+import sst_tpu_torch.core.tracklet  # noqa: F401
+import sst_tpu_torch.data.tracklet_dataset  # noqa: F401
+import sst_tpu_torch.models.ctrl.tracklet_detector  # noqa: F401
+import sst_tpu_torch.models.fsd.fsdv2  # noqa: F401
+from sst_tpu_torch.utils.builders import build_model_from_cfg
 from sst_tpu_torch.utils.config import load_config
 
 out = {}
@@ -544,6 +554,8 @@ for path in sys.argv[1:]:
     cfg = load_config(path)
     out[path] = {k: cfg[k] for k in ("model", "capacity", "optimizer",
                                      "schedule")}
+    if cfg["model"]["type"] == "TrackletDetector":
+        build_model_from_cfg(cfg, device="cpu")
 loaded = sorted(m for m in sys.modules
                 if m == "sst_tpu" or m.startswith("sst_tpu."))
 print(repr((loaded, out)))
@@ -553,10 +565,13 @@ print(repr((loaded, out)))
 def test_config_loader_keeps_the_jax_package_out():
     """The FSD++ configs load the FSD config through the JAX package's
     ``load_config``. In a process where jax and flax cannot be imported,
-    the port's loader reads both FSD++ configs and fsdv2_waymo_1x.py without
-    putting any ``sst_tpu`` module into ``sys.modules``, and gives JAX's
-    loader's model, capacity, optimizer and schedule."""
-    paths = list(FSDPP_CFGS) + ["configs/fsdv2/fsdv2_waymo_1x.py"]
+    ``chip_smoke.py`` and the CTRL and FSDV2 modules import, the port's
+    loader reads both FSD++ configs, fsdv2_waymo_1x.py and ctrl_veh_24e.py
+    (which the builder then builds on the CPU) without putting any
+    ``sst_tpu`` module into ``sys.modules``, and gives JAX's loader's model,
+    capacity, optimizer and schedule."""
+    paths = list(FSDPP_CFGS) + ["configs/fsdv2/fsdv2_waymo_1x.py",
+                                "configs/ctrl/ctrl_veh_24e.py"]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     res = subprocess.run([sys.executable, "-c", _LOADER_CHECK, *paths],

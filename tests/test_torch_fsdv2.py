@@ -211,7 +211,7 @@ def test_flagship_builder_uses_the_kernel_on_the_segmentor_only():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(as_rpn=True),
+    dict(dtype=torch.float16),
 ])
 def test_flagship_options_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError):

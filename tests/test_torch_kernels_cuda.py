@@ -457,6 +457,85 @@ def test_sparse_conv_kernels_at_fsdpp_shapes(fsdpp_levels, mode, level, cin,
     assert got.abs().sum() > 0 and dw.abs().sum() > 0
 
 
+CTRL_LEVEL_CAPS = (16384, 8192, 4096)
+
+
+@pytest.fixture(scope="module")
+def ctrl_levels():
+    """The three level grids of configs/ctrl/ctrl_veh_24e.py's tracklet
+    UNet (caps 16,384 / 8,192 / 4,096, k3 s2 p1 downsamples) over its
+    40x128x128 grid (0.1 x 0.1 x 0.2 m over +-6.4 m, +-4 m): one track's
+    cloud, points normal with a 1.5 m spread as in ``bench.py bench_ctrl``,
+    its voxels past the 16,384 cap dropped, as the voxelizer drops them."""
+    device = _cuda()
+    rng = np.random.RandomState(11)
+    n = 32768
+    xy = np.clip(np.floor(64 + rng.randn(n, 2) * 15), 0, 127)
+    z = np.clip(np.floor(20 + rng.randn(n) * 7.5), 0, 39)
+    coords = np.unique(np.stack([np.zeros(n), z, xy[:, 1], xy[:, 0]],
+                                1).astype(np.int32), axis=0)
+    cap = CTRL_LEVEL_CAPS[0]
+    coords = coords[:cap]
+    valid = torch.from_numpy(np.arange(cap) < len(coords))
+    coords = np.concatenate([coords, -np.ones((cap - len(coords), 4),
+                                              np.int32)])
+    g0, _ = tsc.make_sparse_grid(torch.from_numpy(coords).to(device),
+                                 valid.to(device), (40, 128, 128), 1)
+    levels = [g0]
+    for c in CTRL_LEVEL_CAPS[1:]:
+        levels.append(tsc.downsample_grid(levels[-1], c))
+    return levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,level,cin,cout", [
+    ("subm", 0, 64, 64), ("strided", 1, 64, 64), ("strided", 2, 64, 128),
+    ("subm", 2, 256, 128), ("inverse", 2, 128, 64), ("subm", 0, 128, 64)])
+def test_sparse_conv_kernels_at_ctrl_shapes(ctrl_levels, mode, level, cin,
+                                            cout):
+    """CTRL's tracklet UNet at its level caps and widths (conv_input, the
+    two strided encoders, merge_3, upsample_3, merge_1): the conv kernel,
+    the input gradient (the conv kernel over the transposed table) and the
+    dW kernel, each within 1e-4 of its twin (dW on absolute values), one
+    launch each."""
+    if mode == "subm":
+        out_g = in_g = ctrl_levels[level]
+    elif mode == "strided":
+        out_g, in_g = ctrl_levels[level], ctrl_levels[level - 1]
+    else:
+        out_g, in_g = ctrl_levels[level - 1], ctrl_levels[level]
+    plan = tsc.build_conv_plans(out_g, in_g, mode)
+    dev = plan.nbr.device
+    gen = torch.Generator(device=dev).manual_seed(30 + level)
+    feats = torch.randn(in_g.cap, cin, generator=gen,
+                        device=dev) * in_g.valid[:, None]
+    w = torch.randn(27, cin, cout, generator=gen, device=dev) / (
+        27 * cin) ** 0.5
+    dout = torch.randn(out_g.cap, cout, generator=gen,
+                       device=dev) * out_g.valid[:, None]
+    scg.reset_launch_counts()
+    scd.reset_launch_counts()
+    got = scg.sparse_conv_gemm(feats, plan.nbr, w, mode,
+                               schedule=plan.schedule(in_g.cap))
+    nbr_t = plan.transposed(in_g.cap)
+    wt = w.transpose(1, 2).contiguous()
+    dfeats = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad",
+                                  schedule=plan.transposed_schedule(
+                                      in_g.cap))
+    dw = scd.sparse_conv_dw(feats, plan.nbr, dout, mode,
+                            schedule=plan.schedule(in_g.cap))
+    torch.cuda.synchronize()
+    assert scg.kind_counts == {"forward": 1, "dgrad": 1}
+    assert scd.launch_counts == {(mode, cin, cout): 1}
+    torch.testing.assert_close(got, scg.sparse_conv_gemm_ref(
+        feats, plan.nbr, w), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dfeats, scg.sparse_conv_gemm_ref(
+        dout, nbr_t, wt), rtol=1e-4, atol=1e-4)
+    assert _dw_close(dw, feats, plan.nbr, dout)
+    assert got.abs().sum() > 0 and dw.abs().sum() > 0
+    assert int(out_g.valid.sum()) > 0
+
+
 def _dw_close(got, feats, nbr, dout):
     """|kernel - twin| <= 1e-4 * (|feats|^T |dout| per element, the twin on
     absolute values) + 1e-6: f32 sums in another order."""

@@ -6,13 +6,19 @@
   model (it took the model's 196,608-point cap), so the same call keeps
   the same points in both packages;
 - SST's ``remat_blocks`` (JAX's default, on) rematerialises each block in
-  training without changing a value.
+  training without changing a value;
+- a point exactly on a voxel boundary lands in JAX's cell: jitted XLA
+  divides by the constant voxel size as a product with its float32
+  reciprocal, and the port's cell floors now multiply by it too
+  (``ops/voxelize.py compute_voxel_coords``, ``ops/incremental.py`` and
+  FSD's ``_cell_coords``); they divided.
 
 The SST configs that set JAX's switches build and predict in
 tests/test_torch_sst_bf16.py; the config loader that keeps the JAX package
 out of the port's process is held in tests/test_torch_fsdpp.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,12 +26,16 @@ import torch
 
 from sst_tpu import apis as japis
 from sst_tpu import flagship as jflag
+from sst_tpu.ops.incremental import _voxel_keys as jvoxel_keys
 from sst_tpu.ops.segment import gather_segments as jgather
+from sst_tpu.ops.voxelize import dynamic_voxelize as jvoxelize
 from sst_tpu_torch import apis
 from sst_tpu_torch import flagship as tflag
 from sst_tpu_torch.models.detectors import dynamic_voxelnet as tdvn
 from sst_tpu_torch.models.sst import WindowAttention
+from sst_tpu_torch.ops.incremental import _voxel_keys
 from sst_tpu_torch.ops.segment import gather_rows, gather_segments
+from sst_tpu_torch.ops.voxelize import dynamic_voxelize
 from sst_tpu_torch.utils import remat
 
 
@@ -112,3 +122,51 @@ def test_sst_remat_blocks_change_no_value():
     assert g0.keys() == g1.keys()
     for n in g0:
         assert torch.equal(g0[n], g1[n]), n
+
+
+# (range, voxel size): tiny CTRL, configs/ctrl/ctrl_veh_24e.py, the FSDv2
+# segmentor, SST's pillars
+_GRIDS = [((-3.2, -3.2, -4.0, 3.2, 3.2, 4.0), (0.2, 0.2, 0.4)),
+          ((-6.4, -6.4, -4.0, 6.4, 6.4, 4.0), (0.1, 0.1, 0.2)),
+          ((-80.0, -80.0, -2.0, 80.0, 80.0, 4.0), (0.25, 0.25, 0.2)),
+          ((-74.88, -74.88, -2.0, 74.88, 74.88, 4.0), (0.32, 0.32, 6.0))]
+
+
+def _boundary_points(pcr, vs, n=6000, seed=0):
+    """Points on cell boundaries: ``lo + k * size`` in float32, and
+    rounded decimals such as the clipped 3.0 of CTRL's tracks."""
+    rng = np.random.RandomState(seed)
+    k = np.stack([rng.randint(0, int(round((pcr[i + 3] - pcr[i]) / vs[i])),
+                              n) for i in range(3)], 1)
+    pts = np.float32(pcr[:3]) + k.astype(np.float32) * np.float32(vs)
+    hi = np.float32(pcr[3]) - 0.2
+    pts[:1000] = np.clip(rng.randn(1000, 3) * 5, -hi, hi).round(1)
+    return pts.astype(np.float32)
+
+
+@pytest.mark.parametrize("grid", range(len(_GRIDS)))
+def test_boundary_points_take_jax_voxels(grid):
+    """``dynamic_voxelize`` (jitted in the JAX package, its range and size
+    static) and the FSD++ cell keys (JAX's under ``jax.jit`` with the range
+    and size as constants, as in the model) put every boundary point in
+    JAX's cell; the division the port made before puts hundreds elsewhere
+    on these grids."""
+    pcr, vs = _GRIDS[grid]
+    pts = _boundary_points(pcr, vs)
+    n = len(pts)
+    bi, valid = np.zeros(n, np.int32), np.ones(n, bool)
+    ref = jvoxelize(jnp.asarray(pts), jnp.asarray(bi), jnp.asarray(valid),
+                    pcr, vs, n, 1)
+    got = dynamic_voxelize(torch.from_numpy(pts), torch.from_numpy(bi),
+                           torch.from_numpy(valid), pcr, vs, n, 1)
+    np.testing.assert_array_equal(got.coords.numpy(), np.asarray(ref.coords))
+    np.testing.assert_array_equal(got.point_seg_ids.numpy(),
+                                  np.asarray(ref.point_seg_ids))
+    divided = np.floor((pts - np.float32(pcr[:3])) / np.float32(vs))
+    assert (divided != np.asarray(ref.coords)[:, [3, 2, 1]]).any(1).sum() > 20
+    jkeys = jax.jit(lambda p, v: jvoxel_keys(p, v, pcr, vs))(
+        jnp.asarray(pts), jnp.asarray(valid))
+    tkeys = _voxel_keys(torch.from_numpy(pts), torch.from_numpy(valid), pcr,
+                        vs)
+    for a, b in zip(tkeys[:2], jkeys[:2]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
