@@ -233,6 +233,7 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import statistics
 from collections import Counter
 import sys
@@ -3801,6 +3802,225 @@ def phase_fsdv2_two_stage(device):
             "dw_step": dw_step, "dw_err": dw_err, "dgrad_err": dgrad_err}
 
 
+# ---------------------------------------------------------------- phase 20
+
+CLI_TRAIN_CONFIG = "configs/fsdv2/fsdv2_waymo_1x.py"
+# the flagship build's remat (sst_tpu/flagship.py fsdv2_waymo, phase 11);
+# the config leaves it off, as JAX's does
+CLI_TRAIN_OPTIONS = ("model.segmentor.unet.remat=True", "model.mixer.remat=True")
+CLI_SST_CONFIG = "configs/sst/sst_waymoD5_3class_bf16.py"
+CLI_TRAIN_STEPS, CLI_EVAL_FRAMES = 4, 2
+
+
+def _cli_counts() -> dict:
+    return {**scg.kind_counts, "dw": sdw.launches, "window_mha": wm.launches,
+            "sorted_reduce": sr.launches}
+
+
+def _cli_run(main, argv, title):
+    """``main(argv)`` with every launch count set to 0 just before it;
+    returns (its summary, the launches it made, seconds)."""
+    print(f"cli: {title}: {' '.join(argv)}", flush=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main(list(argv))
+    torch.cuda.synchronize()
+    return out, _cli_counts(), time.perf_counter() - t0
+
+
+def _same_state_bits(a, b, path="") -> list:
+    """Paths where two (nested) states differ: tensors by dtype, shape and
+    bits, everything else by value."""
+    if isinstance(a, dict):
+        if sorted(a, key=str) != sorted(b, key=str):
+            return [path + "/keys"]
+        return [d for k in a for d in _same_state_bits(a[k], b[k],
+                                                       f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _same_state_bits(x, y, f"{path}/{i}")] + (
+            [path + "/len"] if len(a) != len(b) else [])
+    if isinstance(a, torch.Tensor):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return [path]
+        if a.is_floating_point():
+            bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+                a.element_size()]
+            a, b = a.reshape(-1).view(bits), b.reshape(-1).view(bits)
+        return [] if torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def _expect(what: str, got: dict, want: dict) -> None:
+    have = {k: got.get(k, 0) for k in want}
+    if have != want:
+        fail(f"cli: {what}: launches {have}, expected {want} from the "
+             f"modules")
+
+
+def phase_cli(device):
+    """Phase 20: the port's train and test CLIs in process, at full width:
+    ``tools.train.main`` on configs/fsdv2/fsdv2_waymo_1x.py --synthetic
+    (remat on through --cfg-options, as the flagship build): 4 steps, a
+    checkpoint at 2, in-train eval at 4 over 2 synthetic frames; a resume
+    from ckpt_2 to step 4; ckpt_4 restored on the card equal to the saved
+    one bit for bit; ``tools.test.main`` on ckpt_4 with --eval waymo, on
+    configs/sst/sst_waymoD5_3class_bf16.py --eval ap3d (seed-0 weights)
+    and on configs/fsd/fsd_waymoD1_1x.py --eval seg. Each run's launches,
+    counted from 0, are held against the modules. Returns the phase's
+    record."""
+    from sst_tpu_torch.tools import test as test_cli
+    from sst_tpu_torch.tools import train as train_cli
+    from sst_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        read_checkpoint,
+        save_checkpoint,
+    )
+    from sst_tpu_torch.tools.train import apply_cfg_options
+
+    t_phase = time.perf_counter()
+    cfg = apply_cfg_options(load_config(CLI_TRAIN_CONFIG), CLI_TRAIN_OPTIONS)
+    model = build_model_from_cfg(cfg, train=True, device=device)
+    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    n = len(convs)
+    # the config's VFEs leave the sorted reduce off, as JAX's do
+    per_step = {"forward": n, "recompute": n_remat, "dgrad": n, "dw": n,
+                "sorted_reduce": 0}
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    common = [CLI_TRAIN_CONFIG, "--synthetic", "--device", str(device),
+              "--work-dir", work,
+              "--log-interval", "1", "--ckpt-interval", "2",
+              "--eval-interval", str(CLI_TRAIN_STEPS), "--eval-samples",
+              str(CLI_EVAL_FRAMES), "--cfg-options", *CLI_TRAIN_OPTIONS]
+    torch.cuda.reset_peak_memory_stats()
+    train, train_launches, train_s = _cli_run(
+        train_cli.main, common + ["--max-steps", str(CLI_TRAIN_STEPS)],
+        "train")
+    peak = torch.cuda.max_memory_allocated()
+    eval_forward = CLI_EVAL_FRAMES * n
+    _expect("train", train_launches, {
+        k: v * CLI_TRAIN_STEPS + (eval_forward if k == "forward" else 0)
+        for k, v in per_step.items()})
+    ckpt2 = os.path.join(work, "ckpt_2")
+    resume, resume_launches, resume_s = _cli_run(
+        train_cli.main, common + ["--max-steps", str(CLI_TRAIN_STEPS),
+                                  "--resume-from", ckpt2], "resume")
+    n_resumed = CLI_TRAIN_STEPS - 2
+    _expect("resume", resume_launches, {
+        k: v * n_resumed + (eval_forward if k == "forward" else 0)
+        for k, v in per_step.items()})
+    losses = train["loss_total"] + resume["loss_total"]
+    if not all(np.isfinite(losses)) or resume["start_step"] != 2 \
+            or len(losses) != CLI_TRAIN_STEPS + n_resumed:
+        fail(f"cli: losses {losses}, resumed at {resume['start_step']}")
+    evals = train["eval"] + resume["eval"]
+    if len(evals) != 2 or not all(np.isfinite(v) for e in evals
+                                  for v in e.values()):
+        fail(f"cli: in-train evals {evals}")
+
+    # ckpt_4 restored on the card against the file, bit for bit, and a
+    # second save of the restored state read back the same
+    ckpt4 = os.path.join(work, f"ckpt_{CLI_TRAIN_STEPS}")
+    raw = read_checkpoint(ckpt4)
+    opt = optimizer_from_cfg(model, cfg, CLI_TRAIN_STEPS)
+    step = load_checkpoint(ckpt4, model, opt)
+    restored = {"model": model.state_dict(), "step": step,
+                "optimizer": {"adamw": opt.adamw.state_dict(),
+                              "count": opt.count}}
+    diff = _same_state_bits(restored, raw)
+    again = read_checkpoint(save_checkpoint(os.path.join(work, "again"),
+                                            model, opt, step))
+    diff += _same_state_bits(again, raw)
+    n_tensors = len(raw["model"]) + sum(
+        len(v) for v in raw["optimizer"]["adamw"]["state"].values())
+    if diff or step != CLI_TRAIN_STEPS or opt.count != CLI_TRAIN_STEPS:
+        fail(f"cli: ckpt_4 restored on the card differs from the saved one "
+             f"at {diff[:8]} (step {step}, count {opt.count})")
+    del model, opt, restored, again, raw
+    torch.cuda.empty_cache()
+
+    test_waymo, waymo_launches, waymo_s = _cli_run(
+        test_cli.main, [CLI_TRAIN_CONFIG, ckpt4, "--synthetic", "--device",
+                        str(device), "--num-samples", str(CLI_EVAL_FRAMES),
+                        "--eval", "waymo"], "test, FSDv2 ckpt_4")
+    _expect("test waymo", waymo_launches, {"forward": eval_forward,
+                                           "dw": 0, "sorted_reduce": 0})
+    sst_cfg = load_config(CLI_SST_CONFIG)
+    sst = build_model_from_cfg(sst_cfg, train=False, device="cpu")
+    # each window attention runs once per bucket
+    mha_per_frame = len(sst.buckets) * sum(
+        isinstance(m, WindowAttention) for m in sst.modules())
+    del sst
+    test_sst, sst_launches, sst_s = _cli_run(
+        test_cli.main, [CLI_SST_CONFIG, "--synthetic", "--device",
+                        str(device), "--num-samples", str(CLI_EVAL_FRAMES),
+                        "--eval", "ap3d"],
+        "test, SST bf16")
+    _expect("test ap3d", sst_launches,
+            {"window_mha": CLI_EVAL_FRAMES * mha_per_frame,
+             "sorted_reduce": 0})
+    fsd = build_model_from_cfg(load_config(FSD_CONFIG), train=False,
+                               device="cpu")
+    n_seg = sum(isinstance(m, SparseConvLayer)
+                for m in fsd.rpn.segmentor_mod.modules())
+    del fsd
+    test_seg, seg_launches, seg_s = _cli_run(
+        test_cli.main, [FSD_CONFIG, "--synthetic", "--device", str(device),
+                        "--num-samples", str(CLI_EVAL_FRAMES), "--eval",
+                        "seg"],
+        "test, FSD seg")
+    _expect("test seg", seg_launches, {"forward": CLI_EVAL_FRAMES * n_seg,
+                                       "sorted_reduce": 0})
+    if not np.isfinite(test_seg["acc"]) or \
+            not np.isfinite(test_sst["AP_3d"]["mAP"]) or \
+            not np.isfinite(test_waymo["Overall/L2 mAP"]):
+        fail(f"cli: test metrics {test_seg} {test_sst} {test_waymo}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    steps_ms = train["step_ms"] + resume["step_ms"]
+    waits = train["loader_wait_ms"] + resume["loader_wait_ms"]
+    timed = train["step_ms"][1:]
+    record = {
+        "train_step_ms_median": statistics.median(timed),
+        "train_step_ms_runs": timed, "train_warmup_step_ms": steps_ms[0],
+        "resume_step_ms": resume["step_ms"],
+        "loader_wait_ms_per_step": waits,
+        "loader_wait_ms_median": statistics.median(waits),
+        "peak_memory_bytes": peak, "losses": losses, "evals": evals,
+        "launches_per_step": per_step,
+        "launches": {"train": train_launches, "resume": resume_launches,
+                     "test_waymo": waymo_launches,
+                     "test_sst_bf16": sst_launches,
+                     "test_seg": seg_launches},
+        "checkpoint_tensors_compared": n_tensors,
+        "seconds": {"train": train_s, "resume": resume_s,
+                    "test_waymo": waymo_s, "test_sst_bf16": sst_s,
+                    "test_seg": seg_s,
+                    "phase": time.perf_counter() - t_phase},
+        "test_waymo_overall": {k: v for k, v in test_waymo.items()
+                               if k.startswith("Overall")},
+        "test_sst_ap3d": test_sst["AP_3d"], "test_seg": test_seg}
+    print(f"cli: {CLI_TRAIN_CONFIG} train CLI, batch 1 (samples_per_device), "
+          f"{CLI_TRAIN_STEPS} + {n_resumed} steps: step ms (device "
+          f"synchronised at each step's end, after 1 warm-up) median "
+          f"{record['train_step_ms_median']:.2f}, runs "
+          f"{[round(t, 2) for t in timed]}, warm-up {steps_ms[0]:.2f}; "
+          f"loader wait per step (host ms blocked on the queue) "
+          f"{[round(w, 3) for w in waits]}; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches per step {per_step} (train run "
+          f"{train_launches}, resume {resume_launches}); losses "
+          f"{[round(x, 4) for x in losses]}; ckpt_4 restored bit for bit "
+          f"({n_tensors} tensors); test CLI launches: waymo "
+          f"{waymo_launches}, SST bf16 {sst_launches}, seg {seg_launches}; "
+          f"seconds {({k: round(v, 1) for k, v in record['seconds'].items()})}",
+          flush=True)
+    return record
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -3949,6 +4169,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     fsdv2_ts = phase_fsdv2_two_stage(device)
     fsdv2_ts["card"] = card
+    torch.cuda.empty_cache()
+    cli = phase_cli(device)
+    cli["card"] = card
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -4001,13 +4224,20 @@ def main() -> None:
         "fsdv2_two_stage": fsdv2_ts["launches"]["sparse_conv_gemm"],
         "fsdv2_two_stage_loss": (fsdv2_ts["loss_launches"]["forward"]
                                  + fsdv2_ts["loss_launches"].get("dgrad",
-                                                                 0))}
+                                                                 0)),
+        # the CLIs (phase 20): each run's forward, recompute and
+        # input-gradient launches
+        **{f"cli_{k}": sum(v.get(kind, 0) for kind in
+                           ("forward", "recompute", "dgrad"))
+           for k, v in cli["launches"].items() if k != "test_sst_bf16"}}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
         "fsdpp_train": fsdpp_train["launches"]["sparse_conv_dw"],
         "ctrl_train": ctrl["train"]["launches"]["sparse_conv_dw"],
-        "fsdv2_two_stage_loss": fsdv2_ts["loss_launches"]["dw"]}
+        "fsdv2_two_stage_loss": fsdv2_ts["loss_launches"]["dw"],
+        "cli_train": cli["launches"]["train"]["dw"],
+        "cli_resume": cli["launches"]["resume"]["dw"]}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -4203,13 +4433,18 @@ def main() -> None:
         # (phase 16), each counted from 0
         "launches": (mha_launches + sst_train["launches"]["window_mha"]
                      + sst_bf16["launches"]
-                     + sst_bf16_train["launches"]["window_mha"]),
+                     + sst_bf16_train["launches"]["window_mha"]
+                     + cli["launches"]["test_sst_bf16"]["window_mha"]),
         "launches_by_path": {"sst": mha_launches,
                              "sst_train": sst_train["launches"][
                                  "window_mha"],
                              "sst_bf16": sst_bf16["launches"],
                              "sst_bf16_train": sst_bf16_train["launches"][
-                                 "window_mha"]},
+                                 "window_mha"],
+                             # the test CLI on the bf16 SST config (phase
+                             # 20)
+                             "cli_test_sst_bf16": cli["launches"][
+                                 "test_sst_bf16"]["window_mha"]},
         "launches_per_train_step": sst_train[
             "launches_per_step_expected"],
         "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"],
@@ -4282,6 +4517,7 @@ def main() -> None:
         "train_fsdpp": fsdpp_train,
         "ctrl": ctrl,
         "fsdv2_two_stage": fsdv2_ts,
+        "cli": cli,
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

@@ -1,4 +1,6 @@
-"""High-level inference API (counterpart of ``sst_tpu/apis.py``)."""
+"""High-level inference API (counterpart of ``sst_tpu/apis.py``):
+:func:`init_model` builds a detector from a config and a checkpoint;
+:func:`inference_detector` runs one raw point cloud through it."""
 
 from __future__ import annotations
 
@@ -8,6 +10,31 @@ import torch
 from sst_tpu_torch.models import PointBatch
 
 DEFAULT_MAX_POINTS = 65536  # the JAX API's cap, whatever the model
+
+
+def init_model(config_path: str, checkpoint: str | None = None,
+               train: bool = False, seed: int = 0,
+               num_point_features: int | None = None, device="cuda"):
+    """The detector of the config at ``config_path`` on ``device`` (the
+    card by default; no fallback to the CPU), with random weights from
+    ``seed`` (``flagship.init_weights``) or, where ``checkpoint`` names a
+    ``train/checkpoint.py`` directory, its weights and running statistics.
+    ``train`` builds the training caps (SST's ``region_batching_train``)
+    and leaves the module in train mode; else it is in eval mode. Predict
+    is the module's own ``predict``: there are no separate variables or
+    jitted function to return, as JAX's ``init_model`` returns."""
+    from sst_tpu_torch.flagship import init_weights
+    from sst_tpu_torch.train.checkpoint import load_checkpoint
+    from sst_tpu_torch.utils.builders import build_model_from_cfg
+    from sst_tpu_torch.utils.config import load_config
+
+    model = build_model_from_cfg(load_config(config_path), train=train,
+                                 num_point_features=num_point_features,
+                                 device=device)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    if checkpoint:
+        load_checkpoint(checkpoint, model)
+    return model.train(train)
 
 
 def prepare_batch(model, points: np.ndarray,

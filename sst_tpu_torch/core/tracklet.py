@@ -7,7 +7,7 @@ A tracklet holds one track's per-frame boxes, timestamps and scores, moves
 them between ego and world frames, extends them at constant velocity and
 adds the test-time noise. The Waymo Objects-bin reading and writing
 (``from_waymo_bin``, ``to_frames``, ``tracklets_to_bin``) is not ported
-yet (ROADMAP queue 1, item 9).
+yet (ROADMAP queue 1, item 9b).
 """
 
 from __future__ import annotations

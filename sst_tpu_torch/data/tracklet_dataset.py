@@ -16,7 +16,7 @@ Inputs (pickles the JAX package's ``tools/ctrl`` scripts write):
 
 :func:`collate_tracklets` stacks samples into a torch ``TrackletBatch`` on
 a device. The Waymo-bin output (``format_results``, ``evaluate``) is not
-ported yet (ROADMAP queue 1, item 9).
+ported yet (ROADMAP queue 1, item 9b).
 """
 
 from __future__ import annotations

@@ -374,6 +374,31 @@ class SingleStageFSD(nn.Module):
             batch, self.run_pipeline(batch, train, thr_extra))
 
     @torch.inference_mode()
+    def predict_seg(self, batch: PointBatch, score_thr: float = 0.5) -> dict:
+        """Per-point class predictions and box-derived gt labels for the
+        seg-eval protocol (``core/eval_seg.py``, ``tools/test.py --eval
+        seg``). A point takes the argmax of its per-class sigmoid scores,
+        or background (``num_classes``) where the largest is below
+        ``score_thr``; its gt label is the seg loss's target
+        (``seg_targets``). Returns dict(pred [B, P] int32, gt [B, P] int32,
+        valid [B, P])."""
+        b, p, _ = batch.points.shape
+        batch_idx = torch.arange(b, dtype=torch.int32,
+                                 device=batch.points.device).repeat_interleave(p)
+        seg_out = self.segmentor_mod(batch.points.reshape(b * p, -1),
+                                     batch_idx, batch.valid.reshape(-1), b,
+                                     False)
+        scores = torch.sigmoid(seg_out["seg_logits"].float())
+        best, arg = scores.max(dim=-1)
+        pred = torch.where(best >= score_thr, arg, self.num_classes)
+        gt = torch.stack([seg_targets(batch.points[i, :, :3], batch.valid[i],
+                                      batch.gt_boxes[i], batch.gt_labels[i],
+                                      batch.gt_valid[i], self.num_classes)[0]
+                          for i in range(b)])
+        return {"pred": pred.to(torch.int32).reshape(b, p),
+                "gt": gt.to(torch.int32), "valid": batch.valid}
+
+    @torch.inference_mode()
     def predict(self, batch: PointBatch) -> dict:
         """Boxes for a batch: dict of [B, max_num] boxes, scores, labels and
         valid."""

@@ -144,6 +144,12 @@ class FSD(nn.Module):
         return losses
 
     @torch.inference_mode()
+    def predict_seg(self, batch: PointBatch, score_thr: float = 0.5) -> dict:
+        """The single stage's ``predict_seg`` (``tools/test.py --eval
+        seg``)."""
+        return self.rpn.predict_seg(batch, score_thr)
+
+    @torch.inference_mode()
     def predict(self, batch: PointBatch, skip_rcnn: bool = False) -> dict:
         """Boxes for a batch. ``skip_rcnn``: the single stage's boxes
         ([B, max_num]); else the refined proposals ([B, min(max_num,

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sst_tpu_torch.utils import remat
+from sst_tpu_torch.utils import dist, remat
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -160,7 +160,10 @@ class MaskedBatchNorm(BatchNorm):
     every row, so the mask is not read. In train mode the statistics are
     taken over the valid rows only (``mask`` None: every row), with the
     biased variance, all in float32, and the running statistics move as
-    :class:`BatchNorm`'s do."""
+    :class:`BatchNorm`'s do. In a process group of several ranks the
+    count, sum and sum of squares are summed over the ranks first (one
+    all-reduce; the reference's NaiveSyncBN, JAX's ``psum_if_dist``), and
+    the gradient flows back through that sum."""
 
     def forward(self, x, mask=None, train: bool = False):
         if not train:
@@ -170,10 +173,15 @@ class MaskedBatchNorm(BatchNorm):
             m = x.new_ones((x.shape[0], 1))
         else:
             m = mask.float()[:, None]
-        n = torch.clamp(m.sum(), min=1.0)
-        mean = (x * m).sum(0) / n
-        var = torch.clamp((torch.square(x) * m).sum(0) / n
-                          - torch.square(mean), min=0.0)
+        s0, s1, s2 = m.sum(), (x * m).sum(0), (torch.square(x) * m).sum(0)
+        if dist.is_dist():
+            c = s1.shape[0]
+            s0, s1, s2 = dist.all_reduce_sum(
+                torch.cat([s0[None], s1, s2])).split([1, c, c])
+            s0 = s0[0]
+        n = torch.clamp(s0, min=1.0)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - torch.square(mean), min=0.0)
         self._update_running(mean, var)
         return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
                 + self.bias).to(self.dtype)

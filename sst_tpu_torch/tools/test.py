@@ -1,0 +1,153 @@
+"""Evaluation CLI of the port (counterpart of the JAX package's
+``tools/test.py``).
+
+    python -m sst_tpu_torch.tools.test configs/sst/sst_waymoD5_3class.py \\
+        work_dirs/sst/ckpt_1000 [--synthetic] [--eval ap3d]
+
+The model is built from the config (``apis.init_model``: random weights
+from seed 0 where no checkpoint is given) and answers every frame of the
+synthetic or the configured validation set through its ``predict``;
+``--eval`` scores the boxes (``ap3d`` / ``apbev``: ``eval_ap``; ``waymo``:
+``waymo_eval``) or the per-point classes of an FSD segmentor (``seg``:
+``predict_seg`` and ``seg_eval``). ``--sequential`` (FSD++ over the
+incremental dataset) is not ported yet (ROADMAP queue 1, item 9b).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pickle
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Evaluate a detector of the port.")
+    p.add_argument("config")
+    p.add_argument("checkpoint", nargs="?", default=None)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--num-samples", type=int, default=16)
+    p.add_argument("--eval", default="ap3d",
+                   choices=["ap3d", "apbev", "waymo", "seg", "none"],
+                   help="'seg' = per-point mIoU/acc protocol "
+                        "(core/eval_seg.py) for FSD segmentors; gt labels "
+                        "come from gt-box containment, as the seg loss's")
+    p.add_argument("--matcher", default="greedy",
+                   choices=["greedy", "hungarian"],
+                   help="--eval waymo matching scheme")
+    p.add_argument("--out", default=None, help="write predictions (pkl)")
+    p.add_argument("--sequential", action="store_true",
+                   help="FSD++ sequential mode (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (raises without a card) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def build_test_dataset(cfg, model, synthetic: bool, num_samples: int):
+    """(dataset, class names): the synthetic scenes (seed 999) or the
+    config's ``val_info_path``, range-filtered and padded to the point
+    cap."""
+    from sst_tpu_torch.data.datasets import SyntheticDataset, WaymoDataset
+    from sst_tpu_torch.data.pipelines import build_pipeline
+
+    max_points = cfg.get("capacity", {}).get("max_points", 65536)
+    data_cfg = cfg.get("data", {})
+    pipeline = build_pipeline([
+        dict(type="PointsRangeFilter",
+             point_cloud_range=model.point_cloud_range),
+        dict(type="PadToCap", max_points=max_points),
+    ])
+    if synthetic or data_cfg.get("dataset") == "synthetic":
+        ds = SyntheticDataset(num_samples=num_samples,
+                              num_points=min(max_points, 32768),
+                              pc_range=model.point_cloud_range,
+                              pipeline=pipeline, seed=999)
+        return ds, list(ds.CLASSES)
+    kind = data_cfg.get("dataset", "waymo")
+    if kind != "waymo":
+        raise NotImplementedError(f"data.dataset {kind!r} is not ported "
+                                  f"yet: ROADMAP queue 1, item 9b")
+    ds = WaymoDataset(data_root=data_cfg["data_root"],
+                      info_path=data_cfg["val_info_path"], pipeline=pipeline,
+                      test_mode=True)
+    return ds, list(ds.classes)
+
+
+def run_seg_eval(model, loader, device, classes) -> dict:
+    from sst_tpu_torch.core.eval_seg import seg_eval
+    from sst_tpu_torch.tools.train import to_numpy
+
+    gt_l, pred_l = [], []
+    for batch in loader:
+        batch = batch.to(device)
+        out = model.predict_seg(batch)
+        for i in range(batch.points.shape[0]):
+            valid = to_numpy(out["valid"][i])
+            gt_l.append(to_numpy(out["gt"][i])[valid])
+            pred_l.append(to_numpy(out["pred"][i])[valid])
+    return seg_eval(gt_l, pred_l, tuple(classes) + ("background",))
+
+
+def run_predictions(model, loader, device) -> tuple[list, list]:
+    """Every frame's valid predictions and gt, as numpy."""
+    from sst_tpu_torch.tools.train import frames_of
+
+    preds, gts = [], []
+    for batch in loader:
+        batch = batch.to(device)
+        p, g = frames_of(model.predict(batch), batch)
+        preds += p
+        gts += g
+    return preds, gts
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns the metrics printed (empty for ``--eval
+    none``) with the number of frames under ``frames``."""
+    args = parse_args(argv)
+    if args.sequential:
+        raise NotImplementedError("--sequential (FSD++ over the incremental "
+                                  "dataset) is not ported yet: ROADMAP "
+                                  "queue 1, item 9b")
+    import torch
+
+    from sst_tpu_torch.apis import init_model
+    from sst_tpu_torch.core.evaluation import eval_ap
+    from sst_tpu_torch.data.loader import DataLoader
+    from sst_tpu_torch.utils.config import load_config
+
+    model = init_model(args.config, args.checkpoint, device=args.device)
+    device = torch.device(args.device)
+    cfg = load_config(args.config)
+    dataset, classes = build_test_dataset(cfg, model, args.synthetic,
+                                          args.num_samples)
+    loader = DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False)
+
+    if args.eval == "seg":
+        res = run_seg_eval(model, loader, device, classes)
+        print(json.dumps(res))
+        return {**res, "frames": len(dataset)}
+
+    preds, gts = run_predictions(model, loader, device)
+    print(f"ran inference on {len(preds)} samples", flush=True)
+    if args.out:
+        with open(args.out, "wb") as f:
+            pickle.dump(preds, f)
+    res = {}
+    if args.eval == "waymo":
+        from sst_tpu_torch.core.eval_waymo import waymo_eval
+
+        res = waymo_eval(preds, gts, tuple(classes), matcher=args.matcher,
+                         range_breakdowns=True)
+        print(json.dumps(res))
+    elif args.eval != "none":
+        mode = "3d" if args.eval == "ap3d" else "bev"
+        res = {f"AP_{mode}": eval_ap(preds, gts, classes, mode=mode)}
+        print(json.dumps(res))
+    res["frames"] = len(preds)
+    res["detections"] = int(sum(len(p["scores"]) for p in preds))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,137 @@
+"""Train-time dataset selection (counterpart of
+``sst_tpu/train/data_setup.py``): picks the dataset class and the matching
+collate, so each detector family gets the batch its loss expects
+(``PointBatch`` or ``TrackletBatch``), both as CPU tensors.
+
+Ported kinds: ``synthetic``, ``waymo`` and ``waymo_tracklet``. The kinds
+``waymo_incremental`` (FSD++'s multi-frame assembly), ``nuscenes`` and
+``argo2`` raise ``NotImplementedError`` (ROADMAP queue 1, item 9b).
+"""
+
+from __future__ import annotations
+
+import functools
+
+# dataset kinds of the JAX package not yet ported, by ROADMAP item
+UNPORTED_KINDS = {k: "ROADMAP queue 1, item 9b"
+                  for k in ("waymo_incremental", "nuscenes", "argo2")}
+
+
+def default_train_pipeline(point_cloud_range, max_points):
+    return [
+        dict(type="RandomFlip3D"),
+        dict(type="GlobalRotScaleTrans"),
+        dict(type="PointsRangeFilter", point_cloud_range=point_cloud_range),
+        dict(type="ObjectRangeFilter", point_cloud_range=point_cloud_range),
+        dict(type="PointShuffle"),
+        dict(type="PadToCap", max_points=max_points),
+    ]
+
+
+def _unported(kind: str):
+    if kind in UNPORTED_KINDS:
+        raise NotImplementedError(f"data.dataset {kind!r} is not ported "
+                                  f"yet: {UNPORTED_KINDS[kind]}")
+    raise ValueError(f"unknown data.dataset {kind!r}")
+
+
+def _waymo_kwargs(data_cfg: dict) -> dict:
+    return {k: data_cfg[k] for k in ("load_dim", "use_dim") if k in data_cfg}
+
+
+def build_train_dataset(cfg, model, synthetic: bool = False, seed: int = 0,
+                        batch_size: int = 1):
+    """Returns (dataset, collate_or_None, ds_kind, train_pipeline_cfg).
+
+    collate None means the loader's default (``collate_to_batch``, a
+    ``PointBatch``). ds_kind: 'synthetic' | 'waymo' | 'waymo_tracklet'.
+    ``train_pipeline_cfg`` is the pipeline list in use, for the
+    ``DisableAugmentationSchedule`` rebuild."""
+    from sst_tpu_torch.data.datasets import SyntheticDataset, WaymoDataset
+    from sst_tpu_torch.data.pipelines import build_pipeline
+
+    data_cfg = cfg.get("data", {})
+    cap = cfg.get("capacity", {})
+    max_points = cap.get("max_points", 65536)
+    train_pipeline_cfg = data_cfg.get("train_pipeline") or \
+        default_train_pipeline(model.point_cloud_range, max_points)
+
+    ds_kind = "synthetic" if synthetic else data_cfg.get("dataset", "waymo")
+    if ds_kind == "waymo" and data_cfg.get("sequential"):
+        ds_kind = "waymo_incremental"
+
+    collate = None
+    if ds_kind == "synthetic":
+        dataset = SyntheticDataset(
+            num_samples=max(batch_size * 8, 64),
+            num_points=min(max_points, 32768),
+            pc_range=model.point_cloud_range,
+            pipeline=build_pipeline([
+                dict(type="PointsRangeFilter",
+                     point_cloud_range=model.point_cloud_range),
+                dict(type="PadToCap", max_points=max_points),
+            ]),
+        )
+    elif ds_kind == "waymo_tracklet":
+        from sst_tpu_torch.data.tracklet_dataset import (
+            WaymoTrackletDataset,
+            collate_tracklets,
+        )
+
+        dataset = WaymoTrackletDataset(
+            data_root=data_cfg["data_root"],
+            tracklet_path=data_cfg["tracklet_path"],
+            poses_path=data_cfg["poses_path"],
+            frame_index_path=data_cfg["frame_index_path"],
+            candidates_path=data_cfg.get("candidates_path"),
+            max_points=max_points,
+            max_frames=cap.get("max_frames", 200),
+            seed=seed,
+        )
+        collate = functools.partial(collate_tracklets, device="cpu")
+    elif ds_kind == "waymo":
+        dataset = WaymoDataset(
+            data_root=data_cfg["data_root"],
+            info_path=data_cfg["info_path"],
+            load_interval=data_cfg.get("load_interval", 1),
+            pipeline=build_pipeline(train_pipeline_cfg),
+            **_waymo_kwargs(data_cfg),
+        )
+    else:
+        _unported(ds_kind)
+    return dataset, collate, ds_kind, train_pipeline_cfg
+
+
+def build_val_dataset(cfg, model, synthetic: bool = False,
+                      num_samples: int = 32):
+    """Validation dataset for in-train evaluation, ``PointBatch`` families
+    only. Returns (dataset, class_names), or (None, None) where the
+    configured kind has no in-train eval path or no ``val_info_path``."""
+    from sst_tpu_torch.data.pipelines import build_pipeline
+
+    data_cfg = cfg.get("data", {})
+    cap = cfg.get("capacity", {})
+    max_points = cap.get("max_points", 65536)
+    pipeline = build_pipeline([
+        dict(type="PointsRangeFilter",
+             point_cloud_range=model.point_cloud_range),
+        dict(type="PadToCap", max_points=max_points),
+    ])
+    ds_kind = "synthetic" if synthetic else data_cfg.get("dataset", "waymo")
+    if ds_kind == "synthetic":
+        from sst_tpu_torch.data.datasets import SyntheticDataset
+
+        ds = SyntheticDataset(
+            num_samples=num_samples, num_points=min(max_points, 32768),
+            pc_range=model.point_cloud_range, pipeline=pipeline, seed=991)
+        return ds, list(ds.CLASSES)
+    if ds_kind in ("nuscenes", "argo2") and "val_info_path" in data_cfg:
+        _unported(ds_kind)
+    if ds_kind != "waymo" or "val_info_path" not in data_cfg:
+        return None, None
+    from sst_tpu_torch.data.datasets import WaymoDataset
+
+    ds = WaymoDataset(data_root=data_cfg.get("data_root", ""),
+                      info_path=data_cfg["val_info_path"], pipeline=pipeline,
+                      test_mode=True)
+    return ds, list(ds.classes)

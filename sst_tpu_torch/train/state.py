@@ -68,14 +68,19 @@ class ClippedAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, reduce_grads=None) -> torch.Tensor:
         """Clip, step, count; returns the global norm of the gradients
-        before clipping (a 0-d tensor, not synchronised)."""
+        before clipping (a 0-d tensor, not synchronised). ``reduce_grads``,
+        where given, takes the list of gradients (a missing one filled with
+        zeros first) and changes them in place before the norm: the
+        data-parallel step averages them over ranks there."""
         missing = [p for p in self.params if p.grad is None]
         for p in missing:
             p.grad = torch.zeros_like(p)
         self.params_without_grad = len(missing)
         grads = [p.grad for p in self.params]
+        if reduce_grads is not None:
+            reduce_grads(grads)
         norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         # optax: t unchanged below the limit, else (t / norm) * clip_norm
         keep = norm < self.clip_norm

@@ -78,3 +78,13 @@ def load_config(path: str) -> dict:
             os.path.join(os.path.dirname(path), b)))
     return deep_merge(merged, cfg)
 
+
+
+def set_by_dotted(cfg: dict, dotted: str, value) -> None:
+    """``cfg[a][b][c] = value`` for ``dotted = "a.b.c"``, making the
+    dicts on the way (the CLIs' ``--cfg-options a.b.c=value``)."""
+    keys = dotted.split(".")
+    cur = cfg
+    for k in keys[:-1]:
+        cur = cur.setdefault(k, {})
+    cur[keys[-1]] = value

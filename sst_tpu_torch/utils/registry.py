@@ -31,3 +31,4 @@ class Registry:
 
 
 MODELS = Registry("models")
+PIPELINES = Registry("pipelines")
