@@ -212,10 +212,37 @@ Phases (each one that fails ends the run with a non-zero exit code):
               against their twins at its 58 convs, finite losses and
               gradients, 58 forward and 58 dW launches).
 
+ 20. CLIs     the train and test CLIs in process (``phase_cli``): the
+              FSDv2-Waymo train CLI, a resume and the test CLI's Waymo, SST
+              and seg evaluations; then configs/fsdv2/fsdv2_nusc_1x.py's
+              train CLI with ``data.dataset="nuscenes"``, CBGS and a
+              10-sweep pipeline with ``ObjectSample`` over a
+              nuScenes-format set written from a seed (3 steps, a resume),
+              the test CLI's NDS on it, and configs/fsdv2/fsdv2_argo_2x.py's
+              test CLI with CDS over an Argo2-format set; each run's
+              launches held against the modules.
+ 21. groups   the group-sampling and multi-sweep recipes at full width,
+              nothing cut, through ``build_model_from_cfg`` (seed-0
+              weights, the seg head's class biases shifted so 0.6 of each
+              group's fg cap passes on frame 0, the FSD models' votes
+              contracted as in phase 14): configs/fsdv2/fsdv2_nusc_1x.py
+              on frames of a keyframe and 9 sweeps of 34,000 points
+              through ``NuScenesDataset`` and ``LoadPointsFromMultiSweeps``
+              (the points the 196,608 cap kept printed),
+              configs/fsdv2/fsdv2_argo_2x.py and
+              configs/argo2/argo_onestage_12e.py on 131,072-point
+              Argo2-format frames: each conv of frame 0 against its twin,
+              predict (launches per frame held to the module's convs; the
+              sorted reduce counted, 0), latency and peak memory, then one
+              loss + backward (dW and the input gradient against their
+              twins at every conv, launches by kind, finite losses and
+              gradients, times); configs/fsd/fsd_waymoD1_1x_3f.py predict
+              on 3-sweep frames, the down-sampling's kept points printed.
+
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
-with the training buckets; phases 14, 15, 17, 18 and 19 last. Phase 8
+with the training buckets; phases 14, 15, 17, 18, 19, 20 and 21 last. Phase 8
 also measures the window MHA wrapper's host time with its entry point
 bound once and set on every call. TF32 is turned
 off for convolutions and matmuls, so every float32 comparison is in full
@@ -2068,7 +2095,7 @@ def _contract_votes(model):
     Two channels per axis of both pre_seg layers carry +l and -l through
     the ReLUs (their batch norms the identity); the vote is -sqrt(8) l,
     decoded as v |v|. Every other weight stays as drawn."""
-    head = model.rpn.segmentor_mod.head_mod
+    head = getattr(model, "rpn", model).segmentor_mod.head_mod
     mlp = head.pre_seg
     d0, d1 = mlp.Dense_0, mlp.Dense_1
     nin = d0.weight.shape[1]  # voxel features, then the local x, y, z
@@ -2561,7 +2588,8 @@ def _train_vote_norms(model, batch):
     those channels' scale and bias to the batch's standard deviation and
     mean on ``batch`` (weights, not the config), so that both norms pass
     them through as at inference. Returns the scales set."""
-    mlp = model.rpn.segmentor_mod.head_mod.pre_seg
+    rpn = getattr(model, "rpn", model)
+    mlp = rpn.segmentor_mod.head_mod.pre_seg
     scales = []
     for bn in (mlp.MaskedBatchNorm_0, mlp.MaskedBatchNorm_1):
         seen = []
@@ -2570,7 +2598,7 @@ def _train_vote_norms(model, batch):
                                          args[1])))
         try:
             with torch.no_grad(), _KeptRunningStats(model):
-                model.rpn.segmentor_mod(
+                rpn.segmentor_mod(
                     batch.points.reshape(-1, batch.points.shape[-1]),
                     torch.zeros(batch.points.shape[1], dtype=torch.int32,
                                 device=batch.points.device),
@@ -3859,6 +3887,137 @@ def _expect(what: str, got: dict, want: dict) -> None:
              f"modules")
 
 
+CLI_NUSC_FRAMES, CLI_NUSC_STEPS = 4, 3
+
+
+def _cli_nusc_argo(device, work, train_cli, test_cli):
+    """Phase 20's nuScenes and Argo2 runs: ``tools.train.main`` on
+    configs/fsdv2/fsdv2_nusc_1x.py with ``data.dataset="nuscenes"``,
+    ``cbgs=True`` and a multi-sweep pipeline with ``ObjectSample`` (a
+    config file in ``work`` that inherits it) over a nuScenes-format set
+    written there (4 keyframes, 9 sweeps each, a gt database): 3 steps, a
+    checkpoint at 2, a resume from it to step 3; ``tools.test.main`` on
+    the checkpoint with the dataset's evaluation (NDS), and on
+    configs/fsdv2/fsdv2_argo_2x.py (seed-0 weights) over an Argo2-format
+    set with its CDS. Each run's launches, counted from 0, are held
+    against the modules. Returns the runs' record."""
+    from sst_tpu_torch.data import format_writers as fw
+
+    nusc_root = os.path.join(work, "nuscenes")
+    argo_root = os.path.join(work, "argo2")
+    os.makedirs(nusc_root)
+    os.makedirs(argo_root)
+    info = fw.write_nuscenes_set(nusc_root, seed=20, frames=CLI_NUSC_FRAMES,
+                                 points=NUSC_SWEEP_POINTS, sweeps=NUSC_SWEEPS,
+                                 boxes=30, half=54.0)
+    db = fw.write_gt_database(nusc_root, fw.NUSC_CLASSES, seed=20,
+                              per_class=6, points=200)
+    argo_info = fw.write_argo2_set(argo_root, seed=23, frames=2,
+                                   points=ARGO_POINTS, boxes=60, half=100.0)
+    nusc_cfg = load_config(NUSC_CONFIG)
+    pcr = nusc_cfg["model"]["point_cloud_range"]
+    cap = nusc_cfg["capacity"]["max_points"]
+    pipeline = [
+        dict(type="LoadPointsFromMultiSweeps", sweeps_num=NUSC_SWEEPS,
+             load_dim=5, use_dim=(0, 1, 2, 3)),
+        dict(type="ObjectSample", db_sampler=dict(
+            info_path=db, data_root=nusc_root, rate=1.0,
+            sample_groups={n: 2 for n in fw.NUSC_CLASSES},
+            classes=fw.NUSC_CLASSES,
+            points_loader=dict(load_dim=5, use_dim=(0, 1, 2, 3, 4)))),
+        dict(type="RandomFlip3D"),
+        dict(type="GlobalRotScaleTrans"),
+        dict(type="PointsRangeFilter", point_cloud_range=pcr),
+        dict(type="ObjectRangeFilter", point_cloud_range=pcr),
+        dict(type="PointShuffle"),
+        dict(type="PadToCap", max_points=cap)]
+    cfg_path = os.path.join(work, "nusc_cli.py")
+    with open(cfg_path, "w") as f:
+        f.write(f"_base_ = [{os.path.abspath(NUSC_CONFIG)!r}]\n"
+                f"data = dict(dataset='nuscenes', data_root={nusc_root!r}, "
+                f"info_path={info!r}, val_info_path={info!r}, cbgs=True, "
+                f"use_dim=(0, 1, 2, 3), train_pipeline={pipeline!r})\n")
+    argo_path = os.path.join(work, "argo_cli.py")
+    with open(argo_path, "w") as f:
+        f.write(f"_base_ = [{os.path.abspath(ARGO_FSDV2_CONFIG)!r}]\n"
+                f"data = dict(dataset='argo2', data_root={argo_root!r}, "
+                f"info_path={argo_info!r}, val_info_path={argo_info!r})\n")
+    model = build_model_from_cfg(load_config(cfg_path), train=True,
+                                 device="cpu")
+    n = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    batch = load_config(cfg_path)["data"]["samples_per_device"]
+    del model
+    per_step = {"forward": n, "recompute": 0, "dgrad": n, "dw": n,
+                "sorted_reduce": 0}
+    nwork = os.path.join(work, "nusc_wd")
+    common = [cfg_path, "--device", str(device), "--work-dir", nwork,
+              "--log-interval", "1", "--ckpt-interval", "2"]
+    torch.cuda.reset_peak_memory_stats()
+    train, train_launches, train_s = _cli_run(
+        train_cli.main, common + ["--max-steps", str(CLI_NUSC_STEPS)],
+        "train, nuScenes (CBGS, 10 sweeps, ObjectSample)")
+    peak = torch.cuda.max_memory_allocated()
+    _expect("train nuscenes", train_launches,
+            {k: v * CLI_NUSC_STEPS for k, v in per_step.items()})
+    resume, resume_launches, resume_s = _cli_run(
+        train_cli.main, common + ["--max-steps", str(CLI_NUSC_STEPS),
+                                  "--resume-from",
+                                  os.path.join(nwork, "ckpt_2")],
+        "resume, nuScenes")
+    _expect("resume nuscenes", resume_launches,
+            {k: v * (CLI_NUSC_STEPS - 2) for k, v in per_step.items()})
+    losses = train["loss_total"] + resume["loss_total"]
+    if not all(np.isfinite(losses)) or resume["start_step"] != 2:
+        fail(f"cli nuscenes: losses {losses}, resumed at "
+             f"{resume['start_step']}")
+    ckpt = os.path.join(nwork, f"ckpt_{CLI_NUSC_STEPS}")
+    nds, nds_launches, nds_s = _cli_run(
+        test_cli.main, [cfg_path, ckpt, "--device", str(device), "--eval",
+                        "dataset"], "test, nuScenes NDS")
+    _expect("test nuscenes", nds_launches,
+            {"forward": CLI_NUSC_FRAMES * n, "dw": 0, "sorted_reduce": 0})
+    argo = build_model_from_cfg(load_config(argo_path), train=False,
+                                device="cpu")
+    n_argo = sum(isinstance(m, SparseConvLayer) for m in argo.modules())
+    del argo
+    cds, cds_launches, cds_s = _cli_run(
+        test_cli.main, [argo_path, "--device", str(device), "--eval",
+                        "dataset"], "test, Argo2 CDS")
+    _expect("test argo2", cds_launches,
+            {"forward": 2 * n_argo, "dw": 0, "sorted_reduce": 0})
+    if not (np.isfinite(nds["NDS"]) and np.isfinite(cds["CDS"])):
+        fail(f"cli: NDS {nds.get('NDS')} or CDS {cds.get('CDS')}")
+    rec = {"nusc_train_step_ms": train["step_ms"],
+           "nusc_resume_step_ms": resume["step_ms"],
+           "nusc_loader_wait_ms": train["loader_wait_ms"]
+           + resume["loader_wait_ms"],
+           "nusc_batch": batch, "nusc_peak_memory_bytes": peak,
+           "nusc_losses": losses, "nusc_launches_per_step": per_step,
+           "nds": {k: v for k, v in nds.items() if k in (
+               "NDS", "mAP", "mATE", "mASE", "mAOE", "mAVE", "frames",
+               "detections")},
+           "cds": {k: v for k, v in cds.items() if k in (
+               "CDS", "mAP", "frames", "detections")},
+           "seconds": {"nusc_train": train_s, "nusc_resume": resume_s,
+                       "nusc_test": nds_s, "argo_test": cds_s},
+           "launches": {"nusc_train": train_launches,
+                        "nusc_resume": resume_launches,
+                        "nusc_test": nds_launches,
+                        "argo_test": cds_launches}}
+    print(f"cli: nuScenes train CLI (CBGS over {CLI_NUSC_FRAMES} keyframes, "
+          f"{NUSC_SWEEPS} sweeps, ObjectSample), batch {batch}, "
+          f"{CLI_NUSC_STEPS} + 1 steps: step ms (device synchronised at "
+          f"each step's end) {[round(t, 2) for t in rec['nusc_train_step_ms']]}"
+          f" + resume {[round(t, 2) for t in resume['step_ms']]}; loader "
+          f"wait per step {[round(w, 1) for w in rec['nusc_loader_wait_ms']]}"
+          f" ms; peak memory {peak / 2**30:.3f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}; launches per step {per_step}; "
+          f"test CLI: {rec['nds']}, Argo2 {rec['cds']}; seconds "
+          f"{({k: round(v, 1) for k, v in rec['seconds'].items()})}",
+          flush=True)
+    return rec
+
+
 def phase_cli(device):
     """Phase 20: the port's train and test CLIs in process, at full width:
     ``tools.train.main`` on configs/fsdv2/fsdv2_waymo_1x.py --synthetic
@@ -3979,6 +4138,7 @@ def phase_cli(device):
             not np.isfinite(test_sst["AP_3d"]["mAP"]) or \
             not np.isfinite(test_waymo["Overall/L2 mAP"]):
         fail(f"cli: test metrics {test_seg} {test_sst} {test_waymo}")
+    groups = _cli_nusc_argo(device, work, train_cli, test_cli)
     shutil.rmtree(work, ignore_errors=True)
 
     steps_ms = train["step_ms"] + resume["step_ms"]
@@ -4003,7 +4163,9 @@ def phase_cli(device):
                     "phase": time.perf_counter() - t_phase},
         "test_waymo_overall": {k: v for k, v in test_waymo.items()
                                if k.startswith("Overall")},
-        "test_sst_ap3d": test_sst["AP_3d"], "test_seg": test_seg}
+        "test_sst_ap3d": test_sst["AP_3d"], "test_seg": test_seg,
+        "nusc_argo": groups}
+    record["launches"].update(groups.pop("launches"))
     print(f"cli: {CLI_TRAIN_CONFIG} train CLI, batch 1 (samples_per_device), "
           f"{CLI_TRAIN_STEPS} + {n_resumed} steps: step ms (device "
           f"synchronised at each step's end, after 1 warm-up) median "
@@ -4019,6 +4181,411 @@ def phase_cli(device):
           f"seconds {({k: round(v, 1) for k, v in record['seconds'].items()})}",
           flush=True)
     return record
+
+
+# ---------------------------------------------------------------- phase 21
+
+NUSC_CONFIG = "configs/fsdv2/fsdv2_nusc_1x.py"
+ARGO_FSDV2_CONFIG = "configs/fsdv2/fsdv2_argo_2x.py"
+ARGO_FSD_CONFIG = "configs/argo2/argo_onestage_12e.py"
+FSD_3F_CONFIG = "configs/fsd/fsd_waymoD1_1x_3f.py"
+NUSC_SWEEPS, NUSC_SWEEP_POINTS = 9, 34000  # a keyframe and 9 past sweeps
+ARGO_POINTS = 131072  # the Argo2 configs' point cap
+GROUP_N_FRAMES = 2
+GROUP_N_TIMED = 4
+
+
+def _shift_group_biases(ss, data):
+    """Group sampling's counterpart of ``_shift_fg_biases``: shift the seg
+    head's class biases (weights, not the config) so that on ``data`` (a
+    pipeline's points) the top ``FSD_FG_FILL`` of each group's fg cap
+    scores above the group's threshold. A shift d on every member logit
+    multiplies the group's odds (its softmax sum against the rest) by
+    exp(d), so each round sets the cut of each group in turn, and five
+    rounds settle the groups' shared denominator. Returns the shifts."""
+    logits = data["seg_logits"][data["valid"]].double()
+    shift = torch.zeros(logits.shape[1], dtype=torch.float64,
+                        device=logits.device)
+    groups = [[ss.class_names.index(n) for n in g] for g in ss.group_names]
+    for _ in range(5):
+        for g, ids in enumerate(groups):
+            p = torch.softmax(logits + shift, -1)[:, ids].sum(-1)
+            p = torch.sort(p, descending=True).values.clamp(1e-12, 1 - 1e-12)
+            n = int(FSD_FG_FILL * ss.caps.fg_per_class[g])
+            if p.numel() <= n:
+                fail(f"group sampling: {p.numel()} points, too few to fill "
+                     f"{n} of group {g}'s fg cap")
+            thr = ss.score_thresh[g]
+            odds = torch.log(p[n - 1:n + 1] / (1 - p[n - 1:n + 1])).mean()
+            shift[ids] += math.log(thr / (1 - thr)) - float(odds)
+    with torch.no_grad():
+        ss.segmentor_mod.head_mod.conv_seg.bias += shift.float()
+    return [round(float(shift[ids[0]]), 3) for ids in groups]
+
+
+def _group_frames(kind: str, root: str, device):
+    """Frames of a nuScenes-format set (a keyframe and 9 sweeps of ~34,000
+    five-channel points each, through ``NuScenesDataset`` and
+    ``LoadPointsFromMultiSweeps(sweeps_num=9)``) or an Argo2-format set
+    (131,072-point frames through ``Argo2Dataset``), written under
+    ``root`` from a seed; each frame range-filtered and padded to its
+    config's cap. Returns (labelled batches on the device, points before
+    the cap, points kept)."""
+    from sst_tpu_torch.data import format_writers as fw
+    from sst_tpu_torch.data.datasets import (
+        Argo2Dataset,
+        NuScenesDataset,
+        collate_to_batch,
+    )
+    from sst_tpu_torch.data.pipelines import build_pipeline
+
+    if kind == "nusc":
+        cfg = load_config(NUSC_CONFIG)
+        info = fw.write_nuscenes_set(root, seed=21, frames=GROUP_N_FRAMES,
+                                     points=NUSC_SWEEP_POINTS,
+                                     sweeps=NUSC_SWEEPS, boxes=40, half=54.0)
+        load = [dict(type="LoadPointsFromMultiSweeps",
+                     sweeps_num=NUSC_SWEEPS, load_dim=5,
+                     use_dim=(0, 1, 2, 3), test_mode=True)]
+        ds_cls, kw = NuScenesDataset, dict(use_dim=(0, 1, 2, 3))
+    else:
+        cfg = load_config(ARGO_FSDV2_CONFIG)
+        info = fw.write_argo2_set(root, seed=22, frames=GROUP_N_FRAMES,
+                                  points=ARGO_POINTS, boxes=60, half=100.0)
+        load, ds_cls, kw = [], Argo2Dataset, {}
+    pcr = cfg["model"]["point_cloud_range"]
+    cap = cfg["capacity"]["max_points"]
+    before = build_pipeline(load + [dict(type="PointsRangeFilter",
+                                         point_cloud_range=pcr)])
+    pad = build_pipeline([dict(type="PadToCap", max_points=cap)])
+    ds = ds_cls(data_root=root, info_path=info, test_mode=True, **kw)
+    frames, n_in, n_kept = [], [], []
+    for i in range(len(ds)):
+        sample = before(ds[i])
+        n_in.append(len(sample["points"]))
+        sample = pad(sample)
+        n_kept.append(int(sample["points_valid"].sum()))
+        frames.append(collate_to_batch([sample]).to(device))
+    return frames, n_in, n_kept
+
+
+def _three_sweep_frames(root: str, device, n_frames: int):
+    """3-sweep Waymo frames (``fsd_waymoD1_1x_3f.py``): each keyframe of
+    ``synthetic_waymo_batch`` (x, y, z + 2 channels) with its two past
+    sweeps (the same scene moved by a small pose each, 0.1 s apart) read
+    from ``.bin`` files through ``LoadPointsFromMultiSweeps`` on the 4x4
+    pose route, range-filtered and padded to the config's 393,216 cap;
+    points of 6 channels, the last the time lag."""
+    from sst_tpu_torch.data.pipelines import build_pipeline
+
+    cfg = load_config(FSD_3F_CONFIG)
+    pcr = cfg["model"]["single_stage"]["point_cloud_range"]
+    pipe = build_pipeline([
+        dict(type="LoadPointsFromMultiSweeps", sweeps_num=2, load_dim=5,
+             use_dim=(0, 1, 2, 3, 4)),
+        dict(type="PointsRangeFilter", point_cloud_range=pcr),
+        dict(type="PadToCap", max_points=cfg["capacity"]["max_points"])])
+
+    def pose(yaw, t):
+        m = np.eye(4)
+        m[:2, :2] = [[math.cos(yaw), -math.sin(yaw)],
+                     [math.sin(yaw), math.cos(yaw)]]
+        m[:3, 3] = t
+        return m
+
+    from sst_tpu_torch.models import PointBatch
+
+    frames = []
+    for f in range(n_frames):
+        key = synthetic_waymo_batch(1, 131072, seed=30 + f,
+                                    num_extra_feats=2).points[0]
+        key = np.asarray(key.cpu() if torch.is_tensor(key) else key,
+                         np.float32)
+        sweeps = []
+        for k in range(2):
+            path = os.path.join(root, f"sweep_{f}_{k}.bin")
+            key.tofile(path)
+            sweeps.append(dict(data_path=path, timestamp=1.0 - 0.1 * (k + 1),
+                               pose=pose(0.01 * (k + 1), (0.5 * (k + 1),
+                                                          0.0, 0.0))))
+        sample = pipe({"points": key.copy(), "timestamp": 1.0,
+                       "pose": pose(0.0, (0.0, 0.0, 0.0)), "sweeps": sweeps,
+                       "rng": np.random.RandomState(f)})
+        frames.append(PointBatch(points=sample["points"][None],
+                                 valid=sample["points_valid"][None])
+                      .to(device))
+    return frames
+
+
+def _predict_stages(model, ss, frame) -> dict:
+    """Host-clock medians of 3, the card synchronised at each boundary:
+    the single stage's pipeline (segmentor to head outputs), the whole
+    predict, and the rest (the head's decode + NMS; for a two stage also
+    its RoI stage); then the device's busy time over one predict
+    (``torch.profiler``, the union of its kernel and copy intervals,
+    ``device_busy``) against its wall time, and the idle share, with the
+    profiler on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def median_ms(fn):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    with torch.inference_mode():
+        pipe_ms = median_ms(lambda: ss.run_pipeline(frame, detach_seg=False))
+        pred_ms = median_ms(lambda: model.predict(frame))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.predict(frame)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    busy, _ = device_busy(prof)
+    return {"pipeline_ms": pipe_ms, "predict_ms": pred_ms,
+            "rest_ms": pred_ms - pipe_ms, "profiled_wall_ms": wall,
+            "device_busy_ms": busy, "idle_share": 1 - busy / wall}
+
+
+def _group_path(title, model, frames, batch, device, n_remat=0,
+                vote_norms=False):
+    """One model of phase 21: the sparse conv kernel against its twin at
+    every conv of frame 0; predict on the frames (launches per frame by
+    kind, held to the module's convs; the sorted reduce, off in these
+    configs as in JAX's, counted), latency and peak memory; then, where
+    ``batch`` is given, one loss + backward in train mode (dW and the
+    input gradient against their twins at every conv of the step,
+    launches, finite losses and gradients, times); ``vote_norms``: the
+    contracted votes' batch norms set for train mode first
+    (``_train_vote_norms``). Returns the record."""
+    n = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+
+    def drive():
+        with torch.inference_mode():
+            model.predict(frames[0])
+
+    shapes, per_frame, err, convs = phase_fsd_kernels(
+        model, frames[0], device, drive, title=title)
+    if sum(convs.values()) != n:
+        fail(f"{title}: frame 0 ran {sum(convs.values())} sparse convs, the "
+             f"model has {n}")
+    per, outs = [], []
+    reset_launch_counts()
+    for frame in frames:
+        before = (scg.launches, sr.launches, sdw.launches)
+        with torch.inference_mode():
+            outs.append(frame_to_numpy(model.predict(frame)))
+        per.append((scg.launches - before[0], sr.launches - before[1],
+                    sdw.launches - before[2]))
+    launches = {"sparse_conv_gemm": scg.launches, "sorted_reduce":
+                sr.launches, "others": sdw.launches + wm.launches}
+    if any(p != (n, 0, 0) for p in per) or launches["others"]:
+        fail(f"{title}: expected {n} conv launches per frame and no other "
+             f"kernel, counted {per}, {launches}")
+    rows = model.test_cfg["max_num"]
+    for i, res in enumerate(outs):
+        if res["boxes"].shape[0] > rows or not all(
+                np.isfinite(res[k]).all() for k in ("boxes", "scores")):
+            fail(f"{title} frame {i}: boxes {res['boxes'].shape} or "
+                 f"non-finite outputs")
+    lat = _latency(lambda f: frame_to_numpy(model.predict(f)), frames,
+                   GROUP_N_TIMED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        frame_to_numpy(model.predict(frames[0]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{title} predict: {len(frames)} frames, launches per frame (conv, "
+          f"sorted reduce, dW) {per}; detections "
+          f"{[int(r['valid'].sum()) for r in outs]} of "
+          f"{outs[0]['boxes'].shape[0]} (box width "
+          f"{outs[0]['boxes'].shape[1]}); latency incl. results to numpy: "
+          f"median {lat['median']:.2f} ms, range {lat['min']:.2f}-"
+          f"{lat['max']:.2f} over {GROUP_N_TIMED} runs; peak memory "
+          f"{peak:.3f} GiB", flush=True)
+    ss = getattr(model, "rpn", model)
+    stages = _predict_stages(model, ss, frames[0])
+    print(f"{title} predict stages (median of 3, the card synchronised at "
+          f"each boundary): {({k: round(v, 3) for k, v in stages.items()})}",
+          flush=True)
+    rec = {"convs": n, "launches": launches, "per_frame_launches": per[0],
+           "latency": lat, "peak_gib": peak, "shapes": shapes,
+           "per_frame": per_frame, "max_abs_err": err, "stages": stages,
+           "detections": [int(r["valid"].sum()) for r in outs]}
+    with torch.inference_mode():
+        ex = ss.run_pipeline(frames[0])["ex"]
+    if "counts" in ex:  # FSD: fg, cluster voxels, clusters, CCL rounds
+        rec["counts"] = {k: v.tolist() for k, v in ex["counts"].items()}
+        empty = [k for k in ("fg", "cluster_voxels", "clusters")
+                 if min(rec["counts"][k]) == 0]
+    else:  # FSDv2: the virtual voxels the head sees
+        rec["counts"] = {"virtual": int(ex["num_virtual"]),
+                         "union_overflow": int(
+                             ex["num_union_overflow_points"])}
+        empty = [] if rec["counts"]["virtual"] else ["virtual"]
+    print(f"{title} frame 0 counts {rec['counts']}", flush=True)
+    if empty:
+        fail(f"{title}: a sampling unit's stage is empty: {empty}")
+    if batch is None:
+        return rec
+
+    if vote_norms:
+        _train_vote_norms(model, batch)
+    model.train()
+    # one warm-up loss + backward, timed apart: the first grad-mode pass
+    # pays one-time costs (seconds on the Argo2 FSD config), not the step's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _KeptRunningStats(model):
+        out = model.loss(batch, train=True)
+        sum(v for k, v in out.items() if k.startswith("loss")).backward()
+    torch.cuda.synchronize()
+    rec["first_loss_backward_ms"] = (time.perf_counter() - t0) * 1e3
+    model.zero_grad(set_to_none=True)
+    del out
+
+    def train_forward():
+        with torch.no_grad(), _KeptRunningStats(model):
+            model.loss(batch, train=True)
+
+    calls = _record_sparse_convs(model, batch, train_forward)
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        model, batch, device, calls=calls, title=f"a loss of {title}")
+    del calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ev = [_event() for _ in range(3)]
+    ev[0].record()
+    out = model.loss(batch, train=True)
+    total = sum(v for k, v in out.items() if k.startswith("loss"))
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    ev[2].synchronize()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    loss_launches = {**scg.kind_counts, "dw": sdw.launches,
+                     "sorted_reduce": sr.launches}
+    losses = _losses({k: v.detach() for k, v in out.items()})
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in model.parameters() if p.grad is not None)
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    want = {"forward": n, "recompute": n_remat, "dgrad": n, "dw": n,
+            "sorted_reduce": 0}
+    have = {k: loss_launches.get(k, 0) for k in want}
+    print(f"{title} loss + backward: the first (warm-up) "
+          f"{rec['first_loss_backward_ms']:.2f} ms; then loss "
+          f"{ev[0].elapsed_time(ev[1]):.2f} "
+          f"ms, backward {ev[1].elapsed_time(ev[2]):.2f} ms, peak memory "
+          f"{step_peak:.3f} GiB; launches {have}; losses {losses}; "
+          f"gradients finite {finite}", flush=True)
+    bad = [k for k, v in losses.items() if not np.isfinite(v)]
+    if bad or not finite:
+        fail(f"{title} loss: non-finite {bad} or gradients")
+    if have != want:
+        fail(f"{title} loss: launches {have}, expected {want} from the "
+             f"modules")
+    rec.update(loss=losses, loss_ms=ev[0].elapsed_time(ev[1]),
+               backward_ms=ev[1].elapsed_time(ev[2]), step_peak_gib=step_peak,
+               loss_launches=have, dw_shapes=dw_shapes, dw_step=dw_step,
+               dw_err=dw_err, dgrad_err=dgrad_err)
+    return rec
+
+
+def phase_groups(device):
+    """Phase 21: the group-sampling and multi-sweep recipes at full width,
+    nothing cut, through ``build_model_from_cfg`` (float32, seed-0
+    weights; the seg head's class biases shifted so 0.6 of each group's
+    fg cap passes its threshold on frame 0, and for the FSD models the
+    votes contracted, as phase 14 does): configs/fsdv2/fsdv2_nusc_1x.py on
+    10-sweep nuScenes-format frames and configs/fsdv2/fsdv2_argo_2x.py and
+    configs/argo2/argo_onestage_12e.py on Argo2-format frames (each:
+    convs against their twins, predict, one loss + backward), then
+    configs/fsd/fsd_waymoD1_1x_3f.py predict on 3-sweep frames. Returns
+    the phase's record."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_groups_")
+    out = {}
+    for key, path, kind in (("nusc", NUSC_CONFIG, "nusc"),
+                            ("argo_fsdv2", ARGO_FSDV2_CONFIG, "argo"),
+                            ("argo_fsd", ARGO_FSD_CONFIG, "argo")):
+        t0 = time.perf_counter()
+        cfg = load_config(path)
+        model = init_weights(build_model_from_cfg(cfg, train=False),
+                             torch.Generator().manual_seed(0)).eval()
+        data_dir = os.path.join(root, kind)
+        if not os.path.isdir(data_dir):
+            os.makedirs(data_dir)
+            cache = _group_frames(kind, data_dir, device)
+            out[f"{kind}_frames"] = cache
+        frames, n_in, n_kept = out[f"{kind}_frames"]
+        is_fsd = not hasattr(model, "vgrid")
+        if is_fsd:
+            _contract_votes(model)
+        with torch.inference_mode():
+            data = model.run_pipeline(frames[0])["data"]
+        shifts = _shift_group_biases(model, data)
+        del data
+        n_remat = sum(isinstance(m, SparseConvLayer)
+                      for u in model.modules()
+                      if isinstance(u, SimpleSparseUNet) and u.remat
+                      for m in u.modules())
+        print(f"model: {path} through build_model_from_cfg, f32, "
+              f"{sum(p.numel() for p in model.parameters())} parameters, "
+              f"{len(model.group_names)} groups, built in "
+              f"{time.perf_counter() - t0:.1f} s; frames: points in range "
+              f"{n_in}, kept by the {cfg['capacity']['max_points']} cap "
+              f"{n_kept}; group bias shifts {shifts}", flush=True)
+        rec = _group_path(path, model, frames, frames[0], device, n_remat,
+                          vote_norms=is_fsd)
+        rec.update(points_in_range=n_in, points_kept=n_kept,
+                   bias_shifts=shifts)
+        out[key] = rec
+        del model
+        torch.cuda.empty_cache()
+    for kind in ("nusc", "argo"):
+        out.pop(f"{kind}_frames")
+
+    t0 = time.perf_counter()
+    cfg = load_config(FSD_3F_CONFIG)
+    model = init_weights(build_model_from_cfg(cfg, train=False,
+                                              num_point_features=6),
+                         torch.Generator().manual_seed(0)).eval()
+    frames = _three_sweep_frames(root, device, GROUP_N_FRAMES)
+    seg = model.rpn.segmentor_mod
+    kept = []
+    with torch.inference_mode():
+        for f in frames:
+            _, ok = seg.voxel_downsample(f.points.reshape(-1, 6),
+                                         f.valid.reshape(-1), 1)
+            kept.append((int(f.valid.sum()), int(ok.sum())))
+    _contract_votes(model)
+    with torch.inference_mode():
+        data = model.rpn.run_pipeline(frames[0])["data"]
+    shifts = _shift_fg_biases(model.rpn, data)
+    del data
+    print(f"model: {FSD_3F_CONFIG} through build_model_from_cfg (6-channel "
+          f"points, the last the time lag), f32, built in "
+          f"{time.perf_counter() - t0:.1f} s; 3-sweep frames: (points, kept "
+          f"by the 0.05 m down-sampling) {kept}; fg bias shifts "
+          f"{[round(x, 3) for x in shifts]}", flush=True)
+    rec = _group_path(FSD_3F_CONFIG, model, frames, None, device)
+    rec.update(downsample_kept=kept, bias_shifts=shifts)
+    out["fsd_3f"] = rec
+    del model, frames
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"groups: phase 21 took {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -4172,6 +4739,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli = phase_cli(device)
     cli["card"] = card
+    torch.cuda.empty_cache()
+    groups = phase_groups(device)
+    groups["card"] = card
+    group_keys = ("nusc", "argo_fsdv2", "argo_fsd", "fsd_3f")
+    trained = ("nusc", "argo_fsdv2", "argo_fsd")
 
     def per_frame(rows, calls_key):
         """Each timed shape times its launches per frame, summed."""
@@ -4208,7 +4780,13 @@ def main() -> None:
             "fsdv2_two_stage": fsdv2_ts["launches"]["sorted_reduce"],
             "fsdv2_two_stage_loss": (
                 fsdv2_ts["loss_launches"]["sorted_reduce"],
-                fsdv2_ts["loss_launches"]["segment_offsets"])}
+                fsdv2_ts["loss_launches"]["segment_offsets"]),
+            # phase 21: the grouped and multi-sweep configs leave the VFE's
+            # sorted reduce off, as JAX's do
+            **{f"group_{k}": (groups[k]["launches"]["sorted_reduce"], 0)
+               for k in group_keys},
+            **{f"group_{k}_loss": (groups[k]["loss_launches"][
+                "sorted_reduce"], 0) for k in trained}}
     sr_launches = {k: v[0] for k, v in runs.items()}
     # the conv kernel's launches in each path's run, each counted from 0
     conv_by_path = {
@@ -4229,7 +4807,14 @@ def main() -> None:
         # input-gradient launches
         **{f"cli_{k}": sum(v.get(kind, 0) for kind in
                            ("forward", "recompute", "dgrad"))
-           for k, v in cli["launches"].items() if k != "test_sst_bf16"}}
+           for k, v in cli["launches"].items() if k != "test_sst_bf16"},
+        # the group-sampling and multi-sweep paths (phase 21): predict, and
+        # each loss's forward, recompute and input-gradient launches
+        **{f"group_{k}": groups[k]["launches"]["sparse_conv_gemm"]
+           for k in group_keys},
+        **{f"group_{k}_loss": sum(groups[k]["loss_launches"][kind] for kind
+                                  in ("forward", "recompute", "dgrad"))
+           for k in trained}}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
@@ -4237,7 +4822,11 @@ def main() -> None:
         "ctrl_train": ctrl["train"]["launches"]["sparse_conv_dw"],
         "fsdv2_two_stage_loss": fsdv2_ts["loss_launches"]["dw"],
         "cli_train": cli["launches"]["train"]["dw"],
-        "cli_resume": cli["launches"]["resume"]["dw"]}
+        "cli_resume": cli["launches"]["resume"]["dw"],
+        "cli_nusc_train": cli["launches"]["nusc_train"]["dw"],
+        "cli_nusc_resume": cli["launches"]["nusc_resume"]["dw"],
+        **{f"group_{k}_loss": groups[k]["loss_launches"]["dw"]
+           for k in trained}}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -4304,11 +4893,14 @@ def main() -> None:
                            fsd_train["dgrad_err"], fsdpp["max_abs_err"],
                            fsdpp_train["dgrad_err"], ctrl["max_abs_err"],
                            ctrl["train"]["dgrad_err"],
-                           fsdv2_ts["max_abs_err"], fsdv2_ts["dgrad_err"]),
+                           fsdv2_ts["max_abs_err"], fsdv2_ts["dgrad_err"],
+                           *(groups[k]["max_abs_err"] for k in group_keys),
+                           *(groups[k]["dgrad_err"] for k in trained)),
         "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"],
                                  fsdpp_train["dgrad_err"],
                                  ctrl["train"]["dgrad_err"],
-                                 fsdv2_ts["dgrad_err"]),
+                                 fsdv2_ts["dgrad_err"],
+                                 *(groups[k]["dgrad_err"] for k in trained)),
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
         "ms": conv_per_frame["ms"],
@@ -4366,6 +4958,15 @@ def main() -> None:
         "fsdv2_two_stage_loss_dgrad_ms": fsdv2_ts["dw_step"]["dgrad_ms"],
         "fsdv2_two_stage_loss_dgrad_plain_ms": fsdv2_ts["dw_step"][
             "dgrad_plain_ms"],
+        # per frame of each phase-21 path: its convs at the times of frame
+        # 0's recorded inputs, and the input gradient of its one loss
+        **{f"group_{k}_{m}_per_frame": groups[k]["per_frame"][m]
+           for k in group_keys for m in ("ms", "plain_ms", "bound_ms")},
+        **{f"group_{k}_bound_by": bound_by(groups[k].pop("shapes"),
+                                           "convs_per_frame")
+           for k in group_keys},
+        **{f"group_{k}_loss_{m}": groups[k]["dw_step"][m]
+           for k in trained for m in ("dgrad_ms", "dgrad_plain_ms")},
         # the wrapper's host time per call, its entry point bound once and
         # set on every call (phase 18, the widest CTRL conv)
         "host_us": WRAPPER_HOST_US.get("sparse_conv_gemm"),
@@ -4380,7 +4981,8 @@ def main() -> None:
         "launches_by_path": dw_by_path,
         "max_abs_err": max(dw_err, fsd_train["dw_err"],
                            fsdpp_train["dw_err"], ctrl["train"]["dw_err"],
-                           fsdv2_ts["dw_err"]),
+                           fsdv2_ts["dw_err"],
+                           *(groups[k]["dw_err"] for k in trained)),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -4424,6 +5026,13 @@ def main() -> None:
         "fsdv2_two_stage_loss_bound_by": bound_by(fsdv2_ts["dw_shapes"],
                                                   "convs_per_step"),
         "fsdv2_two_stage_loss_shapes": fsdv2_ts.pop("dw_shapes"),
+        # each phase-21 path's one loss: its convs' dW at the times of the
+        # step's recorded inputs
+        **{f"group_{k}_loss_{m}": groups[k]["dw_step"][m]
+           for k in trained for m in ("ms", "plain_ms", "bound_ms")},
+        **{f"group_{k}_loss_bound_by": bound_by(groups[k].pop("dw_shapes"),
+                                                "convs_per_step")
+           for k in trained},
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -4503,7 +5112,9 @@ def main() -> None:
         "ctrl": ctrl["latency"]["median"],
         "fsdv2_two_stage": fsdv2_ts["latency"]["median"],
         "fsdv2_two_stage_skip_rcnn": fsdv2_ts["latency_skip_rcnn"][
-            "median"]},
+            "median"],
+        **{f"group_{k}": groups[k]["latency"]["median"]
+           for k in group_keys}},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -4518,6 +5129,7 @@ def main() -> None:
         "ctrl": ctrl,
         "fsdv2_two_stage": fsdv2_ts,
         "cli": cli,
+        "groups": groups,
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

@@ -20,6 +20,10 @@ shape differs, or if any torch parameter or buffer is left unset.
 FSD maps by the same names: ``rpn`` / ``roi`` (two stage), ``segmentor_mod``,
 ``backbone_mod`` / ``block_i`` / ``rel_mlp`` and ``vfe_i`` (SIR, MLPs with
 LayerNorm), ``head_mod``, ``bbox_head_mod`` / ``conv_cls`` / ``conv_reg``.
+The cluster head's velocity and IoU branches are its tasks' ``vel`` and
+``iou`` MLPs, and under group sampling the segmentor head's background
+column is the last row of ``conv_seg`` (``num_classes + 1`` outputs): both
+map by name and shape like every other leaf.
 """
 
 from __future__ import annotations

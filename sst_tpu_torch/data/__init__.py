@@ -1,4 +1,6 @@
 """Host-side data path of the port (numpy code copied from the JAX
 package's ``sst_tpu/data``): the native point-prep library, the pipeline
-transforms, the datasets, the loader and the tracklet dataset, and their
-collation into torch batches on the CPU."""
+transforms (multi-sweep loading among them), the gt-database sampler, the
+datasets (Waymo, KITTI, nuScenes, Lyft, Argo2, CBGS, synthetic), the loader
+and the tracklet dataset, and their collation into torch batches on the
+CPU; ``format_writers`` writes small seeded sets in those formats."""

@@ -16,9 +16,17 @@ A ``Custom3DDataset`` hands every sample the dataset's one
 it, so with augmentation on the order of the draws follows the threads'
 timing (``SyntheticDataset`` draws from a state per index instead).
 
+The nuScenes, Lyft and Argo2 datasets read LiDAR-frame infos (boxes,
+names, velocities, ``valid_flag``) and hand the pipeline each keyframe's
+``sweeps`` and ``timestamp`` for ``LoadPointsFromMultiSweeps``; KITTI reads
+the Waymo layout's camera-frame annos. Each has its own ``evaluate``
+(``core/eval_{nuscenes,argo2,kitti,lyft}.py``); ``CBGSDataset`` resamples a
+dataset's indices toward balanced classes with ``RandomState(0)``, as
+JAX's does. Every dataset is registered in ``utils/registry.py
+DATASETS``.
+
 Not ported yet (ROADMAP queue 1, item 9b): ``WaymoDataset.format_results``
-and ``evaluate`` (the Waymo-bin output), and the KITTI, nuScenes, Lyft,
-Argo2 and CBGS datasets.
+and ``evaluate`` (the Waymo-bin output).
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import pickle
 from typing import Sequence
 
 import numpy as np
+
+from sst_tpu_torch.utils.registry import DATASETS
 
 
 def camera_to_lidar_boxes(annos: dict, rect=None, Trv2c=None) -> np.ndarray:
@@ -54,6 +64,7 @@ def camera_to_lidar_boxes(annos: dict, rect=None, Trv2c=None) -> np.ndarray:
     ).astype(np.float32)
 
 
+@DATASETS.register
 class Custom3DDataset:
     """pkl-info dataset base (datasets/custom_3d.py analog)."""
 
@@ -87,6 +98,7 @@ class Custom3DDataset:
         return sample
 
 
+@DATASETS.register
 class WaymoDataset(Custom3DDataset):
     """KITTI-format Waymo Open Dataset (datasets/waymo_dataset.py:29).
 
@@ -128,6 +140,283 @@ class WaymoDataset(Custom3DDataset):
             sample["gt_names"] = list(names[keep])
         return sample
 
+
+def lidar_to_camera_annos(boxes, scores, labels, classes, rect=None,
+                          Trv2c=None, P2=None, image_shape=None):
+    """LiDAR 7-dof predictions → a KITTI-format anno dict (camera frame),
+    the inverse of camera_to_lidar_boxes.
+
+    With ``P2`` (3x4 camera projection) the image bbox is the real
+    projection of the 3D corners (reference kitti format path,
+    box_np_ops center_to_corner_box3d → project_to_image) and alpha the
+    devkit observation angle; otherwise bbox is a never-size-ignored
+    placeholder (lidar-only pipelines)."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, boxes.shape[-1] if
+                                                  len(boxes) else 7)
+    n = len(boxes)
+    if rect is not None and Trv2c is not None and n:
+        hom = np.concatenate(
+            [boxes[:, :3], np.ones((n, 1), np.float32)], axis=1)
+        loc = (hom @ (rect @ Trv2c).T)[:, :3]
+        ry = -boxes[:, 6] - np.pi / 2
+    else:
+        loc = boxes[:, :3] if n else np.zeros((0, 3), np.float32)
+        ry = boxes[:, 6] if n else np.zeros(0, np.float32)
+    dims = boxes[:, [4, 5, 3]] if n else np.zeros((0, 3), np.float32)  # lhw
+    if P2 is not None and n:
+        from sst_tpu_torch.core.frames import cam_boxes_to_image_bbox, kitti_alpha
+
+        # camera-frame rows (x_size, y_size, z_size) = (l, h, w), y = bottom
+        cam = np.concatenate(
+            [loc, dims, ry[:, None]], axis=1).astype(np.float32)
+        bbox = cam_boxes_to_image_bbox(cam, P2, image_shape)
+        alpha = kitti_alpha(loc, ry).astype(np.float32)
+    else:
+        bbox = np.tile(np.array([[0.0, 0.0, 200.0, 200.0]], np.float32),
+                       (n, 1))
+        alpha = np.asarray(ry, np.float32).copy()
+    return dict(
+        name=np.asarray([classes[int(l)] for l in labels]),
+        location=loc.astype(np.float32),
+        dimensions=dims.astype(np.float32),
+        rotation_y=np.asarray(ry, np.float32),
+        alpha=alpha,
+        bbox=bbox,
+        occluded=np.zeros(n, np.int32),
+        truncated=np.zeros(n, np.float32),
+        score=np.asarray(scores, np.float32).reshape(-1),
+    )
+
+
+@DATASETS.register
+class KittiDataset(WaymoDataset):
+    """KITTI 3D detection (datasets/kitti_dataset.py): same kitti-format info
+    schema as the Waymo converter output, 4-channel points."""
+
+    CLASSES = ("Car", "Pedestrian", "Cyclist")
+
+    def __init__(self, *args, load_dim: int = 4, use_dim=(0, 1, 2, 3), **kw):
+        super().__init__(*args, load_dim=load_dim, use_dim=use_dim, **kw)
+
+    def evaluate(self, results, metric: str = "kitti", **kw):
+        """Official KITTI easy/moderate/hard R40 protocol
+        (kitti_dataset.py:707 kitti_eval path)."""
+        from sst_tpu_torch.core.eval_kitti import kitti_eval
+
+        empty = dict(name=np.zeros(0, dtype="<U16"))
+        gt_annos = [info.get("annos", empty) for info in self.infos]
+        dt_annos = []
+        for res, info in zip(results, self.infos):
+            calib = info.get("calib", {})
+            dt_annos.append(lidar_to_camera_annos(
+                np.asarray(res["boxes_3d"]), np.asarray(res["scores_3d"]),
+                np.asarray(res["labels_3d"]), self.classes,
+                rect=calib.get("R0_rect"), Trv2c=calib.get("Tr_velo_to_cam"),
+                P2=calib.get("P2"),
+                image_shape=info.get("image", {}).get("image_shape"),
+            ))
+        return kitti_eval(gt_annos, dt_annos, tuple(self.classes))
+
+
+@DATASETS.register
+class NuScenesDataset(Custom3DDataset):
+    """nuScenes (datasets/nuscenes_dataset.py): infos carry LiDAR-frame boxes
+    directly (gt_boxes [G, 7], gt_names, gt_velocity [G, 2]); code_size 9
+    boxes = [x y z w l h yaw vx vy]."""
+
+    CLASSES = (
+        "car", "truck", "trailer", "bus", "construction_vehicle", "bicycle",
+        "motorcycle", "pedestrian", "traffic_cone", "barrier",
+    )
+
+    def __init__(self, *args, load_dim: int = 5, use_dim=(0, 1, 2, 3, 4),
+                 with_velocity: bool = True, use_valid_flag: bool = True,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.load_dim = load_dim
+        self.use_dim = list(use_dim)
+        self.with_velocity = with_velocity
+        self.use_valid_flag = use_valid_flag
+
+    def get_sample(self, idx: int) -> dict:
+        info = self.infos[idx]
+        path = info.get("lidar_path") or info["point_cloud"]["velodyne_path"]
+        if not os.path.isabs(path):
+            path = os.path.join(self.data_root, path)
+        points = np.fromfile(path, dtype=np.float32).reshape(-1, self.load_dim)
+        sample = {
+            "points": points[:, self.use_dim],
+            "idx": idx,
+            "info": info,
+            "timestamp": info.get("timestamp", 0.0),
+            "sweeps": info.get("sweeps", []),
+        }
+        if "gt_boxes" in info:
+            boxes = np.asarray(info["gt_boxes"], np.float32).reshape(-1, 7)
+            names = np.asarray(info["gt_names"]).reshape(-1)
+            mask = (
+                np.asarray(info["valid_flag"], bool)
+                if self.use_valid_flag and "valid_flag" in info
+                else np.asarray(info.get("num_lidar_pts", np.ones(len(boxes)))) > 0
+            )
+            keep = mask & np.isin(names, self.classes)
+            boxes = boxes[keep]
+            names = names[keep]
+            if self.with_velocity:
+                vel = np.asarray(info.get(
+                    "gt_velocity", np.zeros((len(mask), 2))), np.float32)[keep]
+                vel = np.nan_to_num(vel)
+                boxes = np.concatenate([boxes, vel], axis=1)
+            sample["gt_boxes"] = boxes
+            sample["gt_labels"] = np.asarray(
+                [self.classes.index(n) for n in names], np.int32
+            )
+            sample["gt_names"] = list(names)
+        return sample
+
+    def class_counts(self):
+        counts = np.zeros(len(self.classes), np.int64)
+        for info in self.infos:
+            names = np.asarray(info.get("gt_names", [])).reshape(-1)
+            for n in names:
+                if n in self.classes:
+                    counts[self.classes.index(n)] += 1
+        return counts
+
+    def _gt_frames(self):
+        gts = []
+        for i in range(len(self.infos)):
+            s = self.get_sample(i)
+            gts.append(dict(
+                boxes=s.get("gt_boxes", np.zeros((0, 7), np.float32)),
+                labels=s.get("gt_labels", np.zeros(0, np.int32))))
+        return gts
+
+    def evaluate(self, results, metric: str = "nds", **kw):
+        """nuScenes protocol: center-distance AP at {0.5, 1, 2, 4} m, TP
+        error metrics, NDS composite (nuscenes_dataset.py _evaluate_single
+        equivalent, devkit-free)."""
+        from sst_tpu_torch.core.eval_nuscenes import nusc_eval
+
+        preds = [dict(boxes=np.asarray(r["boxes_3d"]),
+                      scores=np.asarray(r["scores_3d"]),
+                      labels=np.asarray(r["labels_3d"])) for r in results]
+        return nusc_eval(preds, self._gt_frames(), tuple(self.classes))
+
+
+@DATASETS.register
+class LyftDataset(NuScenesDataset):
+    """Lyft L5 dataset (datasets/lyft_dataset.py): nuScenes relational
+    format with flat (unmapped) category names, no velocity; evaluated with
+    the Lyft mAP@0.5:0.95 protocol (core/eval_lyft.py, reference
+    core/evaluation/lyft_eval.py:89)."""
+
+    CLASSES = (
+        "car", "truck", "bus", "emergency_vehicle", "other_vehicle",
+        "motorcycle", "bicycle", "pedestrian", "animal",
+    )
+
+    def __init__(self, *args, with_velocity: bool = False, **kw):
+        super().__init__(*args, with_velocity=with_velocity, **kw)
+
+    def evaluate(self, results, metric: str = "lyft", **kw):
+        from sst_tpu_torch.core.eval_lyft import lyft_eval
+
+        preds = [dict(boxes=np.asarray(r["boxes_3d"]),
+                      scores=np.asarray(r["scores_3d"]),
+                      labels=np.asarray(r["labels_3d"])) for r in results]
+        return lyft_eval(preds, self._gt_frames(), tuple(self.classes))
+
+
+@DATASETS.register
+class Argo2Dataset(NuScenesDataset):
+    """Argoverse 2 sensor dataset (datasets/argo2_dataset.py): 26-class,
+    LiDAR-frame infos produced by tools/argo converters; no velocity."""
+
+    CLASSES = (
+        "Regular_vehicle", "Pedestrian", "Bicyclist", "Motorcyclist",
+        "Wheeled_rider", "Bollard", "Construction_cone", "Sign",
+        "Construction_barrel", "Stop_sign", "Mobile_pedestrian_crossing_sign",
+        "Large_vehicle", "Bus", "Box_truck", "Truck", "Vehicular_trailer",
+        "Truck_cab", "School_bus", "Articulated_bus", "Message_board_trailer",
+        "Bicycle", "Motorcycle", "Wheeled_device", "Wheelchair", "Stroller",
+        "Dog",
+    )
+
+    def __init__(self, *args, with_velocity: bool = False, **kw):
+        super().__init__(*args, with_velocity=with_velocity, **kw)
+
+    def format_results(self, results, pklfile_prefix: str):
+        """av2-schema feather output (argo2_dataset.py:374-440)."""
+        from sst_tpu_torch.core.eval_argo2 import format_results_feather
+
+        return format_results_feather(results, self.infos,
+                                      tuple(self.classes), pklfile_prefix)
+
+    def evaluate(self, results, metric: str = "cds",
+                 pklfile_prefix: str | None = None, **kw):
+        """av2-protocol CDS eval (argo2_dataset.py:459-520 equivalent,
+        av2-package-free); optionally also writes the feather dump."""
+        from sst_tpu_torch.core.eval_argo2 import argo2_eval
+
+        out = {}
+        if pklfile_prefix is not None:
+            out["feather"] = self.format_results(results, pklfile_prefix)
+        preds = [dict(boxes=np.asarray(r["boxes_3d"]),
+                      scores=np.asarray(r["scores_3d"]),
+                      labels=np.asarray(r["labels_3d"])) for r in results]
+        out.update(argo2_eval(preds, self._gt_frames(),
+                              tuple(self.classes)))
+        return out
+
+
+@DATASETS.register
+class CBGSDataset:
+    """Class-balanced resampling wrapper (datasets/dataset_wrappers.py
+    CBGSDataset, nuScenes recipe): duplicate sample indices so every class's
+    expected frequency approaches 1/num_classes."""
+
+    def __init__(self, dataset):
+        self.dataset = (
+            DATASETS.build(dataset) if isinstance(dataset, dict) else dataset
+        )
+        self.sample_indices = self._balanced_indices()
+        self.classes = self.dataset.classes
+
+    def _balanced_indices(self):
+        ds = self.dataset
+        num_classes = len(ds.classes)
+        cls_to_samples = {c: [] for c in range(num_classes)}
+        for i in range(len(ds)):
+            info = ds.infos[i]
+            names = np.asarray(info.get(
+                "gt_names", info.get("annos", {}).get("name", []))).reshape(-1)
+            labels = {ds.classes.index(n) for n in names if n in ds.classes}
+            for l in labels:
+                cls_to_samples[l].append(i)
+        duplicated = sum(len(v) for v in cls_to_samples.values())
+        if duplicated == 0:
+            return list(range(len(ds)))
+        frac = 1.0 / num_classes
+        ratios = [frac / (len(v) / duplicated) if len(v) else 0.0
+                  for v in cls_to_samples.values()]
+        out = []
+        rng = np.random.RandomState(0)
+        for cls, ratio in enumerate(ratios):
+            pool = cls_to_samples[cls]
+            if not pool:
+                continue
+            n = int(len(pool) * ratio)
+            out.extend(rng.choice(pool, n).tolist())
+        return out or list(range(len(ds)))
+
+    def __len__(self):
+        return len(self.sample_indices)
+
+    def __getitem__(self, idx):
+        return self.dataset[self.sample_indices[idx]]
+
+@DATASETS.register
 class SyntheticDataset:
     """Deterministic synthetic LiDAR scenes for smoke training/benchmarks —
     clustered objects + ground plane + clutter, Waymo-like density."""

@@ -11,8 +11,10 @@ and draws from ``sample["rng"]`` exactly as JAX's does, draw for draw, so
 both packages give the same samples from the same state. ``PointsRangeFilter``
 and ``PadToCap`` take the native route (``data/native``) wherever its
 library builds, as JAX's do; ``PadToCap`` draws a seed on that route only.
-``LoadPointsFromMultiSweeps`` is not ported yet (ROADMAP queue 1, item 9b):
-:func:`build_pipeline` raises on it.
+``LoadPointsFromMultiSweeps`` concatenates a keyframe's past sweeps with a
+time-lag channel (Waymo's 4x4 ``pose`` route and nuScenes'
+``sensor2lidar_*`` route); ``ObjectSample`` (``data/dbsampler.py``) pastes
+objects of a gt database into the frame.
 """
 
 from __future__ import annotations
@@ -20,9 +22,6 @@ from __future__ import annotations
 import numpy as np
 
 from sst_tpu_torch.utils.registry import PIPELINES
-
-# transforms of the JAX registry not yet ported, by ROADMAP item
-UNPORTED = {"LoadPointsFromMultiSweeps": "ROADMAP queue 1, item 9b"}
 
 
 def _rot2d(xy, angle):
@@ -203,6 +202,77 @@ class PadToCap:
 
 
 @PIPELINES.register
+class LoadPointsFromMultiSweeps:
+    """Concatenate past lidar sweeps into the current frame with a time-lag
+    channel (loading.py LoadPointsFromMultiSweeps / ...Waymo).
+
+    Each entry of sample["sweeps"] needs: data_path (str), timestamp, and
+    either a 4x4 "pose" composed with the current frame's (waymo style) or
+    "sensor2lidar_rotation"/"sensor2lidar_translation" (nuscenes style).
+    """
+
+    def __init__(self, sweeps_num: int = 2, load_dim: int = 5,
+                 use_dim=(0, 1, 2, 3, 4), pad_empty_sweeps: bool = True,
+                 remove_close: float = 1.0, test_mode: bool = False):
+        self.sweeps_num = sweeps_num
+        self.load_dim = load_dim
+        self.use_dim = list(use_dim)
+        self.pad_empty_sweeps = pad_empty_sweeps
+        self.remove_close = remove_close
+        self.test_mode = test_mode
+
+    def _remove_close(self, pts):
+        if self.remove_close <= 0:
+            return pts
+        m = (np.abs(pts[:, 0]) > self.remove_close) | (
+            np.abs(pts[:, 1]) > self.remove_close
+        )
+        return pts[m]
+
+    def __call__(self, sample):
+        pts = sample["points"]
+        ts = float(sample.get("timestamp", 0.0))
+        out = [np.concatenate(
+            [pts, np.zeros((len(pts), 1), np.float32)], axis=1)]
+        sweeps = sample.get("sweeps", [])
+        if not sweeps and self.pad_empty_sweeps:
+            for _ in range(self.sweeps_num):
+                out.append(out[0].copy() if not self.remove_close else
+                           np.concatenate([self._remove_close(pts),
+                                           np.zeros((len(self._remove_close(pts)), 1),
+                                                    np.float32)], axis=1))
+        else:
+            if len(sweeps) <= self.sweeps_num:
+                chosen = list(range(len(sweeps)))
+            elif self.test_mode:
+                chosen = list(range(self.sweeps_num))
+            else:
+                chosen = list(sample["rng"].choice(
+                    len(sweeps), self.sweeps_num, replace=False))
+            for i in chosen:
+                sw = sweeps[i]
+                p = np.fromfile(sw["data_path"], dtype=np.float32).reshape(
+                    -1, self.load_dim)[:, self.use_dim]
+                p = self._remove_close(p)
+                if "sensor2lidar_rotation" in sw:
+                    r = np.asarray(sw["sensor2lidar_rotation"], np.float32)
+                    t = np.asarray(sw["sensor2lidar_translation"], np.float32)
+                    p[:, :3] = p[:, :3] @ r.T + t
+                elif "pose" in sw and "pose" in sample:
+                    rel = np.linalg.inv(
+                        np.asarray(sample["pose"], np.float64)
+                    ) @ np.asarray(sw["pose"], np.float64)
+                    p[:, :3] = (p[:, :3] @ rel[:3, :3].T + rel[:3, 3]).astype(
+                        np.float32)
+                lag = ts - float(sw.get("timestamp", ts))
+                p = np.concatenate(
+                    [p, np.full((len(p), 1), lag, np.float32)], axis=1)
+                out.append(p)
+        sample["points"] = np.concatenate(out)
+        return sample
+
+
+@PIPELINES.register
 class RandomPointDrop:
     """Drop a random fraction of points (transforms_3d.py RandomPointDrop)."""
 
@@ -302,12 +372,9 @@ class ObjectNoise:
 def build_pipeline(cfgs: list[dict]):
     """The transforms of ``cfgs`` (``dict(type=..., **kwargs)``) chained
     into one function of a sample."""
-    steps = []
-    for c in cfgs:
-        if c["type"] in UNPORTED:
-            raise NotImplementedError(f"pipeline transform {c['type']!r} is "
-                                      f"not ported yet: {UNPORTED[c['type']]}")
-        steps.append(PIPELINES.build(dict(c)))
+    from sst_tpu_torch.data import dbsampler  # noqa: F401 (ObjectSample)
+
+    steps = [PIPELINES.build(dict(c)) for c in cfgs]
     def run(sample):
         for s in steps:
             sample = s(sample)

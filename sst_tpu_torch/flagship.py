@@ -506,6 +506,80 @@ def tiny_fsd(num_point_features: int = 5, device="cuda"):
                                     **_tiny_fsd_cfg()), device)
 
 
+def tiny_fsd_grouped(num_point_features: int = 5, device="cuda"):
+    """Small SingleStageFSD in group-sampling mode (the Argo2 recipe cut
+    to 5 classes in 2 groups; the config of the JAX ``tiny_fsd_grouped``):
+    the segmentor head carries a background column (6 logits), sampling
+    and clustering run per group, the head's tasks are the groups."""
+    names = ("A", "B", "C", "D", "E")
+    cfg = _tiny_fsd_cfg()
+    cfg.update(
+        num_classes=5, class_names=names,
+        group_names=(names[:2], names[2:]),
+        score_thresh=(0.05, 0.05),
+        cluster_voxel_size=((0.3, 0.3, 6.0), (0.2, 0.2, 6.0)),
+        connected_dist=(0.6, 0.4),
+        caps=FSDCaps(fg_per_class=(256, 128),
+                     cluster_voxels_per_class=(256, 256),
+                     clusters_per_class=(32, 32), pre_voxels=1024))
+    cfg["segmentor"] = dict(cfg["segmentor"],
+                            head=dict(num_classes=6, hidden_dims=(32, 32)))
+    return on_device(SingleStageFSD(num_point_features=num_point_features,
+                                    **cfg), device)
+
+
+def tiny_fsdv2_grouped(num_point_features: int = 5, with_vel: bool = False,
+                       device="cuda"):
+    """Small sparse-UNet SingleStageFSDV2 in batched group-sampling mode
+    (the nuScenes recipe cut to 3 classes in 2 groups, the segmentor head
+    with a background column), the clone of ``tiny_fsdv2`` in the JAX
+    package's ``tests/test_fsdv2.py``; ``with_vel`` adds the head's
+    velocity branch (boxes of 9 columns), as ``fsdv2_nusc_1x.py`` does."""
+    return on_device(SingleStageFSDV2(
+        num_point_features=num_point_features,
+        point_cloud_range=_TINY_FSD_PCR,
+        virtual_voxel_size=(0.5, 0.5, 0.5),
+        group_names=(("Car",), ("Pedestrian", "Cyclist")),
+        score_thresh=(0.05, 0.05),
+        caps=FSDV2Caps(fg_per_class=(256, 128, 128), voxels=1024,
+                       union_voxels=2048, virtual_out=256),
+        multiscale_levels=(0, 1),
+        ms_projector_hiddens=((16,), (16,)),
+        ms_output_dim=16,
+        segmentor=dict(
+            voxel_size=(0.5, 0.5, 0.5),
+            max_voxels=1024,
+            unet_level_caps=(1024, 512, 256),
+            unet_strides=((2, 2, 2),) * 2,
+            unet_paddings=((1, 1, 1),) * 2,
+            vfe=dict(feat_channels=(16, 16), mode="max"),
+            unet=dict(
+                in_channels=16, base_channels=16,
+                encoder_channels=((16,), (16, 16), (16, 16)),
+                decoder_channels=((16, 16, 16), (16, 16, 16), (16, 16, 16)),
+            ),
+            head=dict(num_classes=4, hidden_dims=(32, 32)),
+        ),
+        vfe=dict(feat_channels=(16, 16), mode="max"),
+        mixer=dict(
+            base_channels=16, output_channels=32,
+            encoder_channels=((16,), (16, 16), (16, 16)),
+            decoder_channels=((16, 16, 16), (16, 16, 16), (16, 16, 16)),
+        ),
+        head=dict(
+            in_channel=32,
+            shared_mlp_dims=(64, 64),
+            common_attrs=(("center", 3, 1, 32), ("dim", 3, 1, 32),
+                          ("rot", 2, 1, 32)),
+            num_cls_layer=1,
+            cls_hidden_dim=32,
+            with_vel=with_vel,
+        ),
+        test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=64, max_num=32,
+                      use_rotate_nms=True),
+    ), device)
+
+
 def _tiny_roi_head_cfg() -> dict:
     return dict(
         max_inbox_point=32,

@@ -58,7 +58,9 @@ class DynamicVoxelNet(nn.Module):
                  test_cfg: dict | None = None, dtype=torch.float32):
         super().__init__()
         if head_type != "anchor":
-            raise NotImplementedError(f"head_type={head_type!r}")
+            raise NotImplementedError(
+                f"head_type={head_type!r} (CenterHead): ROADMAP queue 1 "
+                f"item 10")
         if backbone_type not in ("sstv2", "sstv1"):
             raise NotImplementedError(f"backbone_type={backbone_type!r}")
         self.voxel_size = tuple(voxel_size)

@@ -22,6 +22,13 @@ boxes, and the head's per-task losses against the virtual voxels' gt boxes.
 ``seg_logits``, ``seg_vote_preds`` and ``offsets`` reach the detection
 branch detached (``detach_seg``), as in the JAX package.
 
+Batched group sampling (``group_names``, the nuScenes and Argo2
+recipes): virtual points are sampled per class group. The segmentor head
+carries a background column (``num_classes + 1`` logits); a group's fg
+score is the softmax sum of its member classes, its vote offset the one of
+the member with the largest logit, scaled by ``group_offset_scale``;
+thresholds and fg caps are per group. The head's tasks stay the config's.
+
 ``as_rpn``: ``extract_feat`` also recovers per-point features for an RoI
 stage: each real and virtual point takes its virtual voxel's mixed
 features and its offset from the voxel centre through ``recover_proj``.
@@ -32,6 +39,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sst_tpu_torch.core.target_assign import gt_point_class_labels
@@ -88,6 +96,7 @@ class SingleStageFSDV2(nn.Module):
                  class_names: tuple = ("Car", "Pedestrian", "Cyclist"),
                  score_thresh: tuple = (0.3, 0.25, 0.25),
                  group_names: tuple | None = None,
+                 group_offset_scale: float = 1.0,
                  offset_normalizer: float = 10.0,
                  proj_hidden: tuple = (64, 64),
                  multiscale_levels: tuple = (0, 1),
@@ -113,17 +122,13 @@ class SingleStageFSDV2(nn.Module):
                 f"mixer_type={mixer_type!r} with segmentor backbone "
                 f"{backbone!r}: the port runs 'sparse' with 'sparse' and "
                 f"'dense_bev' with 'dense_bev'")
-        if group_names is not None:
-            raise NotImplementedError(
-                "group_names (batched group sampling): ROADMAP queue 1 "
-                "item 7c")
         if centroid_alpha is not None:
             raise NotImplementedError("centroid_alpha")
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"dtype={dtype}: float32 and bfloat16 are ported")
-        # options read only by training or by group sampling
-        unknown = set(train_cfg) - {"add_gt_fg_points", "group_offset_scale"}
+        # options read only by training
+        unknown = set(train_cfg) - {"add_gt_fg_points"}
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
         # add_gt_fg_points: at train time, points inside a same-class gt box
@@ -136,14 +141,21 @@ class SingleStageFSDV2(nn.Module):
         self.point_cloud_range = tuple(point_cloud_range)
         self.virtual_voxel_size = tuple(virtual_voxel_size)
         self.num_classes = num_classes
+        self.class_names = tuple(class_names)
+        self.group_names = (None if group_names is None
+                            else tuple(tuple(g) for g in group_names))
+        self.group_offset_scale = group_offset_scale
         self.score_thresh = tuple(score_thresh)
         self.offset_normalizer = offset_normalizer
         self.multiscale_levels = tuple(multiscale_levels)
         self.caps = caps or FSDV2Caps()
-        if len(self.caps.fg_per_class) < num_classes:
+        n_groups = (num_classes if group_names is None
+                    else len(self.group_names))
+        if len(self.caps.fg_per_class) < n_groups:
             raise ValueError(
                 f"caps.fg_per_class has {len(self.caps.fg_per_class)} entries "
-                f"but {num_classes} classes are configured")
+                f"but {n_groups} sampling groups are configured — provide "
+                f"one fg cap per group")
         self.test_cfg = dict(test_cfg or dict(
             score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
             use_rotate_nms=True))
@@ -154,8 +166,11 @@ class SingleStageFSDV2(nn.Module):
             num_point_features, point_cloud_range=self.point_cloud_range,
             return_multiscale=True, dtype=dtype, **segmentor)
         seg_c = self.segmentor_mod.feat_channels
+        # a virtual point's input carries every seg logit (with the
+        # background column under group sampling)
         self.virtual_proj = MLP(
-            seg_c + 3 + num_classes + num_point_features - 3,
+            seg_c + 3 + self.segmentor_mod.head_mod.num_classes
+            + num_point_features - 3,
             tuple(proj_hidden), norm="ln", dtype=dtype)
         self.ori_proj = MLP(seg_c, tuple(proj_hidden), norm="ln", dtype=dtype)
         self.vfe_mod = DynamicVFE(
@@ -216,6 +231,39 @@ class SingleStageFSDV2(nn.Module):
         offsets = data["offsets"][idx].reshape(-1, self.num_classes, 3)[:, cls]
         centers = self._clip(pts[:, :3] + offsets)
         # virtual point features: [seg_feats, offset/10, seg_logits, extras]
+        proj_in = torch.cat(
+            [data["seg_feats"][idx],
+             (centers - pts[:, :3]) / self.offset_normalizer,
+             data["seg_logits"][idx], pts[:, 3:]], dim=-1)
+        return {"valid": sel_valid, "centers": centers, "proj_in": proj_in,
+                "batch_idx": data["batch_idx"][idx]}
+
+    def sample_group(self, data: dict, gi: int, thr_extra: float = 0.0,
+                     pretrain: bool = False):
+        """fg selection for class group ``gi``: the softmax over the
+        background column, a group's score the sum of its members'
+        probabilities, its offset the largest-logit member's times
+        ``group_offset_scale``; ``pretrain`` as in :meth:`sample_class`."""
+        ids = [self.class_names.index(n) for n in self.group_names[gi]]
+        cap = self.caps.fg_per_class[gi]
+        probs = torch.softmax(data["seg_logits"], dim=-1)
+        gscore = probs[:, ids].sum(dim=-1)
+        if pretrain:
+            fg = data["valid"]
+        else:
+            fg = data["valid"] & (gscore > self.score_thresh[gi] + thr_extra)
+            if data.get("gt_point_labels") is not None:
+                member = torch.zeros_like(fg)
+                for cid in ids:
+                    member = member | (data["gt_point_labels"] == cid)
+                fg = fg | (data["valid"] & member)
+        idx, sel_valid = topk_compact(gscore, fg, cap)
+        pts = data["seg_points"][idx]
+        member_logits = data["seg_logits"][idx][:, ids]
+        offs = data["offsets"][idx].reshape(idx.shape[0], -1, 3)[:, ids]
+        w = F.one_hot(member_logits.argmax(-1), len(ids)).to(offs.dtype)
+        offset = (offs * w[..., None]).sum(dim=1) * self.group_offset_scale
+        centers = self._clip(pts[:, :3] + offset)
         proj_in = torch.cat(
             [data["seg_feats"][idx],
              (centers - pts[:, :3]) / self.offset_normalizer,
@@ -304,8 +352,12 @@ class SingleStageFSDV2(nn.Module):
     def extract_feat(self, data: dict, batch_size: int, train: bool = False,
                      thr_extra: float = 0.0, pretrain: bool = False):
         caps = self.caps
-        samples = [self.sample_class(data, c, thr_extra, pretrain)
-                   for c in range(self.num_classes)]
+        if self.group_names is not None:
+            samples = [self.sample_group(data, g, thr_extra, pretrain)
+                       for g in range(len(self.group_names))]
+        else:
+            samples = [self.sample_class(data, c, thr_extra, pretrain)
+                       for c in range(self.num_classes)]
         vir_xyz = torch.cat([s["centers"] for s in samples])
         vir_in = torch.cat([s["proj_in"] for s in samples])
         vir_valid = torch.cat([s["valid"] for s in samples])

@@ -17,10 +17,17 @@ branch's logits, votes and offsets detached before sampling (its features
 keep their gradient), ``add_gt_fg_points`` ORing the points inside a gt box
 of the class into its fg, CCL without autograd (its labels are integers).
 
-Not ported, raising ``NotImplementedError``: group sampling
-(``group_names``, the Argo2 recipe) and the key-point assigner (``"ssg"``
-in ``assigner_per_class``, built on ``ops/fps.py``), ROADMAP queue 1
-items 7c and 7d; a compute dtype other than float32 (JAX's FSD builds are
+Group sampling (``group_names``, the Argo2 recipe): sampling and
+clustering run per class group instead of per class. The segmentor head
+then carries a background column (``num_classes + 1`` logits); a group's
+fg score is the softmax sum of its member classes, its vote offset the one
+of the member with the largest logit, gt-label membership is per group,
+the caps, thresholds and cluster sizes are indexed per group, and the
+head's tasks are the groups.
+
+Not ported, raising ``NotImplementedError``: the key-point assigner
+(``"ssg"`` in ``assigner_per_class``, built on ``ops/fps.py``), ROADMAP
+queue 1 item 7d; a compute dtype other than float32 (JAX's FSD builds are
 float32).
 """
 
@@ -29,6 +36,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sst_tpu_torch.core.target_assign import gt_point_class_labels
@@ -101,10 +109,6 @@ class SingleStageFSD(nn.Module):
                  head: dict | None = None, test_cfg: dict | None = None,
                  dtype=torch.float32):
         super().__init__()
-        if group_names is not None:
-            raise NotImplementedError(
-                "group_names (group sampling, the Argo2 recipe): ROADMAP "
-                "queue 1 item 7c")
         if assigner_per_class is not None and "ssg" in assigner_per_class:
             raise NotImplementedError(
                 "assigner_per_class 'ssg' (the key-point assigner on "
@@ -114,12 +118,18 @@ class SingleStageFSD(nn.Module):
                 f"dtype={dtype}: FSD is ported in float32, as JAX builds it "
                 f"(a bf16 FSD: ROADMAP queue 1 item 11)")
         del ssg_radius, ssg_num_fps  # read by the 'ssg' assigner only
+        self.group_names = (None if group_names is None
+                            else tuple(tuple(g) for g in group_names))
+        # sampling and clustering units: the class groups where
+        # group_names is set, else one unit per class
+        self.num_units = (num_classes if group_names is None
+                          else len(self.group_names))
         for name, val in (("score_thresh", score_thresh),
                           ("cluster_voxel_size", cluster_voxel_size),
                           ("connected_dist", connected_dist)):
-            if len(val) < num_classes:
+            if len(val) < self.num_units:
                 raise ValueError(
-                    f"{name} has {len(val)} entries but {num_classes} "
+                    f"{name} has {len(val)} entries but {self.num_units} "
                     f"sampling units are configured")
         self.point_cloud_range = tuple(point_cloud_range)
         self.num_classes = num_classes
@@ -146,6 +156,8 @@ class SingleStageFSD(nn.Module):
             dtype=dtype, **(backbone or {}))
         head_kw = {k: v for k, v in dict(head or {}).items()
                    if k not in ("num_classes", "class_names", "in_channel")}
+        if self.group_names is not None:
+            head_kw.setdefault("tasks", self.group_names)
         self.head_mod = SparseClusterHeadV2(
             num_classes=num_classes, class_names=self.class_names,
             in_channel=self.backbone_mod.cluster_channels, dtype=dtype,
@@ -184,17 +196,37 @@ class SingleStageFSD(nn.Module):
 
     def sample_class(self, data: dict, cls: int,
                      thr_extra: float = 0.0) -> dict:
-        """fg selection for one class: threshold + top-k compaction; in
-        training with ``gt_point_labels`` in ``data``, the points inside a
-        gt box of the class are fg too."""
+        """fg selection for one sampling unit (a class, or a class group
+        with ``group_names``): threshold + top-k compaction; in training
+        with ``gt_point_labels`` in ``data``, the points inside a gt box of
+        a class of the unit are fg too."""
         cap = self.caps.fg_per_class[cls]
-        scores = torch.sigmoid(data["seg_logits"][:, cls])
+        ids = ([cls] if self.group_names is None else
+               [self.class_names.index(n) for n in self.group_names[cls]])
+        if self.group_names is not None:
+            # the background column's softmax; a group's score is the sum
+            # of its members' probabilities
+            probs = torch.softmax(data["seg_logits"], dim=-1)
+            scores = probs[:, ids].sum(dim=-1)
+        else:
+            scores = torch.sigmoid(data["seg_logits"][:, cls])
         fg = data["valid"] & (scores > self.score_thresh[cls] + thr_extra)
         if data.get("gt_point_labels") is not None:
-            fg = fg | (data["valid"] & (data["gt_point_labels"] == cls))
+            member = torch.zeros_like(fg)
+            for cid in ids:
+                member = member | (data["gt_point_labels"] == cid)
+            fg = fg | (data["valid"] & member)
         idx, sel_valid = topk_compact(scores, fg, cap)
         pts = data["seg_points"][idx]
-        offsets = data["offsets"][idx].reshape(idx.shape[0], -1, 3)[:, cls]
+        offs = data["offsets"][idx].reshape(idx.shape[0], -1, 3)
+        if len(ids) > 1:
+            # 'max' offset weighting: the offset of the member with the
+            # largest logit
+            member_logits = data["seg_logits"][idx][:, ids]
+            w = F.one_hot(member_logits.argmax(-1), len(ids)).to(offs.dtype)
+            offsets = (offs[:, ids] * w[..., None]).sum(dim=1)
+        else:
+            offsets = offs[:, ids[0]]
         return {
             "idx": idx,
             "valid": sel_valid,
@@ -245,12 +277,13 @@ class SingleStageFSD(nn.Module):
 
     def extract(self, data: dict, batch_size: int, train: bool = False,
                 thr_extra: float = 0.0) -> dict:
-        """sample → cluster → SIR for every class; cluster-level and
-        point-level tensors."""
+        """sample → cluster → SIR for every sampling unit; cluster-level
+        and point-level tensors. A cluster's ``cluster_cls`` is its unit,
+        the index of its head task."""
         streams, counts = [], []
-        total_clusters = sum(self.caps.clusters_per_class[:self.num_classes])
+        total_clusters = sum(self.caps.clusters_per_class[:self.num_units])
         offset = 0
-        for cls in range(self.num_classes):
+        for cls in range(self.num_units):
             s = self.sample_class(data, cls, thr_extra)
             pc, pv, stats = self.cluster_class(s, cls, batch_size)
             ccap = self.caps.clusters_per_class[cls]
@@ -277,7 +310,7 @@ class SingleStageFSD(nn.Module):
         cluster_cls = torch.cat([
             torch.full((self.caps.clusters_per_class[c],), c,
                        dtype=torch.int32, device=points.device)
-            for c in range(self.num_classes)])
+            for c in range(self.num_units)])
         cluster_valid = red[:, 4] > 0
 
         f_cluster = points[:, :3] - gather_segments(cluster_xyz, seg_ids)

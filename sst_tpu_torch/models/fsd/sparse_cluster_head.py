@@ -3,8 +3,14 @@
 ``loss`` and ``get_bboxes``).
 
 Per task (class group): shared MLP → separate MLPs for score / centre / dim /
-rot. Boxes decode with the base-point coder w.r.t. each cluster's centre; a
-cluster whose centre lies in a gt box of the task is that box's positive.
+rot, and with ``with_vel`` a velocity branch (nuScenes: boxes of 9 columns,
+its L1 loss against the gt's two velocity columns), with ``with_iou`` an IoU
+branch (its L1 loss against the 3D IoU of the detached decoded box with its
+gt; at test time the class score is rectified to ``cls^(1-a) * iou^a``).
+Boxes decode with the base-point coder w.r.t. each cluster's centre; a
+cluster whose centre lies in a gt box of the task (grown by
+``enlarge_width`` on every side, its bottom lowered as much) is that box's
+positive.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import nn
 from sst_tpu_torch.core import losses as L
 from sst_tpu_torch.core.box_coders import base_point_decode, base_point_encode
 from sst_tpu_torch.core.boxes import points_in_boxes
+from sst_tpu_torch.core.iou import boxes_iou_3d
 from sst_tpu_torch.core.nms import box3d_multiclass_nms
 from sst_tpu_torch.models.layers import MLP
 
@@ -60,19 +67,18 @@ class SparseClusterHeadV2(nn.Module):
                  with_vel: bool = False, loss_vel_weight: float = 0.2,
                  with_iou: bool = False, loss_iou_weight: float = 1.0,
                  iou_score_weight: float = 0.5, dtype=torch.float32):
-        """``code_size``, ``loss_vel_weight``, ``loss_iou_weight`` and
-        ``iou_score_weight`` belong to the velocity and IoU branches, which
-        are not ported (they raise)."""
+        """``code_size`` is what the JAX module records (8, or 10 with the
+        velocity branch); neither package reads it."""
         super().__init__()
-        if with_vel or with_iou:
-            raise NotImplementedError("with_vel / with_iou")
-        if enlarge_width is not None:
-            raise NotImplementedError("enlarge_width")
-        if code_size != 8:
-            raise NotImplementedError(f"code_size={code_size}")
+        del code_size
         self.loss_weights = dict(cls=loss_cls_weight,
                                  center=loss_center_weight,
-                                 size=loss_size_weight, rot=loss_rot_weight)
+                                 size=loss_size_weight, rot=loss_rot_weight,
+                                 vel=loss_vel_weight, iou=loss_iou_weight)
+        self.with_vel = with_vel
+        self.with_iou = with_iou
+        self.iou_score_weight = iou_score_weight
+        self.enlarge_width = enlarge_width
         self.focal_gamma = focal_gamma
         self.focal_alpha = focal_alpha
         self.num_classes = num_classes
@@ -88,6 +94,10 @@ class SparseClusterHeadV2(nn.Module):
         for t, names in enumerate(self.tasks):
             attrs = tuple(common_attrs) + (
                 ("score", len(names), num_cls_layer, cls_hidden_dim),)
+            if with_vel:
+                attrs = attrs + (("vel", 2, 2, cls_hidden_dim),)
+            if with_iou:
+                attrs = attrs + (("iou", 1, 2, cls_hidden_dim),)
             self.add_module(f"task_{t}",
                             FSDSeparateHead(c, attrs, norm, act, dtype))
 
@@ -98,29 +108,39 @@ class SparseClusterHeadV2(nn.Module):
         x = cluster_feats
         if self.shared_mlp is not None:
             x = self.shared_mlp(x, valid, train)
-        cls_logits, reg_preds = [], []
+        cls_logits, reg_preds, iou_logits = [], [], []
         for t in range(len(self.tasks)):
             ret = getattr(self, f"task_{t}")(x, valid, train)
             cls_logits.append(ret["score"])
-            reg_preds.append(torch.cat([ret["center"], ret["dim"], ret["rot"]],
-                                       dim=-1))
-        return {"cls_logits": cls_logits, "reg_preds": reg_preds}
+            reg = [ret["center"], ret["dim"], ret["rot"]]
+            if self.with_vel:
+                reg.append(ret["vel"])
+            reg_preds.append(torch.cat(reg, dim=-1))
+            if self.with_iou:
+                iou_logits.append(ret["iou"][:, 0])
+        out = {"cls_logits": cls_logits, "reg_preds": reg_preds}
+        if self.with_iou:
+            out["iou_logits"] = iou_logits
+        return out
 
     def loss(self, outs, cluster_xyz, cluster_batch, cluster_valid,
              gt_boxes, gt_labels, gt_valid):
         """gt_*: [B, G, ...]; cluster_* are flat [C] with a batch index.
         Per task: ``loss_cls``, ``loss_center``, ``loss_size`` and
-        ``loss_rot`` with a ``.task{t}`` suffix."""
+        ``loss_rot`` (and ``loss_vel``, ``loss_iou`` with their branches)
+        with a ``.task{t}`` suffix."""
         losses = {}
+        iou = outs.get("iou_logits", [None] * len(self.tasks))
         for t in range(len(self.tasks)):
             losses.update(self._loss_single_task(
                 t, outs["cls_logits"][t], outs["reg_preds"][t], cluster_xyz,
-                cluster_batch, cluster_valid, gt_boxes, gt_labels, gt_valid))
+                cluster_batch, cluster_valid, gt_boxes, gt_labels, gt_valid,
+                iou[t]))
         return losses
 
     def _loss_single_task(self, task_id, cls_logits, reg_preds, cluster_xyz,
                           cluster_batch, cluster_valid, gt_boxes, gt_labels,
-                          gt_valid):
+                          gt_valid, iou_logits=None):
         ids = self._task_class_ids(task_id)
         # gt labels as task-local ids; boxes of other classes are dropped
         task_gt_valid = gt_valid & torch.isin(
@@ -136,7 +156,13 @@ class SparseClusterHeadV2(nn.Module):
         assigned = torch.full(cluster_xyz.shape[:1], -1, dtype=torch.int64,
                               device=cluster_xyz.device)
         for i in range(b):
-            inb = (points_in_boxes(cluster_xyz, gt_boxes[i])
+            boxes_i = gt_boxes[i]
+            if self.enlarge_width is not None:
+                boxes_i = torch.cat(
+                    [boxes_i[:, :2], boxes_i[:, 2:3] - self.enlarge_width,
+                     boxes_i[:, 3:6] + self.enlarge_width * 2,
+                     boxes_i[:, 6:]], dim=-1)
+            inb = (points_in_boxes(cluster_xyz, boxes_i)
                    & task_gt_valid[i][None, :]
                    & (cluster_batch == i)[:, None])
             first = torch.argmax(inb.to(torch.uint8), dim=1)
@@ -163,6 +189,23 @@ class SparseClusterHeadV2(nn.Module):
             out[f"loss_{name}.task{task_id}"] = L.l1_loss(
                 reg_preds[:, sl], targets[:, sl], pw, num_pos) \
                 * self.loss_weights[name]
+        if self.with_vel:
+            vel_t = (matched[:, 7:9] if matched.shape[-1] >= 9
+                     else torch.zeros_like(reg_preds[:, 8:10]))
+            out[f"loss_vel.task{task_id}"] = L.l1_loss(
+                reg_preds[:, 8:10], vel_t, pw, num_pos) \
+                * self.loss_weights["vel"]
+        if self.with_iou and iou_logits is not None:
+            # target: the 3D IoU of the detached decoded box with its gt for
+            # positives, 0 for negatives; L1 on the raw logit
+            decoded = base_point_decode(cluster_xyz, reg_preds.detach(),
+                                        self.bbox_coder_scale)
+            pair_iou = boxes_iou_3d(decoded[:, :7], matched[:, :7],
+                                    aligned=True)
+            iou_t = torch.where(is_pos, pair_iou, 0.0)
+            out[f"loss_iou.task{task_id}"] = L.l1_loss(
+                iou_logits, iou_t, weight=cluster_valid.float(),
+                avg_factor=num_total) * self.loss_weights["iou"]
         return out
 
     def get_bboxes(self, outs, cluster_xyz, cluster_batch, cluster_valid,
@@ -173,6 +216,10 @@ class SparseClusterHeadV2(nn.Module):
         all_boxes, all_scores = [], []
         for t in range(len(self.tasks)):
             scores = torch.sigmoid(outs["cls_logits"][t])
+            if self.with_iou and "iou_logits" in outs:
+                a = self.iou_score_weight
+                iou_s = torch.sigmoid(outs["iou_logits"][t])[:, None]
+                scores = scores ** (1 - a) * torch.clamp(iou_s, min=1e-4) ** a
             all_boxes.append(base_point_decode(
                 cluster_xyz, outs["reg_preds"][t], self.bbox_coder_scale))
             full = scores.new_zeros((scores.shape[0], self.num_classes))

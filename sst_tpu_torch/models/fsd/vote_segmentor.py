@@ -7,7 +7,8 @@ backbone → per-point gather + local-xyz decoration → MLP → (seg logits
 [P, C], vote preds [P, 3C]). The backbone is either SimpleSparseUNet over
 the voxel grid's rulebooks (``backbone="sparse"``) or BEVScatter →
 DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``), both with
-train mode and the head's losses.
+train mode and the head's losses. ``voxel_downsampling_size`` (the 3-sweep
+recipe) first averages each sample's points over voxels of that size.
 """
 
 from __future__ import annotations
@@ -27,9 +28,18 @@ from sst_tpu_torch.models.dense_bev import (
 from sst_tpu_torch.models.layers import MLP, Dense
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, build_unet_plan
 from sst_tpu_torch.models.vfe import DynamicVFE
-from sst_tpu_torch.ops.segment import INT_SENTINEL, gather_segments
+from sst_tpu_torch.ops.segment import (
+    INT_SENTINEL,
+    gather_segments,
+    segment_reduce,
+    unique_segments,
+)
 from sst_tpu_torch.ops.sparse_conv import SparseGrid
-from sst_tpu_torch.ops.voxelize import dynamic_voxelize, grid_shape_zyx
+from sst_tpu_torch.ops.voxelize import (
+    dynamic_voxelize,
+    f32_reciprocal,
+    grid_shape_zyx,
+)
 
 
 def encode_vote(delta):
@@ -121,9 +131,7 @@ class VoteSegmentor(nn.Module):
         if backbone not in ("sparse", "dense_bev"):
             raise NotImplementedError(
                 f"backbone={backbone!r}: only 'sparse' and 'dense_bev' are "
-                f"ported")
-        if voxel_downsampling_size is not None:
-            raise NotImplementedError("voxel_downsampling_size")
+                f"ported (the SST encoder: ROADMAP queue 1 item 4)")
         if backbone == "sparse" and dtype != torch.float32:
             # JAX's sparse flagship is float32 (sst_tpu/flagship.py:95)
             raise NotImplementedError(
@@ -131,6 +139,14 @@ class VoteSegmentor(nn.Module):
                 f"waits for bf16 routes through the sparse conv and dW "
                 f"kernels (ROADMAP queue 1, the bf16 builds)")
         self.backbone = backbone
+        self.voxel_downsampling_size = (
+            None if voxel_downsampling_size is None
+            else tuple(voxel_downsampling_size))
+        if self.voxel_downsampling_size is not None:
+            nz, ny, nx = grid_shape_zyx(point_cloud_range,
+                                        self.voxel_downsampling_size)
+            if nz * ny * nx >= 2**31:
+                raise ValueError("downsample key overflow; grow voxel")
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.max_voxels = max_voxels
@@ -182,9 +198,38 @@ class VoteSegmentor(nn.Module):
             out[:, d] = torch.tanh(out[:, d])
         return out
 
+    def voxel_downsample(self, points, points_valid, batch_size: int):
+        """Average-dedup each sample's points over
+        ``voxel_downsampling_size`` voxels: the [B*P, C] flat batch keeps
+        its shape, a sample's merged points fill its first rows in key
+        order, and the freed rows turn invalid. The cell is
+        ``floor((p - lo) * (1 / size))`` with the float32 reciprocal, as
+        jitted XLA divides (``ops/voxelize.py f32_reciprocal``)."""
+        n, c = points.shape
+        p = n // batch_size
+        size = self.voxel_downsampling_size
+        lo = self.point_cloud_range
+        nz, ny, nx = grid_shape_zyx(lo, size)
+        outs, oks = [], []
+        for pp, vv in zip(points.reshape(batch_size, p, c),
+                          points_valid.reshape(batch_size, p)):
+            cc = torch.stack([torch.floor((pp[:, i] - lo[i])
+                                          * f32_reciprocal(size[i]))
+                              for i in range(3)], dim=-1).to(torch.int32)
+            in_r = (vv & (cc >= 0).all(-1) & (cc[:, 0] < nx)
+                    & (cc[:, 1] < ny) & (cc[:, 2] < nz))
+            key = (cc[:, 2] * ny + cc[:, 1]) * nx + cc[:, 0]
+            uniq = unique_segments(key, in_r, p)
+            outs.append(segment_reduce(pp, uniq.seg_ids, p, "mean"))
+            oks.append(uniq.unique_keys != INT_SENTINEL)
+        return torch.cat(outs), torch.cat(oks)
+
     def forward(self, points, batch_idx, points_valid, batch_size: int,
                 train: bool = False):
         """points: [P, C] flat batch. Returns the per-point seg dict."""
+        if self.voxel_downsampling_size is not None:
+            points, points_valid = self.voxel_downsample(
+                points, points_valid, batch_size)
         pts = self.preprocess(points)
         vm = dynamic_voxelize(pts, batch_idx, points_valid,
                               self.point_cloud_range, self.voxel_size,

@@ -8,9 +8,14 @@ The model is built from the config (``apis.init_model``: random weights
 from seed 0 where no checkpoint is given) and answers every frame of the
 synthetic or the configured validation set through its ``predict``;
 ``--eval`` scores the boxes (``ap3d`` / ``apbev``: ``eval_ap``; ``waymo``:
-``waymo_eval``) or the per-point classes of an FSD segmentor (``seg``:
-``predict_seg`` and ``seg_eval``). ``--sequential`` (FSD++ over the
-incremental dataset) is not ported yet (ROADMAP queue 1, item 9b).
+``waymo_eval``; ``dataset``: the configured dataset's own ``evaluate``,
+NDS for ``nuscenes`` and CDS for ``argo2``, on the boxes with their
+velocity columns) or the per-point classes of an FSD segmentor (``seg``:
+``predict_seg`` and ``seg_eval``). The validation set is the config's
+``data.dataset`` kind (``waymo``, ``nuscenes`` or ``argo2``) at
+``data.val_info_path``, range-filtered and padded, as JAX's CLI reads it.
+``--sequential`` (FSD++ over the incremental dataset) is not ported yet
+(ROADMAP queue 1, item 9b).
 """
 
 from __future__ import annotations
@@ -28,10 +33,13 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--num-samples", type=int, default=16)
     p.add_argument("--eval", default="ap3d",
-                   choices=["ap3d", "apbev", "waymo", "seg", "none"],
+                   choices=["ap3d", "apbev", "waymo", "dataset", "seg",
+                            "none"],
                    help="'seg' = per-point mIoU/acc protocol "
                         "(core/eval_seg.py) for FSD segmentors; gt labels "
-                        "come from gt-box containment, as the seg loss's")
+                        "come from gt-box containment, as the seg loss's; "
+                        "'dataset' = the dataset's own evaluate (NDS for "
+                        "nuscenes, CDS for argo2)")
     p.add_argument("--matcher", default="greedy",
                    choices=["greedy", "hungarian"],
                    help="--eval waymo matching scheme")
@@ -47,7 +55,12 @@ def build_test_dataset(cfg, model, synthetic: bool, num_samples: int):
     """(dataset, class names): the synthetic scenes (seed 999) or the
     config's ``val_info_path``, range-filtered and padded to the point
     cap."""
-    from sst_tpu_torch.data.datasets import SyntheticDataset, WaymoDataset
+    from sst_tpu_torch.data.datasets import (
+        Argo2Dataset,
+        NuScenesDataset,
+        SyntheticDataset,
+        WaymoDataset,
+    )
     from sst_tpu_torch.data.pipelines import build_pipeline
 
     max_points = cfg.get("capacity", {}).get("max_points", 65536)
@@ -64,12 +77,11 @@ def build_test_dataset(cfg, model, synthetic: bool, num_samples: int):
                               pipeline=pipeline, seed=999)
         return ds, list(ds.CLASSES)
     kind = data_cfg.get("dataset", "waymo")
-    if kind != "waymo":
-        raise NotImplementedError(f"data.dataset {kind!r} is not ported "
-                                  f"yet: ROADMAP queue 1, item 9b")
-    ds = WaymoDataset(data_root=data_cfg["data_root"],
-                      info_path=data_cfg["val_info_path"], pipeline=pipeline,
-                      test_mode=True)
+    cls = {"nuscenes": NuScenesDataset, "argo2": Argo2Dataset}.get(
+        kind, WaymoDataset)
+    ds = cls(data_root=data_cfg["data_root"],
+             info_path=data_cfg["val_info_path"], pipeline=pipeline,
+             test_mode=True)
     return ds, list(ds.classes)
 
 
@@ -88,16 +100,26 @@ def run_seg_eval(model, loader, device, classes) -> dict:
     return seg_eval(gt_l, pred_l, tuple(classes) + ("background",))
 
 
-def run_predictions(model, loader, device) -> tuple[list, list]:
-    """Every frame's valid predictions and gt, as numpy."""
-    from sst_tpu_torch.tools.train import frames_of
+def run_predictions(model, loader, device,
+                    results: list | None = None) -> tuple[list, list]:
+    """Every frame's valid predictions and gt (boxes [:, :7]), as numpy.
+    ``results``, where given, also takes each frame's valid predictions
+    with every box column (velocity included) in the datasets' ``evaluate``
+    layout (``boxes_3d``, ``scores_3d``, ``labels_3d``)."""
+    from sst_tpu_torch.tools.train import frames_of, to_numpy
 
     preds, gts = [], []
     for batch in loader:
         batch = batch.to(device)
-        p, g = frames_of(model.predict(batch), batch)
+        out = model.predict(batch)
+        p, g = frames_of(out, batch)
         preds += p
         gts += g
+        for i, frame in enumerate(p if results is not None else ()):
+            ok = to_numpy(out["valid"][i])
+            results.append({"boxes_3d": to_numpy(out["boxes"][i])[ok],
+                            "scores_3d": frame["scores"],
+                            "labels_3d": frame["labels"]})
     return preds, gts
 
 
@@ -121,6 +143,11 @@ def main(argv=None) -> dict:
     cfg = load_config(args.config)
     dataset, classes = build_test_dataset(cfg, model, args.synthetic,
                                           args.num_samples)
+    if args.eval == "dataset" and not hasattr(dataset, "evaluate"):
+        raise ValueError(
+            f"--eval dataset: {type(dataset).__name__} has no evaluate of "
+            f"its own (the Waymo-bin output is ROADMAP queue 1, item 9b); "
+            f"use --eval waymo, ap3d or apbev")
     loader = DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False)
 
     if args.eval == "seg":
@@ -128,7 +155,8 @@ def main(argv=None) -> dict:
         print(json.dumps(res))
         return {**res, "frames": len(dataset)}
 
-    preds, gts = run_predictions(model, loader, device)
+    results = []
+    preds, gts = run_predictions(model, loader, device, results)
     print(f"ran inference on {len(preds)} samples", flush=True)
     if args.out:
         with open(args.out, "wb") as f:
@@ -139,6 +167,9 @@ def main(argv=None) -> dict:
 
         res = waymo_eval(preds, gts, tuple(classes), matcher=args.matcher,
                          range_breakdowns=True)
+        print(json.dumps(res))
+    elif args.eval == "dataset":
+        res = dataset.evaluate(results)
         print(json.dumps(res))
     elif args.eval != "none":
         mode = "3d" if args.eval == "ap3d" else "bev"

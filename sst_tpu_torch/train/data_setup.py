@@ -3,9 +3,10 @@
 collate, so each detector family gets the batch its loss expects
 (``PointBatch`` or ``TrackletBatch``), both as CPU tensors.
 
-Ported kinds: ``synthetic``, ``waymo`` and ``waymo_tracklet``. The kinds
-``waymo_incremental`` (FSD++'s multi-frame assembly), ``nuscenes`` and
-``argo2`` raise ``NotImplementedError`` (ROADMAP queue 1, item 9b).
+Ported kinds: ``synthetic``, ``waymo``, ``waymo_tracklet``, ``nuscenes``
+(``with_velocity``; ``cbgs`` wraps it in ``CBGSDataset``) and ``argo2``.
+The kind ``waymo_incremental`` (FSD++'s multi-frame assembly) raises
+``NotImplementedError`` (ROADMAP queue 1, item 9b).
 """
 
 from __future__ import annotations
@@ -13,8 +14,7 @@ from __future__ import annotations
 import functools
 
 # dataset kinds of the JAX package not yet ported, by ROADMAP item
-UNPORTED_KINDS = {k: "ROADMAP queue 1, item 9b"
-                  for k in ("waymo_incremental", "nuscenes", "argo2")}
+UNPORTED_KINDS = {"waymo_incremental": "ROADMAP queue 1, item 9b"}
 
 
 def default_train_pipeline(point_cloud_range, max_points):
@@ -35,8 +35,8 @@ def _unported(kind: str):
     raise ValueError(f"unknown data.dataset {kind!r}")
 
 
-def _waymo_kwargs(data_cfg: dict) -> dict:
-    return {k: data_cfg[k] for k in ("load_dim", "use_dim") if k in data_cfg}
+def _dataset_kwargs(data_cfg: dict, keys=("load_dim", "use_dim")) -> dict:
+    return {k: data_cfg[k] for k in keys if k in data_cfg}
 
 
 def build_train_dataset(cfg, model, synthetic: bool = False, seed: int = 0,
@@ -44,7 +44,8 @@ def build_train_dataset(cfg, model, synthetic: bool = False, seed: int = 0,
     """Returns (dataset, collate_or_None, ds_kind, train_pipeline_cfg).
 
     collate None means the loader's default (``collate_to_batch``, a
-    ``PointBatch``). ds_kind: 'synthetic' | 'waymo' | 'waymo_tracklet'.
+    ``PointBatch``). ds_kind: 'synthetic' | 'waymo' | 'waymo_tracklet' |
+    'nuscenes' | 'argo2'.
     ``train_pipeline_cfg`` is the pipeline list in use, for the
     ``DisableAugmentationSchedule`` rebuild."""
     from sst_tpu_torch.data.datasets import SyntheticDataset, WaymoDataset
@@ -95,7 +96,32 @@ def build_train_dataset(cfg, model, synthetic: bool = False, seed: int = 0,
             info_path=data_cfg["info_path"],
             load_interval=data_cfg.get("load_interval", 1),
             pipeline=build_pipeline(train_pipeline_cfg),
-            **_waymo_kwargs(data_cfg),
+            **_dataset_kwargs(data_cfg),
+        )
+    elif ds_kind == "nuscenes":
+        from sst_tpu_torch.data.datasets import CBGSDataset, NuScenesDataset
+
+        dataset = NuScenesDataset(
+            data_root=data_cfg.get("data_root", "data/nuscenes"),
+            info_path=data_cfg.get(
+                "info_path", "data/nuscenes/nuscenes_infos_train.pkl"),
+            load_interval=data_cfg.get("load_interval", 1),
+            pipeline=build_pipeline(train_pipeline_cfg),
+            **_dataset_kwargs(data_cfg,
+                              ("load_dim", "use_dim", "with_velocity")),
+        )
+        if data_cfg.get("cbgs", False):
+            dataset = CBGSDataset(dataset)
+    elif ds_kind == "argo2":
+        from sst_tpu_torch.data.datasets import Argo2Dataset
+
+        dataset = Argo2Dataset(
+            data_root=data_cfg.get("data_root", "data/argo2"),
+            info_path=data_cfg.get(
+                "info_path", "data/argo2/argo2_infos_train.pkl"),
+            load_interval=data_cfg.get("load_interval", 1),
+            pipeline=build_pipeline(train_pipeline_cfg),
+            **_dataset_kwargs(data_cfg),
         )
     else:
         _unported(ds_kind)
@@ -125,13 +151,18 @@ def build_val_dataset(cfg, model, synthetic: bool = False,
             num_samples=num_samples, num_points=min(max_points, 32768),
             pc_range=model.point_cloud_range, pipeline=pipeline, seed=991)
         return ds, list(ds.CLASSES)
-    if ds_kind in ("nuscenes", "argo2") and "val_info_path" in data_cfg:
-        _unported(ds_kind)
-    if ds_kind != "waymo" or "val_info_path" not in data_cfg:
+    if ds_kind not in ("waymo", "nuscenes", "argo2") \
+            or "val_info_path" not in data_cfg:
         return None, None
-    from sst_tpu_torch.data.datasets import WaymoDataset
+    from sst_tpu_torch.data.datasets import (
+        Argo2Dataset,
+        NuScenesDataset,
+        WaymoDataset,
+    )
 
-    ds = WaymoDataset(data_root=data_cfg.get("data_root", ""),
-                      info_path=data_cfg["val_info_path"], pipeline=pipeline,
-                      test_mode=True)
+    cls = {"waymo": WaymoDataset, "nuscenes": NuScenesDataset,
+           "argo2": Argo2Dataset}[ds_kind]
+    ds = cls(data_root=data_cfg.get("data_root", ""),
+             info_path=data_cfg["val_info_path"], pipeline=pipeline,
+             test_mode=True)
     return ds, list(ds.classes)

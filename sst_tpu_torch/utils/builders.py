@@ -10,6 +10,15 @@ JAX modules read the point width from their input; the port's take it at
 construction, so the builder does too (``num_point_features``), and it
 returns the model on ``device``.
 
+The grouped recipes (``configs/argo2/*``, ``fsdv2_{nusc,argo}_*``: group
+sampling, the segmentor's background column, the nuScenes velocity branch)
+and the 3-sweep ``fsd_waymoD1_1x_3f.py`` (``voxel_downsampling_size``)
+build through the same types. The data half of those configs (the
+``nuscenes`` and ``argo2`` dataset kinds, ``LoadPointsFromMultiSweeps``,
+``ObjectSample``, CBGS) is ``train/data_setup.py``'s and
+``data/pipelines.py``'s; datasets and transforms are registered in
+``utils/registry.py`` (``DATASETS``, ``PIPELINES``).
+
 The training half of a config (what the JAX package's ``tools/train.py``
 reads): ``optimizer_from_cfg`` (``optimizer``) and ``schedule_from_cfg``
 (``fsd_detection_schedule``). A model's own train settings (FSD's RoI

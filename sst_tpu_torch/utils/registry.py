@@ -32,3 +32,4 @@ class Registry:
 
 MODELS = Registry("models")
 PIPELINES = Registry("pipelines")
+DATASETS = Registry("datasets")

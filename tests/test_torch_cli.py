@@ -387,6 +387,13 @@ train.main([cfg, "--synthetic", "--device", "cpu", "--max-steps", "2",
             "--work-dir", wd])
 test.main([cfg, wd + "/ckpt_2", "--synthetic", "--device", "cpu",
            "--num-samples", "1", "--eval", "none"])
+import importlib
+
+for name in ("core.eval_nuscenes", "core.eval_argo2", "core.av2_map",
+             "core.eval_kitti", "core.eval_lyft", "core.frames",
+             "data.dbsampler", "data.format_writers", "data.datasets",
+             "data.pipelines", "train.data_setup"):
+    importlib.import_module("sst_tpu_torch." + name)
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sst_tpu")))
 """
@@ -395,8 +402,10 @@ print(sorted(m for m in sys.modules
 def test_clis_import_nothing_of_jax(tmp_path):
     """In a process where ``jax``, ``flax`` and ``sst_tpu`` cannot be
     imported, ``python -m sst_tpu_torch.tools.train --help`` prints the
-    torchrun note, and a two-step ``--device cpu`` run and the test CLI on
-    its checkpoint complete; no such module enters ``sys.modules``."""
+    torchrun note, a two-step ``--device cpu`` run and the test CLI on
+    its checkpoint complete, and the nuScenes / Argo2 / KITTI / Lyft data
+    and evaluation modules import; no such module enters
+    ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _GUARD, TINY_CFG,
                           str(tmp_path / "wd")], cwd=ROOT, env=env,

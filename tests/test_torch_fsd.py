@@ -374,8 +374,6 @@ def test_builder_raises_on_types_not_ported():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(group_names=(("Car",), ("Pedestrian", "Cyclist"))),
-     "group_names.*item 7c"),
     (dict(assigner_per_class=("ccl", "ssg", "ccl")), "ssg.*item 7d"),
     (dict(dtype=torch.bfloat16), "float32"),
 ])
@@ -390,12 +388,14 @@ def test_fsd_options_outside_the_slice_raise(kw, match):
 
 def test_fsd_training_raises():
     """FSD trains since the training slice (``tests/test_torch_fsd_train.py``
-    holds it against JAX), and the FSDV2 two stage builds since CTRL's
-    (``tests/test_torch_fsdv2_two_stage.py``); what of the family is not
-    ported raises, naming its queue item: the FSDv2 group sampling (7c)."""
-    cfg = {"model": {"type": "FSDV2", "single_stage": {
-        "group_names": (("Car",), ("Pedestrian", "Cyclist"))}}}
-    with pytest.raises(NotImplementedError, match="queue 1 item 7c"):
+    holds it against JAX), the FSDV2 two stage builds since CTRL's
+    (``tests/test_torch_fsdv2_two_stage.py``) and group sampling is ported
+    (``tests/test_torch_groups.py``); what of the family is not ported
+    raises through the builder, naming its queue item: the key-point
+    assigner (7d)."""
+    cfg = {"model": {"type": "FSD", "single_stage": {
+        "assigner_per_class": ("ccl", "ssg", "ccl")}}}
+    with pytest.raises(NotImplementedError, match="queue 1 item 7d"):
         build_model_from_cfg(cfg, device="cpu")
 
 

@@ -219,12 +219,12 @@ def test_flagship_options_outside_the_slice_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mixer_type="sparse"), dict(group_names=(("Car",),)),
+    dict(mixer_type="sparse"), dict(segmentor=dict(backbone="sst")),
     dict(centroid_alpha=0.5),
     dict(segmentor=dict(backbone="sparse")),
-    dict(segmentor=dict(backbone="dense_bev",
-                        voxel_downsampling_size=(0.1, 0.1, 0.1))),
-    dict(head=dict(with_iou=True)),
+    dict(dtype=torch.float16),
+    dict(mixer_type="sparse", segmentor=dict(backbone="sparse"),
+         dtype=torch.bfloat16),
 ])
 def test_model_options_outside_the_slice_raise(kw):
     cfg = dict(mixer_type="dense_bev",
