@@ -15,7 +15,8 @@ and dense-BEV) predict and training, built from its config, CTRL's
 ``TrackletDetector`` (its data path, predict and train step; sparse conv,
 input gradient and dW kernels) and the ``FSDV2`` two stage (sorted reduce
 and sparse conv kernels; its loss's backward through dW), both built
-through the config builder.
+through the config builder; the CLIs and the offline workflows (the
+Waymo bin, FSD++'s seeds and sequential train and test, CTRL's chain).
 
     python3 chip_smoke.py
 
@@ -238,11 +239,32 @@ Phases (each one that fails ends the run with a non-zero exit code):
               twins at every conv, launches by kind, finite losses and
               gradients, times); configs/fsd/fsd_waymoD1_1x_3f.py predict
               on 3-sweep frames, the down-sampling's kept points printed.
+ 22. offline  the offline workflows on a Waymo kitti-format set written
+              from a seed (``data/format_writers.py write_waymo_set``: 2
+              training sequences of 7 frames, 2 validation ones of 4,
+              196,608 points and 40 moving objects per frame, poses, the
+              converter's maps, a gt tfrecord), with ``jax``, ``flax`` and
+              ``sst_tpu`` blocked from import and absent from
+              ``sys.modules`` at the end: configs/fsd/fsd_waymoD1_1x.py's
+              test CLI with ``--eval dataset`` (phase 14's vote and fg
+              settings, through a checkpoint), ``WaymoDataset.
+              format_results`` and the bin read back; the FSD++ seed tools
+              and segment breaks; configs/fsdpp/fsdpp_waymo_2x.py's train
+              CLI on the incremental set (3 steps and a resume; the conv,
+              input gradient and dW against their twins at a step's shapes
+              first) and ``tools.test --sequential`` (fed-back seeds, conv
+              against its twin at frame 1's shapes); CTRL's chain on
+              configs/ctrl/ctrl_veh_24e.py (pose tables, the gt bin from
+              the tfrecord, a tracker's bin from the FSD detections,
+              extension, tracklets, candidates, 2 train CLI steps, predict
+              over every track, the refined bin and its score, a merge,
+              empty boxes removed, a submission parsed back). Every run's
+              launches are held against the modules.
 
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
-with the training buckets; phases 14, 15, 17, 18, 19, 20 and 21 last. Phase 8
+with the training buckets; phases 14, 15, 17, 18, 19, 20, 21 and 22 last. Phase 8
 also measures the window MHA wrapper's host time with its entry point
 bound once and set on every call. TF32 is turned
 off for convolutions and matmuls, so every float32 comparison is in full
@@ -260,6 +282,7 @@ import ctypes
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 from collections import Counter
@@ -4588,6 +4611,599 @@ def phase_groups(device):
     return out
 
 
+# ---------------------------------------------------------------- phase 22
+
+OFFLINE_FRAMES = 4  # frames per validation sequence (2 of them)
+OFFLINE_TRAIN_FRAMES = 7  # per training sequence (2): samples of 7 sweeps
+OFFLINE_POINTS = 196608  # points per frame, the FSD configs' cap
+OFFLINE_BOXES = 40  # objects per sequence
+OFFLINE_HALF = 70.0  # m: points within 70 m, objects within 56 m
+OFFLINE_TRAIN_STEPS = 3  # FSD++ train CLI steps, then one resumed
+OFFLINE_CTRL_STEPS = 2
+OFFLINE_TRACK_DIST = 3.0  # m: the tracker's link distance, world frame
+OFFLINE_TRACK_PER_FRAME = 24  # the highest-scoring detections it links
+BLOCKED_PACKAGES = ("jax", "jaxlib", "flax", "sst_tpu")
+
+
+class _BlockedImports:
+    """A meta-path finder that refuses JAX, flax and the JAX package:
+    phase 22 runs under it."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED_PACKAGES:
+            raise ImportError(f"{name}: phase 22 runs with "
+                              f"{', '.join(BLOCKED_PACKAGES)} blocked")
+        return None
+
+
+def _blocked_loaded() -> list:
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in BLOCKED_PACKAGES)
+
+
+def _config_over(work: str, name: str, base: str, data: dict) -> str:
+    """A config file in ``work`` inheriting ``base`` with ``data`` merged
+    over its data section."""
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{os.path.abspath(base)!r}]\ndata = {data!r}\n")
+    return path
+
+
+def _pickle_load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _pickle_dump(obj, path):
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+    return path
+
+
+def _per_step(model) -> dict:
+    """The conv kernels' launches one train step of ``model`` makes, from
+    its modules (the configs' VFEs leave the sorted reduce off)."""
+    n = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    return {"forward": n, "recompute": n_remat, "dgrad": n, "dw": n,
+            "sorted_reduce": 0}
+
+
+def _offline_fsd(device, work, sets) -> dict:
+    """Phase 22, steps 1-2: FSD's test CLI with the Waymo evaluation over
+    the validation set, then ``WaymoDataset.format_results`` and the bin
+    read back."""
+    from types import SimpleNamespace
+
+    from sst_tpu_torch.core.waymo_bin import read_bin_as_frames
+    from sst_tpu_torch.data.datasets import WaymoDataset
+    from sst_tpu_torch.tools import test as test_cli
+    from sst_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = sets["root"]
+    cfg_path = _config_over(work, "fsd_offline.py", FSD_CONFIG, dict(
+        dataset="waymo", data_root=root, info_path=sets["training"],
+        val_info_path=sets["validation"]))
+    ds = WaymoDataset(data_root=root, info_path=sets["validation"])
+    model = init_weights(build_model_from_cfg(load_config(cfg_path),
+                                              train=False, device=device),
+                         torch.Generator().manual_seed(0)).eval()
+    n = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    _contract_votes(model)
+    shifts = _calibrate_fg(model, SimpleNamespace(
+        points=ds.get_sample(0)["points"][None]))
+    ckpt = save_checkpoint(os.path.join(work, "fsd_ckpt"), model)
+    del model
+    torch.cuda.empty_cache()
+    preds = os.path.join(work, "fsd_preds.pkl")
+    res, launches, secs = _cli_run(
+        test_cli.main, [cfg_path, ckpt, "--device", str(device), "--eval",
+                        "dataset", "--out", preds],
+        f"test, {FSD_CONFIG} over the validation set, Waymo evaluate")
+    frames = len(ds)
+    _expect("offline fsd test", launches, {"forward": frames * n, "dw": 0,
+                                           "sorted_reduce": 0})
+    if res["frames"] != frames or not res["detections"] \
+            or not np.isfinite(res["Overall/L2 mAPH"]):
+        fail(f"offline: FSD test CLI gave {res}")
+    results = [dict(boxes_3d=p["boxes"], scores_3d=p["scores"],
+                    labels_3d=p["labels"]) for p in _pickle_load(preds)]
+    t0 = time.perf_counter()
+    bin_path = ds.format_results(results, os.path.join(work, "dets"))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    idx2ts = _pickle_load(os.path.join(root, "idx2timestamp.pkl"))
+    idx2cx = _pickle_load(os.path.join(root, "idx2contextname.pkl"))
+    back = read_bin_as_frames(bin_path)
+    worst = 0.0
+    for info, r in zip(ds.infos, results):
+        key = f"{info['image']['image_idx']:07d}"
+        got = back.get((idx2cx[key], idx2ts[key]))
+        if got is None:
+            if len(r["scores_3d"]):
+                fail(f"offline: frame {key}'s detections are not in the bin")
+            continue
+        rows = np.asarray(r["boxes_3d"], np.float32)[:, :7]
+        yaw = (got["boxes"][:, 6] - rows[:, 6] + np.pi) % (2 * np.pi) - np.pi
+        worst = max(worst, float(np.abs(got["boxes"][:, :6]
+                                        - rows[:, :6]).max()),
+                    float(np.abs(yaw).max()))
+        if not (np.array_equal(got["scores"], r["scores_3d"])
+                and np.array_equal(got["labels"], r["labels_3d"])
+                and worst <= 1e-4):
+            fail(f"offline: frame {key} read back from the bin differs "
+                 f"(largest box gap {worst:.3e})")
+    rec = {"metrics": {k: v for k, v in res.items()
+                       if k.startswith("Overall")},
+           "frames": frames, "detections": res["detections"],
+           "launches": launches, "seconds": secs, "bin_write_ms": write_ms,
+           "bin_objects": int(sum(len(f["scores"]) for f in back.values())),
+           "bin_max_gap": worst, "fg_bias_shifts": shifts}
+    print(f"offline fsd: test CLI {frames} frames, {res['detections']} "
+          f"detections, launches {launches} ({n} convs per frame); "
+          f"{rec['metrics']}; format_results wrote {rec['bin_objects']} "
+          f"objects in {write_ms:.2f} ms, read back within {worst:.2e} "
+          f"(float32 rows through double fields), scores and labels equal; "
+          f"{secs:.1f} s", flush=True)
+    return rec, bin_path
+
+
+def _offline_seeds(work, sets, dets_bin) -> dict:
+    """Phase 22, step 3: the FSD++ seed tools on the detections' bin and
+    the training infos, and the segment breaks of the validation set."""
+    from sst_tpu_torch.tools.fsdpp import (
+        create_seed_boxes_from_info,
+        create_segment_break,
+        generate_seeds,
+    )
+
+    root = sets["root"]
+    val_seeds = os.path.join(work, "seeds_val.pkl")
+    generate_seeds.main(["--bin", dets_bin, "--out", val_seeds])
+    info_seeds = os.path.join(work, "seeds_info.pkl")
+    create_seed_boxes_from_info.main(["--info", sets["training"], "--out",
+                                      info_seeds])
+    # the dataset keys seeds by (context, timestamp) where the converter's
+    # maps lie in its data root, the info tool by image index (ROADMAP
+    # queue 3, F7): re-keyed through the maps
+    idx2ts = _pickle_load(os.path.join(root, "idx2timestamp.pkl"))
+    idx2cx = _pickle_load(os.path.join(root, "idx2contextname.pkl"))
+    train_seeds = _pickle_dump(
+        {(idx2cx[k], idx2ts[k]): v
+         for k, v in _pickle_load(info_seeds).items()},
+        os.path.join(work, "seeds_train.pkl"))
+    breaks = create_segment_break.main(["--info", sets["validation"],
+                                        "--num-shards", "2"])
+    n_val = len(_pickle_load(val_seeds))
+    n_train = len(_pickle_load(train_seeds))
+    if breaks["breaks"] != [0, OFFLINE_FRAMES, 2 * OFFLINE_FRAMES] \
+            or not n_val or n_train != 2 * OFFLINE_TRAIN_FRAMES:
+        fail(f"offline seeds: {n_val} validation and {n_train} training "
+             f"frames seeded, breaks {breaks}")
+    return {"val_seed_frames": n_val, "train_seed_frames": n_train,
+            "breaks": breaks["breaks"], "val": val_seeds,
+            "train": train_seeds}
+
+
+def _offline_fsdpp_train(device, work, sets, seeds) -> dict:
+    """Phase 22, step 4: FSD++'s train CLI over the incremental set (3
+    steps, a resume from the last checkpoint for one more), with the conv,
+    input-gradient and dW kernels against their twins at a step's shapes
+    first."""
+    from sst_tpu_torch.data.incremental_dataset import (
+        IncrementalWaymoDataset,
+        collate_temporal,
+    )
+    from sst_tpu_torch.tools import train as train_cli
+    from sst_tpu_torch.tools.train import step_generator
+
+    cfg_path = _config_over(work, "fsdpp_train.py", FSDPP_CONFIG, dict(
+        dataset="waymo", sequential=True, data_root=sets["root"],
+        info_path=sets["training"], seeds_path=seeds["train"]))
+    cfg = load_config(cfg_path)
+    cap = cfg["capacity"]
+    model = init_weights(build_model_from_cfg(cfg, train=True,
+                                              device=device),
+                         torch.Generator().manual_seed(0)).train()
+    per_step = _per_step(model)
+    ds = IncrementalWaymoDataset(
+        data_root=sets["root"], info_path=sets["training"],
+        seeds_path=seeds["train"], max_points=cap["max_points"],
+        max_seeds=cap["max_seeds"], max_gt=cap["max_gt"])
+    t0 = time.perf_counter()
+    # a sequence's last frame: 6 earlier ones, 7 sweeps
+    sample = ds[OFFLINE_TRAIN_FRAMES - 1]
+    assemble_ms = (time.perf_counter() - t0) * 1e3
+    batch = collate_temporal([sample]).to(device)
+
+    def train_forward():
+        with torch.no_grad(), _KeptRunningStats(model):
+            model.loss(batch, train=True,
+                       generator=step_generator(0, 0, device))
+
+    title = (f"{FSDPP_CONFIG} train CLI step (incremental frame "
+             f"{OFFLINE_TRAIN_FRAMES - 1})")
+    shapes, per_frame, err, _ = phase_fsd_kernels(model, None, device,
+                                                  train_forward, title)
+    calls = _record_sparse_convs(model, None, train_forward)
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        model, None, device, calls=calls, title=title)
+    del calls, model, batch
+    torch.cuda.empty_cache()
+
+    wd = os.path.join(work, "fsdpp_wd")
+    common = [cfg_path, "--device", str(device), "--work-dir", wd,
+              "--log-interval", "1", "--ckpt-interval", "2"]
+    torch.cuda.reset_peak_memory_stats()
+    train, launches, secs = _cli_run(
+        train_cli.main, common + ["--max-steps", str(OFFLINE_TRAIN_STEPS)],
+        f"train, {FSDPP_CONFIG} (sequential=True)")
+    peak = torch.cuda.max_memory_allocated()
+    _expect("offline fsdpp train", launches,
+            {k: v * OFFLINE_TRAIN_STEPS for k, v in per_step.items()})
+    last = os.path.join(wd, f"ckpt_{OFFLINE_TRAIN_STEPS}")
+    resume, resume_launches, resume_s = _cli_run(
+        train_cli.main, common + ["--max-steps", str(OFFLINE_TRAIN_STEPS + 1),
+                                  "--resume-from", last], "resume, FSD++")
+    _expect("offline fsdpp resume", resume_launches, per_step)
+    losses = train["loss_total"] + resume["loss_total"]
+    if not all(np.isfinite(losses)) \
+            or resume["start_step"] != OFFLINE_TRAIN_STEPS:
+        fail(f"offline fsdpp train: losses {losses}, resumed at "
+             f"{resume['start_step']}")
+    rec = {"step_ms": train["step_ms"], "resume_step_ms": resume["step_ms"],
+           "loader_wait_ms": train["loader_wait_ms"]
+           + resume["loader_wait_ms"], "peak_memory_bytes": peak,
+           "losses": losses, "launches_per_step": per_step,
+           "launches": launches, "resume_launches": resume_launches,
+           "sample_assembly_ms": assemble_ms,
+           "sample_points": int(sample["valid"].sum()),
+           "sample_seeds": int(sample["seed_valid"].sum()),
+           "seconds": {"train": secs,
+                       "resume": resume_s},
+           "shapes": shapes, "per_step": per_frame, "max_abs_err": err,
+           "dw_shapes": dw_shapes, "dw_step": dw_step, "dw_err": dw_err,
+           "dgrad_err": dgrad_err}
+    print(f"offline fsdpp train CLI: {OFFLINE_TRAIN_STEPS} + 1 steps, step "
+          f"ms (card synchronised at each step's end) "
+          f"{[round(t, 2) for t in rec['step_ms']]} + resume "
+          f"{[round(t, 2) for t in rec['resume_step_ms']]}; loader wait per "
+          f"step {[round(w, 1) for w in rec['loader_wait_ms']]} ms (a "
+          f"sequence's last sample: {OFFLINE_TRAIN_FRAMES} sweeps read, "
+          f"aligned and drawn to "
+          f"{cap['max_points']} points, {assemble_ms:.1f} ms alone: "
+          f"{rec['sample_points']} points, {rec['sample_seeds']} seeds); "
+          f"peak memory {peak / 2**30:.3f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}; launches per step {per_step} "
+          f"(run {launches}, resume {resume_launches}); conv "
+          f"{per_frame['ms']:.3f} ms per step (twin "
+          f"{per_frame['plain_ms']:.3f}, bound {per_frame['bound_ms']:.3f}), "
+          f"dW {dw_step['ms']:.3f} (bound {dw_step['bound_ms']:.3f}), input "
+          f"gradient {dw_step['dgrad_ms']:.3f}", flush=True)
+    return rec
+
+
+def _offline_fsdpp_sequential(device, work, sets, seeds) -> dict:
+    """Phase 22, step 5: FSD++'s test CLI ``--sequential`` over the
+    validation sequences (seed-0 weights with phase 17's settings, through
+    a checkpoint), the conv kernel against its twin at frame 1's shapes
+    first."""
+    from sst_tpu_torch.data.incremental_dataset import (
+        IncrementalWaymoDataset,
+        collate_temporal,
+    )
+    from sst_tpu_torch.tools import test as test_cli
+    from sst_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg_path = _config_over(work, "fsdpp_test.py", FSDPP_CONFIG, dict(
+        dataset="waymo", sequential=True, data_root=sets["root"],
+        info_path=sets["training"], val_info_path=sets["validation"],
+        seeds_path=seeds["val"]))
+    model = init_weights(build_model_from_cfg(load_config(cfg_path),
+                                              train=False, device=device),
+                         torch.Generator().manual_seed(0)).eval()
+    n = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    ds = IncrementalWaymoDataset(data_root=sets["root"],
+                                 info_path=sets["validation"],
+                                 seeds_path=seeds["val"])
+    batch = collate_temporal([ds[1]]).to(device)
+    _, shifts = _fsdpp_set_weights(model, batch, train=False)
+
+    def drive():
+        with torch.inference_mode():
+            model.predict(batch)
+
+    shapes, per_frame, err, _ = phase_fsd_kernels(
+        model, None, device, drive,
+        title=f"{FSDPP_CONFIG} sequential predict (validation frame 1)")
+    ckpt = save_checkpoint(os.path.join(work, "fsdpp_ckpt"), model)
+    del model, batch
+    torch.cuda.empty_cache()
+    out = os.path.join(work, "fsdpp_seq.pkl")
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, secs = _cli_run(
+        test_cli.main, [cfg_path, ckpt, "--device", str(device),
+                        "--sequential", "--eval", "waymo", "--out", out],
+        f"test --sequential, {FSDPP_CONFIG}")
+    peak = torch.cuda.max_memory_allocated()
+    frames = len(ds)
+    _expect("offline fsdpp sequential", launches,
+            {"forward": frames * n, "dw": 0, "sorted_reduce": 0})
+    fed = frames - 2  # every frame but each sequence's first
+    if res["frames"] != frames or res["seeded_frames"] != fed \
+            or not np.isfinite(res["Overall/L2 mAPH"]):
+        fail(f"offline fsdpp sequential: {res['frames']} frames, "
+             f"{res['seeded_frames']} with fed-back seeds ({fed} expected), "
+             f"L2 mAPH {res.get('Overall/L2 mAPH')}")
+    rec = {"predict_ms": res["predict_ms"],
+           "seeded_frames": res["seeded_frames"], "frames": frames,
+           "detections": res["detections"], "launches": launches,
+           "launches_per_frame": n, "peak_memory_bytes": peak,
+           "metrics": {k: v for k, v in res.items()
+                       if k.startswith("Overall")}, "seconds": secs,
+           "fg_bias_shifts": shifts, "shapes": shapes,
+           "per_frame": per_frame, "max_abs_err": err}
+    print(f"offline fsdpp sequential: {frames} frames, predict ms (card "
+          f"synchronised) {[round(t, 2) for t in res['predict_ms']]}, "
+          f"{res['seeded_frames']} frames with fed-back seeds, "
+          f"{res['detections']} detections, launches {launches} ({n} per "
+          f"frame), peak {peak / 2**30:.3f} GiB; {rec['metrics']}; conv "
+          f"{per_frame['ms']:.3f} ms per frame (twin "
+          f"{per_frame['plain_ms']:.3f}, bound {per_frame['bound_ms']:.3f}); "
+          f"{secs:.1f} s", flush=True)
+    return rec
+
+
+def _offline_ctrl(device, work, sets, dets_bin) -> dict:
+    """Phase 22, step 6: CTRL's offline chain on the validation sequences:
+    pose tables, the gt bin from the tfrecord, a tracker's bin from the
+    FSD detections (``format_writers.assign_track_ids``), extension,
+    tracklets, candidates, 2 train CLI steps, predict over every track,
+    the refined bin and its score, a per-type split merged back, empty
+    boxes removed, and the submission packed and parsed back. The
+    tracker's bin is extended before the tracklets are made from it."""
+    from sst_tpu_torch.apis import init_model
+    from sst_tpu_torch.core.tracklet import tracklets_to_bin
+    from sst_tpu_torch.core.waymo_bin import (
+        _parse_fields,
+        read_bin_as_frames,
+        write_waymo_bin,
+    )
+    from sst_tpu_torch.data import format_writers as fw
+    from sst_tpu_torch.data.tracklet_dataset import (
+        WaymoTrackletDataset,
+        collate_tracklets,
+    )
+    from sst_tpu_torch.tools import create_submission
+    from sst_tpu_torch.tools import train as train_cli
+    from sst_tpu_torch.tools.ctrl import (
+        extend_tracks,
+        extract_poses,
+        generate_candidates,
+        generate_track_input,
+        generate_train_gt_bin,
+        merge_bins,
+        remove_empty,
+    )
+
+    root = sets["root"]
+    t_chain = time.perf_counter()
+    extract_poses.main(["--kitti-root", root])
+    gt_bin = os.path.join(work, "gt.bin")
+    generate_train_gt_bin.main(["--data-folder",
+                                os.path.dirname(sets["tfrecord"]),
+                                "--output", gt_bin])
+    poses = _pickle_load(os.path.join(root, "poses_by_context.pkl"))
+    tracks_bin = write_waymo_bin(
+        os.path.join(work, "tracks.bin"),
+        fw.assign_track_ids(read_bin_as_frames(dets_bin), poses,
+                            OFFLINE_TRACK_DIST, OFFLINE_TRACK_PER_FRAME))
+    ext_bin = os.path.join(work, "tracks_ext.bin")
+    extend_tracks.main(["--bin", tracks_bin, "--kitti-root", root,
+                        "--extend-length", "3", "--min-length", "2",
+                        "--out", ext_bin])
+    trk_pkl = os.path.join(work, "tracklets.pkl")
+    generate_track_input.main(["--bin", ext_bin, "--poses",
+                               os.path.join(root, "poses_by_context.pkl"),
+                               "--out", trk_pkl])
+    cand_pkl = os.path.join(work, "candidates.pkl")
+    generate_candidates.main(["--tracklets", trk_pkl, "--gt-bin", gt_bin,
+                              "--out", cand_pkl])
+    chain_s = time.perf_counter() - t_chain
+    data = dict(dataset="waymo_tracklet", data_root=root,
+                tracklet_path=trk_pkl,
+                poses_path=os.path.join(root, "poses_by_context.pkl"),
+                frame_index_path=os.path.join(root, "frame_index.pkl"),
+                candidates_path=cand_pkl)
+    cfg_path = _config_over(work, "ctrl_offline.py", CTRL_CONFIG, data)
+    cfg = load_config(cfg_path)
+    cap, batch_size = cfg["capacity"], cfg["data"]["samples_per_device"]
+    ds = WaymoTrackletDataset(
+        data_root=root, tracklet_path=trk_pkl, poses_path=data["poses_path"],
+        frame_index_path=data["frame_index_path"],
+        max_points=cap["max_points"], max_frames=cap["max_frames"])
+    n_tracks = len(ds)
+    lengths = [len(t) for t in ds.tracklets]
+    if n_tracks < 2 * batch_size:
+        fail(f"offline ctrl: {n_tracks} tracklets from the tracker's bin, "
+             f"fewer than two batches of {batch_size}")
+    per_step = _per_step(build_model_from_cfg(cfg, train=True, device="cpu"))
+    wd = os.path.join(work, "ctrl_wd")
+    train, train_launches, train_s = _cli_run(
+        train_cli.main, [cfg_path, "--device", str(device), "--work-dir", wd,
+                         "--log-interval", "1", "--max-steps",
+                         str(OFFLINE_CTRL_STEPS)],
+        f"train, {CTRL_CONFIG} over the chain's tracklets")
+    _expect("offline ctrl train", train_launches,
+            {k: v * OFFLINE_CTRL_STEPS for k, v in per_step.items()})
+    if not all(np.isfinite(train["loss_total"])):
+        fail(f"offline ctrl train: losses {train['loss_total']}")
+
+    model = init_model(cfg_path, os.path.join(
+        wd, f"ckpt_{OFFLINE_CTRL_STEPS}"), device=device)
+    n = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    first = collate_tracklets([ds[0]], device)
+
+    def drive():
+        with torch.inference_mode():
+            model.predict(first)
+
+    shapes, per_track, err, _ = phase_fsd_kernels(
+        model, None, device, drive,
+        title=f"{CTRL_CONFIG} predict (the chain's track 0)")
+    results, ms = [], []
+    reset_launch_counts()
+    for i in range(n_tracks):
+        sample = ds[i]
+        batch = collate_tracklets([sample], device)
+        t0 = time.perf_counter()
+        out = model.predict(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        results.append(dict(boxes=out["boxes"][0].cpu().numpy(),
+                            scores=out["scores"][0].cpu().numpy(),
+                            valid=out["valid"][0].cpu().numpy(),
+                            track_center=sample["track_center"]))
+    launches = _cli_counts()
+    _expect("offline ctrl predict", launches,
+            {"forward": n_tracks * n, "dw": 0, "sorted_reduce": 0})
+    if not all(np.isfinite(r["boxes"]).all() and np.isfinite(
+            r["scores"]).all() for r in results):
+        fail("offline ctrl: non-finite refined boxes or scores")
+    del model, first
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    refined = ds.format_results(results, os.path.join(work, "refined.bin"))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    score = ds.evaluate(results, os.path.join(work, "refined_eval.bin"),
+                        gt_bin=gt_bin)
+    if not refined or not np.isfinite(score.get("Overall/L2 mAPH", 0.0)):
+        fail(f"offline ctrl: {len(refined)} refined tracks, score {score}")
+    # the refined tracks in two bins, as per-class runs write them
+    half = len(refined) // 2
+    parts = [tracklets_to_bin(sub, os.path.join(work, f"refined_{i}.bin"))
+             for i, sub in enumerate((refined[:half], refined[half:]))]
+    merged = os.path.join(work, "merged.bin")
+    merge_bins.main(["--bins", *parts, "--out", merged])
+
+    def objects(path):
+        return sorted((k, oid, tuple(b), float(s))
+                      for k, fr in read_bin_as_frames(path).items()
+                      for oid, b, s in zip(fr["obj_ids"],
+                                           fr["boxes"].tolist(),
+                                           fr["scores"].tolist()))
+
+    if objects(merged) != objects(os.path.join(work, "refined.bin")):
+        fail("offline ctrl: the per-type bins merged back differ from the "
+             "refined bin")
+    cleaned = os.path.join(work, "cleaned.bin")
+    remove_empty.main(["--bin", merged, "--kitti-root", root, "--split",
+                       "validation", "--out", cleaned])
+    meta = os.path.join(work, "submission.txt")
+    with open(meta, "w") as f:
+        f.write("unique_method_name: ctrl-port\nauthors: chip smoke\n"
+                "affiliation: sst_tpu_torch\naccount_name: smoke@example.com"
+                "\ntask: TRACKING_3D\nnum_past_frames: 6\n")
+    shards = create_submission.main([
+        "--input-filenames", cleaned, "--submission-filename", meta,
+        "--output-filename", os.path.join(work, "submission", "part"),
+        "--num-shards", "2"])
+    packed = []
+    for path in shards:
+        with open(path, "rb") as f:
+            fields = _parse_fields(f.read())
+        if [v for fn, _, v in fields if fn == 1] != [4]:
+            fail(f"offline ctrl: {path} does not parse as a TRACKING_3D "
+                 f"submission")
+        for fn, _, v in fields:
+            if fn == 11:
+                packed += [p for f2, w2, p in _parse_fields(v)
+                           if f2 == 1 and w2 == 2]
+    kept = create_submission.read_objects_payload(cleaned)
+    if sorted(packed) != sorted(kept) or not kept:
+        fail(f"offline ctrl: the submission holds {len(packed)} objects, "
+             f"the cleaned bin {len(kept)}")
+    rec = {"tracks": n_tracks, "track_lengths": lengths,
+           "candidates_matched": int(sum(c["valid"].sum() for c in
+                                         _pickle_load(cand_pkl))),
+           "train_step_ms": train["step_ms"],
+           "train_loader_wait_ms": train["loader_wait_ms"],
+           "train_losses": train["loss_total"],
+           "train_launches": train_launches, "launches_per_step": per_step,
+           "predict_ms": ms, "launches": launches, "launches_per_track": n,
+           "refined_tracks": len(refined), "bin_write_ms": write_ms,
+           "metrics": {k: v for k, v in score.items()
+                       if k.startswith("Overall")},
+           "submission_objects": len(packed), "chain_tools_s": chain_s,
+           "seconds": {"train": train_s}, "shapes": shapes,
+           "per_track": per_track, "max_abs_err": err}
+    print(f"offline ctrl: {n_tracks} tracklets (lengths {lengths}), "
+          f"{rec['candidates_matched']} candidate frames matched; train CLI "
+          f"step ms {[round(t, 2) for t in train['step_ms']]}, loader wait "
+          f"{[round(w, 1) for w in train['loader_wait_ms']]} ms, launches "
+          f"{train_launches}; predict ms per track "
+          f"{[round(t, 2) for t in ms]}, launches {launches} ({n} per "
+          f"track); refined bin written in {write_ms:.2f} ms, "
+          f"{rec['metrics']}; {len(packed)} objects in the submission; "
+          f"conv {per_track['ms']:.3f} ms per track (twin "
+          f"{per_track['plain_ms']:.3f}, bound {per_track['bound_ms']:.3f})",
+          flush=True)
+    return rec
+
+
+def phase_offline(device) -> dict:
+    """Phase 22: the offline workflows on a seeded Waymo kitti-format set,
+    with ``jax``, ``flax`` and ``sst_tpu`` blocked: FSD's test CLI and the
+    detections' bin, FSD++'s seed tools, train CLI and ``--sequential``
+    test CLI, CTRL's chain from a tracker's bin to a submission. Returns
+    the phase's record."""
+    from sst_tpu_torch.data import format_writers as fw
+
+    t_phase = time.perf_counter()
+    finder = _BlockedImports()
+    sys.meta_path.insert(0, finder)
+    work = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        t0 = time.perf_counter()
+        sets = fw.write_waymo_set(
+            os.path.join(work, "kitti"), seed=22, train_sequences=2,
+            val_sequences=2, frames=OFFLINE_FRAMES,
+            train_frames=OFFLINE_TRAIN_FRAMES, points=OFFLINE_POINTS,
+            boxes=OFFLINE_BOXES, half=OFFLINE_HALF)
+        write_s = time.perf_counter() - t0
+        print(f"offline: a Waymo kitti-format set of 2 training sequences "
+              f"x {OFFLINE_TRAIN_FRAMES} frames and 2 validation ones x "
+              f"{OFFLINE_FRAMES}, {OFFLINE_POINTS} points and "
+              f"{OFFLINE_BOXES} objects each, and its tfrecord, written in "
+              f"{write_s:.1f} s", flush=True)
+        fsd, dets_bin = _offline_fsd(device, work, sets)
+        torch.cuda.empty_cache()
+        seeds = _offline_seeds(work, sets, dets_bin)
+        fsdpp_train = _offline_fsdpp_train(device, work, sets, seeds)
+        torch.cuda.empty_cache()
+        fsdpp_seq = _offline_fsdpp_sequential(device, work, sets, seeds)
+        torch.cuda.empty_cache()
+        ctrl = _offline_ctrl(device, work, sets, dets_bin)
+        torch.cuda.empty_cache()
+    finally:
+        sys.meta_path.remove(finder)
+        shutil.rmtree(work, ignore_errors=True)
+    loaded = _blocked_loaded()
+    if loaded:
+        fail(f"offline: {loaded} entered sys.modules")
+    seconds = time.perf_counter() - t_phase
+    print(f"offline: phase 22 took {seconds:.1f} s (set written in "
+          f"{write_s:.1f} s); none of {BLOCKED_PACKAGES} in sys.modules",
+          flush=True)
+    return {"fsd": fsd, "seeds": {k: v for k, v in seeds.items()
+                                  if k not in ("val", "train")},
+            "fsdpp_train": fsdpp_train, "fsdpp_sequential": fsdpp_seq,
+            "ctrl": ctrl, "set_write_s": write_s, "seconds": seconds}
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -4742,6 +5358,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     groups = phase_groups(device)
     groups["card"] = card
+    torch.cuda.empty_cache()
+    offline = phase_offline(device)
+    offline["card"] = card
+    off_fsdpp, off_seq, off_ctrl = (offline["fsdpp_train"],
+                                    offline["fsdpp_sequential"],
+                                    offline["ctrl"])
+    # phase 22's runs, each counted from 0: (name, launches by kind)
+    off_runs = {"offline_fsd_test": offline["fsd"]["launches"],
+                "offline_fsdpp_train": off_fsdpp["launches"],
+                "offline_fsdpp_resume": off_fsdpp["resume_launches"],
+                "offline_fsdpp_sequential": off_seq["launches"],
+                "offline_ctrl_train": off_ctrl["train_launches"],
+                "offline_ctrl_predict": off_ctrl["launches"]}
     group_keys = ("nusc", "argo_fsdv2", "argo_fsd", "fsd_3f")
     trained = ("nusc", "argo_fsdv2", "argo_fsd")
 
@@ -4786,7 +5415,10 @@ def main() -> None:
             **{f"group_{k}": (groups[k]["launches"]["sorted_reduce"], 0)
                for k in group_keys},
             **{f"group_{k}_loss": (groups[k]["loss_launches"][
-                "sorted_reduce"], 0) for k in trained}}
+                "sorted_reduce"], 0) for k in trained},
+            # phase 22: FSD, FSD++ and CTRL leave it off, as JAX's do
+            **{k: (v.get("sorted_reduce", 0), 0)
+               for k, v in off_runs.items()}}
     sr_launches = {k: v[0] for k, v in runs.items()}
     # the conv kernel's launches in each path's run, each counted from 0
     conv_by_path = {
@@ -4814,7 +5446,12 @@ def main() -> None:
            for k in group_keys},
         **{f"group_{k}_loss": sum(groups[k]["loss_launches"][kind] for kind
                                   in ("forward", "recompute", "dgrad"))
-           for k in trained}}
+           for k in trained},
+        # the offline workflows (phase 22): each run's forward, recompute
+        # and input-gradient launches
+        **{k: sum(v.get(kind, 0) for kind in ("forward", "recompute",
+                                              "dgrad"))
+           for k, v in off_runs.items()}}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
@@ -4826,7 +5463,10 @@ def main() -> None:
         "cli_nusc_train": cli["launches"]["nusc_train"]["dw"],
         "cli_nusc_resume": cli["launches"]["nusc_resume"]["dw"],
         **{f"group_{k}_loss": groups[k]["loss_launches"]["dw"]
-           for k in trained}}
+           for k in trained},
+        **{k: off_runs[k]["dw"] for k in ("offline_fsdpp_train",
+                                          "offline_fsdpp_resume",
+                                          "offline_ctrl_train")}}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -4895,12 +5535,15 @@ def main() -> None:
                            ctrl["train"]["dgrad_err"],
                            fsdv2_ts["max_abs_err"], fsdv2_ts["dgrad_err"],
                            *(groups[k]["max_abs_err"] for k in group_keys),
-                           *(groups[k]["dgrad_err"] for k in trained)),
+                           *(groups[k]["dgrad_err"] for k in trained),
+                           off_fsdpp["max_abs_err"], off_fsdpp["dgrad_err"],
+                           off_seq["max_abs_err"], off_ctrl["max_abs_err"]),
         "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"],
                                  fsdpp_train["dgrad_err"],
                                  ctrl["train"]["dgrad_err"],
                                  fsdv2_ts["dgrad_err"],
-                                 *(groups[k]["dgrad_err"] for k in trained)),
+                                 *(groups[k]["dgrad_err"] for k in trained),
+                                 off_fsdpp["dgrad_err"]),
         # per frame of the sparse path: each of its convs at the time of
         # its rulebook and widths (phase 6)
         "ms": conv_per_frame["ms"],
@@ -4967,6 +5610,25 @@ def main() -> None:
            for k in group_keys},
         **{f"group_{k}_loss_{m}": groups[k]["dw_step"][m]
            for k in trained for m in ("dgrad_ms", "dgrad_plain_ms")},
+        # the offline paths (phase 22): the FSD++ train CLI's step (its
+        # forward convs and input gradient at a step's recorded inputs),
+        # FSD++'s sequential predict per frame and CTRL's per track
+        **{f"offline_fsdpp_train_{m}_per_step": off_fsdpp["per_step"][m]
+           for m in ("ms", "plain_ms", "bound_ms")},
+        "offline_fsdpp_train_bound_by": bound_by(off_fsdpp.pop("shapes"),
+                                                 "convs_per_frame"),
+        "offline_fsdpp_train_dgrad_ms_per_step": off_fsdpp["dw_step"][
+            "dgrad_ms"],
+        "offline_fsdpp_train_dgrad_plain_ms_per_step": off_fsdpp["dw_step"][
+            "dgrad_plain_ms"],
+        **{f"offline_fsdpp_sequential_{m}_per_frame": off_seq["per_frame"][m]
+           for m in ("ms", "plain_ms", "bound_ms")},
+        "offline_fsdpp_sequential_bound_by": bound_by(
+            off_seq.pop("shapes"), "convs_per_frame"),
+        **{f"offline_ctrl_{m}_per_track": off_ctrl["per_track"][m]
+           for m in ("ms", "plain_ms", "bound_ms")},
+        "offline_ctrl_bound_by": bound_by(off_ctrl.pop("shapes"),
+                                          "convs_per_frame"),
         # the wrapper's host time per call, its entry point bound once and
         # set on every call (phase 18, the widest CTRL conv)
         "host_us": WRAPPER_HOST_US.get("sparse_conv_gemm"),
@@ -4982,7 +5644,8 @@ def main() -> None:
         "max_abs_err": max(dw_err, fsd_train["dw_err"],
                            fsdpp_train["dw_err"], ctrl["train"]["dw_err"],
                            fsdv2_ts["dw_err"],
-                           *(groups[k]["dw_err"] for k in trained)),
+                           *(groups[k]["dw_err"] for k in trained),
+                           off_fsdpp["dw_err"]),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -5033,6 +5696,12 @@ def main() -> None:
         **{f"group_{k}_loss_bound_by": bound_by(groups[k].pop("dw_shapes"),
                                                 "convs_per_step")
            for k in trained},
+        # the FSD++ train CLI's step (phase 22): its convs' dW at the
+        # recorded inputs of a step on the incremental set
+        **{f"offline_fsdpp_train_{m}_per_step": off_fsdpp["dw_step"][m]
+           for m in ("ms", "plain_ms", "bound_ms")},
+        "offline_fsdpp_train_bound_by": bound_by(off_fsdpp.pop("dw_shapes"),
+                                                 "convs_per_step"),
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -5114,7 +5783,9 @@ def main() -> None:
         "fsdv2_two_stage_skip_rcnn": fsdv2_ts["latency_skip_rcnn"][
             "median"],
         **{f"group_{k}": groups[k]["latency"]["median"]
-           for k in group_keys}},
+           for k in group_keys},
+        "offline_fsdpp_sequential": statistics.median(off_seq["predict_ms"]),
+        "offline_ctrl_per_track": statistics.median(off_ctrl["predict_ms"])},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -5130,6 +5801,7 @@ def main() -> None:
         "fsdv2_two_stage": fsdv2_ts,
         "cli": cli,
         "groups": groups,
+        "offline": offline,
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

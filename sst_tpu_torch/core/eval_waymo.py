@@ -7,7 +7,7 @@ compute_detection_metrics_main table); this module computes the same table
 shape — {Class}/L{1,2} mAP and mAPH keys plus Overall rows — in vectorized
 numpy so a real number exists even without the Waymo C++ toolkit.
 :func:`parse_metrics_stdout` reads the official binary's table where it
-runs (the Waymo-bin writer, ``core/waymo_bin.py``, is ROADMAP item 9b).
+runs, on the Objects bins ``core/waymo_bin.py`` writes.
 
 Protocol (per the Waymo OD metric definitions):
 - difficulty: a gt is LEVEL_2 if labeler-marked difficulty==2 OR it has

@@ -5,9 +5,10 @@ imported).
 
 A tracklet holds one track's per-frame boxes, timestamps and scores, moves
 them between ego and world frames, extends them at constant velocity and
-adds the test-time noise. The Waymo Objects-bin reading and writing
-(``from_waymo_bin``, ``to_frames``, ``tracklets_to_bin``) is not ported
-yet (ROADMAP queue 1, item 9b).
+adds the test-time noise. ``from_waymo_bin`` groups a tracker's Waymo
+Objects bin (with object ids) into tracklets, and ``to_frames`` /
+:func:`tracklets_to_bin` write tracklets back into one
+(``core/waymo_bin.py``).
 """
 
 from __future__ import annotations
@@ -17,21 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from sst_tpu_torch.core.waymo_bin import (
+    read_waymo_bin,
+    waymo_box_to_lidar,
+    write_waymo_bin,
+)
 from sst_tpu_torch.ops.incremental import box_frame_transform
-
-
-def _box_frame_transform_np(boxes, pre_pose, cur_inv):
-    """Host-side 7-dof box pose transform in float64, rounded to float32:
-    the centre rotated and moved, the yaw through the heading vector
-    (sin(yaw), cos(yaw), 0)."""
-    mm = cur_inv @ pre_pose
-    out = boxes.copy()
-    out[:, :3] = boxes[:, :3] @ mm[:3, :3].T + mm[:3, 3]
-    yaw = boxes[:, 6]
-    heading = np.stack([np.sin(yaw), np.cos(yaw), np.zeros_like(yaw)], -1)
-    heading = heading @ mm[:3, :3].T
-    out[:, 6] = np.arctan2(heading[:, 0], heading[:, 1])
-    return out.astype(np.float32)
 
 
 @dataclasses.dataclass
@@ -70,11 +62,15 @@ class LiDARTracklet:
     def to_ego(self, poses: dict) -> "LiDARTracklet":
         """World-frame boxes into each frame's own ego frame (the inverse
         of :meth:`to_world`)."""
+        from sst_tpu_torch.data.incremental_dataset import (
+            box_frame_transform_np,
+        )
+
         eye = np.eye(4, dtype=np.float64)
         out = []
         for ts, box in zip(self.timestamps, self.boxes):
             inv = np.linalg.inv(np.asarray(poses[ts], np.float64))
-            out.append(_box_frame_transform_np(box[None], eye, inv)[0])
+            out.append(box_frame_transform_np(box[None], eye, inv)[0])
         return dataclasses.replace(self, boxes=np.stack(out))
 
     # ----------------------------------------------------- velocity/extension
@@ -212,6 +208,52 @@ class LiDARTracklet:
         boxes = self.boxes.copy()
         boxes[:, 6] += n
         return dataclasses.replace(self, boxes=boxes)
+
+    # ---------------------------------------------------------- (de)serialize
+
+    @staticmethod
+    def from_waymo_bin(path: str, min_len: int = 1):
+        """A tracking-result Objects bin grouped into tracklets by
+        (context_name, object id), each sorted by time; the bin must carry
+        ids (``tools/ctrl/generate_track_input.py``). Tracklets shorter than
+        ``min_len`` are dropped."""
+        groups: dict = {}
+        for o in read_waymo_bin(path):
+            key = (o["context_name"], o.get("id", ""))
+            groups.setdefault(key, []).append(o)
+        out = []
+        for (ctx, oid), items in groups.items():
+            items.sort(key=lambda x: x["timestamp_micros"])
+            boxes = np.stack([waymo_box_to_lidar(i["box"]) for i in items])
+            trk = LiDARTracklet(
+                context_name=ctx, obj_id=oid,
+                type_id=int(items[0].get("type", 0)),
+                timestamps=[i["timestamp_micros"] for i in items],
+                boxes=boxes,
+                scores=np.asarray([i["score"] for i in items], np.float32),
+            )
+            if len(trk) >= min_len:
+                out.append(trk)
+        return out
+
+    def to_frames(self):
+        """One frame dict per box, in ``waymo_bin.write_waymo_bin``'s
+        layout, carrying the track's id."""
+        for ts, box, score in zip(self.timestamps, self.boxes, self.scores):
+            yield dict(
+                boxes=box[None], scores=np.asarray([score]),
+                labels=np.asarray([{1: 0, 2: 1, 4: 2}.get(self.type_id, 0)]),
+                context_name=self.context_name, timestamp_micros=ts,
+                obj_ids=[self.obj_id],
+            )
+
+
+def tracklets_to_bin(tracklets, path: str,
+                     class_names=("Car", "Pedestrian", "Cyclist")):
+    """Tracklets (per-frame ego boxes) written as one Waymo Objects bin
+    with their ids; returns ``path``."""
+    frames = [fr for t in tracklets for fr in t.to_frames()]
+    return write_waymo_bin(path, frames, class_names)
 
 
 def pad_tracklet_arrays(points, frame_inds, boxes, scores, gt_boxes, gt_valid,

@@ -23,10 +23,10 @@ the Waymo layout's camera-frame annos. Each has its own ``evaluate``
 (``core/eval_{nuscenes,argo2,kitti,lyft}.py``); ``CBGSDataset`` resamples a
 dataset's indices toward balanced classes with ``RandomState(0)``, as
 JAX's does. Every dataset is registered in ``utils/registry.py
-DATASETS``.
-
-Not ported yet (ROADMAP queue 1, item 9b): ``WaymoDataset.format_results``
-and ``evaluate`` (the Waymo-bin output).
+DATASETS``. ``WaymoDataset.format_results`` writes the detections as a
+Waymo Objects bin (``core/waymo_bin.py``), and its ``evaluate`` scores them
+with the official metric binary where it is on ``PATH`` and with
+``core/eval_waymo.py`` always.
 """
 
 from __future__ import annotations
@@ -139,6 +139,105 @@ class WaymoDataset(Custom3DDataset):
             sample["gt_labels"] = labels
             sample["gt_names"] = list(names[keep])
         return sample
+
+    # -------------------------------------------------- waymo-protocol output
+
+    def format_results(self, results, pklfile_prefix: str):
+        """results[i]: dict(boxes_3d [N,7+], scores_3d [N], labels_3d [N])
+        → serialized WOD Objects bin (waymo_dataset.py:715
+        fast_convert_to_waymo), using the converter-produced
+        idx2timestamp.pkl / idx2contextname.pkl maps."""
+        from sst_tpu_torch.core.waymo_bin import write_waymo_bin
+
+        with open(os.path.join(self.data_root, "idx2timestamp.pkl"), "rb") as f:
+            idx2ts = pickle.load(f)
+        with open(os.path.join(self.data_root, "idx2contextname.pkl"), "rb") as f:
+            idx2ctx = pickle.load(f)
+        frames = []
+        for idx, res in enumerate(results):
+            sample_idx = self.infos[idx]["image"]["image_idx"]
+            key = f"{sample_idx:07d}"
+            frames.append(dict(
+                boxes=np.asarray(res["boxes_3d"]),
+                scores=np.asarray(res["scores_3d"]),
+                labels=np.asarray(res["labels_3d"]),
+                context_name=idx2ctx[key],
+                timestamp_micros=idx2ts[key],
+            ))
+        path = pklfile_prefix if pklfile_prefix.endswith(".bin") else \
+            pklfile_prefix + ".bin"
+        return write_waymo_bin(path, frames, tuple(self.classes))
+
+    def evaluate(self, results, metric: str = "fast",
+                 pklfile_prefix: str | None = None,
+                 waymo_metrics_bin: str = "compute_detection_metrics_main",
+                 gt_bin: str | None = None):
+        """`fast`/`waymo`: write the Objects bin and invoke the official WOD
+        metric binary when present (waymo_dataset.py:354-415); falls back to
+        the internal numpy AP protocol otherwise. `kitti`: internal AP only."""
+        import shutil
+        import subprocess
+
+        from sst_tpu_torch.core.eval_waymo import (
+            parse_metrics_stdout,
+            waymo_eval,
+        )
+
+        out = {}
+        binary_ap = None
+        if metric in ("fast", "waymo") and pklfile_prefix is not None:
+            bin_path = self.format_results(results, pklfile_prefix)
+            out["bin"] = bin_path
+            if gt_bin is not None and shutil.which(waymo_metrics_bin):
+                proc = subprocess.run(
+                    [waymo_metrics_bin, bin_path, gt_bin],
+                    capture_output=True, text=True,
+                )
+                out["waymo_stdout"] = proc.stdout
+                # parse the table into the ap_dict
+                # (waymo_dataset.py:416-470); the internal protocol still
+                # runs below so the binary-vs-internal delta is visible
+                binary_ap = parse_metrics_stdout(proc.stdout)
+                out.update(binary_ap)
+
+        gts = []
+        for info in self.infos:
+            annos = info.get("annos", {})
+            names = np.asarray(annos.get("name", [])).reshape(-1)
+            keep = np.isin(names, self.classes)
+            rect = info.get("calib", {}).get("R0_rect")
+            trv2c = info.get("calib", {}).get("Tr_velo_to_cam")
+            boxes = camera_to_lidar_boxes(
+                {k: v[keep] for k, v in annos.items()
+                 if k in ("location", "dimensions", "rotation_y")},
+                rect, trv2c,
+            ) if keep.any() else np.zeros((0, 7), np.float32)
+            labels = np.asarray(
+                [self.classes.index(n) for n in names[keep]], np.int32)
+            g = dict(boxes=boxes, labels=labels)
+            if "num_points_in_gt" in annos:
+                g["num_points"] = np.asarray(annos["num_points_in_gt"])[keep]
+            if "difficulty" in annos:
+                g["difficulty"] = np.asarray(annos["difficulty"])[keep]
+            gts.append(g)
+        preds = [
+            dict(boxes=np.asarray(r["boxes_3d"]),
+                 scores=np.asarray(r["scores_3d"]),
+                 labels=np.asarray(r["labels_3d"]))
+            for r in results
+        ]
+        internal = waymo_eval(preds, gts, tuple(self.classes),
+                              range_breakdowns=metric == "waymo")
+        if binary_ap is None:
+            out.update(internal)
+        else:
+            # binary numbers are authoritative; surface the internal
+            # protocol's agreement as a cross-check scalar
+            for k in ("Overall/L1 mAPH", "Overall/L2 mAPH"):
+                if k in binary_ap and k in internal:
+                    out[f"binary_minus_internal/{k.split('/')[1]}"] = round(
+                        binary_ap[k] - internal[k], 4)
+        return out
 
 
 def lidar_to_camera_annos(boxes, scores, labels, classes, rect=None,

@@ -11,6 +11,13 @@ LiDAR-frame ``gt_boxes``, ``gt_names``, ``gt_velocity`` with a NaN row,
 ``num_lidar_pts`` and ``valid_flag``), Argo2's the nuScenes layout with a
 ``uuid`` of ``log_id/timestamp_ns``, KITTI's the Waymo layout's
 camera-frame annos with ``calib`` and ``image``.
+
+:func:`write_waymo_set` writes Waymo's kitti format as the converter
+(``tools/data_converter/waymo_converter.py``) lays it out: sequences of
+frames whose ego moves, six-channel points, camera-frame annos, ego poses,
+``idx2timestamp.pkl`` / ``idx2contextname.pkl`` and a tfrecord of the
+frames' labels (``data/waymo_proto.py``). :func:`assign_track_ids` links a
+detector's boxes over each sequence into tracks, a tracker's output.
 """
 
 from __future__ import annotations
@@ -33,16 +40,28 @@ LYFT_CLASSES = LyftDataset.CLASSES
 KITTI_CLASSES = KittiDataset.CLASSES
 
 
-def scene(rng: np.random.RandomState, points: int, boxes: int, half: float,
-          width: int = 5):
-    """One scene: points [points, width] float32 (x, y, z, intensity, then
-    zeros), boxes [boxes, 7] (bottom centre, w, l, h, yaw)."""
-    b = np.concatenate([
+def _random_boxes(rng: np.random.RandomState, boxes: int, half: float):
+    return np.concatenate([
         rng.uniform(-0.8 * half, 0.8 * half, (boxes, 2)),
         rng.uniform(-1.8, -1.2, (boxes, 1)),
         rng.uniform(0.6, 2.5, (boxes, 1)), rng.uniform(0.6, 5.0, (boxes, 1)),
         rng.uniform(1.0, 2.5, (boxes, 1)),
         rng.uniform(-np.pi, np.pi, (boxes, 1))], -1).astype(np.float32)
+
+
+def scene(rng: np.random.RandomState, points: int, boxes: int, half: float,
+          width: int = 5):
+    """One scene: points [points, width] float32 (x, y, z, intensity, then
+    zeros), boxes [boxes, 7] (bottom centre, w, l, h, yaw)."""
+    b = _random_boxes(rng, boxes, half)
+    return scene_points(rng, b, points, half, width), b
+
+
+def scene_points(rng: np.random.RandomState, b: np.ndarray, points: int,
+                 half: float, width: int = 5) -> np.ndarray:
+    """[points, width] float32: half of them inside the boxes ``b`` [M, 7],
+    the rest over the square of half-width ``half``, z in [-2, 2]."""
+    boxes = len(b)
     n_obj = points // 2 if boxes else 0
     which = rng.randint(0, max(boxes, 1), n_obj)
     local = rng.uniform(-0.5, 0.5, (n_obj, 3)) * b[which, 3:6]
@@ -57,7 +76,7 @@ def scene(rng: np.random.RandomState, points: int, boxes: int, half: float,
     pts = np.zeros((points, width), np.float32)
     pts[:, :3] = np.concatenate([obj, bg])
     pts[:, 3] = rng.rand(points)
-    return pts, b
+    return pts
 
 
 def _rot_z(yaw: float) -> np.ndarray:
@@ -222,3 +241,174 @@ def write_gt_database(root: str, classes, seed: int = 0, per_class: int = 8,
     with open(path, "wb") as f:
         pickle.dump(db, f)
     return path
+
+
+WAYMO_CLASSES = ("Car", "Pedestrian", "Cyclist")
+WAYMO_TYPES = {"Car": 1, "Pedestrian": 2, "Cyclist": 4}  # label.proto Type
+# the kitti-format calibration the Waymo layout's infos carry
+_WAYMO_RECT = np.eye(4)
+_WAYMO_VELO_TO_CAM = np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 0.0],
+                               [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+
+
+def _ego_pose(seq: int, frame: int) -> np.ndarray:
+    """The ego → world pose of a frame: 1 m forward and a 0.02 rad turn per
+    frame from a start that differs per sequence."""
+    pose = np.eye(4)
+    pose[:3, :3] = _rot_z(0.3 * seq + 0.02 * frame)
+    pose[:3, 3] = (100.0 * seq + 1.0 * frame, -50.0 * seq + 0.2 * frame, 0.0)
+    return pose
+
+
+def write_waymo_set(root: str, seed: int = 0, train_sequences: int = 2,
+                    val_sequences: int = 2, frames: int = 4,
+                    points: int = 2048, boxes: int = 12,
+                    half: float = 30.0,
+                    train_frames: int | None = None) -> dict:
+    """A Waymo set in the converter's kitti format under ``root``:
+    ``train_sequences`` sequences of ``train_frames`` (default
+    ``frames``) frames and ``val_sequences`` of ``frames``, each frame of
+    ``points`` six-channel points (x, y, z, intensity, elongation,
+    0) with ``boxes`` objects of the three classes that move at constant
+    velocity in the world while the ego drives (``info["pose"]``). Frame f
+    of sequence q has ``image_idx = split * 1_000_000 + q * 1000 + f``
+    (split 0 training, 1 validation), its points at
+    ``{training,validation}/velodyne/%07d.bin``, camera-frame annos with
+    ``num_points_in_gt``, ``difficulty`` and ``obj_ids``, a ``calib`` and
+    a timestamp 0.1 s after the one before. Writes
+    ``waymo_infos_train.pkl``, ``waymo_infos_val.pkl``,
+    ``idx2timestamp.pkl``, ``idx2contextname.pkl`` and
+    ``tfrecords/segments.tfrecord`` (every frame's context, timestamp,
+    pose and labels); returns their paths."""
+    import torch
+
+    from sst_tpu_torch.core.boxes import points_in_boxes
+    from sst_tpu_torch.core.waymo_bin import lidar_to_waymo_heading
+    from sst_tpu_torch.data import waymo_proto as wp
+    from sst_tpu_torch.data.incremental_dataset import box_frame_transform_np
+
+    rng = np.random.RandomState(seed)
+    cam = _WAYMO_RECT @ _WAYMO_VELO_TO_CAM
+    idx2ts, idx2ctx, records, out = {}, {}, [], {"root": root}
+    for split, (name, n_seq, n_frames, info_name) in enumerate((
+            ("training", train_sequences, train_frames or frames,
+             "waymo_infos_train.pkl"),
+            ("validation", val_sequences, frames, "waymo_infos_val.pkl"))):
+        os.makedirs(os.path.join(root, name, "velodyne"), exist_ok=True)
+        infos = []
+        for q in range(n_seq):
+            ctx = f"seg-{seed}-{name}-{q:03d}"
+            world = box_frame_transform_np(
+                _random_boxes(rng, boxes, half), _ego_pose(q, 0),
+                np.eye(4))
+            velo = rng.uniform(-1.0, 1.0, (boxes, 2))
+            names = [WAYMO_CLASSES[i] for i in rng.randint(0, 3, boxes)]
+            ids = [f"{ctx}-obj{k}" for k in range(boxes)]
+            for f in range(n_frames):
+                image_idx = split * 1_000_000 + q * 1000 + f
+                key = f"{image_idx:07d}"
+                ts = 1_550_000_000_000_000 + (split * 100 + q) * 10**9 \
+                    + f * 100_000
+                pose = _ego_pose(q, f)
+                wb = world.copy()
+                wb[:, :2] += velo * 0.1 * f
+                b = box_frame_transform_np(wb, np.eye(4), np.linalg.inv(pose))
+                # scene_points turns a box's points by the yaw's opposite
+                # sign to core/boxes.py points_in_boxes, the containment
+                # the models and tools test: given -yaw, they lie in b
+                pts = scene_points(rng, b * np.float32([1] * 6 + [-1]),
+                                   points, half, width=6)
+                pts[:, 4] = rng.rand(points)  # elongation
+                rel = os.path.join(name, "velodyne", f"{key}.bin")
+                pts.tofile(os.path.join(root, rel))
+                num_pts = points_in_boxes(
+                    torch.from_numpy(pts[:, :3]),
+                    torch.from_numpy(b)).sum(0).int().numpy()
+                hom = np.concatenate([b[:, :3], np.ones((boxes, 1))], 1)
+                annos = dict(
+                    name=np.asarray(names),
+                    location=(hom @ cam.T)[:, :3].astype(np.float32),
+                    dimensions=b[:, [4, 5, 3]].astype(np.float32),
+                    rotation_y=(-b[:, 6] - np.pi / 2).astype(np.float32),
+                    truncated=np.zeros(boxes, np.float32),
+                    occluded=np.zeros(boxes, np.int32),
+                    alpha=np.full(boxes, -10.0, np.float32),
+                    bbox=np.tile(np.array([[0.0, 0.0, 100.0, 100.0]],
+                                          np.float32), (boxes, 1)),
+                    num_points_in_gt=num_pts,
+                    difficulty=rng.randint(1, 3, boxes).astype(np.int32),
+                    obj_ids=np.asarray(ids))
+                infos.append(dict(
+                    point_cloud=dict(velodyne_path=rel, num_features=6),
+                    image=dict(image_idx=image_idx), pose=pose,
+                    calib=dict(R0_rect=_WAYMO_RECT.copy(),
+                               Tr_velo_to_cam=_WAYMO_VELO_TO_CAM.copy()),
+                    timestamp=ts, context=ctx, annos=annos))
+                idx2ts[key] = ts
+                idx2ctx[key] = ctx
+                labels = [wp.enc_label(
+                    (box[0], box[1], box[2] + box[5] / 2, box[4], box[3],
+                     box[5], lidar_to_waymo_heading(float(box[6]))),
+                    WAYMO_TYPES[n], oid, int(c), difficulty=int(d))
+                    for box, n, oid, c, d in zip(
+                        b.astype(np.float64), names, ids, num_pts,
+                        annos["difficulty"])]
+                records.append(wp.enc_frame(ctx, ts, pose, b"", [], labels))
+        out[name] = os.path.join(root, info_name)
+        with open(out[name], "wb") as fh:
+            pickle.dump(infos, fh)
+    for fname, obj in (("idx2timestamp.pkl", idx2ts),
+                       ("idx2contextname.pkl", idx2ctx)):
+        with open(os.path.join(root, fname), "wb") as fh:
+            pickle.dump(obj, fh)
+    os.makedirs(os.path.join(root, "tfrecords"), exist_ok=True)
+    out["tfrecord"] = os.path.join(root, "tfrecords", "segments.tfrecord")
+    wp.write_tfrecord(out["tfrecord"], records)
+    return out
+
+
+def assign_track_ids(frames: dict, poses: dict, max_dist: float = 3.0,
+                     per_frame: int | None = None) -> dict:
+    """A tracker's output made from per-frame detections: ``frames``
+    {(context, timestamp): dict(boxes [N, 7+] in the frame's ego frame,
+    scores, labels)}, ``poses`` {context: {timestamp: 4x4 ego → world}}.
+    Over each sequence in time order, a box of the same label within
+    ``max_dist`` m (world frame) of a track's last box continues the track
+    (greedy, highest score first), else starts one. ``per_frame`` keeps
+    each frame's highest-scoring boxes only. Returns the frames in
+    ``write_waymo_bin``'s layout with ``obj_ids``, ``context_name`` and
+    ``timestamp_micros``."""
+    from sst_tpu_torch.data.incremental_dataset import box_frame_transform_np
+
+    out, n_tracks = [], 0
+    by_ctx: dict = {}
+    for (ctx, ts) in frames:
+        by_ctx.setdefault(ctx, []).append(ts)
+    for ctx in sorted(by_ctx):
+        last: list = []  # (track id, label, world xy)
+        for ts in sorted(by_ctx[ctx]):
+            fr = frames[(ctx, ts)]
+            order = np.argsort(-np.asarray(fr["scores"]), kind="stable")
+            order = order[:per_frame]
+            boxes = np.asarray(fr["boxes"], np.float32)[order, :7]
+            labels = np.asarray(fr["labels"])[order]
+            world = box_frame_transform_np(boxes, poses[ctx][ts], np.eye(4))
+            ids, free, now = [], list(range(len(last))), []
+            for b, lab in zip(world, labels):
+                d = [np.hypot(*(b[:2] - last[j][2])) if last[j][1] == lab
+                     else np.inf for j in free]
+                if d and min(d) <= max_dist:
+                    j = free.pop(int(np.argmin(d)))
+                    tid = last[j][0]
+                else:
+                    tid = f"{ctx}-trk{n_tracks}"
+                    n_tracks += 1
+                ids.append(tid)
+                now.append((tid, lab, b[:2]))
+            last = now
+            out.append(dict(boxes=boxes,
+                            scores=np.asarray(fr["scores"],
+                                              np.float32)[order],
+                            labels=labels, obj_ids=ids, context_name=ctx,
+                            timestamp_micros=ts))
+    return out

@@ -7,16 +7,26 @@ into a track-centric frame (the median box centre at the origin), with a
 time channel of ``frame * 0.1``; the per-frame tracker boxes and, for
 training, the one-to-one gt candidate boxes, in the same frame.
 
-Inputs (pickles the JAX package's ``tools/ctrl`` scripts write):
+Inputs (pickles the port's ``tools/ctrl`` scripts write, run as
+``python -m sst_tpu_torch.tools.ctrl.<script>``):
   tracklet_path   a list of ``LiDARTracklet`` in the world frame
+                  (``generate_track_input --poses``)
   candidates_path one dict per tracklet: ``boxes`` [F, 7] (world frame)
-                  and ``valid`` [F]
+                  and ``valid`` [F] (``generate_candidates``)
   poses_path      {context_name: {timestamp: 4x4 ego → world}}
+                  (``extract_poses``: ``poses_by_context.pkl``)
   frame_index     {(context_name, timestamp): points .bin path}
+                  (``extract_poses``: ``frame_index.pkl``)
+
+Tracklet pickles that the JAX package's ``tools/ctrl`` wrote hold
+``sst_tpu.core.tracklet.LiDARTracklet`` objects; :func:`load_tracklets`
+reads them as the port's class (the same dataclass fields) without
+importing the JAX package, and refuses any other ``sst_tpu`` name.
 
 :func:`collate_tracklets` stacks samples into a torch ``TrackletBatch`` on
-a device. The Waymo-bin output (``format_results``, ``evaluate``) is not
-ported yet (ROADMAP queue 1, item 9b).
+a device. ``format_results`` writes refined tracklets (track-centric →
+world → each frame's ego frame) as a Waymo Objects bin with the track ids;
+``evaluate`` scores it against a gt bin.
 """
 
 from __future__ import annotations
@@ -26,7 +36,35 @@ import pickle
 
 import numpy as np
 
-from sst_tpu_torch.core.tracklet import pad_tracklet_arrays
+from sst_tpu_torch.core.tracklet import (
+    LiDARTracklet,
+    pad_tracklet_arrays,
+    tracklets_to_bin,
+)
+
+# the JAX package's tracklet class, which its tools/ctrl scripts pickle
+_JAX_TRACKLET = ("sst_tpu.core.tracklet", "LiDARTracklet")
+
+
+class _TrackletUnpickler(pickle.Unpickler):
+    """Reads the JAX package's ``LiDARTracklet`` as the port's; any other
+    name of the JAX package is refused (importing it loads JAX)."""
+
+    def find_class(self, module, name):
+        if (module, name) == _JAX_TRACKLET:
+            return LiDARTracklet
+        if module == "sst_tpu" or module.startswith("sst_tpu."):
+            raise pickle.UnpicklingError(
+                f"{module}.{name}: a pickle of the JAX package's "
+                f"{module}.{name}; the port reads only its LiDARTracklet")
+        return super().find_class(module, name)
+
+
+def load_tracklets(path: str) -> list:
+    """A tracklet pickle, written by the port's or the JAX package's
+    ``tools/ctrl``, as a list of the port's ``LiDARTracklet``."""
+    with open(path, "rb") as f:
+        return _TrackletUnpickler(f).load()
 
 
 class WaymoTrackletDataset:
@@ -39,8 +77,7 @@ class WaymoTrackletDataset:
                  max_points: int = 32768, max_frames: int = 200,
                  test_mode: bool = False, seed: int = 0):
         self.data_root = data_root
-        with open(tracklet_path, "rb") as f:
-            self.tracklets = pickle.load(f)
+        self.tracklets = load_tracklets(tracklet_path)
         with open(poses_path, "rb") as f:
             self.poses = pickle.load(f)
         with open(frame_index_path, "rb") as f:
@@ -129,6 +166,73 @@ class WaymoTrackletDataset:
         out["track_center"] = ctr
         out["rng"] = self._rng
         return out
+
+    # ------------------------------------------------------------ evaluation
+
+    def format_results(self, results, out_path: str):
+        """Refined tracklets written as a Waymo Objects bin with the track
+        ids; returns the refined tracklets (each frame's ego frame).
+
+        ``results[i]`` belongs to tracklet i: ``boxes`` [F, 7] in the
+        track-centric frame of :meth:`__getitem__`, ``scores`` [F],
+        ``valid`` [F] (all valid where absent) and ``track_center`` [3]
+        (the median centre the sample was built with where absent)."""
+        refined = []
+        for i, r in enumerate(results):
+            trk = self.tracklets[i]
+            n = min(len(trk), self.max_frames)
+            boxes = np.asarray(r["boxes"], np.float32)[:n].copy()
+            scores = np.asarray(r["scores"], np.float32)[:n]
+            valid = np.asarray(r.get("valid", np.ones(n, bool)))[:n]
+            ctr = np.asarray(
+                r.get("track_center", np.median(trk.boxes[:n, :3], axis=0)),
+                np.float32,
+            )
+            boxes[:, :3] += ctr  # back to world
+            keep = np.flatnonzero(valid)
+            if len(keep) == 0:
+                continue
+            world = type(trk)(
+                context_name=trk.context_name, obj_id=trk.obj_id,
+                type_id=trk.type_id,
+                timestamps=[trk.timestamps[j] for j in keep],
+                boxes=boxes[keep], scores=scores[keep],
+            )
+            poses = self.poses[trk.context_name]
+            refined.append(world.to_ego(poses))
+        tracklets_to_bin(refined, out_path)
+        return refined
+
+    def evaluate(self, results, out_path: str, gt_bin: str | None = None,
+                 metric: str = "waymo"):
+        """:meth:`format_results` into ``out_path``, then, with a gt bin,
+        its score: the official ``compute_detection_metrics_main``'s output
+        where it is on ``PATH`` (and ``metric`` is ``"waymo"``), else
+        ``core/eval_waymo.py waymo_eval`` over the gt bin's frames."""
+        import shutil
+        import subprocess
+
+        from sst_tpu_torch.core.eval_waymo import waymo_eval
+        from sst_tpu_torch.core.waymo_bin import read_bin_as_frames
+
+        self.format_results(results, out_path)
+        if gt_bin is None:
+            return {"bin_path": out_path}
+        binary = shutil.which("compute_detection_metrics_main")
+        if binary and metric == "waymo":
+            proc = subprocess.run([binary, out_path, gt_bin],
+                                  capture_output=True, text=True)
+            return {"bin_path": out_path, "official": proc.stdout}
+        preds_by_key = read_bin_as_frames(out_path)
+        gts_by_key = read_bin_as_frames(gt_bin)
+        keys = sorted(gts_by_key)
+        preds = [preds_by_key.get(
+            k, dict(boxes=np.zeros((0, 7)), scores=np.zeros(0),
+                    labels=np.zeros(0, np.int32))) for k in keys]
+        gts = [gts_by_key[k] for k in keys]
+        res = waymo_eval(preds, gts, classes=list(self.CLASSES))
+        res["bin_path"] = out_path
+        return res
 
 
 _BATCH_KEYS = ("points", "valid", "frame_inds", "trk_boxes", "trk_scores",

@@ -1,12 +1,14 @@
 """Train-time dataset selection (counterpart of
 ``sst_tpu/train/data_setup.py``): picks the dataset class and the matching
 collate, so each detector family gets the batch its loss expects
-(``PointBatch`` or ``TrackletBatch``), both as CPU tensors.
+(``PointBatch``, ``TemporalBatch`` or ``TrackletBatch``), all as CPU
+tensors.
 
-Ported kinds: ``synthetic``, ``waymo``, ``waymo_tracklet``, ``nuscenes``
-(``with_velocity``; ``cbgs`` wraps it in ``CBGSDataset``) and ``argo2``.
-The kind ``waymo_incremental`` (FSD++'s multi-frame assembly) raises
-``NotImplementedError`` (ROADMAP queue 1, item 9b).
+Kinds: ``synthetic``, ``waymo``, ``waymo_incremental`` (``data.dataset=
+"waymo"`` with ``sequential=True``: FSD++'s multi-frame assembly,
+``data/incremental_dataset.py``), ``waymo_tracklet``, ``nuscenes``
+(``with_velocity``; ``cbgs`` wraps it in ``CBGSDataset``) and ``argo2``:
+every kind of the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import functools
 
 # dataset kinds of the JAX package not yet ported, by ROADMAP item
-UNPORTED_KINDS = {"waymo_incremental": "ROADMAP queue 1, item 9b"}
+UNPORTED_KINDS: dict = {}
 
 
 def default_train_pipeline(point_cloud_range, max_points):
@@ -44,22 +46,24 @@ def build_train_dataset(cfg, model, synthetic: bool = False, seed: int = 0,
     """Returns (dataset, collate_or_None, ds_kind, train_pipeline_cfg).
 
     collate None means the loader's default (``collate_to_batch``, a
-    ``PointBatch``). ds_kind: 'synthetic' | 'waymo' | 'waymo_tracklet' |
-    'nuscenes' | 'argo2'.
+    ``PointBatch``). ds_kind: 'synthetic' | 'waymo' | 'waymo_incremental' |
+    'waymo_tracklet' | 'nuscenes' | 'argo2'.
     ``train_pipeline_cfg`` is the pipeline list in use, for the
-    ``DisableAugmentationSchedule`` rebuild."""
+    ``DisableAugmentationSchedule`` rebuild (None for the tracklet kind,
+    whose samples run none)."""
     from sst_tpu_torch.data.datasets import SyntheticDataset, WaymoDataset
     from sst_tpu_torch.data.pipelines import build_pipeline
 
     data_cfg = cfg.get("data", {})
     cap = cfg.get("capacity", {})
     max_points = cap.get("max_points", 65536)
-    train_pipeline_cfg = data_cfg.get("train_pipeline") or \
-        default_train_pipeline(model.point_cloud_range, max_points)
-
     ds_kind = "synthetic" if synthetic else data_cfg.get("dataset", "waymo")
     if ds_kind == "waymo" and data_cfg.get("sequential"):
         ds_kind = "waymo_incremental"
+    # a tracklet sample runs no pipeline, and CTRL's model has no range
+    train_pipeline_cfg = data_cfg.get("train_pipeline") or (
+        None if ds_kind == "waymo_tracklet" else
+        default_train_pipeline(model.point_cloud_range, max_points))
 
     collate = None
     if ds_kind == "synthetic":
@@ -73,6 +77,24 @@ def build_train_dataset(cfg, model, synthetic: bool = False, seed: int = 0,
                 dict(type="PadToCap", max_points=max_points),
             ]),
         )
+    elif ds_kind == "waymo_incremental":
+        from sst_tpu_torch.data.incremental_dataset import (
+            IncrementalWaymoDataset,
+            collate_temporal,
+        )
+
+        dataset = IncrementalWaymoDataset(
+            data_root=data_cfg["data_root"],
+            info_path=data_cfg["info_path"],
+            load_interval=data_cfg.get("load_interval", 1),
+            seeds_path=data_cfg.get("seeds_path"),
+            num_previous_frames=data_cfg.get("num_previous_frames", 6),
+            max_points=max_points,
+            max_seeds=cap.get("max_seeds", 256),
+            max_gt=cap.get("max_gt", 128),
+            **_dataset_kwargs(data_cfg),
+        )
+        collate = collate_temporal
     elif ds_kind == "waymo_tracklet":
         from sst_tpu_torch.data.tracklet_dataset import (
             WaymoTrackletDataset,

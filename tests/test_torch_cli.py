@@ -282,7 +282,8 @@ def test_train_and_test_clis_end_to_end(tmp_path, capsys):
                          "--num-samples", "2", "--eval", "waymo"])
     assert "Overall/L2 mAPH" in json.loads(
         capsys.readouterr().out.strip().splitlines()[-1])
-    with pytest.raises(NotImplementedError, match="9b"):
+    # --sequential reads a Waymo set the synthetic config does not name
+    with pytest.raises(ValueError, match="data_root"):
         test_cli.main([TINY_CFG, "--sequential", "--device", "cpu"])
 
 

@@ -296,11 +296,18 @@ def test_train_and_val_dispatch_waymo(route, waymo_world):
     a, b = tv[0], jv[0]
     a.pop("info"), b.pop("info")
     _assert_same_sample(a, b)
-    for kind in ("waymo_incremental",):
-        bad = copy.deepcopy(cfg)
-        bad["data"]["dataset"] = kind
-        with pytest.raises(NotImplementedError, match="9b"):
-            tsetup.build_train_dataset(bad, _ModelStub())
+    # sequential=True: FSD++'s incremental kind, JAX's samples (three
+    # frames of one sequence, the 1,024-point cap drawn from 2,400)
+    inc = copy.deepcopy(cfg)
+    inc["data"]["sequential"] = True
+    t = tsetup.build_train_dataset(inc, _ModelStub())
+    j = jsetup.build_train_dataset(inc, _ModelStub())
+    assert t[2] == j[2] == "waymo_incremental"
+    for idx in (0, 2):
+        a, b = t[0][idx], j[0][idx]
+        for k in ("points", "valid", "frame_inds", "gt_boxes", "gt_labels",
+                  "gt_valid", "seed_valid"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_train_dispatch_tracklet(ctrl_world):  # noqa: F811

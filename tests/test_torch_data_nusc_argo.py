@@ -250,7 +250,7 @@ def test_train_and_val_dataset_kinds_equal(world):
     """``build_train_dataset`` for the ``nuscenes`` kind (velocity, CBGS
     and a multi-sweep pipeline with ``ObjectSample``) and the ``argo2``
     kind, and ``build_val_dataset`` for both, against JAX's; the
-    ``waymo_incremental`` kind still raises, naming item 9b."""
+    ``waymo_incremental`` kind, named directly, builds as JAX's does."""
     class _Model:
         point_cloud_range = PCR
 
@@ -284,10 +284,13 @@ def test_train_and_val_dataset_kinds_equal(world):
         jv, jcls = jsetup.build_val_dataset(copy.deepcopy(c), _Model())
         assert tcls == jcls
         _same(tv[1], jv[1])
-    bad = copy.deepcopy(cfg)
-    bad["data"]["dataset"] = "waymo_incremental"
-    with pytest.raises(NotImplementedError, match="9b"):
-        tsetup.build_train_dataset(bad, _Model())
+    inc = copy.deepcopy(cfg)
+    inc["data"]["dataset"] = "waymo_incremental"
+    t = tsetup.build_train_dataset(copy.deepcopy(inc), _Model())
+    j = jsetup.build_train_dataset(copy.deepcopy(inc), _Model())
+    assert t[2] == j[2] == "waymo_incremental"
+    assert type(t[0]).__name__ == "IncrementalWaymoDataset"
+    assert len(t[0]) == len(j[0])
 
 
 def _results(ds, seed, jitter=0.3):
