@@ -10,6 +10,7 @@ The torch modules keep flax's module names (``segmentor_mod``,
   params   bias                            → ``bias``
   params   scale          BN / LayerNorm   → ``weight``
   params   z_embed                         → ``z_embed`` as it is
+  params   tau       cosine attention      → ``tau`` as it is
   batch_stats mean / var                   → ``running_mean`` / ``running_var``
 
 The conversion is strict: it raises if a flax leaf has no torch target, if a
@@ -23,7 +24,9 @@ LayerNorm), ``head_mod``, ``bbox_head_mod`` / ``conv_cls`` / ``conv_reg``.
 The cluster head's velocity and IoU branches are its tasks' ``vel`` and
 ``iou`` MLPs, and under group sampling the segmentor head's background
 column is the last row of ``conv_seg`` (``num_classes + 1`` outputs): both
-map by name and shape like every other leaf.
+map by name and shape like every other leaf. CenterHead maps by the same
+rules: ``shared_conv``, ``task_{t}/{name}_conv{i}`` (ConvNormAct) and
+``task_{t}/{name}_out`` (a conv with bias).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from torch import nn
 
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                "z_embed": "z_embed"}
+                "z_embed": "z_embed", "tau": "tau"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 

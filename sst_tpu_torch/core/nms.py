@@ -1,6 +1,6 @@
 """Greedy rotated / nearest BEV NMS with static output shapes (counterpart
-of ``sst_tpu/core/nms.py``: ``nms_bev`` and the non-weighted multiclass
-path).
+of ``sst_tpu/core/nms.py``: ``nms_bev``, CenterPoint's ``circle_nms``, the
+weighted NMS and both multiclass paths).
 
 Candidates are score-sorted and statically capped; the [K, K] IoU matrix is
 computed once and greedy suppression is solved as a fixed point (see
@@ -65,6 +65,54 @@ def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     return _greedy_suppress(iou, valid, thr)
 
 
+def _greedy_suppress_mask(sup_mat: torch.Tensor,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """Greedy sweep where ``sup_mat[i, j]`` means "i suppresses j"."""
+    k = sup_mat.shape[-1]
+    later = torch.arange(k, device=sup_mat.device)
+    sup = sup_mat & (later[:, None] < later[None, :]) & valid[..., :, None]
+    return _suppress_fixpoint(sup, valid)
+
+
+def circle_nms(centers: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """CenterPoint's circular NMS: a centre is suppressed where a kept
+    centre of higher score lies within BEV distance sqrt(``thresh``).
+    Inputs score-sorted descending; returns the keep mask. ``scores`` is
+    not read, as in the JAX package."""
+    d2 = ((centers[:, None, :2] - centers[None, :, :2]) ** 2).sum(-1)
+    return _greedy_suppress_mask(d2 <= thresh, valid)
+
+
+def weighted_nms_bev(boxes: torch.Tensor, scores: torch.Tensor,
+                     valid: torch.Tensor, thr_lo: float, thr_hi: float,
+                     use_rotate_nms: bool = True, chunk: int = 256):
+    """Weighted NMS (RangeDet's ``wnms_4c``) over score-sorted boxes
+    [K, 7]: greedy suppression at IoU > ``thr_lo``; each kept box becomes
+    the score-weighted mean of every valid candidate with IoU > ``thr_hi``
+    (itself included): centre and dims directly, yaw through its sine and
+    cosine; its score the same weighted mean of the members' scores.
+    Returns (boxes [K, 7], scores [K], keep [K])."""
+    fn = boxes_iou_bev if use_rotate_nms else nearest_iou
+    iou = _pairwise_chunked(fn, boxes, chunk)
+    keep = _greedy_suppress(iou, valid, thr_lo)
+    k = iou.shape[0]
+    member = ((iou > thr_hi) & valid[None, :]) | torch.eye(
+        k, dtype=torch.bool, device=iou.device)
+    w = member.to(scores.dtype) * torch.clamp(scores, min=1e-6)[None, :]
+    wsum = torch.clamp(w.sum(-1, keepdim=True), min=1e-6)
+    lin = torch.cat([boxes[:, :6], torch.sin(boxes[:, 6:7]),
+                     torch.cos(boxes[:, 6:7])], dim=-1)
+    # JAX promotes a bfloat16 weight against the float32 boxes
+    wide = torch.promote_types(w.dtype, lin.dtype)
+    merged = (w.to(wide) @ lin.to(wide)) / wsum.to(wide)
+    yaw = torch.atan2(merged[:, 6], merged[:, 7])
+    out = torch.cat([merged[:, :6], yaw[:, None]], dim=-1)
+    out = torch.where(keep[:, None], out, boxes[:, :7])
+    mscores = (w @ scores) / wsum[:, 0]
+    return out, torch.where(keep, mscores, scores), keep
+
+
 def topk_presort(scores: torch.Tensor, valid: torch.Tensor, k: int):
     """Top-k indices by score among valid rows (padding scores → -inf)."""
     top, idx = stable_topk(torch.where(valid, scores, -torch.inf), k)
@@ -86,7 +134,14 @@ def multiclass_nms_preselected(cand_boxes, cand_scores, sels, nms_thr: float,
     all_scores = torch.where(keep, cand_scores, -torch.inf).reshape(c * k)
     all_labels = torch.arange(c, dtype=torch.int32,
                               device=cand_boxes.device).repeat_interleave(k)
-    all_valid = keep.reshape(c * k)
+    return _top_results(all_boxes, all_scores, all_labels,
+                        keep.reshape(c * k), max_num)
+
+
+def _top_results(all_boxes, all_scores, all_labels, all_valid,
+                 max_num: int) -> dict:
+    """The global top ``max_num`` of per-class results (suppressed rows
+    scored -inf), padded."""
     top_scores, top_idx = stable_topk(all_scores, max_num)
     finite = torch.isfinite(top_scores)
     return {
@@ -100,19 +155,37 @@ def multiclass_nms_preselected(cand_boxes, cand_scores, sels, nms_thr: float,
 def box3d_multiclass_nms(boxes, scores, valid, num_classes: int,
                          score_thr: float, nms_thr: float, nms_pre: int,
                          max_num: int, use_rotate_nms: bool = True,
-                         use_wnms: bool = False, **_wnms_thresholds):
+                         use_wnms: bool = False, wnms_thr_lo: float = 0.1,
+                         wnms_thr_hi: float = 0.7):
     """Per-class NMS with a static output size.
 
     Args:
       boxes: [N, 7+] decoded boxes (shared across classes).
       scores: [N, num_classes] sigmoid class scores (no background column).
       valid: [N] bool.
+      use_wnms: per class, :func:`weighted_nms_bev` at (``wnms_thr_lo``,
+        ``wnms_thr_hi``) over its top ``nms_pre`` in place of greedy NMS at
+        ``nms_thr``; the merged boxes and scores are returned.
 
     Returns a dict of padded [max_num] results: boxes, scores, labels, valid.
     """
-    if use_wnms:
-        raise NotImplementedError("use_wnms")
     k = min(nms_pre, boxes.shape[0])
+    if use_wnms:
+        out_boxes, out_scores, out_labels, out_valid = [], [], [], []
+        for c in range(num_classes):
+            s = scores[:, c]
+            idx, sel_valid = topk_presort(s, valid & (s > score_thr), k)
+            cand_boxes = boxes[idx]
+            cand7, cand_scores, keep = weighted_nms_bev(
+                cand_boxes[:, :7], s[idx], sel_valid, wnms_thr_lo,
+                wnms_thr_hi, use_rotate_nms)
+            out_boxes.append(torch.cat([cand7, cand_boxes[:, 7:]], dim=-1))
+            out_scores.append(torch.where(keep, cand_scores, -torch.inf))
+            out_labels.append(torch.full_like(idx, c, dtype=torch.int32))
+            out_valid.append(keep)
+        return _top_results(torch.cat(out_boxes), torch.cat(out_scores),
+                            torch.cat(out_labels), torch.cat(out_valid),
+                            max_num)
     sel = [topk_presort(scores[:, c], valid & (scores[:, c] > score_thr), k)
            for c in range(num_classes)]
     idxs = torch.stack([s[0] for s in sel])  # [C, K]

@@ -65,9 +65,11 @@ def scene_points(rng: np.random.RandomState, b: np.ndarray, points: int,
     n_obj = points // 2 if boxes else 0
     which = rng.randint(0, max(boxes, 1), n_obj)
     local = rng.uniform(-0.5, 0.5, (n_obj, 3)) * b[which, 3:6]
+    # box frame to LiDAR frame: the inverse of the turn by -yaw that
+    # core/boxes.py points_in_boxes takes a point into the box frame by
     c, s = np.cos(b[which, 6]), np.sin(b[which, 6])
-    obj = np.stack([local[:, 0] * c - local[:, 1] * s + b[which, 0],
-                    local[:, 0] * s + local[:, 1] * c + b[which, 1],
+    obj = np.stack([local[:, 0] * c + local[:, 1] * s + b[which, 0],
+                    -local[:, 0] * s + local[:, 1] * c + b[which, 1],
                     local[:, 2] + b[which, 2] + b[which, 5] / 2], -1)
     n_bg = points - n_obj
     bg = np.stack([rng.uniform(-half, half, n_bg),
@@ -313,11 +315,7 @@ def write_waymo_set(root: str, seed: int = 0, train_sequences: int = 2,
                 wb = world.copy()
                 wb[:, :2] += velo * 0.1 * f
                 b = box_frame_transform_np(wb, np.eye(4), np.linalg.inv(pose))
-                # scene_points turns a box's points by the yaw's opposite
-                # sign to core/boxes.py points_in_boxes, the containment
-                # the models and tools test: given -yaw, they lie in b
-                pts = scene_points(rng, b * np.float32([1] * 6 + [-1]),
-                                   points, half, width=6)
+                pts = scene_points(rng, b, points, half, width=6)
                 pts[:, 4] = rng.rand(points)  # elongation
                 rel = os.path.join(name, "velodyne", f"{key}.bin")
                 pts.tofile(os.path.join(root, rel))

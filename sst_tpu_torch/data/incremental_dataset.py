@@ -11,10 +11,11 @@ holding more points than ``max_points`` keeps ``max_points`` of them,
 drawn by the dataset's ``np.random.RandomState`` as JAX's draws them.
 
 Sequences follow the waymo-kitti numbering ``image_idx = seq * 1000 +
-frame``; ego poses are ``info["pose"]`` (4x4 ego → world). Seeds are keyed
-by ``(context_name, timestamp)`` where the converter's
+frame``; ego poses are ``info["pose"]`` (4x4 ego → world). A frame's seeds
+are looked up by ``(context_name, timestamp)`` where the converter's
 ``idx2timestamp.pkl`` and ``idx2contextname.pkl`` lie in ``data_root``,
-else by the ``%07d`` image index.
+then by the image index (``%07d``, or ``str(idx)``), so that the seeds of
+every seed tool are found beside the maps.
 
 :func:`run_sequential_eval` visits the frames in order and feeds frame t's
 detections to frame t + 1 as its seeds; :func:`collate_temporal` stacks
@@ -67,10 +68,17 @@ class IncrementalWaymoDataset(WaymoDataset):
         sample_idx = self.infos[idx]["image"]["image_idx"]
         return sample_idx // 1000, sample_idx % 1000
 
-    def _seed_key(self, idx):
+    def _seed(self, idx):
+        """The seeds of frame ``idx``: under its (context, timestamp) key
+        where the converter's maps give one, else under its image index,
+        as ``%07d`` (the info and raw-output tools) or ``str(idx)`` (the
+        bin tool); None where none is stored."""
         sample_idx = self.infos[idx]["image"]["image_idx"]
         k = f"{sample_idx:07d}"
-        return self._idx2key.get(k, k)
+        for key in (self._idx2key.get(k), k, str(sample_idx)):
+            if key is not None and key in self.seeds:
+                return self.seeds[key]
+        return None
 
     def __getitem__(self, idx):
         cur = self.get_sample(idx)
@@ -93,7 +101,7 @@ class IncrementalWaymoDataset(WaymoDataset):
             p[:, :3] = (p[:, :3] @ mm[:3, :3].T + mm[:3, 3]).astype(np.float32)
             pts_list.append(p)
             frame_list.append(np.full(len(p), k, np.int32))
-            sd = self.seeds.get(self._seed_key(j))
+            sd = self._seed(j)
             if sd is not None and len(sd["boxes"]):
                 # float32, as JAX moves them (jnp arrays of the float64
                 # poses)

@@ -22,6 +22,7 @@ from sst_tpu_torch.models.fsd.fsdv2 import FSDV2Caps, SingleStageFSDV2
 from sst_tpu_torch.models.fsd.single_stage import FSDCaps, SingleStageFSD
 from sst_tpu_torch.models.fsd.two_stage import FSD
 from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegHead
+from sst_tpu_torch.models.heads.center_head import SeparateHead
 from sst_tpu_torch.models.sparse_unet import SparseConvLayer
 from sst_tpu_torch.ops.window import BucketSpec
 
@@ -663,11 +664,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator`` with the JAX package's
     initializer families: Linear and Conv weights normal with variance
     1/fan_in, sparse conv weights [K, Cin, Cout] normal with variance
-    1/(K*Cin), biases 0 (the seg head's class bias ``init_bias``), norm
-    scales 1 and offsets 0, z embeddings normal(0, 0.02). Each tensor is
-    drawn on the CPU from ``generator`` (a CPU generator) and copied into
-    the parameter wherever it lies, so the weights do not depend on the
-    device."""
+    1/(K*Cin), biases 0 (the seg head's class bias and CenterHead's heatmap
+    bias their ``init_bias``), norm scales 1 and offsets 0, z embeddings
+    normal(0, 0.02); cosine attention's ``tau`` is left at its 1. Each
+    tensor is drawn on the CPU from ``generator`` (a CPU generator) and
+    copied into the parameter wherever it lies, so the weights do not
+    depend on the device."""
 
     def normal_(param, std):
         param.copy_(torch.empty(param.shape).normal_(0.0, std,
@@ -686,6 +688,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.zero_()
         if isinstance(mod, VoteSegHead):
             mod.conv_seg.bias.fill_(mod.init_bias)
+        if isinstance(mod, SeparateHead):
+            mod.heatmap_out.bias.fill_(mod.init_bias)
         if hasattr(mod, "z_embed"):
             normal_(mod.z_embed, 0.02)
     return model

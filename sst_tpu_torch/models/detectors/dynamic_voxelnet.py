@@ -2,11 +2,12 @@
 ``sst_tpu/models/detectors/dynamic_voxelnet.py``; inference and ``loss``).
 
 Dynamic voxelize -> DynamicVFE -> SST input layer (window plans) -> SSTv2
--> SECONDFPN -> Anchor3DHead. The static capacities (voxels, windows per
+-> SECONDFPN -> Anchor3DHead (``head_type="anchor"``) or CenterHead
+(``head_type="center"``). The static capacities (voxels, windows per
 bucket) come from the config; ``extract_feat(diag=...)`` reports what they
 dropped. In training the voxel rows are shuffled before the window plan
 with a permutation drawn from the caller's generator (JAX's ``shuffle``
-rng). ``head_type="center"`` (CenterHead) is not ported and raises.
+rng).
 
 ``dtype`` is the compute dtype of every module (the VFE, the backbone, the
 neck and the head), as in JAX: float32 parameters, products in ``dtype``
@@ -21,6 +22,7 @@ from torch import nn
 
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.heads.anchor3d import Anchor3DHead
+from sst_tpu_torch.models.heads.center_head import CenterHead
 from sst_tpu_torch.models.second import SECONDFPN
 from sst_tpu_torch.models.sst import SSTv1, SSTv2
 from sst_tpu_torch.models.sst_input import sst_input_layer
@@ -57,10 +59,8 @@ class DynamicVoxelNet(nn.Module):
                  head_type: str = "anchor", backbone_type: str = "sstv2",
                  test_cfg: dict | None = None, dtype=torch.float32):
         super().__init__()
-        if head_type != "anchor":
-            raise NotImplementedError(
-                f"head_type={head_type!r} (CenterHead): ROADMAP queue 1 "
-                f"item 10")
+        if head_type not in ("anchor", "center"):
+            raise ValueError(f"head_type={head_type!r}")
         if backbone_type not in ("sstv2", "sstv1"):
             raise NotImplementedError(f"backbone_type={backbone_type!r}")
         self.voxel_size = tuple(voxel_size)
@@ -83,7 +83,18 @@ class DynamicVoxelNet(nn.Module):
         self.backbone_mod = sst_cls(dtype=dtype, **bb)
         self.neck_mod = SECONDFPN(self.backbone_mod.out_channels,
                                   dtype=dtype, **(neck or {}))
-        self.head_mod = Anchor3DHead(dtype=dtype, **(head or {}))
+        self.head_type = head_type
+        if head_type == "center":
+            # flax infers the head's input width; the config's
+            # in_channels is not read, as in JAX
+            cfg = dict(head or {})
+            cfg.pop("in_channels", None)
+            self.head_mod = CenterHead(
+                in_channels=self.neck_mod.out_channels,
+                point_cloud_range=self.point_cloud_range,
+                voxel_size=self.voxel_size, dtype=dtype, **cfg)
+        else:
+            self.head_mod = Anchor3DHead(dtype=dtype, **(head or {}))
 
     def extract_feat(self, batch: PointBatch, train: bool = False,
                      diag: dict | None = None,
@@ -131,8 +142,10 @@ class DynamicVoxelNet(nn.Module):
     def forward(self, batch: PointBatch, train: bool = False,
                 diag: dict | None = None,
                 generator: torch.Generator | None = None):
-        return self.head_mod(self.extract_feat(batch, train, diag,
-                                               generator))
+        feats = self.extract_feat(batch, train, diag, generator)
+        if self.head_type == "center":
+            return self.head_mod(feats, train)
+        return self.head_mod(feats)
 
     def loss(self, batch: PointBatch, train: bool = True,
              generator: torch.Generator | None = None) -> dict:
@@ -142,10 +155,14 @@ class DynamicVoxelNet(nn.Module):
         shuffle."""
         diag: dict = {}
         preds = self(batch, train, diag, generator)
-        h, w = preds["cls"].shape[1:3]
-        anchors = self.head_mod.grid_anchors((h, w), preds["cls"].device)
-        losses = self.head_mod.loss(preds, anchors, batch.gt_boxes,
-                                    batch.gt_labels, batch.gt_valid)
+        if self.head_type == "center":
+            losses = self.head_mod.loss(preds, batch.gt_boxes,
+                                        batch.gt_labels, batch.gt_valid)
+        else:
+            h, w = preds["cls"].shape[1:3]
+            anchors = self.head_mod.grid_anchors((h, w), preds["cls"].device)
+            losses = self.head_mod.loss(preds, anchors, batch.gt_boxes,
+                                        batch.gt_labels, batch.gt_valid)
         losses.update(diag)
         return losses
 
@@ -154,6 +171,8 @@ class DynamicVoxelNet(nn.Module):
         """Boxes for a batch: dict of [B, max_num] boxes, scores, labels and
         valid."""
         preds = self(batch)
+        if self.head_type == "center":
+            return self.head_mod.get_bboxes(preds, **self.test_cfg)
         h, w = preds["cls"].shape[1:3]
         anchors = self.head_mod.grid_anchors((h, w), preds["cls"].device)
         return self.head_mod.get_bboxes(preds, anchors, **self.test_cfg)

@@ -334,17 +334,19 @@ class SingleStageFSD(nn.Module):
         }
 
     def run_pipeline(self, batch: PointBatch, train: bool = False,
-                     thr_extra: float = 0.0, detach_seg: bool = True) -> dict:
+                     thr_extra: float = 0.0, detach_seg: bool = True,
+                     generator: torch.Generator | None = None) -> dict:
         """Segmentor → pre-voxelize → sample/cluster → SIR → head outputs,
         with every intermediate the prediction, the losses and the RoI
         stage read. ``detach_seg`` detaches the segmentor's logits, votes
-        and offsets (not its features), as JAX's ``stop_gradient``s."""
+        and offsets (not its features), as JAX's ``stop_gradient``s.
+        ``generator``: the SST segmentor's voxel shuffle in training."""
         b, p, _ = batch.points.shape
         pts = batch.points.reshape(b * p, -1)
         batch_idx = torch.arange(b, dtype=torch.int32,
                                  device=pts.device).repeat_interleave(p)
         seg_out = self.segmentor_mod(pts, batch_idx, batch.valid.reshape(-1),
-                                     b, train)
+                                     b, train, generator=generator)
         data = {k: seg_out[k] for k in ("seg_points", "seg_logits",
                                         "seg_vote_preds", "offsets",
                                         "seg_feats", "batch_idx", "valid")}
@@ -387,13 +389,15 @@ class SingleStageFSD(nn.Module):
         return losses
 
     def loss(self, batch: PointBatch, train: bool = True,
-             thr_extra: float = 0.0, pretrain: bool = False) -> dict:
+             thr_extra: float = 0.0, pretrain: bool = False,
+             generator: torch.Generator | None = None) -> dict:
         """The training losses of a labelled batch (``loss*`` keys, summed
         by ``train/step.py``) and two counters, as the JAX model returns
         them. ``pretrain``: the segmentor alone and its losses (the
         detection schedule's warm-up, and the segmentation pretrain
         recipe); ``pretrain`` and ``thr_extra`` come from
-        ``train/schedules.py FSDDetectionSchedule``."""
+        ``train/schedules.py FSDDetectionSchedule``. ``generator``: the
+        SST segmentor's voxel shuffle."""
         if pretrain:
             b, p, _ = batch.points.shape
             batch_idx = torch.arange(
@@ -401,10 +405,11 @@ class SingleStageFSD(nn.Module):
                 device=batch.points.device).repeat_interleave(p)
             seg_out = self.segmentor_mod(batch.points.reshape(b * p, -1),
                                          batch_idx, batch.valid.reshape(-1),
-                                         b, train)
+                                         b, train, generator=generator)
             return self.seg_losses(batch, seg_out)
         return self.losses_from_pipeline(
-            batch, self.run_pipeline(batch, train, thr_extra))
+            batch, self.run_pipeline(batch, train, thr_extra,
+                                     generator=generator))
 
     @torch.inference_mode()
     def predict_seg(self, batch: PointBatch, score_thr: float = 0.5) -> dict:

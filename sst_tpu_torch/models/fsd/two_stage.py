@@ -129,11 +129,14 @@ class FSD(nn.Module):
         by ``train/step.py``) and the counters JAX's returns.
         ``pretrain``: the segmentor's losses alone (the single stage's
         ``loss``). Otherwise the single stage's losses, then the RoI head's
-        on the detached proposals. ``generator``: the source of the RoI
-        sampler's uniforms (JAX's ``sampler`` rng)."""
+        on the detached proposals. ``generator``: the source of the SST
+        segmentor's voxel shuffle (JAX's ``shuffle`` rng) and then of the
+        RoI sampler's uniforms (its ``sampler`` rng)."""
         if pretrain:
-            return self.rpn.loss(batch, train, thr_extra, pretrain=True)
-        pipe = self.rpn.run_pipeline(batch, train, thr_extra)
+            return self.rpn.loss(batch, train, thr_extra, pretrain=True,
+                                 generator=generator)
+        pipe = self.rpn.run_pipeline(batch, train, thr_extra,
+                                     generator=generator)
         losses = self.rpn.losses_from_pipeline(batch, pipe)
         rois, _, rlabels, rvalid, rbatch = self._proposals(pipe)
         pts, feats, pvalid, pbatch = self._roi_points(pipe)

@@ -1,12 +1,16 @@
 """VoteSegmentor — FSD stage-0 point segmentation + centre voting
-(counterpart of ``sst_tpu/models/fsd/vote_segmentor.py``), with the sparse
-and the dense-BEV backbones.
+(counterpart of ``sst_tpu/models/fsd/vote_segmentor.py``), with the sparse,
+the dense-BEV and the SST backbones.
 
 Flow: tanh on the channels past xyz → dynamic voxelize → DynamicVFE →
 backbone → per-point gather + local-xyz decoration → MLP → (seg logits
 [P, C], vote preds [P, 3C]). The backbone is either SimpleSparseUNet over
 the voxel grid's rulebooks (``backbone="sparse"``) or BEVScatter →
-DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``), both with
+DenseBEVUNet → DenseVoxelDecode (``backbone="dense_bev"``) or the FSD
+SST-encoder recipe (``backbone="sst"``: full-height pillars, the SST input
+layer's window plan and ``SSTv2(to_bev=False)``, its per-voxel outputs
+zeroed where the plan dropped the voxel; in training the voxel rows are
+shuffled by a permutation drawn from the caller's generator), each with
 train mode and the head's losses. ``voxel_downsampling_size`` (the 3-sweep
 recipe) first averages each sample's points over voxels of that size.
 """
@@ -25,8 +29,11 @@ from sst_tpu_torch.models.dense_bev import (
     DenseBEVUNet,
     DenseVoxelDecode,
 )
+from sst_tpu_torch.models.detectors import dynamic_voxelnet
 from sst_tpu_torch.models.layers import MLP, Dense
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, build_unet_plan
+from sst_tpu_torch.models.sst import SSTv2
+from sst_tpu_torch.models.sst_input import sst_input_layer
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops.segment import (
     INT_SENTINEL,
@@ -40,6 +47,13 @@ from sst_tpu_torch.ops.voxelize import (
     f32_reciprocal,
     grid_shape_zyx,
 )
+from sst_tpu_torch.ops.window import BucketSpec
+
+# the SST encoder's window plan where the config gives none (JAX's)
+SST_DEFAULTS = dict(window_shape=(12, 12),
+                    buckets=((30, 0, 30, 1536), (60, 30, 60, 1280),
+                             (100, 60, 100000, 768)),
+                    max_total_windows=2048, shuffle_voxels=True)
 
 
 def encode_vote(delta):
@@ -128,10 +142,8 @@ class VoteSegmentor(nn.Module):
                  tanh_dims: tuple | None = None,
                  return_multiscale: bool = False, dtype=torch.float32):
         super().__init__()
-        if backbone not in ("sparse", "dense_bev"):
-            raise NotImplementedError(
-                f"backbone={backbone!r}: only 'sparse' and 'dense_bev' are "
-                f"ported (the SST encoder: ROADMAP queue 1 item 4)")
+        if backbone not in ("sparse", "dense_bev", "sst"):
+            raise ValueError(f"backbone={backbone!r}")
         if backbone == "sparse" and dtype != torch.float32:
             # JAX's sparse flagship is float32 (sst_tpu/flagship.py:95)
             raise NotImplementedError(
@@ -162,7 +174,22 @@ class VoteSegmentor(nn.Module):
             point_cloud_range=self.point_cloud_range, dtype=dtype,
             **(vfe or dict(feat_channels=(64, 64), mode="max")))
         cfg = dict(unet or {})
-        if backbone == "sparse":
+        if backbone == "sst":
+            if nz != 1:
+                raise ValueError(
+                    f"the sst segmentor backbone needs a full-height pillar "
+                    f"voxel (z grid {nz} != 1)")
+            cfg.setdefault("num_attached_conv", 0)
+            self.unet_mod = SSTv2(to_bev=False, dtype=dtype, **cfg)
+            sst_cfg = dict(SST_DEFAULTS, **(sst or {}))
+            self.sst_window_shape = tuple(sst_cfg["window_shape"])
+            self.sst_buckets = tuple(BucketSpec(*b)
+                                     for b in sst_cfg["buckets"])
+            self.sst_max_total_windows = sst_cfg["max_total_windows"]
+            self.sst_shuffle_voxels = sst_cfg["shuffle_voxels"]
+            out_ch = self.unet_mod.out_channels
+            self.decoder_widths = ()
+        elif backbone == "sparse":
             # the JAX module reads the UNet's input width from its input
             cfg.pop("in_channels", None)
             self.unet_mod = SimpleSparseUNet(
@@ -225,8 +252,12 @@ class VoteSegmentor(nn.Module):
         return torch.cat(outs), torch.cat(oks)
 
     def forward(self, points, batch_idx, points_valid, batch_size: int,
-                train: bool = False):
-        """points: [P, C] flat batch. Returns the per-point seg dict."""
+                train: bool = False,
+                generator: torch.Generator | None = None):
+        """points: [P, C] flat batch. Returns the per-point seg dict.
+        ``generator``: with the SST backbone in train mode, the source of
+        the voxel shuffle (None shuffles nothing, as JAX without a
+        ``shuffle`` rng)."""
         if self.voxel_downsampling_size is not None:
             points, points_valid = self.voxel_downsample(
                 points, points_valid, batch_size)
@@ -248,6 +279,20 @@ class VoteSegmentor(nn.Module):
                 self.unet_strides, self.unet_paddings)
             unet_out = self.unet_mod(voxel_feats, plan, train)
             vox_out = unet_out["voxel_feats"]
+        elif self.backbone == "sst":
+            perm = None
+            if train and self.sst_shuffle_voxels and generator is not None:
+                perm = dynamic_voxelnet.voxel_permutation(
+                    vm.voxel_coords.shape[0], generator)
+            plan = sst_input_layer(
+                vm.voxel_coords, vm.voxel_valid,
+                sparse_shape=(self.grid[2], self.grid[1], 1),
+                window_shape=self.sst_window_shape, buckets=self.sst_buckets,
+                d_model=self.unet_mod.d_model[0],
+                max_total_windows=self.sst_max_total_windows, perm=perm)
+            vox_out, vox_valid = self.unet_mod(voxel_feats, vm.voxel_coords,
+                                               plan, batch_size, train)
+            vox_out = torch.where(vox_valid[:, None], vox_out, 0.0)
         else:
             canvas = self.scatter_mod(voxel_feats, vm.voxel_coords,
                                       vm.voxel_valid, batch_size,

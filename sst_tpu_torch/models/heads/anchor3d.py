@@ -1,11 +1,11 @@
 """Anchor-based BEV detection head (counterpart of
 ``sst_tpu/models/heads/anchor3d.py``: forward, the per-class max-IoU
-targets and the loss, and the fast inference path of ``get_bboxes``).
+targets and the loss, and both inference paths of ``get_bboxes``).
 
 Predictions are [B, H, W, A, K] with A = num_classes * num_rots and the
 anchor axis ordered (class range, rotation), as in the JAX package. The
 convolutions give [B, A * K, H, W]; they are permuted to channels last
-before the reshape. ``use_wnms=True`` raises.
+before the reshape.
 
 At a compute ``dtype`` below float32 (flax's ``dtype``) the convolutions'
 products, and so the predictions, are in that dtype; ``loss`` and
@@ -25,7 +25,11 @@ from sst_tpu_torch.core.anchors import multiclass_aligned_anchors
 from sst_tpu_torch.core.box_coders import delta_decode, delta_encode
 from sst_tpu_torch.core.boxes import limit_period
 from sst_tpu_torch.core.iou import nearest_iou
-from sst_tpu_torch.core.nms import multiclass_nms_preselected, topk_presort
+from sst_tpu_torch.core.nms import (
+    box3d_multiclass_nms,
+    multiclass_nms_preselected,
+    topk_presort,
+)
 from sst_tpu_torch.core.target_assign import IGNORE, max_iou_assign
 from sst_tpu_torch.models.layers import Conv
 
@@ -181,15 +185,23 @@ class Anchor3DHead(nn.Module):
                 avg_factor=num_pos) * LOSS_DIR_WEIGHT
         return out
 
+    def _rotate_by_dir(self, boxes, dir_logits):
+        """The direction classifier's half-turn on the decoded yaw."""
+        dir_score = torch.argmax(dir_logits, dim=-1)
+        rot = limit_period(boxes[..., 6] - self.dir_offset, 0.0, math.pi)
+        yaw = rot + self.dir_offset + math.pi * dir_score.to(rot.dtype)
+        return torch.cat([boxes[..., :6], yaw[..., None], boxes[..., 7:]],
+                         dim=-1)
+
     def get_bboxes(self, preds, anchors_by_cls, score_thr=0.1, nms_thr=0.25,
                    nms_pre=4096, max_num=500, use_rotate_nms=True,
-                   use_wnms=False):
+                   use_wnms=False, wnms_thr_lo=0.1, wnms_thr_hi=0.7):
         """Decode + per-class NMS per sample: per-class top-k on the raw
         logits (sigmoid is monotonic), then decode only the ``nms_pre``
-        candidates. Returns a dict of [B, max_num] boxes, scores, labels,
-        valid."""
-        if use_wnms:
-            raise NotImplementedError("use_wnms")
+        candidates. ``use_wnms``: the whole anchor grid decoded (with the
+        direction classifier) and scored, then ``box3d_multiclass_nms``'s
+        weighted NMS. Returns a dict of [B, max_num] boxes, scores,
+        labels, valid."""
         b, h, w, _, _ = preds["cls"].shape
         ncls, nrot = self.num_classes, self.num_rot
         anchors_flat = anchors_by_cls.reshape(-1, 7)  # [cls * M, 7]
@@ -205,6 +217,19 @@ class Anchor3DHead(nn.Module):
         results = []
         for i in range(b):
             logits = cm(preds["cls"][i])
+            if use_wnms:
+                boxes = delta_decode(anchors_flat, cm(preds["reg"][i]))
+                if self.use_direction_classifier:
+                    boxes = self._rotate_by_dir(boxes, cm(preds["dir"][i]))
+                results.append(box3d_multiclass_nms(
+                    boxes, torch.sigmoid(logits),
+                    torch.ones(boxes.shape[0], dtype=torch.bool,
+                               device=boxes.device),
+                    num_classes=ncls, score_thr=score_thr, nms_thr=nms_thr,
+                    nms_pre=nms_pre, max_num=max_num,
+                    use_rotate_nms=use_rotate_nms, use_wnms=True,
+                    wnms_thr_lo=wnms_thr_lo, wnms_thr_hi=wnms_thr_hi))
+                continue
             k = min(nms_pre, logits.shape[0])
             sel = [topk_presort(logits[:, c], logits[:, c] > logit_thr, k)
                    for c in range(ncls)]
@@ -214,13 +239,8 @@ class Anchor3DHead(nn.Module):
             cand_boxes = delta_decode(anchors_flat[idxs],
                                       cm(preds["reg"][i])[idxs])
             if self.use_direction_classifier:
-                dir_score = torch.argmax(cm(preds["dir"][i])[idxs], dim=-1)
-                rot = limit_period(cand_boxes[..., 6] - self.dir_offset, 0.0,
-                                   math.pi)
-                yaw = rot + self.dir_offset + math.pi * dir_score.to(
-                    rot.dtype)
-                cand_boxes = torch.cat([cand_boxes[..., :6], yaw[..., None],
-                                        cand_boxes[..., 7:]], dim=-1)
+                cand_boxes = self._rotate_by_dir(cand_boxes,
+                                                 cm(preds["dir"][i])[idxs])
             results.append(multiclass_nms_preselected(
                 cand_boxes, cand_scores, sels, nms_thr, max_num,
                 use_rotate_nms))

@@ -10,9 +10,13 @@ name.
 The attention of every window bucket is ``ops/window_mha.py window_mha``:
 the JAX package's fused Pallas kernel's function (f32 logits of bf16 q and
 k, bf16 probabilities into AV) on every device, the hand-written kernel on
-the card and its plain twin on the CPU. The JAX einsum fallback, which takes
-bf16 logits, has no counterpart, and ``use_pallas`` is accepted and ignored:
-the fused kernel is the only path. Cosine attention raises.
+the card and its plain twin on the CPU. ``use_pallas`` is accepted and
+ignored: the fused kernel is the only path of dot-product attention.
+Cosine (Swin-v2) attention, ``cosine=True``, takes the JAX package's
+einsum path in torch ops, as JAX never sends it to its Pallas kernel: q
+and k L2-normalised in float32 and cast to bf16, bf16 logits divided by
+the learnt ``tau`` (one, or one per head with ``non_shared_tau``, clamped
+at ``tau_min``), a bf16 softmax and AV.
 
 Every module takes flax's compute ``dtype`` (``models/layers.py``): float32
 parameters, products and layer norms' results in ``dtype``. At bfloat16 the
@@ -46,17 +50,51 @@ from sst_tpu_torch.ops.window_mha import window_mha
 from sst_tpu_torch.utils import remat
 
 
+def _l2_normalised(x: torch.Tensor) -> torch.Tensor:
+    """bf16 rows over their float32 L2 norm (at least 1e-6) cast to bf16."""
+    norm = torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True)
+    return x / torch.clamp(norm, min=1e-6).to(x.dtype)
+
+
+def cosine_window_attention(q, k, v, pad, nhead: int, tau: torch.Tensor):
+    """Swin-v2 cosine attention of one bucket, JAX's einsum path: q, k, v
+    [W, T, C] (cast to bf16), pad [W, T] (True = empty key), ``tau``
+    [nhead] float32; returns [W, T, C] bf16."""
+    w, t, c = q.shape
+    dh = c // nhead
+
+    def heads(x):
+        return x.to(torch.bfloat16).reshape(w, t, nhead, dh)
+
+    q4, k4, v4 = _l2_normalised(heads(q)), _l2_normalised(heads(k)), heads(v)
+    logits = torch.einsum("wthd,wshd->whts", q4, k4)
+    logits = logits / tau.to(torch.bfloat16)[None, :, None, None]
+    logits = logits + torch.where(pad[:, None, None, :], -1e4, 0.0).to(
+        torch.bfloat16)
+    # jax.nn.softmax's ops in bf16: exp of the max-shifted logits over
+    # their sum
+    e = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
+    probs = e / e.sum(-1, keepdim=True)
+    return torch.einsum("whts,wshd->wthd", probs, v4).reshape(w, t, c)
+
+
 class WindowAttention(nn.Module):
     """Bucketed windowed MHA. The projections run on the flat [N, C]
-    voxels; q and k see ``feat + pos``, v sees ``feat``."""
+    voxels; q and k see ``feat + pos``, v sees ``feat``. ``cosine``: the
+    Swin-v2 cosine attention of :func:`cosine_window_attention`, with its
+    learnt ``tau`` (flax's ``tau`` parameter, initialised to 1)."""
 
     def __init__(self, d_model: int, nhead: int, cosine: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, tau_min: float = 0.01,
+                 non_shared_tau: bool = False):
         super().__init__()
-        if cosine:
-            raise NotImplementedError("cosine window attention")
         self.d_model = d_model
         self.nhead = nhead
+        self.cosine = cosine
+        self.tau_min = tau_min
+        if cosine:
+            self.tau = nn.Parameter(torch.ones(nhead if non_shared_tau
+                                               else 1))
         self.qk_proj = Dense(d_model, 2 * d_model, dtype=dtype)
         self.v_proj = Dense(d_model, d_model, dtype=dtype)
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
@@ -74,8 +112,14 @@ class WindowAttention(nn.Module):
                                      window_key_padding(f2w))]
 
     def forward(self, feat, pos, f2w: FlatToWindow):
-        outs = [window_mha(q, k, v, pad, self.nhead)
-                for q, k, v, pad in self.windows(feat, pos, f2w)]
+        if self.cosine:
+            tau = torch.clamp(self.tau.repeat_interleave(
+                self.nhead // self.tau.shape[0]), min=self.tau_min)
+            outs = [cosine_window_attention(q, k, v, pad, self.nhead, tau)
+                    for q, k, v, pad in self.windows(feat, pos, f2w)]
+        else:
+            outs = [window_mha(q, k, v, pad, self.nhead)
+                    for q, k, v, pad in self.windows(feat, pos, f2w)]
         # bf16 through the gather back, then the feature dtype on the flat
         # rows
         flat = window2flat(outs, f2w).to(feat.dtype)
@@ -174,8 +218,6 @@ class SSTv2(nn.Module):
                  cosine: bool = False, use_pallas: bool | None = None,
                  remat_blocks: bool = True, dtype=torch.float32):
         super().__init__()
-        if cosine:
-            raise NotImplementedError("cosine window attention")
         del use_pallas  # the fused kernel is the only path
         self.d_model = tuple(d_model)
         self.num_blocks = num_blocks
@@ -191,7 +233,7 @@ class SSTv2(nn.Module):
         for i in range(num_blocks):
             self.add_module(f"block_{i}", BasicShiftBlock(
                 self.d_model[i], nhead[i], dim_feedforward[i], activation,
-                dtype=dtype))
+                cosine=cosine, dtype=dtype))
         c = self.d_model[num_blocks - 1]
         self.num_attached_conv = num_attached_conv if to_bev else 0
         for i in range(self.num_attached_conv):

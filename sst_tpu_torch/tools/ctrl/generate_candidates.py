@@ -6,9 +6,16 @@ the highest BEV IoU against the tracker box, where it reaches
 ``--iou-thr``: the one-to-one training target. Reads tracklet pickles of
 the port's or the JAX package's ``tools/ctrl``.
 
+The gt bin's boxes are in each frame's ego frame. Tracklets made by
+``generate_track_input --poses`` are in the world frame: give the same
+``--poses`` file here, and each frame's gt boxes are moved into the world
+frame by that frame's pose (as ``LiDARTracklet.to_world`` moves the
+tracker's) before the IoU. Without it the boxes are compared as they are,
+as the JAX package's tool does.
+
     python -m sst_tpu_torch.tools.ctrl.generate_candidates \\
         --tracklets tracklets.pkl --gt-bin gt.bin --out candidates.pkl \\
-        [--iou-thr 0.3]
+        [--poses poses_by_context.pkl] [--iou-thr 0.3]
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ def main(argv=None):
     ap.add_argument("--gt-bin", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--iou-thr", type=float, default=0.3)
+    ap.add_argument("--poses", default=None,
+                    help="pkl: {context_name: {timestamp: 4x4 pose}}, the "
+                         "file the tracklets were moved to the world by")
     args = ap.parse_args(argv)
 
     from sst_tpu_torch.core.evaluation import rotated_iou_matrix
@@ -37,6 +47,22 @@ def main(argv=None):
         by_frame.setdefault(
             (g["context_name"], g["timestamp_micros"], g.get("type", 0)), []
         ).append(waymo_box_to_lidar(g["box"]))
+    by_frame = {k: np.stack(v) for k, v in by_frame.items()}
+    if args.poses:
+        import torch
+
+        from sst_tpu_torch.ops.incremental import box_frame_transform
+
+        with open(args.poses, "rb") as f:
+            poses = pickle.load(f)
+        # each frame's gt boxes into the world frame by the float32
+        # transform LiDARTracklet.to_world moves the tracker's boxes by;
+        # frames without a pose cannot be matched
+        by_frame = {k: box_frame_transform(
+            torch.from_numpy(v),
+            torch.as_tensor(np.asarray(poses[k[0]][k[1]], np.float32)),
+            torch.eye(4)).numpy()
+            for k, v in by_frame.items() if k[1] in poses.get(k[0], {})}
 
     candidates = []
     n_matched = 0
@@ -45,9 +71,8 @@ def main(argv=None):
         cand_valid = np.zeros(len(t), bool)
         for i, ts in enumerate(t.timestamps):
             pool = by_frame.get((t.context_name, ts, t.type_id))
-            if not pool:
+            if pool is None:
                 continue
-            pool = np.stack(pool)
             iou = rotated_iou_matrix(t.boxes[i:i + 1], pool, mode="bev")[0]
             j = int(np.argmax(iou))
             if iou[j] >= args.iou_thr:

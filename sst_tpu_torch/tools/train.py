@@ -15,8 +15,11 @@ detection schedule's ``pretrain`` / ``thr_extra`` and the
 draw from a generator seeded from (``--seed``, step). Rank 0 writes
 ``train_log.jsonl`` (JAX's keys), checkpoints ``ckpt_{step}``
 (``train/checkpoint.py``) and the in-train evaluation (``eval_ap`` over a
-separate ``train=False`` module that loads the trained weights).
-TensorBoard scalars are not written: the JSONL file is the record.
+separate ``train=False`` module that loads the trained weights). Rank 0
+also writes the same scalars for TensorBoard under ``work_dir/tb``
+(``torch.utils.tensorboard``) where ``tensorboard`` imports, and otherwise
+prints that the writer is off, as JAX's CLI does; ``train_log.jsonl``
+stays the record.
 """
 
 from __future__ import annotations
@@ -100,6 +103,28 @@ def frames_of(out: dict, batch) -> tuple[list, list]:
         gts.append({"boxes": to_numpy(batch.gt_boxes[i])[gv][:, :7],
                     "labels": to_numpy(batch.gt_labels[i])[gv]})
     return preds, gts
+
+
+def open_tensorboard(work_dir: str):
+    """A TensorBoard ``SummaryWriter`` on ``work_dir/tb``, or None (with a
+    message) where ``tensorboard`` does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        print(f"tensorboard writer disabled: {e!r}", flush=True)
+        return None
+    return SummaryWriter(os.path.join(work_dir, "tb"))
+
+
+def write_scalars(tb, metrics: dict, step: int) -> None:
+    """Every metric of a log line but ``step`` and ``wall`` as a scalar at
+    ``step``."""
+    if tb is None:
+        return
+    for k, v in metrics.items():
+        if k not in ("step", "wall"):
+            tb.add_scalar(k, v, step)
+    tb.flush()
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -215,6 +240,7 @@ def main(argv=None) -> dict:
     summary = {"start_step": start_step, "step_ms": [], "loader_wait_ms": [],
                "loss_total": [], "checkpoints": [], "eval": []}
     log_path = os.path.join(args.work_dir, "train_log.jsonl")
+    tb = open_tensorboard(args.work_dir) if lead else None
     t0 = time.time()
     logf = open(log_path, "a") if lead else None
     try:
@@ -247,6 +273,7 @@ def main(argv=None) -> dict:
                     m["wall"] = round(time.time() - t0, 1)
                     logf.write(json.dumps(m) + "\n")
                     logf.flush()
+                    write_scalars(tb, m, step)
                     print(f"step {step}/{total_steps} "
                           f"loss={m['loss_total']:.4f} ({m['wall']}s)",
                           flush=True)
@@ -257,6 +284,7 @@ def main(argv=None) -> dict:
                     em["step"] = step
                     logf.write(json.dumps(em) + "\n")
                     logf.flush()
+                    write_scalars(tb, em, step)
                     summary["eval"].append(em)
                     head = {k: round(v, 4) for k, v in list(em.items())[:6]}
                     print(f"eval @ {step}: {head}", flush=True)
@@ -269,6 +297,8 @@ def main(argv=None) -> dict:
     finally:
         if logf is not None:
             logf.close()
+        if tb is not None:
+            tb.close()
     if lead:
         print("done", flush=True)
     summary["steps"] = step - start_step

@@ -4,14 +4,13 @@ package's.
 
 The sweep builds each file with ``utils/builders.py build_model_from_cfg(
 ..., device="cpu")`` at ``train=False`` and ``train=True``: every file
-builds but the few whose detector or option is still to port, and each of
-those raises ``NotImplementedError`` naming its ROADMAP queue 1 item (the
-SST encoder, item 4; PointPillars and CenterHead, item 10).
-``sst/sst_waymoD5_car_wnms.py`` builds; its weighted NMS raises at
-predict (item 5).
+builds but the one whose detector is still to port, which raises
+``NotImplementedError`` naming its ROADMAP queue 1 item (PointPillars,
+item 10).
 
-The shape test traces JAX's init of each grouped config at full width with
-``jax.eval_shape`` (no compile, no allocation) and holds every leaf against
+The shape tests trace JAX's init of each grouped config, and of the
+CenterHead, weighted-NMS and SST-encoder configs, at full width with
+``jax.eval_shape`` (no compile, no allocation) and hold every leaf against
 its torch target through ``convert.py check_flax_shapes``.
 """
 
@@ -35,11 +34,7 @@ CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
     os.path.join(ROOT, "configs", "*", "*.py")) if "_base_" not in p)
 # the files that raise, by the ROADMAP queue 1 item their message names
 RAISES = {
-    "configs/fsd/fsd_sst_encoder_pretrain.py": "item 4",
-    "configs/fsd/fsd_waymoD1_1x_sst_encoder.py": "item 4",
     "configs/pointpillars/pointpillars_waymoD5_3class.py": "item 10",
-    "configs/sst/sst_waymoD1_2x_3class_centerhead.py": "item 10",
-    "configs/sst/sst_waymoD5_3class_centerhead.py": "item 10",
 }
 NEWLY_BUILT = (
     "configs/argo2/argo_onestage_12e.py",
@@ -48,10 +43,20 @@ NEWLY_BUILT = (
     "configs/fsdv2/fsdv2_nusc_1x.py",
     "configs/fsdv2/fsdv2_nusc_2x.py",
     "configs/fsd/fsd_waymoD1_1x_3f.py",
+    "configs/fsd/fsd_sst_encoder_pretrain.py",
+    "configs/fsd/fsd_waymoD1_1x_sst_encoder.py",
+    "configs/sst/sst_waymoD1_2x_3class_centerhead.py",
+    "configs/sst/sst_waymoD5_3class_centerhead.py",
 )
 GROUPED_CFGS = ("configs/fsdv2/fsdv2_nusc_1x.py",
                 "configs/fsdv2/fsdv2_argo_2x.py",
                 "configs/argo2/argo_onestage_12e.py")
+# the CenterHead, weighted-NMS and SST-encoder configs
+SST_HEAD_CFGS = ("configs/sst/sst_waymoD5_3class_centerhead.py",
+                 "configs/sst/sst_waymoD1_2x_3class_centerhead.py",
+                 "configs/sst/sst_waymoD5_car_wnms.py",
+                 "configs/fsd/fsd_waymoD1_1x_sst_encoder.py",
+                 "configs/fsd/fsd_sst_encoder_pretrain.py")
 
 
 @pytest.mark.parametrize("train", [False, True])
@@ -114,3 +119,18 @@ def test_full_width_grouped_parameter_shapes_match_jax(path):
         cfg["model"]["num_classes"] + 1
     if "nusc" in path:
         assert tm.head_mod.task_0.vel.Dense_2.out_features == 2
+
+
+@pytest.mark.parametrize("path", SST_HEAD_CFGS)
+def test_full_width_sst_head_parameter_shapes_match_jax(path):
+    """Each CenterHead, weighted-NMS and SST-encoder config at full width:
+    every leaf of JAX's init (the CenterHead's shared conv and task
+    branches, the segmentor's 4-block SSTv2 without attached convs) has
+    its torch target at the same shape, and every torch tensor is set."""
+    cfg = load_config(os.path.join(ROOT, path))
+    jm = jbuild(jload(os.path.join(ROOT, path)), train=False)
+    shapes = jax.eval_shape(lambda bt: jm.init(
+        {"params": jax.random.PRNGKey(0), "shuffle": jax.random.PRNGKey(1)},
+        bt, train=False), _shape_batch(16384, 5))
+    tm = build_model_from_cfg(cfg, train=False, device="cpu")
+    assert check_flax_shapes(tm, shapes) == len(tm.state_dict())

@@ -802,3 +802,18 @@ def test_window_mha_counts_its_remat_recompute():
         assert wm.kind_counts == expected and wm.launches == len(expected)
         grads.append(qkv.grad)
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_preflight_passes_on_the_card():
+    """``utils/preflight.py preflight_kernels`` builds every kernel and holds
+    it against its twin at the models' shapes: the sorted reduce at C = 3,
+    64, 128 (sum and max, float32 and bf16), the window MHA at the SST
+    buckets, the sparse conv, its input gradient and dW at FSD's level 0."""
+    from sst_tpu_torch.utils.preflight import preflight_kernels
+
+    device = _cuda()
+    errs = preflight_kernels(device)
+    assert set(errs) == {"sorted_reduce", "window_mha", "sparse_conv",
+                         "sparse_conv_dgrad", "sparse_conv_dw"}
+    assert all(np.isfinite(v) for v in errs.values())
