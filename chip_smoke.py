@@ -18,7 +18,10 @@ and sparse conv kernels; its loss's backward through dW), both built
 through the config builder; the CLIs and the offline workflows (the
 Waymo bin, FSD++'s seeds and sequential train and test, CTRL's chain);
 the CenterHead and weighted-NMS SST configs and FSD with the SST encoder
-(window MHA kernel), and the preflight, benchmark and soak tools.
+(window MHA kernel), and the preflight, benchmark and soak tools;
+PointPillars from its config (predict and the CLIs, no kernel of ours on
+its path), SECOND's ``SparseEncoder`` (sparse conv, input gradient and dW
+kernels at 27 and 3 taps) and the dynamic pillar VFE (sorted reduce).
 
     python3 chip_smoke.py
 
@@ -284,12 +287,37 @@ Phases (each one that fails ends the run with a non-zero exit code):
               steps; then the benchmark tool on the CenterHead config (its
               preflight of all four kernels first) and a 30-step soak of
               ``sst``, which must hold every invariant.
+ 24. pointpillars  with ``jax``, ``flax`` and ``sst_tpu`` blocked:
+              configs/pointpillars/pointpillars_waymoD5_3class.py at full
+              width through ``build_model_from_cfg`` (seed-0 weights): the
+              pillar fill of 3 seeded 196,608-point frames (points in
+              range, distinct and kept pillars of the 32,000, points kept
+              of 20 per pillar), predict through ``inference_detector``
+              (finite boxes, every kernel's launch count held at 0: hard
+              pillars, cuDNN convs), latency, the stage table (voxelize,
+              PFN, scatter, SECOND, FPN, head, decode + NMS), peak memory
+              and idle share; the train CLI (``--synthetic``, 3 steps at 2
+              samples per card) and the test CLI on its checkpoint, no
+              kernel launched. SECOND's ``SparseEncoder`` at its defaults
+              on mmdet3d's SECOND KITTI middle-encoder shape (sparse shape
+              [41, 1600, 1408], 4 features, the voxels of a seeded frame
+              through ``hard_voxelize`` and ``HardSimpleVFE``): each of
+              its 12 convs (27 taps, and the 3-tap z-only ``conv_out``),
+              input gradients and dW against their twins on the recorded
+              inputs of a train-mode forward, timed; then a forward (12
+              launches by (mode, Cin, Cout), held to the module) and one
+              loss + backward (12 forward, 11 input-gradient, 12 dW
+              launches; dW of ``conv_out`` [3, 64, 128]). Then
+              ``DynamicPillarFeatureNet(use_sorted_reduce=True)`` at the
+              PointPillars grid on frame 0: its sum and max against their
+              twin, timed beside ``torch.segment_reduce``, 2 launches and 1
+              offsets launch.
 
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
-with the training buckets; phases 14, 15, 17, 18, 19, 20, 21, 22 and
-23 last. Phase 8 also measures the window MHA wrapper's host time with
+with the training buckets; phases 14, 15, 17, 18, 19, 20, 21, 22, 23
+and 24 last. Phase 8 also measures the window MHA wrapper's host time with
 its entry point bound once and set on every call. TF32 is turned off for
 convolutions and matmuls, so every float32 comparison is in full
 float32. Kernel, twin and library times are device times: each
@@ -333,13 +361,20 @@ from sst_tpu_torch.flagship import (
     synthetic_waymo_batch,
 )
 from sst_tpu_torch.models.ctrl import TrackletBatch
+from sst_tpu_torch.models.middle_encoders import SparseEncoder
 from sst_tpu_torch.models.sparse_unet import SimpleSparseUNet, SparseConvLayer
 from sst_tpu_torch.models.sst import WindowAttention
 from sst_tpu_torch.ops import sorted_reduce as sr
 from sst_tpu_torch.ops import sparse_conv_dw as sdw
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops import window_mha as wm
-from sst_tpu_torch.ops.voxelize import dynamic_voxelize
+from sst_tpu_torch.models.vfe import DynamicPillarFeatureNet, HardSimpleVFE
+from sst_tpu_torch.ops.sparse_conv import make_sparse_grid
+from sst_tpu_torch.ops.voxelize import (
+    compute_voxel_coords,
+    dynamic_voxelize,
+    hard_voxelize,
+)
 from sst_tpu_torch.train.schedules import FSDDetectionSchedule
 from sst_tpu_torch.train.state import make_optimizer
 from sst_tpu_torch.tools.profile_predict import device_busy
@@ -2327,7 +2362,8 @@ def _fsd_stage_ms(model, frame):
     return out
 
 
-def phase_fsd_kernels(model, frame, device, drive=None, title=FSD_CONFIG):
+def phase_fsd_kernels(model, frame, device, drive=None, title=FSD_CONFIG,
+                      modes=("subm", "strided", "inverse")):
     """The sparse conv kernel against its twin on every conv of one FSD
     frame, on the conv's recorded input features, rulebook and weights
     (hooks on each SparseConvLayer, frame 0 of the main path), one case
@@ -2335,8 +2371,9 @@ def phase_fsd_kernels(model, frame, device, drive=None, title=FSD_CONFIG):
     repeat; kernel and twin timed (plain, kernel, kernel, plain), the bound
     at 3xTF32 over the (row, tap) pairs with a neighbour, and the executed
     shares. ``drive``: the call that runs frame 0 (an FSD predict through
-    ``inference_detector`` where none is given). Returns (shapes, per-frame
-    sums, largest error, the frame's convs by (mode, Cin, Cout))."""
+    ``inference_detector`` where none is given); ``modes``: the conv modes
+    the path must show. Returns (shapes, per-frame sums, largest error, the
+    frame's convs by (mode, Cin, Cout))."""
     calls = _record_sparse_convs(model, frame, drive)
     cases = {}
     for name, vin, cp, wshape, feats, _ in calls:
@@ -2388,7 +2425,7 @@ def phase_fsd_kernels(model, frame, device, drive=None, title=FSD_CONFIG):
     for width in sorted({c for _, c, _ in covered}):
         modes = {m for m, c, _ in covered if c == width}
         print(f"  Cin {width}: checked {sorted(modes)}", flush=True)
-    if not {"subm", "strided", "inverse"} <= {m for m, _, _ in covered}:
+    if not set(modes) <= {m for m, _, _ in covered}:
         fail(f"fsd kernels: not every conv mode was checked: {covered}")
     per_frame = {k: sum(s[k] * s["convs_per_frame"] for s in shapes)
                  for k in ("ms", "plain_ms", "bound_ms")}
@@ -2512,34 +2549,40 @@ def phase_fsd_predict(model, frames, n_convs):
             "trace": _fsd_trace(model, frames)}
 
 
-def _fsd_trace(model, frames, n=2):
-    """``torch.profiler`` over ``n`` two-stage predicts: the device's busy
-    time (the union of its kernel and copy intervals), the wall time, the
-    idle share (profiler on) and the kernels taking the most device
-    time."""
-    batches = [f if hasattr(model, "fsd_mod") else prepare_batch(
-        model, f.points[0], model.max_points) for f in frames[:n]]
+def _trace(calls, what: str) -> dict:
+    """``torch.profiler`` over the ``calls`` (functions of no argument): the
+    device's busy time (the union of its kernel and copy intervals), the
+    wall time, the idle share (profiler on) and the kernels taking the
+    most device time."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
-            model.predict(batch)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy, by_name = device_busy(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     idle = 1.0 - busy / wall if busy > 0 else None
-    print(f"trace over {n} predicts (profiler on): device busy "
+    print(f"trace over {what} (profiler on): device busy "
           f"{busy:.3f} ms of {wall:.3f} ms wall, idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'}; top kernels:",
           flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms  {name[:100]}", flush=True)
-    return {"predicts": n, "device_busy_ms": busy, "wall_ms": wall,
-            "idle_share": idle,
+    return {"device_busy_ms": busy, "wall_ms": wall, "idle_share": idle,
             "top_kernels_ms": {k[:100]: v for k, v in top}}
+
+
+def _fsd_trace(model, frames, n=2):
+    """:func:`_trace` over ``n`` predicts (two-stage ones of FSD++'s
+    batches, or of the frames' points)."""
+    batches = [f if hasattr(model, "fsd_mod") else prepare_batch(
+        model, f.points[0], model.max_points) for f in frames[:n]]
+    return {"predicts": n, **_trace(
+        [lambda b=b: model.predict(b) for b in batches], f"{n} predicts")}
 
 
 def phase_fsd_dense(frames):
@@ -5582,6 +5625,379 @@ def phase_sst_heads(device) -> dict:
             "fsd_sst_loss": fsd_loss, "fsd_sst_pretrain": pretrain,
             "tools": tools, "seconds": seconds}
 
+POINTPILLARS_CONFIG = "configs/pointpillars/pointpillars_waymoD5_3class.py"
+PP_FRAMES = 3  # predicted frames
+PP_N_TIMED = 8  # inference_detector runs timed after warm-up
+PP_TRAIN_STEPS = 3  # train CLI steps at the config's 2 samples per card
+# SECOND's middle encoder as mmdet3d's public SECOND KITTI model sets it up
+# (mmdet3d configs/_base_/models/hv_second_secfpn_kitti.py): 0.05 x 0.05 x
+# 0.1 m voxels over [0, 70.4] x [-40, 40] x [-3, 1] m, 5 points per voxel,
+# 40,000 voxels at test, sparse_shape [41, 1600, 1408], 4 point features
+SECOND_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+SECOND_VOXEL = (0.05, 0.05, 0.1)
+SECOND_SPARSE_SHAPE = (41, 1600, 1408)
+SECOND_MAX_VOXELS = 40000
+SECOND_POINTS = 65536  # points drawn, before the range crop
+
+
+def _pillar_fill(model, frame, device) -> dict:
+    """The pillars one frame fills: points in range, distinct pillars, the
+    pillars kept (at most ``max_voxels``, the lowest keys) and the points
+    kept (at most ``max_points_per_voxel`` per pillar)."""
+    pts = torch.from_numpy(frame.points[0]).to(device)
+    valid = torch.from_numpy(frame.valid[0]).to(device)
+    bidx = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
+    vm = dynamic_voxelize(pts, bidx, valid, model.point_cloud_range,
+                          model.voxel_size, 1 << 20, 1)
+    counts = vm.unique.counts[vm.voxel_valid]
+    kept = torch.clamp(counts, max=model.max_points_per_voxel)
+    return {"points_in_range": int(vm.valid.sum()),
+            "distinct_pillars": int(vm.unique.num_unique),
+            "kept_pillars": min(int(vm.unique.num_unique), model.max_voxels),
+            "kept_points": int(kept[:model.max_voxels].sum()),
+            "pillars_past_points_cap": int((counts > kept).sum())}
+
+
+def _pointpillars_predict(device) -> dict:
+    """The PointPillars config at full width: predict on seeded 196,608-point
+    frames through ``inference_detector`` (no hand-written kernel on its
+    path: every launch count held at 0), the pillar fill, the stage table,
+    latency, peak memory and idle share."""
+    from sst_tpu_torch.tools.profile_predict import (
+        stage_boundaries,
+        staged_predict,
+    )
+
+    model = _build_from(POINTPILLARS_CONFIG, False).eval()
+    frames = _frames(PP_FRAMES)
+    fills = [_pillar_fill(model, f, device) for f in frames]
+    for s, fill in enumerate(fills):
+        print(f"  frame {s}: {fill['points_in_range']} points in range, "
+              f"{fill['distinct_pillars']} distinct pillars, "
+              f"{fill['kept_pillars']} kept (cap {model.max_voxels}), "
+              f"{fill['kept_points']} points kept (cap "
+              f"{model.max_points_per_voxel} per pillar; "
+              f"{fill['pillars_past_points_cap']} pillars past it)",
+              flush=True)
+    reset_launch_counts()
+    results = [inference_detector(model, f.points[0], model.max_points)
+               for f in frames]
+    launches = _off_path_launches() | {"window_mha": wm.launches}
+    if any(launches.values()):
+        fail(f"pointpillars: a hand-written kernel launched on a path that "
+             f"has none: {launches}")
+    max_num = model.test_cfg["max_num"]
+    for s, res in enumerate(results):
+        if res["boxes"].shape != (max_num, 7) or not all(
+                np.isfinite(res[k]).all() for k in ("boxes", "scores")):
+            fail(f"pointpillars frame {s}: boxes {res['boxes'].shape}, "
+                 f"finite {np.isfinite(res['boxes']).all()}")
+    if not any(r["valid"].any() for r in results):
+        fail("pointpillars: no frame gave a valid box")
+    lat = _latency(lambda f: inference_detector(model, f.points[0],
+                                                model.max_points),
+                   frames, PP_N_TIMED)
+    print(f"  predict: {len(frames)} frames through inference_detector, "
+          f"valid boxes {[int(r['valid'].sum()) for r in results]}, no "
+          f"kernel launched; latency median {lat['median']:.3f} ms (range "
+          f"{lat['min']:.3f}-{lat['max']:.3f}, {PP_N_TIMED} runs)",
+          flush=True)
+    boundaries = stage_boundaries(model, "pointpillars")
+    names = [n for n, _, _ in boundaries] + ["decode + NMS", "copy to host"]
+    batches = [prepare_batch(model, f.points[0], model.max_points)
+               for f in frames]
+    staged = [staged_predict(model, b, boundaries)[1] for b in batches]
+    stage_ms = {n: statistics.median(st[i] for st in staged)
+                for i, n in enumerate(names)}
+    print(f"  {POINTPILLARS_CONFIG} stages, ms (median of {len(batches)} "
+          f"frames, CUDA events at module hooks): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()),
+          flush=True)
+    rec = {"fills": fills, "launches": launches, "latency": lat,
+           "stage_ms": stage_ms,
+           "detections": [int(r["valid"].sum()) for r in results],
+           **_predict_profile(POINTPILLARS_CONFIG, model, frames)}
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _pointpillars_clis(device) -> dict:
+    """The train CLI on the PointPillars config (``--synthetic``, a few steps
+    at its 2 samples per card) and the test CLI on its checkpoint, each run
+    from zero launch counts: no hand-written kernel on the path."""
+    from sst_tpu_torch.tools import test as test_cli
+    from sst_tpu_torch.tools import train as train_cli
+
+    work = tempfile.mkdtemp(prefix="pointpillars_cli_")
+    try:
+        wd = os.path.join(work, "wd")
+        train, train_launches, train_s = _cli_run(train_cli.main, [
+            POINTPILLARS_CONFIG, "--synthetic", "--device", str(device),
+            "--max-steps", str(PP_TRAIN_STEPS), "--work-dir", wd,
+            "--log-interval", "1", "--ckpt-interval", str(PP_TRAIN_STEPS)],
+            "pointpillars train")
+        if train["steps"] != PP_TRAIN_STEPS or not np.isfinite(
+                train["loss_total"]).all():
+            fail(f"pointpillars train CLI: {train['steps']} steps, losses "
+                 f"{train['loss_total']}")
+        ckpt = os.path.join(wd, f"ckpt_{PP_TRAIN_STEPS}")
+        test, test_launches, test_s = _cli_run(test_cli.main, [
+            POINTPILLARS_CONFIG, ckpt, "--synthetic", "--device",
+            str(device), "--num-samples", "4", "--eval", "ap3d"],
+            "pointpillars test")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for what, counts in (("train", train_launches), ("test", test_launches)):
+        if any(counts.values()):
+            fail(f"pointpillars {what} CLI: a hand-written kernel launched "
+                 f"on a path that has none: {counts}")
+    print(f"  train CLI: {PP_TRAIN_STEPS} steps at 2 samples per card, step "
+          f"ms {[round(x, 2) for x in train['step_ms']]}, loader wait ms "
+          f"{[round(x, 2) for x in train['loader_wait_ms']]}, losses "
+          f"{[round(x, 4) for x in train['loss_total']]}, peak memory "
+          f"{train.get('peak_memory_bytes', 0) / 2**30:.3f} GiB "
+          f"({train_s:.1f} s); "
+          f"test CLI on its checkpoint: {test['frames']} frames "
+          f"({test_s:.1f} s)", flush=True)
+    return {"train_step_ms": train["step_ms"],
+            "train_loader_wait_ms": train["loader_wait_ms"],
+            "train_losses": train["loss_total"], "train_s": train_s,
+            "test_frames": test["frames"], "test_s": test_s,
+            "launches": {"train": train_launches, "test": test_launches}}
+
+
+def _second_input(device):
+    """Seeded KITTI-like voxels for SECOND's encoder: a 4-channel synthetic
+    frame cropped to the KITTI range, hard-voxelized (5 points, 40,000
+    voxels), averaged by ``HardSimpleVFE``, on a SparseGrid at the sparse
+    shape. Returns (features in grid order, grid, voxel counts)."""
+    frame = synthetic_waymo_batch(1, SECOND_POINTS, seed=7,
+                                  num_extra_feats=1, pcr_half=79.8)
+    pts = torch.from_numpy(frame.points[0]).to(device)
+    valid = torch.from_numpy(frame.valid[0]).to(device)
+    bidx = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
+    voxels, num, coords, vvalid = hard_voxelize(
+        pts, bidx, valid, SECOND_RANGE, SECOND_VOXEL, SECOND_MAX_VOXELS, 5, 1)
+    feats = HardSimpleVFE()(voxels, num)
+    sg, order = make_sparse_grid(coords, vvalid, SECOND_SPARSE_SHAPE, 1)
+    active = int(vvalid.sum())
+    in_range = int(compute_voxel_coords(pts, bidx, valid, SECOND_RANGE,
+                                        SECOND_VOXEL)[1].sum())
+    print(f"second encoder input: {SECOND_POINTS} points, {in_range} in "
+          f"range, {active} active voxels of {SECOND_MAX_VOXELS} at "
+          f"{SECOND_VOXEL} m over {SECOND_RANGE}, sparse shape "
+          f"{SECOND_SPARSE_SHAPE}", flush=True)
+    if not 16000 <= active <= SECOND_MAX_VOXELS:
+        fail(f"second encoder: {active} active voxels, outside 16,000 to "
+             f"{SECOND_MAX_VOXELS}")
+    return feats[order].contiguous(), sg, active
+
+
+def _expected_encoder_launches(enc) -> Counter:
+    """The encoder's convs by (mode, Cin, Cout), from the module."""
+    out = Counter()
+    for name, mod in enc.named_modules():
+        if isinstance(mod, SparseConvLayer):
+            mode = ("zdown" if name == "conv_out" else "strided"
+                    if name.endswith("_down") else "subm")
+            out[(mode, *mod.weight.shape[1:])] += 1
+    return out
+
+
+def _second_encoder(device) -> dict:
+    """SECOND's ``SparseEncoder`` at its defaults on the KITTI middle-encoder
+    shape: each conv, input gradient and dW against its twin on the
+    recorded inputs of a train-mode forward; then a forward and one loss +
+    backward from zero counts, launches held to the module's convs."""
+    torch.manual_seed(0)
+    enc = SparseEncoder(4).to(device)
+    feats, sg, active = _second_input(device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    with torch.no_grad():
+        out = enc(feats, sg)
+    g = torch.randn(out.shape, generator=gen, device=device)
+
+    def loss_step():
+        enc.zero_grad(set_to_none=True)
+        (enc(feats, sg, train=True) * g).sum().backward()
+
+    state = {k: v.clone() for k, v in enc.state_dict().items()}
+    calls = _record_sparse_convs(enc, None, loss_step)
+    shapes, per_fwd, conv_err, convs = phase_fsd_kernels(
+        enc, None, device, drive=lambda: loss_step(),
+        title="SECOND SparseEncoder", modes=("subm", "strided", "zdown"))
+    dw_shapes, dw_step, dw_err, dgrad_err = phase_backward_kernels(
+        enc, None, device, calls=calls, title="SECOND SparseEncoder")
+    enc.load_state_dict(state)  # the running statistics as before
+    del calls
+    expected = _expected_encoder_launches(enc)
+    if len(expected) == 0 or sum(expected.values()) != 12:
+        fail(f"second encoder: {sum(expected.values())} convs, expected 12")
+    reset_launch_counts()
+    box = {}
+
+    def forward():
+        with torch.no_grad():
+            box["out"] = enc(feats, sg)
+
+    fwd_ms = event_ms(forward)
+    out = box.pop("out")
+    fwd = dict(scg.launch_counts)
+    if fwd != dict(expected) or scg.kind_counts != {"forward": 12}:
+        fail(f"second encoder forward: conv launches {fwd} by kind "
+             f"{scg.kind_counts}, the module gives {dict(expected)}")
+    if out.shape != (1, 256, 200, 176) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"second encoder: map {tuple(out.shape)}, finite "
+             f"{bool(torch.isfinite(out).all())}")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = event_ms(loss_step)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = dict(scg.kind_counts)
+    dgrad = sum(scg.launch_counts.values()) - kinds.get("forward", 0)
+    if (kinds.get("forward") != 12 or dgrad not in (11, 12)
+            or kinds.get("dgrad") != dgrad or sdw.launches != 12
+            or dict(sdw.launch_counts) != dict(expected)):
+        fail(f"second encoder loss + backward: conv launches by kind "
+             f"{kinds}, dW {dict(sdw.launch_counts)}; the module gives "
+             f"{dict(expected)}")
+    if sr.launches or sr.offsets_launches or wm.launches:
+        fail(f"second encoder: kernels off its path launched: sorted "
+             f"reduce {sr.launches} + {sr.offsets_launches} offsets, "
+             f"window MHA {wm.launches}")
+    grads = [p.grad for p in enc.parameters()]
+    if any(gr is None or not bool(torch.isfinite(gr).all()) for gr in grads):
+        fail("second encoder: a missing or non-finite gradient")
+    if tuple(enc.conv_out.weight.grad.shape) != (3, 64, 128):
+        fail(f"second encoder: conv_out's dW is "
+             f"{tuple(enc.conv_out.weight.grad.shape)}, not [3, 64, 128]")
+    trace = _trace([forward, forward], "2 SparseEncoder forwards")
+    print(f"second encoder: forward {fwd_ms:.3f} ms, loss + backward "
+          f"{step_ms:.3f} ms (CUDA events), peak {peak / 2**30:.3f} GiB; "
+          f"launches: forward {sum(fwd.values())} by (mode, Cin, Cout) "
+          f"{fwd}, loss + backward {kinds} and dW {sdw.launches}; the "
+          f"3-tap conv_out's dW [3, 64, 128]", flush=True)
+    rec = {"active_voxels": active, "forward_ms": fwd_ms,
+           "loss_backward_ms": step_ms, "peak_bytes": peak,
+           "forward_trace": trace,
+           "launches": {"forward": {str(k): v for k, v in fwd.items()},
+                        "train": kinds, "dw": sdw.launches},
+           "conv_shapes": shapes, "conv_per_forward": per_fwd,
+           "conv_max_abs_err": conv_err, "dw_shapes": dw_shapes,
+           "dw_step": dw_step, "dw_max_abs_err": dw_err,
+           "dgrad_max_abs_err": dgrad_err}
+    del enc, feats, sg, out, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dynamic_pillars(device) -> dict:
+    """``DynamicPillarFeatureNet`` with ``use_sorted_reduce=True`` at the
+    PointPillars grid (0.32 m pillars over +-74.88 m, PFN 64) on phase 24's
+    frame 0, voxelized by the sort: its sorted reduces (the cluster-centre
+    sum and the PFN max) against their twin, timed beside the twin and
+    ``torch.segment_reduce``; launches by (mode, C, dtype) from zero."""
+    from sst_tpu_torch.models import vfe as vfe_module
+
+    cfg = load_config(POINTPILLARS_CONFIG)["model"]
+    pcr, vs = cfg["point_cloud_range"], cfg["voxel_size"]
+    torch.manual_seed(0)
+    dvfe = DynamicPillarFeatureNet(5, feat_channels=(64,), voxel_size=vs,
+                                   point_cloud_range=pcr,
+                                   use_sorted_reduce=True).to(device).eval()
+    frame = _frames(1)[0]
+    pts = torch.from_numpy(frame.points[0]).to(device)
+    valid = torch.from_numpy(frame.valid[0]).to(device)
+    bidx = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
+    vm = dynamic_voxelize(pts, bidx, valid, pcr, vs, 65536, 1,
+                          need_ranks=True)
+    calls = []
+    wrapped = vfe_module.sorted_segment_reduce
+
+    def record(data, seg, num_segments, mode="sum", offsets=None):
+        calls.append((mode, data.detach().clone(), seg, num_segments))
+        return wrapped(data, seg, num_segments, mode, offsets)
+
+    vfe_module.sorted_segment_reduce = record
+    try:
+        with torch.no_grad():
+            dvfe(pts, vm)
+    finally:
+        vfe_module.sorted_segment_reduce = wrapped
+    reset_launch_counts()
+    with torch.no_grad():
+        out = dvfe(pts, vm)
+    torch.cuda.synchronize()
+    split = {k: v for k, v in sr.launch_counts.items()}
+    want = {("sum", 3, "float32"): 1, ("max", 64, "float32"): 1}
+    if split != want or sr.offsets_launches != 1 or dvfe.sorted_calls != 2:
+        fail(f"dynamic pillars: sorted reduce launches {split} and "
+             f"{sr.offsets_launches} offsets, the module gives {want} and 1")
+    if not bool(torch.isfinite(out).all()):
+        fail("dynamic pillars: non-finite pillar features")
+    print(f"dynamic pillars: DynamicPillarFeatureNet(use_sorted_reduce=True)"
+          f" at {tuple(vs)} m, {int(vm.unique.num_unique)} pillars of "
+          f"{int(vm.valid.sum())} points; launches {split} + 1 offsets",
+          flush=True)
+    errs, shapes = [], []
+    for mode, data, seg, nseg in calls:
+        _check_case(f"dynamic pillars {mode}", data, seg, nseg, mode, errs)
+        offsets = sr.segment_offsets(seg, nseg)
+        fns = {"plain": lambda: sr.sorted_segment_reduce_ref(
+                   data, seg, nseg, mode),
+               "kernel": lambda: sr.sorted_segment_reduce(
+                   data, seg, nseg, mode, offsets),
+               "library": _segment_reduce_library(data, offsets, nseg, mode)}
+        runs = {k: [] for k in fns}
+        for kind in ("plain", "kernel", "library", "library", "kernel",
+                     "plain"):
+            runs[kind].append(cuda_ms(fns[kind], 20))
+        n, c = data.shape
+        bound_ms, bound_by = bound(data.element_size() * (n * c + nseg * c)
+                                   + 4 * (nseg + 1), n * c, F32_FLOP_PER_S)
+        rec = {"mode": mode, "c": c, "dtype": _dtype_name(data), "n": n,
+               "num_segments": nseg, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": errs[-1],
+               **{("ms" if k == "kernel" else f"{k}_ms"): min(v)
+                  for k, v in runs.items()}}
+        shapes.append(rec)
+        print(f"  time {mode} C={c}: kernel {rec['ms']:.4f} ms, twin "
+              f"{rec['plain_ms']:.4f} ms, torch.segment_reduce "
+              f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+    del dvfe, vm, calls
+    torch.cuda.empty_cache()
+    return {"launches": {str(k): v for k, v in split.items()},
+            "offsets_launches": 1, "shapes": shapes,
+            "max_abs_err": max(errs)}
+
+
+def phase_pointpillars(device) -> dict:
+    """Phase 24: PointPillars at full width (predict, the train and test
+    CLIs), SECOND's ``SparseEncoder`` on the conv, input-gradient and dW
+    kernels (27 and 3 taps), and ``DynamicPillarFeatureNet`` on the sorted
+    reduce, with ``jax``, ``flax`` and ``sst_tpu`` blocked."""
+    t_phase = time.perf_counter()
+    finder = _BlockedImports()
+    sys.meta_path.insert(0, finder)
+    try:
+        predict = _pointpillars_predict(device)
+        clis = _pointpillars_clis(device)
+        encoder = _second_encoder(device)
+        pillars = _dynamic_pillars(device)
+    finally:
+        sys.meta_path.remove(finder)
+    loaded = _blocked_loaded()
+    if loaded:
+        fail(f"pointpillars: {loaded} entered sys.modules")
+    seconds = time.perf_counter() - t_phase
+    print(f"pointpillars: phase 24 took {seconds:.1f} s; none of "
+          f"{BLOCKED_PACKAGES} in sys.modules", flush=True)
+    return {"predict": predict, "clis": clis, "second_encoder": encoder,
+            "dynamic_pillars": pillars, "seconds": seconds}
+
 
 def main() -> None:
     card = phase_device()
@@ -5762,6 +6178,14 @@ def main() -> None:
                      "window_mha"]}
     center_rows = heads["centerhead"]["shapes"]
     fsd_sst_rows = heads["fsd_sst"]["shapes"]
+    torch.cuda.empty_cache()
+    pp = phase_pointpillars(device)
+    pp["card"] = card
+    enc, dyn = pp["second_encoder"], pp["dynamic_pillars"]
+    # phase 24's PointPillars runs, each counted from 0: no hand-written
+    # kernel on their path (every count held at 0)
+    pp_runs = ("pointpillars", "pointpillars_train_cli",
+               "pointpillars_test_cli")
     # phase 22's runs, each counted from 0: (name, launches by kind)
     off_runs = {"offline_fsd_test": offline["fsd"]["launches"],
                 "offline_fsdpp_train": off_fsdpp["launches"],
@@ -5818,7 +6242,12 @@ def main() -> None:
             **{k: (v.get("sorted_reduce", 0), 0)
                for k, v in off_runs.items()},
             # phase 23: the SST VFEs leave it off (held to 0 per path)
-            **{f"heads_{k}": (0, 0) for k in head_runs}}
+            **{f"heads_{k}": (0, 0) for k in head_runs},
+            # phase 24: PointPillars' hard voxels need none; the dynamic
+            # pillar VFE's sum and max share one offsets launch
+            **{k: (0, 0) for k in pp_runs},
+            "dynamic_pillars": (sum(dyn["launches"].values()),
+                                dyn["offsets_launches"])}
     sr_launches = {k: v[0] for k, v in runs.items()}
     # the conv kernel's launches in each path's run, each counted from 0
     conv_by_path = {
@@ -5853,7 +6282,14 @@ def main() -> None:
                                               "dgrad"))
            for k, v in off_runs.items()},
         # phase 23: no sparse conv on the SST-head and SST-encoder paths
-        **{f"heads_{k}": 0 for k in head_runs}}
+        **{f"heads_{k}": 0 for k in head_runs},
+        # phase 24: SECOND's encoder forward (12 convs: 8 subm, 3 strided,
+        # the 3-tap zdown), its loss + backward (12 forward, 11 input
+        # gradient); none on PointPillars
+        **{k: 0 for k in pp_runs},
+        "second_encoder": sum(int(v) for v in enc["launches"][
+            "forward"].values()),
+        "second_encoder_train": sum(enc["launches"]["train"].values())}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
@@ -5869,7 +6305,9 @@ def main() -> None:
         **{k: off_runs[k]["dw"] for k in ("offline_fsdpp_train",
                                           "offline_fsdpp_resume",
                                           "offline_ctrl_train")},
-        **{f"heads_{k}": 0 for k in head_runs}}
+        **{f"heads_{k}": 0 for k in head_runs},
+        **{k: 0 for k in pp_runs},
+        "second_encoder_train": enc["launches"]["dw"]}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -5897,6 +6335,14 @@ def main() -> None:
         # the wrapper's host time (Python, checks, ctypes, launch) per frame
         "host_ms": sr_frame["host_ms"],
         "shapes": shapes,
+        # phase 24: the dynamic pillar VFE's sum (C = 3) and max (C = 64)
+        # per frame at the PointPillars grid
+        **{f"dynamic_pillars_{k}_per_frame": sum(r[k] for r in dyn["shapes"])
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "dynamic_pillars_bound_by": bound_by(
+            [dict(r, calls=1) for r in dyn["shapes"]], "calls"),
+        "dynamic_pillars_max_abs_err": dyn["max_abs_err"],
+        "dynamic_pillars_shapes": dyn["shapes"],
     }, {
         "name": "segment_offsets",
         "route": "cuda",
@@ -5940,7 +6386,9 @@ def main() -> None:
                            *(groups[k]["max_abs_err"] for k in group_keys),
                            *(groups[k]["dgrad_err"] for k in trained),
                            off_fsdpp["max_abs_err"], off_fsdpp["dgrad_err"],
-                           off_seq["max_abs_err"], off_ctrl["max_abs_err"]),
+                           off_seq["max_abs_err"], off_ctrl["max_abs_err"],
+                           enc["conv_max_abs_err"],
+                           enc["dgrad_max_abs_err"]),
         "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"],
                                  fsdpp_train["dgrad_err"],
                                  ctrl["train"]["dgrad_err"],
@@ -6035,6 +6483,17 @@ def main() -> None:
         # the wrapper's host time per call, its entry point bound once and
         # set on every call (phase 18, the widest CTRL conv)
         "host_us": WRAPPER_HOST_US.get("sparse_conv_gemm"),
+        # per forward of SECOND's encoder (phase 24): its 12 convs (27 taps,
+        # and 3 for conv_out) at the times of their recorded inputs, and
+        # the input gradient of its one loss
+        **{f"second_encoder_{k}_per_forward": enc["conv_per_forward"][k]
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "second_encoder_bound_by": bound_by(enc["conv_shapes"],
+                                            "convs_per_frame"),
+        "second_encoder_shapes": enc.pop("conv_shapes"),
+        "second_encoder_loss_dgrad_ms": enc["dw_step"]["dgrad_ms"],
+        "second_encoder_loss_dgrad_plain_ms": enc["dw_step"][
+            "dgrad_plain_ms"],
     }, {
         "name": "sparse_conv_dw",
         "route": "cuda",
@@ -6048,7 +6507,7 @@ def main() -> None:
                            fsdpp_train["dw_err"], ctrl["train"]["dw_err"],
                            fsdv2_ts["dw_err"],
                            *(groups[k]["dw_err"] for k in trained),
-                           off_fsdpp["dw_err"]),
+                           off_fsdpp["dw_err"], enc["dw_max_abs_err"]),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -6105,6 +6564,12 @@ def main() -> None:
            for m in ("ms", "plain_ms", "bound_ms")},
         "offline_fsdpp_train_bound_by": bound_by(off_fsdpp.pop("dw_shapes"),
                                                  "convs_per_step"),
+        # SECOND's encoder's one loss (phase 24): the dW of its 12 convs
+        # (the 3-tap conv_out's [3, 64, 128] among them)
+        **{f"second_encoder_loss_{k}": enc["dw_step"][k]
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "second_encoder_loss_bound_by": bound_by(enc.pop("dw_shapes"),
+                                                 "convs_per_step"),
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -6130,7 +6595,9 @@ def main() -> None:
                              # the CenterHead, weighted-NMS and SST-encoder
                              # paths (phase 23)
                              **{f"heads_{k}": v
-                                for k, v in head_runs.items()}},
+                                for k, v in head_runs.items()},
+                             # phase 24: none on the PointPillars runs
+                             **{k: 0 for k in pp_runs}},
         "launches_per_train_step": sst_train[
             "launches_per_step_expected"],
         "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"],
@@ -6214,7 +6681,8 @@ def main() -> None:
         "wnms": heads["wnms"]["latency_ms"],
         "fsd_sst": heads["fsd_sst"]["latency"]["median"],
         "benchmark_centerhead_p50": heads["tools"]["benchmark"][
-            "p50_latency_ms"]},
+            "p50_latency_ms"],
+        "pointpillars": pp["predict"]["latency"]["median"]},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -6232,6 +6700,7 @@ def main() -> None:
         "groups": groups,
         "offline": offline,
         "sst_heads": heads,
+        "pointpillars": pp,
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

@@ -6,6 +6,10 @@ The torch modules keep flax's module names (``segmentor_mod``,
 
   params   kernel (2-D)   Dense [in, out]  → Linear ``weight`` [out, in]
   params   kernel (4-D)   Conv HWIO        → Conv2d ``weight`` OIHW
+  params   kernel (4-D)   ConvTranspose HWIO → ConvTranspose2d weight
+                          [in, out, kh, kw], flipped in kh and kw (flax's
+                          ``transpose_kernel=False`` kernel is torch's
+                          ``conv_transpose2d`` kernel turned by 180°)
   params   kernel (3-D)   sparse conv [K, Cin, Cout] → ``weight`` as it is
   params   bias                            → ``bias``
   params   scale          BN / LayerNorm   → ``weight``
@@ -26,7 +30,11 @@ The cluster head's velocity and IoU branches are its tasks' ``vel`` and
 column is the last row of ``conv_seg`` (``num_classes + 1`` outputs): both
 map by name and shape like every other leaf. CenterHead maps by the same
 rules: ``shared_conv``, ``task_{t}/{name}_conv{i}`` (ConvNormAct) and
-``task_{t}/{name}_out`` (a conv with bias).
+``task_{t}/{name}_out`` (a conv with bias). PointPillars maps
+``vfe_mod/pfn_{i}`` / ``pfn_bn_{i}``, SECOND's ``backbone_mod/down_{i}`` /
+``conv_{i}_{j}`` and ``neck_mod/deblock_conv_{i}`` (a transposed conv at
+stride above 1); SECOND's ``SparseEncoder`` its ``[K, Cin, Cout]`` kernels
+(K = 27, and 3 for ``conv_out``) as every sparse conv.
 """
 
 from __future__ import annotations
@@ -50,9 +58,13 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
+def _to_torch_layout(leaf: str, value: np.ndarray,
+                     transposed: bool = False) -> np.ndarray:
+    """``transposed``: the target is a ``ConvTranspose2d``."""
     if leaf == "kernel" and value.ndim == 2:
         return value.T
+    if leaf == "kernel" and value.ndim == 4 and transposed:
+        return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if leaf == "kernel" and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
     if leaf == "kernel" and value.ndim == 3:
@@ -63,10 +75,11 @@ def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
 
 
 def _matched(module: nn.Module, variables: Mapping):
-    """Yield (torch key, target tensor, flax leaf name, flax value) for
-    every flax leaf, its shape in the torch layout checked against the
-    target's; raise on a leaf without a target and on a target left
-    unset. ``value`` needs only ``.shape`` and ``.ndim``."""
+    """Yield (torch key, target tensor, flax leaf name, flax value, whether
+    the target is a transposed conv) for every flax leaf, its shape in the
+    torch layout checked against the target's; raise on a leaf without a
+    target and on a target left unset. ``value`` needs only ``.shape`` and
+    ``.ndim``."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
@@ -83,15 +96,18 @@ def _matched(module: nn.Module, variables: Mapping):
             if key not in state:
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has "
                                f"no torch target {key!r}")
+            transposed = isinstance(module.get_submodule(
+                ".".join(path[:-1])), nn.ConvTranspose2d)
             shape = _to_torch_layout(
-                leaf, np.broadcast_to(np.float32(0), value.shape)).shape
+                leaf, np.broadcast_to(np.float32(0), value.shape),
+                transposed).shape
             target = state[key]
             if tuple(shape) != tuple(target.shape):
                 raise ValueError(f"{key}: flax shape {tuple(shape)} (torch "
                                  f"layout) != torch shape "
                                  f"{tuple(target.shape)}")
             done.add(key)
-            yield key, target, leaf, value
+            yield key, target, leaf, value, transposed
     missing = sorted(set(state) - done)
     if missing:
         raise KeyError(f"torch parameters/buffers not set by the flax "
@@ -102,8 +118,9 @@ def _matched(module: nn.Module, variables: Mapping):
 def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     """Fill ``module`` from ``{"params": ..., "batch_stats": ...}`` (nested
     dicts of numpy arrays) and return it."""
-    for _, target, leaf, value in list(_matched(module, variables)):
-        arr = _to_torch_layout(leaf, np.asarray(value))
+    for _, target, leaf, value, transposed in list(_matched(module,
+                                                             variables)):
+        arr = _to_torch_layout(leaf, np.asarray(value), transposed)
         target.copy_(torch.from_numpy(np.array(arr)))
     return module
 

@@ -86,6 +86,24 @@ class Conv(nn.Conv2d):
         return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose`` without bias at kernel = stride (``SAME``
+    padding, ``transpose_kernel=False``), NCHW, at a compute ``dtype``:
+    ``conv_transpose2d`` with ``stride = kernel_size``. The weight is
+    ``[in, out, kh, kw]``, flax's ``[kh, kw, in, out]`` kernel transposed
+    and flipped in both spatial axes (``convert.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 dtype=torch.float32):
+        super().__init__(in_channels, out_channels, stride, stride=stride,
+                         bias=False)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                                  stride=self.stride)
+
+
 class LayerNorm(nn.LayerNorm):
     """flax ``nn.LayerNorm`` at a compute ``dtype``: statistics and the
     normalised result in float32, cast to ``dtype``."""

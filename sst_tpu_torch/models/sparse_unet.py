@@ -65,14 +65,17 @@ def build_unet_plan(sg0: SparseGrid, level_caps: Sequence[int],
 
 
 class SparseConvLayer(nn.Module):
-    """3x3x3 sparse conv (+ norm + act) over a precomputed rulebook; the
-    weight is ``[27, Cin, Cout]`` as in the JAX package."""
+    """Sparse conv (+ norm + act) over a precomputed rulebook; the weight is
+    ``[taps, Cin, Cout]`` as in the JAX package, which takes the tap count
+    from the table: 27 for a 3x3x3 conv, 3 for ``SparseEncoder``'s z-only
+    ``conv_out``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 act: str = "relu", use_norm: bool = True):
+                 act: str = "relu", use_norm: bool = True, taps: int = 27):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(27, in_channels, out_channels))
-        nn.init.normal_(self.weight, 0.0, (27 * in_channels) ** -0.5)
+        self.weight = nn.Parameter(torch.empty(taps, in_channels,
+                                               out_channels))
+        nn.init.normal_(self.weight, 0.0, (taps * in_channels) ** -0.5)
         self.MaskedBatchNorm_0 = (MaskedBatchNorm(out_channels) if use_norm
                                   else None)
         self.act = ACTIVATIONS[act]

@@ -11,7 +11,10 @@ The attention of every window bucket is ``ops/window_mha.py window_mha``:
 the JAX package's fused Pallas kernel's function (f32 logits of bf16 q and
 k, bf16 probabilities into AV) on every device, the hand-written kernel on
 the card and its plain twin on the CPU. ``use_pallas`` is accepted and
-ignored: the fused kernel is the only path of dot-product attention.
+ignored: the fused kernel is the only path of dot-product attention. JAX's
+switches between its Pallas kernel and its einsum path,
+``SST_TPU_FORCE_PALLAS`` and ``SST_TPU_NO_PALLAS_MHA``, have no
+counterpart, on purpose: the port has one path and no kill switch.
 Cosine (Swin-v2) attention, ``cosine=True``, takes the JAX package's
 einsum path in torch ops, as JAX never sends it to its Pallas kernel: q
 and k L2-normalised in float32 and cast to bf16, bf16 logits divided by

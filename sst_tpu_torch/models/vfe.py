@@ -1,11 +1,14 @@
-"""Dynamic voxel feature encoder (counterpart of ``sst_tpu/models/vfe.py``).
+"""Voxel feature encoders (counterpart of ``sst_tpu/models/vfe.py``): the
+dynamic ``DynamicVFE`` and ``DynamicPillarFeatureNet``, and over hard
+voxels ([V, T, C] from ``ops/voxelize.py hard_voxelize``) ``HardSimpleVFE``
+and PointPillars' ``PillarFeatureNet``.
 
-Per-point decoration (cluster-centre and voxel-centre offsets), then per
-layer: Linear + BN + ReLU, a per-voxel max (or mean) and a broadcast concat.
-With ``use_sorted_reduce=True`` and a sort-based voxel mapping
-(``vm.unique.order`` present), rows are gathered into voxel order once, the
-segments' row offsets are computed once, and every per-voxel reduction goes
-through the sorted segment reduce kernel over them
+``DynamicVFE``: per-point decoration (cluster-centre and voxel-centre
+offsets), then per layer: Linear + BN + ReLU, a per-voxel max (or mean)
+and a broadcast concat. With ``use_sorted_reduce=True`` and a sort-based
+voxel mapping (``vm.unique.order`` present), rows are gathered into voxel
+order once, the segments' row offsets are computed once, and every
+per-voxel reduction goes through the sorted segment reduce kernel over them
 (``ops/sorted_reduce.py``); otherwise the reductions are scatters
 (``ops/segment.py``). The decoration runs in float32 (the cluster-centre
 sum among it); its result is cast to the compute ``dtype``, so the layers'
@@ -165,3 +168,79 @@ class DynamicVFE(nn.Module):
         if extra_sum is not None:
             return out, aux
         return out
+
+
+class DynamicPillarFeatureNet(DynamicVFE):
+    """The dynamic PillarFeatureNet: :class:`DynamicVFE` over full-height
+    pillars (a ``voxel_size`` whose z extent covers the range), with its
+    sorted-reduce route where ``use_sorted_reduce`` is set."""
+
+
+class HardSimpleVFE(nn.Module):
+    """The mean of each hard voxel's points (no parameters): voxels [V, T,
+    C] and num_points [V] → [V, C]."""
+
+    def forward(self, voxels, num_points):
+        t = voxels.shape[1]
+        mask = (torch.arange(t, device=voxels.device)[None]
+                < num_points[:, None])
+        s = (voxels * mask[..., None]).sum(1)
+        return s / torch.clamp(num_points, min=1)[:, None]
+
+
+class PillarFeatureNet(nn.Module):
+    """PointPillars' PFN over hard voxels: per point the raw channels, the
+    offset from the pillar's mean and from its centre (and the range with
+    ``with_distance``); per layer a bias-free Dense, a MaskedBatchNorm over
+    the V*T rows with the point mask, ReLU times the mask, the max over the
+    pillar (a tie's gradient split evenly, as JAX's), and (but for the last
+    layer) the broadcast concat of the max. ``in_channels`` is the width of
+    the raw point rows. Returns [V, C]."""
+
+    def __init__(self, in_channels: int, feat_channels: Sequence[int] = (64,),
+                 with_distance: bool = False,
+                 voxel_size: tuple = (0.32, 0.32, 6.0),
+                 point_cloud_range: tuple = (-74.88, -74.88, -2, 74.88, 74.88,
+                                             4),
+                 dtype=torch.float32):
+        super().__init__()
+        self.feat_channels = tuple(feat_channels)
+        self.with_distance = with_distance
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.dtype = dtype
+        c = in_channels + 6 + int(with_distance)
+        for i, out in enumerate(self.feat_channels):
+            self.add_module(f"pfn_{i}", Dense(c, out, bias=False,
+                                              dtype=dtype))
+            self.add_module(f"pfn_bn_{i}", MaskedBatchNorm(out, dtype=dtype))
+            c = 2 * out
+        self.out_channels = self.feat_channels[-1]
+
+    def forward(self, voxels, num_points, coords, train: bool = False):
+        v, t, _ = voxels.shape
+        dev = voxels.device
+        mask = (torch.arange(t, device=dev)[None]
+                < num_points[:, None])[..., None]
+        xyz = voxels[..., :3]
+        mean = (xyz * mask).sum(1) / torch.clamp(num_points, min=1)[:, None]
+        cluster = (xyz - mean[:, None]) * mask
+        vs = torch.tensor(self.voxel_size, dtype=torch.float32, device=dev)
+        pcr = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32,
+                           device=dev)
+        centers = (coords[:, [3, 2, 1]].float() + 0.5) * vs + pcr
+        feats = [voxels, cluster, (xyz - centers[:, None]) * mask]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True)
+                         * mask)
+        x = torch.cat(feats, dim=-1).to(self.dtype)
+        flat_mask = mask.reshape(v * t)
+        for i, ch in enumerate(self.feat_channels):
+            x = getattr(self, f"pfn_{i}")(x)
+            x = getattr(self, f"pfn_bn_{i}")(
+                x.reshape(v * t, ch), flat_mask, train).reshape(v, t, ch)
+            x = torch.relu(x) * mask
+            pooled = x.amax(dim=1)
+            if i != len(self.feat_channels) - 1:
+                x = torch.cat([x, pooled[:, None].expand_as(x)], dim=-1) * mask
+        return pooled

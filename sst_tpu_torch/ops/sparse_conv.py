@@ -31,8 +31,15 @@ Not ported, because they exist only to feed or gate the TPU kernel:
 ``SST_TPU_NO_SPARSE_CONV_PALLAS`` switch (the VMEM weight limit, the 2**24
 plane limit of keys carried in f32 lanes, and the window bounds of the
 one-hot match matmul). On the GPU every sparse conv of a CUDA tensor runs
-the kernel. The canvas neighbour tables (``build_canvas``,
-``subm_/strided_/inverse_neighbor_table``) are not ported yet.
+the kernel.
+
+The canvas tables (``subm_neighbor_table``, ``strided_neighbor_table``,
+``inverse_neighbor_table``) are JAX's other route to the same ``[27, Vout]``
+tables, which SECOND's ``SparseEncoder`` takes (``models/middle_encoders.py``).
+JAX looks each tap up in a column canvas with a row gather and a one-hot
+select over z (a TPU workaround); here they are the rulebook's tables, from
+the sorted keys, and take no canvas. ``build_canvas`` is ported as JAX's
+function, for its callers; no table of the port reads it.
 """
 
 from __future__ import annotations
@@ -75,7 +82,8 @@ class SparseGrid:
 @dataclass
 class ConvPlan:
     """One conv's rulebook: ``nbr`` [K, Vout] int32 (Vin = missing), and the
-    conv's mode ('subm' | 'strided' | 'inverse'). Three caches, each built
+    conv's mode ('subm' | 'strided' | 'inverse', or 'zdown' for the 3-tap
+    z-only conv of ``models/middle_encoders.py``). Three caches, each built
     by the first conv over this plan that needs it: ``sched``, the kernel's
     row schedule of ``nbr``; ``nbr_t``, the transposed table
     (:func:`transpose_table`), and ``sched_t``, its schedule, for the input
@@ -141,12 +149,14 @@ def _floor_div(a: torch.Tensor, b) -> torch.Tensor:
 def downsample_grid(sg: SparseGrid, cap_out: int,
                     stride: Sequence[int] = (2, 2, 2),
                     padding: Sequence[int] = (1, 1, 1),
-                    kernel_size: int = 3) -> SparseGrid:
+                    kernel_size: int | Sequence[int] = 3) -> SparseGrid:
     """Active output sites of a strided sparse conv (spconv semantics: an
     output site exists iff any input site falls in its receptive field).
 
-    Each input site contributes to at most 2 output sites per dim for k=3;
-    the 8 candidates mark an occupancy canvas over the output grid, whose
+    ``kernel_size`` is one size or one per dim (z, y, x). Each input site
+    contributes to at most 2 output sites per dim where k <= 2s (k = 3,
+    s = 2; or k = s = 1, as SECOND's z-only ``conv_out``); the 8 candidates
+    mark an occupancy canvas over the output grid, whose
     prefix sum ranks the occupied cells in ascending key order. Ranks past
     ``cap_out`` are dropped (JAX's ``mode="drop"``): they are written to one
     extra row that is sliced off."""
@@ -154,14 +164,18 @@ def downsample_grid(sg: SparseGrid, cap_out: int,
     nz, ny, nx = sg.grid
     s = torch.tensor(stride, dtype=torch.int32, device=dev)
     p = torch.tensor(padding, dtype=torch.int32, device=dev)
-    out_shape = tuple(int((d + 2 * pp - kernel_size) // ss + 1)
-                      for d, pp, ss in zip((nz, ny, nx), padding, stride))
+    ks = ((kernel_size,) * 3 if isinstance(kernel_size, int)
+          else tuple(kernel_size))
+    k = torch.tensor(ks, dtype=torch.int32, device=dev)
+    out_shape = tuple(int((d + 2 * pp - kk) // ss + 1)
+                      for d, pp, kk, ss in zip((nz, ny, nx), padding, ks,
+                                               stride))
     oz, oy, ox = out_shape
 
     zyx = sg.coords[:, 1:4]
     b = sg.coords[:, 0]
     # per dim: o in [ceil((i - k + 1 + p) / s), floor((i + p) / s)]
-    lo = -_floor_div(-(zyx - kernel_size + 1 + p), s)
+    lo = -_floor_div(-(zyx - k + 1 + p), s)
     hi = _floor_div(zyx + p, s)
     dims = torch.tensor((oz, oy, ox), dtype=torch.int32, device=dev)
     keys, oks = [], []
@@ -199,6 +213,51 @@ def downsample_grid(sg: SparseGrid, cap_out: int,
     return SparseGrid(keys=out_keys, coords=out_coords.to(torch.int32),
                       valid=out_valid, grid=out_shape,
                       batch_size=sg.batch_size)
+
+
+def build_canvas(sg: SparseGrid) -> torch.Tensor:
+    """Column canvas [B*ny*nx + 1, nz + 2] int32: row (b*ny + y)*nx + x,
+    column z + 1 holds the index of the site at (b, z, y, x), and ``cap``
+    every empty slot. The ghost columns 0 and nz + 1 and the trailing row
+    stay ``cap``, so a lookup one step outside the grid, or at a masked
+    cell, reads a missing neighbour. (JAX's canvas writes its padding sites
+    into the trailing row's first slot; no table reads it unmasked.)"""
+    nz, ny, nx = sg.grid
+    nzp = nz + 2
+    ncells = sg.batch_size * ny * nx
+    c = sg.coords.long()
+    pos = ((c[:, 0] * ny + c[:, 2]) * nx + c[:, 3]) * nzp + c[:, 1] + 1
+    size = (ncells + 1) * nzp
+    pos = torch.where(sg.valid, pos, size)
+    flat = torch.full((size + 1,), sg.cap, dtype=torch.int32,
+                      device=pos.device)
+    flat[pos] = torch.arange(sg.cap, dtype=torch.int32, device=pos.device)
+    return flat[:size].view(ncells + 1, nzp)
+
+
+def subm_neighbor_table(sg: SparseGrid) -> torch.Tensor:
+    """[27, V] int32 neighbour site indices of a submanifold 3x3x3 conv
+    (``cap`` = missing), taps in (dz, dy, dx) order: JAX's canvas table,
+    built from the sorted keys by :func:`build_conv_plans`."""
+    return build_conv_plans(sg, sg, "subm").nbr
+
+
+def strided_neighbor_table(out_sg: SparseGrid, in_sg: SparseGrid,
+                           stride=(2, 2, 2),
+                           padding=(1, 1, 1)) -> torch.Tensor:
+    """[27, Vout] input site indices of a strided 3x3x3 conv: tap k of
+    output o reads the input site at ``o * s - p + offs[k]``."""
+    return build_conv_plans(out_sg, in_sg, "strided", stride, padding).nbr
+
+
+def inverse_neighbor_table(out_sg: SparseGrid, down_sg: SparseGrid,
+                           stride=(2, 2, 2),
+                           padding=(1, 1, 1)) -> torch.Tensor:
+    """[27, Vout] table of the inverse conv back to ``out_sg`` (the level
+    before the downsample): tap k of output i reads the downsampled site o
+    with ``o * s - p + offs[k] == i``, where that o is integral."""
+    return build_conv_plans(out_sg, down_sg, "inverse", stride,
+                            padding).nbr
 
 
 def _full_targets(out_sg: SparseGrid, in_grid, mode: str, stride, padding):

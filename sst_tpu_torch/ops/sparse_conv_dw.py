@@ -162,7 +162,8 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
       nbr: [K, Vout] int32; tap k of output v read row ``nbr[k, v]``, and an
         index outside [0, Vin) read zeros.
       dout: [Vout, Cout] float32, the gradient of the conv's output.
-      mode: 'subm' | 'strided' | 'inverse'; only read by the launch count.
+      mode: 'subm' | 'strided' | 'inverse' | 'zdown'; only read by the
+        launch count.
       schedule: :func:`conv_schedule` of ``(nbr, Vin)`` (the forward's),
         built here when None; read only by the kernel (the twin needs none).
     Returns [K, Cin, Cout] float32.

@@ -36,7 +36,9 @@ import torch
 
 from sst_tpu_torch.utils import remat
 
-MODES = ("subm", "strided", "inverse")
+# the conv's kind, read only by the launch counts: "zdown" is SECOND's
+# z-only (3, 1, 1) conv_out, a 3-tap table
+MODES = ("subm", "strided", "inverse", "zdown")
 KINDS = ("forward", "dgrad")
 TILE_ROWS = 64  # output rows per tile of the kernel (kRows)
 MAX_TAPS = 32  # a tap mask is one 32-bit word
@@ -209,7 +211,8 @@ def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
       nbr: [K, Vout] int32; tap k of output v reads row ``nbr[k, v]``, and
         an index outside [0, Vin) reads zeros.
       weights: [K, Cin, Cout] float32.
-      mode: 'subm' | 'strided' | 'inverse'; only read by the launch count.
+      mode: 'subm' | 'strided' | 'inverse' | 'zdown'; only read by the
+        launch count.
       kind: 'forward' | 'dgrad'; only read by the launch count.
       schedule: :func:`conv_schedule` of ``(nbr, Vin)``, built here when
         None; read only by the kernel (the twin needs none).

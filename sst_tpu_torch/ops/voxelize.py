@@ -1,4 +1,5 @@
-"""Dynamic (uncapped) voxelization (counterpart of ``sst_tpu/ops/voxelize.py``).
+"""Dynamic (uncapped) and hard (capped) voxelization (counterpart of
+``sst_tpu/ops/voxelize.py``).
 
 A point cloud arrives as a padded [N, C] tensor (xyz first) with a batch
 index per point and a validity mask. Points outside ``point_cloud_range``
@@ -117,6 +118,35 @@ def delinearize_key(keys, grid: tuple, valid):
     b = r // nz
     coords = torch.stack([b, z, y, x], dim=-1).to(torch.int32)
     return torch.where(valid[:, None], coords, -1)
+
+
+def hard_voxelize(points, batch_idx, points_valid, point_cloud_range,
+                  voxel_size, max_voxels: int, max_points_per_voxel: int,
+                  batch_size: int):
+    """Hard voxelization: at most ``max_points_per_voxel`` (T) points per
+    voxel and ``max_voxels`` voxels. Returns (voxels [V, T, C], num_points
+    [V], coords [V, 4], voxel_valid [V]).
+
+    A point's slot is ``seg * T + rank``, its voxel's dense id and its rank
+    within the voxel from the stable sort of :func:`dynamic_voxelize`
+    (``need_ranks=True``): the first T points of a voxel in input order are
+    kept, on the card as on the CPU. Points of rank T and above, and of the
+    voxels past ``max_voxels`` (the highest keys), are dropped into one
+    extra row that is sliced off. ``num_points`` is the voxel's point
+    count capped at T."""
+    vm = dynamic_voxelize(points, batch_idx, points_valid, point_cloud_range,
+                          voxel_size, max_voxels, batch_size, need_ranks=True)
+    t = max_points_per_voxel
+    seg = vm.unique.seg_ids.long()
+    rank = vm.unique.ranks.long()
+    keep = vm.valid & (rank < t) & (seg < max_voxels)
+    slot = torch.where(keep, seg * t + rank, max_voxels * t)
+    c = points.shape[-1]
+    voxels = points.new_zeros((max_voxels * t + 1, c))
+    voxels[slot] = torch.where(keep[:, None], points, 0.0)
+    voxels = voxels[:-1].reshape(max_voxels, t, c)
+    num_points = torch.clamp(vm.unique.counts, max=t)
+    return voxels, num_points, vm.voxel_coords, vm.voxel_valid
 
 
 def dynamic_voxelize(points, batch_idx, points_valid, point_cloud_range,

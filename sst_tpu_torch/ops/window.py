@@ -11,8 +11,11 @@ per bucket, the slot -> row table ``inv_inds`` and the key padding mask
 
 JAX drops out-of-range ids in its ``mode="drop"`` scatters; torch raises on
 them, so each such scatter writes into one extra row that is sliced off.
-The JAX package's legacy scatter plan (``build_flat2win``,
-``drop_and_bucket``) is not on the port's path and has no counterpart.
+The JAX package's legacy plan is here too, off the SST path:
+``drop_and_bucket`` (a drop pass's keep mask and levels) and
+``build_flat2win`` (one sort per bucket). The plan it gives carries the
+same slot -> row tables and padding masks, so ``flat2window`` reads it as
+it reads ``finalize_flat2win``'s.
 """
 
 from __future__ import annotations
@@ -172,14 +175,50 @@ def finalize_flat2win(uniq: UniqueResult, coors_in_win: torch.Tensor,
         flat_inds = torch.where(ok, cw[seg] * b.max_tokens + uniq.ranks,
                                 flat_inds)
         out_valid = out_valid | ok
-    f2w = FlatToWindow(drop_lvl=torch.where(out_valid, drop_lvl, -1),
-                       flat_inds=flat_inds, valid=out_valid,
+    return _plan(drop_lvl, flat_inds, out_valid, coors_in_win, buckets)
+
+
+def _plan(drop_lvl, flat_inds, valid, coors_in_win, buckets) -> FlatToWindow:
+    """The plan of the seated voxels, with its slot -> row tables and
+    padding masks."""
+    n = flat_inds.shape[0]
+    f2w = FlatToWindow(drop_lvl=torch.where(valid, drop_lvl, -1),
+                       flat_inds=flat_inds, valid=valid,
                        coors_in_win=coors_in_win, buckets=tuple(buckets))
     inv = invert_flat_inds(f2w)
     f2w.inv_inds = tuple(inv)
     f2w.pads = tuple((iv == n).reshape(b.max_windows, b.max_tokens)
                      for iv, b in zip(inv, f2w.buckets))
     return f2w
+
+
+def drop_and_bucket(win_inds: torch.Tensor, valid: torch.Tensor,
+                    buckets: Sequence[BucketSpec], max_total_windows: int):
+    """One shift's drop pass without its sort: (keep, drop_lvl)."""
+    _, keep, lvl = drop_pass(win_inds, valid, buckets, max_total_windows)
+    return keep, lvl
+
+
+def build_flat2win(win_inds: torch.Tensor, coors_in_win: torch.Tensor,
+                   drop_lvl: torch.Tensor, valid: torch.Tensor,
+                   buckets: Sequence[BucketSpec]) -> FlatToWindow:
+    """The legacy plan: per bucket one sort of the window ids of its voxels,
+    which numbers the bucket's windows by ascending key (those past
+    ``max_windows`` dropped) and seats each voxel at ``window * max_tokens
+    + rank`` (ranks past ``max_tokens`` dropped)."""
+    n = win_inds.shape[0]
+    dev = win_inds.device
+    flat_inds = torch.full((n,), OOB, dtype=torch.int32, device=dev)
+    out_valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    for i, b in enumerate(buckets):
+        in_b = valid & (drop_lvl == i)
+        uniq = unique_segments(win_inds, in_b, b.max_windows)
+        ok = (in_b & (uniq.seg_ids < b.max_windows)
+              & (uniq.ranks < b.max_tokens))
+        flat_inds = torch.where(ok, uniq.seg_ids * b.max_tokens + uniq.ranks,
+                                flat_inds)
+        out_valid = out_valid | ok
+    return _plan(drop_lvl, flat_inds, out_valid, coors_in_win, buckets)
 
 
 def invert_flat_inds(f2w: FlatToWindow):

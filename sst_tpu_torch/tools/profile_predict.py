@@ -70,6 +70,13 @@ def stage_boundaries(model, name: str):
     """(stage name, module, "pre" | "post") for each stage that ends at a
     hook on a module's forward, in the order predict runs them; the stage
     after the last boundary ends with predict."""
+    if name == "pointpillars":
+        return [("voxelize", model.vfe_mod, "pre"),
+                ("PFN", model.vfe_mod, "post"),
+                ("scatter", model.backbone_mod, "pre"),
+                ("SECOND", model.backbone_mod, "post"),
+                ("FPN", model.neck_mod, "post"),
+                ("head", model.head_mod, "post")]
     if name == "sst":
         bb = model.backbone_mod
         return [("voxelize + VFE", model.vfe_mod, "post"),

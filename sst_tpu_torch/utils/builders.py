@@ -2,10 +2,9 @@
 ``_tuplify``, ``_convert_caps``, ``buckets_from_cfg`` and
 ``build_model_from_cfg``).
 
-Only the detector types the port has are registered: ``FSD``,
+Every detector type of the JAX registry is registered: ``FSD``,
 ``SingleStageFSD``, ``SingleStageFSDV2``, ``FSDV2``, ``DynamicVoxelNet``,
-``TwoStageFSDPP`` and ``TrackletDetector``. Any other ``type`` of the JAX
-registry raises ``NotImplementedError`` naming its ROADMAP queue item. The
+``TwoStageFSDPP``, ``TrackletDetector`` and ``PointPillars``. The
 JAX modules read the point width from their input; the port's take it at
 construction, so the builder does too (``num_point_features``), and it
 returns the model on ``device``.
@@ -33,11 +32,6 @@ import torch
 from sst_tpu_torch.ops.window import BucketSpec
 from sst_tpu_torch.utils.registry import MODELS
 
-# detector types of the JAX registry not yet ported, by ROADMAP queue 1 item
-UNPORTED_TYPES = {
-    "PointPillars": "ROADMAP queue 1 item 10 (PointPillars)",
-}
-
 # the point width a type reads where the caller gives none: the CTRL
 # tracklet rows carry a time lag after Waymo's five channels
 _POINT_WIDTH = {"TrackletDetector": 6}
@@ -50,13 +44,15 @@ def _register_ported() -> None:
     # imported here: the models import the ops that import this package
     from sst_tpu_torch.models import DynamicVoxelNet, SingleStageFSDV2
     from sst_tpu_torch.models.ctrl import TrackletDetector
+    from sst_tpu_torch.models.detectors.pointpillars import PointPillars
     from sst_tpu_torch.models.fsd.fsdpp import TwoStageFSDPP
     from sst_tpu_torch.models.fsd.fsdv2 import FSDV2
     from sst_tpu_torch.models.fsd.single_stage import SingleStageFSD
     from sst_tpu_torch.models.fsd.two_stage import FSD
 
     for cls in (FSD, SingleStageFSD, SingleStageFSDV2, FSDV2,
-                DynamicVoxelNet, TwoStageFSDPP, TrackletDetector):
+                DynamicVoxelNet, TwoStageFSDPP, TrackletDetector,
+                PointPillars):
         MODELS.register(cls)
 
 
@@ -127,9 +123,6 @@ def build_model_from_cfg(cfg: dict, train: bool = True,
     _register_ported()
     kwargs = _convert_caps(_tuplify(dict(cfg["model"])))
     t = kwargs.get("type")
-    if t in UNPORTED_TYPES:
-        raise NotImplementedError(f"model type {t!r} is not ported yet: "
-                                  f"{UNPORTED_TYPES[t]}")
     if isinstance(kwargs.get("dtype"), str):
         kwargs["dtype"] = _DTYPES[kwargs["dtype"]]
     cap = cfg.get("capacity", {})

@@ -51,6 +51,7 @@ from sst_tpu_torch.ops import sorted_reduce as sr
 from sst_tpu_torch.ops.segment import gather_segments, segment_reduce
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
 from test_torch_fsdv2_dense_train import _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BF16 = jnp.bfloat16
 ULP = 2.0**-7  # one bfloat16 ulp, relative, at the top of a binade

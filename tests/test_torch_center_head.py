@@ -36,6 +36,7 @@ from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.core import nms as tnms
 from sst_tpu_torch.models.heads import center_head as tch
 from sst_tpu_torch.models.heads.anchor3d import Anchor3DHead
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BOX_TOL, SCORE_TOL = 2e-5, 1e-6
 

@@ -54,6 +54,7 @@ from sst_tpu_torch.utils.builders import build_model_from_cfg
 from sst_tpu_torch.utils.config import load_config
 from test_torch_ctrl import seeded_port_variables
 from test_torch_sst import SCORE_TOL, _numpy_vars
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = os.path.join(ROOT, "configs/sst/sst_tiny_synthetic.py")
@@ -228,11 +229,13 @@ def _jax_log_keys() -> set:
     return set(out) | {"loss_total", "grad_norm", "step", "wall"}
 
 
-def test_train_and_test_clis_end_to_end(tmp_path, capsys):
+def test_train_and_test_clis_end_to_end(tmp_path, capsys, monkeypatch):
     """2 steps with in-train eval, a resume from ``ckpt_2`` to step 4 (the
     restored state equals the saved one bit for bit), then the test CLI on
     ``ckpt_4`` with ``--eval ap3d`` and ``--eval waymo``: finite losses,
-    JAX's JSON keys, JAX's printed lines."""
+    JAX's JSON keys, JAX's printed lines. TensorBoard is absent, as on the
+    card's machine (``tests/test_torch_tools.py`` covers its writer)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     wd = str(tmp_path / "wd")
     common = [TINY_CFG, "--synthetic", "--device", "cpu", "--work-dir", wd,
               "--log-interval", "1", "--ckpt-interval", "2"]
@@ -375,6 +378,7 @@ class _Blocked:
 
 
 sys.meta_path.insert(0, _Blocked())
+sys.modules["torch.utils.tensorboard"] = None  # absent on the card's machine
 cfg, wd = sys.argv[1:3]
 sys.argv = ["train", "--help"]
 try:
@@ -402,7 +406,8 @@ print(sorted(m for m in sys.modules
 
 def test_clis_import_nothing_of_jax(tmp_path):
     """In a process where ``jax``, ``flax`` and ``sst_tpu`` cannot be
-    imported, ``python -m sst_tpu_torch.tools.train --help`` prints the
+    imported (nor TensorBoard, as on the card's machine),
+    ``python -m sst_tpu_torch.tools.train --help`` prints the
     torchrun note, a two-step ``--device cpu`` run and the test CLI on
     its checkpoint complete, and the nuScenes / Argo2 / KITTI / Lyft data
     and evaluation modules import; no such module enters

@@ -4,9 +4,8 @@ package's.
 
 The sweep builds each file with ``utils/builders.py build_model_from_cfg(
 ..., device="cpu")`` at ``train=False`` and ``train=True``: every file
-builds but the one whose detector is still to port, which raises
-``NotImplementedError`` naming its ROADMAP queue 1 item (PointPillars,
-item 10).
+builds (PointPillars, the last detector type to port, since ROADMAP queue
+1 item 10), and the PointPillars file predicts at a cut range.
 
 The shape tests trace JAX's init of each grouped config, and of the
 CenterHead, weighted-NMS and SST-encoder configs, at full width with
@@ -19,7 +18,9 @@ import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 import sst_tpu.models  # noqa: F401  (fills the JAX registry)
 from sst_tpu.models.detectors.dynamic_voxelnet import PointBatch as JPB
@@ -28,14 +29,11 @@ from sst_tpu.utils.config import load_config as jload
 from sst_tpu_torch.convert import check_flax_shapes
 from sst_tpu_torch.utils.builders import build_model_from_cfg
 from sst_tpu_torch.utils.config import load_config
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
     os.path.join(ROOT, "configs", "*", "*.py")) if "_base_" not in p)
-# the files that raise, by the ROADMAP queue 1 item their message names
-RAISES = {
-    "configs/pointpillars/pointpillars_waymoD5_3class.py": "item 10",
-}
 NEWLY_BUILT = (
     "configs/argo2/argo_onestage_12e.py",
     "configs/argo2/argo_segmentation_pretrain.py",
@@ -47,6 +45,7 @@ NEWLY_BUILT = (
     "configs/fsd/fsd_waymoD1_1x_sst_encoder.py",
     "configs/sst/sst_waymoD1_2x_3class_centerhead.py",
     "configs/sst/sst_waymoD5_3class_centerhead.py",
+    "configs/pointpillars/pointpillars_waymoD5_3class.py",
 )
 GROUPED_CFGS = ("configs/fsdv2/fsdv2_nusc_1x.py",
                 "configs/fsdv2/fsdv2_argo_2x.py",
@@ -61,15 +60,37 @@ SST_HEAD_CFGS = ("configs/sst/sst_waymoD5_3class_centerhead.py",
 
 @pytest.mark.parametrize("train", [False, True])
 def test_every_config_builds_or_names_its_item(train):
-    assert set(RAISES) | set(NEWLY_BUILT) <= set(CONFIGS)
+    """Every file builds; none raises any more."""
+    assert set(NEWLY_BUILT) <= set(CONFIGS)
     for path in CONFIGS:
         cfg = load_config(os.path.join(ROOT, path))
-        if path in RAISES:
-            with pytest.raises(NotImplementedError, match=RAISES[path]):
-                build_model_from_cfg(cfg, train=train, device="cpu")
-            continue
         m = build_model_from_cfg(cfg, train=train, device="cpu")
         assert sum(p.numel() for p in m.parameters()) > 0, path
+
+
+def test_pointpillars_config_predicts_at_a_cut_range():
+    """``configs/pointpillars/pointpillars_waymoD5_3class.py`` at its full
+    widths (PFN 64, SECOND (64, 128, 256), FPN 128 x 3, 32,000 pillars of
+    20 points), its range and anchor ranges cut to +-16 m (100² pillars),
+    through ``apis.inference_detector``: finite boxes of the config's
+    ``max_num`` rows. ``chip_smoke.py`` phase 24 predicts it at 468²."""
+    from sst_tpu_torch.apis import inference_detector
+    from sst_tpu_torch.flagship import init_weights, synthetic_waymo_batch
+
+    cfg = load_config(os.path.join(
+        ROOT, "configs/pointpillars/pointpillars_waymoD5_3class.py"))
+    half = 16.0
+    model = cfg["model"]
+    model["point_cloud_range"] = (-half, -half, -2.0, half, half, 4.0)
+    model["head"]["anchor_ranges"] = tuple(
+        (-half, -half, z, half, half, z) for z in (-0.0345, -0.1188, 0.0))
+    m = init_weights(build_model_from_cfg(cfg, train=False, device="cpu"),
+                     torch.Generator().manual_seed(0)).eval()
+    assert type(m).__name__ == "PointPillars" and m.bev_shape == (100, 100)
+    frame = synthetic_waymo_batch(1, 8192, num_extra_feats=2, pcr_half=15.5)
+    out = inference_detector(m, frame.points[0])
+    assert out["boxes"].shape == (500, 7)
+    assert np.isfinite(out["boxes"]).all() and out["valid"].sum() > 0
 
 
 def test_grouped_and_multisweep_configs_build_their_options():

@@ -47,6 +47,7 @@ from sst_tpu_torch.utils.builders import (
 )
 from sst_tpu_torch.utils.config import load_config
 from test_torch_fsdv2_train import _leaves, _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL = 1e-5
@@ -73,10 +74,10 @@ def run_jitted(fns, *args):
 
 def seeded_port_variables(model: nn.Module, seed: int = 0) -> dict:
     """Seeded float32 variables of ``model``'s state in flax's tree and
-    layout (the inverse of ``load_flax_variables``): kernels normal with
-    variance 1/fan_in, biases normal(0, 0.1), LayerNorm and BatchNorm
-    scales uniform(0.5, 1.5), running means normal(0, 0.1) and variances
-    uniform(0.5, 1.5)."""
+    layout (the inverse of ``load_flax_variables``): kernels (dense, sparse
+    conv, conv and transposed conv) normal with variance 1/fan_in, biases
+    normal(0, 0.1), LayerNorm and BatchNorm scales uniform(0.5, 1.5),
+    running means normal(0, 0.1) and variances uniform(0.5, 1.5)."""
     rng = np.random.RandomState(seed)
     tree = {"params": {}, "batch_stats": {}}
     for key, value in model.state_dict().items():
@@ -89,9 +90,14 @@ def seeded_port_variables(model: nn.Module, seed: int = 0) -> dict:
                    else rng.uniform(0.5, 1.5, shape))
         elif leaf == "bias":
             coll, name, arr = "params", "bias", rng.randn(*shape) * 0.1
-        elif isinstance(mod, (nn.Linear, SparseConvLayer)):
+        elif isinstance(mod, (nn.Linear, SparseConvLayer, nn.Conv2d,
+                              nn.ConvTranspose2d)):
             if isinstance(mod, nn.Linear):
                 shape = shape[::-1]
+            elif isinstance(mod, nn.Conv2d):  # OIHW -> HWIO
+                shape = (shape[2], shape[3], shape[1], shape[0])
+            elif isinstance(mod, nn.ConvTranspose2d):  # IOHW -> HWIO
+                shape = (shape[2], shape[3], shape[0], shape[1])
             coll, name = "params", "kernel"
             arr = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
         else:  # LayerNorm and MaskedBatchNorm scales

@@ -33,6 +33,7 @@ from sst_tpu_torch.data import loader as tloader
 from sst_tpu_torch.data.pipelines import build_pipeline as tbuild
 from sst_tpu_torch.train import data_setup as tsetup
 from test_tracklet_dataset import ctrl_world  # noqa: F401 (fixture)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 PCR = (-8.0, -8.0, -2.0, 8.0, 8.0, 4.0)
 

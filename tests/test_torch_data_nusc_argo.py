@@ -33,6 +33,7 @@ from sst_tpu_torch.data.pipelines import build_pipeline as tbuild
 from sst_tpu_torch.train import data_setup as tsetup
 from test_av2_map import LOG_ID, TS, _write_fixture_log
 from test_torch_data import _assert_same_sample
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 PCR = (-20.0, -20.0, -3.0, 20.0, 20.0, 3.0)
 EVAL_TOL = 1e-6

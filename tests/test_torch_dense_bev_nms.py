@@ -20,8 +20,18 @@ from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.core.iou import boxes_iou_bev
 from sst_tpu_torch.core.nms import box3d_multiclass_nms
 from sst_tpu_torch.models import dense_bev as td
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BEV_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _reference(fm, arrays, *static):
+    """flax ``fm``'s variables (``_numpy_vars`` of its init) and its output
+    on ``arrays`` followed by the non-array arguments ``static``: the init
+    and the apply each jitted (run op by op they took seconds apiece)."""
+    v = _numpy_vars(jax.jit(lambda *a: fm.init(
+        jax.random.PRNGKey(0), *a, *static))(*arrays))
+    return v, jax.jit(lambda v, *a: fm.apply(v, *a, *static))(v, *arrays)
 
 
 def _numpy_vars(variables, seed=0):
@@ -65,10 +75,9 @@ def test_bev_scatter(z_groups, pre):
     feats = rng.randn(n, c).astype(np.float32)  # negatives: clamped to 0
     coords, valid = _voxels(n, b, nz, *hw, seed=1)
     fm = fd.BEVScatter(nz=nz, z_groups=z_groups, pre_channels=pre)
-    args = (jnp.asarray(feats), jnp.asarray(coords), jnp.asarray(valid), b,
-            hw)
-    v = _numpy_vars(fm.init(jax.random.PRNGKey(0), *args))
-    ref = np.asarray(fm.apply(v, *args))
+    v, ref = _reference(fm, (jnp.asarray(feats), jnp.asarray(coords),
+                             jnp.asarray(valid)), b, hw)
+    ref = np.asarray(ref)
     tm = load_flax_variables(td.BEVScatter(c, nz, z_groups, pre), v)
     with torch.no_grad():
         got = tm(torch.from_numpy(feats), torch.from_numpy(coords),
@@ -84,8 +93,7 @@ def test_dense_bev_unet():
     kw = dict(encoder_channels=((8, 8), (16, 16), (16, 16)),
               decoder_channels=(16, 8), out_channels=8)
     fm = fd.DenseBEVUNet(**kw)
-    v = _numpy_vars(fm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    ref_out, ref_maps = fm.apply(v, jnp.asarray(x))
+    v, (ref_out, ref_maps) = _reference(fm, (jnp.asarray(x),))
     tm = load_flax_variables(td.DenseBEVUNet(4, **kw), v)
     with torch.no_grad():
         out, maps = tm(torch.from_numpy(x))
@@ -104,9 +112,9 @@ def test_dense_voxel_decode(z_groups):
     coords, valid = _voxels(70, 2, nz, 6, 5, seed=2)
     fm = fd.DenseVoxelDecode(nz=nz, out_channels=8, z_groups=z_groups,
                              group_channels=gc)
-    args = (jnp.asarray(bev), jnp.asarray(coords), jnp.asarray(valid))
-    v = _numpy_vars(fm.init(jax.random.PRNGKey(0), *args))
-    ref = np.asarray(fm.apply(v, *args))
+    v, ref = _reference(fm, (jnp.asarray(bev), jnp.asarray(coords),
+                             jnp.asarray(valid)))
+    ref = np.asarray(ref)
     tm = load_flax_variables(td.DenseVoxelDecode(c, nz, 8, z_groups, gc), v)
     with torch.no_grad():
         got = tm(torch.from_numpy(bev), torch.from_numpy(coords),
@@ -122,10 +130,9 @@ def test_dense_bev_mixer():
     kw = dict(z_channels=4, output_channels=8,
               encoder_channels=((8, 8), (8, 8)), decoder_channels=(8,))
     fm = fd.DenseBEVMixer(nz=nz, **kw)
-    args = (jnp.asarray(feats), jnp.asarray(coords), jnp.asarray(valid), b,
-            hw)
-    v = _numpy_vars(fm.init(jax.random.PRNGKey(0), *args))
-    ref = np.asarray(fm.apply(v, *args))
+    v, ref = _reference(fm, (jnp.asarray(feats), jnp.asarray(coords),
+                             jnp.asarray(valid)), b, hw)
+    ref = np.asarray(ref)
     tm = load_flax_variables(td.DenseBEVMixer(c, nz, **kw), v)
     with torch.no_grad():
         got = tm(torch.from_numpy(feats), torch.from_numpy(coords),

@@ -44,6 +44,7 @@ from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.train.state import cosine_onecycle, make_optimizer
 from sst_tpu_torch.train.step import train_step
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BASE_LR, TOTAL_STEPS, WEIGHT_DECAY = 1e-5, 100, 0.05
 

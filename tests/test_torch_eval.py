@@ -12,6 +12,7 @@ from sst_tpu.core import evaluation as jev
 from sst_tpu_torch.core import eval_seg as tseg
 from sst_tpu_torch.core import eval_waymo as twaymo
 from sst_tpu_torch.core import evaluation as tev
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CLASSES = ["Car", "Pedestrian", "Cyclist"]
 

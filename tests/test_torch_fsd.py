@@ -37,6 +37,7 @@ from sst_tpu_torch.models.fsd.two_stage import FSD
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.utils.builders import build_model_from_cfg
 from sst_tpu_torch.utils.config import load_config
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 FSD_CFG = "configs/fsd/fsd_waymoD1_1x.py"
@@ -363,14 +364,23 @@ def test_dense_fsd_config_predicts_at_shrunken_caps():
 
 
 def test_builder_raises_on_types_not_ported():
-    """Since CTRL and the FSDV2 two stage build, PointPillars is the one
-    detector type of the JAX registry the port lacks."""
-    from sst_tpu_torch.utils.builders import UNPORTED_TYPES
+    """Since PointPillars builds, the port registers the detector type of
+    every config file; a type that no package registers raises, naming
+    the types the port has."""
+    import glob
+    import os
 
-    assert sorted(UNPORTED_TYPES) == ["PointPillars"]
-    cfg = {"model": {"type": "PointPillars"}}
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        build_model_from_cfg(cfg, device="cpu")
+    from sst_tpu_torch.utils.config import load_config
+    from sst_tpu_torch.utils.registry import MODELS
+
+    with pytest.raises(KeyError, match="NoSuchDetector.*PointPillars"):
+        build_model_from_cfg({"model": {"type": "NoSuchDetector"}},
+                             device="cpu")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    types = {load_config(p)["model"]["type"] for p in glob.glob(
+        os.path.join(root, "configs", "*", "*.py")) if "_base_" not in p}
+    assert "PointPillars" in types
+    assert types <= set(MODELS._modules)
 
 
 @pytest.mark.parametrize("kw, match", [

@@ -33,6 +33,7 @@ from sst_tpu_torch.models.fsd.two_stage import scatter_last_wins
 from sst_tpu_torch.ops import ccl
 from sst_tpu_torch.ops.ccl import compact_labels, connected_components
 from test_torch_fsd import seeded_variables
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 T = torch.from_numpy

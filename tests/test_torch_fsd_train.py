@@ -34,6 +34,7 @@ from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.models import PointBatch
 from test_torch_fsd import seeded_variables
 from test_torch_fsdv2_train import _leaves, _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4  # of each leaf's largest magnitude

@@ -41,6 +41,7 @@ from sst_tpu_torch.models.fsd.two_stage import scatter_last_wins
 from sst_tpu_torch.ops.segment import gather_segments
 from test_torch_fsd import seeded_variables
 from test_torch_fsdv2_train import _leaves, _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 GEO = dict(rtol=1e-6, atol=1e-6)
 T = torch.from_numpy

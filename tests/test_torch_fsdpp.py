@@ -49,6 +49,7 @@ from sst_tpu_torch.utils.config import load_config
 from test_torch_fsd import _everything as _fsd_everything
 from test_torch_fsd import seeded_variables
 from test_torch_fsdv2_train import _leaves, _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 FSDPP_CFGS = ("configs/fsdpp/fsdpp_waymo_2x.py",
@@ -74,10 +75,16 @@ def _batches(p=P):
 
 
 @pytest.fixture(scope="module")
-def predict_run():
+def jax_refs():
+    """The JAX references of :func:`predict_run` and :func:`loss_run`,
+    traced in turn and compiled together in threads (XLA compiles without
+    the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     jm = jflag.tiny_fsdpp()
-    jb, tb = _batches()
-    v = _variables(jm, jb)
+    lm = jm.clone(fp_rate=0.5, seed_drop_rate=0.3)
+    jb, _ = _batches()
+    v = _variables(jm, jb)  # the rates change no variable
 
     def everything(m, b):
         # what predict() and predict(skip_rcnn=True) compute, from one
@@ -86,8 +93,45 @@ def predict_run():
         out = _fsd_everything(m.fsd_mod, pb)
         return pb.points, pb.valid, overflow, out["pred"], out["rpn"]
 
-    jout = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda v, b: jm.apply(v, b, method=everything))(v, jb))
+    draws = []
+    uniform, normal = jax.random.uniform, jax.random.normal
+
+    def recording(fn):
+        def draw(*a, **k):
+            x = fn(*a, **k)
+            draws.append(x)
+            return x
+        return draw
+
+    def loss_fn(params, stats, b):
+        out, mut = lm.apply({"params": params, "batch_stats": stats}, b,
+                            True, method=lm.loss,
+                            rngs={"seeds": jax.random.PRNGKey(3)},
+                            mutable=["batch_stats"])
+        total = sum(x for k, x in out.items() if _is_loss(k))
+        return total, (out, mut["batch_stats"], list(draws))
+
+    pred = jax.jit(lambda v, b: jm.apply(v, b, method=everything)).lower(
+        v, jb)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", recording(uniform))
+        mp.setattr(jax.random, "normal", recording(normal))
+        loss = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(
+            v["params"], v["batch_stats"], jb)
+    with ThreadPoolExecutor(2) as pool:
+        pred, loss = pool.map(lambda low: low.compile(), (pred, loss))
+    (_, (jout, jstats, jdraws)), jgrads = loss(v["params"], v["batch_stats"],
+                                               jb)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    return dict(jm=jm, v=v, jb=jb, predict=to_np(pred(v, jb)),
+                loss=to_np(dict(out=jout, stats=jstats, grads=jgrads,
+                                draws=jdraws)))
+
+
+@pytest.fixture(scope="module")
+def predict_run(jax_refs):
+    jm, v, jb, jout = (jax_refs[k] for k in ("jm", "v", "jb", "predict"))
+    _, tb = _batches()
     tm = load_flax_variables(tflag.tiny_fsdpp(device="cpu"), v).eval()
     scg.reset_launch_counts()
     diag = {}
@@ -205,35 +249,9 @@ def _is_loss(k):
 
 
 @pytest.fixture(scope="module")
-def loss_run():
-    jm = jflag.tiny_fsdpp().clone(fp_rate=0.5, seed_drop_rate=0.3)
-    jb, tb = _batches()
-    v = _variables(jm, jb)
-    draws = []
-    uniform, normal = jax.random.uniform, jax.random.normal
-
-    def recording(fn):
-        def draw(*a, **k):
-            x = fn(*a, **k)
-            draws.append(x)
-            return x
-        return draw
-
-    def loss_fn(params, stats, b):
-        out, mut = jm.apply({"params": params, "batch_stats": stats}, b,
-                            True, method=jm.loss,
-                            rngs={"seeds": jax.random.PRNGKey(3)},
-                            mutable=["batch_stats"])
-        total = sum(x for k, x in out.items() if _is_loss(k))
-        return total, (out, mut["batch_stats"], list(draws))
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax.random, "uniform", recording(uniform))
-        mp.setattr(jax.random, "normal", recording(normal))
-        (_, (jout, jstats, jdraws)), jgrads = jax.jit(jax.value_and_grad(
-            loss_fn, has_aux=True))(v["params"], v["batch_stats"], jb)
-    ref = jax.tree_util.tree_map(np.asarray, dict(
-        out=jout, stats=jstats, grads=jgrads, draws=jdraws))
+def loss_run(jax_refs):
+    v, ref = jax_refs["v"], jax_refs["loss"]
+    _, tb = _batches()
     # JAX's order: the drop uniforms, the copy uniforms and shifts, then
     # the centre, size and yaw normals
     sd = SeedDraws(*(torch.from_numpy(np.array(d)) for d in ref["draws"]))

@@ -10,6 +10,8 @@ test first asserts that every such margin is at least 10x the measured
 seg-score difference between the two packages.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import numpy as np
 import pytest
@@ -19,6 +21,8 @@ from sst_tpu import flagship as jflag
 from sst_tpu_torch import flagship as tflag
 from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.ops import sorted_reduce as sr
+from test_torch_fsd import seeded_variables
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SORTED_SEGMENTOR = dict(voxel_size=(0.05, 0.05, 0.05), max_voxels=4096,
@@ -51,10 +55,19 @@ def _run_both(segmentor_overrides=None):
         jm = jm.clone(segmentor={**jm.segmentor, **segmentor_overrides})
     batch = tflag.synthetic_waymo_batch(1, 2048, pcr_half=3.8)
     jb = jflag.synthetic_waymo_batch(1, 2048, pcr_half=3.8)
-    v = _numpy_vars(jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b))(jb))
-    jpipe = jax.jit(lambda v, b: jm.apply(v, b, False,
-                                          method=jm.run_pipeline))(v, jb)
-    jpred = jax.jit(lambda v, b: jm.apply(v, b, method=jm.predict))(v, jb)
+    # the init, the pipeline and predict traced in turn (the last two on
+    # the init's shapes) and compiled together in threads
+    init = jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b)).lower(jb)
+    shapes = jax.eval_shape(lambda b: jm.init(jax.random.PRNGKey(0), b), jb)
+    pipe = jax.jit(lambda v, b: jm.apply(v, b, False, method=jm.run_pipeline)
+                   ).lower(shapes, jb)
+    pred = jax.jit(lambda v, b: jm.apply(v, b, method=jm.predict)).lower(
+        shapes, jb)
+    with ThreadPoolExecutor(3) as pool:
+        init, pipe, pred = pool.map(lambda low: low.compile(),
+                                    (init, pipe, pred))
+    v = _numpy_vars(init(jb))
+    jpipe, jpred = pipe(v, jb), pred(v, jb)
 
     tm = tflag.tiny_fsdv2_dense(segmentor_overrides=segmentor_overrides,
                                 device="cpu")
@@ -146,10 +159,12 @@ def test_synthetic_waymo_batch_bit_identical(kw):
 
 @pytest.fixture(scope="module")
 def tiny_vars():
+    """Seeded variables of the shapes tiny_fsdv2_dense's init makes (traced
+    by ``jax.eval_shape``, never compiled)."""
     jm = jflag.tiny_fsdv2_dense()
     jb = jflag.synthetic_waymo_batch(1, 256, pcr_half=3.8)
-    return _numpy_vars(jax.jit(lambda b: jm.init(jax.random.PRNGKey(0),
-                                                 b))(jb))
+    return seeded_variables(jax.eval_shape(
+        lambda: jm.init(jax.random.PRNGKey(0), jb)))
 
 
 def test_converter_loads_every_leaf(tiny_vars):

@@ -53,6 +53,7 @@ from sst_tpu_torch.ops.ccl import topk_compact
 from test_torch_bf16_modules import _close, _dtype_name, _exact_bf16, _np
 from test_torch_fsdv2_dense_train import _flax_variables, _torch_leaf
 from test_torch_fsdv2_train import FRAME, _leaves
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BF16 = jnp.bfloat16
 ULP = 2.0**-7

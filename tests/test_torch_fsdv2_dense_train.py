@@ -48,6 +48,7 @@ from sst_tpu_torch.train.state import make_optimizer
 from sst_tpu_torch.train.step import train_step
 from test_torch_fsdv2 import _assert_margins
 from test_torch_fsdv2_train import FRAME, _leaves, _pipeline_losses
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -250,8 +251,9 @@ def test_canvas_tied_max_gradient_matches_jax(name):
         fm = fd.BEVScatter(nz=nz, z_groups=g_n, pre_channels=pre)
         tm = td.BEVScatter(6, nz, g_n, pre)
     args = (jnp.asarray(coords), jnp.asarray(valid), b, hw)
-    v = jax.tree_util.tree_map(np.asarray, fm.init(
-        jax.random.PRNGKey(0), jnp.asarray(feats), *args))
+    # jitted: op by op, the mixer's init alone took ~10 s
+    v = jax.tree_util.tree_map(np.asarray, jax.jit(lambda x: fm.init(
+        jax.random.PRNGKey(0), x, *args))(jnp.asarray(feats)))
     v = {k: dict(x) for k, x in v.items()}
     if name == "scatter z1":  # x + z_embed keeps the zeros and the ties
         v["params"]["z_embed"] = np.zeros_like(v["params"]["z_embed"])

@@ -29,6 +29,7 @@ from test_torch_fsdv2 import (
     _edit,
     _numpy_vars,
 )
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _pipeline_and_predict(m, b):

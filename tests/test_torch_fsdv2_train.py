@@ -58,6 +58,7 @@ from sst_tpu_torch.train import schedules as tsched
 from sst_tpu_torch.train.state import cosine_onecycle, make_optimizer
 from sst_tpu_torch.train.step import train_step
 from test_torch_fsdv2 import _assert_margins
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 FRAME = dict(batch_size=1, num_points=2048, seed=2, num_extra_feats=0,
              pcr_half=3.8, num_objects=8, size_scale=0.5)

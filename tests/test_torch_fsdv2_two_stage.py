@@ -46,6 +46,7 @@ from sst_tpu_torch.utils.config import load_config
 from test_fsdv2 import tiny_fsdv2_two_stage
 from test_torch_ctrl import run_jitted, seeded_port_variables
 from test_torch_fsdv2_train import _leaves, _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL = 1e-5

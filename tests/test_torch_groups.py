@@ -55,6 +55,7 @@ from sst_tpu_torch.models.fsd.vote_segmentor import VoteSegmentor
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from test_torch_ctrl import seeded_port_variables
 from test_torch_fsdv2_train import _leaves, _torch_leaf
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL = 1e-5

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import pickle
 
 import numpy as np
@@ -38,6 +39,7 @@ from sst_tpu_torch import flagship as tflag
 from sst_tpu_torch.data import format_writers as fw
 from sst_tpu_torch.data import incremental_dataset as tinc
 from sst_tpu_torch.train import data_setup as tsetup
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SEED_TOL = dict(atol=4e-6, rtol=0)
 YAW_TOL = 2e-6
@@ -256,9 +258,14 @@ def _tiny_fsdpp_config(path, world) -> str:
     return str(path)
 
 
-def test_sequential_train_and_test_clis_on_cpu(world, tmp_path, capsys):
+def test_sequential_train_and_test_clis_on_cpu(world, tmp_path, capsys,
+                                               monkeypatch):
+    """TensorBoard is absent, as on the card's machine
+    (``tests/test_torch_tools.py`` covers the train CLI's writer)."""
     from sst_tpu_torch.tools import test as test_cli
     from sst_tpu_torch.tools import train as train_cli
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
     cfg = _tiny_fsdpp_config(tmp_path / "tiny_fsdpp.py", world)
     wd = str(tmp_path / "wd")

@@ -17,6 +17,7 @@ from sst_tpu_torch.ops import sparse_conv_dw as scd
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.ops.segment import unique_segments
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _cuda():
@@ -534,6 +535,101 @@ def test_sparse_conv_kernels_at_ctrl_shapes(ctrl_levels, mode, level, cin,
     assert _dw_close(dw, feats, plan.nbr, dout)
     assert got.abs().sum() > 0 and dw.abs().sum() > 0
     assert int(out_g.valid.sum()) > 0
+
+
+SECOND_SHAPE = (41, 1600, 1408)  # mmdet3d's SECOND KITTI sparse shape
+
+
+@pytest.fixture(scope="module")
+def second_tables():
+    """The neighbour tables of SECOND's ``SparseEncoder`` at its default caps
+    (level ratios 1, 0.75, 0.5, 0.35; paddings 1, 1 and (0, 1, 1)) over the
+    KITTI sparse shape: 24,000 seeded sites in clusters, each level's subm
+    and strided tables, and ``conv_out``'s 3-tap z-only table."""
+    from sst_tpu_torch.models.middle_encoders import zdown_grid_and_table
+
+    device = _cuda()
+    rng = np.random.RandomState(12)
+    n, cap = 32000, 24000
+    centres = rng.uniform((0, 0), (1408, 1600), (400, 2))
+    xy = np.floor(centres[rng.randint(0, 400, n)] + rng.randn(n, 2) * 12)
+    xy = np.clip(xy, 0, (1407, 1599))
+    z = rng.randint(4, 37, n)
+    coords = np.unique(np.stack([np.zeros(n), z, xy[:, 1], xy[:, 0]],
+                                1).astype(np.int32), axis=0)[:cap]
+    valid = torch.from_numpy(np.arange(cap) < len(coords))
+    coords = np.concatenate([coords, -np.ones((cap - len(coords), 4),
+                                              np.int32)])
+    grid, _ = tsc.make_sparse_grid(torch.from_numpy(coords).to(device),
+                                   valid.to(device), SECOND_SHAPE, 1)
+    tables = {"subm0": (grid, grid, tsc.subm_neighbor_table(grid))}
+    for i, (ratio, pad) in enumerate(zip((0.75, 0.5, 0.35), (
+            (1, 1, 1), (1, 1, 1), (0, 1, 1)))):
+        nxt = tsc.downsample_grid(grid, int(cap * ratio), (2, 2, 2), pad)
+        tables[f"strided{i + 1}"] = (nxt, grid, tsc.strided_neighbor_table(
+            nxt, grid, (2, 2, 2), pad))
+        grid = nxt
+    tables["subm3"] = (grid, grid, tsc.subm_neighbor_table(grid))
+    out_g, znbr = zdown_grid_and_table(grid, grid.cap)
+    tables["zdown"] = (out_g, grid, znbr)
+    return tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode,cin,cout", [
+    ("subm0", "subm", 4, 16), ("strided1", "strided", 16, 32),
+    ("strided3", "strided", 64, 64), ("subm3", "subm", 64, 64),
+    ("zdown", "zdown", 64, 128)])
+def test_sparse_conv_kernels_at_second_encoder_shapes(second_tables, name,
+                                                      mode, cin, cout):
+    """SECOND's ``SparseEncoder`` tables (27 taps, and 3 for the z-only
+    ``conv_out``) at its narrow widths: the conv kernel, the input gradient
+    and the dW kernel, each within 1e-4 of its twin (dW on absolute
+    values), one launch each, dW of ``[taps, Cin, Cout]``; the outputs
+    that read an input site."""
+    out_g, in_g, nbr = second_tables[name]
+    taps = nbr.shape[0]
+    assert taps == (3 if mode == "zdown" else 27)
+    plan = tsc.ConvPlan(nbr=nbr, mode=mode)
+    dev = nbr.device
+    gen = torch.Generator(device=dev).manual_seed(40 + taps)
+    feats = torch.randn(in_g.cap, cin, generator=gen,
+                        device=dev) * in_g.valid[:, None]
+    w = torch.randn(taps, cin, cout, generator=gen, device=dev) / (
+        taps * cin) ** 0.5
+    dout = torch.randn(out_g.cap, cout, generator=gen,
+                       device=dev) * out_g.valid[:, None]
+    scg.reset_launch_counts()
+    scd.reset_launch_counts()
+    got = scg.sparse_conv_gemm(feats, nbr, w, mode,
+                               schedule=plan.schedule(in_g.cap))
+    nbr_t = plan.transposed(in_g.cap)
+    wt = w.transpose(1, 2).contiguous()
+    dfeats = scg.sparse_conv_gemm(dout, nbr_t, wt, mode, kind="dgrad",
+                                  schedule=plan.transposed_schedule(
+                                      in_g.cap))
+    dw = scd.sparse_conv_dw(feats, nbr, dout, mode,
+                            schedule=plan.schedule(in_g.cap))
+    torch.cuda.synchronize()
+    want = {(mode, cin, cout): 1}
+    want[mode, cout, cin] = want.get((mode, cout, cin), 0) + 1  # dgrad
+    assert scg.launch_counts == want
+    assert scd.launch_counts == {(mode, cin, cout): 1}
+    assert dw.shape == (taps, cin, cout)
+    torch.testing.assert_close(got, scg.sparse_conv_gemm_ref(
+        feats, nbr, w), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dfeats, scg.sparse_conv_gemm_ref(
+        dout, nbr_t, wt), rtol=1e-4, atol=1e-4)
+    assert _dw_close(dw, feats, nbr, dout)
+    assert got.abs().sum() > 0 and dw.abs().sum() > 0
+    hit = (nbr < in_g.cap).any(0)
+    if mode == "strided":
+        # JAX's strided taps read o * s - p + (-1, 0, 1), one voxel below
+        # the receptive field by which downsample_grid seats the outputs
+        # (o * s - p + (0, 1, 2)): some outputs read no input site
+        assert bool(hit.any()) and not bool((hit & ~out_g.valid).any())
+    else:  # a subm site reads itself; a zdown output exists by its inputs
+        assert torch.equal(hit, out_g.valid)
 
 
 def _dw_close(got, feats, nbr, dout):

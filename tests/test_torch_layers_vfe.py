@@ -20,6 +20,7 @@ from sst_tpu_torch.models import layers as tl
 from sst_tpu_torch.models.vfe import DynamicVFE
 from sst_tpu_torch.ops import sorted_reduce as sr
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

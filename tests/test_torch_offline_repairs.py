@@ -24,6 +24,7 @@ from sst_tpu_torch.core.waymo_bin import write_waymo_bin
 from sst_tpu_torch.data import format_writers as fw
 from sst_tpu_torch.data import incremental_dataset as tinc
 from sst_tpu_torch.tools.ctrl import generate_candidates
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 # float32 coordinates of points up to 20 m out are rounded by ~1e-6 m; a
 # point drawn next to a face may cross it by that much

@@ -38,6 +38,7 @@ from sst_tpu_torch.core import waymo_bin as twb
 from sst_tpu_torch.data import format_writers as fw
 from sst_tpu_torch.data import tracklet_dataset as ttds
 from test_torch_waymo_bin import ROOT, load_jax_script, run_jax_script
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BOX_TOL = dict(atol=2e-5, rtol=0)
 YAW_TOL = 2e-6
@@ -411,11 +412,14 @@ def test_jax_tracklet_pickle_loads_without_jax(world, tmp_path):
         ttds.load_tracklets(bad)
 
 
-def test_train_cli_trains_ctrl_on_the_tracklet_kind(world, tmp_path):
+def test_train_cli_trains_ctrl_on_the_tracklet_kind(world, tmp_path,
+                                                    monkeypatch):
     """F8: ``tools.train`` on the ``waymo_tracklet`` kind (the chain's
     tracklets, a small ``TrackletDetector`` config) trains; the dataset
     set-up read ``model.point_cloud_range``, which CTRL's model lacks, for
-    a pipeline the tracklet samples never run."""
+    a pipeline the tracklet samples never run. TensorBoard is absent, as on
+    the card's machine (``tests/test_torch_tools.py`` covers its writer)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     from sst_tpu_torch import flagship as tflag
     from sst_tpu_torch.tools import train as train_cli
     from sst_tpu_torch.tools.ctrl import extract_poses, generate_track_input

@@ -37,6 +37,7 @@ from sst_tpu_torch.ops.incremental import _voxel_keys
 from sst_tpu_torch.ops.segment import gather_rows, gather_segments
 from sst_tpu_torch.ops.voxelize import dynamic_voxelize
 from sst_tpu_torch.utils import remat
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", [(7,), (7, 3, 2), (7, 1, 4, 2)])

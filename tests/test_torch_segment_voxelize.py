@@ -14,6 +14,7 @@ from sst_tpu.ops import segment as jseg
 from sst_tpu.ops import voxelize as jvox
 from sst_tpu_torch.ops import segment as tseg
 from sst_tpu_torch.ops import voxelize as tvox
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-6)
 

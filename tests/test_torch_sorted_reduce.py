@@ -16,6 +16,7 @@ import torch
 from sst_tpu.ops.segment import unique_segments
 from sst_tpu.ops.sorted_reduce import sorted_segment_reduce as jax_sorted
 from sst_tpu_torch.ops import sorted_reduce as sr
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -16,6 +16,7 @@ from sst_tpu.ops import sparse_conv as jsc
 from sst_tpu.ops import sparse_conv_pallas as jscp
 from sst_tpu_torch.ops import sparse_conv as tsc
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 GRID = (8, 24, 24)
 

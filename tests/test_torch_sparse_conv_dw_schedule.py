@@ -27,6 +27,7 @@ import torch
 from sst_tpu.ops.sparse_conv import gather_gemm
 from sst_tpu_torch.ops import sparse_conv_dw as scd
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TILE = scg.TILE_ROWS
 STAGE = 32

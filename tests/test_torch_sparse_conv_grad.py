@@ -38,6 +38,7 @@ from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.utils import remat
 from test_torch_sparse_conv import _coords, _masked
 from test_torch_sparse_unet import CAPS, PADDINGS, STRIDES, UNET, _grids
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CIN, COUT = 16, 24
 

@@ -19,6 +19,7 @@ from sst_tpu_torch import flagship as tflag
 from sst_tpu_torch.models.sparse_unet import SparseConvLayer
 from sst_tpu_torch.ops import sparse_conv as tsc
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TILE = scg.TILE_ROWS
 

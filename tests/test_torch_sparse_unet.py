@@ -19,6 +19,7 @@ from sst_tpu.ops import sparse_conv as jsc
 from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.models import sparse_unet as tsu
 from sst_tpu_torch.ops import sparse_conv as tsc
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRID = (8, 24, 24)

@@ -67,6 +67,7 @@ from test_torch_bf16_modules import (
 from test_torch_fsdv2_bf16 import _bf16, _match, _xla_logistic
 from test_torch_fsdv2_dense_train import _flax_variables, _torch_leaf
 from test_torch_window import _plans
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BF16 = jnp.bfloat16
 TBF16 = torch.bfloat16
@@ -85,14 +86,15 @@ def _feats(n, c, seed):
 
 
 def _module_run(fm, tm, jargs, targs, post=lambda y: y, train_kw=None,
-                x_index=0, seed=0, compile_fn=_exact_bf16):
+                x_index=0, seed=0, compile_fn=_exact_bf16, grads_only=False):
     """Forward (inference) of flax ``fm`` and torch ``tm`` on the same
     seeded variables, and in train mode (``train_kw``: the flax call's
     extra keywords) the gradients of ``sum(f32(out) * g)`` with seeded
     float32 cotangents over every output, with respect to the parameters
     and argument ``x_index``. ``post`` maps the port's outputs to flax's
     layout; ``compile_fn`` compiles and runs JAX's functions. Returns (ref,
-    got, flax param grads, flax input grad, port input grad, tm)."""
+    got, flax param grads, flax input grad, port input grad, tm); with
+    ``grads_only`` only JAX's gradients (the rest None)."""
     v = _variables(fm, *jargs)
     x = jargs[x_index]
 
@@ -106,7 +108,8 @@ def _module_run(fm, tm, jargs, targs, post=lambda y: y, train_kw=None,
             return y
         return fm.apply({**v, "params": params}, *args)
 
-    ref = compile_fn(lambda p, x: apply(p, x, False), v["params"], x)
+    ref = None if grads_only else compile_fn(
+        lambda p, x: apply(p, x, False), v["params"], x)
     outs = jax.eval_shape(lambda p, x: jax.tree_util.tree_leaves(
         apply(p, x, True)), v["params"], x)
     rng = np.random.RandomState(seed)
@@ -117,6 +120,8 @@ def _module_run(fm, tm, jargs, targs, post=lambda y: y, train_kw=None,
             jax.tree_util.tree_leaves(apply(p, x, True)), gs))
 
     gp, gx = compile_fn(jax.grad(loss, argnums=(0, 1)), v["params"], x)
+    if grads_only:
+        return None, None, gp, gx, None, None
     tm = load_flax_variables(tm, v)
     with torch.no_grad():
         got = post(tm(*targs))
@@ -220,8 +225,8 @@ def test_sstv2_bf16(interpret, case):
         assert not hasattr(tm, "attached_conv_0")
         return
     _, _, gp2, gx2, _, _ = _module_run(
-        fm, tsst.SSTv2(dtype=TBF16, **kw), *args, post=post,
-        train_kw={"train": True}, compile_fn=_default_jit)
+        fm, None, *args, post=post, train_kw={"train": True},
+        compile_fn=_default_jit, grads_only=True)
     pairs = [(("input",), gx, gx2, gt)] + [
         (path, ref, ref2, torch.from_numpy(np.array(
             _torch_leaf(tm, path, grad=True))))
@@ -299,13 +304,70 @@ def _models():
 
 
 @pytest.fixture(scope="module")
-def predict_run():
-    tm, jm, v = _models()
+def jax_refs():
+    """JAX's predict, its loss's ``value_and_grad`` and the head's
+    cotangents (``loss_run``) of one set of variables: traced in turn, then
+    compiled together in threads as ``_exact_bf16`` compiles them (excess
+    precision off) and run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    _, jm, v = _models()
+    jb = jflag.tiny_batch()
+    perms = []
+    real_input_layer = jdvn.sst_input_layer
+
+    def recording_input_layer(*args, shuffle_rng=None, **kw):
+        if shuffle_rng is not None:
+            perms.append(jax.random.permutation(shuffle_rng,
+                                                args[0].shape[0]))
+        return real_input_layer(*args, shuffle_rng=shuffle_rng, **kw)
+
+    def predict(vv, b):
+        return jm.apply(vv, b), jm.apply(vv, b, method=jm.predict)
+
+    def loss_fn(params, stats, b):
+        out, mut = jm.apply(
+            {"params": params, "batch_stats": stats}, b, True,
+            method=jm.loss, rngs={"shuffle": jax.random.PRNGKey(3)},
+            mutable=["batch_stats"])
+        total = sum(x for k, x in out.items() if k.startswith("loss"))
+        return total, (out, mut["batch_stats"], perms[-1])
+
+    def head_cotangents(params, stats, b):
+        """JAX's bf16 cotangents at the head's outputs (the same loss as
+        a function of the predictions)."""
+        vv = {"params": params, "batch_stats": stats}
+        preds, _ = jm.apply(vv, b, True, mutable=["batch_stats"],
+                            rngs={"shuffle": jax.random.PRNGKey(3)})
+
+        def head_loss(p):
+            h, w = p["cls"].shape[1:3]
+            out = jm.apply(vv, p, method=lambda m, p: m.head_mod.loss(
+                p, m.head_mod.grid_anchors((h, w)), b.gt_boxes,
+                b.gt_labels, b.gt_valid))
+            return sum(x for k, x in out.items() if k.startswith("loss"))
+
+        return jax.grad(head_loss)(preds)
+
+    train_args = (v["params"], v["batch_stats"], jb)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SST_TPU_PALLAS_INTERPRET", "1")
-        jpreds, jdet = _exact_bf16(lambda vv, b: (
-            jm.apply(vv, b), jm.apply(vv, b, method=jm.predict)),
-            v, jflag.tiny_batch())
+        mp.setattr(jdvn, "sst_input_layer", recording_input_layer)
+        lowered = [jax.jit(predict).lower(v, jb),
+                   jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(
+                       *train_args),
+                   jax.jit(head_cotangents).lower(*train_args)]
+    with ThreadPoolExecutor(3) as pool:
+        predict, loss, cot = pool.map(lambda low: low.compile(
+            compiler_options={"xla_allow_excess_precision": False}), lowered)
+    return dict(predict=predict(v, jb), loss=loss(*train_args),
+                cot=cot(*train_args))
+
+
+@pytest.fixture(scope="module")
+def predict_run(jax_refs):
+    tm, _, _ = _models()
+    jpreds, jdet = jax_refs["predict"]
     batch = tflag.tiny_batch().to("cpu")
     tm.eval()
     wm.reset_launch_counts()
@@ -363,51 +425,10 @@ def test_tiny_sst_bf16_detections(predict_run):
 
 
 @pytest.fixture(scope="module")
-def loss_run():
-    tm, jm, v = _models()
-    perms = []
-    real_input_layer = jdvn.sst_input_layer
-
-    def recording_input_layer(*args, shuffle_rng=None, **kw):
-        if shuffle_rng is not None:
-            perms.append(jax.random.permutation(shuffle_rng,
-                                                args[0].shape[0]))
-        return real_input_layer(*args, shuffle_rng=shuffle_rng, **kw)
-
-    jb = jflag.tiny_batch()
-
-    def loss_fn(params, stats, b):
-        out, mut = jm.apply(
-            {"params": params, "batch_stats": stats}, b, True,
-            method=jm.loss, rngs={"shuffle": jax.random.PRNGKey(3)},
-            mutable=["batch_stats"])
-        total = sum(x for k, x in out.items() if k.startswith("loss"))
-        return total, (out, mut["batch_stats"], perms[-1])
-
-    def head_cotangents(params, stats, b):
-        """JAX's bf16 cotangents at the head's outputs (the same loss as
-        a function of the predictions)."""
-        vv = {"params": params, "batch_stats": stats}
-        preds, _ = jm.apply(vv, b, True, mutable=["batch_stats"],
-                            rngs={"shuffle": jax.random.PRNGKey(3)})
-
-        def head_loss(p):
-            h, w = p["cls"].shape[1:3]
-            out = jm.apply(vv, p, method=lambda m, p: m.head_mod.loss(
-                p, m.head_mod.grid_anchors((h, w)), b.gt_boxes,
-                b.gt_labels, b.gt_valid))
-            return sum(x for k, x in out.items() if k.startswith("loss"))
-
-        return jax.grad(head_loss)(preds)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SST_TPU_PALLAS_INTERPRET", "1")
-        mp.setattr(jdvn, "sst_input_layer", recording_input_layer)
-        (_, (jout, jstats, jperm)), jgrads = _exact_bf16(
-            jax.value_and_grad(loss_fn, has_aux=True), v["params"],
-            v["batch_stats"], jb)
-        jcot = _exact_bf16(head_cotangents, v["params"], v["batch_stats"],
-                           jb)
+def loss_run(jax_refs):
+    tm, _, _ = _models()
+    (_, (jout, jstats, jperm)), jgrads = jax_refs["loss"]
+    jcot = jax_refs["cot"]
     jperm = np.asarray(jperm)
     batch = tflag.tiny_batch().to("cpu")
     with pytest.MonkeyPatch.context() as mp:

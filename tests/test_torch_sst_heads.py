@@ -63,6 +63,7 @@ from sst_tpu_torch.ops import window_mha as wm
 from test_torch_bf16_modules import _exact_bf16
 from test_torch_fsdv2_dense_train import _flax_variables, _torch_leaf
 from test_torch_fsdv2_train import _leaves
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAP_TOL = dict(rtol=1e-2, atol=1e-2)
@@ -284,7 +285,8 @@ def test_cosine_window_attention_matches_jax(tau):
     g = rng.randn(n, 32).astype(np.float32)
     jl = jsst.WindowAttention(32, 4, cosine=True, non_shared_tau=non_shared,
                               tau_min=TAU_MIN)
-    v = jl.init(jax.random.PRNGKey(0), feat, jplan.pos[0], jplan.f2w[0])
+    v = jax.jit(jl.init)(jax.random.PRNGKey(0), feat, jplan.pos[0],
+                         jplan.f2w[0])
     params = jax.tree_util.tree_map(np.array, v["params"])
     params["tau"] = np.asarray(tau, np.float32)
 
@@ -325,19 +327,36 @@ def test_cosine_window_attention_matches_jax(tau):
 
 
 def test_wnms_config_predicts_at_full_width():
-    """``configs/sst/sst_waymoD5_car_wnms.py`` at full width on the CPU:
-    468² pillars, the whole 1.31 M-anchor grid decoded, the weighted NMS
-    per class; finite boxes of the config's ``max_num`` rows."""
+    """``configs/sst/sst_waymoD5_car_wnms.py`` on the CPU at its full widths
+    with its range and anchor ranges cut to +-20.48 m and its window caps
+    to the 144 windows that grid holds: 128² pillars, the whole
+    98,304-anchor grid decoded, the weighted NMS per class; finite boxes
+    of the config's ``max_num`` rows. Its full-width parameter
+    shapes are JAX's (``tests/test_torch_configs.py``), and
+    ``chip_smoke.py`` phase 23 predicts it at 468² on the card."""
     from sst_tpu_torch.utils.builders import build_model_from_cfg
     from sst_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(ROOT, "configs/sst/sst_waymoD5_car_wnms.py"))
     assert cfg["model"]["test_cfg"]["use_wnms"]
+    half = 20.48
+    model = cfg["model"]
+    model["point_cloud_range"] = (-half, -half) + tuple(
+        model["point_cloud_range"][2:3]) + (half, half) + tuple(
+        model["point_cloud_range"][5:])
+    model["head"]["anchor_ranges"] = tuple(
+        (-half, -half, r[2], half, half, r[5])
+        for r in model["head"]["anchor_ranges"])
+    windows = (-(-128 // 12) + 1) ** 2  # the 12x12 windows of 128², shifted
+    cfg["capacity"]["max_total_windows"] = windows
+    for rb in cfg["region_batching_test"]:
+        rb["max_windows"] = min(rb["max_windows"], windows)
     m = tflag.init_weights(build_model_from_cfg(cfg, train=False,
                                                 num_point_features=3,
                                                 device="cpu"),
                            torch.Generator().manual_seed(0)).eval()
     b = tflag.synthetic_waymo_batch(1, 3000, seed=0, pcr_half=20.0)
+    assert m.bev_shape == (128, 128)
     out = m.predict(b.to("cpu"))
     assert out["boxes"].shape == (1, 500, 7)
     assert torch.isfinite(out["boxes"]).all() and int(out["valid"].sum()) > 0

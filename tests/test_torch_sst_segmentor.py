@@ -33,6 +33,7 @@ from sst_tpu_torch.models.fsd import vote_segmentor as tvs
 from sst_tpu_torch.ops import window_mha as wm
 from test_torch_fsdv2_dense_train import _flax_variables, _torch_leaf
 from test_torch_fsdv2_train import _leaves
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 MAP_TOL = dict(rtol=1e-2, atol=1e-2)
 SEG = dict(voxel_size=(0.4, 0.4, 6.0),

@@ -64,6 +64,7 @@ from sst_tpu_torch.ops import window_mha as wm
 from test_torch_fsdv2_dense_train import _flax_variables, _torch_leaf
 from test_torch_fsdv2_train import _leaves
 from test_torch_window import _plans, mha_inputs
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture(scope="module")

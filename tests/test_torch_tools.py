@@ -23,6 +23,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs/sst/sst_tiny_synthetic.py")

@@ -21,6 +21,7 @@ from sst_tpu.data import tracklet_dataset as jds
 from sst_tpu_torch.core import tracklet as ttrk
 from sst_tpu_torch.data import tracklet_dataset as tds
 from test_tracklet_dataset import ctrl_world  # noqa: F401  (fixture)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 _FIELDS = ("points", "valid", "frame_inds", "trk_boxes", "trk_scores",
            "trk_valid", "labels", "gt_boxes", "gt_valid")

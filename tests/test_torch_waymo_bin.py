@@ -29,6 +29,7 @@ from sst_tpu_torch.data import datasets as tds
 from sst_tpu_torch.data import format_writers as fw
 from sst_tpu_torch.data import waymo_proto as twp
 from sst_tpu_torch.tools import create_submission as tsub
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("Car", "Pedestrian", "Cyclist", "Sign", "Unknown")

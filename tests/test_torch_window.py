@@ -27,6 +27,7 @@ from sst_tpu.ops.voxelize import dynamic_voxelize as j_voxelize
 from sst_tpu_torch.models import sst_input as tin
 from sst_tpu_torch.ops import window as twin
 from sst_tpu_torch.ops import window_mha as wm
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TINY = dict(window_shape=(4, 4), max_total_windows=128,
             buckets=((8, 0, 8, 64), (16, 8, 100000, 32)))
