@@ -312,12 +312,30 @@ Phases (each one that fails ends the run with a non-zero exit code):
               PointPillars grid on frame 0: its sum and max against their
               twin, timed beside ``torch.segment_reduce``, 2 launches and 1
               offsets launch.
+ 25. sparse bf16  the bfloat16 sparse builds. ``fsdv2_waymo(backbone=
+              "sparse", dtype=torch.bfloat16)`` with phase 7's seed-0
+              weights, nothing cut: the conv, input-gradient and dW bf16
+              routes against their twins on every conv's recorded bf16
+              input of frame 0 (a seeded bf16 output gradient), within one
+              bf16 ulp, timed beside the twin and the f32 kernel on the
+              same values, bounded at the bf16 tensor rate; edge cases at
+              27 and 3 taps with Cin 4 and 6; predict on the four frames
+              (58 bf16 conv launches per frame) beside the float32 build
+              with the same weights, latency in rotation; the train step
+              (phase 11's frames, remat, AdamW; 58 + 57 recompute + 58
+              input-gradient and 58 dW bf16 launches per step), step ms,
+              peak memory, idle share. Then at bf16: FSD from
+              ``fsd_waymoD1_1x.py`` (phase 14's votes and fills; predict
+              on 2 frames, one loss + backward), FSD++ predict on 2 frames,
+              a CTRL track and its 2-track step, and SECOND's
+              ``SparseEncoder`` forward and loss + backward (phase 24's
+              frame), each with launches held to the module, all bf16.
 
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
-with the training buckets; phases 14, 15, 17, 18, 19, 20, 21, 22, 23
-and 24 last. Phase 8 also measures the window MHA wrapper's host time with
+with the training buckets; phases 14, 15, 17, 18, 19, 20, 21, 22, 23,
+24 and 25 last. Phase 8 also measures the window MHA wrapper's host time with
 its entry point bound once and set on every call. TF32 is turned off for
 convolutions and matmuls, so every float32 comparison is in full
 float32. Kernel, twin and library times are device times: each
@@ -369,7 +387,7 @@ from sst_tpu_torch.ops import sparse_conv_dw as sdw
 from sst_tpu_torch.ops import sparse_conv_gemm as scg
 from sst_tpu_torch.ops import window_mha as wm
 from sst_tpu_torch.models.vfe import DynamicPillarFeatureNet, HardSimpleVFE
-from sst_tpu_torch.ops.sparse_conv import make_sparse_grid
+from sst_tpu_torch.ops.sparse_conv import ConvPlan, make_sparse_grid
 from sst_tpu_torch.ops.voxelize import (
     compute_voxel_coords,
     dynamic_voxelize,
@@ -3384,16 +3402,17 @@ CTRL_TRAIN_TOTAL_STEPS = 10000  # the one-cycle of the config's AdamW
 WRAPPER_HOST_US = {}  # the wrappers' host time per call, by _binding_host_us
 
 
-def _binding_host_us(name, call, mod, lib_name):
+def _binding_host_us(name, call, mod, lib_name, kernel_args=()):
     """The wrapper's host time per call (Python, checks, ctypes, launch;
     ``_host_ms`` over 50 calls) as it is, its ctypes entry point bound
     once, and with the entry point looked up and its ``argtypes`` and
     ``restype`` set before every call, as the wrapper did before;
     alternated (once, per call, per call, once), the smaller of each pair,
-    in microseconds."""
+    in microseconds. ``kernel_args`` select the entry point (the conv's
+    dtype)."""
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
-    fn = mod._kernel()
+    fn = mod._kernel(*kernel_args)
     symbol, argtypes = fn.__name__, list(fn.argtypes)
 
     def bound_per_call():
@@ -3617,7 +3636,7 @@ def phase_ctrl(device):
     binding = _binding_host_us(
         "sparse_conv_gemm", lambda: scg.sparse_conv_gemm(
             feats, cp.nbr, w, cp.mode, schedule=sched), scg,
-        "sparse_conv_gemm")
+        "sparse_conv_gemm", (feats.dtype,))
     del calls, widest, feats
 
     fill = _ctrl_voxel_fill(model, tracks[0])
@@ -5999,6 +6018,588 @@ def phase_pointpillars(device) -> dict:
             "dynamic_pillars": pillars, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 25
+
+BF16_N_TIMED = 6  # predicts timed per dtype, in rotation
+BF16_FAMILY_FRAMES = 2  # frames of FSD and FSD++ at bf16
+
+
+def _bf16_route_close(got, ref, absref):
+    """(largest |kernel - twin|, whether every value is within one bf16
+    ulp of the twin): ``|got - ref| <= 2^-7 |ref| + 2^-16 absref``, where
+    the twin computes in f32 from the same bf16 operands and rounds once,
+    and ``absref`` (the twin on absolute values) covers the f32 sums' order
+    where terms cancel."""
+    if got.dtype != torch.bfloat16 or got.shape != ref.shape:
+        fail(f"a bf16 route returned {got.dtype} {tuple(got.shape)}, the "
+             f"twin {ref.dtype} {tuple(ref.shape)}")
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    ok = bool((diff <= 2.0**-7 * r.abs() + 2.0**-16 * absref.float()).all())
+    return (diff.max().item() if diff.numel() else 0.0), ok
+
+
+def _bf16_counts():
+    """The conv and dW kernels' launches by kind, and how many of each ran
+    the bf16 route (keys ending in "bfloat16")."""
+    return {**scg.kind_counts, "dw": sdw.launches,
+            "conv bf16": sum(v for k, v in scg.launch_counts.items()
+                             if k[-1] == "bfloat16"),
+            "dw bf16": sum(v for k, v in sdw.launch_counts.items()
+                           if k[-1] == "bfloat16"),
+            **_sorted_reduce_counts()}
+
+
+def _bf16_rotation(fns, n):
+    """Median, min and max of ``n`` CUDA-event runs of each of ``fns``
+    (name: function of no argument), alternated a, b, b, a."""
+    names = list(fns)
+    runs = {k: [] for k in names}
+    order = (names + names[::-1]) * (-(-n // 2))
+    for k in order[:n * len(names)]:
+        runs[k].append(event_ms(fns[k]))
+    return {k: {"median": statistics.median(v), "min": min(v),
+                "max": max(v), "runs": v} for k, v in runs.items()}
+
+
+def _bf16_route_timings(feats, nbr, w32, dout, cp, vin):
+    """Check and time the three bf16 routes of one conv on its recorded
+    bf16 input: returns {kind: dict(err, ok, ms, plain_ms, f32_ms)}."""
+    mode = cp.mode
+    w = w32.bfloat16()
+    sched, nbr_t = cp.schedule(vin), cp.transposed(vin)
+    sched_t = cp.transposed_schedule(vin)
+    wt = w.transpose(1, 2).contiguous()
+    f32, d32, wt32 = feats.float(), dout.float(), w32.transpose(
+        1, 2).contiguous()
+    wb32, wtb32 = w.float(), wt.float()  # the bf16 values, widened
+    kinds = {
+        "conv": (lambda: scg.sparse_conv_gemm(feats, nbr, w, mode,
+                                              schedule=sched),
+                 lambda: scg.sparse_conv_gemm_ref(feats, nbr, w),
+                 lambda: scg.sparse_conv_gemm(f32, nbr, w32, mode,
+                                              schedule=sched),
+                 lambda: scg.sparse_conv_gemm_ref(f32.abs(), nbr,
+                                                  wb32.abs())),
+        "dgrad": (lambda: scg.sparse_conv_gemm(dout, nbr_t, wt, mode,
+                                               kind="dgrad",
+                                               schedule=sched_t),
+                  lambda: scg.sparse_conv_gemm_ref(dout, nbr_t, wt),
+                  lambda: scg.sparse_conv_gemm(d32, nbr_t, wt32, mode,
+                                               kind="dgrad",
+                                               schedule=sched_t),
+                  lambda: scg.sparse_conv_gemm_ref(d32.abs(), nbr_t,
+                                                   wtb32.abs())),
+        "dw": (lambda: sdw.sparse_conv_dw(feats, nbr, dout, mode,
+                                          schedule=sched),
+               lambda: sdw.sparse_conv_dw_ref(feats, nbr, dout),
+               lambda: sdw.sparse_conv_dw(f32, nbr, d32, mode,
+                                          schedule=sched),
+               lambda: sdw.sparse_conv_dw_ref(f32.abs(), nbr, d32.abs())),
+    }
+    out = {}
+    for kind, (kern, plain, kern32, absref) in kinds.items():
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+            fail(f"the bf16 {kind} route gave other bits on a second run")
+        err, ok = _bf16_route_close(got, plain(), absref())
+        del got, again
+        # plain, bf16, f32, f32, bf16, plain
+        runs = [cuda_ms(fn, 5, warmup=1) for fn in (
+            plain, kern, kern32, kern32, kern, plain)]
+        out[kind] = dict(err=err, ok=ok, ms=min(runs[1], runs[4]),
+                         f32_ms=min(runs[2], runs[3]),
+                         plain_ms=min(runs[0], runs[5]))
+    return out
+
+
+def _bf16_route_bounds(vin, vout, taps, cin, cout, hit):
+    """Each route's bound at bf16: bytes (bf16 rows and weights, int32
+    table entries, each once) over 3.35 TB/s against the useful products
+    over the bf16 tensor rate."""
+    flops = 2 * hit * taps * vout * cin * cout
+    return {
+        "conv": bound(2 * (vin * cin + taps * cin * cout + vout * cout)
+                      + 4 * taps * vout, flops, BF16_FLOP_PER_S),
+        "dgrad": bound(2 * (vout * cout + taps * cin * cout + vin * cin)
+                       + 4 * taps * vin, flops, BF16_FLOP_PER_S),
+        "dw": bound(2 * (vin * cin + vout * cout + taps * cin * cout)
+                    + 4 * taps * vout, flops, BF16_FLOP_PER_S)}
+
+
+def _bf16_kernels(model, frame, device):
+    """The bf16 routes at the flagship's own shapes: every conv of frame 0
+    (one case per distinct rulebook and widths), on its recorded bf16
+    input and the model's weights cast to bf16, with a seeded bf16 output
+    gradient; then edge cases. Returns (rows, per-frame and per-step sums,
+    largest errors by kind, the frame's conv count)."""
+    gen = torch.Generator(device=device).manual_seed(25)
+    calls = _record_sparse_convs(model, frame)
+    cases = {}
+    for name, vin, cp, wshape, feats, _ in calls:
+        key = (id(cp.nbr), wshape[1], wshape[2])
+        if key not in cases:
+            cases[key] = dict(name=name, cp=cp, vin=vin, feats=feats,
+                              convs=0)
+        cases[key]["convs"] += 1
+    print(f"sparse bf16 kernels: the conv, input-gradient and dW bf16 "
+          f"routes on the recorded bf16 inputs of frame 0 of "
+          f"fsdv2_waymo(backbone='sparse', dtype=torch.bfloat16): "
+          f"{len(calls)} convs, {len(cases)} distinct (table, Cin, Cout); "
+          f"times: bf16 kernel / twin / f32 kernel on the same values",
+          flush=True)
+    rows, errs = [], {"conv": 0.0, "dgrad": 0.0, "dw": 0.0}
+    for c in cases.values():
+        cp, vin, feats = c["cp"], c["vin"], c["feats"].contiguous()
+        if feats.dtype != torch.bfloat16:
+            fail(f"sparse bf16: {c['name']} took {feats.dtype} rows")
+        w32 = model.get_submodule(c["name"]).weight.detach()
+        taps, vout = cp.nbr.shape
+        cin, cout = w32.shape[1:]
+        dout = torch.randn(vout, cout, generator=gen,
+                           device=device).bfloat16()
+        res = _bf16_route_timings(feats, cp.nbr, w32, dout, cp, vin)
+        hit = _executed_shares(cp.nbr, vin, cp.schedule(vin))[0]
+        bounds = _bf16_route_bounds(vin, vout, taps, cin, cout, hit)
+        short = c["name"].replace("segmentor_mod.unet_mod.", "seg.") \
+            .replace("mixer_mod.", "mix.")
+        row = dict(conv=c["name"], convs_per_frame=c["convs"],
+                   mode=cp.mode, cin=cin, cout=cout, vin=vin, vout=vout,
+                   neighbour_share=hit)
+        for kind, r in res.items():
+            errs[kind] = max(errs[kind], r["err"])
+            row.update({f"{kind}_{k}": r[k] for k in ("ms", "plain_ms",
+                                                      "f32_ms")})
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bounds[kind]
+            row[f"{kind}_max_abs_err"] = r["err"]
+            if not r["ok"]:
+                fail(f"sparse bf16: the {kind} route disagrees with its "
+                     f"twin on {c['name']} (max abs err {r['err']:.3e})")
+        print(f"  {short:<40} {cp.mode:<8} {cin:>3}->{cout:<3} x{c['convs']}"
+              f" Vin={vin:<6} Vout={vout:<6} " + "; ".join(
+                  f"{k} {row[f'{k}_ms']:.4f}/{row[f'{k}_plain_ms']:.4f}/"
+                  f"{row[f'{k}_f32_ms']:.4f} ms (bound "
+                  f"{row[f'{k}_bound_ms']:.4f}, err "
+                  f"{row[f'{k}_max_abs_err']:.2e})" for k in res),
+              flush=True)
+        rows.append(row)
+    # edge cases: 27 and 3 taps, Cin 4 and 6 (the mma's k is 16, a
+    # 16-byte copy holds 8 channels), Cout off the tile
+    for taps, cin, cout, vin, vout in ((27, 4, 16, 1200, 1000),
+                                       (27, 6, 16, 1200, 1000),
+                                       (3, 6, 24, 700, 400),
+                                       (3, 64, 128, 700, 400),
+                                       (27, 40, 72, 1200, 1000)):
+        nbr = torch.randint(0, vin, (taps, vout), generator=gen,
+                            device=device, dtype=torch.int32)
+        drop = torch.rand(taps, vout, generator=gen, device=device) < 0.6
+        nbr = torch.where(drop, vin, nbr)
+        feats = torch.randn(vin, cin, generator=gen, device=device) \
+            .bfloat16()
+        w32 = torch.randn(taps, cin, cout, generator=gen, device=device) / (
+            taps * cin) ** 0.5
+        dout = torch.randn(vout, cout, generator=gen,
+                           device=device).bfloat16()
+        res = _bf16_route_timings(feats, nbr, w32, dout,
+                                  ConvPlan(nbr=nbr, mode="subm"), vin)
+        bad = [k for k, r in res.items() if not r["ok"]]
+        errs_txt = ", ".join(f"{k} {r['err']:.2e}" for k, r in res.items())
+        print(f"  edge: K={taps} {cin}->{cout} Vin={vin} Vout={vout}: max abs "
+              f"err {errs_txt} {'ok' if not bad else 'MISMATCH'}",
+              flush=True)
+        if bad:
+            fail(f"sparse bf16 edge case K={taps} {cin}->{cout}: {bad} "
+                 f"disagree with their twins")
+    sums = {f"{kind}_{k}": sum(r[f"{kind}_{k}"] * r["convs_per_frame"]
+                               for r in rows)
+            for kind in ("conv", "dgrad", "dw")
+            for k in ("ms", "plain_ms", "f32_ms", "bound_ms")}
+    print(f"sparse bf16 kernels: per frame (conv) and per step (input "
+          f"gradient, dW) over the {len(calls)} convs, ms: " + "; ".join(
+              f"{kind} bf16 {sums[f'{kind}_ms']:.3f}, twin "
+              f"{sums[f'{kind}_plain_ms']:.3f}, f32 kernel "
+              f"{sums[f'{kind}_f32_ms']:.3f}, bound "
+              f"{sums[f'{kind}_bound_ms']:.3f}"
+              for kind in ("conv", "dgrad", "dw")), flush=True)
+    return rows, sums, errs, len(calls)
+
+
+def _bf16_predict(model, f32_model, frames, n_convs):
+    """Predict the frames with the bf16 build from zero counts (58 bf16
+    conv launches, 3 sorted reduces and 1 offsets launch per frame), then
+    with the float32 build of the same weights (none bf16); latency of
+    both in rotation. Returns the record."""
+    results = {}
+    launches = {}
+    for name, m in (("bf16", model), ("f32", f32_model)):
+        reset_launch_counts()
+        per, res = [], []
+        for frame in frames:
+            before = _bf16_counts()
+            res.append(inference_detector(m, frame.points[0],
+                                          max_points=196608))
+            per.append({k: v - before.get(k, 0)
+                        for k, v in _bf16_counts().items()})
+        want = {"forward": n_convs,
+                "conv bf16": n_convs if name == "bf16" else 0,
+                "sorted_reduce": 3, "segment_offsets": 1}
+        for i, p in enumerate(per):
+            got = {k: p.get(k, 0) for k in want}
+            if got != want:
+                fail(f"sparse {name} predict frame {i}: launches {got}, "
+                     f"the modules give {want}")
+        launches[name] = {"sparse_conv_gemm": scg.launches,
+                          "sorted_reduce": sr.launches,
+                          "segment_offsets": sr.offsets_launches,
+                          "by_key": {"/".join(map(str, k)): v for k, v in
+                                     scg.launch_counts.items()}}
+        for s, r in enumerate(res):
+            if r["boxes"].shape != (model.test_cfg["max_num"], 7) or not (
+                    np.isfinite(r["boxes"]).all()
+                    and np.isfinite(r["scores"]).all()):
+                fail(f"sparse {name} frame {s}: outputs "
+                     f"{ {k: v.shape for k, v in r.items()} } or non-finite")
+        results[name] = res
+    shared = [(_matched_detections(a, b), int(a["valid"].sum()))
+              for a, b in zip(results["f32"], results["bf16"])]
+    lat = _bf16_rotation({
+        "bf16": lambda: inference_detector(model, frames[0].points[0],
+                                           max_points=196608),
+        "f32": lambda: inference_detector(f32_model, frames[0].points[0],
+                                          max_points=196608)},
+        BF16_N_TIMED)
+    trace = _trace([lambda: inference_detector(
+        model, frames[0].points[0], max_points=196608)] * 2,
+        "2 bf16 sparse predicts")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inference_detector(model, frames[0].points[0], max_points=196608)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"sparse bf16 predict: {len(frames)} frames each build; launches "
+          f"{launches}; valid boxes bf16 "
+          f"{[int(r['valid'].sum()) for r in results['bf16']]}, f32 "
+          f"{[int(r['valid'].sum()) for r in results['f32']]}; of the f32 "
+          f"build's detections the bf16 build shares (matched, valid) "
+          f"{shared}; latency (inference_detector, CUDA events, "
+          f"{BF16_N_TIMED} runs each in rotation, frame 0): bf16 median "
+          f"{lat['bf16']['median']:.2f} ms ({lat['bf16']['min']:.2f}-"
+          f"{lat['bf16']['max']:.2f}), f32 {lat['f32']['median']:.2f} ms "
+          f"({lat['f32']['min']:.2f}-{lat['f32']['max']:.2f}); peak memory "
+          f"of one bf16 predict {peak / 2**30:.3f} GiB", flush=True)
+    return {"launches": launches, "latency": lat, "shared": shared,
+            "trace": trace, "peak_bytes": peak}
+
+
+def _bf16_train(model, device, n_convs):
+    """Phase 11's train loop on the bf16 build: its frames, AdamW and
+    FSDDetectionSchedule's modes; launches per step held to the modules,
+    every conv and dW launch on the bf16 route; a trace of 2 steps."""
+    frames = [f.to(device) for f in _labeled_frames(4)]
+    opt = _adamw(model)
+    convs = [m for m in model.modules() if isinstance(m, SparseConvLayer)]
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    needs_dgrad = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: None if remat.recomputing()
+        else needs_dgrad.append(bool(args[0].requires_grad))) for m in convs]
+
+    def remove_hooks(i):
+        if i == 0:
+            for h in hooks:
+                h.remove()
+
+    reset_launch_counts()  # the bf16 train path's run starts here
+    steps, stage_ms, peak = _train_loop(model, opt, frames, _fsd_kws(),
+                                        _bf16_counts, remove_hooks)
+    dgrad = sum(needs_dgrad)
+    expected = {"forward": n_convs, "recompute": n_remat, "dgrad": dgrad,
+                "dw": n_convs, "conv bf16": n_convs + n_remat + dgrad,
+                "dw bf16": n_convs, "sorted_reduce": 3,
+                "segment_offsets": 1}
+    if len(needs_dgrad) != n_convs:
+        fail(f"sparse bf16 train: the hooks saw {len(needs_dgrad)} conv "
+             f"calls in a step, the model has {n_convs} convs")
+    _check_launches(steps, expected)
+    print(f"sparse bf16 train: fsdv2_waymo(backbone='sparse', "
+          f"dtype=torch.bfloat16), phase 11's frames, AdamW and modes; "
+          f"launches per step (the modules give {expected}): "
+          f"{steps[0]['launches']}", flush=True)
+    record = _print_train(steps, stage_ms, peak)
+    launches = {"sparse_conv_gemm": scg.launches,
+                "sparse_conv_dw": sdw.launches, "sorted_reduce": sr.launches,
+                "segment_offsets": sr.offsets_launches}
+    kw = _fsd_kws()[0]
+    trace = _trace([lambda: train_step(model, opt, frames[0], kw)] * 2,
+                   "2 bf16 sparse train steps")
+    return {**record, "launches": launches,
+            "launches_per_step": expected, "trace": trace,
+            "detection_step": steps[-1]["metrics"],
+            "detection_step_ms": steps[-1]["ms"]}
+
+
+def _held_bf16(what, want):
+    """The conv and dW launches since the last reset against ``want`` (by
+    kind and bf16 route), and no other kernel of ours."""
+    got = {k: _bf16_counts().get(k, 0) for k in want}
+    if got != want:
+        fail(f"{what}: launches {got}, the module gives {want}")
+    if wm.launches:
+        fail(f"{what}: {wm.launches} window MHA launches off its path")
+
+
+def _bf16_fsd(device):
+    """configs/fsd/fsd_waymoD1_1x.py at ``model.dtype="bfloat16"``:
+    phase 14's votes and fills, predict on 2 frames, then phase 15's train
+    settings and one ``pretrain=False`` loss + backward."""
+    cfg = load_config(FSD_CONFIG)
+    cfg["model"]["dtype"] = "bfloat16"
+    model = init_weights(build_model_from_cfg(cfg, train=True),
+                         torch.Generator().manual_seed(0)).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _frames(BF16_FAMILY_FRAMES)
+    _contract_votes(model)
+    _calibrate_fg(model, frames[0])
+    reset_launch_counts()
+    ms, res = [], []
+    for frame in frames:
+        box = {}
+        ms.append(event_ms(lambda f=frame: box.update(r=inference_detector(
+            model, f.points[0], model.max_points))))
+        res.append(box["r"])
+    _held_bf16("fsd bf16 predict", {"forward": n_convs * len(frames),
+                                    "conv bf16": n_convs * len(frames)})
+    for r in res:
+        if not (np.isfinite(r["boxes"]).all()
+                and np.isfinite(r["scores"]).all()):
+            fail("fsd bf16 predict: non-finite outputs")
+    valid = [int(r["valid"].sum()) for r in res]
+    lf = _labeled_frames(1)[0].to(device)
+    model.train()
+    schedule = schedule_from_cfg(cfg)
+    detect_kw = schedule(schedule.enable_after)
+    _train_vote_norms(model, lf)
+    with torch.no_grad(), _KeptRunningStats(model):
+        data = model.rpn.run_pipeline(lf, train=True)["data"]
+        _shift_fg_biases(model.rpn, data, detect_kw["thr_extra"])
+    del data
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_launch_counts()
+    box = {}
+
+    def loss_step():
+        model.zero_grad(set_to_none=True)
+        out = model.loss(lf, train=True, **detect_kw, generator=gen)
+        sum(v for k, v in out.items() if k.startswith("loss")).backward()
+        box["out"] = out
+
+    step_ms = event_ms(loss_step)
+    kinds = _bf16_counts()
+    dgrad = kinds.get("dgrad", 0)
+    _held_bf16("fsd bf16 loss + backward", {
+        "forward": n_convs, "recompute": kinds.get("recompute", 0),
+        "dgrad": dgrad, "dw": n_convs,
+        "conv bf16": n_convs + kinds.get("recompute", 0) + dgrad,
+        "dw bf16": n_convs})
+    losses = {k: float(v.detach()) for k, v in box["out"].items()}
+    if not all(np.isfinite(v) for v in losses.values()) or any(
+            p.grad is not None and not bool(torch.isfinite(p.grad).all())
+            for p in model.parameters()):
+        fail(f"fsd bf16 loss: non-finite losses or gradients {losses}")
+    print(f"fsd bf16: {FSD_CONFIG} at model.dtype='bfloat16', {n_convs} "
+          f"convs; predict (inference_detector, CUDA events) "
+          f"{[round(t, 2) for t in ms]} ms on {len(frames)} frames, valid "
+          f"boxes {valid}, {n_convs} bf16 conv launches per frame; one "
+          f"pretrain=False loss + backward {step_ms:.2f} ms, launches "
+          f"{ {k: kinds.get(k, 0) for k in ('forward', 'recompute', 'dgrad', 'dw', 'conv bf16', 'dw bf16')} }, "
+          f"losses {losses}", flush=True)
+    rec = {"predict_ms": ms, "valid": valid, "loss_backward_ms": step_ms,
+           "launches": {k: kinds.get(k, 0) for k in (
+               "forward", "recompute", "dgrad", "dw", "conv bf16",
+               "dw bf16")},
+           "predict_launches": n_convs * len(frames), "losses": losses}
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _bf16_fsdpp(device):
+    """configs/fsdpp/fsdpp_waymo_2x.py at ``model.dtype="bfloat16"``:
+    phase 17's vote and fg settings, predict on 2 frames."""
+    cfg = load_config(FSDPP_CONFIG)
+    cfg["model"]["dtype"] = "bfloat16"
+    model = init_weights(build_model_from_cfg(cfg, train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _fsdpp_frames(BF16_FAMILY_FRAMES, device)
+    _fsdpp_set_weights(model, frames[0], train=False)
+    reset_launch_counts()
+    ms, res = [], []
+    for frame in frames:
+        box = {}
+
+        def drive(f=frame):
+            with torch.inference_mode():
+                box["r"] = {k: v.cpu() for k, v in model.predict(f).items()}
+
+        ms.append(event_ms(drive))
+        res.append(box["r"])
+    _held_bf16("fsdpp bf16 predict", {"forward": n_convs * len(frames),
+                                      "conv bf16": n_convs * len(frames)})
+    for r in res:
+        if not all(bool(torch.isfinite(r[k].float()).all())
+                   for k in ("boxes", "scores")):
+            fail("fsdpp bf16 predict: non-finite outputs")
+    valid = [int(r["valid"].sum()) for r in res]
+    print(f"fsdpp bf16: {FSDPP_CONFIG} at model.dtype='bfloat16', "
+          f"{n_convs} convs; predict {[round(t, 2) for t in ms]} ms on "
+          f"{len(frames)} frames (CUDA events, results to the host), valid "
+          f"boxes {valid}, {n_convs} bf16 conv launches per frame",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"predict_ms": ms, "valid": valid,
+            "launches": n_convs * len(frames)}
+
+
+def _bf16_ctrl(device):
+    """configs/ctrl/ctrl_veh_24e.py at ``model.dtype="bfloat16"``: one
+    track's predict, then its train step on 2 tracks (one warm-up, one
+    timed)."""
+    cfg = load_config(CTRL_CONFIG)
+    cfg["model"]["dtype"] = "bfloat16"
+    model = init_weights(build_model_from_cfg(cfg, train=False),
+                         torch.Generator().manual_seed(0)).eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    track = _ctrl_tracks([0], device)
+    model.predict(track)  # warm-up
+    reset_launch_counts()
+    box = {}
+    predict_ms = event_ms(lambda: box.update(r={
+        k: v.cpu() for k, v in model.predict(track).items()}))
+    _held_bf16("ctrl bf16 predict", {"forward": n_convs,
+                                     "conv bf16": n_convs})
+    res = box["r"]
+    if not all(bool(torch.isfinite(res[k].float()).all())
+               for k in ("boxes", "scores")):
+        fail("ctrl bf16 predict: non-finite outputs")
+    batch = _ctrl_tracks([0, 1], device, noisy_gt=True)
+    model.train()
+    opt = optimizer_from_cfg(model, cfg, CTRL_TRAIN_TOTAL_STEPS)
+    train_step(model, opt, batch, {})  # warm-up
+    reset_launch_counts()
+    out = {}
+    step_ms = event_ms(lambda: out.update(train_step(model, opt, batch, {})))
+    kinds = _bf16_counts()
+    _held_bf16("ctrl bf16 train step", {
+        "forward": n_convs, "dgrad": kinds.get("dgrad", 0), "dw": n_convs,
+        "conv bf16": n_convs + kinds.get("dgrad", 0), "dw bf16": n_convs})
+    metrics = _losses(out)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"ctrl bf16 train step: non-finite {metrics}")
+    print(f"ctrl bf16: {CTRL_CONFIG} at model.dtype='bfloat16', {n_convs} "
+          f"convs; predict of one track {predict_ms:.2f} ms (CUDA events, "
+          f"results to the host), {int(res['valid'].sum())} of 200 frames "
+          f"refined; train step on 2 tracks {step_ms:.2f} ms, launches "
+          f"{ {k: kinds.get(k, 0) for k in ('forward', 'dgrad', 'dw', 'conv bf16', 'dw bf16')} }, "
+          f"mean_roi_iou {metrics.get('mean_roi_iou', float('nan')):.4f}, "
+          f"grad_norm {metrics['grad_norm']:.4f}", flush=True)
+    del model, opt, batch, track
+    torch.cuda.empty_cache()
+    return {"predict_ms": predict_ms, "train_step_ms": step_ms,
+            "launches": {k: kinds.get(k, 0) for k in (
+                "forward", "dgrad", "dw", "conv bf16", "dw bf16")},
+            "predict_launches": n_convs, "metrics": metrics}
+
+
+def _bf16_encoder(device):
+    """SECOND's ``SparseEncoder(dtype=torch.bfloat16)`` on phase 24's
+    frame, its voxel rows in bf16 (as a bf16 VFE gives): a forward (12 bf16
+    conv launches) and one loss + backward (12 forward, 11 input gradient,
+    12 dW, all bf16)."""
+    torch.manual_seed(0)
+    enc = SparseEncoder(4, dtype=torch.bfloat16).to(device)
+    feats, sg, active = _second_input(device)
+    feats = feats.bfloat16()
+    gen = torch.Generator(device=device).manual_seed(8)
+    with torch.no_grad():
+        out = enc(feats, sg)
+    if out.dtype != torch.bfloat16 or out.shape != (1, 256, 200, 176) or \
+            not bool(torch.isfinite(out).all()):
+        fail(f"second encoder bf16: map {out.dtype} {tuple(out.shape)}")
+    g = torch.randn(out.shape, generator=gen, device=device)
+    reset_launch_counts()
+
+    def forward():
+        with torch.no_grad():
+            enc(feats, sg)
+
+    fwd_ms = event_ms(forward)
+    _held_bf16("second encoder bf16 forward", {"forward": 12,
+                                               "conv bf16": 12})
+    reset_launch_counts()
+
+    def loss_step():
+        enc.zero_grad(set_to_none=True)
+        (enc(feats, sg, train=True).float() * g).sum().backward()
+
+    step_ms = event_ms(loss_step)
+    _held_bf16("second encoder bf16 loss + backward", {
+        "forward": 12, "dgrad": 11, "dw": 12, "conv bf16": 23,
+        "dw bf16": 12})
+    if any(p.grad is None or p.grad.dtype != torch.float32
+           or not bool(torch.isfinite(p.grad).all())
+           for p in enc.parameters()):
+        fail("second encoder bf16: a missing, non-f32 or non-finite "
+             "gradient")
+    print(f"second encoder bf16: {active} voxels, forward {fwd_ms:.3f} ms, "
+          f"loss + backward {step_ms:.3f} ms (CUDA events); launches 12 "
+          f"forward, then 12 + 11 input gradient + 12 dW, all bf16",
+          flush=True)
+    del enc, feats, sg, out, g
+    torch.cuda.empty_cache()
+    return {"forward_ms": fwd_ms, "loss_backward_ms": step_ms,
+            "active_voxels": active,
+            "launches": {"forward": 12, "dgrad": 11, "dw": 12}}
+
+
+def phase_sparse_bf16(device) -> dict:
+    """Phase 25: the bf16 sparse builds. Returns the phase's record."""
+    t_phase = time.perf_counter()
+    model = init_weights(fsdv2_waymo(dtype=torch.bfloat16,
+                                     backbone="sparse"),
+                         torch.Generator().manual_seed(0)).eval()
+    f32_model = fsdv2_waymo(dtype=torch.float32, backbone="sparse")
+    f32_model.load_state_dict(model.state_dict())
+    f32_model.eval()
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _frames(4)
+    print(f"model: fsdv2_waymo(backbone='sparse', dtype=torch.bfloat16), "
+          f"phase 7's seed-0 weights (float32 parameters), {n_convs} sparse "
+          f"convs; and the float32 build of the same weights", flush=True)
+    rows, sums, errs, n_calls = _bf16_kernels(model, frames[0], device)
+    if n_calls != n_convs:
+        fail(f"sparse bf16: frame 0 ran {n_calls} convs, the model has "
+             f"{n_convs}")
+    predict = _bf16_predict(model, f32_model, frames, n_convs)
+    del f32_model
+    torch.cuda.empty_cache()
+    train = _bf16_train(model.train(), device, n_convs)
+    del model
+    torch.cuda.empty_cache()
+    rec = {"rows": rows, "per_frame": sums, "max_abs_err": errs,
+           "predict": predict, "train": train,
+           "fsd": _bf16_fsd(device), "fsdpp": _bf16_fsdpp(device),
+           "ctrl": _bf16_ctrl(device),
+           "second_encoder": _bf16_encoder(device)}
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"sparse bf16: phase 25 took {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -6182,6 +6783,10 @@ def main() -> None:
     pp = phase_pointpillars(device)
     pp["card"] = card
     enc, dyn = pp["second_encoder"], pp["dynamic_pillars"]
+    torch.cuda.empty_cache()
+    sb = phase_sparse_bf16(device)
+    sb["card"] = card
+    sb_pred, sb_train = sb["predict"]["launches"], sb["train"]["launches"]
     # phase 24's PointPillars runs, each counted from 0: no hand-written
     # kernel on their path (every count held at 0)
     pp_runs = ("pointpillars", "pointpillars_train_cli",
@@ -6247,7 +6852,16 @@ def main() -> None:
             # pillar VFE's sum and max share one offsets launch
             **{k: (0, 0) for k in pp_runs},
             "dynamic_pillars": (sum(dyn["launches"].values()),
-                                dyn["offsets_launches"])}
+                                dyn["offsets_launches"]),
+            # phase 25: the bf16 sparse build's predicts, the float32
+            # build's beside them and the bf16 train run; FSD, FSD++, CTRL
+            # and SECOND's encoder leave it off
+            "sparse_bf16": (sb_pred["bf16"]["sorted_reduce"],
+                            sb_pred["bf16"]["segment_offsets"]),
+            "sparse_bf16_f32_build": (sb_pred["f32"]["sorted_reduce"],
+                                      sb_pred["f32"]["segment_offsets"]),
+            "sparse_bf16_train": (sb_train["sorted_reduce"],
+                                  sb_train["segment_offsets"])}
     sr_launches = {k: v[0] for k, v in runs.items()}
     # the conv kernel's launches in each path's run, each counted from 0
     conv_by_path = {
@@ -6289,7 +6903,23 @@ def main() -> None:
         **{k: 0 for k in pp_runs},
         "second_encoder": sum(int(v) for v in enc["launches"][
             "forward"].values()),
-        "second_encoder_train": sum(enc["launches"]["train"].values())}
+        "second_encoder_train": sum(enc["launches"]["train"].values()),
+        # phase 25, each counted from 0: the bf16 sparse build's predicts
+        # (58 bf16 launches a frame) and the float32 build's beside them,
+        # its train run (forward, recompute, input gradient), FSD's
+        # predicts and loss, FSD++'s predicts, CTRL's track and step,
+        # SECOND's encoder forward and loss; all but the float32 build's
+        # on the bf16 route
+        "sparse_bf16": sb_pred["bf16"]["sparse_conv_gemm"],
+        "sparse_bf16_f32_build": sb_pred["f32"]["sparse_conv_gemm"],
+        "sparse_bf16_train": sb_train["sparse_conv_gemm"],
+        "fsd_bf16": sb["fsd"]["predict_launches"],
+        "fsd_bf16_loss": sb["fsd"]["launches"]["conv bf16"],
+        "fsdpp_bf16": sb["fsdpp"]["launches"],
+        "ctrl_bf16": sb["ctrl"]["predict_launches"],
+        "ctrl_bf16_train": sb["ctrl"]["launches"]["conv bf16"],
+        "second_encoder_bf16": 12,
+        "second_encoder_bf16_train": 23}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
@@ -6307,7 +6937,12 @@ def main() -> None:
                                           "offline_ctrl_train")},
         **{f"heads_{k}": 0 for k in head_runs},
         **{k: 0 for k in pp_runs},
-        "second_encoder_train": enc["launches"]["dw"]}
+        "second_encoder_train": enc["launches"]["dw"],
+        # phase 25: all on the bf16 route
+        "sparse_bf16_train": sb_train["sparse_conv_dw"],
+        "fsd_bf16_loss": sb["fsd"]["launches"]["dw bf16"],
+        "ctrl_bf16_train": sb["ctrl"]["launches"]["dw bf16"],
+        "second_encoder_bf16_train": 12}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -6388,7 +7023,9 @@ def main() -> None:
                            off_fsdpp["max_abs_err"], off_fsdpp["dgrad_err"],
                            off_seq["max_abs_err"], off_ctrl["max_abs_err"],
                            enc["conv_max_abs_err"],
-                           enc["dgrad_max_abs_err"]),
+                           enc["dgrad_max_abs_err"],
+                           sb["max_abs_err"]["conv"],
+                           sb["max_abs_err"]["dgrad"]),
         "dgrad_max_abs_err": max(dgrad_err, fsd_train["dgrad_err"],
                                  fsdpp_train["dgrad_err"],
                                  ctrl["train"]["dgrad_err"],
@@ -6494,6 +7131,20 @@ def main() -> None:
         "second_encoder_loss_dgrad_ms": enc["dw_step"]["dgrad_ms"],
         "second_encoder_loss_dgrad_plain_ms": enc["dw_step"][
             "dgrad_plain_ms"],
+        # the bf16 route (phase 25): per frame of the bf16 sparse build,
+        # each of its 58 convs on its recorded bf16 input of frame 0; the
+        # f32 kernel on the same values beside it; the bound at the bf16
+        # tensor rate; the input gradient per train step the same way
+        **{f"bf16_{k}_per_frame": sb["per_frame"][f"conv_{k}"]
+           for k in ("ms", "plain_ms", "f32_ms", "bound_ms")},
+        "bf16_bound_by": bound_by([dict(r, bound_by=r["conv_bound_by"],
+                                        bound_ms=r["conv_bound_ms"])
+                                   for r in sb["rows"]], "convs_per_frame"),
+        "bf16_max_abs_err": sb["max_abs_err"]["conv"],
+        **{f"bf16_dgrad_{k}_per_step": sb["per_frame"][f"dgrad_{k}"]
+           for k in ("ms", "plain_ms", "f32_ms", "bound_ms")},
+        "bf16_dgrad_max_abs_err": sb["max_abs_err"]["dgrad"],
+        "bf16_shapes": sb["rows"],
     }, {
         "name": "sparse_conv_dw",
         "route": "cuda",
@@ -6507,7 +7158,8 @@ def main() -> None:
                            fsdpp_train["dw_err"], ctrl["train"]["dw_err"],
                            fsdv2_ts["dw_err"],
                            *(groups[k]["dw_err"] for k in trained),
-                           off_fsdpp["dw_err"], enc["dw_max_abs_err"]),
+                           off_fsdpp["dw_err"], enc["dw_max_abs_err"],
+                           sb["max_abs_err"]["dw"]),
         # per train step: each of the 58 convs at the time of its rulebook
         # and widths (phase 10)
         "ms": dw_step["ms"],
@@ -6570,6 +7222,16 @@ def main() -> None:
            for k in ("ms", "plain_ms", "bound_ms")},
         "second_encoder_loss_bound_by": bound_by(enc.pop("dw_shapes"),
                                                  "convs_per_step"),
+        # the bf16 route (phase 25): per train step of the bf16 sparse
+        # build, each of its 58 convs' dW on frame 0's recorded bf16 input
+        # and a seeded bf16 output gradient; the f32 kernel on the same
+        # values; the bound at the bf16 tensor rate
+        **{f"bf16_{k}_per_step": sb["per_frame"][f"dw_{k}"]
+           for k in ("ms", "plain_ms", "f32_ms", "bound_ms")},
+        "bf16_bound_by": bound_by([dict(r, bound_by=r["dw_bound_by"],
+                                        bound_ms=r["dw_bound_ms"])
+                                   for r in sb["rows"]], "convs_per_frame"),
+        "bf16_max_abs_err": sb["max_abs_err"]["dw"],
     }, {
         "name": "window_mha",
         "route": "cuda",
@@ -6682,7 +7344,9 @@ def main() -> None:
         "fsd_sst": heads["fsd_sst"]["latency"]["median"],
         "benchmark_centerhead_p50": heads["tools"]["benchmark"][
             "p50_latency_ms"],
-        "pointpillars": pp["predict"]["latency"]["median"]},
+        "pointpillars": pp["predict"]["latency"]["median"],
+        "sparse_bf16": sb["predict"]["latency"]["bf16"]["median"],
+        "sparse_f32_beside_bf16": sb["predict"]["latency"]["f32"]["median"]},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -6701,6 +7365,7 @@ def main() -> None:
         "offline": offline,
         "sst_heads": heads,
         "pointpillars": pp,
+        "sparse_bf16": {k: v for k, v in sb.items() if k != "rows"},
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

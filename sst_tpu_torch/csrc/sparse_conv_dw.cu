@@ -1,5 +1,6 @@
 // Weight gradient of the sparse 3D convolution over a neighbour table, for
-// Hopper, on the tensor cores at f32 accuracy (3xTF32).
+// Hopper, on the tensor cores: f32 at f32 accuracy (3xTF32), and a bf16
+// route.
 //
 // Replaces the TPU kernel sst_tpu/ops/sparse_conv_pallas.py:_dw_kernel. That
 // kernel streamed the key-sorted input through VMEM per block of 128 output
@@ -60,16 +61,32 @@
 //     masked; widths that are not a multiple of 4 (or unaligned bases) take
 //     4-byte cp.async copies in the same kernel.
 //
+// The bf16 route (sst_sparse_conv_dw_bf16) computes the function of the TPU
+// kernel's bf16 path with _windowed_conv_bwd's rounding: bf16 feats and
+// dout, each product exact in f32, sums in f32, and dW rounded to bf16 once,
+// to nearest even, where it is written. It is the same kernel template over
+// bf16 elements (Route<__nv_bfloat16>): the tap lists, splits, tile
+// schedule and 2-stage ring are shared; a stage holds 32 rows of 64 bf16
+// channels of each operand (rows padded to 72 bf16), its products are one
+// mma.sync.m16n8k16 bf16 -> f32 per fragment (no hi/lo split), and each
+// stage's sums start from zero and are added with IEEE adds. Both operands'
+// fragments pair two rows, so they are packed from two 16-bit shared loads.
+// The split workspace stays f32; the last kernel (or the main one where
+// S = 1) rounds. bf16 widths that are not a multiple of 8 (or unaligned
+// bases) are staged by plain loads and stores in place of cp.async.
+//
 // Contract (checked by the Python wrapper sst_tpu_torch/ops/
-// sparse_conv_dw.py): feats [vin, cin] f32, nbr [taps, vout] int32, dout
-// [vout, cout] f32, perm [vout] int32 (a permutation of the output rows),
+// sparse_conv_dw.py): feats [vin, cin], nbr [taps, vout] int32, dout
+// [vout, cout], perm [vout] int32 (a permutation of the output rows),
 // tile_mask [T = ceil(vout / 64)] int32 (bit k set if a row of the tile has
 // a neighbour at tap k), lists [taps * T + taps] int32 (scratch),
 // workspace [splits, taps, cin, cout] f32 (unused when splits == 1) and dw
-// [taps, cin, cout] f32, all contiguous on the device of the stream;
-// ceil(T / splits) <= 512. Launches on the given stream and does not
-// synchronise. Returns cudaGetLastError() after the launches.
+// [taps, cin, cout]; feats, dout and dw all f32 (sst_sparse_conv_dw_f32) or
+// all bf16 (sst_sparse_conv_dw_bf16); all contiguous on the device of the
+// stream; ceil(T / splits) <= 512. Launches on the given stream and does
+// not synchronise. Returns cudaGetLastError() after the launches.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,7 +98,7 @@ constexpr int kTileC = 64;      // input channels per block (M)
 constexpr int kTileN = 64;      // output channels per block (N)
 constexpr int kThreads = 128;   // 4 warps of 32 x 32
 constexpr int kBlocksPerSm = 4; // bounds the registers at 128 a thread
-constexpr int kLd = kTileC + 8; // shared row: 72 floats
+constexpr int kLd = kTileC + 8; // shared row: 72 elements
 constexpr int kStage = kStageRows * kLd;
 constexpr int kMaxTaps = 32;
 constexpr int kMaxSplitTiles = 512;  // a split's share of a tap's tiles
@@ -136,6 +153,124 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// two bf16 values as one 32-bit mma operand, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// d += a * b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// What differs between the two routes: the elements a 16-byte copy moves,
+// how a ragged element is staged, and the products of one stage. A is
+// feats^T (A[channel][row], read transposed from the [row][channel] stage),
+// B the dout rows; the reduction runs over the stage's 32 rows.
+template <typename E>
+struct Route;
+
+template <>
+struct Route<float> {
+  static constexpr int kVec = 4;
+  // a 4-byte cp.async; zero-filled where !ok
+  __device__ static void stage_one(float* dst, const float* src,
+                                   const float* base, bool ok) {
+    cp_async4(dst, ok ? src : base, ok ? 4 : 0);
+  }
+  // 3xTF32 over m16n8k8: A fragments (channels g, g + 8; rows t, t + 4),
+  // B fragments (rows t, t + 4; channel g)
+  __device__ static void stage_mma(float (&part)[2][4][4], const float* a,
+                                   const float* b, int wm, int wn, int g,
+                                   int t) {
+#pragma unroll
+    for (int kk = 0; kk < kStageRows; kk += 8) {
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* ar = a + (kk + t) * kLd + wm + 16 * mi + g;
+        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
+        split_tf32(ar[8], a_hi[mi][1], a_lo[mi][1]);
+        split_tf32(ar[4 * kLd], a_hi[mi][2], a_lo[mi][2]);
+        split_tf32(ar[4 * kLd + 8], a_hi[mi][3], a_lo[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* br = b + (kk + t) * kLd + wn + 8 * ni + g;
+        split_tf32(br[0], b_hi[ni][0], b_lo[ni][0]);
+        split_tf32(br[4 * kLd], b_hi[ni][1], b_lo[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_tf32(part[mi][ni], a_lo[mi], b_hi[ni]);
+          mma_tf32(part[mi][ni], a_hi[mi], b_lo[ni]);
+          mma_tf32(part[mi][ni], a_hi[mi], b_hi[ni]);
+        }
+      }
+    }
+  }
+};
+
+template <>
+struct Route<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  // a plain load and store (cp.async moves 4 bytes or more); 0 where !ok
+  __device__ static void stage_one(__nv_bfloat16* dst,
+                                   const __nv_bfloat16* src,
+                                   const __nv_bfloat16*, bool ok) {
+    *dst = ok ? *src : __float2bfloat16(0.0f);
+  }
+  // one bf16 product over m16n8k16: A fragments (channels g, g + 8; row
+  // pairs 2t and 2t + 8), B fragments (row pairs 2t and 2t + 8; channel
+  // g), each pair packed from two 16-bit loads
+  __device__ static void stage_mma(float (&part)[2][4][4],
+                                   const __nv_bfloat16* a,
+                                   const __nv_bfloat16* b, int wm, int wn,
+                                   int g, int t) {
+#pragma unroll
+    for (int kk = 0; kk < kStageRows; kk += 16) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const __nv_bfloat16* ar = a + (kk + 2 * t) * kLd + wm + 16 * mi + g;
+        af[mi][0] = pack_bf16(ar[0], ar[kLd]);
+        af[mi][1] = pack_bf16(ar[8], ar[kLd + 8]);
+        af[mi][2] = pack_bf16(ar[8 * kLd], ar[9 * kLd]);
+        af[mi][3] = pack_bf16(ar[8 * kLd + 8], ar[9 * kLd + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const __nv_bfloat16* br = b + (kk + 2 * t) * kLd + wn + 8 * ni + g;
+        bf[ni][0] = pack_bf16(br[0], br[kLd]);
+        bf[ni][1] = pack_bf16(br[8 * kLd], br[9 * kLd]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_bf16(part[mi][ni], af[mi], bf[ni]);
+        }
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
+// the bf16 route's one rounding, to nearest even
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
 // The output rows of schedule tile `tile` into rows[0 .. 63]: one 4-byte
 // copy per row by threads 0 .. 63; rows past vout are zero-filled (and
 // masked again where they are read).
@@ -169,17 +304,19 @@ __device__ __forceinline__ void load_tile_src(int* src, const int* rows,
 // outside [0, vin)) and
 // b_s[r][nn] = dout[rows[r], n0 + nn] for r < 32 (src and rows offset to the
 // stage's half of the tile; v0 the stage's first schedule position).
+template <typename E>
 __device__ __forceinline__ void issue_stage(
-    float* a_s, float* b_s, const float* __restrict__ feats,
-    const float* __restrict__ dout, const int* rows, const int* src, int v0,
-    int c0, int n0, int vin, int vout, int cin, int cout, bool a_vec,
-    bool b_vec, int tid) {
+    E* a_s, E* b_s, const E* __restrict__ feats, const E* __restrict__ dout,
+    const int* rows, const int* src, int v0, int c0, int n0, int vin,
+    int vout, int cin, int cout, bool a_vec, bool b_vec, int tid) {
+  constexpr int kVec = Route<E>::kVec;
+  constexpr int kLanes = kTileC / kVec;  // 16-byte copies per stage row
   if (a_vec) {
 #pragma unroll
-    for (int i = 0; i < kStageRows * kTileC / 4 / kThreads; ++i) {
+    for (int i = 0; i < kStageRows * kLanes / kThreads; ++i) {
       const int q = tid + i * kThreads;
-      const int r = q >> 4;
-      const int cc = 4 * (q & 15);
+      const int r = q / kLanes;
+      const int cc = kVec * (q % kLanes);
       const int s = src[r];
       const int c = c0 + cc;
       const bool ok = s >= 0 && s < vin && c < cin;
@@ -196,17 +333,17 @@ __device__ __forceinline__ void issue_stage(
       const int s = src[r];
       const int c = c0 + cc;
       const bool ok = s >= 0 && s < vin && c < cin;
-      cp_async4(a_s + r * kLd + cc,
-                ok ? feats + static_cast<long long>(s) * cin + c : feats,
-                ok ? 4 : 0);
+      Route<E>::stage_one(a_s + r * kLd + cc,
+                          feats + static_cast<long long>(s) * cin + c, feats,
+                          ok);
     }
   }
   if (b_vec) {
 #pragma unroll
-    for (int i = 0; i < kStageRows * kTileN / 4 / kThreads; ++i) {
+    for (int i = 0; i < kStageRows * kLanes / kThreads; ++i) {
       const int q = tid + i * kThreads;
-      const int r = q >> 4;
-      const int nn = 4 * (q & 15);
+      const int r = q / kLanes;
+      const int nn = kVec * (q % kLanes);
       const int n = n0 + nn;
       const bool ok = v0 + r < vout && n < cout;
       cp_async16(b_s + r * kLd + nn,
@@ -222,10 +359,10 @@ __device__ __forceinline__ void issue_stage(
       const int nn = q & 63;
       const int n = n0 + nn;
       const bool ok = v0 + r < vout && n < cout;
-      cp_async4(b_s + r * kLd + nn,
-                ok ? dout + static_cast<long long>(rows[r]) * cout + n
-                   : dout,
-                ok ? 4 : 0);
+      Route<E>::stage_one(
+          b_s + r * kLd + nn,
+          dout + static_cast<long long>(ok ? rows[r] : 0) * cout + n, dout,
+          ok);
     }
   }
 }
@@ -266,18 +403,22 @@ tap_tile_lists_kernel(const unsigned* __restrict__ tile_mask, int n_sched,
   }
 }
 
+// The main kernel over elements E, writing T: the f32 partial tile of
+// split s (splits > 1), or where S = 1 dW itself (T = E, the bf16 route
+// rounding once).
+template <typename E, typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-sparse_conv_dw_kernel(const float* __restrict__ feats,
+sparse_conv_dw_kernel(const E* __restrict__ feats,
                       const int* __restrict__ nbr,
-                      const float* __restrict__ dout,
+                      const E* __restrict__ dout,
                       const int* __restrict__ perm,
                       const int* __restrict__ lists,
                       const int* __restrict__ counts,
-                      float* __restrict__ partial, int vin, int vout, int cin,
+                      T* __restrict__ partial, int vin, int vout, int cin,
                       int cout, int taps, int splits, bool a_vec,
                       bool b_vec) {
-  __shared__ __align__(16) float a_s[2][kStage];  // feats rows, per stage
-  __shared__ __align__(16) float b_s[2][kStage];  // dout rows, per stage
+  __shared__ __align__(16) E a_s[2][kStage];  // feats rows, per stage
+  __shared__ __align__(16) E b_s[2][kStage];  // dout rows, per stage
   __shared__ int rows_s[3][kTileRows];  // perm of three tiles in flight
   __shared__ int src_s[2][kTileRows];   // their neighbour rows at tap k
   __shared__ int list_s[kMaxSplitTiles];  // the split's tiles with bit k
@@ -338,9 +479,9 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    issue_stage(a_s[0], b_s[0], feats, dout, rows_s[0], src_s[0],
-                list_s[0] * kTileRows, c0, n0, vin, vout, cin, cout, a_vec,
-                b_vec, tid);
+    issue_stage<E>(a_s[0], b_s[0], feats, dout, rows_s[0], src_s[0],
+                   list_s[0] * kTileRows, c0, n0, vin, vout, cin, cout,
+                   a_vec, b_vec, tid);
     cp_async_commit();
   }
   for (int it = 0; it < n_iter; ++it) {
@@ -360,16 +501,14 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
     if (it + 1 < n_iter) {
       const int q = (it + 1) >> 1;
       const int h = (it + 1) & 1;
-      issue_stage(a_s[(it + 1) & 1], b_s[(it + 1) & 1], feats, dout,
-                  rows_s[q % 3] + h * kStageRows,
-                  src_s[q & 1] + h * kStageRows,
-                  list_s[q] * kTileRows + h * kStageRows, c0, n0, vin, vout,
-                  cin, cout, a_vec, b_vec, tid);
+      issue_stage<E>(a_s[(it + 1) & 1], b_s[(it + 1) & 1], feats, dout,
+                     rows_s[q % 3] + h * kStageRows,
+                     src_s[q & 1] + h * kStageRows,
+                     list_s[q] * kTileRows + h * kStageRows, c0, n0, vin,
+                     vout, cin, cout, a_vec, b_vec, tid);
     }
     cp_async_commit();
 
-    const float* a = a_s[it & 1];
-    const float* bb = b_s[it & 1];
     float part[2][4][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
@@ -381,36 +520,7 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
         }
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < kStageRows; kk += 8) {
-      // A = feats^T: A[channel][row], fragments (channels g, g + 8; rows t,
-      // t + 4) read from a[row][channel]; B = dout rows: (rows t, t + 4;
-      // channel g)
-      uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* ar = a + (kk + t) * kLd + wm + 16 * mi + g;
-        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
-        split_tf32(ar[8], a_hi[mi][1], a_lo[mi][1]);
-        split_tf32(ar[4 * kLd], a_hi[mi][2], a_lo[mi][2]);
-        split_tf32(ar[4 * kLd + 8], a_hi[mi][3], a_lo[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* br = bb + (kk + t) * kLd + wn + 8 * ni + g;
-        split_tf32(br[0], b_hi[ni][0], b_lo[ni][0]);
-        split_tf32(br[4 * kLd], b_hi[ni][1], b_lo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_tf32(part[mi][ni], a_lo[mi], b_hi[ni]);
-          mma_tf32(part[mi][ni], a_hi[mi], b_lo[ni]);
-          mma_tf32(part[mi][ni], a_hi[mi], b_hi[ni]);
-        }
-      }
-    }
+    Route<E>::stage_mma(part, a_s[it & 1], b_s[it & 1], wm, wn, g, t);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -424,10 +534,8 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
   }
 
   // c0, c1: channel g, outputs 2t, 2t + 1; c2, c3: channel g + 8
-  float* out = partial +
-               (static_cast<long long>(s) * taps + k) *
-                   static_cast<long long>(cin) * cout;
-  const bool pair = (cout & 1) == 0;
+  T* out = partial + (static_cast<long long>(s) * taps + k) *
+                         static_cast<long long>(cin) * cout;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -436,21 +544,15 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
       if (c >= cin) {
         continue;
       }
-      float* row = out + static_cast<long long>(c) * cout;
+      T* row = out + static_cast<long long>(c) * cout;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int n = n0 + wn + 8 * ni + 2 * t;
-        const float x = acc[mi][ni][2 * h];
-        const float y = acc[mi][ni][2 * h + 1];
-        if (pair && n + 1 < cout) {
-          *reinterpret_cast<float2*>(row + n) = make_float2(x, y);
-        } else {
-          if (n < cout) {
-            row[n] = x;
-          }
-          if (n + 1 < cout) {
-            row[n + 1] = y;
-          }
+        if (n < cout) {
+          store_out(row + n, acc[mi][ni][2 * h]);
+        }
+        if (n + 1 < cout) {
+          store_out(row + n + 1, acc[mi][ni][2 * h + 1]);
         }
       }
     }
@@ -458,8 +560,9 @@ sparse_conv_dw_kernel(const float* __restrict__ feats,
 }
 
 // dw[i] = sum over s of partial[s, i], in split order
+template <typename T>
 __global__ void __launch_bounds__(256)
-sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+sum_splits_kernel(const float* __restrict__ partial, T* __restrict__ dw,
                   long long n, int splits) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -469,18 +572,17 @@ sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ dw,
     for (int s = 0; s < splits; ++s) {
       sum += __ldg(partial + s * n + i);
     }
-    dw[i] = sum;
+    store_out(dw + i, sum);
   }
 }
 
-}  // namespace
-
-extern "C" int sst_sparse_conv_dw_f32(const void* feats, const void* nbr,
-                                      const void* dout, const void* perm,
-                                      const void* tile_mask, void* lists,
-                                      void* workspace, void* dw, int vin,
-                                      int vout, int cin, int cout, int taps,
-                                      int splits, void* stream) {
+// The tap lists, the main kernel over the splits and, where S > 1, the
+// split sum, for elements E (the launch checks done by the caller).
+template <typename E>
+int launch_dw(const void* feats, const void* nbr, const void* dout,
+              const void* perm, const void* tile_mask, void* lists,
+              void* workspace, void* dw, int vin, int vout, int cin,
+              int cout, int taps, int splits, void* stream) {
   const long long n_sched =
       (static_cast<long long>(vout) + kTileRows - 1) / kTileRows;
   if (vin < 0 || vout <= 0 || cin <= 0 || cout <= 0 || taps <= 0 ||
@@ -498,8 +600,9 @@ extern "C" int sst_sparse_conv_dw_f32(const void* feats, const void* nbr,
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
   };
-  const bool a_vec = cin % 4 == 0 && aligned(feats);
-  const bool b_vec = cout % 4 == 0 && aligned(dout);
+  constexpr int kVec = Route<E>::kVec;
+  const bool a_vec = cin % kVec == 0 && aligned(feats);
+  const bool b_vec = cout % kVec == 0 && aligned(dout);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* list_ptr = static_cast<int*>(lists);
   int* count_ptr = list_ptr + static_cast<long long>(taps) * n_sched;
@@ -510,17 +613,24 @@ extern "C" int sst_sparse_conv_dw_f32(const void* feats, const void* nbr,
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  float* partial = splits > 1 ? static_cast<float*>(workspace)
-                              : static_cast<float*>(dw);
   const dim3 grid(static_cast<unsigned int>(blocks),
                   static_cast<unsigned int>(splits));
-  sparse_conv_dw_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(feats), static_cast<const int*>(nbr),
-      static_cast<const float*>(dout), static_cast<const int*>(perm),
-      list_ptr, count_ptr, partial, vin, vout, cin, cout, taps, splits, a_vec,
-      b_vec);
+  const E* f = static_cast<const E*>(feats);
+  const E* d = static_cast<const E*>(dout);
+  if (splits == 1) {
+    sparse_conv_dw_kernel<E, E><<<grid, kThreads, 0, st>>>(
+        f, static_cast<const int*>(nbr), d, static_cast<const int*>(perm),
+        list_ptr, count_ptr, static_cast<E*>(dw), vin, vout, cin, cout,
+        taps, splits, a_vec, b_vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* partial = static_cast<float*>(workspace);
+  sparse_conv_dw_kernel<E, float><<<grid, kThreads, 0, st>>>(
+      f, static_cast<const int*>(nbr), d, static_cast<const int*>(perm),
+      list_ptr, count_ptr, partial, vin, vout, cin, cout, taps, splits,
+      a_vec, b_vec);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) {
+  if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
   const long long n = static_cast<long long>(taps) * cin * cout;
@@ -528,7 +638,31 @@ extern "C" int sst_sparse_conv_dw_f32(const void* feats, const void* nbr,
   if (sum_blocks > 132 * 16) {
     sum_blocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
   }
-  sum_splits_kernel<<<static_cast<unsigned int>(sum_blocks), 256, 0, st>>>(
-      partial, static_cast<float*>(dw), n, splits);
+  sum_splits_kernel<E><<<static_cast<unsigned int>(sum_blocks), 256, 0, st>>>(
+      partial, static_cast<E*>(dw), n, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int sst_sparse_conv_dw_f32(const void* feats, const void* nbr,
+                                      const void* dout, const void* perm,
+                                      const void* tile_mask, void* lists,
+                                      void* workspace, void* dw, int vin,
+                                      int vout, int cin, int cout, int taps,
+                                      int splits, void* stream) {
+  return launch_dw<float>(feats, nbr, dout, perm, tile_mask, lists,
+                          workspace, dw, vin, vout, cin, cout, taps, splits,
+                          stream);
+}
+
+extern "C" int sst_sparse_conv_dw_bf16(const void* feats, const void* nbr,
+                                       const void* dout, const void* perm,
+                                       const void* tile_mask, void* lists,
+                                       void* workspace, void* dw, int vin,
+                                       int vout, int cin, int cout, int taps,
+                                       int splits, void* stream) {
+  return launch_dw<__nv_bfloat16>(feats, nbr, dout, perm, tile_mask, lists,
+                                  workspace, dw, vin, vout, cin, cout, taps,
+                                  splits, stream);
 }

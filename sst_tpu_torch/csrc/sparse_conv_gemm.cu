@@ -1,5 +1,5 @@
 // Sparse 3D convolution over a neighbour table (rulebook), for Hopper, on
-// the tensor cores at f32 accuracy (3xTF32).
+// the tensor cores: f32 at f32 accuracy (3xTF32), and a bf16 route.
 //
 // Replaces the TPU kernel sst_tpu/ops/sparse_conv_pallas.py:_conv_kernel.
 // That kernel streamed, per block of 128 output rows, 9 (dz, dy) windows of
@@ -52,15 +52,36 @@
 //     cp.async copies in the same kernel; any K <= 32, Cin, Cout, vin and
 //     vout are taken, with the ragged edges masked.
 //
+// The bf16 route (sst_sparse_conv_gemm_bf16) computes the function of the
+// TPU kernel's bf16 path: bf16 feats and weights, each product exact in f32,
+// sums in f32 over every tap and channel, and the result rounded to bf16
+// once, to nearest even. It is the same kernel template over bf16 elements
+// (Route<__nv_bfloat16>): the tile schedule, the tile shape and the 2-stage
+// cp.async ring are shared, and only a stage differs:
+//   * the stage holds 32 bf16 channels (a 16-byte copy moves 8 of them),
+//     rows padded to 40 and 72 bf16 so fragment loads are free of bank
+//     conflicts; channels past Cin read zeros, which pads Cin to the mma's
+//     k of 16 (CTRL's and SECOND's 4-6 input channels take one zero-padded
+//     stage per tap);
+//   * one mma.sync.m16n8k16 bf16 -> f32 per fragment, no hi/lo split. What
+//     bounds it is still operations, now against the bf16 tensor rate
+//     (989 TFLOP/s), six times the 3xTF32 route's;
+//   * each stage's sums start from zero and are added to the f32
+//     accumulators with IEEE adds, as in the f32 route;
+//   * widths that are not a multiple of 8 (or unaligned bases) are staged
+//     by plain loads and stores in the same ring, in place of cp.async.
+//
 // Contract (checked by the Python wrapper sst_tpu_torch/ops/
-// sparse_conv_gemm.py): feats [vin, cin] f32, nbr [taps, vout] int32,
-// w [taps, cin, cout] f32, perm [vout] int32 (a permutation of the output
+// sparse_conv_gemm.py): feats [vin, cin], nbr [taps, vout] int32,
+// w [taps, cin, cout], perm [vout] int32 (a permutation of the output
 // rows), tile_mask [ceil(vout / 64)] int32 (bit k set if a row of the tile
-// has a neighbour at tap k) and out [vout, cout] f32, all contiguous on the
-// device of the stream; the wrapper's tile rows (TILE_ROWS) equal kRows.
-// Launches on the given stream and does not synchronise. Returns cudaGetLastError() after the
-// launch.
+// has a neighbour at tap k) and out [vout, cout], feats, w and out all f32
+// (sst_sparse_conv_gemm_f32) or all bf16 (sst_sparse_conv_gemm_bf16), all
+// contiguous on the device of the stream; the wrapper's tile rows
+// (TILE_ROWS) equal kRows. Launches on the given stream and does not
+// synchronise. Returns cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,16 +94,8 @@ constexpr int kStages = 2;
 constexpr int kBlocksPerSm = 4;  // bounds the registers at 128 a thread
 constexpr int kThreads = 128;  // 4 warps of 32 x 32
 constexpr int kMaxTaps = 32;
-constexpr int kALd = kDepth + 4;  // a_s row: 36 floats
-constexpr int kBLd = kCols + 8;   // b_s row: 72 floats
-constexpr int kAStage = kRows * kALd;
+constexpr int kBLd = kCols + 8;  // b_s row: 72 elements
 constexpr int kBStage = kDepth * kBLd;
-constexpr size_t kSmemBytes =
-    sizeof(float) * kStages * (kAStage + kBStage) +
-    sizeof(int) * (kMaxTaps * kRows + kRows);
-static_assert(kSmemBytes <= 48 * 1024,
-              "a block's dynamic shared memory above 48 KB needs "
-              "cudaFuncAttributeMaxDynamicSharedMemorySize");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -132,21 +145,162 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// two bf16 values as one 32-bit mma operand, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// d += a * b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// What differs between the two routes: the gathered rows' padding, the
+// elements a 16-byte copy moves, how a ragged element is staged, the
+// products of one stage (A the gathered rows a_s[row][channel], B the
+// weights b_s[channel][col]) and the stores of the result.
+template <typename E>
+struct Route;
+
+template <>
+struct Route<float> {
+  static constexpr int kVec = 4;
+  static constexpr int kALd = kDepth + 4;  // a_s row: 36 floats
+  // a 4-byte cp.async; zero-filled where !ok
+  __device__ static void stage_one(float* dst, const float* src,
+                                   const float* base, bool ok) {
+    cp_async4(dst, ok ? src : base, ok ? 4 : 0);
+  }
+  // 3xTF32 over m16n8k8: A fragments (rows g, g + 8; channels t, t + 4)
+  // and B fragments (channels t, t + 4; column g), split into TF32 hi and
+  // lo parts
+  __device__ static void stage_mma(float (&part)[2][4][4], const float* a,
+                                   const float* b, int wm, int wn, int g,
+                                   int t) {
+#pragma unroll
+    for (int kk = 0; kk < kDepth; kk += 8) {
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* ar = a + (wm + 16 * mi + g) * kALd + kk + t;
+        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
+        split_tf32(ar[8 * kALd], a_hi[mi][1], a_lo[mi][1]);
+        split_tf32(ar[4], a_hi[mi][2], a_lo[mi][2]);
+        split_tf32(ar[8 * kALd + 4], a_hi[mi][3], a_lo[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* br = b + (kk + t) * kBLd + wn + 8 * ni + g;
+        split_tf32(br[0], b_hi[ni][0], b_lo[ni][0]);
+        split_tf32(br[4 * kBLd], b_hi[ni][1], b_lo[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_tf32(part[mi][ni], a_lo[mi], b_hi[ni]);
+          mma_tf32(part[mi][ni], a_hi[mi], b_lo[ni]);
+          mma_tf32(part[mi][ni], a_hi[mi], b_hi[ni]);
+        }
+      }
+    }
+  }
+  __device__ static void store_pair(float* dst, float x, float y) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+  }
+  __device__ static void store_one(float* dst, float x) { *dst = x; }
+};
+
+template <>
+struct Route<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static constexpr int kALd = kDepth + 8;  // a_s row: 40 bf16 (80 bytes)
+  // a plain load and store (cp.async moves 4 bytes or more); 0 where !ok
+  __device__ static void stage_one(__nv_bfloat16* dst,
+                                   const __nv_bfloat16* src,
+                                   const __nv_bfloat16*, bool ok) {
+    *dst = ok ? *src : __float2bfloat16(0.0f);
+  }
+  // one bf16 product over m16n8k16: A fragments (rows g, g + 8; channel
+  // pairs 2t and 2t + 8, one 32-bit load each), B fragments (channel pairs
+  // 2t and 2t + 8; column g, packed from two 16-bit loads)
+  __device__ static void stage_mma(float (&part)[2][4][4],
+                                   const __nv_bfloat16* a,
+                                   const __nv_bfloat16* b, int wm, int wn,
+                                   int g, int t) {
+#pragma unroll
+    for (int kk = 0; kk < kDepth; kk += 16) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const __nv_bfloat16* ar = a + (wm + 16 * mi + g) * kALd + kk + 2 * t;
+        af[mi][0] = *reinterpret_cast<const uint32_t*>(ar);
+        af[mi][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kALd);
+        af[mi][2] = *reinterpret_cast<const uint32_t*>(ar + 8);
+        af[mi][3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kALd + 8);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const __nv_bfloat16* br = b + (kk + 2 * t) * kBLd + wn + 8 * ni + g;
+        bf[ni][0] = pack_bf16(br[0], br[kBLd]);
+        bf[ni][1] = pack_bf16(br[8 * kBLd], br[9 * kBLd]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_bf16(part[mi][ni], af[mi], bf[ni]);
+        }
+      }
+    }
+  }
+  // one rounding to bf16, to nearest even
+  __device__ static void store_pair(__nv_bfloat16* dst, float x, float y) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+  }
+  __device__ static void store_one(__nv_bfloat16* dst, float x) {
+    *dst = __float2bfloat16_rn(x);
+  }
+};
+
+template <typename E>
+constexpr size_t smem_bytes() {
+  return sizeof(E) * kStages * (kRows * Route<E>::kALd + kBStage) +
+         sizeof(int) * (kMaxTaps * kRows + kRows);
+}
+static_assert(smem_bytes<float>() <= 48 * 1024 &&
+                  smem_bytes<__nv_bfloat16>() <= 48 * 1024,
+              "a block's dynamic shared memory above 48 KB needs "
+              "cudaFuncAttributeMaxDynamicSharedMemorySize");
+
 // Stage (tap k, channels c0 .. c0 + kDepth) of the tile: the gathered rows
 // a_s[row][channel] and W[k, c0 + channel, n0 + col] as b_s[channel][col].
+template <typename E>
 __device__ __forceinline__ void issue_stage(
-    float* a_s, float* b_s, const float* __restrict__ feats,
-    const float* __restrict__ w, const int* idx, int k, int c0, int n0,
-    int vin, int cin, int cout, bool a_vec, bool b_vec, int tid) {
+    E* a_s, E* b_s, const E* __restrict__ feats, const E* __restrict__ w,
+    const int* idx, int k, int c0, int n0, int vin, int cin, int cout,
+    bool a_vec, bool b_vec, int tid) {
+  constexpr int kVec = Route<E>::kVec;
+  constexpr int kALd = Route<E>::kALd;
+  constexpr int kALanes = kDepth / kVec;  // 16-byte copies per a_s row
+  constexpr int kBLanes = kCols / kVec;   // and per b_s row
   if (a_vec) {
 #pragma unroll
-    for (int i = 0; i < kRows * kDepth / 4 / kThreads; ++i) {
+    for (int i = 0; i < kRows * kALanes / kThreads; ++i) {
       const int q = tid + i * kThreads;
-      const int r = q >> 3;
-      const int c = c0 + 4 * (q & 7);
+      const int r = q / kALanes;
+      const int cc = kVec * (q % kALanes);
+      const int c = c0 + cc;
       const int src = idx[r];
       const bool ok = src >= 0 && src < vin && c < cin;
-      cp_async16(a_s + r * kALd + 4 * (q & 7),
+      cp_async16(a_s + r * kALd + cc,
                  ok ? feats + static_cast<long long>(src) * cin + c : feats,
                  ok ? 16 : 0);
     }
@@ -158,20 +312,21 @@ __device__ __forceinline__ void issue_stage(
       const int c = c0 + (q & 31);
       const int src = idx[r];
       const bool ok = src >= 0 && src < vin && c < cin;
-      cp_async4(a_s + r * kALd + (q & 31),
-                ok ? feats + static_cast<long long>(src) * cin + c : feats,
-                ok ? 4 : 0);
+      Route<E>::stage_one(a_s + r * kALd + (q & 31),
+                          feats + static_cast<long long>(src) * cin + c,
+                          feats, ok);
     }
   }
-  const float* w_k = w + static_cast<long long>(k) * cin * cout;
+  const E* w_k = w + static_cast<long long>(k) * cin * cout;
   if (b_vec) {
 #pragma unroll
-    for (int i = 0; i < kDepth * kCols / 4 / kThreads; ++i) {
+    for (int i = 0; i < kDepth * kBLanes / kThreads; ++i) {
       const int q = tid + i * kThreads;
-      const int cc = q >> 4;
-      const int n = n0 + 4 * (q & 15);
+      const int cc = q / kBLanes;
+      const int nn = kVec * (q % kBLanes);
+      const int n = n0 + nn;
       const bool ok = c0 + cc < cin && n < cout;
-      cp_async16(b_s + cc * kBLd + 4 * (q & 15),
+      cp_async16(b_s + cc * kBLd + nn,
                  ok ? w_k + static_cast<long long>(c0 + cc) * cout + n : w,
                  ok ? 16 : 0);
     }
@@ -182,25 +337,27 @@ __device__ __forceinline__ void issue_stage(
       const int cc = q >> 6;
       const int n = n0 + (q & 63);
       const bool ok = c0 + cc < cin && n < cout;
-      cp_async4(b_s + cc * kBLd + (q & 63),
-                ok ? w_k + static_cast<long long>(c0 + cc) * cout + n : w,
-                ok ? 4 : 0);
+      Route<E>::stage_one(b_s + cc * kBLd + (q & 63),
+                          w_k + static_cast<long long>(c0 + cc) * cout + n,
+                          w, ok);
     }
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-sparse_conv_gemm_kernel(const float* __restrict__ feats,
+sparse_conv_gemm_kernel(const E* __restrict__ feats,
                         const int* __restrict__ nbr,
-                        const float* __restrict__ w,
+                        const E* __restrict__ w,
                         const int* __restrict__ perm,
                         const unsigned* __restrict__ tile_mask,
-                        float* __restrict__ out, int vin, int vout, int cin,
+                        E* __restrict__ out, int vin, int vout, int cin,
                         int cout, int taps, int col_tiles, bool a_vec,
                         bool b_vec) {
-  extern __shared__ __align__(16) float smem[];
-  float* a_s = smem;                        // [kStages][kRows][kALd]
-  float* b_s = a_s + kStages * kAStage;     // [kStages][kDepth][kBLd]
+  constexpr int kAStage = kRows * Route<E>::kALd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* a_s = reinterpret_cast<E*>(smem_raw);  // [kStages][kRows][kALd]
+  E* b_s = a_s + kStages * kAStage;         // [kStages][kDepth][kBLd]
   int* idx_s = reinterpret_cast<int*>(b_s + kStages * kBStage);
   int* row_s = idx_s + kMaxTaps * kRows;    // output row of each tile row
 
@@ -241,9 +398,9 @@ sparse_conv_gemm_kernel(const float* __restrict__ feats,
   int pk = __ffs(rest) - 1;
   int pc = 0;
   auto issue = [&](int stage) {
-    issue_stage(a_s + stage * kAStage, b_s + stage * kBStage, feats, w,
-                idx_s + pk * kRows, pk, pc, n0, vin, cin, cout, a_vec, b_vec,
-                tid);
+    issue_stage<E>(a_s + stage * kAStage, b_s + stage * kBStage, feats, w,
+                   idx_s + pk * kRows, pk, pc, n0, vin, cin, cout, a_vec,
+                   b_vec, tid);
     pc += kDepth;
     if (pc >= cin) {
       pc = 0;
@@ -283,8 +440,6 @@ sparse_conv_gemm_kernel(const float* __restrict__ feats,
     }
     cp_async_commit();
 
-    const float* a = a_s + (it % kStages) * kAStage;
-    const float* b = b_s + (it % kStages) * kBStage;
     float part[2][4][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
@@ -296,35 +451,8 @@ sparse_conv_gemm_kernel(const float* __restrict__ feats,
         }
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < kDepth; kk += 8) {
-      // A fragments (rows g, g + 8; channels t, t + 4) and B fragments
-      // (channels t, t + 4; column g), split into TF32 hi and lo parts
-      uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* ar = a + (wm + 16 * mi + g) * kALd + kk + t;
-        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
-        split_tf32(ar[8 * kALd], a_hi[mi][1], a_lo[mi][1]);
-        split_tf32(ar[4], a_hi[mi][2], a_lo[mi][2]);
-        split_tf32(ar[8 * kALd + 4], a_hi[mi][3], a_lo[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* br = b + (kk + t) * kBLd + wn + 8 * ni + g;
-        split_tf32(br[0], b_hi[ni][0], b_lo[ni][0]);
-        split_tf32(br[4 * kBLd], b_hi[ni][1], b_lo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_tf32(part[mi][ni], a_lo[mi], b_hi[ni]);
-          mma_tf32(part[mi][ni], a_hi[mi], b_lo[ni]);
-          mma_tf32(part[mi][ni], a_hi[mi], b_hi[ni]);
-        }
-      }
-    }
+    Route<E>::stage_mma(part, a_s + (it % kStages) * kAStage,
+                        b_s + (it % kStages) * kBStage, wm, wn, g, t);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -347,20 +475,20 @@ sparse_conv_gemm_kernel(const float* __restrict__ feats,
       if (r >= rows) {
         continue;
       }
-      float* dst = out + static_cast<long long>(row_s[r]) * cout;
+      E* dst = out + static_cast<long long>(row_s[r]) * cout;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int n = n0 + wn + 8 * ni + 2 * t;
         const float x = acc[mi][ni][2 * half];
         const float y = acc[mi][ni][2 * half + 1];
         if (pair && n + 1 < cout) {
-          *reinterpret_cast<float2*>(dst + n) = make_float2(x, y);
+          Route<E>::store_pair(dst + n, x, y);
         } else {
           if (n < cout) {
-            dst[n] = x;
+            Route<E>::store_one(dst + n, x);
           }
           if (n + 1 < cout) {
-            dst[n + 1] = y;
+            Route<E>::store_one(dst + n + 1, y);
           }
         }
       }
@@ -368,13 +496,10 @@ sparse_conv_gemm_kernel(const float* __restrict__ feats,
   }
 }
 
-}  // namespace
-
-extern "C" int sst_sparse_conv_gemm_f32(const void* feats, const void* nbr,
-                                        const void* w, const void* perm,
-                                        const void* tile_mask, void* out,
-                                        int vin, int vout, int cin, int cout,
-                                        int taps, void* stream) {
+template <typename E>
+int launch_gemm(const void* feats, const void* nbr, const void* w,
+                const void* perm, const void* tile_mask, void* out, int vin,
+                int vout, int cin, int cout, int taps, void* stream) {
   if (vin < 0 || vout <= 0 || cin <= 0 || cout <= 0 || taps <= 0 ||
       taps > kMaxTaps) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -387,14 +512,35 @@ extern "C" int sst_sparse_conv_gemm_f32(const void* feats, const void* nbr,
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
   };
-  const bool a_vec = cin % 4 == 0 && aligned(feats);
-  const bool b_vec = cout % 4 == 0 && aligned(w);
-  sparse_conv_gemm_kernel<<<static_cast<unsigned int>(tiles * col_tiles),
-                            kThreads, kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(feats), static_cast<const int*>(nbr),
-      static_cast<const float*>(w), static_cast<const int*>(perm),
-      static_cast<const unsigned*>(tile_mask), static_cast<float*>(out), vin,
+  constexpr int kVec = Route<E>::kVec;
+  const bool a_vec = cin % kVec == 0 && aligned(feats);
+  const bool b_vec = cout % kVec == 0 && aligned(w);
+  sparse_conv_gemm_kernel<E><<<static_cast<unsigned int>(tiles * col_tiles),
+                               kThreads, smem_bytes<E>(),
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const E*>(feats), static_cast<const int*>(nbr),
+      static_cast<const E*>(w), static_cast<const int*>(perm),
+      static_cast<const unsigned*>(tile_mask), static_cast<E*>(out), vin,
       vout, cin, cout, taps, static_cast<int>(col_tiles), a_vec, b_vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int sst_sparse_conv_gemm_f32(const void* feats, const void* nbr,
+                                        const void* w, const void* perm,
+                                        const void* tile_mask, void* out,
+                                        int vin, int vout, int cin, int cout,
+                                        int taps, void* stream) {
+  return launch_gemm<float>(feats, nbr, w, perm, tile_mask, out, vin, vout,
+                            cin, cout, taps, stream);
+}
+
+extern "C" int sst_sparse_conv_gemm_bf16(const void* feats, const void* nbr,
+                                         const void* w, const void* perm,
+                                         const void* tile_mask, void* out,
+                                         int vin, int vout, int cin, int cout,
+                                         int taps, void* stream) {
+  return launch_gemm<__nv_bfloat16>(feats, nbr, w, perm, tile_mask, out,
+                                    vin, vout, cin, cout, taps, stream);
 }

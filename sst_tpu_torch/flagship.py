@@ -179,8 +179,11 @@ def fsdv2_waymo(max_points: int = 196608, dtype=None,
 
     ``dtype`` None gives each build JAX's default: bfloat16 compute for the
     dense-BEV build, float32 for the sparse one (``sst_tpu/flagship.py``
-    builds its sparse flagship in float32; a bfloat16 sparse build raises
-    NotImplementedError). ``max_points`` is the point cap
+    builds its sparse flagship in float32). ``dtype=torch.bfloat16`` with
+    the sparse backbone is JAX's ``fsdv2_waymo(dtype=jnp.bfloat16,
+    backbone="sparse")``: every sparse conv of the segmentor's UNet and of
+    the mixer runs the conv kernels' bf16 routes (forward, input gradient
+    and dW). ``max_points`` is the point cap
     ``apis.prepare_batch`` pads to; ``num_point_features`` is the width of a
     point row. The module is returned on ``device`` (see :func:`on_device`).
     """
@@ -401,9 +404,10 @@ def tiny_fsdv2_dense(grid: int = 16, z_groups: int = 2,
 
 
 def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3,
-                        device="cuda"):
+                        dtype=torch.float32, device="cuda"):
     """Small sparse-UNet FSDv2 for CPU tests (same config as the JAX
-    ``tiny_fsdv2_flagship``), on ``device``."""
+    ``tiny_fsdv2_flagship``; ``dtype=torch.bfloat16`` is the counterpart of
+    its ``.clone(dtype=jnp.bfloat16)``), on ``device``."""
     half = grid * 0.5 / 2
     return on_device(SingleStageFSDV2(
         num_point_features=num_point_features,
@@ -445,6 +449,7 @@ def tiny_fsdv2_flagship(grid: int = 16, num_point_features: int = 3,
         ),
         test_cfg=dict(score_thr=0.05, nms_thr=0.25, nms_pre=32, max_num=16,
                       use_rotate_nms=True),
+        dtype=dtype,
     ), device)
 
 
@@ -599,31 +604,36 @@ def _tiny_two_stage_cfg() -> dict:
                 rois_per_sample=16)
 
 
-def tiny_fsd_two_stage(num_point_features: int = 5, device="cuda"):
+def tiny_fsd_two_stage(num_point_features: int = 5, dtype=torch.float32,
+                       device="cuda"):
     """Small two-stage FSD (+ GroupCorrectionHead, SIR² refinement) for CPU
-    tests, the config of the JAX ``tiny_fsd_two_stage``, on ``device``."""
-    return on_device(FSD(num_point_features=num_point_features,
+    tests, the config of the JAX ``tiny_fsd_two_stage`` at compute
+    ``dtype``, on ``device``."""
+    return on_device(FSD(num_point_features=num_point_features, dtype=dtype,
                          **_tiny_two_stage_cfg()), device)
 
 
-def tiny_fsdpp(num_point_features: int = 5, device="cuda"):
+def tiny_fsdpp(num_point_features: int = 5, dtype=torch.float32,
+               device="cuda"):
     """Small FSD++ (the tiny two stage behind the incremental point
     selection, seed noise on) for CPU tests, the config of the JAX
-    ``tiny_fsdpp``, on ``device``. ``num_point_features``: 5 for
-    :func:`temporal_batch`'s rows (the inner FSD sees 6)."""
+    ``tiny_fsdpp`` at compute ``dtype``, on ``device``.
+    ``num_point_features``: 5 for :func:`temporal_batch`'s rows (the inner
+    FSD sees 6)."""
     return on_device(TwoStageFSDPP(
         num_point_features=num_point_features, fsd=_tiny_two_stage_cfg(),
+        dtype=dtype,
         point_cloud_range=_TINY_FSD_PCR, inc_voxel_size=(0.4, 0.4, 0.4),
         pre_score_thr=0.1, center_noise=0.1, dim_noise=0.05, yaw_noise=0.1,
     ), device)
 
 
-def tiny_ctrl(device="cuda"):
+def tiny_ctrl(dtype=torch.float32, device="cuda"):
     """Small CTRL ``TrackletDetector`` (tracklet segmentor + track RoI head)
-    for CPU tests, the config of the JAX ``tiny_ctrl``, on ``device``; its
-    points are :func:`tracklet_batch`'s six channels."""
+    for CPU tests, the config of the JAX ``tiny_ctrl`` at compute ``dtype``,
+    on ``device``; its points are :func:`tracklet_batch`'s six channels."""
     return on_device(TrackletDetector(
-        num_point_features=6,
+        num_point_features=6, dtype=dtype,
         segmentor=dict(
             point_cloud_range=(-3.2, -3.2, -4.0, 3.2, 3.2, 4.0),
             voxel_size=(0.2, 0.2, 0.4),

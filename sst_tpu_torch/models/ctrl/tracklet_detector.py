@@ -75,7 +75,8 @@ class TrackletSegmentor(nn.Module):
     ``DynamicVFE``, ``SimpleSparseUNet``, then each point's voxel features
     and its offset from the voxel centre. ``in_channels`` is the width of a
     point row (xyz first, the time lag last), which the JAX module reads
-    from its input."""
+    from its input. ``dtype`` is the compute dtype of the VFE and the
+    sparse UNet."""
 
     def __init__(self, in_channels: int,
                  point_cloud_range: tuple = (-3.2, -3.2, -4.0, 3.2, 3.2, 4.0),
@@ -84,7 +85,7 @@ class TrackletSegmentor(nn.Module):
                  unet_strides: tuple = ((2, 2, 2),) * 2,
                  unet_paddings: tuple = ((1, 1, 1),) * 2,
                  ts_normalizer: float = 1.0, vfe: dict | None = None,
-                 unet: dict | None = None):
+                 unet: dict | None = None, dtype=torch.float32):
         super().__init__()
         self.point_cloud_range = tuple(point_cloud_range)
         self.voxel_size = tuple(voxel_size)
@@ -96,12 +97,13 @@ class TrackletSegmentor(nn.Module):
         self.grid = grid_shape_zyx(self.point_cloud_range, self.voxel_size)
         self.vfe_mod = DynamicVFE(
             in_channels, voxel_size=self.voxel_size,
-            point_cloud_range=self.point_cloud_range,
+            point_cloud_range=self.point_cloud_range, dtype=dtype,
             **(vfe or dict(feat_channels=(64, 64), mode="max")))
         cfg = dict(unet or {})
         # the JAX module reads the UNet's input width from its input
         cfg.pop("in_channels", None)
-        self.unet_mod = SimpleSparseUNet(self.vfe_mod.out_channels, **cfg)
+        self.unet_mod = SimpleSparseUNet(self.vfe_mod.out_channels,
+                                         dtype=dtype, **cfg)
         self.feat_channels = self.unet_mod.out_channels + 3
 
     def forward(self, points, batch_idx, points_valid, batch_size: int,
@@ -150,7 +152,7 @@ class TrackletRoIHead(nn.Module):
                  cls_pos_thr: float = 0.8, cls_neg_thr: float = 0.2,
                  loss_cls_weight: float = 1.0, loss_bbox_weight: float = 2.0,
                  corner_loss_weight: float = 1.0,
-                 bbox_head: dict | None = None):
+                 bbox_head: dict | None = None, dtype=torch.float32):
         super().__init__()
         del num_classes  # read by no layer, as in the JAX module
         self.extra_wlh = tuple(extra_wlh)
@@ -162,7 +164,8 @@ class TrackletRoIHead(nn.Module):
         self.loss_bbox_weight = loss_bbox_weight
         self.corner_loss_weight = corner_loss_weight
         self.bbox_head_mod = FullySparseBboxHead(
-            point_channels, feat_channels_in, **(bbox_head or {}))
+            point_channels, feat_channels_in, dtype=dtype,
+            **(bbox_head or {}))
 
     @staticmethod
     def _flatten(batch: TrackletBatch):
@@ -256,22 +259,23 @@ class TrackletRoIHead(nn.Module):
 class TrackletDetector(nn.Module):
     """Segmentor, then the track RoI head. ``num_point_features`` is the
     width of a point row: 6 for the tracklet dataset's x, y, z, intensity,
-    elongation and time lag. Float32 only, as the JAX package builds it
-    (its sparse UNet has no bf16 route here)."""
+    elongation and time lag. ``dtype`` is the compute dtype of both parts,
+    float32 or bfloat16 (the sparse UNet on the conv kernels' bf16
+    routes), as the JAX module's."""
 
     def __init__(self, num_point_features: int = 6,
                  segmentor: dict | None = None, roi_head: dict | None = None,
                  dtype=torch.float32):
         super().__init__()
-        if dtype != torch.float32:
+        if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
-                f"dtype={dtype}: the tracklet segmentor's sparse UNet runs "
-                f"in float32 (ROADMAP queue 1, the bf16 builds)")
+                f"dtype={dtype}: float32 and bfloat16 are ported")
         self.segmentor_mod = TrackletSegmentor(num_point_features,
+                                               dtype=dtype,
                                                **(segmentor or {}))
         self.roi_mod = TrackletRoIHead(num_point_features,
                                        self.segmentor_mod.feat_channels,
-                                       **(roi_head or {}))
+                                       dtype=dtype, **(roi_head or {}))
 
     def _seg(self, batch: TrackletBatch, train: bool) -> dict:
         b, p, _ = batch.points.shape

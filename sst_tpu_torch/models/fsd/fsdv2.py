@@ -84,9 +84,10 @@ class FSDV2Caps:
 class SingleStageFSDV2(nn.Module):
     """``num_point_features`` is the width of the raw point rows (xyz
     first). ``dtype`` is the compute dtype of every module, float32 or
-    bfloat16, as flax's ``dtype`` (``models/layers.py``); the parameters
-    stay float32. Options of the JAX model outside this port's slice raise
-    NotImplementedError (a bfloat16 sparse segmentor among them)."""
+    bfloat16, as flax's ``dtype`` (``models/layers.py``), in the dense-BEV
+    and in the sparse build (the sparse UNet and mixer run the conv
+    kernels' bf16 routes); the parameters stay float32. Options of the JAX
+    model outside this port's slice raise NotImplementedError."""
 
     def __init__(self, num_point_features: int = 3,
                  point_cloud_range: tuple = (-80.0, -80.0, -2.0, 80.0, 80.0,
@@ -186,7 +187,7 @@ class SingleStageFSDV2(nn.Module):
                 tuple(hid) + (ms_output_dim,), norm="ln", dtype=dtype))
         if mixer_type == "sparse":
             self.mixer_mod = VirtualVoxelMixer(self.vfe_mod.out_channels,
-                                               **(mixer or {}))
+                                               dtype=dtype, **(mixer or {}))
         else:
             self.mixer_mod = DenseBEVMixer(self.vfe_mod.out_channels,
                                            nz=self.vgrid[0], dtype=dtype,

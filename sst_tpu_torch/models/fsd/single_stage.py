@@ -25,10 +25,13 @@ of the member with the largest logit, gt-label membership is per group,
 the caps, thresholds and cluster sizes are indexed per group, and the
 head's tasks are the groups.
 
+``dtype`` (float32 or bfloat16) is the compute dtype of the segmentor
+(its sparse UNet on the conv kernels' bf16 routes), SIR and the head, as
+flax's; the losses compute in float32 where JAX's do.
+
 Not ported, raising ``NotImplementedError``: the key-point assigner
 (``"ssg"`` in ``assigner_per_class``, built on ``ops/fps.py``), ROADMAP
-queue 1 item 7d; a compute dtype other than float32 (JAX's FSD builds are
-float32).
+queue 1 item 7d; a compute dtype other than float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -113,10 +116,9 @@ class SingleStageFSD(nn.Module):
             raise NotImplementedError(
                 "assigner_per_class 'ssg' (the key-point assigner on "
                 "ops/fps.py): ROADMAP queue 1 item 7d")
-        if dtype != torch.float32:
+        if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
-                f"dtype={dtype}: FSD is ported in float32, as JAX builds it "
-                f"(a bf16 FSD: ROADMAP queue 1 item 11)")
+                f"dtype={dtype}: float32 and bfloat16 are ported")
         del ssg_radius, ssg_num_fps  # read by the 'ssg' assigner only
         self.group_names = (None if group_names is None
                             else tuple(tuple(g) for g in group_names))

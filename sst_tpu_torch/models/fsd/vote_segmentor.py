@@ -144,12 +144,6 @@ class VoteSegmentor(nn.Module):
         super().__init__()
         if backbone not in ("sparse", "dense_bev", "sst"):
             raise ValueError(f"backbone={backbone!r}")
-        if backbone == "sparse" and dtype != torch.float32:
-            # JAX's sparse flagship is float32 (sst_tpu/flagship.py:95)
-            raise NotImplementedError(
-                f"dtype={dtype} with the sparse backbone: a bf16 sparse build "
-                f"waits for bf16 routes through the sparse conv and dW "
-                f"kernels (ROADMAP queue 1, the bf16 builds)")
         self.backbone = backbone
         self.voxel_downsampling_size = (
             None if voxel_downsampling_size is None
@@ -194,7 +188,7 @@ class VoteSegmentor(nn.Module):
             cfg.pop("in_channels", None)
             self.unet_mod = SimpleSparseUNet(
                 self.vfe_mod.out_channels,
-                return_multiscale=return_multiscale, **cfg)
+                return_multiscale=return_multiscale, dtype=dtype, **cfg)
             out_ch = self.unet_mod.out_channels
             self.decoder_widths = self.unet_mod.decoder_widths
         else:

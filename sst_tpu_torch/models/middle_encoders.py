@@ -89,7 +89,10 @@ class SparseEncoder(nn.Module):
     ``max(128, int(cap0 * level_cap_ratios[i]))`` sites. A forward runs
     ``conv_input``, the encoder convs (one strided per stage after the
     first) and ``conv_out``; every subm conv of a level shares its plan.
-    float32 only: the conv kernels have no bf16 route."""
+    ``dtype`` is the compute dtype of every conv layer's norm, as flax's:
+    a conv runs at its input's dtype, so bf16 input rows take the conv
+    kernels' bf16 routes in all 12 convs, and float32 ones run
+    ``conv_input`` in float32 before its norm casts to ``dtype``."""
 
     def __init__(self, in_channels: int, base_channels: int = 16,
                  output_channels: int = 128,
@@ -100,22 +103,23 @@ class SparseEncoder(nn.Module):
                  level_cap_ratios: Sequence[float] = (1.0, 0.75, 0.5, 0.35),
                  dtype=torch.float32):
         super().__init__()
-        if dtype != torch.float32:
+        if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
-                "SparseEncoder at a compute dtype other than float32 "
-                "(ROADMAP queue 1 item 11b)")
+                f"dtype={dtype}: float32 and bfloat16 are ported")
         self.encoder_channels = tuple(tuple(c) for c in encoder_channels)
         self.encoder_paddings = tuple(tuple(p) for p in encoder_paddings)
         self.level_cap_ratios = tuple(level_cap_ratios)
-        self.conv_input = SparseConvLayer(in_channels, base_channels)
+        self.conv_input = SparseConvLayer(in_channels, base_channels,
+                                          dtype=dtype)
         c = base_channels
         for i, blocks in enumerate(self.encoder_channels):
             for j, out in enumerate(blocks):
                 name = (f"encoder_{i}_{j}_down" if i != 0 and j == 0
                         else f"encoder_{i}_{j}")
-                self.add_module(name, SparseConvLayer(c, out))
+                self.add_module(name, SparseConvLayer(c, out, dtype=dtype))
                 c = out
-        self.conv_out = SparseConvLayer(c, output_channels, taps=3)
+        self.conv_out = SparseConvLayer(c, output_channels, taps=3,
+                                        dtype=dtype)
         self.output_channels = output_channels
 
     def forward(self, voxel_features, sg: SparseGrid, train: bool = False):

@@ -8,6 +8,13 @@ level are built once per forward by :func:`build_unet_plan` and shared by all
 convs at that level. Modules keep flax's names so that
 ``sst_tpu_torch/convert.py`` maps a flax variable tree onto them.
 
+Every module takes a compute ``dtype`` (float32 or bfloat16), as flax's
+do: a conv casts its float32 weight to its input's dtype (flax's
+``w.astype(feats.dtype)``), so it runs the conv kernel's route of that
+dtype, and its ``MaskedBatchNorm`` computes in float32 and casts to
+``dtype``; the basic block's identity ``Dense`` computes in ``dtype``.
+At bfloat16 the UNet's first conv takes the VFE's bfloat16 rows.
+
 ``train=True`` takes batch statistics in every ``MaskedBatchNorm`` and runs
 each conv through the sparse conv's autograd function
 (``ops/sparse_conv.py``). With ``remat=True`` (flax's ``nn.remat``) every
@@ -23,7 +30,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from sst_tpu_torch.models.layers import ACTIVATIONS, MaskedBatchNorm
+from sst_tpu_torch.models.layers import ACTIVATIONS, Dense, MaskedBatchNorm
 from sst_tpu_torch.ops.sparse_conv import (
     ConvPlan,
     SparseGrid,
@@ -71,17 +78,18 @@ class SparseConvLayer(nn.Module):
     ``conv_out``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 act: str = "relu", use_norm: bool = True, taps: int = 27):
+                 act: str = "relu", use_norm: bool = True, taps: int = 27,
+                 dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(taps, in_channels,
                                                out_channels))
         nn.init.normal_(self.weight, 0.0, (taps * in_channels) ** -0.5)
-        self.MaskedBatchNorm_0 = (MaskedBatchNorm(out_channels) if use_norm
-                                  else None)
+        self.MaskedBatchNorm_0 = (MaskedBatchNorm(out_channels, dtype=dtype)
+                                  if use_norm else None)
         self.act = ACTIVATIONS[act]
 
     def forward(self, feats, cp: ConvPlan, out_valid, train: bool = False):
-        x = windowed_sparse_conv(feats, self.weight, cp)
+        x = windowed_sparse_conv(feats, self.weight.to(feats.dtype), cp)
         # masked before the norm and again after it: at inference the BN
         # bias makes padding rows non-zero in between
         x = torch.where(out_valid[:, None], x, 0.0)
@@ -93,11 +101,15 @@ class SparseConvLayer(nn.Module):
 class SparseBasicBlock(nn.Module):
     """ResNet basic block with submanifold convs."""
 
-    def __init__(self, in_channels: int, channels: int, act: str = "relu"):
+    def __init__(self, in_channels: int, channels: int, act: str = "relu",
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = SparseConvLayer(in_channels, channels, act=act)
-        self.conv2 = SparseConvLayer(channels, channels, act="none")
-        self.downsample = (nn.Linear(in_channels, channels, bias=False)
+        self.conv1 = SparseConvLayer(in_channels, channels, act=act,
+                                     dtype=dtype)
+        self.conv2 = SparseConvLayer(channels, channels, act="none",
+                                     dtype=dtype)
+        self.downsample = (Dense(in_channels, channels, bias=False,
+                                 dtype=dtype)
                            if in_channels != channels else None)
         self.act = ACTIVATIONS[act]
 
@@ -122,7 +134,7 @@ class SimpleSparseUNet(nn.Module):
                                             (64, 64, 64), (64, 64, 64),
                                             (64, 64, 64)),
                  act: str = "relu", return_multiscale: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, dtype=torch.float32):
         super().__init__()
         self.encoder_channels = tuple(tuple(c) for c in encoder_channels)
         self.decoder_channels = tuple(tuple(c) for c in decoder_channels)
@@ -131,14 +143,16 @@ class SimpleSparseUNet(nn.Module):
         # width of each decoder output, deepest first
         self.decoder_widths = tuple(c[2] for c in self.decoder_channels)
         self.out_channels = self.decoder_widths[-1]
-        self.conv_input = SparseConvLayer(in_channels, base_channels, act=act)
+        self.conv_input = SparseConvLayer(in_channels, base_channels, act=act,
+                                          dtype=dtype)
         c = base_channels
         enc_widths = []
         for i, blocks in enumerate(self.encoder_channels):
             for j, out in enumerate(blocks):
                 name = (f"encoder_{i}_{j}_down" if i != 0 and j == 0
                         else f"encoder_{i}_{j}")
-                self.add_module(name, SparseConvLayer(c, out, act=act))
+                self.add_module(name, SparseConvLayer(c, out, act=act,
+                                                      dtype=dtype))
                 c = out
             enc_widths.append(c)
         num_stages = len(self.encoder_channels)
@@ -146,11 +160,14 @@ class SimpleSparseUNet(nn.Module):
             s = num_stages - d
             lat_in = enc_widths[s - 1]
             self.add_module(f"lateral_{s}",
-                            SparseBasicBlock(lat_in, chans[0], act=act))
+                            SparseBasicBlock(lat_in, chans[0], act=act,
+                                             dtype=dtype))
             self.add_module(f"merge_{s}",
-                            SparseConvLayer(c + chans[0], chans[1], act=act))
+                            SparseConvLayer(c + chans[0], chans[1], act=act,
+                                            dtype=dtype))
             self.add_module(f"upsample_{s}",
-                            SparseConvLayer(chans[1], chans[2], act=act))
+                            SparseConvLayer(chans[1], chans[2], act=act,
+                                            dtype=dtype))
             c = chans[2]
 
     def _call(self, name: str, x, cp: ConvPlan, valid, train: bool):
@@ -216,14 +233,16 @@ class VirtualVoxelMixer(nn.Module):
                  encoder_channels: tuple = ((64,), (64, 64), (64, 64)),
                  decoder_channels: tuple = ((64, 64, 64), (64, 64, 64),
                                             (64, 64, 64)),
-                 act: str = "relu", remat: bool = False):
+                 act: str = "relu", remat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.unet = SimpleSparseUNet(
             in_channels, base_channels=base_channels,
             encoder_channels=encoder_channels,
-            decoder_channels=decoder_channels, act=act, remat=remat)
+            decoder_channels=decoder_channels, act=act, remat=remat,
+            dtype=dtype)
         self.conv_out = SparseConvLayer(self.unet.out_channels,
-                                        output_channels, act=act)
+                                        output_channels, act=act, dtype=dtype)
         self.out_channels = output_channels
 
     def forward(self, feats, plan: UNetPlan, train: bool = False):

@@ -327,7 +327,11 @@ class _SparseConv(torch.autograd.Function):
     """The conv with JAX's backward (``_windowed_conv_bwd``): dfeats by the
     conv kernel over the transposed table (and its schedule) with
     ``W[k].T``, dW by the weight gradient kernel over the forward's
-    schedule (their twins for CPU tensors)."""
+    schedule (their twins for CPU tensors). At bfloat16 every operand and
+    result is bf16, as in JAX: the output gradient reaches the backward in
+    the output's dtype, the input gradient is the bf16 conv route, and dW
+    is rounded to bf16 once (``.astype(weights.dtype)``); the cast of the
+    float32 parameter to bf16 before the call returns it to float32."""
 
     @staticmethod
     def forward(ctx, feats, weights, nbr, nbr_t, sched, sched_t, mode):
@@ -354,8 +358,8 @@ class _SparseConv(torch.autograd.Function):
 
 def windowed_sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
                          cp: ConvPlan) -> torch.Tensor:
-    """One sparse conv: feats [Vin, Cin], weights [K, Cin, Cout] →
-    [Vout, Cout], through the kernel wrapper (its twin on the CPU) over the
+    """One sparse conv: feats [Vin, Cin], weights [K, Cin, Cout] of the same
+    dtype (float32 or bfloat16) → [Vout, Cout] in that dtype, through the kernel wrapper (its twin on the CPU) over the
     plan's row schedule. Where autograd needs its gradient it runs through
     :class:`_SparseConv`, and the plan's transposed table and its schedule
     are built (once) for the input gradient."""

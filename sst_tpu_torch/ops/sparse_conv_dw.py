@@ -12,10 +12,16 @@ rows sorted by tap mask in 64-row tiles; ``ops/sparse_conv.py`` passes the
 one its plan caches): tap k reads only the tiles whose mask has bit k. A
 caller without a schedule gets one built by the wrapper.
 
+Operands are float32 or bfloat16, feats and dout of one dtype. The
+bfloat16 route is the TPU kernel's with ``_windowed_conv_bwd``'s rounding:
+products of bf16 operands summed in f32, and dW rounded to bf16 once; the
+twin computes it in f32 from the bf16 inputs and rounds once.
+
 Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`sparse_conv_dw_ref`, a CUDA tensor to the kernel
 (or the call raises). ``launches`` counts kernel launches and
-``launch_counts`` splits them by ``(mode, Cin, Cout)``.
+``launch_counts`` splits them by ``(mode, Cin, Cout)`` for float32 and by
+``(mode, Cin, Cout, "bfloat16")`` for the bf16 route.
 """
 
 from __future__ import annotations
@@ -33,8 +39,13 @@ from sst_tpu_torch.ops.sparse_conv_gemm import (
     conv_schedule,
 )
 
+# the kernel's entry point for each operand dtype
+ENTRY_POINTS = {torch.float32: "sst_sparse_conv_dw_f32",
+                torch.bfloat16: "sst_sparse_conv_dw_bf16"}
+
 launches = 0  # kernel launches in this process
-launch_counts: dict[tuple[str, int, int], int] = {}  # by (mode, Cin, Cout)
+# by (mode, Cin, Cout), and (mode, Cin, Cout, "bfloat16") for the bf16 route
+launch_counts: dict[tuple, int] = {}
 
 _TILE = 64  # channels per tile side
 # 4 resident blocks (128 registers a thread) on each of the H100's 132 SMs,
@@ -61,9 +72,9 @@ def _check(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
     if dout.shape[0] != nbr.shape[1]:
         raise ValueError(f"shapes disagree: nbr {tuple(nbr.shape)}, dout "
                          f"{tuple(dout.shape)}")
-    if feats.dtype != torch.float32 or dout.dtype != torch.float32:
-        raise TypeError(f"feats and dout must be float32, got {feats.dtype} "
-                        f"and {dout.dtype}")
+    if feats.dtype not in ENTRY_POINTS or dout.dtype != feats.dtype:
+        raise TypeError(f"feats and dout must both be float32 or both "
+                        f"bfloat16, got {feats.dtype} and {dout.dtype}")
     if nbr.dtype != torch.int32:
         raise TypeError(f"nbr must be int32, got {nbr.dtype}")
     if not (feats.device == nbr.device == dout.device):
@@ -79,7 +90,10 @@ def _check(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
 def sparse_conv_dw_ref(feats: torch.Tensor, nbr: torch.Tensor,
                        dout: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin: per tap one ``index_select`` of the neighbour rows
-    and one ``gathered.T @ dout``, in f32."""
+    and one ``gathered.T @ dout``, in f32. bf16 operands are widened to f32
+    (exactly) and dW is rounded to bf16 once."""
+    if feats.dtype == torch.bfloat16:
+        return sparse_conv_dw_ref(feats.float(), nbr, dout.float()).bfloat16()
     vin, cin = feats.shape
     ext = torch.cat([feats, feats.new_zeros((1, cin))])
     idx = nbr.long()
@@ -104,11 +118,12 @@ def split_rows(taps: int, cin: int, cout: int, vout: int) -> int:
 
 
 @functools.cache
-def _kernel():
-    """The C entry point, bound once."""
+def _kernel(dtype: torch.dtype):
+    """The C entry point of ``dtype``'s route, bound once."""
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
-    fn = load_kernel_library("sparse_conv_dw").lib.sst_sparse_conv_dw_f32
+    fn = getattr(load_kernel_library("sparse_conv_dw").lib,
+                 ENTRY_POINTS[dtype])
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -121,7 +136,7 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
     vin, cin = feats.shape
     taps, vout = nbr.shape
     cout = dout.shape[1]
-    dw = torch.empty((taps, cin, cout), dtype=torch.float32,
+    dw = torch.empty((taps, cin, cout), dtype=feats.dtype,
                      device=feats.device)
     if taps == 0 or cin == 0 or cout == 0:
         return dw
@@ -137,7 +152,7 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
     work = (torch.empty((splits, taps, cin, cout), dtype=torch.float32,
                         device=feats.device) if splits > 1 else None)
     with torch.cuda.device(feats.device):
-        rc = _kernel()(feats.data_ptr(), nbr.data_ptr(), dout.data_ptr(),
+        rc = _kernel(feats.dtype)(feats.data_ptr(), nbr.data_ptr(), dout.data_ptr(),
                        schedule.perm.data_ptr(),
                        schedule.tile_mask.data_ptr(), lists.data_ptr(),
                        work.data_ptr() if work is not None else None,
@@ -147,7 +162,8 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
         raise RuntimeError(f"sparse_conv_dw kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
-    key = (mode, cin, cout)
+    key = ((mode, cin, cout) if feats.dtype == torch.float32
+           else (mode, cin, cout, "bfloat16"))
     launch_counts[key] = launch_counts.get(key, 0) + 1
     return dw
 
@@ -158,15 +174,16 @@ def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, dout: torch.Tensor,
     """The weight gradient of one sparse conv from its neighbour table.
 
     Args:
-      feats: [Vin, Cin] float32, the conv's input.
+      feats: [Vin, Cin] float32 or bfloat16, the conv's input.
       nbr: [K, Vout] int32; tap k of output v read row ``nbr[k, v]``, and an
         index outside [0, Vin) read zeros.
-      dout: [Vout, Cout] float32, the gradient of the conv's output.
+      dout: [Vout, Cout], the gradient of the conv's output, ``feats``'
+        dtype.
       mode: 'subm' | 'strided' | 'inverse' | 'zdown'; only read by the
         launch count.
       schedule: :func:`conv_schedule` of ``(nbr, Vin)`` (the forward's),
         built here when None; read only by the kernel (the twin needs none).
-    Returns [K, Cin, Cout] float32.
+    Returns [K, Cin, Cout] in ``feats``' dtype.
     """
     _check(feats, nbr, dout, mode)
     if feats.device.type == "cpu":

@@ -15,11 +15,19 @@ how it is laid out. It runs over a :class:`ConvSchedule` of the table
 and shares it (``ops/sparse_conv.py ConvPlan.schedule``); a caller without
 one gets one built by the wrapper.
 
+Operands are float32 or bfloat16, feats and weights of one dtype. The
+bfloat16 route is the TPU kernel's: products of bf16 operands summed in
+f32, and the result rounded to bf16 once (``_fwd_impl`` casts its f32 sums
+to ``feats.dtype``); the twin computes it in f32 from the bf16 inputs and
+rounds once.
+
 Dispatch is by the device of the tensors alone: a CPU tensor goes to the
 plain PyTorch twin :func:`sparse_conv_gemm_ref`, a CUDA tensor to the kernel
 (or the call raises). ``launches`` counts kernel launches and
-``launch_counts`` splits them by ``(mode, Cin, Cout)``, so a run can show that
-its main path went through the kernel, and with which widths;
+``launch_counts`` splits them by ``(mode, Cin, Cout)`` for float32 and by
+``(mode, Cin, Cout, "bfloat16")`` for the bf16 route, so a run can show
+that its main path went through the kernel, and with which widths and
+dtype;
 ``kind_counts`` splits them by what the launch computed: a conv's
 ``"forward"``, its ``"recompute"`` in the backward of a rematerialised call
 (``utils/remat.py``), or the input gradient (``"dgrad"``: this kernel over
@@ -43,8 +51,13 @@ KINDS = ("forward", "dgrad")
 TILE_ROWS = 64  # output rows per tile of the kernel (kRows)
 MAX_TAPS = 32  # a tap mask is one 32-bit word
 
+# the kernel's entry point for each operand dtype
+ENTRY_POINTS = {torch.float32: "sst_sparse_conv_gemm_f32",
+                torch.bfloat16: "sst_sparse_conv_gemm_bf16"}
+
 launches = 0  # kernel launches in this process
-launch_counts: dict[tuple[str, int, int], int] = {}  # by (mode, Cin, Cout)
+# by (mode, Cin, Cout), and (mode, Cin, Cout, "bfloat16") for the bf16 route
+launch_counts: dict[tuple, int] = {}
 kind_counts: dict[str, int] = {}  # forward, recompute, dgrad
 
 
@@ -67,9 +80,9 @@ def _check(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"shapes disagree: feats {tuple(feats.shape)}, nbr "
                          f"{tuple(nbr.shape)}, weights "
                          f"{tuple(weights.shape)}")
-    if feats.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError(f"feats and weights must be float32, got "
-                        f"{feats.dtype} and {weights.dtype}")
+    if feats.dtype not in ENTRY_POINTS or weights.dtype != feats.dtype:
+        raise TypeError(f"feats and weights must both be float32 or both "
+                        f"bfloat16, got {feats.dtype} and {weights.dtype}")
     if nbr.dtype != torch.int32:
         raise TypeError(f"nbr must be int32, got {nbr.dtype}")
     if not (feats.device == nbr.device == weights.device):
@@ -146,7 +159,11 @@ def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
                          weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin (``gather_gemm`` semantics): one gather and one
     matmul per tap, accumulated in f32, so the ``[K, Vout, Cin]`` gathered
-    tensor is never held whole."""
+    tensor is never held whole. bf16 operands are widened to f32 (exactly)
+    and the f32 result is rounded to bf16 once."""
+    if feats.dtype == torch.bfloat16:
+        return sparse_conv_gemm_ref(feats.float(), nbr,
+                                    weights.float()).bfloat16()
     vin, cin = feats.shape
     ext = torch.cat([feats, feats.new_zeros((1, cin))])
     idx = nbr.long()
@@ -158,11 +175,12 @@ def sparse_conv_gemm_ref(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 @functools.cache
-def _kernel():
-    """The C entry point, bound once."""
+def _kernel(dtype: torch.dtype):
+    """The C entry point of ``dtype``'s route, bound once."""
     from sst_tpu_torch.utils.nvcc import load_kernel_library
 
-    fn = load_kernel_library("sparse_conv_gemm").lib.sst_sparse_conv_gemm_f32
+    fn = getattr(load_kernel_library("sparse_conv_gemm").lib,
+                 ENTRY_POINTS[dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -173,11 +191,11 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
             mode: str, kind: str,
             schedule: ConvSchedule | None) -> torch.Tensor:
     global launches
-    fn = _kernel()
+    fn = _kernel(feats.dtype)
     vin, cin = feats.shape
     taps, vout = nbr.shape
     cout = weights.shape[2]
-    out = torch.empty((vout, cout), dtype=torch.float32, device=feats.device)
+    out = torch.empty((vout, cout), dtype=feats.dtype, device=feats.device)
     if vout == 0 or cout == 0:
         return out
     if schedule is None:
@@ -192,7 +210,8 @@ def _launch(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         raise RuntimeError(f"sparse_conv_gemm kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
-    key = (mode, cin, cout)
+    key = ((mode, cin, cout) if feats.dtype == torch.float32
+           else (mode, cin, cout, "bfloat16"))
     launch_counts[key] = launch_counts.get(key, 0) + 1
     if kind == "forward" and remat.recomputing():
         kind = "recompute"
@@ -207,16 +226,16 @@ def sparse_conv_gemm(feats: torch.Tensor, nbr: torch.Tensor,
     """One sparse conv from its neighbour table.
 
     Args:
-      feats: [Vin, Cin] float32 input sites.
+      feats: [Vin, Cin] float32 or bfloat16 input sites.
       nbr: [K, Vout] int32; tap k of output v reads row ``nbr[k, v]``, and
         an index outside [0, Vin) reads zeros.
-      weights: [K, Cin, Cout] float32.
+      weights: [K, Cin, Cout], ``feats``' dtype.
       mode: 'subm' | 'strided' | 'inverse' | 'zdown'; only read by the
         launch count.
       kind: 'forward' | 'dgrad'; only read by the launch count.
       schedule: :func:`conv_schedule` of ``(nbr, Vin)``, built here when
         None; read only by the kernel (the twin needs none).
-    Returns [Vout, Cout] float32.
+    Returns [Vout, Cout] in ``feats``' dtype.
     """
     _check(feats, nbr, weights, mode)
     if kind not in KINDS:

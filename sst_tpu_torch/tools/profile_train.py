@@ -1,15 +1,19 @@
 """Where the time of a train step goes, on one CUDA card: FSDv2-Waymo's
-dense-BEV build or SST-Waymo.
+dense-BEV or sparse build, or SST-Waymo.
 
     python -m sst_tpu_torch.tools.profile_train [--dtype float32]
+    python -m sst_tpu_torch.tools.profile_train --backbone sparse \
+        [--dtype bfloat16]
     python -m sst_tpu_torch.tools.profile_train --model sst
 
 The models, frames and optimizer are those of ``chip_smoke.py`` phases 12
-and 13: full widths, TF32 off, ``fsdv2_waymo_dense`` at its default
-dtype (bf16 compute) unless ``--dtype`` names one, ``sst_waymo``
+and 13 (phase 11 for ``--backbone sparse``, phase 25 at bf16): full
+widths, TF32 off, ``fsdv2_waymo(backbone=...)`` at its build's default
+dtype (bf16 compute for the dense build, float32 for the sparse one)
+unless ``--dtype`` names one, ``sst_waymo``
 in float32 with bf16 attention, random weights from seed 0,
 batch 1, labelled synthetic Waymo-like frames of 196,608 points (seeds 0-3;
-x, y, z + 2 extra channels within 79.8 m for ``fsdv2_waymo_dense``, x, y, z
+x, y, z + 2 extra channels within 79.8 m for ``fsdv2_waymo``, x, y, z
 within 74.8 m for ``sst_waymo(train_buckets=True)`` with a seeded voxel
 shuffle), AdamW (base_lr 1e-5, weight decay 0.05, clip 10); FSDv2 in the
 detection schedule's step-0 mode. After 2 warm-up steps it traces 2
@@ -34,7 +38,7 @@ import time
 import torch
 
 from sst_tpu_torch.flagship import (
-    fsdv2_waymo_dense,
+    fsdv2_waymo,
     init_weights,
     sst_waymo,
     synthetic_labeled_batch,
@@ -53,9 +57,11 @@ TOP = 15
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("fsdv2", "sst"), default="fsdv2")
+    ap.add_argument("--backbone", choices=("dense_bev", "sparse"),
+                    default="dense_bev", help="FSDv2's build")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
-                    default=None, help="the dense build's compute dtype "
-                    "(default: fsdv2_waymo_dense's)")
+                    default=None, help="FSDv2's compute dtype (default: "
+                    "the build's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA card")
@@ -73,9 +79,10 @@ def main() -> None:
         gen = torch.Generator(device=device).manual_seed(0)
         kw = dict(generator=gen)
     else:
-        model = fsdv2_waymo_dense(dtype=args.dtype and getattr(torch,
-                                                               args.dtype))
-        title = f"fsdv2_waymo_dense {model.segmentor_mod.vfe_mod.dtype}"
+        model = fsdv2_waymo(dtype=args.dtype and getattr(torch, args.dtype),
+                            backbone=args.backbone)
+        title = (f"fsdv2_waymo(backbone={args.backbone!r}) "
+                 f"{model.segmentor_mod.vfe_mod.dtype}")
         frames = [synthetic_labeled_batch(1, 196608, seed=s,
                                           num_extra_feats=2,
                                           pcr_half=79.8)[0]

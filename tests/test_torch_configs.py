@@ -7,6 +7,11 @@ The sweep builds each file with ``utils/builders.py build_model_from_cfg(
 builds (PointPillars, the last detector type to port, since ROADMAP queue
 1 item 10), and the PointPillars file predicts at a cut range.
 
+Every config with sparse convs also builds at ``model.dtype="bfloat16"``
+(and the ``FSDV2`` two stage over the FSDv2 config): every sparse conv
+layer's norm at bf16, the parameters float32 and of the float32 build's
+shapes; the FSDv2 and CTRL files' shapes at bf16 are JAX's builder's.
+
 The shape tests trace JAX's init of each grouped config, and of the
 CenterHead, weighted-NMS and SST-encoder configs, at full width with
 ``jax.eval_shape`` (no compile, no allocation) and hold every leaf against
@@ -27,6 +32,7 @@ from sst_tpu.models.detectors.dynamic_voxelnet import PointBatch as JPB
 from sst_tpu.utils.builders import build_model_from_cfg as jbuild
 from sst_tpu.utils.config import load_config as jload
 from sst_tpu_torch.convert import check_flax_shapes
+from sst_tpu_torch.models.sparse_unet import SparseConvLayer
 from sst_tpu_torch.utils.builders import build_model_from_cfg
 from sst_tpu_torch.utils.config import load_config
 from torch_threads import torch_threads_per_worker  # noqa: F401
@@ -51,6 +57,11 @@ GROUPED_CFGS = ("configs/fsdv2/fsdv2_nusc_1x.py",
                 "configs/fsdv2/fsdv2_argo_2x.py",
                 "configs/argo2/argo_onestage_12e.py")
 # the CenterHead, weighted-NMS and SST-encoder configs
+# every file whose model runs sparse convs (the sparse UNets, FSD's
+# segmentor, CTRL's tracklet segmentor)
+SPARSE_CFGS = tuple(p for p in CONFIGS if p.split("/")[1] in (
+    "argo2", "ctrl", "fsd", "fsdpp", "fsdv2") and "dense" not in p
+    and "sst_encoder" not in p)
 SST_HEAD_CFGS = ("configs/sst/sst_waymoD5_3class_centerhead.py",
                  "configs/sst/sst_waymoD1_2x_3class_centerhead.py",
                  "configs/sst/sst_waymoD5_car_wnms.py",
@@ -66,6 +77,84 @@ def test_every_config_builds_or_names_its_item(train):
         cfg = load_config(os.path.join(ROOT, path))
         m = build_model_from_cfg(cfg, train=train, device="cpu")
         assert sum(p.numel() for p in m.parameters()) > 0, path
+
+
+def _bf16(cfg: dict) -> dict:
+    return dict(cfg, model=dict(cfg["model"], dtype="bfloat16"))
+
+
+def _fsdv2_two_stage(path="configs/fsdv2/fsdv2_waymo_1x.py") -> dict:
+    """The ``FSDV2`` two stage over the FSDv2 config's model, as
+    ``chip_smoke.py``'s phase 19 builds it."""
+    cfg = load_config(os.path.join(ROOT, path))
+    ss = {k: v for k, v in cfg["model"].items() if k != "type"}
+    return dict(cfg, model=dict(type="FSDV2", single_stage=ss))
+
+
+@pytest.fixture(scope="module")
+def sparse_cfgs_f32():
+    """Each sparse file's config (and the ``FSDV2`` two stage's) with its
+    float32 build's floating-point state: {name: (shape, dtype)}."""
+    cfgs = {p: load_config(os.path.join(ROOT, p)) for p in SPARSE_CFGS}
+    cfgs["FSDV2"] = _fsdv2_two_stage()
+    return {path: (cfg, {k: (tuple(v.shape), v.dtype) for k, v in
+                         build_model_from_cfg(cfg, train=False, device="cpu")
+                         .state_dict().items() if v.is_floating_point()})
+            for path, cfg in cfgs.items()}
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_every_sparse_config_builds_at_bf16(sparse_cfgs_f32, train):
+    """Each of the 13 sparse files, and the ``FSDV2`` two stage, at
+    ``model.dtype="bfloat16"``: the norms of its sparse conv layers bf16,
+    every parameter and statistic float32, of the float32 build's names
+    and shapes."""
+    assert len(SPARSE_CFGS) == 13
+    for path, (cfg, want) in sparse_cfgs_f32.items():
+        m = build_model_from_cfg(_bf16(cfg), train=train, device="cpu")
+        convs = [c for c in m.modules() if isinstance(c, SparseConvLayer)]
+        assert convs, path
+        assert {c.MaskedBatchNorm_0.dtype for c in convs
+                if c.MaskedBatchNorm_0 is not None} == {torch.bfloat16}, path
+        got = {k: (tuple(v.shape), v.dtype) for k, v in
+               m.state_dict().items() if v.is_floating_point()}
+        assert got == want, path
+        assert {d for _, d in want.values()} == {torch.float32}, path
+
+
+@pytest.mark.parametrize("path", ["configs/fsdv2/fsdv2_waymo_1x.py",
+                                  "configs/ctrl/ctrl_veh_24e.py"])
+def test_bf16_sparse_parameter_shapes_match_jax(path):
+    """The FSDv2 and CTRL files at ``model.dtype="bfloat16"`` through both
+    builders: every leaf of JAX's bf16 init (``jax.eval_shape``) has its
+    torch target at the same shape, float32 in both."""
+    from sst_tpu.models.ctrl import TrackletBatch as JTB
+
+    cfg = _bf16(load_config(os.path.join(ROOT, path)))
+    jcfg = jload(os.path.join(ROOT, path))
+    jcfg["model"] = dict(jcfg["model"], dtype="bfloat16")
+    jm = jbuild(jcfg, train=False)
+    sd = jax.ShapeDtypeStruct
+    if "ctrl" in path:
+        b, p, f = 1, 4096, 8
+        batch = JTB(points=sd((b, p, 6), jnp.float32),
+                    valid=sd((b, p), jnp.bool_),
+                    frame_inds=sd((b, p), jnp.int32),
+                    trk_boxes=sd((b, f, 7), jnp.float32),
+                    trk_scores=sd((b, f), jnp.float32),
+                    trk_valid=sd((b, f), jnp.bool_),
+                    labels=sd((b,), jnp.int32),
+                    gt_boxes=sd((b, f, 7), jnp.float32),
+                    gt_valid=sd((b, f), jnp.bool_))
+    else:
+        batch = _shape_batch(16384, 5)
+    shapes = jax.eval_shape(lambda bt: jm.init(
+        {"params": jax.random.PRNGKey(0), "shuffle": jax.random.PRNGKey(1)},
+        bt, train=False), batch)
+    assert {x.dtype for x in jax.tree_util.tree_leaves(shapes)} == {
+        jnp.dtype(jnp.float32)}
+    tm = build_model_from_cfg(cfg, train=False, device="cpu")
+    assert check_flax_shapes(tm, shapes) == len(tm.state_dict())
 
 
 def test_pointpillars_config_predicts_at_a_cut_range():

@@ -385,7 +385,7 @@ def test_builder_raises_on_types_not_ported():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(assigner_per_class=("ccl", "ssg", "ccl")), "ssg.*item 7d"),
-    (dict(dtype=torch.bfloat16), "float32"),
+    (dict(dtype=torch.float16), "float32"),
 ])
 def test_fsd_options_outside_the_slice_raise(kw, match):
     from sst_tpu_torch.models.fsd.single_stage import SingleStageFSD

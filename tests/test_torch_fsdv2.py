@@ -239,7 +239,7 @@ def test_flagship_options_outside_the_slice_raise(kw):
     dict(segmentor=dict(backbone="sparse")),
     dict(dtype=torch.float16),
     dict(mixer_type="sparse", segmentor=dict(backbone="sparse"),
-         dtype=torch.bfloat16),
+         dtype=torch.float16),
 ])
 def test_model_options_outside_the_slice_raise(kw):
     cfg = dict(mixer_type="dense_bev",

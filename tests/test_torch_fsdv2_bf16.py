@@ -49,6 +49,7 @@ from sst_tpu import flagship as jflag
 from sst_tpu_torch import flagship as tflag
 from sst_tpu_torch.convert import load_flax_variables
 from sst_tpu_torch.models import layers as tl
+from sst_tpu_torch.models.sparse_unet import SparseConvLayer
 from sst_tpu_torch.ops.ccl import topk_compact
 from test_torch_bf16_modules import _close, _dtype_name, _exact_bf16, _np
 from test_torch_fsdv2_dense_train import _flax_variables, _torch_leaf
@@ -277,11 +278,20 @@ def test_bf16_is_the_flagship_default_and_f32_an_option():
 
 
 def test_bf16_sparse_build_raises():
-    """JAX's sparse flagship is float32; a bf16 sparse build waits for the
-    conv kernels' bf16 routes."""
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tflag.fsdv2_waymo(backbone="sparse", dtype=torch.bfloat16,
+    """The bf16 sparse build no longer raises: ``fsdv2_waymo(backbone=
+    "sparse", dtype=torch.bfloat16)`` builds JAX's ``fsdv2_waymo(dtype=
+    jnp.bfloat16, backbone="sparse")``, every sparse conv layer's norm and
+    the head at bf16 with float32 parameters (its parity with flax:
+    tests/test_torch_fsdv2_sparse_bf16.py); without a dtype the sparse
+    build stays float32, as JAX's default."""
+    m = tflag.fsdv2_waymo(backbone="sparse", dtype=torch.bfloat16,
                           device="cpu")
+    convs = [mod for mod in m.modules() if isinstance(mod, SparseConvLayer)]
+    assert len(convs) == 58
+    assert {c.MaskedBatchNorm_0.dtype for c in convs} == {torch.bfloat16}
+    assert m.head_mod.task_0.score.Dense_0.dtype == torch.bfloat16
+    assert {t.dtype for t in m.state_dict().values()
+            if t.is_floating_point()} == {torch.float32}
     assert tflag.fsdv2_waymo(backbone="sparse", device="cpu") \
         .head_mod.task_0.score.Dense_0.dtype == torch.float32
 

@@ -740,6 +740,132 @@ def test_sparse_conv_autograd_runs_the_kernels(mode):
     assert df_t.abs().sum() > 0
 
 
+def _bf16_close(got, ref, absref):
+    """The bf16 routes against their twins, which compute in f32 from the
+    same bf16 operands and round once: ``|got - ref| <= 2^-7 |ref| +
+    2^-16 absref`` (one bf16 ulp where the f32 sums, taken in another
+    order, fall on the other side of a rounding boundary; the second term
+    covers f32 summation error where terms cancel, ``absref`` the twin on
+    absolute values). Both are bf16 of one shape."""
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.shape == ref.shape
+    g, r = got.float().cpu(), ref.float().cpu()
+    tol = 2.0**-7 * r.abs() + 2.0**-16 * absref.float().cpu()
+    return bool(((g - r).abs() <= tol).all())
+
+
+# (name, taps, Cin, Cout): 27 and 3 taps; Cin 4 and 6 (CTRL's and SECOND's
+# first convs) are off the mma's k of 16 and the 16-byte copies' 8 channels
+BF16_CONV_CASES = [("27 taps 4->16", 27, 4, 16), ("27 taps 6->16", 27, 6, 16),
+                   ("27 taps 64->64", 27, 64, 64),
+                   ("27 taps 40->72, Vout off the tile", 27, 40, 72),
+                   ("3 taps 64->128", 3, 64, 128),
+                   ("3 taps 6->24", 3, 6, 24),
+                   ("27 taps 512->256", 27, 512, 256)]
+
+
+def _bf16_case(taps, cin, cout, seed, device):
+    vin, vout = (2048, 2048) if cin >= 256 else (1200, 1000)
+    feats, nbr, w = _conv_case(vin, vout, taps, cin, cout, seed, device)
+    return feats.bfloat16(), nbr, w.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,taps,cin,cout", BF16_CONV_CASES)
+def test_sparse_conv_kernel_bf16_route_matches_twin(name, taps, cin, cout):
+    """The conv's bf16 route: a bf16 result within one bf16 ulp of the
+    twin, the same bits over a precomputed schedule and over one the
+    wrapper builds, and launches counted under the bf16 key."""
+    device = _cuda()
+    feats, nbr, w = _bf16_case(taps, cin, cout, 20 + cin, device)
+    sched = scg.conv_schedule(nbr, feats.shape[0])
+    scg.reset_launch_counts()
+    got = scg.sparse_conv_gemm(feats, nbr, w, "subm", schedule=sched)
+    again = scg.sparse_conv_gemm(feats, nbr, w, "subm")
+    torch.cuda.synchronize()
+    assert scg.launch_counts == {("subm", cin, cout, "bfloat16"): 2}
+    assert scg.kind_counts == {"forward": 2}
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    ref = scg.sparse_conv_gemm_ref(feats, nbr, w)
+    absref = scg.sparse_conv_gemm_ref(feats.float().abs(), nbr,
+                                      w.float().abs())
+    assert _bf16_close(got, ref, absref), name
+    assert got.float().abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,taps,cin,cout", BF16_CONV_CASES)
+def test_sparse_conv_dw_kernel_bf16_route_matches_twin(name, taps, cin,
+                                                       cout):
+    """dW's bf16 route: rounded to bf16 once, within one bf16 ulp of the
+    twin, the same bits in every run, launches under the bf16 key."""
+    device = _cuda()
+    feats, nbr, _ = _bf16_case(taps, cin, cout, 40 + cin, device)
+    dout = torch.randn(nbr.shape[1], cout,
+                       generator=torch.Generator().manual_seed(3)).to(
+                           device).bfloat16()
+    sched = scg.conv_schedule(nbr, feats.shape[0])
+    scd.reset_launch_counts()
+    got = scd.sparse_conv_dw(feats, nbr, dout, "subm", schedule=sched)
+    again = scd.sparse_conv_dw(feats, nbr, dout, "subm")
+    torch.cuda.synchronize()
+    assert scd.launch_counts == {("subm", cin, cout, "bfloat16"): 2}
+    assert got.shape == (taps, cin, cout)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    ref = scd.sparse_conv_dw_ref(feats, nbr, dout)
+    absref = scd.sparse_conv_dw_ref(feats.float().abs(), nbr,
+                                    dout.float().abs())
+    assert _bf16_close(got, ref, absref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["subm", "strided", "inverse"])
+def test_sparse_conv_autograd_bf16_runs_the_kernels(mode):
+    """Autograd through a bf16 conv on the card, as a bf16 SparseConvLayer
+    runs it (the float32 weight cast to bf16): the bf16 forward, input
+    gradient and dW routes, a bf16 input gradient and a float32 weight
+    gradient, against autograd through the twins on the CPU."""
+    device = _cuda()
+    gin, gout = _grid_plans(device)[mode]
+    plan = tsc.build_conv_plans(gout, gin, mode)
+    gen = torch.Generator().manual_seed(4)
+    feats = (torch.randn(gin.cap, 6, generator=gen)
+             * gin.valid.cpu()[:, None]).bfloat16()
+    w = torch.randn(27, 6, 40, generator=gen) / 12.0
+    g = (torch.randn(gout.cap, 40, generator=gen)
+         * gout.valid.cpu()[:, None]).bfloat16()
+    out = []
+    for dev in (device, "cpu"):
+        cp = tsc.ConvPlan(nbr=plan.nbr.to(dev), mode=mode)
+        f = feats.detach().to(dev).requires_grad_()
+        ww = w.detach().to(dev).requires_grad_()
+        scg.reset_launch_counts()
+        scd.reset_launch_counts()
+        y = tsc.windowed_sparse_conv(f, ww.to(torch.bfloat16), cp)
+        y.backward(g.to(dev))
+        assert y.dtype == f.grad.dtype == torch.bfloat16
+        assert ww.grad.dtype == torch.float32
+        if dev == device:
+            torch.cuda.synchronize()
+            assert scg.kind_counts == {"forward": 1, "dgrad": 1}
+            assert set(scg.launch_counts) == {(mode, 6, 40, "bfloat16"),
+                                              (mode, 40, 6, "bfloat16")}
+            assert scd.launch_counts == {(mode, 6, 40, "bfloat16"): 1}
+        out.append((y.detach().cpu(), f.grad.cpu(), ww.grad.cpu()))
+    (y_k, df_k, dw_k), (y_t, df_t, dw_t) = out
+    assert _bf16_close(y_k, y_t, scg.sparse_conv_gemm_ref(
+        feats.float().abs(), plan.nbr.cpu(), w.abs()))
+    assert _bf16_close(df_k, df_t, scg.sparse_conv_gemm_ref(
+        g.float().abs(), tsc.transpose_table(plan.nbr.cpu(), gin.cap),
+        w.abs().transpose(1, 2).contiguous()))
+    assert _bf16_close(dw_k.bfloat16(), dw_t.bfloat16(),
+                       scd.sparse_conv_dw_ref(feats.float().abs(),
+                                              plan.nbr.cpu(),
+                                              g.float().abs()))
+    assert torch.equal(dw_k.bfloat16().float(), dw_k)  # rounded to bf16
+    assert df_t.float().abs().sum() > 0
+
+
 def _mha_case(w, t, h, seed, device, strided=True):
     """q, k, v [W, T, 16H] bf16 (the three column blocks of one [W, T, 48H]
     buffer when ``strided``) and a pad mask with, for W > 1, an all-padded
