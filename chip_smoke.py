@@ -21,7 +21,10 @@ the CenterHead and weighted-NMS SST configs and FSD with the SST encoder
 (window MHA kernel), and the preflight, benchmark and soak tools;
 PointPillars from its config (predict and the CLIs, no kernel of ours on
 its path), SECOND's ``SparseEncoder`` (sparse conv, input gradient and dW
-kernels at 27 and 3 taps) and the dynamic pillar VFE (sorted reduce).
+kernels at 27 and 3 taps) and the dynamic pillar VFE (sorted reduce); FSD
+with the key-point assigner, FSDv2's ``centroid_alpha`` training,
+test-time augmentation, the dense-vs-sparse quality A/B tool, and the
+PointNet++ and RoI-aware ops (no kernel of ours on the last two).
 
     python3 chip_smoke.py
 
@@ -330,12 +333,41 @@ Phases (each one that fails ends the run with a non-zero exit code):
               a CTRL track and its 2-track step, and SECOND's
               ``SparseEncoder`` forward and loss + backward (phase 24's
               frame), each with launches held to the module, all bf16.
+ 26. library  the model library's last pieces, at full width. (a)
+              configs/fsd/fsd_waymoD1_1x.py with ``single_stage.
+              assigner_per_class=("ccl", "ssg", "ssg")`` (the key-point
+              assigner at JAX's ``ssg_radius`` and ``ssg_num_fps``), phase
+              14's vote and fg settings: 2 predicts (39 conv launches
+              each), per class the fg points, key points kept and voxels
+              assigned, ``ssg_class`` timed beside ``cluster_class``, each
+              key-point class's frame-0 sample rerun on the CPU (its
+              slots on 99.9% of the points); one ``pretrain=False`` loss +
+              backward at phase 15's settings (39 forward, input-gradient
+              and dW launches). (b) ``fsdv2_waymo(backbone="sparse")`` with
+              ``centroid_alpha=0.1, add_gt_fg_points=True``: 3 train steps
+              (launches per step held to the modules, sorted reduce among
+              them), the weighted centroids off the plain means. (c)
+              ``models/tta.py tta_predict`` over the bf16
+              ``fsdv2_waymo_dense``'s ``predict`` (flips none, x, y, xy) on
+              2 frames: 4 predicts' sorted-reduce launches per frame, the
+              merge timed beside them and rerun on the CPU over the card's
+              predictions. (d) ``tools/ab_dense_vs_sparse.py`` with
+              ``--builds dense,sparse --steps 8 --train-scenes 4
+              --val-scenes 2 --warmup 4`` on 196,608-point scenes, launches
+              per arm counted (the dense arm's sorted reduce, the sparse
+              arm's conv, input gradient, dW and sorted reduce), then
+              ``ab_merge`` on its JSON. (e) ``PointSAModule`` x4 and
+              ``PointFPModule`` x2 at mmdet3d's VoteNet backbone widths
+              (20,000 points, forward and backward, FPS timed apart, SA
+              level 1 against the CPU) and ``roiaware_pool3d`` at JAX's
+              defaults over (a)'s frame-0 proposals (against the CPU); no
+              kernel of ours on (e), every count held at 0.
 
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
 with the training buckets; phases 14, 15, 17, 18, 19, 20, 21, 22, 23,
-24 and 25 last. Phase 8 also measures the window MHA wrapper's host time with
+24, 25 and 26 last. Phase 8 also measures the window MHA wrapper's host time with
 its entry point bound once and set on every call. TF32 is turned off for
 convolutions and matmuls, so every float32 comparison is in full
 float32. Kernel, twin and library times are device times: each
@@ -6600,6 +6632,585 @@ def phase_sparse_bf16(device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- phase 26
+
+LIB_FSD_FRAMES = 2  # FSD predicts with the key-point assigner
+LIB_FSD_ASSIGNERS = ("ccl", "ssg", "ssg")  # JAX's tests/test_fsd.py hybrid
+LIB_CENTROID = dict(centroid_alpha=0.1, add_gt_fg_points=True)
+LIB_CENTROID_STEPS = 3
+LIB_TTA_FLIPS = ("none", "x", "y", "xy")
+LIB_TTA_FRAMES = 2
+LIB_AB_ARGS = ("--builds", "dense,sparse", "--steps", "8", "--train-scenes",
+               "4", "--val-scenes", "2", "--warmup", "4", "--ckpt-every",
+               "0")
+# mmdet3d's public VoteNet backbone (configs/_base_/models/votenet.py,
+# PointNet2SASSG): 20,000 points of xyz + height, four SA levels, two FP
+LIB_PN_POINTS = 20000
+LIB_PN_SA = ((2048, 0.2, 64, (64, 64, 128)), (1024, 0.4, 32, (128, 128, 256)),
+             (512, 0.8, 16, (128, 128, 256)), (256, 1.2, 16, (128, 128, 256)))
+LIB_PN_FP = ((256, 256), (256, 256))
+
+
+def _all_counts() -> dict:
+    """Every kernel's launches since the last reset, by kind."""
+    return {**_bf16_counts(), "window_mha": wm.launches}
+
+
+def _held_counts(what: str, want: dict) -> dict:
+    """The launches since the last reset against ``want`` (kinds not named
+    held at 0); returns them."""
+    got = _all_counts()
+    kinds = ("forward", "recompute", "dgrad", "dw", "sorted_reduce",
+             "segment_offsets", "window_mha")
+    seen = {k: got.get(k, 0) for k in kinds}
+    if seen != {k: want.get(k, 0) for k in kinds}:
+        fail(f"{what}: launches {seen}, the modules give "
+             f"{ {k: want.get(k, 0) for k in kinds} }")
+    return seen
+
+
+class _AssignerProbe:
+    """Times each ``cluster_class`` / ``ssg_class`` call (CUDA events, the
+    card synchronised at both ends) and keeps the first predict's samples
+    and outputs of the key-point classes; launches nothing."""
+
+    def __init__(self, rpn):
+        self.rpn = rpn
+        self.ms = {}
+        self.kept = {}
+
+    def __enter__(self):
+        rpn = self.rpn
+
+        def timed(fn, kind):
+            def run(sample, cls, batch_size):
+                torch.cuda.synchronize()
+                start, end = _event(), _event()
+                start.record()
+                out = fn(sample, cls, batch_size)
+                end.record()
+                end.synchronize()
+                self.ms.setdefault((kind, cls), []).append(
+                    start.elapsed_time(end))
+                if kind == "ssg" and cls not in self.kept:
+                    self.kept[cls] = ({k: v.detach().clone()
+                                       for k, v in sample.items()},
+                                      [o if isinstance(o, dict) else
+                                       o.detach().clone() for o in out])
+                return out
+            return run
+
+        rpn.cluster_class = timed(rpn.cluster_class, "ccl")
+        rpn.ssg_class = timed(rpn.ssg_class, "ssg")
+        return self
+
+    def __exit__(self, *exc):
+        del self.rpn.cluster_class, self.rpn.ssg_class
+
+
+def _lib_fsd_ssg(device) -> dict:
+    """26(a): configs/fsd/fsd_waymoD1_1x.py with ``single_stage.
+    assigner_per_class=("ccl", "ssg", "ssg")`` (JAX's ``ssg_radius`` and
+    ``ssg_num_fps`` defaults), phase 14's vote and fg settings: 2 predicts
+    (39 conv launches each), the key points kept and voxels assigned per
+    class, ``ssg_class`` timed beside ``cluster_class``, each key-point
+    class's first sample rerun on the CPU; then phase 15's train settings
+    and one ``pretrain=False`` loss + backward. Returns the record and
+    frame 0's points, features and proposals for the RoI-aware pool."""
+    cfg = load_config(FSD_CONFIG)
+    cfg["model"]["single_stage"]["assigner_per_class"] = LIB_FSD_ASSIGNERS
+    model = init_weights(build_model_from_cfg(cfg, train=True),
+                         torch.Generator().manual_seed(0)).eval()
+    rpn = model.rpn
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    frames = _frames(LIB_FSD_FRAMES)
+    _contract_votes(model)
+    _calibrate_fg(model, frames[0])
+    reset_launch_counts()
+    ms, valid = [], []
+    with _AssignerProbe(rpn) as probe, _FSDProbe(model) as fsd_probe:
+        for frame in frames:
+            box = {}
+            ms.append(event_ms(lambda f=frame: box.update(
+                r=inference_detector(model, f.points[0], model.max_points))))
+            r = box["r"]
+            if not (np.isfinite(r["boxes"]).all()
+                    and np.isfinite(r["scores"]).all()):
+                fail("fsd ssg predict: non-finite outputs")
+            valid.append(int(r["valid"].sum()))
+    _held_counts("fsd ssg predict", {"forward": n_convs * len(frames)})
+    counts = [f["counts"] for f in fsd_probe.frames]
+    per_class = []
+    for cls, kind in enumerate(LIB_FSD_ASSIGNERS):
+        c = {k: [f[k][cls] for f in counts] for k in counts[0]}
+        if min(c["fg"]) == 0 or min(c["clusters"]) == 0:
+            fail(f"fsd ssg: class {cls} ({kind}) ran on an empty set: {c}")
+        if kind == "ssg" and max(c["ccl_rounds"]):
+            fail(f"fsd ssg: class {cls} counted CCL rounds {c}")
+        per_class.append({
+            "assigner": kind, "fg": c["fg"],
+            ("key_points_kept" if kind == "ssg" else "clusters"):
+                c["clusters"],
+            ("voxels_assigned" if kind == "ssg" else "cluster_voxels"):
+                c["cluster_voxels"],
+            "ccl_rounds": c["ccl_rounds"],
+            "ms": probe.ms[("ssg" if kind == "ssg" else "ccl", cls)]})
+    # each key-point class's frame-0 sample again on the CPU: the voxel
+    # means differ there in the last bits (the card's index_add_ sums by
+    # atomics), so the slots are held to agree on 99.9% of the points
+    agree = {}
+    for cls, (sample, (pc, pv, stats)) in probe.kept.items():
+        cs = {k: v.cpu() for k, v in sample.items()}
+        cpc, cpv, cstats = rpn.ssg_class(cs, cls, 1)
+        same = (cpc == pc.cpu()) & (cpv == pv.cpu())
+        share = float(same[cs["valid"]].float().mean())
+        agree[cls] = {"share": share, "kept_card": int(stats["clusters"]),
+                      "kept_cpu": int(cstats["clusters"]),
+                      "assigned_card": int(stats["cluster_voxels"]),
+                      "assigned_cpu": int(cstats["cluster_voxels"])}
+        if share < 0.999:
+            fail(f"fsd ssg: class {cls}'s slots agree with the CPU rerun on "
+                 f"{share:.5f} of its points")
+    # frame 0's pre-voxelized points, their features and the 256 proposals
+    # (phase 14's RoI stage's input), for 26(e)'s RoI-aware pool
+    with torch.inference_mode():
+        batch = prepare_batch(model, frames[0].points[0], model.max_points)
+        pipe = rpn.run_pipeline(batch)
+        rois, _, _, roi_valid, roi_batch = model._proposals(pipe)
+        data = pipe["data"]
+        roi_inputs = {k: v.clone() for k, v in dict(
+            points=data["seg_points"][:, :3], feats=data["seg_feats"],
+            valid=data["valid"], batch=data["batch_idx"], rois=rois,
+            roi_valid=roi_valid, roi_batch=roi_batch).items()}
+    del pipe, data
+    # one pretrain=False loss + backward at phase 15's settings
+    lf = _labeled_frames(1)[0].to(device)
+    model.train()
+    schedule = schedule_from_cfg(cfg)
+    detect_kw = schedule(schedule.enable_after)
+    _train_vote_norms(model, lf)
+    with torch.no_grad(), _KeptRunningStats(model):
+        data = rpn.run_pipeline(lf, train=True)["data"]
+        _shift_fg_biases(rpn, data, detect_kw["thr_extra"])
+    del data
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_launch_counts()
+    box = {}
+
+    def loss_step():
+        model.zero_grad(set_to_none=True)
+        out = model.loss(lf, train=True, **detect_kw, generator=gen)
+        sum(v for k, v in out.items() if k.startswith("loss")).backward()
+        box["out"] = out
+
+    step_ms = event_ms(loss_step)
+    kinds = _all_counts()
+    loss_launches = _held_counts("fsd ssg loss + backward", {
+        "forward": n_convs, "recompute": kinds.get("recompute", 0),
+        "dgrad": kinds.get("dgrad", 0), "dw": n_convs})
+    if not loss_launches["dgrad"]:
+        fail("fsd ssg loss: no input-gradient launch")
+    losses = {k: float(v.detach()) for k, v in box["out"].items()}
+    if not all(np.isfinite(v) for v in losses.values()) or any(
+            p.grad is not None and not bool(torch.isfinite(p.grad).all())
+            for p in model.parameters()):
+        fail(f"fsd ssg loss: non-finite losses or gradients {losses}")
+    print(f"26(a) fsd ssg: {FSD_CONFIG} with assigner_per_class "
+          f"{LIB_FSD_ASSIGNERS}, ssg_radius {rpn.ssg_radius}, ssg_num_fps "
+          f"{rpn.ssg_num_fps}; predict (inference_detector, CUDA events) "
+          f"{[round(t, 2) for t in ms]} ms on {len(frames)} frames, valid "
+          f"boxes {valid}, {n_convs} conv launches per frame", flush=True)
+    for cls, row in enumerate(per_class):
+        print(f"  class {cls}: {row}", flush=True)
+    print(f"  key-point classes rerun on the CPU (frame 0): {agree}",
+          flush=True)
+    print(f"  one pretrain=False loss + backward {step_ms:.2f} ms, launches "
+          f"{loss_launches}, losses {losses}", flush=True)
+    rec = {"predict_ms": ms, "valid": valid, "classes": per_class,
+           "cpu_rerun": agree, "predict_launches": n_convs * len(frames),
+           "loss_backward_ms": step_ms, "loss_launches": loss_launches,
+           "losses": losses}
+    del model, lf
+    torch.cuda.empty_cache()
+    return rec, roi_inputs
+
+
+def _lib_centroid(device) -> dict:
+    """26(b): ``fsdv2_waymo(backbone="sparse")`` with ``centroid_alpha=0.1,
+    add_gt_fg_points=True`` (JAX's tests/test_train_fidelity.py setting),
+    seed-0 weights: 3 ``pretrain=False`` train steps on labelled frames
+    (phase 11's optimizer), launches per step held to the modules, finite
+    losses; the weighted centroids moved off the plain means."""
+    model = init_weights(fsdv2_waymo(dtype=torch.float32, backbone="sparse"),
+                         torch.Generator().manual_seed(0)).train()
+    for k, v in LIB_CENTROID.items():
+        setattr(model, k, v)
+    n_convs = sum(isinstance(m, SparseConvLayer) for m in model.modules())
+    n_remat = sum(isinstance(m, SparseConvLayer) for u in model.modules()
+                  if isinstance(u, SimpleSparseUNet) and u.remat
+                  for m in u.modules())
+    frames = [f.to(device) for f in _labeled_frames(2)]
+    opt = _adamw(model)
+    kw = dict(pretrain=False, thr_extra=0.0)
+    steps = []
+    reset_launch_counts()
+    for i in range(LIB_CENTROID_STEPS):
+        before = _all_counts()
+        out = {}
+        ms = event_ms(lambda: out.update(train_step(model, opt,
+                                                    frames[i % 2], kw)))
+        after = _all_counts()
+        launches = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in ("forward", "recompute", "dgrad", "dw",
+                              "sorted_reduce", "segment_offsets")}
+        metrics = _losses(out)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"fsdv2 centroid_alpha step {i}: non-finite {metrics}")
+        want = {"forward": n_convs, "recompute": n_remat, "dw": n_convs,
+                "sorted_reduce": 3, "segment_offsets": 1}
+        if ({k: launches[k] for k in want} != want
+                or not 0 < launches["dgrad"] <= n_convs):
+            fail(f"fsdv2 centroid_alpha step {i}: launches {launches}, the "
+                 f"modules give {want} and 1-{n_convs} input gradients")
+        steps.append({"ms": ms, "launches": launches,
+                      "loss_total": metrics["loss_total"],
+                      "num_virtual": metrics["num_virtual"]})
+    totals = {k: sum(st["launches"][k] for st in steps)
+              for k in steps[0]["launches"]}
+    with torch.no_grad(), _KeptRunningStats(model):
+        ex = model.run_pipeline(frames[0], train=True)["ex"]
+        vv = ex["virtual_valid"]
+        weighted = ex["virtual_centroid"][vv]
+        model.centroid_alpha = None
+        plain = model.run_pipeline(frames[0], train=True)["ex"][
+            "virtual_centroid"][vv]
+        model.centroid_alpha = LIB_CENTROID["centroid_alpha"]
+    moved = float((weighted - plain).norm(dim=-1).max()) if len(plain) else 0
+    if not len(plain) or moved == 0.0:
+        fail(f"fsdv2 centroid_alpha: {len(plain)} virtual voxels, the "
+             f"weighted centroids moved {moved} m off the plain means")
+    print(f"26(b) fsdv2_waymo(backbone='sparse') with {LIB_CENTROID}: "
+          f"{LIB_CENTROID_STEPS} pretrain=False train steps "
+          f"{[round(st['ms'], 2) for st in steps]} ms, losses "
+          f"{[round(st['loss_total'], 4) for st in steps]}, launches per "
+          f"step {steps[0]['launches']}; the weighted centroids of "
+          f"{len(plain)} virtual voxels up to {moved:.4f} m off the plain "
+          f"means", flush=True)
+    del model, opt, frames
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": totals, "centroid_moved_m": moved,
+            "virtual_voxels": len(plain)}
+
+
+def _tta_close(got, ref) -> float:
+    """The share of the merged rows on which the card and the CPU agree:
+    the same validity and label, and a valid row's box within 1e-5 of the
+    shifted x the merge computes at (x + 1e4 * label) plus 1e-4, its other
+    columns within 1e-4, its score within 1e-5 + 1e-4 relative."""
+    g = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+         for k, v in got.items()}
+    same = (g["valid"] == ref["valid"]) & (g["labels"] == ref["labels"])
+    lbl = ref["labels"].float()
+    x_ok = ((g["boxes"][..., 0] - ref["boxes"][..., 0]).abs()
+            <= 1e-5 * (ref["boxes"][..., 0].abs() + 1e4 * lbl) + 1e-4)
+    rest_ok = ((g["boxes"][..., 1:] - ref["boxes"][..., 1:]).abs()
+               <= 1e-4).all(-1)
+    s_ok = ((g["scores"] - ref["scores"].float()).abs()
+            <= 1e-4 * ref["scores"].float().abs() + 1e-5)
+    ok = same & (~ref["valid"] | (x_ok & rest_ok & s_ok))
+    return float(ok.float().mean())
+
+
+def _lib_tta(device) -> dict:
+    """26(c): ``tta_predict`` over the dense bf16 flagship's ``predict``
+    (flips none, x, y, xy) on 2 frames: 4 predicts' sorted-reduce launches
+    per frame, the merge's time beside the predicts', frame 0's merge rerun
+    on the CPU over the card's 4 predictions."""
+    from sst_tpu_torch.models.tta import tta_predict
+
+    model = init_weights(fsdv2_waymo_dense(),
+                         torch.Generator().manual_seed(0)).eval()
+    per_predict = _expected_reduce_launches(model)
+    frames = [prepare_batch(model, f.points[0], model.max_points)
+              for f in _frames(LIB_TTA_FRAMES)]
+    plain_ms = [event_ms(lambda b=b: model.predict(b)) for b in frames]
+    views, predict_ms = [], []
+
+    def timed_predict(batch):
+        start, end = _event(), _event()
+        start.record()
+        out = model.predict(batch)
+        end.record()
+        end.synchronize()
+        predict_ms[-1].append(start.elapsed_time(end))
+        views[-1].append({k: v.clone() for k, v in out.items()})
+        return out
+
+    reset_launch_counts()
+    total_ms, merged = [], []
+    for b in frames:
+        views.append([])
+        predict_ms.append([])
+        box = {}
+        total_ms.append(event_ms(lambda b=b: box.update(r=tta_predict(
+            timed_predict, b, flips=LIB_TTA_FLIPS))))
+        merged.append(box["r"])
+    n = len(LIB_TTA_FLIPS) * len(frames)
+    launches = _held_counts("tta", {
+        "sorted_reduce": n * sum(per_predict.values()),
+        "segment_offsets": n})
+    for r in merged:
+        if not bool(torch.isfinite(r["boxes"]).all()):
+            fail("tta: non-finite merged boxes")
+    kept = [int(r["valid"].sum()) for r in merged]
+    merge_ms = [t - sum(p) for t, p in zip(total_ms, predict_ms)]
+    # frame 0's merge on the CPU, over the card's four predictions
+    replay = iter([{k: v.cpu() for k, v in out.items()} for out in views[0]])
+    cpu_batch = type(frames[0])(**{f: getattr(frames[0], f).cpu() if
+                                    getattr(frames[0], f) is not None else
+                                    None for f in ("points", "valid",
+                                                   "gt_boxes", "gt_labels",
+                                                   "gt_valid")})
+    ref = tta_predict(lambda _: next(replay), cpu_batch, flips=LIB_TTA_FLIPS)
+    agree = _tta_close(merged[0], ref)
+    if agree < 0.99:
+        fail(f"tta: the card's merge agrees with the CPU's on {agree:.4f} "
+             f"of its rows")
+    print(f"26(c) tta_predict over fsdv2_waymo_dense (bf16), flips "
+          f"{LIB_TTA_FLIPS}, {len(frames)} frames: total "
+          f"{[round(t, 2) for t in total_ms]} ms, its 4 predicts "
+          f"{[[round(t, 2) for t in p] for p in predict_ms]} ms, the merge "
+          f"{[round(t, 2) for t in merge_ms]} ms, a plain predict "
+          f"{[round(t, 2) for t in plain_ms]} ms; kept {kept} of "
+          f"{merged[0]['valid'].shape[1]}; launches {launches} "
+          f"({len(LIB_TTA_FLIPS)} x {sum(per_predict.values())} reduce + 1 "
+          f"offsets per frame); frame 0's merge agrees with the CPU's on "
+          f"{agree:.4f} of its rows", flush=True)
+    del model, frames, views
+    torch.cuda.empty_cache()
+    return {"total_ms": total_ms, "predict_ms": predict_ms,
+            "merge_ms": merge_ms, "plain_predict_ms": plain_ms,
+            "kept": kept, "launches": launches, "cpu_agree": agree}
+
+
+def _lib_ab(device) -> dict:
+    """26(d): the A/B tool, a short arm of each build at the flagship caps
+    (``LIB_AB_ARGS``: 8 steps, 4 train and 2 val scenes of 196,608
+    points), launches per build counted from 0, then ``ab_merge`` on its
+    JSON."""
+    from sst_tpu_torch.tools import ab_dense_vs_sparse as ab
+    from sst_tpu_torch.tools import ab_merge
+
+    work = tempfile.mkdtemp(prefix="sst_ab_")
+    per_build = {}
+    real_run_build = ab.run_build
+
+    def counted(name, model, scene_kw, args, seed=0):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = real_run_build(name, model, scene_kw, args, seed)
+        per_build[name] = {"launches": {
+            k: v for k, v in _all_counts().items()
+            if k in ("forward", "recompute", "dgrad", "dw", "sorted_reduce",
+                     "segment_offsets", "window_mha")},
+            "wall_s": time.perf_counter() - t0}
+        return out
+
+    ab.run_build = counted
+    try:
+        out = os.path.join(work, "ab.json")
+        res = ab.main([*LIB_AB_ARGS, "--ckpt-dir", os.path.join(work, "ck"),
+                       "--out", out])
+        merged = ab_merge.main([out, "--pair", "dense:sparse", "--out",
+                                os.path.join(work, "merged.json")])
+    finally:
+        ab.run_build = real_run_build
+        shutil.rmtree(work, ignore_errors=True)
+    steps = int(LIB_AB_ARGS[LIB_AB_ARGS.index("--steps") + 1])
+    n_val = int(LIB_AB_ARGS[LIB_AB_ARGS.index("--val-scenes") + 1])
+    dense, sparse = per_build["dense"]["launches"], per_build["sparse"][
+        "launches"]
+    # the dense build: 3 reductions + 1 offsets per step and per predict;
+    # the sparse build: every conv forward per step and predict, dW and
+    # input gradients per step, the segmentor VFE's 3 + 1
+    if (any(dense.get(k, 0) for k in ("forward", "dw", "window_mha"))
+            or dense["sorted_reduce"] != 3 * (steps + n_val)
+            or dense["segment_offsets"] != steps + n_val):
+        fail(f"ab dense arm: launches {dense}")
+    if (not sparse["forward"] or sparse["dw"] != sparse["forward"]
+            * steps // (steps + n_val) or not sparse["dgrad"]
+            or sparse["sorted_reduce"] != 3 * (steps + n_val)
+            or sparse["segment_offsets"] != steps + n_val):
+        fail(f"ab sparse arm: launches {sparse}")
+    arms = {}
+    for b in ("dense", "sparse"):
+        run = res[b]["runs"][0]
+        if not all(np.isfinite(run["loss_curve"])):
+            fail(f"ab {b}: non-finite losses {run['loss_curve']}")
+        arms[b] = {"loss_curve": run["loss_curve"], "ap": run["ap"],
+                   "wall_s": run["wall_s"], **per_build[b]}
+        print(f"26(d) ab {b}: losses {run['loss_curve']} (steps 0 and "
+              f"{steps - 1}), L1 mAP {run['ap']['Overall/L1 mAP']}, L2 mAP "
+              f"{run['ap']['Overall/L2 mAP']}, L2 mAPH "
+              f"{run['ap']['Overall/L2 mAPH']}, arm wall "
+              f"{per_build[b]['wall_s']:.1f} s, launches "
+              f"{per_build[b]['launches']}", flush=True)
+    print(f"  ab_merge: matched steps "
+          f"{merged['matched_steps_dense_vs_sparse']}, delta "
+          f"{merged['matched_step_delta_dense_minus_sparse']}", flush=True)
+    return {"args": list(LIB_AB_ARGS), "arms": arms,
+            "delta": res.get("delta_dense_minus_sparse"),
+            "merged_steps": merged["matched_steps_dense_vs_sparse"]}
+
+
+def _lib_pointnet(device) -> dict:
+    """26(e), PointNet++: ``PointSAModule`` x4 and ``PointFPModule`` x2 at
+    mmdet3d's VoteNet backbone widths (20,000 points of xyz + height,
+    batch 1), seed-0 weights, forward and backward in train mode; FPS
+    timed apart; SA level 1 rerun on the CPU in test mode."""
+    import copy
+
+    from sst_tpu_torch.models import pointnet_modules as pm
+    from sst_tpu_torch.ops.pointnet import ball_query
+
+    rng = np.random.RandomState(0)
+    xyz_np = np.concatenate([rng.uniform(-3, 3, (LIB_PN_POINTS, 2)),
+                             rng.uniform(0, 2.5, (LIB_PN_POINTS, 1))],
+                            -1).astype(np.float32)[None]
+    xyz = torch.from_numpy(xyz_np).to(device)
+    feats = xyz[..., 2:3].transpose(1, 2).contiguous()  # the height
+    gen = torch.Generator().manual_seed(0)
+    sas, c = [], 1
+    for n, r, ns, ch in LIB_PN_SA:
+        sas.append(init_weights(pm.PointSAModule(
+            num_point=n, radii=(r,), sample_nums=(ns,), mlp_channels=(ch,),
+            in_channels=c, normalize_xyz=True), gen).to(device))
+        c = ch[-1]
+    fps = [init_weights(pm.PointFPModule(ch, in_channels=512), gen).to(device)
+           for ch in LIB_PN_FP]
+    fps_ms = []
+    real_fps = pm.furthest_point_sample
+
+    def timed_fps(*a):
+        start, end = _event(), _event()
+        start.record()
+        out = real_fps(*a)
+        end.record()
+        end.synchronize()
+        fps_ms.append(start.elapsed_time(end))
+        return out
+
+    def forward(train):
+        sx, sf = [xyz], [feats]
+        for sa in sas:
+            nx, nf, _ = sa(sx[-1], sf[-1], train=train)
+            sx.append(nx)
+            sf.append(nf)
+        out = sf[-1]
+        for i, fp in enumerate(fps):
+            out = fp(sx[-2 - i], sx[-1 - i], sf[-2 - i], out, train=train)
+        return out
+
+    forward(True)  # warm-up
+    reset_launch_counts()
+    pm.furthest_point_sample = timed_fps
+    box = {}
+    try:
+        fwd_ms = event_ms(lambda: box.update(out=forward(True)))
+        sa_fps_ms = sum(fps_ms)
+        r = torch.randn(box["out"].shape, generator=gen).to(device)
+        bwd_ms = event_ms(lambda: (box["out"] * r).sum().backward())
+    finally:
+        pm.furthest_point_sample = real_fps
+    _held_counts("pointnet", {})
+    bad = [n for m in sas + fps for n, p in m.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad or not bool(torch.isfinite(box["out"]).all()):
+        fail(f"pointnet: non-finite output or gradients {bad[:4]}")
+    # SA level 1 in test mode, card against CPU: the FPS picks exactly;
+    # the ball's members and the pooled features of 99.9% of the centres
+    # (a pair within ~1e-5 m of the 0.2 m ball may fall either side of it
+    # under the two devices' roundings of the distance expansion)
+    sa1_cpu = copy.deepcopy(sas[0]).cpu()
+    with torch.no_grad():
+        gx, gf, gi = sas[0](xyz, feats)
+        cx, cf, ci = sa1_cpu(xyz.cpu(), feats.cpu())
+        n, r, ns, _ = LIB_PN_SA[0]
+        g_ball = ball_query(0.0, r, ns, xyz, gx).cpu()
+        c_ball = ball_query(0.0, r, ns, xyz.cpu(), cx)
+    same_fps = bool(torch.equal(gi.cpu(), ci))
+    ball_agree = float((g_ball == c_ball).all(-1).float().mean())
+    err = (gf.cpu() - cf).abs().amax(1)[0]  # per centre
+    feat_agree = float((err <= 1e-4 * max(float(cf.abs().max()), 1.0))
+                       .float().mean())
+    if not same_fps or ball_agree < 0.999 or feat_agree < 0.999:
+        fail(f"pointnet SA1: card vs CPU FPS equal {same_fps}, balls agree "
+             f"on {ball_agree}, features on {feat_agree} of the centres")
+    steps = sum(n - 1 for n, *_ in LIB_PN_SA)
+    print(f"26(e) pointnet++ at VoteNet widths ({LIB_PN_POINTS} points, SA "
+          f"{[n for n, *_ in LIB_PN_SA]}, FP {LIB_PN_FP}): train-mode "
+          f"forward {fwd_ms:.2f} ms, of it FPS {sa_fps_ms:.2f} ms "
+          f"({[round(t, 2) for t in fps_ms]}, {steps} argmax steps on the "
+          f"host loop), backward {bwd_ms:.2f} ms; SA1 on the CPU: FPS "
+          f"picks equal {same_fps}, balls equal on {ball_agree:.4f} and "
+          f"features on {feat_agree:.4f} of the centres (largest gap "
+          f"{float(err.max()):.2e}); no kernel of ours launched", flush=True)
+    rec = {"forward_ms": fwd_ms, "fps_ms": fps_ms, "fps_total_ms": sa_fps_ms,
+           "fps_steps": steps, "backward_ms": bwd_ms,
+           "sa1_cpu_fps_equal": same_fps, "sa1_cpu_ball_agree": ball_agree,
+           "sa1_cpu_feature_agree": feat_agree,
+           "sa1_cpu_max_abs_err": float(err.max())}
+    del sas, fps, box
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lib_roiaware(inputs) -> dict:
+    """26(e), RoI-aware pooling: ``roiaware_pool3d`` at JAX's defaults
+    (4 x 4 x 4, max, 256 points a roi) over 26(a)'s frame-0 proposals and
+    pre-voxelized points with their segmentor features; timed; rerun on the
+    CPU, the max held equal."""
+    from sst_tpu_torch.ops.roiaware import roiaware_pool3d
+
+    args = (inputs["points"], inputs["feats"], inputs["valid"],
+            inputs["batch"], inputs["rois"], inputs["roi_valid"],
+            inputs["roi_batch"])
+    box = {}
+    roiaware_pool3d(*args)  # warm-up
+    reset_launch_counts()
+    ms = [event_ms(lambda: box.update(r=roiaware_pool3d(*args)))
+          for _ in range(3)]
+    _held_counts("roiaware", {})
+    out = box["r"]
+    ref = roiaware_pool3d(*(a.cpu() for a in args))
+    same = float((out.cpu() == ref).all(-1).float().mean())
+    filled = int((ref != 0).any(-1).sum())
+    if same < 0.999 or not filled:
+        fail(f"roiaware: card and CPU agree on {same:.5f} of the cells, "
+             f"{filled} filled")
+    print(f"26(e) roiaware_pool3d: {int(inputs['roi_valid'].sum())} rois, "
+          f"{int(inputs['valid'].sum())} points of {out.shape[-1]} "
+          f"channels, grid {tuple(out.shape[1:4])}, max: "
+          f"{[round(t, 3) for t in ms]} ms; {filled} cells filled; the CPU "
+          f"rerun equal on {same:.5f} of the cells", flush=True)
+    return {"ms": ms, "cells_filled": filled, "cpu_agree": same,
+            "rois": int(inputs["roi_valid"].sum())}
+
+
+def phase_library(device) -> dict:
+    """Phase 26: the model library's last pieces on the card (see the
+    module docstring)."""
+    t0 = time.perf_counter()
+    fsd, roi_inputs = _lib_fsd_ssg(device)
+    rec = {"fsd_ssg": fsd, "centroid": _lib_centroid(device),
+           "tta": _lib_tta(device), "ab": _lib_ab(device),
+           "pointnet": _lib_pointnet(device),
+           "roiaware": _lib_roiaware(roi_inputs)}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 26: {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -6787,6 +7398,17 @@ def main() -> None:
     sb = phase_sparse_bf16(device)
     sb["card"] = card
     sb_pred, sb_train = sb["predict"]["launches"], sb["train"]["launches"]
+    torch.cuda.empty_cache()
+    lib = phase_library(device)
+    lib["card"] = card
+    # phase 26's paths, each counted from 0: launches by kind
+    lib_runs = {"fsd_ssg": {"forward": lib["fsd_ssg"]["predict_launches"]},
+                "fsd_ssg_loss": lib["fsd_ssg"]["loss_launches"],
+                "fsdv2_centroid_train": lib["centroid"]["launches"],
+                "tta_dense_bf16": lib["tta"]["launches"],
+                "ab_dense": lib["ab"]["arms"]["dense"]["launches"],
+                "ab_sparse": lib["ab"]["arms"]["sparse"]["launches"],
+                "pointnet": {}, "roiaware": {}}
     # phase 24's PointPillars runs, each counted from 0: no hand-written
     # kernel on their path (every count held at 0)
     pp_runs = ("pointpillars", "pointpillars_train_cli",
@@ -6861,7 +7483,12 @@ def main() -> None:
             "sparse_bf16_f32_build": (sb_pred["f32"]["sorted_reduce"],
                                       sb_pred["f32"]["segment_offsets"]),
             "sparse_bf16_train": (sb_train["sorted_reduce"],
-                                  sb_train["segment_offsets"])}
+                                  sb_train["segment_offsets"]),
+            # phase 26: the sparse FSDv2 steps under centroid_alpha, TTA
+            # over the dense bf16 build and both A/B arms; none on FSD's
+            # key-point assigner path, PointNet++ or the RoI-aware pool
+            **{k: (v.get("sorted_reduce", 0), v.get("segment_offsets", 0))
+               for k, v in lib_runs.items()}}
     sr_launches = {k: v[0] for k, v in runs.items()}
     # the conv kernel's launches in each path's run, each counted from 0
     conv_by_path = {
@@ -6919,7 +7546,14 @@ def main() -> None:
         "ctrl_bf16": sb["ctrl"]["predict_launches"],
         "ctrl_bf16_train": sb["ctrl"]["launches"]["conv bf16"],
         "second_encoder_bf16": 12,
-        "second_encoder_bf16_train": 23}
+        "second_encoder_bf16_train": 23,
+        # phase 26, each counted from 0: FSD with the key-point assigner
+        # (2 predicts, one loss), the sparse FSDv2 steps under
+        # centroid_alpha, the A/B tool's sparse arm (its steps and val
+        # predicts); forward, recompute and input-gradient launches
+        **{k: sum(v.get(kind, 0) for kind in ("forward", "recompute",
+                                              "dgrad"))
+           for k, v in lib_runs.items()}}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
@@ -6942,7 +7576,9 @@ def main() -> None:
         "sparse_bf16_train": sb_train["sparse_conv_dw"],
         "fsd_bf16_loss": sb["fsd"]["launches"]["dw bf16"],
         "ctrl_bf16_train": sb["ctrl"]["launches"]["dw bf16"],
-        "second_encoder_bf16_train": 12}
+        "second_encoder_bf16_train": 12,
+        # phase 26
+        **{k: v.get("dw", 0) for k, v in lib_runs.items()}}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -7240,6 +7876,7 @@ def main() -> None:
         # predict (phase 9), train (phase 13), and both at bf16 compute
         # (phase 16), each counted from 0
         "launches": (mha_launches + sst_train["launches"]["window_mha"]
+                     + sum(v.get("window_mha", 0) for v in lib_runs.values())
                      + sst_bf16["launches"]
                      + sst_bf16_train["launches"]["window_mha"]
                      + cli["launches"]["test_sst_bf16"]["window_mha"]
@@ -7259,7 +7896,10 @@ def main() -> None:
                              **{f"heads_{k}": v
                                 for k, v in head_runs.items()},
                              # phase 24: none on the PointPillars runs
-                             **{k: 0 for k in pp_runs}},
+                             **{k: 0 for k in pp_runs},
+                             # phase 26: none (held to 0 on each path)
+                             **{k: v.get("window_mha", 0)
+                                for k, v in lib_runs.items()}},
         "launches_per_train_step": sst_train[
             "launches_per_step_expected"],
         "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"],
@@ -7346,7 +7986,9 @@ def main() -> None:
             "p50_latency_ms"],
         "pointpillars": pp["predict"]["latency"]["median"],
         "sparse_bf16": sb["predict"]["latency"]["bf16"]["median"],
-        "sparse_f32_beside_bf16": sb["predict"]["latency"]["f32"]["median"]},
+        "sparse_f32_beside_bf16": sb["predict"]["latency"]["f32"]["median"],
+        "fsd_ssg": statistics.median(lib["fsd_ssg"]["predict_ms"]),
+        "tta_dense_bf16": statistics.median(lib["tta"]["total_ms"])},
         "sst_capacity_counters": sst_diags,
         "train": train,
         "train_dense_bev": dense_train,
@@ -7366,6 +8008,7 @@ def main() -> None:
         "sst_heads": heads,
         "pointpillars": pp,
         "sparse_bf16": {k: v for k, v in sb.items() if k != "rows"},
+        "library": lib,
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

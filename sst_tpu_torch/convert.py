@@ -15,6 +15,8 @@ The torch modules keep flax's module names (``segmentor_mod``,
   params   scale          BN / LayerNorm   → ``weight``
   params   z_embed                         → ``z_embed`` as it is
   params   tau       cosine attention      → ``tau`` as it is
+  params   weight_bank  PAConv [Cin * mul, M * Cout] → ``weight_bank`` as
+                          it is
   batch_stats mean / var                   → ``running_mean`` / ``running_var``
 
 The conversion is strict: it raises if a flax leaf has no torch target, if a
@@ -34,7 +36,11 @@ rules: ``shared_conv``, ``task_{t}/{name}_conv{i}`` (ConvNormAct) and
 ``vfe_mod/pfn_{i}`` / ``pfn_bn_{i}``, SECOND's ``backbone_mod/down_{i}`` /
 ``conv_{i}_{j}`` and ``neck_mod/deblock_conv_{i}`` (a transposed conv at
 stride above 1); SECOND's ``SparseEncoder`` its ``[K, Cin, Cout]`` kernels
-(K = 27, and 3 for ``conv_out``) as every sparse conv.
+(K = 27, and 3 for ``conv_out``) as every sparse conv. The PointNet++
+modules (``models/pointnet_modules.py``) map their shared MLPs'
+``layer{i}`` / ``bn{i}``, the SA module's ``mlp{i}``, the FP module's and
+ScoreNet's ``_SharedMLP_0``, and PAConv's ``scorenet``, ``weight_bank`` and
+``bn``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ import torch
 from torch import nn
 
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                "z_embed": "z_embed", "tau": "tau"}
+                "z_embed": "z_embed", "tau": "tau",
+                "weight_bank": "weight_bank"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -1,6 +1,6 @@
 """LiDAR 3D box ops in the mmdet3d-v0.15 convention (counterpart of
 ``sst_tpu/core/boxes.py``; the parts the rotated IoU, the decoder, the FSD
-targets and the RoI head's corner loss use).
+targets, the RoI head's corner loss and test-time augmentation use).
 
 A box is a row [x, y, z, w, l, h, yaw, ...] with (x, y, z) the bottom
 centre; yaw rotates around +z with x' = x cos θ + y sin θ,
@@ -82,3 +82,34 @@ def points_in_boxes(points_xyz, boxes, margin: float = 0.0):
     in_z = (z >= boxes[None, :, 2] - margin) & (
         z <= boxes[None, :, 2] + boxes[None, :, 5] + margin)
     return in_x & in_y & in_z
+
+
+def rotate_boxes(boxes, angle: float):
+    """Boxes (and their velocities, columns 7-8, where present) turned
+    around z by the scalar ``angle``."""
+    yaw = torch.full((boxes.shape[0],), angle, dtype=boxes.dtype,
+                     device=boxes.device)
+    out = boxes.clone()
+    out[:, :2] = rotate_2d(boxes[:, :2], yaw)
+    out[:, 6] = boxes[:, 6] + angle
+    if boxes.shape[1] > 7:
+        out[:, 7:9] = rotate_2d(boxes[:, 7:9], yaw)
+    return out
+
+
+def flip_boxes(boxes, axis: str = "x"):
+    """BEV flip as ``LiDARInstance3DBoxes.flip``: ``"x"`` negates y (yaw'
+    = pi - yaw, the y velocity negated), ``"y"`` negates x (yaw' = -yaw,
+    the x velocity negated)."""
+    out = boxes.clone()
+    if axis == "x":
+        out[:, 1] = -boxes[:, 1]
+        out[:, 6] = -boxes[:, 6] + math.pi
+        if boxes.shape[1] > 7:
+            out[:, 8] = -boxes[:, 8]
+    else:
+        out[:, 0] = -boxes[:, 0]
+        out[:, 6] = -boxes[:, 6]
+        if boxes.shape[1] > 7:
+            out[:, 7] = -boxes[:, 7]
+    return out

@@ -109,3 +109,17 @@ def nearest_iou(boxes_a, boxes_b, eps: float = 1e-6):
     area_a = ((a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]))[:, None]
     area_b = ((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]))[None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=eps)
+
+
+def boxes_overlap_1to1(boxes_a, boxes_b, mode: str = "iou",
+                       eps: float = 1e-6):
+    """[N] rotated BEV overlap of row i of ``boxes_a`` with row i of
+    ``boxes_b`` (TorchEx ``boxes_overlap_1to1``, FSD++'s seed matching):
+    ``"iou"``, or ``"iof"`` (the intersection over the area of a)."""
+    inter = rect_intersection_area(bev_corners(bev(boxes_a)).float(),
+                                   bev_corners(bev(boxes_b)).float())
+    area_a = boxes_a[:, 3] * boxes_a[:, 4]
+    area_b = boxes_b[:, 3] * boxes_b[:, 4]
+    if mode == "iof":
+        return inter / torch.clamp(area_a, min=eps)
+    return inter / torch.clamp(area_a + area_b - inter, min=eps)

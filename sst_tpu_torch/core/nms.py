@@ -1,6 +1,7 @@
 """Greedy rotated / nearest BEV NMS with static output shapes (counterpart
 of ``sst_tpu/core/nms.py``: ``nms_bev``, CenterPoint's ``circle_nms``, the
-weighted NMS and both multiclass paths).
+axis-aligned ``aligned_3d_nms``, the weighted NMS and both multiclass
+paths).
 
 Candidates are score-sorted and statically capped; the [K, K] IoU matrix is
 computed once and greedy suppression is solved as a fixed point (see
@@ -82,6 +83,22 @@ def circle_nms(centers: torch.Tensor, scores: torch.Tensor,
     not read, as in the JAX package."""
     d2 = ((centers[:, None, :2] - centers[None, :, :2]) ** 2).sum(-1)
     return _greedy_suppress_mask(d2 <= thresh, valid)
+
+
+def aligned_3d_nms(boxes_xyzxyz: torch.Tensor, scores: torch.Tensor,
+                   classes: torch.Tensor, valid: torch.Tensor,
+                   thresh: float) -> torch.Tensor:
+    """Axis-aligned 3D NMS, class-gated: a box is suppressed by a kept box
+    of higher score and the same class whose 3D IoU exceeds ``thresh``.
+    Boxes [K, 6] (x1, y1, z1, x2, y2, z2), score-sorted descending;
+    ``scores`` is not read, as in the JAX package. Returns the keep mask."""
+    lt = torch.maximum(boxes_xyzxyz[:, None, :3], boxes_xyzxyz[None, :, :3])
+    rb = torch.minimum(boxes_xyzxyz[:, None, 3:], boxes_xyzxyz[None, :, 3:])
+    inter = torch.clamp(rb - lt, min=0.0).prod(-1)
+    vol = (boxes_xyzxyz[:, 3:] - boxes_xyzxyz[:, :3]).prod(-1)
+    iou = inter / torch.clamp(vol[:, None] + vol[None, :] - inter, min=1e-6)
+    iou = iou * (classes[:, None] == classes[None, :])
+    return _greedy_suppress_mask(iou > thresh, valid)
 
 
 def weighted_nms_bev(boxes: torch.Tensor, scores: torch.Tensor,

@@ -41,6 +41,23 @@ def max_iou_assign(anchors, gts, gt_valid, pos_thr: float, neg_thr: float,
     return torch.where(hit.any(dim=1), which, assigned), max_iou
 
 
+def gt_fg_points_mask(points_xyz, batch_idx, valid, gt_boxes, gt_labels,
+                      gt_valid, cls: int | None = None):
+    """[P] bool: the point lies inside a valid gt box of its sample (of
+    class ``cls``; any class where None), and is valid: the reference's
+    ``add_gt_fg_points`` mask, and FSDv2's ``centroid_alpha`` weights."""
+    b, g = gt_boxes.shape[:2]
+    gt_flat = gt_boxes.reshape(b * g, -1)[:, :7]
+    gmask = gt_valid.reshape(-1)
+    if cls is not None:
+        gmask = gmask & (gt_labels.reshape(-1) == cls)
+    gt_b = torch.arange(b, dtype=batch_idx.dtype,
+                        device=batch_idx.device).repeat_interleave(g)
+    ok = (points_in_boxes(points_xyz[:, :3], gt_flat) & gmask[None, :]
+          & (batch_idx[:, None] == gt_b[None, :]))
+    return ok.any(dim=1) & valid
+
+
 def gt_point_class_labels(points_xyz, batch_idx, valid, gt_boxes, gt_labels,
                           gt_valid):
     """[P] int32: the class of the first valid gt box of its sample that

@@ -42,7 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sst_tpu_torch.core.target_assign import gt_point_class_labels
+from sst_tpu_torch.core.target_assign import (
+    gt_fg_points_mask,
+    gt_point_class_labels,
+)
 from sst_tpu_torch.models import PointBatch
 from sst_tpu_torch.models.dense_bev import DenseBEVMixer
 from sst_tpu_torch.models.fsd.roi_head import GroupCorrectionHead
@@ -123,8 +126,6 @@ class SingleStageFSDV2(nn.Module):
                 f"mixer_type={mixer_type!r} with segmentor backbone "
                 f"{backbone!r}: the port runs 'sparse' with 'sparse' and "
                 f"'dense_bev' with 'dense_bev'")
-        if centroid_alpha is not None:
-            raise NotImplementedError("centroid_alpha")
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"dtype={dtype}: float32 and bfloat16 are ported")
@@ -135,6 +136,9 @@ class SingleStageFSDV2(nn.Module):
         # add_gt_fg_points: at train time, points inside a same-class gt box
         # join the fg selection (single_stage_fsd.py:776-796)
         self.add_gt_fg_points = bool(train_cfg.get("add_gt_fg_points", False))
+        # in training, a virtual voxel's centroid weighs gt-foreground
+        # points 1 and the others centroid_alpha (None: the plain mean)
+        self.centroid_alpha = centroid_alpha
         self.mixer_type = mixer_type
         self.as_rpn = as_rpn
         self.mixer_strides = tuple(tuple(s) for s in mixer_strides)
@@ -386,7 +390,21 @@ class SingleStageFSDV2(nn.Module):
         counts_f = torch.clamp(vm.unique.counts, min=1).float()
         vox_indicator = vfe_aux["extra_sum"][:, 0] / counts_f
         virtual_mask = vm.voxel_valid & (vox_indicator > 0)
-        centroid = vfe_aux["cluster_mean"]
+        if train and self.centroid_alpha is not None:
+            # gt-fg points weigh 1, the others alpha, so the regression
+            # anchor leans to the object's surface points: one fused
+            # 4-channel sum (weighted xyz and the weight)
+            used = cat_valid & vm.valid
+            gfg = gt_fg_points_mask(cat_xyz, cat_batch, used,
+                                    data["gt_boxes"], data["gt_labels"],
+                                    data["gt_valid"])
+            w = torch.where(gfg, 1.0, self.centroid_alpha) * used.float()
+            swa = segment_reduce(torch.cat([cat_xyz * w[:, None],
+                                            w[:, None]], -1),
+                                 vm.point_seg_ids, caps.voxels, "sum")
+            centroid = swa[:, :3] / torch.clamp(swa[:, 3], min=1e-6)[:, None]
+        else:
+            centroid = vfe_aux["cluster_mean"]
 
         vc = vm.voxel_coords
         if self.mixer_type == "sparse":
@@ -444,6 +462,9 @@ class SingleStageFSDV2(nn.Module):
             "seg_points", "seg_logits", "seg_vote_preds", "offsets",
             "seg_feats", "batch_idx", "valid", "decoder_features",
             "unet_plan", "decoder_maps") if k in seg_out}
+        if train:
+            data.update(gt_boxes=batch.gt_boxes, gt_labels=batch.gt_labels,
+                        gt_valid=batch.gt_valid)
         if train and self.add_gt_fg_points:
             data["gt_point_labels"] = gt_point_class_labels(
                 seg_out["seg_points"][:, :3], seg_out["batch_idx"],

@@ -29,9 +29,14 @@ head's tasks are the groups.
 (its sparse UNet on the conv kernels' bf16 routes), SIR and the head, as
 flax's; the losses compute in float32 where JAX's do.
 
-Not ported, raising ``NotImplementedError``: the key-point assigner
-(``"ssg"`` in ``assigner_per_class``, built on ``ops/fps.py``), ROADMAP
-queue 1 item 7d; a compute dtype other than float32 and bfloat16.
+The key-point assigner (``"ssg"`` in ``assigner_per_class``, the
+reference's SSGAssigner and HybridAssigner): per class, the cluster voxels'
+centres take furthest point sampling (``ops/fps.py``), a key point within
+``2 * radius + 0.01`` of an earlier one is dropped, and each voxel joins
+its nearest key point within ``radius``; no ``min_points`` filter.
+
+Not ported, raising ``NotImplementedError``: a compute dtype other than
+float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from sst_tpu_torch.ops.ccl import (
     connected_components,
     topk_compact,
 )
+from sst_tpu_torch.ops.fps import furthest_point_sample
 from sst_tpu_torch.ops.segment import (
     INT_SENTINEL,
     gather_segments,
@@ -112,14 +118,9 @@ class SingleStageFSD(nn.Module):
                  head: dict | None = None, test_cfg: dict | None = None,
                  dtype=torch.float32):
         super().__init__()
-        if assigner_per_class is not None and "ssg" in assigner_per_class:
-            raise NotImplementedError(
-                "assigner_per_class 'ssg' (the key-point assigner on "
-                "ops/fps.py): ROADMAP queue 1 item 7d")
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"dtype={dtype}: float32 and bfloat16 are ported")
-        del ssg_radius, ssg_num_fps  # read by the 'ssg' assigner only
         self.group_names = (None if group_names is None
                             else tuple(tuple(g) for g in group_names))
         # sampling and clustering units: the class groups where
@@ -143,6 +144,12 @@ class SingleStageFSD(nn.Module):
         self.pre_voxelization_size = (None if pre_voxelization_size is None
                                       else tuple(pre_voxelization_size))
         self.add_gt_fg_points = add_gt_fg_points
+        # per class "ssg" (the key-point assigner) or CCL (any other
+        # value, as in JAX); None: CCL for every class
+        self.assigner_per_class = (None if assigner_per_class is None
+                                   else tuple(assigner_per_class))
+        self.ssg_radius = tuple(ssg_radius)
+        self.ssg_num_fps = tuple(ssg_num_fps)
         self.caps = caps or FSDCaps()
         self.test_cfg = dict(test_cfg or dict(
             score_thr=0.1, nms_thr=0.25, nms_pre=1024, max_num=500,
@@ -277,6 +284,68 @@ class SingleStageFSD(nn.Module):
                  "clusters": num_clusters, "ccl_rounds": rounds}
         return pt_cluster, pt_valid, stats
 
+    def ssg_class(self, sample: dict, cls: int, batch_size: int):
+        """The key-point assigner for one class: the vote centres'
+        cluster voxels (as :meth:`cluster_class` makes them, with no
+        ``min_points`` filter), FPS key points over the voxel centres, a
+        key point dropped where it lies within ``2 * radius + 0.01`` of an
+        earlier one, then each voxel assigned to its nearest key point
+        within ``radius`` (the lowest key index on a tie). Points whose
+        voxel overflowed the voxel cap are dropped. Returns the same
+        (per-point cluster slot, validity, counters) as
+        :meth:`cluster_class`; the counters hold the voxels assigned as
+        ``cluster_voxels``, the key points kept as ``clusters`` and 0
+        ``ccl_rounds``."""
+        vcap = self.caps.cluster_voxels_per_class[cls]
+        ccap = self.caps.clusters_per_class[cls]
+        radius = self.ssg_radius[cls]
+        cvs = self.cluster_voxel_size[cls]
+        pcr = self.point_cloud_range
+        centers = sample["centers"]
+        c = _cell_coords(centers, pcr, cvs)
+        nx = int(round((pcr[3] - pcr[0]) / cvs[0])) + 2
+        ny = int(round((pcr[4] - pcr[1]) / cvs[1])) + 2
+        cx = torch.clamp(c[:, 0], 0, nx - 1)
+        cy = torch.clamp(c[:, 1], 0, ny - 1)
+        key = (sample["batch_idx"] * ny + cy) * nx + cx
+        uniq = unique_segments(key, sample["valid"], vcap)
+        vox_valid = uniq.unique_keys != INT_SENTINEL
+        wide = torch.cat([centers, sample["batch_idx"].float()[:, None]], -1)
+        red = segment_reduce(wide, uniq.seg_ids, vcap, "mean")
+        vox_batch = torch.round(red[:, 3]).to(torch.int32)
+        with torch.no_grad():
+            # each sample's x shifted by batch * 1e4 in float32, as JAX
+            # does, so FPS and the radius tests never cross samples
+            off = vox_batch.float() * 1e4
+            xy = torch.stack([red[:, 0] + off, red[:, 1],
+                              torch.zeros_like(off)], -1)
+            k = min(int(self.ssg_num_fps[cls]), ccap)
+            kidx, kok = furthest_point_sample(xy, vox_valid, k)
+            kp = xy[kidx.long(), :2]  # [K, 2]
+            # the norm as sqrt(sum(d^2)), jnp.linalg.norm's order
+            kd = (kp[:, None] - kp[None, :]).square().sum(-1).sqrt()
+            order = torch.arange(k, device=kp.device)
+            earlier = ((order[:, None] < order[None, :])
+                       & kok[:, None] & kok[None, :])
+            kvalid = kok & ~((kd < 2 * radius + 0.01) & earlier).any(dim=0)
+            dmat = (xy[:, None, :2] - kp[None]).square().sum(-1).sqrt()
+            dmat = torch.where(kvalid[None, :], dmat, torch.inf)
+            dmin, nearest = dmat.min(dim=1)
+            assigned = vox_valid & (dmin < radius)
+            vox_cluster = torch.where(assigned, nearest.to(torch.int32),
+                                      ccap)
+        in_cap = uniq.seg_ids < vcap
+        pt_cluster = torch.where(
+            sample["valid"] & in_cap,
+            vox_cluster[torch.clamp(uniq.seg_ids.long(), max=vcap - 1)],
+            ccap)
+        stats = {"cluster_voxels": assigned.sum(dtype=torch.int32),
+                 "clusters": kvalid.sum(dtype=torch.int32),
+                 "ccl_rounds": torch.zeros((), dtype=torch.int32,
+                                           device=kp.device)}
+        return pt_cluster, sample["valid"] & in_cap & (pt_cluster < ccap), \
+            stats
+
     def extract(self, data: dict, batch_size: int, train: bool = False,
                 thr_extra: float = 0.0) -> dict:
         """sample → cluster → SIR for every sampling unit; cluster-level
@@ -285,9 +354,12 @@ class SingleStageFSD(nn.Module):
         streams, counts = [], []
         total_clusters = sum(self.caps.clusters_per_class[:self.num_units])
         offset = 0
+        kinds = self.assigner_per_class or ("ccl",) * self.num_units
         for cls in range(self.num_units):
             s = self.sample_class(data, cls, thr_extra)
-            pc, pv, stats = self.cluster_class(s, cls, batch_size)
+            assign = (self.ssg_class if kinds[cls] == "ssg"
+                      else self.cluster_class)
+            pc, pv, stats = assign(s, cls, batch_size)
             ccap = self.caps.clusters_per_class[cls]
             streams.append((s, torch.where(pv, pc + offset, total_clusters),
                             pv))

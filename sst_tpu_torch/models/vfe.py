@@ -83,7 +83,9 @@ class DynamicVFELayer(nn.Module):
 
 class DynamicVFE(nn.Module):
     """Point→voxel encoder. Returns voxel features [V, C_out]; with
-    ``extra_sum`` returns (voxel_feats, aux), see :func:`_decorate`.
+    ``extra_sum`` returns (voxel_feats, aux), see :func:`_decorate`. With
+    ``return_point_feats`` it returns the last layer's point features
+    [N, C_out] in their place (on the scatter route).
 
     ``in_channels`` is the width of the raw point rows (xyz first).
     ``sorted_calls`` counts the forwards that took the sorted path."""
@@ -98,8 +100,6 @@ class DynamicVFE(nn.Module):
                  mode: str = "max", return_point_feats: bool = False,
                  use_sorted_reduce: bool = False, dtype=torch.float32):
         super().__init__()
-        if return_point_feats:
-            raise NotImplementedError("return_point_feats")
         if mode not in ("max", "mean", "sum"):
             raise NotImplementedError(f"mode={mode!r}")
         self.feat_channels = tuple(feat_channels)
@@ -110,6 +110,7 @@ class DynamicVFE(nn.Module):
         self.point_cloud_range = tuple(point_cloud_range)
         self.mode = mode
         self.use_sorted_reduce = use_sorted_reduce
+        self.return_point_feats = return_point_feats
         self.dtype = dtype
         self.sorted_calls = 0
         c = (in_channels + 3 * with_cluster_center + 3 * with_voxel_center
@@ -121,7 +122,10 @@ class DynamicVFE(nn.Module):
         self.out_channels = self.feat_channels[-1]
 
     def sorted_path(self, vm: VoxelMapping) -> bool:
-        return self.use_sorted_reduce and vm.unique.order is not None
+        """The sorted reduce's route; never with ``return_point_feats``,
+        whose point rows stay in their own order (JAX's ``_sorted_path``)."""
+        return (self.use_sorted_reduce and not self.return_point_feats
+                and vm.unique.order is not None)
 
     def forward(self, points, vm: VoxelMapping, train: bool = False,
                 extra_sum=None):
@@ -159,6 +163,10 @@ class DynamicVFE(nn.Module):
         for i in range(n_layers):
             layer = getattr(self, f"DynamicVFELayer_{i}")
             point_feats = layer(point_feats, valid, train)
+            if i == n_layers - 1 and self.return_point_feats:
+                # the last layer's per-point features, before the pooling
+                return (point_feats, aux) if extra_sum is not None \
+                    else point_feats
             voxel_feats = reduce_fn(point_feats, self.mode)
             if i != n_layers - 1:
                 back = gather_segments(voxel_feats, seg)

@@ -170,6 +170,40 @@ def segment_reduce(data: torch.Tensor, seg_ids: torch.Tensor,
     return out[:, 0] if squeeze else out
 
 
+def segment_max_with_argmax(data: torch.Tensor, seg_ids: torch.Tensor,
+                            num_segments: int):
+    """Per-segment max (as :func:`segment_reduce` ``"max"``) and the row
+    that holds it: the lowest row index whose value equals the max, per
+    channel. Returns (max [num_segments, ...], argmax int32 of the same
+    shape): an empty segment's argmax is ``2**31 - 1``, a non-empty one's
+    with no row equal to its written max (a non-finite max, written as 0)
+    is N, as JAX's ``segment_min`` of the row indices gives them."""
+    out = segment_reduce(data, seg_ids, num_segments, "max")
+    own = torch.clamp(seg_ids.long(), max=num_segments - 1)
+    is_max = data == out[own]
+    n = data.shape[0]
+    row = torch.arange(n, dtype=torch.int32, device=data.device)
+    row = row.view((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
+    row = torch.where(is_max, row, n)
+    idx = _drop_row_ids(seg_ids, num_segments)
+    idx = idx.view((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
+    argmax = torch.full((num_segments + 1,) + tuple(data.shape[1:]),
+                        INT_SENTINEL, dtype=torch.int32, device=data.device)
+    argmax.scatter_reduce_(0, idx, row, "amin")
+    return out, argmax[:num_segments]
+
+
+def scatter_v2(feat: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
+               num_segments: int, mode: str = "mean",
+               unique: UniqueResult | None = None):
+    """Unique + segment reduce, the reference's most-used primitive.
+    Returns (voxel_feats [num_segments, C], UniqueResult); a ``unique``
+    passed in is reused, its sort not repeated."""
+    if unique is None:
+        unique = unique_segments(keys, valid, num_segments)
+    return segment_reduce(feat, unique.seg_ids, num_segments, mode), unique
+
+
 def gather_rows(src: torch.Tensor, index: torch.Tensor,
                 fill: float = 0.0) -> torch.Tensor:
     """[len(index), ...]: row j is ``src[index[j]]``, or ``fill`` where

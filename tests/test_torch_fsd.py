@@ -383,8 +383,11 @@ def test_builder_raises_on_types_not_ported():
     assert types <= set(MODELS._modules)
 
 
+# the key-point assigner ("ssg") is ported since (its case below, and
+# tests/test_torch_fsd_ssg.py against JAX); compute dtypes other than
+# float32 and bfloat16 still raise
 @pytest.mark.parametrize("kw, match", [
-    (dict(assigner_per_class=("ccl", "ssg", "ccl")), "ssg.*item 7d"),
+    (dict(dtype=torch.float64), "float32"),
     (dict(dtype=torch.float16), "float32"),
 ])
 def test_fsd_options_outside_the_slice_raise(kw, match):
@@ -396,16 +399,33 @@ def test_fsd_options_outside_the_slice_raise(kw, match):
         SingleStageFSD(**cfg)
 
 
+def test_fsd_ssg_option_builds():
+    """``assigner_per_class`` with ``"ssg"`` builds, with JAX's radii and
+    FPS counts by default; any value but ``"ssg"`` is CCL, as in JAX."""
+    from sst_tpu_torch.models.fsd.single_stage import SingleStageFSD
+
+    cfg = tflag._tiny_fsd_cfg()
+    cfg.update(assigner_per_class=("ccl", "ssg", "other"))
+    m = SingleStageFSD(**cfg)
+    assert m.assigner_per_class == ("ccl", "ssg", "other")
+    assert m.ssg_radius == (1.0, 0.4, 0.6)
+    assert m.ssg_num_fps == (256, 256, 256)
+
+
 def test_fsd_training_raises():
     """FSD trains since the training slice (``tests/test_torch_fsd_train.py``
     holds it against JAX), the FSDV2 two stage builds since CTRL's
-    (``tests/test_torch_fsdv2_two_stage.py``) and group sampling is ported
-    (``tests/test_torch_groups.py``); what of the family is not ported
-    raises through the builder, naming its queue item: the key-point
-    assigner (7d)."""
+    (``tests/test_torch_fsdv2_two_stage.py``), group sampling is ported
+    (``tests/test_torch_groups.py``) and the key-point assigner builds
+    through the builder (``tests/test_torch_fsd_ssg.py``); what of the
+    family is not ported raises through the builder: a compute dtype other
+    than float32 and bfloat16."""
     cfg = {"model": {"type": "FSD", "single_stage": {
         "assigner_per_class": ("ccl", "ssg", "ccl")}}}
-    with pytest.raises(NotImplementedError, match="queue 1 item 7d"):
+    m = build_model_from_cfg(cfg, device="cpu")
+    assert m.rpn.assigner_per_class == ("ccl", "ssg", "ccl")
+    cfg["model"]["dtype"] = torch.float16
+    with pytest.raises(NotImplementedError, match="float32"):
         build_model_from_cfg(cfg, device="cpu")
 
 

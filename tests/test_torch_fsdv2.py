@@ -233,9 +233,11 @@ def test_flagship_options_outside_the_slice_raise(kw):
         tflag.fsdv2_waymo_dense(device="cpu", **kw)
 
 
+# centroid_alpha is ported since (test_centroid_alpha_option_builds, and
+# tests/test_torch_fsdv2_centroid.py against JAX)
 @pytest.mark.parametrize("kw", [
     dict(mixer_type="sparse"), dict(segmentor=dict(backbone="sst")),
-    dict(centroid_alpha=0.5),
+    dict(dtype=torch.float64),
     dict(segmentor=dict(backbone="sparse")),
     dict(dtype=torch.float16),
     dict(mixer_type="sparse", segmentor=dict(backbone="sparse"),
@@ -247,3 +249,12 @@ def test_model_options_outside_the_slice_raise(kw):
     cfg.update(kw)
     with pytest.raises(NotImplementedError):
         tflag.SingleStageFSDV2(**cfg)
+
+
+def test_centroid_alpha_option_builds():
+    """``centroid_alpha`` builds with both mixer pairings."""
+    for mixer, backbone in (("dense_bev", "dense_bev"),
+                            ("sparse", "sparse")):
+        m = tflag.SingleStageFSDV2(mixer_type=mixer, centroid_alpha=0.5,
+                                   segmentor=dict(backbone=backbone))
+        assert m.centroid_alpha == 0.5

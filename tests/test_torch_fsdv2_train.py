@@ -6,8 +6,9 @@ The slice: ``tiny_fsdv2_flagship`` with the same weights in both packages
 into a flax variable tree), on a 2048-point labelled frame whose gt boxes lie
 inside the +-3.8 m range and own their points. ``loss`` in train mode with
 ``pretrain=False`` is held against JAX ``value_and_grad`` (jitted once):
-every loss, the gradient of every parameter leaf and the updated running
-statistics. Both packages run the sparse conv and the segment reductions on
+every loss, the gradient of every parameter leaf, the updated running
+statistics, and the virtual centroids, which the slice weighs by
+``centroid_alpha=0.1`` (gt-foreground points 1, the others 0.1). Both packages run the sparse conv and the segment reductions on
 their plain paths (JAX's ``gather_gemm`` and scatters, the port's twins);
 the Pallas kernels' gradients are covered by test_torch_sparse_conv_grad.py.
 
@@ -119,18 +120,36 @@ def _pipeline_losses(m, b, pretrain):
         k: pipe["seg_out"][k] for k in ("seg_logits", "valid")}
 
 
+CENTROID_ALPHA = 0.1  # the slice's FSDv2 weighs its virtual centroids
+
+
+def _slice_losses(m, b, pretrain):
+    """``_pipeline_losses``, and the train-mode virtual centroids (weighed
+    by ``centroid_alpha``) and their validity."""
+    pipe = m.run_pipeline(b, True, 0.0, pretrain)
+    ex = pipe["ex"]
+    return m.losses_from_pipeline(b, pipe), {
+        **{k: pipe["seg_out"][k] for k in ("seg_logits", "valid")},
+        **{k: ex[k] for k in ("virtual_centroid", "virtual_valid")}}
+
+
+def _with_alpha(m):
+    m.centroid_alpha = CENTROID_ALPHA
+    return m
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     tm = tflag.init_weights(tflag.tiny_fsdv2_flagship(device="cpu"),
                             torch.Generator().manual_seed(0))
     v = _flax_variables(tm)
-    jm = jflag.tiny_fsdv2_flagship()
+    jm = jflag.tiny_fsdv2_flagship().clone(centroid_alpha=CENTROID_ALPHA)
     jb, _ = jflag.synthetic_labeled_batch(**FRAME)
 
     def loss_fn(params, stats, b):
         (out, seg), mut = jm.apply(
             {"params": params, "batch_stats": stats}, b, False,
-            method=_pipeline_losses, mutable=["batch_stats"])
+            method=_slice_losses, mutable=["batch_stats"])
         total = sum(x for k, x in out.items() if k.startswith("loss"))
         return total, (out, seg, mut["batch_stats"])
 
@@ -138,11 +157,13 @@ def slice_run():
         loss_fn, has_aux=True))(v["params"], v["batch_stats"], jb)
 
     tb = tflag.synthetic_labeled_batch(**FRAME)[0].to("cpu")
-    tm = load_flax_variables(tflag.tiny_fsdv2_flagship(device="cpu"), v)
+    tm = _with_alpha(load_flax_variables(
+        tflag.tiny_fsdv2_flagship(device="cpu"), v))
     with torch.no_grad():
-        tpre, tpre_seg = _pipeline_losses(tm, tb, True)
-    tm = load_flax_variables(tflag.tiny_fsdv2_flagship(device="cpu"), v)
-    tout, tseg = _pipeline_losses(tm, tb, False)
+        tpre, tpre_seg = _slice_losses(tm, tb, True)
+    tm = _with_alpha(load_flax_variables(
+        tflag.tiny_fsdv2_flagship(device="cpu"), v))
+    tout, tseg = _slice_losses(tm, tb, False)
     sum(x for k, x in tout.items() if k.startswith("loss")).backward()
     return dict(jm=jm, tm=tm, v=v, jout=jout, jseg=jseg, jstats=jstats,
                 jgrads=jgrads, tout=tout, tseg=tseg, tpre=tpre,
@@ -178,6 +199,20 @@ def test_train_parity_tiny_fsdv2_flagship(slice_run):
         got = _torch_leaf(r["tm"], path, grad=False)
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5,
                                    err_msg="/".join(path))
+
+
+def test_centroid_alpha_centroids_match_jax(slice_run):
+    """In training the virtual centroids weigh gt-foreground points 1 and
+    the others ``centroid_alpha`` (0.1): valid slots exactly, centroids at
+    rtol/atol 1e-5 (the losses and gradients above do not read them, in
+    either package)."""
+    jseg, tseg = slice_run["jseg"], slice_run["tseg"]
+    vv = np.asarray(jseg["virtual_valid"])
+    np.testing.assert_array_equal(tseg["virtual_valid"].numpy(), vv)
+    assert vv.sum() > 0
+    np.testing.assert_allclose(
+        tseg["virtual_centroid"].detach().numpy()[vv],
+        np.asarray(jseg["virtual_centroid"])[vv], rtol=1e-5, atol=1e-5)
 
 
 def test_pretrain_loss_tiny_fsdv2_flagship(slice_run):

@@ -196,15 +196,21 @@ def test_prepare_batch_pads_to_the_model_cap():
     assert apis.prepare_batch(m, pts, 400).points.shape == (1, 400, 3)
 
 
-# cosine attention, the CenterHead (tests/test_torch_sst_heads.py) and
-# SECONDFPN's upsampling (tests/test_torch_pointpillars.py) are ported
-# since; the VFE's point features (ROADMAP queue 1, item 5) still raise
+# cosine attention, the CenterHead (tests/test_torch_sst_heads.py),
+# SECONDFPN's upsampling (tests/test_torch_pointpillars.py) and the VFE's
+# point features (tests/test_torch_fsdv2_centroid.py) are ported since; a
+# reduction mode that no segment_reduce has still raises
 @pytest.mark.parametrize("make", [
-    lambda: DynamicVFE(3, return_point_feats=True),
+    lambda: DynamicVFE(3, mode="median"),
 ])
 def test_options_outside_the_slice_raise(make):
     with pytest.raises(NotImplementedError):
         make()
+
+
+def test_return_point_feats_builds():
+    vfe = DynamicVFE(3, return_point_feats=True, use_sorted_reduce=True)
+    assert vfe.return_point_feats and vfe.out_channels == 128
 
 
 @pytest.mark.parametrize("post_norm", [True, False])
