@@ -24,7 +24,10 @@ its path), SECOND's ``SparseEncoder`` (sparse conv, input gradient and dW
 kernels at 27 and 3 taps) and the dynamic pillar VFE (sorted reduce); FSD
 with the key-point assigner, FSDv2's ``centroid_alpha`` training,
 test-time augmentation, the dense-vs-sparse quality A/B tool, and the
-PointNet++ and RoI-aware ops (no kernel of ours on the last two).
+PointNet++ and RoI-aware ops (no kernel of ours on the last two); and the
+tools from raw data to a trained detector: the Waymo and nuScenes
+converters, ``create_data``, the gt database, the CLIs on converted data,
+the pretrain graft, ``fuse_conv_bn``, the visualizer and the analysis tools.
 
     python3 chip_smoke.py
 
@@ -362,12 +365,50 @@ Phases (each one that fails ends the run with a non-zero exit code):
               level 1 against the CPU) and ``roiaware_pool3d`` at JAX's
               defaults over (a)'s frame-0 proposals (against the CPU); no
               kernel of ours on (e), every count held at 0.
+ 27. raw      with ``jax``, ``flax`` and ``sst_tpu`` blocked, from raw data
+              to a trained, grafted, fused and visualised detector. (a)
+              ``data/format_writers.py write_waymo_tfrecords``: 2 segments x
+              4 frames at Waymo's lidar geometry (TOP 64 x 2650, two
+              returns, per-pixel poses; four side lidars 200 x 600 on the
+              min / max inclination path), 40 objects and a sign per
+              segment; ``tools.create_data waymo`` converts them (ms per
+              frame on the host; every frame 196,608 points), ``gt.bin``
+              read back against ``WaymoDataset``'s boxes. (b)
+              ``create_data gt_db`` (objects per class, seconds);
+              ``ObjectSample`` pastes from it. (c) the train CLI on
+              configs/fsdv2/fsdv2_waymo_1x.py over the converted set with
+              ``ObjectSample`` first, 3 steps (58 + 57 + 58 conv and 58 dW
+              launches a step, held to the modules), the test CLI with
+              ``--eval waymo`` (58 a frame), the detections' ``.bin``,
+              ``visualize_results`` (OBJ dumps; PNGs and ``show_bin``
+              where matplotlib imports), ``analyze_logs cal_train_time``.
+              (d) configs/fsd/fsd_waymoD1_1x.py: one segmentation-pretrain
+              step (the config's schedule gives ``pretrain=True`` at step
+              0), ``fsd_pretrain_converter`` into a fresh checkpoint (every
+              tensor bit for bit the pretrain's or the fresh one's), one
+              step resumed from ``<dst>_init`` (39 + 39 + 39 and 39 dW).
+              (e) ``fuse_conv_bn`` on the PointPillars config after 2 CLI
+              steps and on the float32 ``fsdv2_waymo_dense`` with seeded
+              norms; head outputs before NMS on 2 converted frames within
+              1e-4 x max|unfused| + 1e-5 (the dense build also its seg
+              logits and the same virtual voxels; 3 + 1 sorted-reduce
+              launches a predict). (f) ``write_nuscenes_tables`` (2 scenes x
+              4 keyframes, 10 sweeps before each), ``create_data
+              nuscenes``, ``NuScenesDataset``, ``eval_nus_json`` on the
+              set's own boxes moved to the global frame: NDS >= 0.99. (g)
+              ``calibrate_synthetic --val-scenes 2``, ``print_config``, and
+              the Argo2 converter, gather and feather evaluation where
+              pandas and pyarrow import, and ``create_roi_mask`` (two
+              workers) on a seeded map log where PIL imports too. (a) also
+              times the tfrecord CRC-32C's numpy lanes beside the plain
+              byte-table loop. A tool or output left out for a missing
+              package is named on a line of its own.
 
 Phase 5, the batch-4 phase and phase 12 run after phase 4 on the dense
 models; phases 10 and 11 after phase 7, on the sparse model; phase 16's
 predict after phase 9, then phase 13 and phase 16's training on models
 with the training buckets; phases 14, 15, 17, 18, 19, 20, 21, 22, 23,
-24, 25 and 26 last. Phase 8 also measures the window MHA wrapper's host time with
+24, 25, 26 and 27 last. Phase 8 also measures the window MHA wrapper's host time with
 its entry point bound once and set on every call. TF32 is turned off for
 convolutions and matmuls, so every float32 comparison is in full
 float32. Kernel, twin and library times are device times: each
@@ -381,6 +422,7 @@ the result JSON.
 from __future__ import annotations
 
 import ctypes
+import glob
 import json
 import math
 import os
@@ -4751,11 +4793,11 @@ BLOCKED_PACKAGES = ("jax", "jaxlib", "flax", "sst_tpu")
 
 class _BlockedImports:
     """A meta-path finder that refuses JAX, flax and the JAX package:
-    phase 22 runs under it."""
+    phases 22-24 and 27 run under it."""
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED_PACKAGES:
-            raise ImportError(f"{name}: phase 22 runs with "
+            raise ImportError(f"{name}: this phase runs with "
                               f"{', '.join(BLOCKED_PACKAGES)} blocked")
         return None
 
@@ -7211,6 +7253,729 @@ def phase_library(device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- phase 27
+
+RAW_SEGMENTS, RAW_FRAMES = 2, 4  # raw Waymo segments x frames
+RAW_POINTS = 196608  # points per converted frame, phase 1's frames' size
+RAW_BOXES = 40  # labelled objects per segment
+RAW_TRAIN_STEPS = 3  # FSDv2 train CLI steps on the converted set
+RAW_PP_STEPS = 2  # PointPillars train CLI steps before the fuse
+RAW_FUSE_FRAMES = 2  # converted frames predicted with and without the fuse
+RAW_SAMPLE_GROUPS = {"Car": 15, "Pedestrian": 10, "Cyclist": 10}
+RAW_NUSC_SCENES, RAW_NUSC_KEYFRAMES = 2, 4
+FUSE_REL, FUSE_ABS = 1e-4, 1e-5  # fused head outputs: x max|unfused| + abs
+
+
+def _missing(*names) -> list:
+    """The packages among ``names`` that do not import."""
+    out = []
+    for n in names:
+        try:
+            __import__(n)
+        except ImportError:
+            out.append(n)
+    return out
+
+
+def _captured(fn, *args):
+    """(``fn(*args)``, what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _crc_rates(path) -> dict:
+    """Host seconds per MiB of the tfrecord writer's CRC-32C (the numpy
+    lanes, over one written file) and of the plain byte-table loop (over
+    the file's first MiB), which must agree on that MiB."""
+    from sst_tpu_torch.data import waymo_proto as wp
+
+    with open(path, "rb") as f:
+        data = f.read()
+    head = np.frombuffer(data[:1 << 20], np.uint8)
+    t0 = time.perf_counter()
+    loop = wp._crc_bytes(0xFFFFFFFF, head, wp._crc_table()) ^ 0xFFFFFFFF
+    loop_s = time.perf_counter() - t0
+    if loop != wp.crc32c(head.tobytes()):
+        fail("raw: the CRC-32C lanes and the byte-table loop disagree")
+    t0 = time.perf_counter()
+    wp.crc32c(data)
+    lanes_s = time.perf_counter() - t0
+    return {"crc_loop_s_per_mib": loop_s * 2**20 / len(head),
+            "crc_lanes_s_per_mib": lanes_s * 2**20 / len(data)}
+
+
+def _raw_waymo(work) -> dict:
+    """Phase 27 (a): raw Waymo segments written at the sensors' geometry,
+    converted by ``tools.create_data waymo``, ``gt.bin`` read back against
+    the infos' boxes and the set loaded through ``WaymoDataset``."""
+    from sst_tpu_torch.core.waymo_bin import read_bin_as_frames
+    from sst_tpu_torch.data import format_writers as fw
+    from sst_tpu_torch.data.datasets import WaymoDataset
+    from sst_tpu_torch.tools import create_data
+
+    raw, save = os.path.join(work, "raw"), os.path.join(work, "kitti")
+    t0 = time.perf_counter()
+    paths = fw.write_waymo_tfrecords(
+        raw, seed=27, segments=RAW_SEGMENTS, frames=RAW_FRAMES,
+        points=RAW_POINTS, boxes=RAW_BOXES)
+    write_s = time.perf_counter() - t0
+    crc = _crc_rates(paths[0])
+    t0 = time.perf_counter()
+    conv, _ = _captured(create_data.main, ["waymo", "--load-dir", raw,
+                                           "--save-dir", save])
+    convert_s = time.perf_counter() - t0
+    n_frames = RAW_SEGMENTS * RAW_FRAMES
+    info_path = os.path.join(save, "waymo_infos_train.pkl")
+    points = [os.path.getsize(os.path.join(
+        save, i["point_cloud"]["velodyne_path"])) // 24 for i in conv.infos]
+    if len(conv.infos) != n_frames or set(points) != {RAW_POINTS}:
+        fail(f"raw: {len(conv.infos)} frames converted, points {points}")
+    gt = read_bin_as_frames(os.path.join(save, "gt.bin"))
+    ds = WaymoDataset(data_root=save, info_path=info_path)
+    worst, labels = 0.0, []
+    for i, info in enumerate(ds.infos):
+        s = ds.get_sample(i)
+        g = gt.get((info["context"], info["timestamp"]))
+        labels.append(len(s["gt_boxes"]))
+        if g is None or len(g["boxes"]) != len(s["gt_boxes"]):
+            fail(f"raw: frame {i}'s gt.bin objects differ from its infos")
+        # the converter's conventions, as JAX's: gt.bin keeps the lidar
+        # yaw -heading - pi/2, the camera-frame annos rotation_y the same,
+        # which the dataset turns back into the heading
+        yaw = (g["boxes"][:, 6] + s["gt_boxes"][:, 6] + np.pi / 2 + np.pi) \
+            % (2 * np.pi) - np.pi
+        worst = max(worst, float(np.abs(g["boxes"][:, :6]
+                                        - s["gt_boxes"][:, :6]).max()),
+                    float(np.abs(yaw).max()))
+    if worst > 1e-3 or s["points"].shape != (RAW_POINTS, 5):
+        fail(f"raw: gt.bin boxes within {worst:.2e} of the infos', "
+             f"sample points {s['points'].shape}")
+    raw_labels = RAW_SEGMENTS * RAW_FRAMES * (RAW_BOXES + 1)
+    rec = {"tfrecord_mib": sum(os.path.getsize(p) for p in paths) / 2**20,
+           "write_s": write_s, "convert_ms_per_frame":
+           convert_s * 1e3 / n_frames, "points_per_frame": points[0],
+           "labels_kept": labels, "labels_written": raw_labels,
+           "gt_bin_objects": int(sum(len(f["boxes"]) for f in gt.values())),
+           "gt_bin_max_gap": worst, **crc}
+    print(f"raw (a): tfrecord CRC-32C: the byte-table loop "
+          f"{crc['crc_loop_s_per_mib']:.3f} s per MiB, the numpy lanes "
+          f"{crc['crc_lanes_s_per_mib']:.4f} s per MiB (host); the loop "
+          f"would take {crc['crc_loop_s_per_mib'] * rec['tfrecord_mib']:.1f}"
+          f" s over the {rec['tfrecord_mib']:.1f} MiB written", flush=True)
+    print(f"raw (a): {RAW_SEGMENTS} Waymo segments x {RAW_FRAMES} frames "
+          f"(TOP 64 x 2650, two returns, per-pixel poses; 4 side lidars "
+          f"200 x 600 on the min / max path; {RAW_BOXES} objects and a "
+          f"sign per segment), {rec['tfrecord_mib']:.1f} MiB of tfrecords "
+          f"written in {write_s:.1f} s; Waymo2KITTI "
+          f"{rec['convert_ms_per_frame']:.1f} ms per frame (host), "
+          f"{points[0]} points per frame, "
+          f"labels kept per frame {labels} (zero-point labels and signs "
+          f"dropped); gt.bin {rec['gt_bin_objects']} objects, within "
+          f"{worst:.2e} of WaymoDataset's boxes (yaw -heading - pi/2 "
+          f"against the annos' heading)", flush=True)
+    return rec, save, info_path
+
+
+def _raw_gt_db(save, info_path):
+    """Phase 27 (b): ``tools.create_data gt_db`` on the converted set, and
+    ``ObjectSample`` drawing from the database it wrote."""
+    from sst_tpu_torch.data.datasets import WaymoDataset
+    from sst_tpu_torch.data.dbsampler import ObjectSample
+    from sst_tpu_torch.data.format_writers import WAYMO_CLASSES
+    from sst_tpu_torch.tools import create_data
+
+    t0 = time.perf_counter()
+    db, _ = _captured(create_data.main, [
+        "gt_db", "--data-root", save, "--info-path", info_path, "--out-dir",
+        save])
+    secs = time.perf_counter() - t0
+    sampler = dict(info_path=os.path.join(save,
+                                          "waymodataset_dbinfos_train.pkl"),
+                   data_root=save, sample_groups=RAW_SAMPLE_GROUPS,
+                   classes=WAYMO_CLASSES)
+    s = WaymoDataset(data_root=save, info_path=info_path).get_sample(0)
+    n0, p0 = len(s["gt_boxes"]), len(s["points"])
+    s = ObjectSample(db_sampler=sampler)(s)
+    pasted = len(s["gt_boxes"]) - n0
+    per_class = {str(k): len(v) for k, v in db.items()}
+    if not per_class.get("Car") or pasted <= 0:
+        fail(f"raw: gt database {per_class}, {pasted} objects pasted")
+    print(f"raw (b): create_data gt_db: objects per class {per_class} "
+          f"({sum(per_class.values())} .bin files, at least 5 points each) "
+          f"in {secs:.2f} s; ObjectSample pasted {pasted} objects into "
+          f"frame 0 ({n0} gt boxes, {p0} -> {len(s['points'])} points)",
+          flush=True)
+    return {"objects_per_class": per_class, "seconds": secs,
+            "pasted_frame0": pasted}, sampler
+
+
+def _raw_fsdv2(device, work, save, info_path, sampler) -> dict:
+    """Phase 27 (c): the FSDv2 train CLI on the converted set with
+    ``ObjectSample``, the test CLI with the Waymo evaluation, the
+    detections' bin, ``show_bin``, ``visualize_results`` and
+    ``analyze_logs``."""
+    from sst_tpu_torch.data.datasets import WaymoDataset
+    from sst_tpu_torch.tools import test as test_cli
+    from sst_tpu_torch.tools import train as train_cli
+    from sst_tpu_torch.tools.analysis_tools import analyze_logs
+    from sst_tpu_torch.tools.misc import visualize_results
+    from sst_tpu_torch.tools.train import apply_cfg_options
+    from sst_tpu_torch.tools.vis import show_bin
+    from sst_tpu_torch.train.data_setup import default_train_pipeline
+
+    base = load_config(CLI_TRAIN_CONFIG)
+    pipeline = [dict(type="ObjectSample", db_sampler=sampler),
+                *default_train_pipeline(base["model"]["point_cloud_range"],
+                                        base["capacity"]["max_points"])]
+    cfg_path = _config_over(work, "fsdv2_raw.py", CLI_TRAIN_CONFIG, dict(
+        dataset="waymo", data_root=save, info_path=info_path,
+        val_info_path=info_path, train_pipeline=pipeline))
+    model = build_model_from_cfg(apply_cfg_options(
+        load_config(cfg_path), CLI_TRAIN_OPTIONS), train=True, device=device)
+    per = _per_step(model)
+    del model
+    wd = os.path.join(work, "fsdv2_wd")
+    train, launches, train_s = _cli_run(train_cli.main, [
+        cfg_path, "--device", str(device), "--work-dir", wd, "--max-steps",
+        str(RAW_TRAIN_STEPS), "--log-interval", "1", "--ckpt-interval",
+        str(RAW_TRAIN_STEPS), "--cfg-options", *CLI_TRAIN_OPTIONS],
+        "train, FSDv2 on the converted set, ObjectSample first")
+    _expect("raw fsdv2 train", launches,
+            {k: v * RAW_TRAIN_STEPS for k, v in per.items()})
+    if train["steps"] != RAW_TRAIN_STEPS or not np.isfinite(
+            train["loss_total"]).all():
+        fail(f"raw: FSDv2 train CLI {train['steps']} steps, losses "
+             f"{train['loss_total']}")
+    ckpt = os.path.join(wd, f"ckpt_{RAW_TRAIN_STEPS}")
+    preds = os.path.join(work, "preds.pkl")
+    n_frames = RAW_SEGMENTS * RAW_FRAMES
+    res, test_launches, test_s = _cli_run(test_cli.main, [
+        cfg_path, ckpt, "--device", str(device), "--eval", "waymo", "--out",
+        preds], "test, FSDv2 on the converted set, Waymo evaluation")
+    _expect("raw fsdv2 test", test_launches, {
+        "forward": n_frames * per["forward"], "dw": 0, "sorted_reduce": 0})
+    if res["frames"] != n_frames or not np.isfinite(res["Overall/L2 mAP"]):
+        fail(f"raw: FSDv2 test CLI gave {res}")
+    ds = WaymoDataset(data_root=save, info_path=info_path)
+    bin_path = ds.format_results(
+        [dict(boxes_3d=p["boxes"], scores_3d=p["scores"],
+              labels_3d=p["labels"]) for p in _pickle_load(preds)],
+        os.path.join(work, "dets"))
+    skipped = {}
+    no_mpl = _missing("matplotlib")
+    vis = os.path.join(work, "vis")
+    n_vis, _ = _captured(visualize_results.main, [
+        cfg_path, "--result", preds, "--show-dir", vis]
+        + (["--no-png"] if no_mpl else []))
+    objs = sorted(glob.glob(os.path.join(vis, "*", "*.obj")))
+    pngs = sorted(glob.glob(os.path.join(vis, "*", "*.png")))
+    if n_vis != n_frames or len(objs) < n_frames * 2 or (
+            not no_mpl and len(pngs) != n_frames):
+        fail(f"raw: visualize_results wrote {len(objs)} OBJ and "
+             f"{len(pngs)} PNG files for {n_vis} frames")
+    if no_mpl:
+        skipped["visualize_results PNGs, show_bin"] = "matplotlib"
+        n_bin = 0
+    else:
+        n_bin, _ = _captured(show_bin.main, [
+            "--bin-path", bin_path, "--gt-bin-path",
+            os.path.join(save, "gt.bin"), "--interval", "1",
+            "--save-folder", os.path.join(work, "bin_vis"), "--data-root",
+            save])
+        if n_bin < 1:
+            fail("raw: show_bin drew no frame")
+    _, timing = _captured(analyze_logs.main, [
+        "cal_train_time", os.path.join(wd, "train_log.jsonl")])
+    step_ms = [round(x, 2) for x in train["step_ms"]]
+    waits = [round(x, 2) for x in train["loader_wait_ms"]]
+    losses = [round(x, 4) for x in train["loss_total"]]
+    print(f"raw (c): FSDv2 train CLI on the converted set "
+          f"({CLI_TRAIN_CONFIG}, ObjectSample over the new database, remat "
+          f"on): {RAW_TRAIN_STEPS} steps, step ms {step_ms}, loader wait ms "
+          f"{waits}, losses {losses}; launches {launches} ({per} per step, "
+          f"held to "
+          f"the modules); test CLI --eval waymo over {n_frames} frames: "
+          f"{res['detections']} detections, Overall/L2 mAP "
+          f"{res['Overall/L2 mAP']:.4f}, launches {test_launches}; "
+          f"detections' bin written; visualize_results {len(objs)} OBJ and "
+          f"{len(pngs)} PNG files, show_bin {n_bin} PNGs; analyze_logs "
+          f"cal_train_time: {' | '.join(timing.strip().splitlines())}",
+          flush=True)
+    return {"train_step_ms": train["step_ms"],
+            "train_loader_wait_ms": train["loader_wait_ms"],
+            "losses": train["loss_total"], "launches_per_step": per,
+            "launches": {"train": launches, "test": test_launches},
+            "test": {k: v for k, v in res.items()
+                     if k.startswith("Overall") or k in ("frames",
+                                                         "detections")},
+            "seconds": {"train": train_s, "test": test_s},
+            "obj_files": len(objs), "png_files": len(pngs) + n_bin,
+            "skipped": skipped, "cal_train_time": timing.strip()}
+
+
+def _raw_graft(device, work, save, info_path) -> dict:
+    """Phase 27 (d): FSD's segmentation pretrain (the train CLI at step 0,
+    where the config's schedule gives ``pretrain=True``) for one step on
+    the converted set, ``fsd_pretrain_converter`` into a fresh FSD
+    checkpoint, every tensor checked, then the train CLI resumed from
+    ``<dst>_init`` for one step."""
+    from sst_tpu_torch.tools import train as train_cli
+    from sst_tpu_torch.tools.model_converters import fsd_pretrain_converter
+    from sst_tpu_torch.train.checkpoint import read_checkpoint, \
+        save_checkpoint
+
+    cfg_path = _config_over(work, "fsd_raw.py", FSD_CONFIG, dict(
+        dataset="waymo", data_root=save, info_path=info_path))
+    cfg = load_config(cfg_path)
+    model = init_weights(build_model_from_cfg(cfg, train=True,
+                                              device=device),
+                         torch.Generator().manual_seed(1))
+    per = _per_step(model)
+    fresh = save_checkpoint(os.path.join(work, "fsd_fresh"), model,
+                            optimizer_from_cfg(model, cfg, 1), 0)
+    del model
+    common = [cfg_path, "--device", str(device), "--max-steps", "1",
+              "--log-interval", "1", "--ckpt-interval", "1"]
+    pre, pre_launches, pre_s = _cli_run(
+        train_cli.main, common + ["--work-dir", os.path.join(work, "pre")],
+        "train, FSD segmentation pretrain on the converted set")
+    _expect("raw fsd pretrain", pre_launches, per)
+    src = os.path.join(work, "pre", "ckpt_1")
+    init, _ = _captured(fsd_pretrain_converter.main,
+                        ["--src", src, "--dst", fresh])
+    a = read_checkpoint(src)["model"]
+    b, c = read_checkpoint(fresh), read_checkpoint(init)
+    grafted = [k for k in c["model"] if k.startswith("rpn.segmentor_mod.")]
+    diff = [k for k in c["model"] if _same_state_bits(
+        c["model"][k], (a if k in grafted else b["model"])[k])]
+    diff += _same_state_bits({k: v for k, v in c.items() if k != "model"},
+                             {k: v for k, v in b.items() if k != "model"})
+    moved = sum(bool(_same_state_bits(a[k], b["model"][k]))
+                for k in grafted)
+    if diff or not grafted or not moved:
+        fail(f"raw: the grafted checkpoint differs at {diff[:6]} "
+             f"({len(grafted)} grafted, {moved} moved by the pretrain)")
+    res, res_launches, res_s = _cli_run(
+        train_cli.main, common + ["--work-dir", os.path.join(work, "res"),
+                                  "--resume-from", init],
+        "train, FSD resumed from the grafted checkpoint")
+    _expect("raw fsd resume", res_launches, per)
+    if res["start_step"] != 0 or not np.isfinite(
+            pre["loss_total"] + res["loss_total"]).all():
+        fail(f"raw: FSD pretrain / resume losses {pre['loss_total']} "
+             f"{res['loss_total']}, start {res['start_step']}")
+    print(f"raw (d): {FSD_CONFIG} segmentation pretrain, 1 step (loss "
+          f"{pre['loss_total'][0]:.4f}, launches {pre_launches}); "
+          f"fsd_pretrain_converter grafted {len(grafted)} tensors of "
+          f"rpn.segmentor_mod ({moved} moved by the pretrain), each bit "
+          f"for bit the pretrain's, the other "
+          f"{len(c['model']) - len(grafted)} and the optimizer state the "
+          f"fresh checkpoint's; resumed from "
+          f"<dst>_init, 1 step (loss {res['loss_total'][0]:.4f}, launches "
+          f"{res_launches}, {per} per step held to the modules)", flush=True)
+    return {"grafted": len(grafted), "moved": moved,
+            "launches_per_step": per,
+            "launches": {"pretrain": pre_launches, "resume": res_launches},
+            "losses": {"pretrain": pre["loss_total"],
+                       "resume": res["loss_total"]},
+            "seconds": {"pretrain": pre_s, "resume": res_s}}
+
+
+def _leaves(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _leaves(v)]
+    return []
+
+
+def _fused_gap(model, unfused, fused, batches, head) -> dict:
+    """``head(model, batch)`` (outputs before NMS) with the unfused and
+    the fused checkpoint loaded, on each batch: the largest gap of any
+    output, and its tolerance, ``FUSE_REL`` x the largest unfused
+    magnitude + ``FUSE_ABS``."""
+    from sst_tpu_torch.train.checkpoint import load_checkpoint
+
+    outs = []
+    for ckpt in (unfused, fused):
+        load_checkpoint(ckpt, model)
+        with torch.inference_mode():
+            outs.append([[t.float().cpu() for t in _leaves(head(model, b))]
+                         for b in batches])
+    worst = {"gap": 0.0, "tol": 0.0, "ratio": 0.0}
+    for u_frame, f_frame in zip(*outs):
+        if [t.shape for t in u_frame] != [t.shape for t in f_frame]:
+            fail("raw: fused outputs' shapes differ from the unfused ones'")
+        for u, f in zip(u_frame, f_frame):
+            gap = float((f - u).abs().max()) if u.numel() else 0.0
+            tol = FUSE_REL * float(u.abs().max()) + FUSE_ABS if \
+                u.numel() else FUSE_ABS
+            if gap / tol > worst["ratio"]:
+                worst = {"gap": gap, "tol": tol, "ratio": gap / tol}
+    return worst
+
+
+def _seeded_norms(model, seed: int) -> int:
+    """The norms that ``fuse_conv_bn`` folds, set to seeded scales, shifts
+    and statistics far from identity; returns how many."""
+    from sst_tpu_torch.tools.misc.fuse_conv_bn import fused_pairs
+
+    state = model.state_dict()
+    g = torch.Generator().manual_seed(seed)
+    pairs = fused_pairs(state)
+    for pre, _, bk in pairs:
+        for name, lo, hi in (("weight", 0.5, 2.0), ("bias", -0.5, 0.5),
+                             ("running_mean", -0.5, 0.5),
+                             ("running_var", 0.2, 3.0)):
+            t = state[f"{pre}{bk}.{name}"]
+            t.copy_((lo + (hi - lo) * torch.rand(t.shape, generator=g)).to(
+                t.device))
+    return len(pairs)
+
+
+def _raw_fuse(device, work, save, info_path) -> dict:
+    """Phase 27 (e): ``fuse_conv_bn`` on a PointPillars checkpoint after 2
+    train CLI steps on the converted set, and on the float32 dense-BEV
+    flagship with seeded norms; each predicted on converted frames with
+    and without the fuse, head outputs before NMS compared."""
+    from sst_tpu_torch.data.datasets import WaymoDataset
+    from sst_tpu_torch.tools import train as train_cli
+    from sst_tpu_torch.tools.misc import fuse_conv_bn
+    from sst_tpu_torch.train.checkpoint import save_checkpoint
+
+    ds = WaymoDataset(data_root=save, info_path=info_path)
+    frames = [ds.get_sample(i)["points"] for i in range(RAW_FUSE_FRAMES)]
+    pp_cfg = _config_over(work, "pp_raw.py", POINTPILLARS_CONFIG, dict(
+        dataset="waymo", data_root=save, info_path=info_path,
+        load_interval=1))
+    wd = os.path.join(work, "pp_wd")
+    train, launches, train_s = _cli_run(train_cli.main, [
+        pp_cfg, "--device", str(device), "--work-dir", wd, "--max-steps",
+        str(RAW_PP_STEPS), "--log-interval", "1", "--ckpt-interval",
+        str(RAW_PP_STEPS)], "train, PointPillars on the converted set")
+    if any(launches.values()) or not np.isfinite(train["loss_total"]).all():
+        fail(f"raw: PointPillars train CLI launches {launches}, losses "
+             f"{train['loss_total']}")
+    ckpt = os.path.join(wd, f"ckpt_{RAW_PP_STEPS}")
+    t0 = time.perf_counter()
+    pp_fused, _ = _captured(fuse_conv_bn.main, [
+        pp_cfg, ckpt, os.path.join(work, "pp_fused")])
+    fuse_s = time.perf_counter() - t0
+    model = build_model_from_cfg(load_config(pp_cfg), train=False,
+                                 device=device).eval()
+    n_pp = len(fuse_conv_bn.fused_pairs(model.state_dict()))
+    batches = [prepare_batch(model, f, model.max_points) for f in frames]
+    reset_launch_counts()
+    pp = _fused_gap(model, ckpt, pp_fused, batches, lambda m, b: m(b))
+    pp_launches = _off_path_launches() | {"window_mha": wm.launches}
+    if any(pp_launches.values()):
+        fail(f"raw: PointPillars predict launched {pp_launches}")
+    del model, batches
+
+    dense = init_weights(fsdv2_waymo_dense(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).eval()
+    n_dense = _seeded_norms(dense, 27)
+    d_ckpt = save_checkpoint(os.path.join(work, "dense"), dense)
+    d_fused, _ = _captured(fuse_conv_bn.main, [
+        CLI_TRAIN_CONFIG, d_ckpt, os.path.join(work, "dense_fused")])
+    batches = [prepare_batch(dense, f, dense.max_points) for f in frames]
+    want = _expected_reduce_launches(dense)
+    selections = []
+
+    def dense_head(m, b):
+        pipe = m.run_pipeline(b, detach_seg=False)
+        ex = pipe["ex"]
+        selections.append((ex["virtual_centers"].cpu(),
+                           ex["virtual_valid"].cpu()))
+        return [pipe["seg_out"]["seg_logits"], pipe["outs"]]
+
+    reset_launch_counts()
+    dense_gap = _fused_gap(dense, d_ckpt, d_fused, batches, dense_head)
+    runs = 2 * len(batches)
+    d_launches = {"sorted_reduce": sr.launches,
+                  "segment_offsets": sr.offsets_launches,
+                  "sparse_conv_gemm": scg.launches,
+                  "sparse_conv_dw": sdw.launches, "window_mha": wm.launches}
+    if d_launches != {"sorted_reduce": runs * sum(want.values()),
+                      "segment_offsets": runs, "sparse_conv_gemm": 0,
+                      "sparse_conv_dw": 0, "window_mha": 0}:
+        fail(f"raw: the dense flagship's predicts launched {d_launches}, "
+             f"{want} per frame expected")
+    n = len(batches)
+    same_sel = all(torch.equal(selections[i][0], selections[i + n][0])
+                   and torch.equal(selections[i][1], selections[i + n][1])
+                   for i in range(n))
+    del dense, batches
+    torch.cuda.empty_cache()
+    for what, gap in (("PointPillars", pp), ("dense flagship", dense_gap)):
+        if gap["ratio"] > 1.0:
+            fail(f"raw: fused {what} head outputs {gap['gap']:.3e} from "
+                 f"the unfused ones, tolerance {gap['tol']:.3e}")
+    if not same_sel:
+        fail("raw: the fused dense flagship selected other virtual voxels")
+    print(f"raw (e): fuse_conv_bn on {POINTPILLARS_CONFIG} after "
+          f"{RAW_PP_STEPS} train CLI steps on the converted set (losses "
+          f"{[round(x, 4) for x in train['loss_total']]}; {n_pp} conv + "
+          f"norm pairs, fused in {fuse_s:.2f} s): head outputs before NMS "
+          f"on {len(frames)} converted frames, largest gap {pp['gap']:.3e} "
+          f"(tolerance {pp['tol']:.3e}), no kernel launched; the float32 "
+          f"fsdv2_waymo_dense with seeded norms ({n_dense} pairs): seg "
+          f"logits and head outputs largest gap {dense_gap['gap']:.3e} "
+          f"(tolerance {dense_gap['tol']:.3e}), the same virtual voxels, "
+          f"launches {d_launches} over {runs} predicts", flush=True)
+    return {"pointpillars": dict(pp, pairs=n_pp, losses=train["loss_total"],
+                                 train_launches=launches,
+                                 predict_launches=pp_launches),
+            "dense": dict(dense_gap, pairs=n_dense, launches=d_launches,
+                          predicts=runs),
+            "train_s": train_s, "fuse_s": fuse_s}
+
+
+def _raw_nusc(work) -> dict:
+    """Phase 27 (f): a seeded nuScenes table set with 10-sweep chains,
+    ``tools.create_data nuscenes``, ``NuScenesDataset`` and
+    ``eval_nus_json`` on the set's own boxes moved to the global frame."""
+    from sst_tpu_torch.data import format_writers as fw
+    from sst_tpu_torch.data.datasets import NuScenesDataset
+    from sst_tpu_torch.tools import create_data
+    from sst_tpu_torch.tools.analysis_tools import eval_nus_json as enj
+
+    root = os.path.join(work, "nuscenes")
+    t0 = time.perf_counter()
+    w = fw.write_nuscenes_tables(root, seed=27, scenes=RAW_NUSC_SCENES,
+                                 keyframes=RAW_NUSC_KEYFRAMES)
+    write_s = time.perf_counter() - t0
+    val = os.path.join(root, "val_scenes.txt")
+    with open(val, "w") as f:
+        f.write("\n".join(sorted(w["val_scenes"])) + "\n")
+    t0 = time.perf_counter()
+    paths, _ = _captured(create_data.main, [
+        "nuscenes", "--root-path", root, "--version", w["version"],
+        "--max-sweeps", "10", "--val-scenes", val])
+    convert_s = time.perf_counter() - t0
+    infos = _pickle_load(paths[1])["infos"]
+    sample = NuScenesDataset(data_root=root, info_path=paths[1]).get_sample(0)
+    sweeps = [len(i["sweeps"]) for i in infos]
+    n_nan = sum(int(np.isnan(i["gt_velocity"]).any(1).sum()) for i in infos)
+    results = {}
+    for info in infos:
+        r_eg = enj.quat_to_rot(info["ego2global_rotation"])
+        t_eg = np.asarray(info["ego2global_translation"], np.float64)
+        r_le = enj.quat_to_rot(info["lidar2ego_rotation"])
+        t_le = np.asarray(info["lidar2ego_translation"], np.float64)
+        dyaw = enj.quat_yaw(info["ego2global_rotation"]) + \
+            enj.quat_yaw(info["lidar2ego_rotation"])
+        entries = []
+        for b, name, v in zip(info["gt_boxes"], info["gt_names"],
+                              np.nan_to_num(info["gt_velocity"])):
+            ctr = np.asarray(b[:3], np.float64) + [0.0, 0.0, b[5] / 2]
+            g = (ctr @ r_le.T + t_le) @ r_eg.T + t_eg
+            vel = np.array([v[0], v[1], 0.0]) @ r_le.T @ r_eg.T
+            yaw = b[6] + dyaw
+            entries.append(dict(
+                translation=g.tolist(), size=[float(x) for x in b[3:6]],
+                rotation=[float(np.cos(yaw / 2)), 0.0, 0.0,
+                          float(np.sin(yaw / 2))],
+                velocity=vel[:2].tolist(), detection_name=str(name),
+                detection_score=0.9))
+        results[info["token"]] = entries
+    res_path = os.path.join(root, "results_nusc.json")
+    with open(res_path, "w") as f:
+        json.dump({"results": results, "meta": {}}, f)
+    out, _ = _captured(enj.main, [res_path, "--info-path", paths[1]])
+    if out["NDS"] < 0.99 or set(sweeps) != {10} or not n_nan \
+            or sample["points"].shape[1] != 5:
+        fail(f"raw: nuScenes NDS {out['NDS']}, sweeps {sweeps}, "
+             f"{n_nan} NaN velocities")
+    print(f"raw (f): nuScenes v1.0 tables, {RAW_NUSC_SCENES} scenes x "
+          f"{RAW_NUSC_KEYFRAMES} keyframes, 10 sweeps before each, 34,720 "
+          f"points per file, written in {write_s:.2f} s; create_data "
+          f"nuscenes {convert_s:.2f} s (sweeps per val keyframe {sweeps}, "
+          f"{n_nan} NaN velocities); NuScenesDataset sample "
+          f"{sample['points'].shape}; eval_nus_json on the set's own boxes "
+          f"moved to the global frame: mAP {out['mAP']}, NDS {out['NDS']}",
+          flush=True)
+    return {"write_s": write_s, "convert_s": convert_s, "sweeps": sweeps,
+            "nan_velocities": n_nan,
+            **{k: out[k] for k in ("mAP", "mATE", "mASE", "mAOE", "mAVE",
+                                   "NDS")}}
+
+
+def _raw_tools(work) -> dict:
+    """Phase 27 (g): ``calibrate_synthetic`` at 2 val scenes,
+    ``print_config`` on the FSDv2 config, and the Argo2 tools where pandas
+    and pyarrow import."""
+    from sst_tpu_torch.tools.analysis_tools import calibrate_synthetic
+    from sst_tpu_torch.tools.misc import print_config
+
+    t0 = time.perf_counter()
+    cal, _ = _captured(calibrate_synthetic.main, [
+        "--val-scenes", "2", "--out", os.path.join(work, "cal.json")])
+    cal_s = time.perf_counter() - t0
+    cfg, text = _captured(print_config.main, [CLI_TRAIN_CONFIG])
+    if cal["arms"]["oracle"]["Car"]["L1_mAP"] < 99.0 or \
+            cfg["model"]["type"] != "SingleStageFSDV2" or \
+            not text.startswith("Config:"):
+        fail(f"raw: calibrate_synthetic oracle {cal['arms']['oracle']}, "
+             f"print_config {cfg['model']['type']}")
+    skipped = {}
+    missing = _missing("pandas", "pyarrow")
+    argo = None
+    if missing:
+        skipped["argo2_converter, gather_argo2_anno_feather, eval_feather, "
+                "create_roi_mask"] = ", ".join(missing)
+    else:
+        no_pil = _missing("PIL")
+        if no_pil:
+            skipped["create_roi_mask"] = "PIL"
+        argo = _raw_argo(work, roi_mask=not no_pil)
+    print(f"raw (g): calibrate_synthetic --val-scenes 2 in {cal_s:.1f} s "
+          f"(oracle L1 mAP {cal['arms']['oracle']['Overall_L1_mAP']}, "
+          f"xyz 0.3 m {cal['arms']['xyz_0.3m']['Overall_L1_mAP']}); "
+          f"print_config {CLI_TRAIN_CONFIG}: {len(text.splitlines())} lines"
+          + (f"; Argo2 tools: {argo}" if argo else ""), flush=True)
+    return {"calibrate_s": cal_s,
+            "oracle_L1_mAP": cal["arms"]["oracle"]["Overall_L1_mAP"],
+            "print_config_lines": len(text.splitlines()), "argo": argo,
+            "skipped": skipped}
+
+
+def _raw_argo(work, roi_mask: bool) -> dict:
+    """The Argo2 converter, gather and feather evaluation on one seeded
+    log of 3 frames (pandas and pyarrow present), and, where PIL imports,
+    ``create_roi_mask`` over the converted frames on a map log written
+    beside them (a drivable rectangle, a ground raster, the ego poses)."""
+    import pandas as pd
+    import pyarrow.feather as feather
+
+    from sst_tpu_torch.tools.argo import (
+        argo2_converter,
+        create_roi_mask,
+        eval_feather,
+        gather_argo2_anno_feather,
+    )
+
+    root = os.path.join(work, "av2")
+    sensor = os.path.join(root, "argo2_format", "sensor")
+    seg = os.path.join(sensor, "val", "log00")
+    os.makedirs(os.path.join(seg, "sensors", "lidar"))
+    rng = np.random.RandomState(27)
+    annos = []
+    for f in range(3):
+        feather.write_feather(pd.DataFrame({
+            k: rng.uniform(lo, hi, 20000).astype(np.float32)
+            for k, lo, hi in (("x", -60, 60), ("y", -60, 60), ("z", -2, 3),
+                              ("intensity", 0, 255))}),
+            os.path.join(seg, "sensors", "lidar", f"{1000 + f}.feather"))
+        annos.append(dict(timestamp_ns=1000 + f, category="REGULAR_VEHICLE",
+                          tx_m=5.0 + f, ty_m=2.0, tz_m=0.5, length_m=4.5,
+                          width_m=2.0, height_m=1.6, qw=np.cos(0.2), qx=0.0,
+                          qy=0.0, qz=np.sin(0.2), num_interior_pts=12,
+                          track_uuid="t0"))
+    feather.write_feather(pd.DataFrame(annos),
+                          os.path.join(seg, "annotations.feather"))
+    out = os.path.join(root, "kitti_format")
+    os.makedirs(out)
+    _captured(argo2_converter.main, ["--root", sensor, "--out", out,
+                                     "--splits", "val"])
+    gt = os.path.join(root, "gt.feather")
+    _captured(gather_argo2_anno_feather.main, ["--root", sensor, "--out", gt])
+    preds = feather.read_table(gt).to_pandas()
+    preds["score"] = 0.9
+    pred = os.path.join(root, "preds.feather")
+    feather.write_feather(preds, pred)
+    res, _ = _captured(eval_feather.main, ["--pred", pred, "--gt", gt])
+    infos = os.path.join(out, "argo2_infos_val.pkl")
+    rec = {"frames": len(_pickle_load(infos)), "CDS": float(res["CDS"])}
+    if not roi_mask:
+        return rec
+    # the map in the city frame: ego at (110, 205) turned by 0.3 rad, a
+    # drivable rectangle x 100..120, y 200..210 at z 1.5 m and a 0.3 m
+    # ground raster over x 90..130, y 190..220
+    mdir = os.path.join(seg, "map")
+    os.makedirs(mdir)
+    rect = ((100.0, 200.0), (120.0, 200.0), (120.0, 210.0), (100.0, 210.0))
+    with open(os.path.join(mdir, "log_map_archive_log00__Seeded.json"),
+              "w") as f:
+        json.dump({"drivable_areas": {"1": {"id": 1, "area_boundary": [
+            {"x": x, "y": y, "z": 1.5} for x, y in rect]}},
+            "lane_segments": {}, "pedestrian_crossings": {}}, f)
+    np.save(os.path.join(mdir, "log00_ground_height_surface__Seeded.npy"),
+            np.full((100, 134), 1.5, np.float16))
+    with open(os.path.join(mdir, "log00___img_Sim2_city.json"), "w") as f:
+        json.dump({"R": [1.0, 0.0, 0.0, 1.0], "t": [-90.0, -190.0],
+                   "s": 1.0 / 0.3}, f)
+    pd.DataFrame({"timestamp_ns": [1000, 1001, 1002],
+                  "qw": [np.cos(0.15)] * 3, "qx": [0.0] * 3,
+                  "qy": [0.0] * 3, "qz": [np.sin(0.15)] * 3,
+                  "tx_m": [110.0] * 3, "ty_m": [205.0] * 3,
+                  "tz_m": [0.0] * 3}).to_feather(
+        os.path.join(seg, "city_SE3_egovehicle.feather"))
+    mask_dir, _ = _captured(create_roi_mask.main, [
+        "--argo2-root", root, "--infos", infos, "--split", "val",
+        "--num-process", "2"])
+    masks = [np.fromfile(p, bool).reshape(-1, 3)
+             for p in sorted(glob.glob(os.path.join(mask_dir, "*.bin")))]
+    share = [float(m.mean(0)[0]) for m in masks]
+    if len(masks) != 3 or any(len(m) != 20000 for m in masks) or not all(
+            0.0 < r < 1.0 for r in share):
+        fail(f"raw: create_roi_mask wrote {len(masks)} masks, ROI shares "
+             f"{share}")
+    rec["roi_share"] = share
+    return rec
+
+
+def phase_raw_to_trained(device) -> dict:
+    """Phase 27: from raw data to a trained, grafted, fused and visualised
+    detector with the port's tools alone, ``jax``, ``flax`` and
+    ``sst_tpu`` blocked; (a)-(g) above. Returns the phase's record."""
+    t_phase = time.perf_counter()
+    finder = _BlockedImports()
+    sys.meta_path.insert(0, finder)
+    work = tempfile.mkdtemp(prefix="chip_smoke_raw_")
+    rec, seconds = {}, {}
+    try:
+        t0 = time.perf_counter()
+        rec["waymo"], save, info_path = _raw_waymo(work)
+        rec["gt_db"], sampler = _raw_gt_db(save, info_path)
+        seconds["a, b"] = time.perf_counter() - t0
+        for key, step, fn in (
+                ("fsdv2", "c", lambda: _raw_fsdv2(device, work, save,
+                                                  info_path, sampler)),
+                ("graft", "d", lambda: _raw_graft(device, work, save,
+                                                  info_path)),
+                ("fuse", "e", lambda: _raw_fuse(device, work, save,
+                                                info_path)),
+                ("nuscenes", "f", lambda: _raw_nusc(work)),
+                ("tools", "g", lambda: _raw_tools(work))):
+            t0 = time.perf_counter()
+            rec[key] = fn()
+            seconds[step] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        sys.meta_path.remove(finder)
+        shutil.rmtree(work, ignore_errors=True)
+    loaded = _blocked_loaded()
+    if loaded:
+        fail(f"raw: {loaded} entered sys.modules")
+    skipped = {**rec["fsdv2"]["skipped"], **rec["tools"]["skipped"]}
+    for what, pkg in skipped.items():
+        print(f"raw: not run for want of {pkg}: {what}", flush=True)
+    rec["skipped"] = skipped
+    rec["seconds"] = dict(seconds, phase=time.perf_counter() - t_phase)
+    print(f"raw: phase 27 took {rec['seconds']['phase']:.1f} s (by step "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }); none of "
+          f"{BLOCKED_PACKAGES} in sys.modules", flush=True)
+    return rec
+
+
 def main() -> None:
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -7401,6 +8166,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     lib = phase_library(device)
     lib["card"] = card
+    torch.cuda.empty_cache()
+    raw = phase_raw_to_trained(device)
+    raw["card"] = card
+    # phase 27's runs, each counted from 0: launches by kind
+    raw_runs = {"raw_fsdv2_train": raw["fsdv2"]["launches"]["train"],
+                "raw_fsdv2_test": raw["fsdv2"]["launches"]["test"],
+                "raw_fsd_pretrain": raw["graft"]["launches"]["pretrain"],
+                "raw_fsd_resume": raw["graft"]["launches"]["resume"],
+                "raw_pointpillars_train": raw["fuse"]["pointpillars"][
+                    "train_launches"],
+                "raw_pointpillars_fuse_predicts": raw["fuse"][
+                    "pointpillars"]["predict_launches"],
+                "raw_dense_fuse_predicts": raw["fuse"]["dense"]["launches"]}
     # phase 26's paths, each counted from 0: launches by kind
     lib_runs = {"fsd_ssg": {"forward": lib["fsd_ssg"]["predict_launches"]},
                 "fsd_ssg_loss": lib["fsd_ssg"]["loss_launches"],
@@ -7488,7 +8266,11 @@ def main() -> None:
             # over the dense bf16 build and both A/B arms; none on FSD's
             # key-point assigner path, PointNet++ or the RoI-aware pool
             **{k: (v.get("sorted_reduce", 0), v.get("segment_offsets", 0))
-               for k, v in lib_runs.items()}}
+               for k, v in lib_runs.items()},
+            # phase 27: the dense flagship's predicts with and without the
+            # fuse; the FSDv2 and FSD configs' VFEs leave it off
+            **{k: (v.get("sorted_reduce", 0), v.get("segment_offsets", 0))
+               for k, v in raw_runs.items()}}
     sr_launches = {k: v[0] for k, v in runs.items()}
     # the conv kernel's launches in each path's run, each counted from 0
     conv_by_path = {
@@ -7553,7 +8335,14 @@ def main() -> None:
         # predicts); forward, recompute and input-gradient launches
         **{k: sum(v.get(kind, 0) for kind in ("forward", "recompute",
                                               "dgrad"))
-           for k, v in lib_runs.items()}}
+           for k, v in lib_runs.items()},
+        # phase 27, each counted from 0: the FSDv2 train CLI on the
+        # converted set (3 steps) and its test CLI, FSD's pretrain step and
+        # the step resumed from the grafted checkpoint; none on
+        # PointPillars or the dense flagship
+        **{k: sum(v.get(kind, 0) for kind in ("forward", "recompute",
+                                              "dgrad"))
+           for k, v in raw_runs.items()}}
     dw_by_path = {
         "sparse_train": train["launches"]["sparse_conv_dw"],
         "fsd_train": fsd_train["launches"]["sparse_conv_dw"],
@@ -7578,7 +8367,9 @@ def main() -> None:
         "ctrl_bf16_train": sb["ctrl"]["launches"]["dw bf16"],
         "second_encoder_bf16_train": 12,
         # phase 26
-        **{k: v.get("dw", 0) for k, v in lib_runs.items()}}
+        **{k: v.get("dw", 0) for k, v in lib_runs.items()},
+        # phase 27
+        **{k: v.get("dw", 0) for k, v in raw_runs.items()}}
     off_launches = {k: v[1] for k, v in runs.items()}
     summary = {"kernels": [{
         "name": "sorted_segment_reduce",
@@ -7877,6 +8668,7 @@ def main() -> None:
         # (phase 16), each counted from 0
         "launches": (mha_launches + sst_train["launches"]["window_mha"]
                      + sum(v.get("window_mha", 0) for v in lib_runs.values())
+                     + sum(v.get("window_mha", 0) for v in raw_runs.values())
                      + sst_bf16["launches"]
                      + sst_bf16_train["launches"]["window_mha"]
                      + cli["launches"]["test_sst_bf16"]["window_mha"]
@@ -7899,7 +8691,10 @@ def main() -> None:
                              **{k: 0 for k in pp_runs},
                              # phase 26: none (held to 0 on each path)
                              **{k: v.get("window_mha", 0)
-                                for k, v in lib_runs.items()}},
+                                for k, v in lib_runs.items()},
+                             # phase 27: none
+                             **{k: v.get("window_mha", 0)
+                                for k, v in raw_runs.items()}},
         "launches_per_train_step": sst_train[
             "launches_per_step_expected"],
         "max_abs_err": max(mha_err, sst_train["mha_max_abs_err"],
@@ -8009,6 +8804,7 @@ def main() -> None:
         "pointpillars": pp,
         "sparse_bf16": {k: v for k, v in sb.items() if k != "rows"},
         "library": lib,
+        "raw_to_trained": raw,
         "wrapper_host_us": WRAPPER_HOST_US,
         "card": card}
     print(json.dumps(summary), flush=True)

@@ -246,6 +246,9 @@ def write_gt_database(root: str, classes, seed: int = 0, per_class: int = 8,
 
 
 WAYMO_CLASSES = ("Car", "Pedestrian", "Cyclist")
+# (l_lo, l_hi, w_lo, w_hi, h_lo, h_hi) per class, as flagship.py's priors
+_CLASS_PRIORS = ((3.8, 5.5, 1.7, 2.2, 1.5, 2.0), (0.6, 1.0, 0.6, 1.0, 1.6, 1.9),
+                 (1.6, 2.0, 0.6, 0.9, 1.5, 1.9))
 WAYMO_TYPES = {"Car": 1, "Pedestrian": 2, "Cyclist": 4}  # label.proto Type
 # the kitti-format calibration the Waymo layout's infos carry
 _WAYMO_RECT = np.eye(4)
@@ -363,6 +366,381 @@ def write_waymo_set(root: str, seed: int = 0, train_sequences: int = 2,
     out["tfrecord"] = os.path.join(root, "tfrecords", "segments.tfrecord")
     wp.write_tfrecord(out["tfrecord"], records)
     return out
+
+
+# Waymo's five lidars as the public dataset's vehicles mount them: name,
+# extrinsic translation (m) and yaw (rad). TOP lists its 64 beams' angles;
+# the four short-range lidars give only a min and a max.
+WAYMO_TOP = (1, (1.43, 0.0, 2.184), 0.0148)
+WAYMO_SIDES = ((2, (4.07, 0.0, 0.691), 0.0), (3, (3.245, 1.025, 0.981),
+                                                np.pi / 2),
+               (4, (3.245, -1.025, 0.981), -np.pi / 2),
+               (5, (-1.154, 0.0, 0.466), np.pi))
+WAYMO_TOP_INCLINATION = (-0.3075, 0.0416)  # rad, -17.6 and +2.4 degrees
+WAYMO_SIDE_INCLINATION = (-1.5708, 0.5236)  # rad, -90 and +30 degrees
+WAYMO_FRAME_S = 0.1  # s per frame (and per sweep of the TOP lidar)
+WAYMO_SIDE_SHARE = 0.25  # of a frame's points, from the short-range lidars
+WAYMO_SECOND_SHARE = 0.1  # of each lidar's points, from its second return
+
+
+def _extrinsic(t, yaw) -> np.ndarray:
+    e = np.eye(4)
+    e[:3, :3] = _rot_z(yaw)
+    e[:3, 3] = t
+    return e
+
+
+def _pixel_azimuth_col(az, az_corr, w):
+    """The range-image column whose azimuth (``range_image_to_points``'
+    ``((w - col - 0.5) / w * 2 - 1) * pi - az_corr``) is nearest ``az``."""
+    a = (az + az_corr + np.pi) % (2 * np.pi) - np.pi
+    return np.round(w - 0.5 - (a / np.pi + 1) * w / 2).astype(np.int64) % w
+
+
+def _pixel_pose(pose: np.ndarray, w: int, speed: float) -> np.ndarray:
+    """[w, 6] per-column vehicle poses of one sweep (roll, pitch, yaw, x,
+    y, z): the frame's pose moved along its heading by ``speed`` times the
+    column's time offset, column 0 at -half a sweep."""
+    dt = ((np.arange(w) + 0.5) / w - 0.5) * WAYMO_FRAME_S
+    yaw = np.arctan2(pose[1, 0], pose[0, 0])
+    out = np.zeros((w, 6))
+    out[:, 2] = yaw
+    out[:, 3:6] = pose[:3, 3] + np.outer(dt * speed, pose[:3, 0])
+    return out
+
+
+def _fill_background(rng, img, free, n, incl_rows, height, far):
+    """``n`` of the ``free`` [H, W] pixels of ``img`` [H, W, 4] get a
+    return: the ground (z = 0 below a sensor at ``height``) where the beam
+    meets it within ``far`` m, else a wall between 2 and ``far`` m; random
+    intensity and elongation, not in a no-label zone."""
+    rows, cols = np.nonzero(free)
+    pick = rng.choice(len(rows), n, replace=False)
+    rows, cols = rows[pick], cols[pick]
+    sin_i = np.sin(incl_rows[rows])
+    ground = height / np.maximum(-sin_i, 1e-6)
+    on_ground = (sin_i < -0.02) & (ground < far) & (rng.rand(n) < 0.7)
+    r = np.where(on_ground, ground * rng.uniform(0.98, 1.02, n),
+                 rng.uniform(2.0, far, n))
+    img[rows, cols] = np.stack([r, rng.rand(n), rng.uniform(0, 0.5, n),
+                                np.full(n, -1.0)], -1)
+
+
+def _second_returns(rng, img1, img2, n):
+    """``n`` pixels holding a first return and no second one get a second
+    one behind it."""
+    rows, cols = np.nonzero((img1[..., 0] > 0) & (img2[..., 0] == 0))
+    pick = rng.choice(len(rows), min(n, len(rows)), replace=False)
+    rows, cols = rows[pick], cols[pick]
+    img2[rows, cols] = img1[rows, cols]
+    img2[rows, cols, 0] += rng.uniform(0.5, 5.0, len(rows))
+    img2[rows, cols, 1] = rng.rand(len(rows))
+
+
+def write_waymo_tfrecords(root: str, seed: int = 0, segments: int = 2,
+                          frames: int = 4, points: int = 196608,
+                          boxes: int = 40, top_shape=(64, 2650),
+                          side_shape=(200, 600), sides: int = 4,
+                          no_label_zone: int = 512) -> list:
+    """Raw Waymo segments: one tfrecord of ``frames`` Frame protos
+    (``data/waymo_proto.py``'s encoders) per segment under ``root``, at the
+    sensors' geometry: a TOP lidar of ``top_shape`` pixels with both
+    returns, its 64 beam inclinations and per-pixel rolling-shutter poses
+    (the ego drives 10 m/s), and ``sides`` short-range lidars of
+    ``side_shape`` pixels on the min / max inclination path, each with its
+    own extrinsic. Every frame converts to exactly ``points`` points
+    (``WAYMO_SIDE_SHARE`` of them from the short-range lidars,
+    ``WAYMO_SECOND_SHARE`` of each lidar's from its second return), plus
+    ``no_label_zone`` TOP
+    pixels in a no-label zone that the converter drops.
+
+    Each segment holds ``boxes`` labelled objects of the three classes
+    (and one sign) moving at constant velocity in the world; their points
+    sit on the TOP lidar's pixels, placed through the pixel poses so that
+    they convert to points inside the boxes, and each label counts the
+    points placed for it. About one object in seven gets none, so the
+    converter drops its label. Returns the tfrecords' paths."""
+    from sst_tpu_torch.core.waymo_bin import lidar_to_waymo_heading
+    from sst_tpu_torch.data import waymo_proto as wp
+    from sst_tpu_torch.data.incremental_dataset import box_frame_transform_np
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    th, tw = top_shape
+    sh, sw = side_shape
+    lo, hi = WAYMO_TOP_INCLINATION
+    step = (hi - lo) / (th - 1)
+    top_incl = np.linspace(lo, hi, th) + rng.uniform(-0.2, 0.2, th) * step
+    top_rows = top_incl[::-1]  # row 0 = the highest beam
+    slo, shi = WAYMO_SIDE_INCLINATION
+    side_rows = (slo + (0.5 + np.arange(sh)) / sh * (shi - slo))[::-1]
+    top_ext = _extrinsic(*WAYMO_TOP[1:])
+    cal = wp.enc_bytes(3, wp.enc_laser_calibration(
+        WAYMO_TOP[0], top_ext, beam_inclinations=top_incl))
+    for name, t, yaw in WAYMO_SIDES[:sides]:
+        cal += wp.enc_bytes(3, wp.enc_laser_calibration(
+            name, _extrinsic(t, yaw), incl_min=slo, incl_max=shi))
+    n_side = int(round(points * WAYMO_SIDE_SHARE)) // sides if sides else 0
+    n_top = points - n_side * sides
+    speed = 1.0 / WAYMO_FRAME_S  # m/s: _ego_pose moves 1 m per frame
+    paths = []
+    for q in range(segments):
+        ctx = f"seg-{seed}-{q:03d}"
+        cls = rng.randint(0, 3, boxes)
+        dims = np.zeros((boxes, 3))
+        for k, c in enumerate(cls):
+            prior = _CLASS_PRIORS[c]
+            dims[k] = (rng.uniform(*prior[2:4]), rng.uniform(*prior[0:2]),
+                       rng.uniform(*prior[4:6]))  # w, l, h
+        rad = rng.uniform(8.0, 50.0, boxes)
+        ang = rng.uniform(-np.pi, np.pi, boxes)
+        start = np.concatenate([
+            np.stack([rad * np.cos(ang), rad * np.sin(ang),
+                      np.zeros(boxes)], -1), dims,
+            rng.uniform(-np.pi, np.pi, (boxes, 1))], -1).astype(np.float32)
+        world = box_frame_transform_np(start, _ego_pose(q, 0), np.eye(4))
+        velo = rng.uniform(-1.0, 1.0, (boxes, 2)) * (cls == 0)[:, None]
+        hidden = rng.rand(boxes) < 1 / 7
+        records = []
+        for f in range(frames):
+            pose = _ego_pose(q, f)
+            wb = world.copy()
+            wb[:, :2] += velo * WAYMO_FRAME_S * f
+            b = box_frame_transform_np(wb, np.eye(4),
+                                       np.linalg.inv(pose)).astype(
+                                           np.float64)
+            # the objects' points in this frame's vehicle frame
+            r_box = np.hypot(b[:, 0], b[:, 1])
+            n_obj = np.where(hidden, 0, np.clip(
+                2500.0 * points / 196608 * np.sqrt(b[:, 3] * b[:, 4])
+                / np.maximum(r_box, 5.0), 8, 1200).astype(np.int64))
+            which = np.repeat(np.arange(boxes), n_obj)
+            local = rng.uniform(-0.4, 0.4, (len(which), 3)) * b[which, 3:6]
+            c, s = np.cos(b[which, 6]), np.sin(b[which, 6])
+            obj = np.stack([local[:, 0] * c + local[:, 1] * s + b[which, 0],
+                            -local[:, 0] * s + local[:, 1] * c + b[which, 1],
+                            local[:, 2] + b[which, 2] + b[which, 5] / 2], -1)
+            # through the pixel poses into the TOP sensor frame: the column
+            # first from the frame's pose, then again from its own pose
+            ppose = _pixel_pose(pose, tw, speed)
+            world_pts = obj @ pose[:3, :3].T + pose[:3, 3]
+            az_corr = np.arctan2(top_ext[1, 0], top_ext[0, 0])
+            sensor = (obj - top_ext[:3, 3]) @ top_ext[:3, :3]
+            col = _pixel_azimuth_col(np.arctan2(sensor[:, 1], sensor[:, 0]),
+                                     az_corr, tw)
+            for _ in range(2):
+                pp = ppose[col]
+                rot = np.stack([np.cos(pp[:, 2]), -np.sin(pp[:, 2]),
+                                np.sin(pp[:, 2]), np.cos(pp[:, 2])],
+                               -1).reshape(-1, 2, 2)
+                veh = world_pts - pp[:, 3:6]
+                veh[:, :2] = np.einsum("nji,nj->ni", rot, veh[:, :2])
+                sensor = (veh - top_ext[:3, 3]) @ top_ext[:3, :3]
+                col = _pixel_azimuth_col(
+                    np.arctan2(sensor[:, 1], sensor[:, 0]), az_corr, tw)
+            rng_ = np.linalg.norm(sensor, axis=-1)
+            incl = np.arcsin(sensor[:, 2] / rng_)
+            row = np.abs(top_rows[None, :] - incl[:, None]).argmin(1)
+            seen = np.abs(top_rows[row] - incl) <= step
+            img1 = np.zeros((th, tw, 4))
+            img2 = np.zeros((th, tw, 4))
+            counts = np.zeros(boxes, np.int64)
+            for ret in (img1, img2):
+                flat = row * tw + col
+                order = np.flatnonzero(seen)
+                first = order[np.unique(flat[order], return_index=True)[1]]
+                first = first[ret[row[first], col[first], 0] == 0]
+                ret[row[first], col[first]] = np.stack([
+                    rng_[first], rng.rand(len(first)),
+                    rng.uniform(0, 0.5, len(first)),
+                    np.full(len(first), -1.0)], -1)
+                np.add.at(counts, which[first], 1)
+                seen[first] = False
+            n_top2 = int(round(n_top * WAYMO_SECOND_SHARE))
+            n_obj2 = int((img2[..., 0] > 0).sum())
+            _fill_background(rng, img1, img1[..., 0] == 0,
+                             n_top - n_top2 - int((img1[..., 0] > 0).sum()),
+                             top_rows, top_ext[2, 3], 75.0)
+            _second_returns(rng, img1, img2, n_top2 - n_obj2)
+            nlz = np.zeros((th, tw, 4))
+            _fill_background(rng, nlz, img1[..., 0] == 0, no_label_zone,
+                             top_rows, top_ext[2, 3], 75.0)
+            nlz[..., 3] = np.where(nlz[..., 0] > 0, 1.0, 0.0)
+            img1 += nlz
+            pix = np.broadcast_to(ppose[None], (th, tw, 6))
+            lasers = [wp.enc_varint(1, WAYMO_TOP[0])
+                      + wp.enc_bytes(2, wp.enc_range_image(img1, pose=pix))
+                      + wp.enc_bytes(3, wp.enc_range_image(img2))]
+            for name, t, _ in WAYMO_SIDES[:sides]:
+                s1 = np.zeros((sh, sw, 4))
+                s2 = np.zeros((sh, sw, 4))
+                n2 = int(round(n_side * WAYMO_SECOND_SHARE))
+                _fill_background(rng, s1, s1[..., 0] == 0, n_side - n2,
+                                 side_rows, t[2], 20.0)
+                _second_returns(rng, s1, s2, n2)
+                lasers.append(wp.enc_varint(1, name)
+                              + wp.enc_bytes(2, wp.enc_range_image(s1))
+                              + wp.enc_bytes(3, wp.enc_range_image(s2)))
+            rot_inv = pose[:3, :3].T
+            labels = []
+            for k in range(boxes):
+                bx = b[k]
+                vel = rot_inv[:2, :2] @ velo[k]
+                labels.append(wp.enc_label(
+                    (bx[0], bx[1], bx[2] + bx[5] / 2, bx[4], bx[3], bx[5],
+                     lidar_to_waymo_heading(float(bx[6]))),
+                    WAYMO_TYPES[WAYMO_CLASSES[cls[k]]], f"{ctx}-obj{k}",
+                    int(counts[k]), difficulty=1 if counts[k] > 5 else 2,
+                    speed=(float(vel[0]), float(vel[1]))))
+            labels.append(wp.enc_label(
+                (15.0, 4.0, 1.0, 0.3, 0.3, 2.0, 0.0), 3, f"{ctx}-sign",
+                10))
+            ts = 1_560_000_000_000_000 + q * 10**9 + f * 100_000
+            records.append(wp.enc_frame(ctx, ts, pose, cal, lasers, labels))
+        path = os.path.join(root, f"segment-{seed}-{q:03d}.tfrecord")
+        wp.write_tfrecord(path, records)
+        paths.append(path)
+    return paths
+
+
+# nuScenes' raw category names, one per detection class
+NUSC_RAW_NAMES = ("vehicle.car", "vehicle.truck", "vehicle.trailer",
+                  "vehicle.bus.rigid", "vehicle.construction",
+                  "vehicle.bicycle", "vehicle.motorcycle",
+                  "human.pedestrian.adult", "movable_object.trafficcone",
+                  "movable_object.barrier")
+# the LIDAR_TOP mount of the nuScenes vehicles (translation, [w, x, y, z])
+NUSC_LIDAR = ([0.943713, 0.0, 1.84023],
+              [0.7077955119163518, -0.006492242056004365,
+               0.010646214713995808, -0.7063073142877817])
+
+
+def _quat_z(theta: float) -> list:
+    return [float(np.cos(theta / 2)), 0.0, 0.0, float(np.sin(theta / 2))]
+
+
+NUSC_SWEEPS_BETWEEN = 9  # LIDAR_TOP sweeps at 20 Hz between 2 Hz keyframes
+
+
+def write_nuscenes_tables(root: str, seed: int = 0, scenes: int = 2,
+                          keyframes: int = 4, points: int = 34720,
+                          objects: int = 20) -> dict:
+    """A nuScenes v1.0-trainval table set under ``root`` (the JSON schema
+    ``tools/data_converter/nuscenes_converter.py`` reads) and its lidar
+    files: ``scenes`` scenes of ``keyframes`` LIDAR_TOP keyframes 0.5 s
+    apart with 9 sweeps between two of them (20 Hz) and 10 before the
+    first, so every keyframe has a 10-sweep chain; ``points`` five-channel points per file (the sensor's
+    32 beams x 1085). The ego drives 5 m/s along a turning path; the lidar
+    sits on nuScenes' mount. ``objects`` instances per scene, of every
+    detection class, move at constant velocity, annotated in every
+    keyframe; one more is annotated in one keyframe only (its velocity is
+    NaN). Returns dict(root, version, val_scenes: the last scene's name)."""
+    import json
+
+    rng = np.random.RandomState(seed)
+    version = "v1.0-trainval"
+    tdir = os.path.join(root, version)
+    for d in (tdir, os.path.join(root, "samples", "LIDAR_TOP"),
+              os.path.join(root, "sweeps", "LIDAR_TOP")):
+        os.makedirs(d, exist_ok=True)
+    t = {k: [] for k in ("scene", "log", "sensor", "calibrated_sensor",
+                         "sample", "sample_data", "ego_pose",
+                         "sample_annotation", "instance", "category")}
+    t["sensor"].append(dict(token="se_lidar", channel="LIDAR_TOP",
+                            modality="lidar"))
+    t["calibrated_sensor"].append(dict(
+        token="cs_lidar", sensor_token="se_lidar",
+        translation=NUSC_LIDAR[0], rotation=NUSC_LIDAR[1],
+        camera_intrinsic=[]))
+    for i, name in enumerate(NUSC_RAW_NAMES):
+        t["category"].append(dict(token=f"cat{i}", name=name))
+    pre = NUSC_SWEEPS_BETWEEN + 1
+    step_us = 500_000 // pre
+    for sc in range(scenes):
+        t0 = 1_533_151_600_000_000 + sc * 10**9
+        t["log"].append(dict(token=f"log{sc}", location="synthetic"))
+        t["scene"].append(dict(
+            token=f"sc{sc}", name=f"scene-{seed:02d}{sc:02d}",
+            log_token=f"log{sc}", nbr_samples=keyframes,
+            first_sample_token=f"s{sc}_0",
+            last_sample_token=f"s{sc}_{keyframes - 1}"))
+        yaw0 = rng.uniform(-np.pi, np.pi)
+        start = rng.uniform(-500, 500, 2)
+
+        def ego(ts):
+            dt = (ts - t0) * 1e-6
+            yaw = yaw0 + 0.05 * dt
+            xy = start + 5.0 * dt * np.array([np.cos(yaw), np.sin(yaw)])
+            return [float(xy[0]), float(xy[1]), 0.0], _quat_z(yaw)
+
+        # the sample_data chain: ``pre`` sweeps, then a keyframe every
+        # ``pre`` files
+        prev = ""
+        for j in range(pre + (keyframes - 1) * pre + 1):
+            key = j >= pre and (j - pre) % pre == 0
+            k = max(j - 1, 0) // pre
+            ts = t0 + (j - pre) * step_us
+            tok = f"sd{sc}_{j}"
+            tr, rot = ego(ts)
+            t["ego_pose"].append(dict(token=f"ep{sc}_{j}", timestamp=ts,
+                                      translation=tr, rotation=rot))
+            folder = "samples" if key else "sweeps"
+            fname = f"{folder}/LIDAR_TOP/n{seed}-{sc}__LIDAR_TOP__{ts}.bin"
+            pts = np.zeros((points, 5), np.float32)
+            pts[:, 0:2] = rng.uniform(-50, 50, (points, 2))
+            pts[:, 2] = rng.uniform(-2.0, 2.0, points)
+            pts[:, 3] = rng.uniform(0, 255, points)
+            pts[:, 4] = rng.randint(0, 32, points)
+            pts.tofile(os.path.join(root, fname))
+            t["sample_data"].append(dict(
+                token=tok, sample_token=f"s{sc}_{k}",
+                calibrated_sensor_token="cs_lidar",
+                ego_pose_token=f"ep{sc}_{j}", timestamp=ts,
+                is_key_frame=bool(key), filename=fname, fileformat="pcd",
+                prev=prev, next=""))
+            if prev:
+                t["sample_data"][-2]["next"] = tok
+            prev = tok
+            if key:
+                t["sample"].append(dict(
+                    token=f"s{sc}_{k}", timestamp=ts, scene_token=f"sc{sc}",
+                    prev=f"s{sc}_{k - 1}" if k else "",
+                    next=f"s{sc}_{k + 1}" if k + 1 < keyframes else ""))
+        # the objects, in the world frame at the first keyframe
+        cls = np.concatenate([np.arange(len(NUSC_RAW_NAMES)), rng.randint(
+            0, len(NUSC_RAW_NAMES), max(objects - len(NUSC_RAW_NAMES), 0))])
+        ego0 = np.asarray(ego(t0)[0])
+        for o in range(len(cls) + 1):
+            c = int(cls[o]) if o < len(cls) else 0
+            inst = f"in{sc}_{o}"
+            frames = range(keyframes) if o < len(cls) else [keyframes // 2]
+            pos = ego0 + np.concatenate([rng.uniform(-40, 40, 2),
+                                         [rng.uniform(0.5, 1.5)]])
+            vel = np.concatenate([rng.uniform(-3, 3, 2), [0.0]])
+            size = [float(v) for v in rng.uniform([0.5, 0.5, 1.0],
+                                                  [3.0, 8.0, 3.5])]
+            yaw = rng.uniform(-np.pi, np.pi)
+            toks = [f"a{sc}_{o}_{k}" for k in frames]
+            t["instance"].append(dict(
+                token=inst, category_token=f"cat{c}",
+                nbr_annotations=len(toks), first_annotation_token=toks[0],
+                last_annotation_token=toks[-1]))
+            for n, k in enumerate(frames):
+                p = pos + vel * 0.5 * k
+                t["sample_annotation"].append(dict(
+                    token=toks[n], sample_token=f"s{sc}_{k}",
+                    instance_token=inst,
+                    translation=[float(v) for v in p], size=size,
+                    rotation=_quat_z(yaw), prev=toks[n - 1] if n else "",
+                    next=toks[n + 1] if n + 1 < len(toks) else "",
+                    num_lidar_pts=int(rng.randint(0, 300)) if n else 0,
+                    num_radar_pts=int(rng.randint(0, 5)),
+                    visibility_token="4", attribute_tokens=[]))
+    for name, rows in t.items():
+        with open(os.path.join(tdir, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    return dict(root=root, version=version,
+                val_scenes={t["scene"][-1]["name"]})
 
 
 def assign_track_ids(frames: dict, poses: dict, max_dist: float = 3.0,

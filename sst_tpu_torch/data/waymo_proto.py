@@ -83,23 +83,16 @@ def _collect(buf: bytes) -> dict:
 
 def _scalar_doubles(entries) -> np.ndarray:
     """repeated double: accepts both unpacked (wire 1) and packed (wire 2)."""
-    vals = []
-    for wt, v in entries:
-        if wt == 1:
-            vals.append(struct.unpack("<d", v)[0])
-        elif wt == 2:
-            vals.extend(np.frombuffer(v, "<f8").tolist())
-    return np.asarray(vals, np.float64)
+    parts = [np.frombuffer(v, "<f8") for wt, v in entries if wt in (1, 2)]
+    return (np.concatenate(parts).astype(np.float64) if parts
+            else np.zeros(0, np.float64))
 
 
 def _scalar_floats(entries) -> np.ndarray:
-    vals = []
-    for wt, v in entries:
-        if wt == 5:
-            vals.append(struct.unpack("<f", v)[0])
-        elif wt == 2:
-            vals.extend(np.frombuffer(v, "<f4").tolist())
-    return np.asarray(vals, np.float32)
+    """repeated float: unpacked (wire 5) or packed (wire 2)."""
+    parts = [np.frombuffer(v, "<f4") for wt, v in entries if wt in (2, 5)]
+    return (np.concatenate(parts).astype(np.float32) if parts
+            else np.zeros(0, np.float32))
 
 
 def _scalar_ints(entries) -> list[int]:
@@ -359,19 +352,62 @@ def enc_frame(context_name: str, timestamp_micros: int, pose,
     return out
 
 
-def write_tfrecord(path: str, records: list[bytes]):
-    """Minimal TFRecord writer with valid masked crc32c framing."""
-    import struct as _s
+_CRC32C_POLY = 0x82F63B78
+_CRC32C_TABLE = None
+_CRC32C_LANES = 4096
 
-    def crc32c(data: bytes) -> int:
-        # software CRC-32C (Castagnoli); small test files only
-        poly = 0x82F63B78
-        crc = 0xFFFFFFFF
-        for byte in data:
-            crc ^= byte
-            for _ in range(8):
-                crc = (crc >> 1) ^ (poly & -(crc & 1))
-        return crc ^ 0xFFFFFFFF
+
+def _crc_table() -> np.ndarray:
+    """The byte table of the reflected CRC-32C (Castagnoli) polynomial."""
+    global _CRC32C_TABLE
+    if _CRC32C_TABLE is None:
+        t = np.arange(256, dtype=np.uint32)
+        for _ in range(8):
+            t = np.where(t & 1, (t >> 1) ^ np.uint32(_CRC32C_POLY), t >> 1)
+        _CRC32C_TABLE = t.astype(np.uint32)
+    return _CRC32C_TABLE
+
+
+def _crc_bytes(crc: int, data, table) -> int:
+    for byte in data:
+        crc = int(table[(crc ^ int(byte)) & 0xFF]) ^ (crc >> 8)
+    return crc
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C of ``data``. From 64 bytes a lane up, the data is cut into
+    ``_CRC32C_LANES`` equal chunks whose registers advance together, one
+    numpy step per byte column, and are then chained: the register update
+    is linear, so a chunk's register from 0 is XORed onto the running one
+    after that has been carried over the chunk's length in zeros."""
+    table = _crc_table()
+    lanes = _CRC32C_LANES
+    buf = np.frombuffer(data, np.uint8)
+    n = len(buf)
+    if n < 64 * lanes:
+        return _crc_bytes(0xFFFFFFFF, buf, table) ^ 0xFFFFFFFF
+    length = n // lanes
+    cols = np.ascontiguousarray(buf[:lanes * length].reshape(lanes, length).T)
+    regs = np.zeros(lanes, np.uint32)
+    regs[0] = 0xFFFFFFFF
+    for col in cols:
+        regs = table[(regs ^ col) & 0xFF] ^ (regs >> 8)
+    # the carry over `length` zero bytes, per byte of a register
+    zeros = (np.arange(256, dtype=np.uint32)[None, :]
+             << (8 * np.arange(4, dtype=np.uint32))[:, None]).reshape(-1)
+    for _ in range(length):
+        zeros = table[zeros & 0xFF] ^ (zeros >> 8)
+    z0, z1, z2, z3 = (zeros.reshape(4, 256)).tolist()
+    crc = int(regs[0])
+    for r in regs[1:].tolist():
+        crc = (z0[crc & 0xFF] ^ z1[(crc >> 8) & 0xFF] ^ z2[(crc >> 16) & 0xFF]
+               ^ z3[crc >> 24] ^ r)
+    return _crc_bytes(crc, buf[lanes * length:], table) ^ 0xFFFFFFFF
+
+
+def write_tfrecord(path: str, records: list[bytes]):
+    """TFRecord writer with valid masked crc32c framing."""
+    import struct as _s
 
     def masked(data: bytes) -> int:
         c = crc32c(data)

@@ -27,11 +27,19 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
     """Write ``model`` (and ``optimizer``, a ``train/state.py
     ClippedAdamW``, where given) at ``step`` into the directory ``path``;
     returns its absolute path."""
-    path = os.path.abspath(path)
     state = {"model": model.state_dict(), "step": int(step)}
     if optimizer is not None:
         state["optimizer"] = {"adamw": optimizer.adamw.state_dict(),
                               "count": int(optimizer.count)}
+    return write_checkpoint(path, state)
+
+
+def write_checkpoint(path: str, state: dict) -> str:
+    """Write a checkpoint's raw contents (``model``, ``step`` and, where
+    given, ``optimizer``, as :func:`read_checkpoint` returns them) into the
+    directory ``path``, replacing an older one; returns its absolute
+    path."""
+    path = os.path.abspath(path)
     tmp = f"{path}.tmp{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)

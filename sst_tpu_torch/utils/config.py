@@ -3,8 +3,8 @@ mmcv.Config.fromfile semantics (the port's copy of ``sst_tpu/utils/config.py``:
 importing ``sst_tpu`` loads JAX, which the port never does).
 
 A config file may itself load another through the JAX package's loader
-(``from sst_tpu.utils.config import load_config``, as the FSD++ configs
-do). While the port runs a config file, that import resolves to this module,
+(it imports ``load_config`` from ``sst_tpu.utils.config``, as the FSD++
+configs do). While the port runs a config file, that import resolves to this module,
 by an ``__import__`` given to that file's code alone: nothing of ``sst_tpu``
 is imported or entered into ``sys.modules``, and any other import of the JAX
 package from a config raises ``ImportError``."""

@@ -1039,3 +1039,55 @@ def test_preflight_passes_on_the_card():
     assert set(errs) == {"sorted_reduce", "window_mha", "sparse_conv",
                          "sparse_conv_dgrad", "sparse_conv_dw"}
     assert all(np.isfinite(v) for v in errs.values())
+
+
+@pytest.mark.cuda
+def test_fuse_conv_bn_keeps_pointpillars_head_outputs():
+    """``tools/misc/fuse_conv_bn.py fuse_state_dict`` on the PointPillars
+    config at its shapes (468² pillars, SECOND, the transposed-conv
+    ``SECONDFPN``) with seeded norms far from identity: the fused model's
+    head outputs before NMS on the card lie within 1e-4 of the largest
+    unfused one plus 1e-5 of the unfused ones."""
+    import os
+
+    from sst_tpu_torch.flagship import init_weights, synthetic_waymo_batch
+    from sst_tpu_torch.tools.misc.fuse_conv_bn import fuse_state_dict, \
+        fused_pairs
+    from sst_tpu_torch.utils.builders import build_model_from_cfg
+    from sst_tpu_torch.utils.config import load_config
+
+    device = _cuda()
+    cfg = load_config(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs/pointpillars/pointpillars_waymoD5_3class.py"))
+    model = init_weights(build_model_from_cfg(cfg, train=False,
+                                              device=device),
+                         torch.Generator().manual_seed(0)).eval()
+    state = model.state_dict()
+    g = torch.Generator().manual_seed(1)
+    pairs = fused_pairs(state)
+    assert len(pairs) == 16 + 3  # SECOND's 16 ConvNormActs, 3 deblocks
+    for pre, _, bk in pairs:
+        for name, lo, hi in (("weight", 0.5, 2.0), ("bias", -0.5, 0.5),
+                             ("running_mean", -0.5, 0.5),
+                             ("running_var", 0.2, 3.0)):
+            t = state[f"{pre}{bk}.{name}"]
+            t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+    batch = synthetic_waymo_batch(1, 196608, seed=3, num_extra_feats=2,
+                                  pcr_half=74.8).to(device)
+    # float32 convs, as chip_smoke.py runs them (cuDNN's TF32 would round
+    # the fused and the unfused weights' products to 10 bits apart)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = model(batch)
+            model.load_state_dict(fuse_state_dict(model.state_dict()))
+            got = model(batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.keys() == ref.keys()
+    for k in ref:
+        tol = 1e-4 * float(ref[k].abs().max()) + 1e-5
+        gap = float((got[k] - ref[k]).abs().max())
+        assert gap <= tol, (k, gap, tol)
